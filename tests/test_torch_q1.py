@@ -1,0 +1,167 @@
+"""The whole Q1 slice of the port against the JAX package, and the port's
+package rules.
+
+Q1 runs through ``compile_chain(q1_chain_decls())`` over
+``q1_device_batch(0.002)`` and through ``q1_plan`` over the JAX package's
+``upload_table(lineitem_table(0.01))`` carried across as numpy. Keys,
+counts, validity and row order must be exact, floats within rtol 1e-9.
+Entry points refuse to run on the CPU unless asked, and nothing in the port
+or in chip_smoke.py imports JAX or the JAX package."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__
+from arrow_tpu.acero.exec import compile_chain as jax_compile_chain
+from arrow_tpu.device.column import download_table, upload_table
+from arrow_tpu.io import tpch
+from arrow_tpu.io.tpch_device import q1_device_batch as jax_q1_device_batch
+from arrow_tpu.io.tpch_queries import q1_plan as jax_q1_plan
+from arrow_tpu.types import TypeId
+from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                   TableSourceNodeOptions, compile_chain,
+                                   field)
+from arrow_tpu_torch.device.column import batch_from_numpy, download
+from arrow_tpu_torch.io.tpch_device import q1_device_batch
+from arrow_tpu_torch.io.tpch_queries import q1_chain_decls, q1_plan
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_TYPE_NAMES = {TypeId.BOOL: "bool", TypeId.INT32: "int32",
+               TypeId.INT64: "int64", TypeId.FLOAT: "float32",
+               TypeId.DOUBLE: "float64", TypeId.DATE32: "date32",
+               TypeId.DICTIONARY: "dictionary", TypeId.STRING: "string"}
+
+
+def carry_across(jax_batch, device="cpu"):
+    """A JAX DeviceBatch as a port DeviceBatch over the same codes and
+    dictionaries, through plain numpy."""
+    cols = []
+    for f, c in zip(jax_batch.schema.fields, jax_batch.columns):
+        cols.append((f.name, _TYPE_NAMES[f.type.id], np.asarray(c.values),
+                     None if c.validity is None else np.asarray(c.validity),
+                     None if c.dictionary is None
+                     else c.dictionary.to_pylist()))
+    return batch_from_numpy(cols, int(jax_batch.row_count), device=device)
+
+
+def assert_tables_match(port, jax, float_rtol=1e-9):
+    assert list(port) == list(jax)
+    for name in jax:
+        a, b = port[name], jax[name]
+        assert len(a) == len(b), name
+        assert [v is None for v in a] == [v is None for v in b], name
+        if any(isinstance(v, float) for v in b):
+            np.testing.assert_allclose(
+                np.array([0.0 if v is None else v for v in a]),
+                np.array([0.0 if v is None else v for v in b]),
+                rtol=float_rtol, atol=0, err_msg=name)
+        else:
+            assert a == b, name
+
+
+def test_q1_compile_chain_over_device_batch():
+    jb, _ = jax_q1_device_batch(0.002)
+    want = download_table(
+        jax_compile_chain(__graft_entry__._q1_chain_decls())(jb)).to_pydict()
+    tb, _ = q1_device_batch(0.002, device="cpu")
+    got = download(compile_chain(q1_chain_decls())(tb))
+    assert len(got["count_order"]) == 6
+    assert_tables_match(got, want)
+
+
+def test_q1_plan_over_carried_lineitem():
+    lineitem = tpch.lineitem_table(0.01)
+    want = jax_q1_plan(lineitem).to_table().to_pydict()
+    port_batch = carry_across(upload_table(lineitem))
+    got = q1_plan(port_batch).to_table()
+    assert_tables_match(got, want)
+
+
+def test_q1_output_layout():
+    tb, _ = q1_device_batch(0.002, device="cpu")
+    out = compile_chain(q1_chain_decls())(tb)
+    assert out.capacity == 1024  # round_up of the 12 perfect-hash slots
+    assert int(out.row_count) == 6
+    assert out.schema.names[:2] == ["l_returnflag", "l_linestatus"]
+
+
+def test_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        q1_device_batch(0.002)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_from_numpy([("x", "int64", np.arange(3), None, None)], 3)
+
+
+def test_unported_nodes_raise():
+    tb, _ = q1_device_batch(0.001, device="cpu")
+    plan = Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(tb)),
+        Declaration("filter", FilterNodeOptions(field("l_quantity") > 5.0))])
+    with pytest.raises(NotImplementedError, match="K2"):
+        plan.to_table()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Declaration("hashjoin", None, [plan, plan]).to_table()
+
+
+def _port_sources():
+    files = sorted((REPO / "arrow_tpu_torch").rglob("*.py"))
+    assert len(files) > 10
+    return files + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "arrow_tpu", "pyarrow"), \
+                f"{path.name} imports {name}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_reference():
+    code = (
+        "import pkgutil, sys, arrow_tpu_torch\n"
+        "for m in pkgutil.walk_packages(arrow_tpu_torch.__path__,\n"
+        "                               'arrow_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'arrow_tpu', 'pyarrow')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_chip_smoke_fails_without_a_card_or_the_port(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
