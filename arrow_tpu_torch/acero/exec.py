@@ -1,11 +1,23 @@
-"""Plan executor for linear chains (counterpart of ``arrow_tpu/acero/exec.py``).
+"""Plan executor (counterpart of ``arrow_tpu/acero/exec.py``).
 
-A chain of filter / project / aggregate / order_by declarations over a table
-source lowers to DeviceBatch -> DeviceBatch functions that run eagerly,
-one after the other; there is no jit. A filter directly below an aggregate
-(with only projects between) folds into the aggregate as a row mask, so
-its rows never move. Other node kinds, a standalone filter and fetch are
-not ported yet and raise NotImplementedError.
+A Declaration tree runs node by node, eagerly, with no jit:
+
+* a maximal linear run of filter / project / aggregate / order_by / fetch
+  declarations lowers to DeviceBatch -> DeviceBatch functions. A filter
+  directly below an aggregate (with only projects between) folds into the
+  aggregate as a row mask, so its rows never move; an order_by directly
+  below a fetch of at most ``_TOPK_MAX`` rows runs as one top-k;
+* a hash join runs each side's trailing filter/project chain, prefilters
+  the probe side with a bloom filter of the build keys when the probe side
+  is at least four times larger, plans the join, reads back the match
+  total and the largest per-row match count (the only host readback: it
+  sizes the output and picks the unique-build path), and gathers the
+  output rows.
+
+Only inner joins are ported. Other join types, residual join filters,
+dictionary-coded join keys, scalar aggregates, and the
+union, as-of, sorted-merge and pivot nodes raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,16 +28,23 @@ import numpy as np
 import torch
 
 from .. import types as T
+from ..compute import bloom
+from ..compute import join as J
 from ..compute.grouper import (group_capacity_bound, group_ids,
                                group_slot_bound_exact)
 from ..compute.keys import sort_key_arrays, stable_sort_indices
 from ..compute.registry import ExecContext, get_function
-from ..compute.selection import filter_batch, gather_columns, selection_mask
-from ..device.column import DeviceBatch, DeviceColumn, download
+from ..compute.selection import (filter_batch, gather_columns,
+                                 selection_mask, take_batch)
+from ..device.column import (DeviceBatch, DeviceColumn, capacity_class,
+                             download)
 from ..types import Field, Schema, from_torch_dtype
 from .expression import Expression
-from .options import (AggregateNodeOptions, FilterNodeOptions,
+from .options import (AggregateNodeOptions, FetchNodeOptions,
+                      FilterNodeOptions, HashJoinNodeOptions,
                       OrderByNodeOptions, ProjectNodeOptions)
+
+_LONG_TAIL = "(ROADMAP.md, queue 1, item 9: the long tail)"
 
 
 def _node_filter(options: FilterNodeOptions, schema):
@@ -66,9 +85,8 @@ def _node_aggregate(options: AggregateNodeOptions, schema,
     aggs = options.aggregates
     keys = options.keys
     if not keys:
-        raise NotImplementedError(
-            "scalar aggregates are not ported yet (ROADMAP.md, queue 1, "
-            "item 9: the long tail)")
+        raise NotImplementedError("scalar aggregates are not ported yet "
+                                  + _LONG_TAIL)
 
     def _ctx(batch):
         ctx = ExecContext(batch.capacity, batch.row_count)
@@ -127,26 +145,41 @@ def _fit(c: DeviceColumn, bound: int) -> DeviceColumn:
     return DeviceColumn(vals, validity, c.type, c.dictionary)
 
 
-def _node_order_by(options: OrderByNodeOptions, schema):
-    names = [k for k, _ in options.sort_keys]
+def _sort_permutation(batch: DeviceBatch,
+                      options: OrderByNodeOptions) -> torch.Tensor:
+    """The stable permutation that orders ``batch`` by the sort keys, with
+    the padding rows last."""
+    ctx = ExecContext(batch.capacity, batch.row_count)
+    cols = []
+    for name, _ in options.sort_keys:
+        c = batch.column(name)
+        cols.append(_rank_col(c) if c.dictionary is not None else c)
     orders = [o for _, o in options.sort_keys]
-    placement = options.null_placement
+    return stable_sort_indices(sort_key_arrays(
+        cols, orders, options.null_placement, ctx.row_mask()))
 
+
+def _node_order_by(options: OrderByNodeOptions, schema):
     def fn(batch: DeviceBatch) -> DeviceBatch:
-        ctx = ExecContext(batch.capacity, batch.row_count)
-        cols = []
-        for n in names:
-            c = batch.column(n)
-            cols.append(_rank_col(c) if c.dictionary is not None else c)
-        perm = stable_sort_indices(
-            sort_key_arrays(cols, orders, placement, ctx.row_mask()))
-        out_cols = [DeviceColumn(c.values[perm],
-                                 c.validity[perm] if c.validity is not None
-                                 else None, c.type, c.dictionary)
-                    for c in batch.columns]
-        return DeviceBatch(batch.schema, out_cols, batch.row_count)
+        return take_batch(batch, _sort_permutation(batch, options),
+                          batch.row_count)
 
     return fn, schema
+
+
+_TOPK_MAX = 1024
+
+
+def _make_topk_fn(options: OrderByNodeOptions, offset: int, count: int):
+    """order_by then fetch(offset, count) as one top-k: one sort of the row
+    indices, then gathers of the ``count`` rows kept (reference:
+    vector_select_k.cc)."""
+    def fn(batch: DeviceBatch) -> DeviceBatch:
+        take = _sort_permutation(batch, options)[offset:offset + count]
+        new_count = (batch.row_count - offset).clamp(0, count)
+        return take_batch(batch, take, new_count.to(torch.int32))
+
+    return fn
 
 
 def _rank_col(c: DeviceColumn) -> DeviceColumn:
@@ -165,10 +198,22 @@ def _rank_col(c: DeviceColumn) -> DeviceColumn:
                         T.int64())
 
 
-def _node_fetch(options, schema):
-    raise NotImplementedError(
-        "fetch and the fused top-k are not ported yet (ROADMAP.md, queue 1, "
-        "item 6: sort keys, the general grouper and sort)")
+def _node_fetch(options: FetchNodeOptions, schema):
+    offset, count = options.offset, options.count
+
+    def fn(batch: DeviceBatch) -> DeviceBatch:
+        remaining = (batch.row_count - offset).clamp(min=0)
+        new_count = remaining if count < 0 else remaining.clamp(max=count)
+        cols = []
+        for c in batch.columns:
+            vals = torch.roll(c.values, -offset) if offset else c.values
+            validity = (torch.roll(c.validity, -offset)
+                        if c.validity is not None and offset
+                        else c.validity)
+            cols.append(DeviceColumn(vals, validity, c.type, c.dictionary))
+        return DeviceBatch(batch.schema, cols, new_count.to(torch.int32))
+
+    return fn, schema
 
 
 _CHAINABLE = {
@@ -183,7 +228,8 @@ _CHAINABLE = {
 def _segment_fns(decls: Sequence["Declaration"]) -> List[Callable]:
     """Lower a linear run of chainable declarations (execution order) to
     DeviceBatch -> DeviceBatch functions, folding a filter (followed only by
-    projects) into the aggregate above it as a row mask."""
+    projects) into the aggregate above it as a row mask, and an order_by
+    followed by a small fetch into one top-k."""
     decls = list(decls)
     node_fns: List[Callable] = []
     i = 0
@@ -201,6 +247,15 @@ def _segment_fns(decls: Sequence["Declaration"]) -> List[Callable]:
                     pre_mask_expr=d.options.filter_expression)
                 node_fns.append(_fused(proj_fns, agg_fn))
                 i = j + 1
+                continue
+        if d.factory_name == "order_by" and i + 1 < len(decls) \
+                and decls[i + 1].factory_name == "fetch":
+            fo = decls[i + 1].options
+            if 0 <= fo.count and 0 <= fo.offset \
+                    and fo.offset + fo.count <= _TOPK_MAX:
+                node_fns.append(_make_topk_fn(d.options, fo.offset,
+                                              fo.count))
+                i += 2
                 continue
         fn, _ = _CHAINABLE[d.factory_name](d.options, None)
         node_fns.append(fn)
@@ -226,10 +281,17 @@ def _fused(proj_fns, agg_fn):
     return fused
 
 
+def _apply(decls: Sequence["Declaration"], batch: DeviceBatch
+           ) -> DeviceBatch:
+    for f in _segment_fns(decls):
+        batch = f(batch)
+    return batch
+
+
 def compile_chain(decls: Sequence["Declaration"]) -> Callable:
     """Compose chainable node declarations (filter / project / aggregate /
-    order_by) into one DeviceBatch -> DeviceBatch function, with the same
-    filter-into-aggregate folding as the plan executor."""
+    order_by / fetch) into one DeviceBatch -> DeviceBatch function, with
+    the executor's folding rules."""
     decls = list(decls)
     for d in decls:
         if d.factory_name not in _CHAINABLE:
@@ -242,6 +304,124 @@ def compile_chain(decls: Sequence["Declaration"]) -> Callable:
         return batch
 
     return run
+
+
+# --- the tree executor ----------------------------------------------------
+
+def execute_declaration(decl: "Declaration") -> DeviceBatch:
+    """Run a Declaration tree; the result stays on the device."""
+    if decl.factory_name == "table_source":
+        return decl.options.batch
+    if decl.factory_name == "hashjoin":
+        left_pre, lsrc = _collect_pre_chain(decl.inputs[0])
+        right_pre, rsrc = _collect_pre_chain(decl.inputs[1])
+        return _execute_hashjoin(decl.options, execute_declaration(lsrc),
+                                 execute_declaration(rsrc), left_pre,
+                                 right_pre)
+    if decl.factory_name in _CHAINABLE:
+        # the maximal linear run of chainable nodes above the next source
+        seg = []
+        cur = decl
+        while cur.factory_name in _CHAINABLE:
+            seg.append(cur)
+            cur = cur.inputs[0]
+        return _apply(list(reversed(seg)), execute_declaration(cur))
+    raise NotImplementedError(
+        f"{decl.factory_name!r} nodes are not ported yet " + _LONG_TAIL)
+
+
+def _collect_pre_chain(decl: "Declaration"):
+    """The trailing run of filter/project nodes above a join input, in
+    execution order, and the node below them."""
+    chain = []
+    cur = decl
+    while cur.factory_name in ("filter", "project"):
+        chain.append(cur)
+        cur = cur.inputs[0]
+    chain.reverse()
+    return tuple(chain), cur
+
+
+def _execute_hashjoin(options: HashJoinNodeOptions, left: DeviceBatch,
+                      right: DeviceBatch, left_pre=(),
+                      right_pre=()) -> DeviceBatch:
+    """The left input probes, the right input builds (Acero builds on
+    inputs[1])."""
+    jt = options.join_type
+    if jt != "inner":
+        raise NotImplementedError(
+            f"{jt!r} joins are not ported yet; only inner joins are "
+            "(ROADMAP.md, queue 1, item 7: joins)")
+    if options.filter_expression is not None:
+        raise NotImplementedError("joins with a residual filter are not "
+                                  "ported yet " + _LONG_TAIL)
+    # bloom pushdown: unmatched probe rows give no output, and the filter
+    # has no false negatives; capacities are static, so this is decided on
+    # the host
+    bloom_on = (not options.disable_bloom_filter
+                and left.capacity >= 4 * right.capacity)
+    left = _apply(left_pre, left)
+    right = _apply(right_pre, right)
+    lkeys = [left.column(k) for k in options.left_keys]
+    rkeys = [right.column(k) for k in options.right_keys]
+    if any(c.dictionary is not None for c in lkeys + rkeys):
+        raise NotImplementedError(
+            "dictionary-coded join keys are not ported yet (ROADMAP.md, "
+            "queue 1, item 7: joins)")
+    if bloom_on:
+        b_live = right.row_mask()
+        p_live = left.row_mask()
+        for c in rkeys:
+            b_live = c.valid_mask(b_live)
+        for c in lkeys:
+            p_live = c.valid_mask(p_live)
+        bf = bloom.build_bloom(rkeys, b_live,
+                               bloom.log_bits_for(right.capacity))
+        hit = bloom.bloom_query(bf, lkeys, p_live)
+        left = filter_batch(left, DeviceColumn(hit, None, T.bool_()))
+        lkeys = [left.column(k) for k in options.left_keys]
+    plan = J.build_join_plan(rkeys, lkeys, right.row_count, left.row_count,
+                             jt)
+    # the one readback: the total sizes the output, and a largest count of
+    # at most 1 means every probe row matches at most one build row
+    total, max_count = torch.stack([plan.total, plan.counts.max()]).tolist()
+    unique_build = max_count <= 1
+    out_cap = capacity_class(max(total, 1))
+    if unique_build:
+        # the compaction expansion works in probe-capacity space
+        out_cap = min(out_cap, left.capacity)
+    return _join_materialize(options, plan, left, right, out_cap,
+                             unique_build)
+
+
+def _join_output_schema(options: HashJoinNodeOptions, left: DeviceBatch,
+                        right: DeviceBatch):
+    """(left names, right names, output schema); a name on both sides
+    takes its side's suffix."""
+    lnames = options.left_output if options.left_output is not None \
+        else left.schema.names
+    rnames = options.right_output if options.right_output is not None \
+        else right.schema.names
+    fields = []
+    for names, batch, other, suffix in (
+            (lnames, left, rnames, options.output_suffix_for_left),
+            (rnames, right, lnames, options.output_suffix_for_right)):
+        for n in names:
+            f = batch.schema.fields[batch.schema.get_field_index(n)]
+            fields.append(Field(n + suffix, f.type) if n in other else f)
+    return lnames, rnames, Schema(fields)
+
+
+def _join_materialize(options: HashJoinNodeOptions, plan: J.JoinPlan,
+                      left: DeviceBatch, right: DeviceBatch, out_cap: int,
+                      unique_build: bool) -> DeviceBatch:
+    lnames, rnames, out_schema = _join_output_schema(options, left, right)
+    probe_idx, build_idx = J.join_gather_indices(
+        plan, out_cap, options.join_type, unique_build=unique_build)
+    # an empty output list emits no columns of that side (Q3's first join)
+    out_cols = gather_columns(left.select(lnames).columns, probe_idx) \
+        + gather_columns(right.select(rnames).columns, build_idx)
+    return DeviceBatch(out_schema, out_cols, plan.total.to(torch.int32))
 
 
 class Declaration:
@@ -263,22 +443,9 @@ class Declaration:
         return current
 
     def to_table(self) -> Dict[str, list]:
-        """Run a linear chain over its table source and download the
-        result (``device.column.download``)."""
-        chain = []
-        cur = self
-        while cur.factory_name != "table_source":
-            if cur.factory_name not in _CHAINABLE or len(cur.inputs) != 1:
-                raise NotImplementedError(
-                    f"{cur.factory_name!r} nodes are not ported yet "
-                    "(ROADMAP.md, queue 1, item 7: joins, then Q3 end to "
-                    "end)")
-            chain.append(cur)
-            cur = cur.inputs[0]
-        batch = cur.options.batch
-        if chain:
-            batch = compile_chain(list(reversed(chain)))(batch)
-        return download(batch)
+        """Run the plan and download the result
+        (``device.column.download``)."""
+        return download(execute_declaration(self))
 
     def __repr__(self):
         return f"Declaration({self.factory_name})"

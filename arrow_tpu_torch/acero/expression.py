@@ -1,11 +1,18 @@
 """Expression trees: literal / field_ref / call (counterpart of
 ``arrow_tpu/acero/expression.py``). An expression evaluates eagerly over a
-DeviceBatch through the compute registry."""
+DeviceBatch through the compute registry. A comparison of a
+dictionary-coded column with a literal translates the literal through the
+host dictionary."""
 
 from __future__ import annotations
 
+import bisect
 from typing import Optional
 
+import numpy as np
+import torch
+
+from .. import types as T
 from ..compute.registry import ExecContext, get_function
 from ..device.column import DeviceBatch, DeviceColumn
 
@@ -80,19 +87,72 @@ class Expression:
         return _evaluate(self, batch, ctx)
 
 
+_COMPARISONS = ("equal", "not_equal", "less", "less_equal", "greater",
+                "greater_equal")
+
+
 def _evaluate(expr: Expression, batch: DeviceBatch, ctx: ExecContext):
     if expr.kind == Expression.KIND_LITERAL:
         return expr.value
     if expr.kind == Expression.KIND_FIELD:
         return batch.column(expr.name)
     args = [_evaluate(a, batch, ctx) for a in expr.args]
-    if any(isinstance(a, DeviceColumn) and a.dictionary is not None
-           for a in args):
+    if expr.fn in _COMPARISONS:
+        args = _translate_string_compare(expr.fn, args)
+    if any(_is_string_col(a) for a in args):
         raise NotImplementedError(
-            f"{expr.fn} on dictionary-coded columns translates literals "
-            "through the dictionary, which is not ported yet (ROADMAP.md, "
-            "queue 1, item 7: joins, then Q3 end to end)")
+            f"{expr.fn} on dictionary-coded columns is not ported yet "
+            "(ROADMAP.md, queue 1, item 9: the long tail)")
     return get_function(expr.fn).impl(ctx, *args, **expr.options)
+
+
+def _is_string_col(c) -> bool:
+    return isinstance(c, DeviceColumn) and c.dictionary is not None
+
+
+def _codes(col: DeviceColumn, table: np.ndarray) -> torch.Tensor:
+    """``table`` (one entry per dictionary slot) looked up by the column's
+    codes, clamped into the dictionary."""
+    safe = col.values.long().clamp(0, len(table) - 1)
+    return torch.from_numpy(table).to(col.values.device)[safe]
+
+
+def _translate_string_compare(fn, args):
+    """A dictionary-coded column against a literal becomes a compare of
+    device integers: equality through a per-slot hit table (derived
+    dictionaries may hold a value in several slots), ordering through dense
+    value ranks against the literal's rank, or a half-step below its
+    insertion point when the dictionary lacks it."""
+    a, b = args
+    a_str, b_str = _is_string_col(a), _is_string_col(b)
+    if not a_str and not b_str:
+        return args
+    if a_str and b_str:
+        raise NotImplementedError(
+            "comparing two dictionary-coded columns is not ported yet "
+            "(ROADMAP.md, queue 1, item 9: the long tail)")
+    col, lit = (a, b) if a_str else (b, a)
+    if isinstance(lit, bool) or not isinstance(lit, (str, bytes, int,
+                                                     float)):
+        raise TypeError(
+            f"cannot compare dictionary-coded values with {type(lit)}")
+    vals = list(col.dictionary)
+    if not vals:
+        raise NotImplementedError(
+            "comparing a column with an empty dictionary is not ported yet "
+            "(ROADMAP.md, queue 1, item 9: the long tail)")
+    if fn in ("equal", "not_equal"):
+        hits = np.array([v == lit for v in vals], dtype=np.int64)
+        new = [DeviceColumn(_codes(col, hits), col.validity, T.int64()), 1]
+    else:
+        uniq = sorted(set(vals))
+        rank_of = {v: i for i, v in enumerate(uniq)}
+        ranks = np.array([rank_of[v] for v in vals], dtype=np.int64)
+        rank = rank_of[lit] if lit in rank_of \
+            else bisect.bisect_left(uniq, lit) - 0.5
+        new = [DeviceColumn(_codes(col, ranks), col.validity, T.int64()),
+               rank]
+    return new if a_str else new[::-1]
 
 
 def field(name) -> Expression:

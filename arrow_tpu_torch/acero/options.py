@@ -52,3 +52,42 @@ class OrderByNodeOptions:
         self.sort_keys = [(k, "ascending") if isinstance(k, str) else
                           (k[0], k[1]) for k in sort_keys]
         self.null_placement = null_placement
+
+
+class FetchNodeOptions:
+    def __init__(self, offset: int = 0, count: int = -1):
+        self.offset = int(offset)
+        self.count = int(count)
+
+
+JOIN_TYPES = ("inner", "left outer", "right outer", "full outer",
+              "left semi", "right semi", "left anti", "right anti")
+
+
+class HashJoinNodeOptions:
+    """An equi-join; the left input probes, the right input builds.
+    ``filter`` is a residual predicate on each matched pair. An empty
+    output list emits no columns of that side; None emits all."""
+
+    def __init__(self, join_type: str = "inner",
+                 left_keys: Sequence[str] = (),
+                 right_keys: Sequence[str] = (),
+                 left_output: Optional[Sequence[str]] = None,
+                 right_output: Optional[Sequence[str]] = None,
+                 output_suffix_for_left: str = "",
+                 output_suffix_for_right: str = "",
+                 disable_bloom_filter: bool = False,
+                 filter: Optional[Expression] = None):
+        if join_type not in JOIN_TYPES:
+            raise ValueError(f"bad join type {join_type!r}")
+        self.join_type = join_type
+        self.disable_bloom_filter = disable_bloom_filter
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.left_output = list(left_output) if left_output is not None \
+            else None
+        self.right_output = list(right_output) if right_output is not None \
+            else None
+        self.output_suffix_for_left = output_suffix_for_left
+        self.output_suffix_for_right = output_suffix_for_right
+        self.filter_expression = filter

@@ -1,10 +1,12 @@
 """Grouper: multi-column key -> dense group ids (counterpart of
 ``arrow_tpu/compute/grouper.py``).
 
-Only the perfect-hash path is ported: when every key is dictionary-coded or
-bool and the combined slot space is small, a group's slot is the
-mixed-radix code of its keys and grouping needs no sort. Group ids are
-assigned in order of first appearance, as in the reference.
+When every key is dictionary-coded or bool and the combined slot space is
+small, a group's slot is the mixed-radix code of its keys and grouping
+needs no sort (the perfect-hash path). Other keys take the general
+grouper: a stable sort of the keys' equality words, run heads, and a rank
+by first appearance. Either way group ids are assigned in order of first
+appearance, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from ..device.column import DeviceColumn, round_up
 from ..types import TypeId
+from .keys import GROUP_KEY_DEAD, group_key_arrays, stable_sort_indices
 from .move import segment_reduce
 from .registry import ExecContext
 
@@ -81,14 +84,50 @@ def _group_ids_perfect(ctx: ExecContext, key_cols: Sequence[DeviceColumn],
     return GroupResult(gids, num_groups, rep[:cap])
 
 
+def _group_ids_sorted(ctx: ExecContext,
+                      key_cols: Sequence[DeviceColumn]) -> GroupResult:
+    """The reference's general grouper, ``direct`` branch
+    (``grouper.py:121-146,187-207``): a stable sort of the equality words,
+    run heads, then a rank by first appearance."""
+    cap = ctx.capacity
+    row_mask = ctx.row_mask()
+    dev = row_mask.device
+    keys = group_key_arrays(key_cols, row_mask)
+    perm = stable_sort_indices(keys)
+    sorted_keys = [k[perm] for k in keys]
+    # dead runs are marked by the class word: all-ones sorts first as int64
+    sorted_mask = sorted_keys[0] != GROUP_KEY_DEAD
+    is_new = torch.zeros(cap, dtype=torch.bool, device=dev)
+    is_new[0] = True
+    for k in sorted_keys:
+        is_new[1:] |= k[1:] != k[:-1]
+    is_new &= sorted_mask
+    gid_sorted = torch.cumsum(is_new, 0) - 1
+    num_groups = is_new.sum(dtype=torch.int64)
+    perm32 = perm.to(torch.int32)
+    # each group's first row: the min of its rows' indices (slot cap drops)
+    first_pos32 = torch.full((cap + 1,), cap, dtype=torch.int32, device=dev)
+    first_pos32.scatter_reduce_(
+        0, torch.where(sorted_mask, gid_sorted, cap),
+        torch.where(sorted_mask, perm32, cap), "amin", include_self=True)
+    first_pos = first_pos32[:cap].to(torch.int64)
+    # rank groups by first appearance -> appearance-order ids
+    idx = torch.arange(cap, dtype=torch.int64, device=dev)
+    order = torch.argsort(torch.where(idx < num_groups, first_pos, 2 * cap),
+                          stable=True)
+    rank32 = torch.empty(cap, dtype=torch.int32, device=dev)
+    rank32[order] = torch.arange(cap, dtype=torch.int32, device=dev)
+    gid_appearance_sorted = rank32[gid_sorted.clamp(0, cap - 1)]
+    gids32 = torch.empty(cap, dtype=torch.int32, device=dev)
+    gids32[perm] = torch.where(sorted_mask, gid_appearance_sorted, cap)
+    return GroupResult(gids32.to(torch.int64), num_groups, first_pos[order])
+
+
 def group_ids(ctx: ExecContext,
               key_cols: Sequence[DeviceColumn]) -> GroupResult:
     sizes = _perfect_hash_sizes(key_cols, ctx.capacity)
     if sizes is None:
-        raise NotImplementedError(
-            "grouping on keys that are not perfect-hashable needs the "
-            "sort-based grouper (ROADMAP.md, queue 1, item 6: sort keys, "
-            "the general grouper and sort)")
+        return _group_ids_sorted(ctx, key_cols)
     return _group_ids_perfect(ctx, key_cols, sizes)
 
 

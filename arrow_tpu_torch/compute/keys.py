@@ -1,11 +1,16 @@
-"""Order-preserving sort keys (counterpart of ``arrow_tpu/compute/keys.py``).
+"""Order- and equality-preserving keys (counterpart of
+``arrow_tpu/compute/keys.py``).
 
-Each key column becomes a (class, word) pair of int64 tensors. The class
-orders values, NaN, null and padding rows; the word's signed int64 order
-is the value order. (The reference keeps uint64 words with the sign bit
-flipped; torch has no unsigned 64-bit shifts or comparisons, and signed
+Each sort key column becomes a (class, word) pair of int64 tensors. The
+class orders values, NaN, null and padding rows; the word's signed int64
+order is the value order. (The reference keeps uint64 words with the sign
+bit flipped; torch has no unsigned 64-bit shifts or comparisons, and signed
 order needs no flip.) Multi-key sorts are successive stable sorts, last
 key first.
+
+Equality words for grouping and joins are the reference's uint64 words
+with the same bits, held as int64: equal values have equal words, and
+the all-ones word (``GROUP_KEY_DEAD``) reads -1.
 """
 
 from __future__ import annotations
@@ -17,6 +22,50 @@ import torch
 from ..device.column import DeviceColumn
 
 _LOW63 = (1 << 63) - 1
+_QNAN_BITS = 0x7FF8000000000000
+# packed class word of padding rows: uint64 all-ones, -1 as int64
+GROUP_KEY_DEAD = -1
+
+
+def f64_bits(f: torch.Tensor) -> torch.Tensor:
+    """The IEEE-754 bits of f64 values as int64, every NaN as one quiet
+    NaN word; -0.0 keeps its own word."""
+    f = f.to(torch.float64)
+    return torch.where(torch.isnan(f), _QNAN_BITS, f.view(torch.int64))
+
+
+def equality_word(col: DeviceColumn) -> torch.Tensor:
+    """int64 word with value equality == word equality (bit level, like the
+    reference's memcmp-able row encoding)."""
+    v = col.values
+    if v.dtype.is_floating_point:
+        return f64_bits(v)
+    return v.to(torch.int64)
+
+
+def group_key_arrays(cols: Sequence[DeviceColumn],
+                     row_mask: torch.Tensor) -> List[torch.Tensor]:
+    """Equality keys for grouping: one packed class word (bit i set where
+    column i is null; ``GROUP_KEY_DEAD`` on rows outside ``row_mask``),
+    then one word per column, 0 on its null rows."""
+    if len(cols) > 63:
+        # the bitmask would overflow: one class word per 63 columns
+        parts: List[torch.Tensor] = []
+        for start in range(0, len(cols), 63):
+            parts.extend(group_key_arrays(cols[start:start + 63], row_mask))
+        return parts
+    cls_bits = torch.zeros(row_mask.shape[0], dtype=torch.int64,
+                           device=row_mask.device)
+    words = []
+    for i, col in enumerate(cols):
+        if col.validity is None:
+            words.append(equality_word(col))
+            continue
+        is_null = ~col.validity
+        cls_bits = cls_bits | (is_null.to(torch.int64) << i)
+        words.append(torch.where(is_null, 0, equality_word(col)))
+    cls_bits = torch.where(row_mask, cls_bits, GROUP_KEY_DEAD)
+    return [cls_bits] + words
 
 
 def order_word(col: DeviceColumn) -> torch.Tensor:

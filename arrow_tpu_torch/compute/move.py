@@ -1,16 +1,36 @@
-"""Segment reductions (counterpart of ``arrow_tpu/compute/move.py``).
+"""Bulk data movement and segment reductions (counterpart of
+``arrow_tpu/compute/move.py``).
 
 The port follows the reference's ``direct`` movement semantics, the ones it
 uses on CPU and GPU: native scatters and gathers, 64-bit values kept at
-full width. Float sums over at most 1024 segments run the grouped-sum
-kernel (``kernels/grouped_sum.py``); everything else is plain PyTorch.
+full width. Compaction runs the compaction kernel
+(``kernels/compact.py``) and float sums over at most 1024 segments the
+grouped-sum kernel (``kernels/grouped_sum.py``); everything else is plain
+PyTorch.
 """
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
+from ..kernels.compact import compact
 from ..kernels.grouped_sum import MAX_SEGMENTS, grouped_sum
+
+
+# Rows where ``keep`` is True moved to the front in order, zeros after them,
+# in every array through one compaction; plus the kept count as a 0-d int32
+# tensor on the device (the reference's ``direct`` contract).
+compact_by_mask = compact
+
+
+def gather_rows(arrays: Sequence[torch.Tensor],
+                idx: torch.Tensor) -> List[torch.Tensor]:
+    """``out_k[j] = arrays_k[idx[j]]``; indices out of range read the
+    nearest end row (callers mask them)."""
+    safe = idx.clamp(0, arrays[0].shape[0] - 1)
+    return [a[safe] for a in arrays]
 
 
 def _empty_value(dtype: torch.dtype, op: str):

@@ -1,14 +1,20 @@
 """Selection helpers (counterpart of ``arrow_tpu/compute/selection.py``):
-filter masks and direct row gathers. Compaction of filtered rows, the
-K2 kernel's work, is not ported yet."""
+filter masks, compaction of filtered rows and row gathers.
+
+Filtered rows keep the batch's static capacity: the kept rows move to the
+front and the live count rides as a 0-d device tensor. ``compact_columns``
+moves every buffer of a batch through one launch of the compaction kernel
+(``move.compact_by_mask``).
+"""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
-from ..device.column import DeviceColumn
+from ..device.column import DeviceBatch, DeviceColumn
+from .move import compact_by_mask
 from .registry import ExecContext
 
 
@@ -38,20 +44,72 @@ def selection_mask(ctx: ExecContext, mask_col: DeviceColumn,
     return keep & ctx.row_mask(), emit_null
 
 
+def _buffers(cols: Sequence[DeviceColumn],
+             extra_null: Optional[torch.Tensor]):
+    """Every values and validity buffer of ``cols``, with ``extra_null``
+    rows turned null, and per column whether it has validity."""
+    arrays, spec = [], []
+    for c in cols:
+        arrays.append(c.values)
+        validity = c.validity
+        if extra_null is not None:
+            base = validity if validity is not None else torch.ones(
+                c.capacity, dtype=torch.bool, device=c.values.device)
+            validity = base & ~extra_null
+        if validity is not None:
+            arrays.append(validity)
+        spec.append(validity is not None)
+    return arrays, spec
+
+
+def _columns(cols: Sequence[DeviceColumn], spec,
+             outs: Sequence[torch.Tensor]) -> List[DeviceColumn]:
+    res, i = [], 0
+    for c, has_v in zip(cols, spec):
+        vals = outs[i]
+        i += 1
+        validity = None
+        if has_v:
+            validity = outs[i]
+            i += 1
+        res.append(DeviceColumn(vals, validity, c.type, c.dictionary))
+    return res
+
+
+def compact_columns(cols: Sequence[DeviceColumn], keep: torch.Tensor,
+                    extra_null: Optional[torch.Tensor] = None):
+    """Kept rows to the front across all columns, every values and
+    validity buffer in one compaction. Returns (columns, count)."""
+    arrays, spec = _buffers(cols, extra_null)
+    outs, count = compact_by_mask(keep, arrays)
+    return _columns(cols, spec, outs), count
+
+
+def filter_batch(batch: DeviceBatch, mask_col: DeviceColumn,
+                 null_selection: str = "drop") -> DeviceBatch:
+    ctx = ExecContext(batch.capacity, batch.row_count)
+    keep, emit_null = selection_mask(ctx, mask_col, null_selection)
+    cols, count = compact_columns(batch.columns, keep, emit_null)
+    return DeviceBatch(batch.schema, cols, count)
+
+
 def gather_columns(cols: Sequence[DeviceColumn],
                    idx: torch.Tensor) -> List[DeviceColumn]:
-    """Rows ``idx`` of every column. Indices out of range read row 0, as
-    the reference's ``move.gather_rows`` does; callers mask them."""
+    """Rows ``idx`` of every column. Indices out of range read the nearest
+    end row, as the reference's ``move.gather_rows`` does; callers mask
+    them."""
     out = []
     for c in cols:
-        safe = torch.where((idx >= 0) & (idx < c.capacity), idx, 0)
+        safe = idx.clamp(0, c.capacity - 1)
         validity = c.validity[safe] if c.validity is not None else None
         out.append(DeviceColumn(c.values[safe], validity, c.type,
                                 c.dictionary))
     return out
 
 
-def filter_batch(batch, mask_col, null_selection: str = "drop"):
-    raise NotImplementedError(
-        "a standalone filter compacts rows, which the K2 compaction kernel "
-        "will do (ROADMAP.md, queue 1, item 5: selection and compaction)")
+def take_batch(batch: DeviceBatch, indices: torch.Tensor,
+               count: torch.Tensor) -> DeviceBatch:
+    """Whole batch rows gathered by a plain index tensor (no null
+    indices)."""
+    return DeviceBatch(batch.schema, gather_columns(batch.columns, indices),
+                       count)

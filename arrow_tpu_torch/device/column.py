@@ -29,6 +29,12 @@ def round_up(n: int, m: int = BLOCK) -> int:
     return max(m, (n + m - 1) // m * m)
 
 
+def capacity_class(n: int) -> int:
+    """A data-dependent output size (join matches) rounded up to its
+    power-of-two capacity class, at least BLOCK."""
+    return max(BLOCK, 1 << (max(n, 1) - 1).bit_length())
+
+
 _TORCH_DTYPES = {
     TypeId.BOOL: torch.bool,
     TypeId.INT32: torch.int32, TypeId.INT64: torch.int64,
@@ -103,6 +109,16 @@ class DeviceBatch:
                 raise KeyError(f"no column named {i!r}")
             i = idx
         return self.columns[i]
+
+    def row_mask(self) -> torch.Tensor:
+        """bool[capacity]: True on the live rows."""
+        return (torch.arange(self.capacity, dtype=torch.int32,
+                             device=self.row_count.device) < self.row_count)
+
+    def select(self, names: Sequence[str]) -> "DeviceBatch":
+        idxs = [self.schema.get_field_index(n) for n in names]
+        return DeviceBatch(Schema([self.schema.fields[i] for i in idxs]),
+                           [self.columns[i] for i in idxs], self.row_count)
 
     def __repr__(self):
         return (f"DeviceBatch(cap={self.capacity}, "

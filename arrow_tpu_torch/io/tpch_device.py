@@ -1,5 +1,6 @@
-"""TPC-H lineitem generated on the device (counterpart of
-``arrow_tpu/io/tpch_device.py``).
+"""TPC-H tables generated on the device (counterpart of
+``arrow_tpu/io/tpch_device.py``): Q1's lineitem, and Q3's customer,
+orders and lineitem narrowed to the columns Q3 reads.
 
 Each column is a splitmix64 hash of the row index, mapped onto the column's
 range by a multiply-shift, so the data are made where they are used and
@@ -31,6 +32,8 @@ LINESTATUS = ("O", "F")
 SHIPMODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
 SHIPINSTRUCT = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
                 "TAKE BACK RETURN")
+MKTSEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY",
+               "HOUSEHOLD")
 
 _U64 = (1 << 64) - 1
 
@@ -84,7 +87,6 @@ def q1_device_batch(scale_factor: float, seed: int = 0,
     on the device. Returns (batch, row count)."""
     dev = default_device(device)
     n = int(6_001_215 * scale_factor)
-    cap = round_up(n)
     sf = scale_factor
     n_orders = max(int(1_500_000 * sf), 2)
 
@@ -116,9 +118,63 @@ def q1_device_batch(scale_factor: float, seed: int = 0,
          torch.int32),
         ("l_shipmode", "dict", 0, len(SHIPMODES), dict_t, torch.int32),
     ]
-    cols = [DeviceColumn(_gen_column(cap, i, kind, lo, hi, dt, seed, dev),
-                         None, t, dicts.get(name))
-            for i, (name, kind, lo, hi, t, dt) in enumerate(spec)]
+    return _device_batch(spec, n, dicts, seed, dev)
+
+
+def _device_batch(spec, n: int, dicts, seed: int,
+                  device: torch.device) -> Tuple[DeviceBatch, int]:
+    """A DeviceBatch of n rows from a column spec: (name, kind, lo, hi,
+    type, device dtype) a column, where kind ``iota`` gives the keys
+    1..capacity (o_orderkey, c_custkey), ``zeros`` zeros, and any other
+    kind a generated column. Returns (batch, n)."""
+    cap = round_up(n)
+    cols = []
+    for i, (name, kind, lo, hi, t, dt) in enumerate(spec):
+        if kind == "iota":
+            v = torch.arange(cap, dtype=torch.int64, device=device) + 1
+        elif kind == "zeros":
+            v = torch.zeros(cap, dtype=dt, device=device)
+        else:
+            v = _gen_column(cap, i, kind, lo, hi, dt, seed, device)
+        cols.append(DeviceColumn(v, None, t, dicts.get(name)))
     schema = Schema([Field(name, t) for name, _k, _lo, _hi, t, _d in spec])
     return DeviceBatch(schema, cols, torch.tensor(n, dtype=torch.int32,
-                                                  device=dev)), n
+                                                  device=device)), n
+
+
+def q3_device_plan(scale_factor: float, seed: int = 0, limit: int = 10,
+                   device=None):
+    """TPC-H Q3 over three tables made on the device, narrowed to the
+    columns Q3 reads: customer (c_custkey, c_mktsegment), orders
+    (o_orderkey, o_custkey, o_orderdate, o_shippriority) and lineitem
+    (l_orderkey, l_extendedprice, l_discount, l_shipdate), with the
+    reference generator's seeds (seed + 11, + 23, + 37). Returns
+    (plan, lineitem rows)."""
+    from .tpch_queries import q3_plan
+
+    dev = default_device(device)
+    sf = scale_factor
+    n_li = int(6_001_215 * sf)
+    n_ord = max(int(1_500_000 * sf), 2)
+    n_cust = max(int(150_000 * sf), 2)
+    dict_t = T.dictionary(T.int32(), T.string())
+    cust, _ = _device_batch([
+        ("c_custkey", "iota", 0, 0, T.int64(), torch.int64),
+        ("c_mktsegment", "int", 0, len(MKTSEGMENTS), dict_t, torch.int32),
+    ], n_cust, {"c_mktsegment": MKTSEGMENTS}, seed + 11, dev)
+    orders, _ = _device_batch([
+        ("o_orderkey", "iota", 0, 0, T.int64(), torch.int64),
+        ("o_custkey", "int", 1, n_cust, T.int64(), torch.int64),
+        ("o_orderdate", "int", _EPOCH_1992, _EPOCH_1998 - 151, T.date32(),
+         torch.int32),
+        ("o_shippriority", "zeros", 0, 0, T.int64(), torch.int64),
+    ], n_ord, {}, seed + 23, dev)
+    lineitem, _ = _device_batch([
+        ("l_orderkey", "int", 1, n_ord + 1, T.int64(), torch.int64),
+        ("l_extendedprice", "cents", 90_000, 10_500_000, T.float64(),
+         torch.float64),
+        ("l_discount", "cents", 0, 11, T.float64(), torch.float64),
+        ("l_shipdate", "int", _EPOCH_1992, _EPOCH_1998, T.date32(),
+         torch.int32),
+    ], n_li, {}, seed + 37, dev)
+    return q3_plan(cust, orders, lineitem, limit), n_li

@@ -8,18 +8,27 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases; any failure exits non-zero without the final line:
 
 1. Probe: versions, the card's name and power limit, the build of every
-   kernel in ``arrow_tpu_torch/csrc`` (``nvcc`` for ``sm_90a``, into
-   ``build/``), and ``self_check()``, which launches the probe kernel.
+   kernel in ``arrow_tpu_torch/csrc`` (one ``nvcc`` for ``sm_90a`` per
+   source, all in parallel, into ``build/``), and ``self_check()``, which
+   launches the probe kernel.
 2. Every kernel against its plain PyTorch version on the card: the grouped
    sum in f64 at Q1's shape (SF10's capacity, 12 slots) and at 512 slots,
-   in f32 at 16 slots, and with Inf and NaN groups.
-3. The main path: ``self_check()``, ``q1_device_batch(10.0)``,
-   ``compile_chain(q1_chain_decls())`` and the download of the result,
-   with every launch count set to 0 just before and read just after. The
-   result is held against an independent numpy Q1 over the downloaded
-   source columns.
-4. Times with CUDA events after a warm-up: Q1 rows/s, and each kernel's
-   time beside its bound, its plain version's and one library call's.
+   in f32 at 16 slots, and with Inf and NaN groups; the compaction at Q3's
+   lineitem filter (SF10, four columns), under all-true and all-false
+   masks, and at a ragged 1,000,003 rows of bool, int32, int64 and f64
+   with NaN and -0.0 bit patterns, bit for bit with the count; the hash of
+   1, 2 and 3 words at 60M rows, and of the main path's join keys (the
+   strided int32 halves of ``l_orderkey``'s and ``o_custkey``'s equality
+   words at SF10's capacities), bit for bit.
+3. The main paths, each with every launch count set to 0 just before and
+   read just after. Q1: ``self_check()``, ``q1_device_batch(10.0)``,
+   ``compile_chain(q1_chain_decls())`` and the download of the result.
+   Q3: ``self_check()``, ``q3_device_plan(10.0)`` and ``.to_table()``.
+   Each result is held against an independent numpy query over the
+   downloaded source columns.
+4. Times after a warm-up: Q1 and Q3 rows/s, a profile of one run of each,
+   and each kernel's time (CUDA events) beside its bound, its plain
+   version's and one library call's where there is one.
 
 The line before the last is one JSON object with a record per kernel; the
 last is ``{"ok": true, "device": {...}}``. The script imports torch, numpy
@@ -38,10 +47,17 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 F64_OPS_PER_S = 34e12       # H100 SXM FP64 outside the tensor cores
+# H100 SXM int32: 64 lanes an SM (CUDA programming guide, compute
+# capability 9.0) x 132 SMs x 1.98 GHz boost
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+HASH_OPS_PER_WORD = 11      # xxhash32 of a word: 3 multiplies, 8 shift/xor
+HASH_OPS_PER_COMBINE = 6    # 2 shifts, 3 adds, 1 xor
 SF = 10.0
 Q1_SLOTS = 12               # (3+1) return flags x (2+1) line statuses
 RTOL_F64 = 1e-9             # the atomics reorder f64 additions
 RTOL_F32 = 1e-5             # an f32 result against an f64 reference
+Q3_LAUNCHES = {"compact": 7, "hash32": 4, "grouped_sum": 0, "probe": 1}
+Q1_LAUNCHES = {"compact": 0, "hash32": 0, "grouped_sum": 7, "probe": 1}
 
 
 def log(*parts):
@@ -63,6 +79,24 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernels():
+    from arrow_tpu_torch.kernels.compact import compact
+    from arrow_tpu_torch.kernels.grouped_sum import grouped_sum
+    from arrow_tpu_torch.kernels.hash32 import hash32
+    from arrow_tpu_torch.kernels.probe import probe
+    return {"compact": compact, "hash32": hash32,
+            "grouped_sum": grouped_sum, "probe": probe}
+
+
+def zero_launches():
+    for k in kernels().values():
+        k.launches = 0
+
+
+def read_launches():
+    return {name: k.launches for name, k in kernels().items()}
+
+
 def check_close(name, got, want, rtol):
     """Equal NaN/Inf pattern, finite values within rtol; returns the
     largest absolute error over the finite values."""
@@ -82,6 +116,25 @@ def check_close(name, got, want, rtol):
     return max_err
 
 
+def _bits(t):
+    """An integer view of a tensor's bits, so equality is bit for bit."""
+    return t.view({1: torch.uint8, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def check_bit_exact(name, got, want):
+    """Each tensor of ``got`` equals its twin in ``want`` bit for bit;
+    returns 0.0, the largest absolute error."""
+    ok = len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape
+        and torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+    log(f"  {name}: {'bit-exact' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             "version")
+    return 0.0
+
+
 def q1_like_inputs(n, num_segments, live_slots, dtype, seed):
     """Values and group ids at a grouped sum's shape on the main path:
     ``live_slots`` slots carry rows, about 4% of rows are dead (value 0,
@@ -96,6 +149,36 @@ def q1_like_inputs(n, num_segments, live_slots, dtype, seed):
     gids = torch.where(dead, 0, gids)
     assert live_slots <= num_segments
     return values, gids
+
+
+def q3_sources(plan):
+    """The Q3 plan's table-source batches: lineitem, orders, customer."""
+    def walk(decl):
+        if decl.factory_name == "table_source":
+            return [decl.options.batch]
+        return [b for d in decl.inputs for b in walk(d)]
+    lineitem, orders, customer = walk(plan)
+    return lineitem, orders, customer
+
+
+def q3_filter_inputs(lineitem):
+    """Q3's lineitem filter: its keep mask and the four columns it moves."""
+    from arrow_tpu_torch.io.tpch_queries import DATE_1995_03_15
+    keep = (lineitem.column("l_shipdate").values > DATE_1995_03_15) \
+        & lineitem.row_mask()
+    return keep, [c.values for c in lineitem.columns]
+
+
+def hash_words(n, k, seed):
+    """k planes of n random uint32 words (int32 bits), starting with 0,
+    0x80000000 and 0xFFFFFFFF."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    words = [torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+             for _ in range(k)]
+    for w in words:
+        w[:3] = torch.tensor([0, -2**31, -1], dtype=torch.int32)
+    return words
 
 
 def phase_probe():
@@ -122,8 +205,13 @@ def phase_probe():
 
 
 def phase_kernels(n):
+    from arrow_tpu_torch.compute.hashing import int64_halves
+    from arrow_tpu_torch.compute.keys import equality_word
+    from arrow_tpu_torch.io.tpch_device import q3_device_plan
+    from arrow_tpu_torch.kernels.compact import compact, compact_plain
     from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
                                                      grouped_sum_plain)
+    from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
     from arrow_tpu_torch.kernels.probe import probe, probe_plain
     log("== phase 2: kernels against their plain versions")
     errs = {}
@@ -152,6 +240,56 @@ def phase_kernels(n):
     x = torch.randn(8, 128, device="cuda")
     errs["probe"] = check_close("probe (8,128) f32", probe(x),
                                 probe_plain(x), 0.0)
+
+    def compact_case(name, keep, cols):
+        outs, count = compact(keep, cols)
+        want, want_count = compact_plain(keep, cols)
+        if count.device.type != "cuda" or count.dtype != torch.int32 \
+                or int(count) != int(want_count):
+            raise AssertionError(f"{name}: count {count} != {want_count}")
+        return check_bit_exact(f"{name}, count {int(count)}", outs, want)
+
+    lineitem, orders, _ = q3_sources(q3_device_plan(SF)[0])
+    keep, cols = q3_filter_inputs(lineitem)
+    m = keep.numel()
+    errs["compact"] = compact_case(
+        f"compact Q3 lineitem filter n={m} x4", keep, cols)
+    compact_case(f"compact all kept n={m} x4",
+                 torch.ones_like(keep), cols)
+    compact_case(f"compact none kept n={m} x4",
+                 torch.zeros_like(keep), cols)
+    # the join keys as the bloom hashes them: two strided int32 views of
+    # each int64 equality word
+    for batch, key in ((lineitem, "l_orderkey"), (orders, "o_custkey")):
+        words = int64_halves(equality_word(batch.column(key)))
+        err = check_bit_exact(
+            f"hash32 {key} halves n={words[0].numel()} "
+            f"stride {words[0].stride(0)}", [hash32(words)],
+            [hash32_plain(words)])
+        if key == "l_orderkey":
+            errs["hash32"] = err
+        del words
+    del lineitem, orders, keep, cols
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    r = 1_000_003
+    f64 = torch.randn(r, generator=gen, device="cuda", dtype=torch.float64)
+    f64[::5] = float("nan")
+    f64[1::5] = -0.0
+    f64.view(torch.int64)[2::5] = -0x0007_0000_0000_1234  # NaN, payload
+    ragged = [torch.rand(r, generator=gen, device="cuda") < 0.5,
+              torch.randint(-2**31, 2**31 - 1, (r,), generator=gen,
+                            device="cuda", dtype=torch.int32),
+              torch.randint(-2**62, 2**62, (r,), generator=gen,
+                            device="cuda", dtype=torch.int64), f64]
+    compact_case(f"compact ragged n={r} bool/int32/int64/f64",
+                 torch.rand(r, generator=gen, device="cuda") < 0.5, ragged)
+
+    h = 60_000_000
+    for k in (1, 2, 3):
+        words = hash_words(h, k, 10 + k)
+        check_bit_exact(f"hash32 k={k} n={h}", [hash32(words)],
+                        [hash32_plain(words)])
+        del words
     torch.cuda.synchronize()
     return errs
 
@@ -193,96 +331,241 @@ def q1_oracle(batch, n):
     }
 
 
-def phase_main_path():
-    from arrow_tpu_torch.acero import compile_chain
-    from arrow_tpu_torch.device.column import download
-    from arrow_tpu_torch.io.tpch_device import q1_device_batch
-    from arrow_tpu_torch.io.tpch_queries import q1_chain_decls
-    from arrow_tpu_torch.kernels.grouped_sum import grouped_sum
-    from arrow_tpu_torch.kernels.probe import probe
-    from arrow_tpu_torch.platform_check import self_check
-    log(f"== phase 3: the main path, Q1 at SF{SF:g} on the card")
-    grouped_sum.launches = 0
-    probe.launches = 0
-    self_check()
-    batch, n = q1_device_batch(SF)
-    q1 = compile_chain(q1_chain_decls())
-    result = download(q1(batch))
-    launches = {"grouped_sum": grouped_sum.launches,
-                "probe": probe.launches}
-    log(f"launches on the main path: {launches}")
-    if launches != {"grouped_sum": 7, "probe": 1}:
-        raise AssertionError(f"expected 7 grouped_sum and 1 probe launches, "
-                             f"got {launches}")
-    want = q1_oracle(batch, n)
+def q3_oracle(plan, limit=10):
+    """Q3 in numpy over the downloaded source columns. o_orderkey and
+    c_custkey are 1..n, so both joins are index lookups."""
+    import datetime
+
+    from arrow_tpu_torch.io.tpch_queries import DATE_1995_03_15
+    lineitem, orders, customer = q3_sources(plan)
+
+    def cols(batch):
+        n = int(batch.row_count)
+        return {f.name: c.values[:n].cpu().numpy()
+                for f, c in zip(batch.schema.fields, batch.columns)}
+
+    li, od, cu = cols(lineitem), cols(orders), cols(customer)
+    seg = customer.column("c_mktsegment").dictionary
+    assert np.array_equal(cu["c_custkey"], np.arange(1, len(cu["c_custkey"])
+                                                     + 1))
+    assert np.array_equal(od["o_orderkey"], np.arange(1, len(od["o_orderkey"])
+                                                      + 1))
+    building = cu["c_mktsegment"] == seg.index("BUILDING")
+    order_ok = (od["o_orderdate"] < DATE_1995_03_15) \
+        & building[od["o_custkey"] - 1]
+    line_ok = (li["l_shipdate"] > DATE_1995_03_15) \
+        & order_ok[li["l_orderkey"] - 1]
+    okey = li["l_orderkey"][line_ok]
+    volume = (li["l_extendedprice"] * (1.0 - li["l_discount"]))[line_ok]
+    revenue = np.bincount(okey, weights=volume,
+                          minlength=len(od["o_orderkey"]) + 1)
+    groups = np.unique(okey)
+    rev, date = revenue[groups], od["o_orderdate"][groups - 1]
+    top = groups[np.lexsort((date, -rev))[:limit]]
+    epoch = datetime.date(1970, 1, 1)
+    return {
+        "l_orderkey": top.tolist(),
+        "o_orderdate": [epoch + datetime.timedelta(days=int(d))
+                        for d in od["o_orderdate"][top - 1]],
+        "o_shippriority": od["o_shippriority"][top - 1].tolist(),
+        "revenue": revenue[top],
+    }, len(groups), int(line_ok.sum())
+
+
+def check_result(name, result, want):
     if list(result) != list(want):
-        raise AssertionError(f"columns {list(result)} != {list(want)}")
-    for name, w in want.items():
-        got = result[name]
+        raise AssertionError(f"{name}: columns {list(result)} != "
+                             f"{list(want)}")
+    for col, w in want.items():
+        got = result[col]
         if isinstance(w, np.ndarray):
             g = np.asarray(got, dtype=np.float64)
             if g.shape != w.shape or not np.all(np.isfinite(g)) or \
                     not np.allclose(g, w, rtol=RTOL_F64, atol=0.0):
-                raise AssertionError(f"{name}: {got} != {w.tolist()}")
+                raise AssertionError(f"{name} {col}: {got} != {w.tolist()}")
         elif got != w:
-            raise AssertionError(f"{name}: {got} != {w}")
+            raise AssertionError(f"{name} {col}: {got} != {w}")
+
+
+def check_launches(name, launches, want):
+    log(f"launches on the {name} path: {launches}")
+    if launches != want:
+        raise AssertionError(f"{name}: expected launches {want}, got "
+                             f"{launches}")
+
+
+def phase_main_paths():
+    from arrow_tpu_torch.acero import compile_chain
+    from arrow_tpu_torch.device.column import download
+    from arrow_tpu_torch.io.tpch_device import (q1_device_batch,
+                                                q3_device_plan)
+    from arrow_tpu_torch.io.tpch_queries import q1_chain_decls
+    from arrow_tpu_torch.platform_check import self_check
+    log(f"== phase 3: the main paths, Q1 and Q3 at SF{SF:g} on the card")
+    zero_launches()
+    self_check()
+    batch, n = q1_device_batch(SF)
+    q1 = compile_chain(q1_chain_decls())
+    result = download(q1(batch))
+    q1_launches = read_launches()
+    check_launches("Q1", q1_launches, Q1_LAUNCHES)
+    check_result("Q1", result, q1_oracle(batch, n))
     log(f"Q1 result ({len(result['count_order'])} groups) matches the numpy "
         f"oracle: keys and counts exact, floats within rtol {RTOL_F64}")
     for i in range(len(result["count_order"])):
         log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
-    return batch, n, q1, launches
+    del batch, q1
+
+    zero_launches()
+    self_check()
+    plan, n_li = q3_device_plan(SF)
+    result = plan.to_table()
+    q3_launches = read_launches()
+    check_launches("Q3", q3_launches, Q3_LAUNCHES)
+    want, n_groups, n_lines = q3_oracle(plan)
+    check_result("Q3", result, want)
+    log(f"Q3 result matches the numpy oracle ({n_lines} joined lineitem "
+        f"rows in {n_groups} groups): keys and row order exact, revenue "
+        f"within rtol {RTOL_F64}")
+    for i in range(len(result["l_orderkey"])):
+        log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
+    return q1_launches, q3_launches
 
 
-def phase_times(card, batch, n, q1, launches, errs):
-    from arrow_tpu_torch.device.column import download
-    from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
-                                                     grouped_sum_plain)
-    from arrow_tpu_torch.kernels.probe import probe, probe_plain
-    log(f"== phase 4: times on {card}")
+def best_wall(run, reps=6):
+    """Host-clock seconds of ``run`` (which ends in a download) after a
+    synchronize, every run; the first is the warm-up."""
     walls = []
-    for _ in range(6):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        download(q1(batch))
+        run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    best = min(walls[1:])
+    return walls, min(walls[1:])
+
+
+def profile_run(name, run):
+    """Device time of one run by kernel, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    # kernels only: an operator's device time repeats its kernels'
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device_us = sum(r[1] for r in rows)
+    if not rows:
+        log(f"{name} profile: the profiler saw no device time (not "
+            "measured)")
+        return
+    log(f"{name} profile: device busy {device_us:.1f} us of {wall_us:.1f} "
+        f"us wall (idle share {1 - device_us / wall_us:.3f}; profiler on)")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:14]:
+        log(f"  {us:12.1f} us  x{count:<4d} {key[:110]}")
+    # the host operators that launched that device time (self time: each
+    # kernel counts once, under the operator that launched it)
+    ops = [(e.key, e.self_device_time_total, e.count) for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    log(f"{name} device time by launching operator:")
+    for key, us, count in sorted(ops, key=lambda r: -r[1])[:14]:
+        log(f"  {us:12.1f} us  x{count:<4d} {key[:60]}")
+
+
+def bound(nbytes, ops, ops_per_s):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_times(card, q1_launches, q3_launches, errs):
+    from arrow_tpu_torch.acero import compile_chain
+    from arrow_tpu_torch.compute.hashing import int64_halves
+    from arrow_tpu_torch.compute.keys import equality_word
+    from arrow_tpu_torch.device.column import download
+    from arrow_tpu_torch.io.tpch_device import (q1_device_batch,
+                                                q3_device_plan)
+    from arrow_tpu_torch.io.tpch_queries import q1_chain_decls
+    from arrow_tpu_torch.kernels.compact import compact, compact_plain
+    from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
+                                                     grouped_sum_plain)
+    from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
+    from arrow_tpu_torch.kernels.probe import probe, probe_plain
+    log(f"== phase 4: times on {card}")
+    batch, n = q1_device_batch(SF)
+    q1 = compile_chain(q1_chain_decls())
+    walls, best = best_wall(lambda: download(q1(batch)))
     log(f"Q1 SF{SF:g}: {n} rows, wall {[round(w * 1e3, 3) for w in walls]}"
         f" ms; best {best * 1e3:.3f} ms = {n / best:.6g} rows/s [{card}]")
-    q1_profile(q1, batch)
+    profile_run("Q1", lambda: download(q1(batch)))
+    n_cap = batch.capacity
+    del batch, q1
 
-    def record(name, values, gids, s, library_fn):
-        n_rows = values.numel()
-        nbytes = n_rows * (values.element_size() + 4) + s * \
-            values.element_size()
-        # one f64 addition a row, f32 input included
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_rows / F64_OPS_PER_S
-        out = {
-            "ms": cuda_ms(lambda: grouped_sum(values, gids, s)),
-            "plain_ms": cuda_ms(lambda: grouped_sum_plain(values, gids, s)),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": cuda_ms(library_fn),
-        }
-        log(f"  {name}: n={n_rows} S={s} kernel {out['ms']:.4f} ms, bound "
-            f"{out['bound_ms']:.4f} ms ({out['bound_by']}), plain "
-            f"{out['plain_ms']:.4f} ms, index_add_ {out['library_ms']:.4f} "
-            f"ms, {nbytes / out['ms'] / 1e6:.1f} GB/s [{card}]")
+    plan, n_li = q3_device_plan(SF)
+    walls, best = best_wall(plan.to_table)
+    log(f"Q3 SF{SF:g}: {n_li} lineitem rows, wall "
+        f"{[round(w * 1e3, 3) for w in walls]} ms; best {best * 1e3:.3f} ms"
+        f" = {n_li / best:.6g} rows/s [{card}]")
+    profile_run("Q3", plan.to_table)
+
+    def record(name, shape, kernel, plain, library, nbytes, ops, ops_per_s):
+        b_ms, b_by = bound(nbytes, ops, ops_per_s)
+        out = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(library) if library else None}
+        lib = "none" if library is None else f"{out['library_ms']:.4f} ms"
+        log(f"  {name} ({shape}): kernel {out['ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), plain {out['plain_ms']:.4f} ms, "
+            f"library {lib}, {nbytes / out['ms'] / 1e6:.1f} GB/s [{card}]")
         return out
 
-    def index_add(values, gids, s):
+    def grouped_sum_record(name, values, gids, s):
         acc = torch.zeros(s, dtype=values.dtype, device="cuda")
-        return lambda: acc.index_add_(0, gids, values)
+        n_rows = values.numel()
+        # one f64 addition a row, f32 input included
+        return record(
+            name, f"n={n_rows} S={s}",
+            lambda: grouped_sum(values, gids, s),
+            lambda: grouped_sum_plain(values, gids, s),
+            lambda: acc.index_add_(0, gids, values),
+            n_rows * (values.element_size() + 4) + s * values.element_size(),
+            n_rows, F64_OPS_PER_S)
 
-    n_cap = batch.capacity
     v, g = q1_like_inputs(n_cap, Q1_SLOTS, 6, torch.float64, 1)
-    q1_shape = record("grouped_sum f64 (Q1 shape)", v, g, Q1_SLOTS,
-                      index_add(v, g, Q1_SLOTS))
+    q1_shape = grouped_sum_record("grouped_sum f64 (Q1 shape)", v, g,
+                                  Q1_SLOTS)
     v, g = q1_like_inputs(n_cap, 512, 512, torch.float64, 2)
-    record("grouped_sum f64 (K3 range)", v, g, 512, index_add(v, g, 512))
+    grouped_sum_record("grouped_sum f64 (K3 range)", v, g, 512)
     v, g = q1_like_inputs(n_cap, 16, 16, torch.float32, 3)
-    record("grouped_sum f32", v, g, 16, index_add(v, g, 16))
+    grouped_sum_record("grouped_sum f32", v, g, 16)
     del v, g
+
+    lineitem, _, _ = q3_sources(plan)
+    keep, cols = q3_filter_inputs(lineitem)
+    m = keep.numel()
+    width = sum(c.element_size() for c in cols)
+    compact_rec = record(
+        "compact (Q3 lineitem filter)", f"n={m}, {len(cols)} columns of "
+        f"{width} bytes a row", lambda: compact(keep, cols),
+        lambda: compact_plain(keep, cols),
+        lambda: [c[keep] for c in cols], m * (1 + 2 * width), 0,
+        INT32_OPS_PER_S)
+    words = int64_halves(equality_word(lineitem.column("l_orderkey")))
+    k = len(words)
+    hash_rec = record(
+        "hash32 (Q3 lineitem probe keys)", f"n={m}, k={k} words",
+        lambda: hash32(words), lambda: hash32_plain(words), None,
+        m * (4 * k + 4),
+        m * (k * HASH_OPS_PER_WORD + (k - 1) * HASH_OPS_PER_COMBINE),
+        INT32_OPS_PER_S)
+    del keep, cols, words, lineitem, plan
 
     x = torch.randn(8, 128, device="cuda")
     probe_rec = {"ms": cuda_ms(lambda: probe(x), reps=200),
@@ -297,41 +580,24 @@ def phase_times(card, batch, n, q1, launches, errs):
         {"name": "grouped_sum", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/grouped_sum.cu",
          "replaces": "arrow_tpu/experimental/pallas_agg.py:234",
-         "launches": launches["grouped_sum"],
+         "launches": q1_launches["grouped_sum"],
          "max_abs_err": errs["grouped_sum"], **q1_shape},
         {"name": "probe", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/probe.cu",
          "replaces": "arrow_tpu/platform_check.py:119",
-         "launches": launches["probe"], "max_abs_err": errs["probe"],
+         "launches": q1_launches["probe"], "max_abs_err": errs["probe"],
          **probe_rec},
+        {"name": "compact", "route": "cuda",
+         "source": "arrow_tpu_torch/csrc/compact.cu",
+         "replaces": "arrow_tpu/compute/pallas_move.py:189",
+         "launches": q3_launches["compact"], "max_abs_err": errs["compact"],
+         "bit_exact": True, **compact_rec},
+        {"name": "hash32", "route": "cuda",
+         "source": "arrow_tpu_torch/csrc/hash32.cu",
+         "replaces": "arrow_tpu/experimental/pallas_hash.py:43",
+         "launches": q3_launches["hash32"], "max_abs_err": errs["hash32"],
+         "bit_exact": True, **hash_rec},
     ]}
-
-
-def q1_profile(q1, batch):
-    """Device time of one Q1 run by operation, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from arrow_tpu_torch.device.column import download
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        download(q1(batch))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # kernels only: an operator's device time repeats its kernels'
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    device_us = sum(r[1] for r in rows)
-    if not rows:
-        log("Q1 profile: the profiler saw no device time (not measured)")
-        return
-    log(f"Q1 profile: device busy {device_us:.1f} us of {wall_us:.1f} us "
-        f"wall (idle share {1 - device_us / wall_us:.3f}; profiler on)")
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
-        log(f"  {us:12.1f} us  x{count:<4d} {key[:90]}")
 
 
 def main() -> int:
@@ -345,16 +611,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
+        t0 = time.perf_counter()
         card = phase_probe()
         from arrow_tpu_torch.device.column import round_up
         errs = phase_kernels(round_up(int(6_001_215 * SF)))
-        batch, n, q1, launches = phase_main_path()
-        kernels = phase_times(card, batch, n, q1, launches, errs)
+        q1_launches, q3_launches = phase_main_paths()
+        kernel_line = phase_times(card, q1_launches, q3_launches, errs)
+        log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()
         return 1
     print(card)
-    print(json.dumps(kernels))
+    print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

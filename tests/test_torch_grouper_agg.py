@@ -172,8 +172,20 @@ def test_grouped_count_all(filtered):
 
 
 def test_non_perfect_keys_raise():
-    col = DeviceColumn(torch.zeros(CAP, dtype=torch.int64), None,
-                       type_for_name("int64"))
+    """Keys that are not perfect-hashable no longer raise: they take the
+    general grouper, which agrees with the reference and reduces at the
+    row capacity."""
+    v = np.arange(CAP, dtype=np.int64) % 7
+    col = DeviceColumn(torch.from_numpy(v), None, type_for_name("int64"))
+    jcol = JaxDeviceColumn(jnp.asarray(v), None, at.int64())
     ctx = ExecContext(CAP, torch.tensor(ROWS, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        group_ids(ctx, [col])
+    jctx = JaxExecContext(CAP, jnp.asarray(ROWS, jnp.int32))
+    g = group_ids(ctx, [col])
+    jg = jax_group_ids(jctx, [jcol])
+    assert int(g.num_groups) == int(jg.num_groups) == 7
+    np.testing.assert_array_equal(g.group_ids.numpy(),
+                                  np.asarray(jg.group_ids))
+    np.testing.assert_array_equal(g.rep_indices.numpy(),
+                                  np.asarray(jg.rep_indices))
+    assert group_slot_bound_exact([col], CAP) == CAP
+    assert group_capacity_bound([col], CAP) == CAP

@@ -10,8 +10,11 @@ the port, and runs without the suite's conftest (which imports JAX):
 import pytest
 import torch
 
+from arrow_tpu_torch.kernels.compact import (MAX_COLUMNS, compact,
+                                             compact_plain)
 from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
                                                  grouped_sum_plain)
+from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
 from arrow_tpu_torch.kernels.probe import probe, probe_plain
 
 
@@ -82,3 +85,108 @@ def test_probe_matches_plain():
     torch.cuda.synchronize()
     assert probe.launches == before + 1
     assert torch.equal(y, probe_plain(x))
+
+
+def _bits(t):
+    """An integer view of a tensor's bits, so equality is bit for bit."""
+    return t.view({1: torch.uint8, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _columns(n, gen):
+    f64 = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64)
+    f64[::7] = float("nan")
+    f64[1::7] = -0.0
+    # a NaN with a payload and the sign bit set
+    f64.view(torch.int64)[2::7] = -0x0007_0000_0000_1234
+    return [torch.rand(n, generator=gen, device="cuda") < 0.5,
+            torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                          device="cuda", dtype=torch.int32),
+            torch.randint(-2**62, 2**62, (n,), generator=gen, device="cuda",
+                          dtype=torch.int64),
+            f64, f64.float()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,frac", [
+    (1, 1.0), (4095, 0.5), (4096, 0.3), (1_000_003, 0.5), (1_000_003, 0.0),
+    (1_000_003, 1.0), (3 * 4096 + 1, 0.999)])
+def test_compact_matches_plain(n, frac):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    keep = torch.rand(n, generator=gen, device="cuda") < frac
+    cols = _columns(n, gen)
+    before = compact.launches
+    outs, count = compact(keep, cols)
+    torch.cuda.synchronize()
+    assert compact.launches == before + 1
+    want, want_count = compact_plain(keep, cols)
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert count.device.type == "cuda"
+    assert int(count) == int(want_count) == int(keep.sum())
+    for got, w in zip(outs, want):
+        assert got.dtype == w.dtype and got.shape == w.shape
+        assert torch.equal(_bits(got), _bits(w))
+
+
+@pytest.mark.cuda
+def test_compact_many_columns():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = 70_001
+    keep = torch.rand(n, generator=gen, device="cuda") < 0.4
+    cols = [c for _ in range(12) for c in _columns(n, gen)][:MAX_COLUMNS]
+    outs, _ = compact(keep, cols)
+    want, _ = compact_plain(keep, cols)
+    assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(outs, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 16])
+def test_hash32_matches_plain(k):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    n = (1 << 20) + 5
+    words = [torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+             for _ in range(k)]
+    for w in words:  # 0, 0x80000000 and 0xFFFFFFFF
+        w[:3] = torch.tensor([0, -2**31, -1], dtype=torch.int32)
+    before = hash32.launches
+    got = hash32(words)
+    torch.cuda.synchronize()
+    assert hash32.launches == before + 1
+    assert torch.equal(got, hash32_plain(words))
+
+
+@pytest.mark.cuda
+def test_hash32_strided_halves_of_int64():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    w = torch.randint(-2**62, 2**62, (100_003,), generator=gen,
+                      device="cuda", dtype=torch.int64)
+    halves = [w.view(torch.int32)[0::2], w.view(torch.int32)[1::2]]
+    want = hash32_plain([h.contiguous() for h in halves])
+    assert torch.equal(hash32(halves), want)
+
+
+@pytest.mark.cuda
+def test_refused_dtypes_raise_rather_than_fall_back():
+    _need_card()
+    keep = torch.ones(16, dtype=torch.bool, device="cuda")
+    for bad in (torch.ones(16, dtype=torch.float16, device="cuda"),
+                torch.ones(16, dtype=torch.int16, device="cuda"),
+                torch.ones(16, dtype=torch.complex128, device="cuda")):
+        with pytest.raises(ValueError):
+            compact(keep, [bad])
+    with pytest.raises(ValueError):
+        compact(keep.int(), [keep])
+    with pytest.raises(ValueError):
+        compact(keep, [torch.ones(16, device="cuda")] * (MAX_COLUMNS + 1))
+    with pytest.raises(ValueError):
+        compact(keep, [torch.ones(32, device="cuda")[::2]])
+    with pytest.raises(ValueError):
+        hash32([torch.ones(16, dtype=torch.int64, device="cuda")])
+    with pytest.raises(ValueError):
+        hash32([torch.ones(16, dtype=torch.int32, device="cuda"),
+                torch.ones(16, dtype=torch.int32)])

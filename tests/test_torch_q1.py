@@ -26,7 +26,8 @@ from arrow_tpu.io import tpch
 from arrow_tpu.io.tpch_device import q1_device_batch as jax_q1_device_batch
 from arrow_tpu.io.tpch_queries import q1_plan as jax_q1_plan
 from arrow_tpu.types import TypeId
-from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+from arrow_tpu_torch.acero import (AggregateNodeOptions, Declaration,
+                                   FilterNodeOptions, HashJoinNodeOptions,
                                    TableSourceNodeOptions, compile_chain,
                                    field)
 from arrow_tpu_torch.device.column import batch_from_numpy, download
@@ -103,15 +104,39 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         batch_from_numpy([("x", "int64", np.arange(3), None, None)], 3)
 
 
-def test_unported_nodes_raise():
+def _unported(kind, source, filtered):
+    if kind == "left outer join":
+        return Declaration("hashjoin", HashJoinNodeOptions(
+            "left outer", left_keys=["l_orderkey"],
+            right_keys=["l_orderkey"]), [filtered, source])
+    if kind == "residual join filter":
+        return Declaration("hashjoin", HashJoinNodeOptions(
+            "inner", left_keys=["l_orderkey"], right_keys=["l_orderkey"],
+            filter=field("l_quantity") > field("l_tax")), [filtered, source])
+    if kind == "union":
+        return Declaration("union", None, [filtered, source])
+    return Declaration("aggregate", AggregateNodeOptions(
+        [("l_quantity", "sum", None, "total")]), [filtered])
+
+
+@pytest.mark.parametrize("kind", ["left outer join", "residual join filter",
+                                  "union", "scalar aggregate"])
+def test_unported_nodes_raise(kind):
+    """A standalone filter and an inner hash join run; the nodes Q1 and Q3
+    do not need raise, naming their ROADMAP item."""
     tb, _ = q1_device_batch(0.001, device="cpu")
-    plan = Declaration.from_sequence([
-        Declaration("table_source", TableSourceNodeOptions(tb)),
-        Declaration("filter", FilterNodeOptions(field("l_quantity") > 5.0))])
-    with pytest.raises(NotImplementedError, match="K2"):
-        plan.to_table()
+    source = Declaration("table_source", TableSourceNodeOptions(tb))
+    filtered = Declaration("filter", FilterNodeOptions(
+        field("l_quantity") > 45.0), [source])
+    kept = filtered.to_table()
+    quantity = tb.column("l_quantity").values[:int(tb.row_count)]
+    assert len(kept["l_quantity"]) == int((quantity > 45.0).sum()) > 0
+    joined = Declaration("hashjoin", HashJoinNodeOptions(
+        "inner", left_keys=["l_orderkey"], right_keys=["l_orderkey"],
+        right_output=["l_linenumber"]), [filtered, source]).to_table()
+    assert len(joined["l_orderkey"]) >= len(kept["l_orderkey"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Declaration("hashjoin", None, [plan, plan]).to_table()
+        _unported(kind, source, filtered).to_table()
 
 
 def _port_sources():
