@@ -7,22 +7,26 @@ A Declaration tree runs node by node, eagerly, with no jit:
   directly below an aggregate (with only projects between) folds into the
   aggregate as a row mask, so its rows never move; an order_by directly
   below a fetch of at most ``_TOPK_MAX`` rows runs as one top-k;
-* a hash join runs each side's trailing filter/project chain, prefilters
-  the probe side with a bloom filter of the build keys when the probe side
-  is at least four times larger, plans the join, reads back the match
-  total and the largest per-row match count (the only host readback: it
-  sizes the output and picks the unique-build path), and gathers the
-  output rows.
+* a hash join runs each side's trailing filter/project chain, recodes
+  dictionary-coded key pairs into one union dictionary, prefilters the
+  probe side with a bloom filter of the build keys when the probe side is
+  at least four times larger and the join type drops unmatched probe rows
+  (inner, left semi, right semi, right outer), and plans the join. Right
+  semi and anti joins filter the build batch, left semi and anti joins
+  compact the probe batch, with no readback. The other types read back
+  the output total, the largest per-row match count and, for right and
+  full outer joins, the unmatched build count (the only host readback: it
+  sizes the output and picks the unique-build path), gather the output
+  rows, and append the unmatched build rows of a right or full outer join.
 
-Only inner joins are ported. Other join types, residual join filters,
-dictionary-coded join keys, scalar aggregates, and the
-union, as-of, sorted-merge and pivot nodes raise NotImplementedError
-naming their ROADMAP item.
+All eight join types are ported. Residual join filters, scalar
+aggregates, and the union, as-of, sorted-merge and pivot nodes raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,9 +37,10 @@ from ..compute import join as J
 from ..compute.grouper import (group_capacity_bound, group_ids,
                                group_slot_bound_exact)
 from ..compute.keys import sort_key_arrays, stable_sort_indices
+from ..compute.move import gather_rows
 from ..compute.registry import ExecContext, get_function
-from ..compute.selection import (filter_batch, gather_columns,
-                                 selection_mask, take_batch)
+from ..compute.selection import (compact_columns, filter_batch,
+                                 gather_columns, selection_mask, take_batch)
 from ..device.column import (DeviceBatch, DeviceColumn, capacity_class,
                              download)
 from ..types import Field, Schema, from_torch_dtype
@@ -342,32 +347,28 @@ def _collect_pre_chain(decl: "Declaration"):
     return tuple(chain), cur
 
 
+_BLOOM_TYPES = ("inner", "left semi", "right semi", "right outer")
+
+
 def _execute_hashjoin(options: HashJoinNodeOptions, left: DeviceBatch,
                       right: DeviceBatch, left_pre=(),
                       right_pre=()) -> DeviceBatch:
     """The left input probes, the right input builds (Acero builds on
     inputs[1])."""
     jt = options.join_type
-    if jt != "inner":
-        raise NotImplementedError(
-            f"{jt!r} joins are not ported yet; only inner joins are "
-            "(ROADMAP.md, queue 1, item 7: joins)")
     if options.filter_expression is not None:
         raise NotImplementedError("joins with a residual filter are not "
                                   "ported yet " + _LONG_TAIL)
-    # bloom pushdown: unmatched probe rows give no output, and the filter
-    # has no false negatives; capacities are static, so this is decided on
-    # the host
-    bloom_on = (not options.disable_bloom_filter
+    # bloom pushdown where an unmatched probe row gives no output: the
+    # filter has no false negatives; capacities are static, so this is
+    # decided on the host
+    bloom_on = (not options.disable_bloom_filter and jt in _BLOOM_TYPES
                 and left.capacity >= 4 * right.capacity)
     left = _apply(left_pre, left)
     right = _apply(right_pre, right)
     lkeys = [left.column(k) for k in options.left_keys]
     rkeys = [right.column(k) for k in options.right_keys]
-    if any(c.dictionary is not None for c in lkeys + rkeys):
-        raise NotImplementedError(
-            "dictionary-coded join keys are not ported yet (ROADMAP.md, "
-            "queue 1, item 7: joins)")
+    unified = _unify_dictionary_keys(lkeys, rkeys)
     if bloom_on:
         b_live = right.row_mask()
         p_live = left.row_mask()
@@ -378,28 +379,103 @@ def _execute_hashjoin(options: HashJoinNodeOptions, left: DeviceBatch,
         bf = bloom.build_bloom(rkeys, b_live,
                                bloom.log_bits_for(right.capacity))
         hit = bloom.bloom_query(bf, lkeys, p_live)
-        left = filter_batch(left, DeviceColumn(hit, None, T.bool_()))
-        lkeys = [left.column(k) for k in options.left_keys]
+        # the remapped probe keys ride the same compaction as the batch
+        n = len(left.columns)
+        cols, count = compact_columns(
+            left.columns + [lkeys[i] for i in unified], hit)
+        left = DeviceBatch(left.schema, cols[:n], count)
+        remapped = dict(zip(unified, cols[n:]))
+        lkeys = [remapped.get(i, left.column(k))
+                 for i, k in enumerate(options.left_keys)]
     plan = J.build_join_plan(rkeys, lkeys, right.row_count, left.row_count,
                              jt)
-    # the one readback: the total sizes the output, and a largest count of
-    # at most 1 means every probe row matches at most one build row
-    total, max_count = torch.stack([plan.total, plan.counts.max()]).tolist()
-    unique_build = max_count <= 1
-    out_cap = capacity_class(max(total, 1))
+    if jt in ("right semi", "right anti"):
+        # filters of the build batch: the whole right batch comes out
+        unmatched, matched = J.unmatched_build_plan(plan, right.row_count)
+        keep = matched if jt == "right semi" else unmatched
+        return filter_batch(right, DeviceColumn(keep, None, T.bool_()))
+    if jt in ("left semi", "left anti"):
+        # the kept probe rows, in order: one stable compaction
+        lnames, _, schema = _join_output_schema(options, left, right)
+        cols, count = compact_columns(left.select(lnames).columns,
+                                      plan.out_counts > 0)
+        return DeviceBatch(schema, cols, count)
+    # the one readback: the total sizes the output, a largest count of at
+    # most 1 means every probe row matches at most one build row, and the
+    # right and full outer joins add their unmatched build rows
+    unmatched = None
+    reads = [plan.total, plan.counts.max()]
+    if jt in ("right outer", "full outer"):
+        unmatched, _ = J.unmatched_build_plan(plan, right.row_count)
+        reads.append(unmatched.sum())
+    total, max_count, *n_unmatched = torch.stack(reads).tolist()
+    n_unmatched = n_unmatched[0] if n_unmatched else 0
+    unique_build = jt in ("inner", "left outer") and max_count <= 1
+    out_cap = capacity_class(max(total + n_unmatched, 1))
     if unique_build:
-        # the compaction expansion works in probe-capacity space
-        out_cap = min(out_cap, left.capacity)
+        # the identity and compaction expansions work in probe-capacity
+        # space
+        out_cap = left.capacity if jt == "left outer" \
+            else min(out_cap, left.capacity)
     return _join_materialize(options, plan, left, right, out_cap,
-                             unique_build)
+                             unique_build, total, unmatched, n_unmatched)
+
+
+def _unify_dictionary_keys(lkeys: List[DeviceColumn],
+                           rkeys: List[DeviceColumn]) -> List[int]:
+    """Dictionary-coded key pairs recoded, in place in both lists, into one
+    union dictionary: planned on the host, codes remapped on the device
+    (reference: ``exec.py:1086-1113``, ``_plan_unify``). Returns the key
+    positions recoded."""
+    unified = []
+    for i, (lk, rk) in enumerate(zip(lkeys, rkeys)):
+        if lk.dictionary is None and rk.dictionary is None:
+            continue
+        if lk.dictionary is None or rk.dictionary is None:
+            raise ValueError(
+                "hashjoin key mixes dictionary-coded and plain columns")
+        union, lmap, rmap = _plan_unify(lk.dictionary, rk.dictionary)
+        lkeys[i] = _recode(lk, lmap, union)
+        rkeys[i] = _recode(rk, rmap, union)
+        unified.append(i)
+    return unified
+
+
+def _plan_unify(ldict, rdict):
+    """(union dictionary, left code -> union code, right code -> union
+    code); the union lists the left values, then the right's new ones."""
+    union: List = []
+    index: Dict = {}
+
+    def add(values):
+        mapping = np.zeros(max(len(values), 1), dtype=np.int32)
+        for i, v in enumerate(values):
+            if v not in index:
+                index[v] = len(union)
+                union.append(v)
+            mapping[i] = index[v]
+        return mapping
+
+    lmap = add(ldict)
+    rmap = add(rdict)
+    return tuple(union), lmap, rmap
+
+
+def _recode(c: DeviceColumn, mapping: np.ndarray, union) -> DeviceColumn:
+    table = torch.from_numpy(mapping).to(c.values.device)
+    (codes,) = gather_rows([table], c.values.long())
+    return DeviceColumn(codes, c.validity, c.type, union)
 
 
 def _join_output_schema(options: HashJoinNodeOptions, left: DeviceBatch,
                         right: DeviceBatch):
     """(left names, right names, output schema); a name on both sides
-    takes its side's suffix."""
+    takes its side's suffix. Left semi and anti joins output the probe
+    side only, with no suffixes."""
     lnames = options.left_output if options.left_output is not None \
         else left.schema.names
+    if options.join_type in ("left semi", "left anti"):
+        return lnames, [], left.select(lnames).schema
     rnames = options.right_output if options.right_output is not None \
         else right.schema.names
     fields = []
@@ -414,14 +490,52 @@ def _join_output_schema(options: HashJoinNodeOptions, left: DeviceBatch,
 
 def _join_materialize(options: HashJoinNodeOptions, plan: J.JoinPlan,
                       left: DeviceBatch, right: DeviceBatch, out_cap: int,
-                      unique_build: bool) -> DeviceBatch:
+                      unique_build: bool, total: int,
+                      unmatched: Optional[torch.Tensor],
+                      n_unmatched: int) -> DeviceBatch:
+    jt = options.join_type
     lnames, rnames, out_schema = _join_output_schema(options, left, right)
-    probe_idx, build_idx = J.join_gather_indices(
-        plan, out_cap, options.join_type, unique_build=unique_build)
-    # an empty output list emits no columns of that side (Q3's first join)
-    out_cols = gather_columns(left.select(lnames).columns, probe_idx) \
-        + gather_columns(right.select(rnames).columns, build_idx)
-    return DeviceBatch(out_schema, out_cols, plan.total.to(torch.int32))
+    probe_idx, build_idx, build_valid = J.join_gather_indices(
+        plan, out_cap, jt, unique_build=unique_build)
+    lsub, rsub = left.select(lnames), right.select(rnames)
+    if unique_build and jt == "left outer":
+        # the identity expansion: the probe columns do not move
+        lcols = list(lsub.columns)
+    else:
+        # an empty output list emits no columns of that side (Q3's first
+        # join)
+        lcols = gather_columns(lsub.columns, probe_idx)
+    rcols = gather_columns(rsub.columns, build_idx, build_valid)
+    if unmatched is None:
+        return DeviceBatch(out_schema, lcols + rcols,
+                           plan.total.to(torch.int32))
+    # right and full outer: the unmatched build rows, in build-row order,
+    # after the probe-side rows, with a null probe side
+    end = total + n_unmatched
+    lcols = [DeviceColumn(c.values, _set_validity(c, total, out_cap, False),
+                          c.type, c.dictionary) for c in lcols]
+    if rcols:
+        appended, _ = compact_columns(rsub.columns, unmatched)
+        for c, a in zip(rcols, appended):
+            # c.values is the gather's own tensor: write in place
+            c.values[total:end] = a.values[:n_unmatched]
+            c.validity = _set_validity(
+                c, total, end,
+                True if a.validity is None else a.validity[:n_unmatched])
+    return DeviceBatch(out_schema, lcols + rcols,
+                       torch.tensor(end, dtype=torch.int32,
+                                    device=plan.total.device))
+
+
+def _set_validity(c: DeviceColumn, start: int, stop: int,
+                  value) -> torch.Tensor:
+    """A copy of ``c``'s validity (all valid when it has none) with rows
+    ``[start, stop)`` set to ``value``."""
+    validity = (torch.ones(c.capacity, dtype=torch.bool,
+                           device=c.values.device)
+                if c.validity is None else c.validity.clone())
+    validity[start:stop] = value
+    return validity
 
 
 class Declaration:

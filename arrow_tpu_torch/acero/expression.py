@@ -2,11 +2,14 @@
 ``arrow_tpu/acero/expression.py``). An expression evaluates eagerly over a
 DeviceBatch through the compute registry. A comparison of a
 dictionary-coded column with a literal translates the literal through the
-host dictionary."""
+host dictionary, and ``match_like`` on a dictionary-coded column computes
+one boolean per dictionary slot on the host and looks it up by the codes
+on the device."""
 
 from __future__ import annotations
 
 import bisect
+import re
 from typing import Optional
 
 import numpy as np
@@ -67,6 +70,9 @@ class Expression:
     def __rsub__(self, o): return self._bin("subtract", o, True)  # noqa: E704
     def __mul__(self, o): return self._bin("multiply", o)      # noqa: E704
     def __rmul__(self, o): return self._bin("multiply", o, True)  # noqa: E704
+    def __and__(self, o): return self._bin("and_kleene", o)    # noqa: E704
+    def __or__(self, o): return self._bin("or_kleene", o)      # noqa: E704
+    def __invert__(self): return Expression.call("invert", self)  # noqa: E704
 
     def __hash__(self):
         return hash(repr(self))
@@ -97,6 +103,8 @@ def _evaluate(expr: Expression, batch: DeviceBatch, ctx: ExecContext):
     if expr.kind == Expression.KIND_FIELD:
         return batch.column(expr.name)
     args = [_evaluate(a, batch, ctx) for a in expr.args]
+    if expr.fn == "match_like":
+        return match_like(*args, **expr.options)
     if expr.fn in _COMPARISONS:
         args = _translate_string_compare(expr.fn, args)
     if any(_is_string_col(a) for a in args):
@@ -115,6 +123,48 @@ def _codes(col: DeviceColumn, table: np.ndarray) -> torch.Tensor:
     codes, clamped into the dictionary."""
     safe = col.values.long().clamp(0, len(table) - 1)
     return torch.from_numpy(table).to(col.values.device)[safe]
+
+
+def _like_to_regex(pattern: str) -> str:
+    """SQL LIKE as an anchored regular expression: ``%`` any run, ``_`` one
+    character, a backslash escapes the next character."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\" and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return "^" + "".join(out) + "$"
+
+
+def match_like(col, pattern: str = "", ignore_case: bool = False
+               ) -> DeviceColumn:
+    """SQL LIKE on a dictionary-coded column (reference:
+    ``compute/strings.py`` ``_match_like`` and ``_map_to_lookup``): one
+    match per dictionary slot, looked up by the codes; nulls stay null."""
+    if not _is_string_col(col):
+        raise NotImplementedError(
+            "match_like on a column that is not dictionary-coded is not "
+            "ported yet (ROADMAP.md, queue 1, item 9: the long tail)")
+    rx = re.compile(_like_to_regex(pattern),
+                    re.IGNORECASE if ignore_case else 0)
+    table = np.array([v is not None and bool(rx.match(v))
+                      for v in col.dictionary], dtype=np.bool_)
+    if not len(table):
+        out = torch.zeros(col.capacity, dtype=torch.bool,
+                          device=col.values.device)
+    else:
+        out = _codes(col, table)
+    return DeviceColumn(out, col.validity, T.bool_())
 
 
 def _translate_string_compare(fn, args):

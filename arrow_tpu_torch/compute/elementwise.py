@@ -1,9 +1,11 @@
-"""Element-wise kernels: arithmetic and comparisons (counterpart of
-``arrow_tpu/compute/elementwise.py``).
+"""Element-wise kernels: arithmetic, comparisons and boolean logic
+(counterpart of ``arrow_tpu/compute/elementwise.py``).
 
 Nulls follow the reference's intersection policy: the result is null where
 any input is null. Numeric value lanes at null positions hold zeros, so
-downstream reductions are deterministic.
+downstream reductions are deterministic. ``and_kleene`` and ``or_kleene``
+(the ``&`` and ``|`` of expressions) follow Kleene logic instead: a valid
+false decides an AND and a valid true an OR, null or not.
 """
 
 from __future__ import annotations
@@ -91,3 +93,66 @@ less = _compare("less", operator.lt)
 less_equal = _compare("less_equal", operator.le)
 greater = _compare("greater", operator.gt)
 greater_equal = _compare("greater_equal", operator.ge)
+
+
+# --- boolean ----------------------------------------------------------------
+
+def _bool_pair(a, b):
+    """(a values, a validity, b values, b validity): bool tensors of one
+    shape on one device; a literal broadcasts and has no validity."""
+    av, avd = _as_values(a)
+    bv, bvd = _as_values(b)
+    dev = next((x.device for x in (av, bv) if isinstance(x, torch.Tensor)),
+               None)
+    av, bv = torch.broadcast_tensors(
+        torch.as_tensor(av, device=dev).to(torch.bool),
+        torch.as_tensor(bv, device=dev).to(torch.bool))
+    return av, avd, bv, bvd
+
+
+def _bool_col(values, validity) -> DeviceColumn:
+    return DeviceColumn(values, validity, bool_())
+
+
+@register("and", "elementwise")
+def and_(ctx, a, b):
+    """Intersection null policy: null where either side is null."""
+    av, avd, bv, bvd = _bool_pair(a, b)
+    return _bool_col(av & bv, _and_validity(avd, bvd))
+
+
+@register("or", "elementwise")
+def or_(ctx, a, b):
+    av, avd, bv, bvd = _bool_pair(a, b)
+    return _bool_col(av | bv, _and_validity(avd, bvd))
+
+
+@register("invert", "elementwise")
+def invert(ctx, a):
+    av, avd = _as_values(a)
+    return _bool_col(~av.to(torch.bool), avd)
+
+
+def _valid(v: torch.Tensor, validity):
+    return validity if validity is not None else torch.ones_like(v)
+
+
+@register("and_kleene", "elementwise")
+def and_kleene(ctx, a, b):
+    """Kleene AND: false where either side is a valid false, else null
+    where either side is null (``false & null`` is false)."""
+    av, avd, bv, bvd = _bool_pair(a, b)
+    a_valid, b_valid = _valid(av, avd), _valid(bv, bvd)
+    any_false = (a_valid & ~av) | (b_valid & ~bv)
+    out = ((av & a_valid) | ~a_valid) & ((bv & b_valid) | ~b_valid)
+    return _bool_col(out & ~any_false, any_false | (a_valid & b_valid))
+
+
+@register("or_kleene", "elementwise")
+def or_kleene(ctx, a, b):
+    """Kleene OR: true where either side is a valid true, else null where
+    either side is null (``true | null`` is true)."""
+    av, avd, bv, bvd = _bool_pair(a, b)
+    a_valid, b_valid = _valid(av, avd), _valid(bv, bvd)
+    any_true = (a_valid & av) | (b_valid & bv)
+    return _bool_col(any_true, any_true | (a_valid & b_valid))

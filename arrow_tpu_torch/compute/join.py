@@ -9,11 +9,12 @@ ids. Matches expand by an exclusive prefix sum and a search of the output
 row in it.
 
 Two phases: ``build_join_plan`` returns everything sized by the inputs,
-the total match count included; the caller reads the total back, picks the
-output capacity, and ``join_gather_indices`` makes the row indices.
+the total output count included; the caller reads the total back, picks
+the output capacity, and ``join_gather_indices`` makes the row indices.
 
-Only inner joins are ported (ROADMAP.md, queue 1, item 7). Null keys never
-match. Within each probe row, matches come in ascending build-row order.
+Join types: inner, left/right/full outer, left/right semi/anti. Null keys
+never match but still come out of the outer joins. Within each probe row,
+matches come in ascending build-row order.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from .keys import equality_word, order_word, stable_sort_indices
 from .move import compact_by_mask, gather_rows
 
 _INT64_MAX = (1 << 63) - 1
+# the join types whose output needs to know which build rows matched
+BUILD_SIDE_TYPES = ("right outer", "full outer", "right semi", "right anti")
 
 
 class JoinPlan(NamedTuple):
@@ -34,16 +37,12 @@ class JoinPlan(NamedTuple):
     order_b: torch.Tensor     # build rows in sorted order (int64)
     left: torch.Tensor        # per probe row: first match in order_b
     counts: torch.Tensor      # per probe row: number of matches
-    offsets: torch.Tensor     # exclusive prefix sum of the counts
-    total: torch.Tensor       # total output rows (0-d int64)
+    out_counts: torch.Tensor  # per probe row: output rows of the join type
+    offsets: torch.Tensor     # exclusive prefix sum of out_counts
+    total: torch.Tensor       # total probe-side output rows (0-d int64)
     probe_live: torch.Tensor  # probe row is live
-
-
-def _require_inner(join_type: str):
-    if join_type != "inner":
-        raise NotImplementedError(
-            f"{join_type!r} joins are not ported yet; only inner joins "
-            "are (ROADMAP.md, queue 1, item 7: joins)")
+    # per build row: matched a live probe row (BUILD_SIDE_TYPES only)
+    build_matched: Optional[torch.Tensor]
 
 
 def _null_mask(col: DeviceColumn) -> torch.Tensor:
@@ -115,7 +114,6 @@ def build_join_plan(build_cols: Sequence[DeviceColumn],
                     probe_cols: Sequence[DeviceColumn],
                     build_count, probe_count,
                     join_type: str = "inner") -> JoinPlan:
-    _require_inner(join_type)
     b_cap = build_cols[0].capacity
     p_cap = probe_cols[0].capacity
     dev = build_cols[0].values.device
@@ -156,45 +154,106 @@ def build_join_plan(build_cols: Sequence[DeviceColumn],
         right = torch.searchsorted(sorted_gb, gp_search, right=True)
         counts = torch.where(valid, right - left, 0)
 
-    out_counts = torch.where(probe_mask, counts, 0)
+    if join_type in ("left outer", "full outer"):
+        # an unmatched live probe row still gives one row
+        out_counts = torch.where(counts == 0, 1, counts)
+    elif join_type == "left semi":
+        out_counts = (counts > 0).long()
+    elif join_type == "left anti":
+        out_counts = (counts == 0).long()
+    else:
+        out_counts = counts
+    out_counts = torch.where(probe_mask, out_counts, 0)
     offsets = torch.cumsum(out_counts, 0) - out_counts
     total = out_counts.sum()
-    return JoinPlan(order_b, left, counts, offsets, total, probe_mask)
+    build_matched = None
+    if join_type in BUILD_SIDE_TYPES:
+        build_matched = _build_matched(order_b, left, counts)
+    return JoinPlan(order_b, left, counts, out_counts, offsets, total,
+                    probe_mask, build_matched)
+
+
+def _build_matched(order_b, left, counts) -> torch.Tensor:
+    """Build rows inside some live probe row's match run, by a difference
+    array over the sorted build positions: +1 where a run opens, -1 where
+    it closes, a prefix sum, then a scatter back to build-row order. (The
+    reference sorts the run ends instead, because scatters serialize on a
+    TPU.) Runs lie in the live region of the sorted build side, so dead
+    and padding build rows are never matched."""
+    b_cap = order_b.shape[0]
+    is_match = counts > 0
+    diff = torch.zeros(b_cap + 1, dtype=torch.int32, device=counts.device)
+    # unmatched probe rows add +1 and -1 at the unused slot b_cap
+    diff.index_add_(0, torch.where(is_match, left, b_cap),
+                    torch.ones_like(left, dtype=torch.int32))
+    diff.index_add_(0, torch.where(is_match, left + counts, b_cap),
+                    torch.full_like(left, -1, dtype=torch.int32))
+    covered = torch.cumsum(diff[:b_cap], 0) > 0
+    matched = torch.empty(b_cap, dtype=torch.bool, device=counts.device)
+    matched[order_b] = covered
+    return matched
 
 
 def join_gather_indices(plan: JoinPlan, out_capacity: int,
                         join_type: str = "inner",
                         unique_build: bool = False):
-    """The plan expanded into (probe_idx, build_idx), each of length
-    ``out_capacity``; rows from ``plan.total`` on are padding.
+    """The plan expanded into (probe_idx, build_idx, build_valid), the
+    indices of length ``out_capacity``; rows from ``plan.total`` on are
+    padding. ``build_valid`` is False on the rows of an unmatched probe
+    row, whose build side is null, and None for the join types that have
+    no such rows (all but left and full outer).
 
     ``unique_build`` is the primary-key path (the caller saw every probe
-    row match at most one build row): the matched probe rows are the
-    output rows, in order, so one compaction of the probe indices and
-    their match positions replaces the expansion search. The reference
-    sorts by the drop flag for this; both give the same live rows."""
-    _require_inner(join_type)
+    row match at most one build row). For a left outer join each probe row
+    gives exactly its own output row, so the expansion is the identity and
+    ``out_capacity`` must be the probe capacity. For an inner join the
+    matched probe rows are the output rows, in order, so one compaction of
+    the probe indices and their match positions replaces the expansion
+    search (the reference sorts by the drop flag; both give the same live
+    rows)."""
     b_len = plan.order_b.shape[0]
+    p_cap = plan.counts.shape[0]
     dev = plan.counts.device
-    if unique_build:
-        p_cap = plan.counts.shape[0]
+    if unique_build and join_type == "left outer":
+        if out_capacity != p_cap:
+            raise ValueError(f"the identity expansion needs the probe "
+                             f"capacity {p_cap}, not {out_capacity}")
+        (build_idx,) = gather_rows([plan.order_b],
+                                   plan.left.clamp(max=b_len - 1))
+        probe_idx = torch.arange(p_cap, dtype=torch.int64, device=dev)
+        return probe_idx, build_idx, (plan.counts > 0) & plan.probe_live
+    if unique_build and join_type == "inner":
         iota = torch.arange(p_cap, dtype=torch.int64, device=dev)
         (s_iota, s_left), _ = compact_by_mask(plan.counts > 0,
                                               [iota, plan.left])
         probe_idx = s_iota[:out_capacity]
         (build_idx,) = gather_rows([plan.order_b],
                                    s_left[:out_capacity].clamp(max=b_len - 1))
-        return probe_idx, build_idx
+        return probe_idx, build_idx, None
+    if unique_build:
+        raise ValueError(f"no unique-build expansion for {join_type!r} "
+                         "joins")
     # the probe row of output row i: the first inclusive prefix sum past i
     out_i = torch.arange(out_capacity, dtype=torch.int64, device=dev)
-    inclusive = plan.offsets + plan.counts.where(plan.probe_live, 0)
-    probe_idx = torch.searchsorted(inclusive, out_i, right=True) \
-        .clamp(max=plan.offsets.shape[0] - 1)
+    probe_idx = torch.searchsorted(plan.offsets + plan.out_counts, out_i,
+                                   right=True).clamp(max=p_cap - 1)
     g_offsets, g_counts, g_left = gather_rows(
         [plan.offsets, plan.counts, plan.left], probe_idx)
     k = out_i - g_offsets
     sorted_pos = g_left + torch.minimum(k, (g_counts - 1).clamp(min=0))
     (build_idx,) = gather_rows([plan.order_b],
                                sorted_pos.clamp(max=b_len - 1))
-    return probe_idx, build_idx
+    build_valid = None
+    if join_type in ("left outer", "full outer"):
+        build_valid = (g_counts > 0) & (out_i < plan.total)
+    return probe_idx, build_idx, build_valid
 
+
+def unmatched_build_plan(plan: JoinPlan, build_count):
+    """(unmatched, matched) masks of the live build rows, for the
+    BUILD_SIDE_TYPES."""
+    b_cap = plan.build_matched.shape[0]
+    build_mask = torch.arange(b_cap, dtype=torch.int32,
+                              device=plan.build_matched.device) < build_count
+    return (build_mask & ~plan.build_matched,
+            build_mask & plan.build_matched)

@@ -93,15 +93,19 @@ def filter_batch(batch: DeviceBatch, mask_col: DeviceColumn,
     return DeviceBatch(batch.schema, cols, count)
 
 
-def gather_columns(cols: Sequence[DeviceColumn],
-                   idx: torch.Tensor) -> List[DeviceColumn]:
+def gather_columns(cols: Sequence[DeviceColumn], idx: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None
+                   ) -> List[DeviceColumn]:
     """Rows ``idx`` of every column. Indices out of range read the nearest
     end row, as the reference's ``move.gather_rows`` does; callers mask
-    them."""
+    them. ``valid`` (the reference's ``join.gather_batch_columns``) nulls
+    the rows where it is False, on top of each column's own validity."""
     out = []
     for c in cols:
         safe = idx.clamp(0, c.capacity - 1)
         validity = c.validity[safe] if c.validity is not None else None
+        if valid is not None:
+            validity = valid if validity is None else validity & valid
         out.append(DeviceColumn(c.values[safe], validity, c.type,
                                 c.dictionary))
     return out

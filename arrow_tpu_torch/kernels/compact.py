@@ -95,10 +95,9 @@ def compact(keep: torch.Tensor, arrays: Sequence[torch.Tensor]
     widths = (ctypes.c_int * k)(*[a.element_size() for a in arrays])
     scratch = torch.empty((n + TILE_ROWS - 1) // TILE_ROWS,
                           dtype=torch.int32, device=keep.device)
-    with torch.cuda.device(keep.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _function()(keep.data_ptr(), n, src, dst, widths, k,
-                          scratch.data_ptr(), count.data_ptr(), stream)
+    stream = torch.cuda.current_stream(keep.device).cuda_stream
+    err = _function()(keep.data_ptr(), n, src, dst, widths, k,
+                      scratch.data_ptr(), count.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"compact launch failed: CUDA error {err}")
     compact.launches += 1

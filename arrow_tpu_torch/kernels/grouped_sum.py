@@ -73,11 +73,10 @@ def grouped_sum(values: torch.Tensor, gids: torch.Tensor,
                       device=values.device)
     n = values.numel()
     if n:
-        fn = _functions()[values.dtype]
-        with torch.cuda.device(values.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(values.data_ptr(), gids.data_ptr(), n, num_segments,
-                     out.data_ptr(), stream)
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = _functions()[values.dtype](
+            values.data_ptr(), gids.data_ptr(), n, num_segments,
+            out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"grouped_sum launch failed: CUDA error {err}")
         grouped_sum.launches += 1

@@ -71,9 +71,8 @@ def hash32(words: Sequence[torch.Tensor]) -> torch.Tensor:
     k = len(words)
     planes = (ctypes.c_void_p * k)(*[w.data_ptr() for w in words])
     strides = (ctypes.c_longlong * k)(*[w.stride(0) for w in words])
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _function()(planes, strides, k, n, out.data_ptr(), stream)
+    stream = torch.cuda.current_stream(first.device).cuda_stream
+    err = _function()(planes, strides, k, n, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hash32 launch failed: CUDA error {err}")
     hash32.launches += 1

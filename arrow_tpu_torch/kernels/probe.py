@@ -35,9 +35,8 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"probe: unsupported device {x.device}")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _function()(x.data_ptr(), y.data_ptr(), x.numel(), stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _function()(x.data_ptr(), y.data_ptr(), x.numel(), stream)
     if err != 0:
         raise RuntimeError(f"probe launch failed: CUDA error {err}")
     probe.launches += 1

@@ -15,8 +15,10 @@ Phases; any failure exits non-zero without the final line:
    sum in f64 at Q1's shape (SF10's capacity, 12 slots) and at 512 slots,
    in f32 at 16 slots, and with Inf and NaN groups; the compaction at Q3's
    lineitem filter (SF10, four columns), under all-true and all-false
-   masks, and at a ragged 1,000,003 rows of bool, int32, int64 and f64
-   with NaN and -0.0 bit patterns, bit for bit with the count; the hash of
+   masks, at Q4's lineitem filter (SF10, all 15 columns), at Q4's and
+   Q13's orders filters and Q4's semi-join selection (all 9 columns of
+   SF10 orders), and at a ragged 1,000,003 rows of bool, int32, int64 and
+   f64 with NaN and -0.0 bit patterns, bit for bit with the count; the hash of
    1, 2 and 3 words at 60M rows, and of the main path's join keys (the
    strided int32 halves of ``l_orderkey``'s and ``o_custkey``'s equality
    words at SF10's capacities), bit for bit.
@@ -24,15 +26,27 @@ Phases; any failure exits non-zero without the final line:
    read just after. Q1: ``self_check()``, ``q1_device_batch(10.0)``,
    ``compile_chain(q1_chain_decls())`` and the download of the result.
    Q3: ``self_check()``, ``q3_device_plan(10.0)`` and ``.to_table()``.
+   Q4: ``self_check()``, ``q1_device_batch(10.0)`` as lineitem and
+   ``q4_plan(orders, lineitem).to_table()``. Q13: ``self_check()`` and
+   ``q13_plan(customer, orders).to_table()``. Orders and customer come
+   from the port's host generator (``io/tpch.py``) at SF10, made once.
    Each result is held against an independent numpy query over the
-   downloaded source columns.
-4. Times after a warm-up: Q1 and Q3 rows/s, a profile of one run of each,
-   and each kernel's time (CUDA events) beside its bound, its plain
-   version's and one library call's where there is one.
+   downloaded source columns, and each path's launches are exact.
+   Then (3b) all eight join types, each run against a numpy oracle of
+   the join (row count, row order, values and validity exact) with its
+   launches exact: orders probing customer filtered to one segment at
+   SF10, where the bloom engages for inner, left semi, right semi and
+   right outer joins, and 1,000,000 probe rows against 200,000 build
+   rows with duplicate keys on both sides and 5% null keys.
+4. Times after a warm-up: Q1, Q3, Q4 and Q13 rows/s (best of 5), a
+   profile of one run of each, and each kernel's time beside its bound,
+   its plain version's and one library call's where there is one: by
+   CUDA events around back-to-back calls, and as device time from the
+   profiler.
 
-The line before the last is one JSON object with a record per kernel; the
-last is ``{"ok": true, "device": {...}}``. The script imports torch, numpy
-and the port only.
+The line before the last is one JSON object with a record per kernel, its
+launches by path; the last is ``{"ok": true, "device": {...}}``. The
+script imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -41,12 +55,14 @@ import json
 import sys
 import time
 import traceback
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 F64_OPS_PER_S = 34e12       # H100 SXM FP64 outside the tensor cores
+F32_OPS_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
 # H100 SXM int32: 64 lanes an SM (CUDA programming guide, compute
 # capability 9.0) x 132 SMs x 1.98 GHz boost
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -56,8 +72,29 @@ SF = 10.0
 Q1_SLOTS = 12               # (3+1) return flags x (2+1) line statuses
 RTOL_F64 = 1e-9             # the atomics reorder f64 additions
 RTOL_F32 = 1e-5             # an f32 result against an f64 reference
-Q3_LAUNCHES = {"compact": 7, "hash32": 4, "grouped_sum": 0, "probe": 1}
 Q1_LAUNCHES = {"compact": 0, "hash32": 0, "grouped_sum": 7, "probe": 1}
+Q3_LAUNCHES = {"compact": 7, "hash32": 4, "grouped_sum": 0, "probe": 1}
+Q4_LAUNCHES = {"compact": 3, "hash32": 0, "grouped_sum": 0, "probe": 1}
+Q13_LAUNCHES = {"compact": 1, "hash32": 0, "grouped_sum": 0, "probe": 1}
+JOIN_TYPES = ("inner", "left outer", "right outer", "full outer",
+              "left semi", "left anti", "right semi", "right anti")
+# (compact, hash32) launches of one join of each type. SF10: orders probe
+# customer filtered by segment (a compaction); the bloom (2 hashes, 1
+# compaction) engages for inner, left semi, right semi and right outer;
+# inner takes the unique-build compaction, left outer the identity; right
+# and full outer append their unmatched build rows, left semi and anti
+# compact the probe side, right semi and anti the build side.
+JOIN_LAUNCHES_SF10 = {"inner": (3, 2), "left outer": (1, 0),
+                      "right outer": (3, 2), "full outer": (2, 0),
+                      "left semi": (3, 2), "left anti": (2, 0),
+                      "right semi": (3, 2), "right anti": (2, 0)}
+# the null-key tables: no pre-filter, and duplicate build keys take the
+# general expansion (no unique-build path)
+JOIN_LAUNCHES_NULLS = {"inner": (1, 2), "left outer": (0, 0),
+                       "right outer": (2, 2), "full outer": (1, 0),
+                       "left semi": (2, 2), "left anti": (1, 0),
+                       "right semi": (2, 2), "right anti": (1, 0)}
+NULL_KEY_ROWS = (1_000_000, 200_000)  # probe and build rows, 5% null keys
 
 
 def log(*parts):
@@ -169,6 +206,35 @@ def q3_filter_inputs(lineitem):
     return keep, [c.values for c in lineitem.columns]
 
 
+def q13_special(orders):
+    """Per ``o_comment`` dictionary slot: the comment is like
+    '%special%requests%'."""
+    import re
+    return np.array([re.search("special.*requests", c, re.S) is not None
+                     for c in orders.column("o_comment").dictionary])
+
+
+def q4_q13_filter_inputs(lineitem, orders):
+    """(name, keep mask, columns) of each compaction on Q4's and Q13's
+    paths, at the shapes the plans give it: Q4's lineitem filter moves all
+    of lineitem's columns, Q4's and Q13's orders filters and Q4's semi
+    join selection (of the filtered orders) all of orders' columns."""
+    from arrow_tpu_torch.io.tpch_queries import DATE_1993_07_01
+    li_keep = (lineitem.column("l_commitdate").values
+               < lineitem.column("l_receiptdate").values) & lineitem.row_mask()
+    date = orders.column("o_orderdate").values
+    q4_keep = (date >= DATE_1993_07_01) & (date < DATE_1993_07_01 + 92) \
+        & orders.row_mask()
+    special = torch.from_numpy(q13_special(orders)).to(date.device)
+    q13_keep = ~special[orders.column("o_comment").values.long()] \
+        & orders.row_mask()
+    li_cols = [c.values for c in lineitem.columns]
+    o_cols = [c.values for c in orders.columns]
+    return [("Q4 lineitem filter", li_keep, li_cols),
+            ("Q4 orders filter", q4_keep, o_cols),
+            ("Q13 orders filter", q13_keep, o_cols)], li_keep
+
+
 def hash_words(n, k, seed):
     """k planes of n random uint32 words (int32 bits), starting with 0,
     0x80000000 and 0xFFFFFFFF."""
@@ -204,10 +270,11 @@ def phase_probe():
     return card
 
 
-def phase_kernels(n):
+def phase_kernels(n, orders):
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
-    from arrow_tpu_torch.io.tpch_device import q3_device_plan
+    from arrow_tpu_torch.io.tpch_device import (q1_device_batch,
+                                                q3_device_plan)
     from arrow_tpu_torch.kernels.compact import compact, compact_plain
     from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
                                                      grouped_sum_plain)
@@ -247,20 +314,21 @@ def phase_kernels(n):
         if count.device.type != "cuda" or count.dtype != torch.int32 \
                 or int(count) != int(want_count):
             raise AssertionError(f"{name}: count {count} != {want_count}")
-        return check_bit_exact(f"{name}, count {int(count)}", outs, want)
+        check_bit_exact(f"{name}, count {int(count)}", outs, want)
+        return outs, count
 
-    lineitem, orders, _ = q3_sources(q3_device_plan(SF)[0])
-    keep, cols = q3_filter_inputs(lineitem)
+    q3_lineitem, q3_orders, _ = q3_sources(q3_device_plan(SF)[0])
+    keep, cols = q3_filter_inputs(q3_lineitem)
     m = keep.numel()
-    errs["compact"] = compact_case(
-        f"compact Q3 lineitem filter n={m} x4", keep, cols)
+    compact_case(f"compact Q3 lineitem filter n={m} x4", keep, cols)
+    errs["compact"] = 0.0
     compact_case(f"compact all kept n={m} x4",
                  torch.ones_like(keep), cols)
     compact_case(f"compact none kept n={m} x4",
                  torch.zeros_like(keep), cols)
     # the join keys as the bloom hashes them: two strided int32 views of
     # each int64 equality word
-    for batch, key in ((lineitem, "l_orderkey"), (orders, "o_custkey")):
+    for batch, key in ((q3_lineitem, "l_orderkey"), (q3_orders, "o_custkey")):
         words = int64_halves(equality_word(batch.column(key)))
         err = check_bit_exact(
             f"hash32 {key} halves n={words[0].numel()} "
@@ -269,7 +337,23 @@ def phase_kernels(n):
         if key == "l_orderkey":
             errs["hash32"] = err
         del words
-    del lineitem, orders, keep, cols
+    del q3_lineitem, q3_orders, keep, cols
+    # Q4's and Q13's compactions, each over every column of its batch
+    lineitem, _ = q1_device_batch(SF)
+    cases, li_keep = q4_q13_filter_inputs(lineitem, orders)
+    for name, keep, cols in cases:
+        outs, count = compact_case(
+            f"compact {name} n={keep.numel()} x{len(cols)}", keep, cols)
+        if name == "Q4 orders filter":
+            # the semi join keeps the filtered orders with a late lineitem
+            semi_keep = torch.isin(
+                outs[0], lineitem.column("l_orderkey").values[li_keep]) \
+                & (torch.arange(keep.numel(), device="cuda") < count)
+            compact_case(f"compact Q4 semi join selection n={keep.numel()} "
+                         f"x{len(outs)}", semi_keep, outs)
+            del semi_keep
+        del outs
+    del lineitem, cases, li_keep, keep, cols
     gen = torch.Generator(device="cuda").manual_seed(7)
     r = 1_000_003
     f64 = torch.randn(r, generator=gen, device="cuda", dtype=torch.float64)
@@ -372,6 +456,241 @@ def q3_oracle(plan, limit=10):
     }, len(groups), int(line_ok.sum())
 
 
+class JoinSide(NamedTuple):
+    """One input of a join as the numpy oracle sees it: key values and
+    validity by row, and a column that names each row."""
+    keys: np.ndarray
+    valid: np.ndarray
+    id_name: str
+    ids: np.ndarray
+
+
+class MatchRuns(NamedTuple):
+    """Each probe row's run of matching build rows, in numpy."""
+    order: np.ndarray      # live build rows by key, then by row
+    lo: np.ndarray         # per probe row: its first match in ``order``
+    counts: np.ndarray     # per probe row: its matches (0 on a null key)
+    b_matched: np.ndarray  # per build row: some probe row matched it
+
+
+def match_runs(probe: JoinSide, build: JoinSide) -> MatchRuns:
+    """The runs by a counting sort of the build keys, which must be
+    non-negative integers. Null keys never match."""
+    b_live = np.flatnonzero(build.valid)
+    bk = build.keys[b_live]
+    pk = np.where(probe.valid, probe.keys, 0)
+    if (bk < 0).any() or (pk < 0).any():
+        raise ValueError("the join oracle takes non-negative keys")
+    per_key = np.bincount(bk, minlength=int(pk.max(initial=0)) + 1)
+    lo = (np.cumsum(per_key) - per_key)[pk]
+    counts = np.where(probe.valid, per_key[pk], 0)
+    order = b_live[np.argsort(bk, kind="stable")]
+    b_matched = np.zeros(len(build.keys), dtype=bool)
+    b_matched[order[np.repeat(lo, counts) + _ranks_within(counts)]] = True
+    return MatchRuns(order, lo, counts, b_matched)
+
+
+def join_oracle(jt, runs: MatchRuns):
+    """(probe row, build row) of every output row of a single-key hash
+    join, in the engine's order, -1 for a null side: probe rows in order,
+    each one's matches in build-row order (an unmatched probe row of a
+    left or full outer join in place), then the unmatched build rows of a
+    right or full outer join."""
+    counts = runs.counts
+    if jt in ("left semi", "left anti"):
+        rows = np.flatnonzero((counts > 0) == (jt == "left semi"))
+        return rows, np.full(len(rows), -1)
+    if jt in ("right semi", "right anti"):
+        rows = np.flatnonzero(runs.b_matched == (jt == "right semi"))
+        return np.full(len(rows), -1), rows
+    out_counts = counts if jt in ("inner", "right outer") \
+        else np.maximum(counts, 1)
+    p_idx = np.repeat(np.arange(len(counts)), out_counts)
+    pos = np.repeat(runs.lo, out_counts) + _ranks_within(out_counts)
+    # an unmatched probe row reads the -1 appended after the build rows
+    b_idx = np.append(runs.order, -1)[
+        np.where(np.repeat(counts > 0, out_counts), pos, len(runs.order))]
+    if jt in ("right outer", "full outer"):
+        extra = np.flatnonzero(~runs.b_matched)
+        p_idx = np.concatenate([p_idx, np.full(len(extra), -1)])
+        b_idx = np.concatenate([b_idx, extra])
+    return p_idx, b_idx
+
+
+def _ranks_within(counts):
+    """0, 1, .., c-1 for each count c, concatenated."""
+    ends = np.cumsum(counts)
+    return np.arange(ends[-1] if len(ends) else 0) - np.repeat(ends - counts,
+                                                               counts)
+
+
+def check_join(jt, batch, probe: JoinSide, build: JoinSide,
+               runs: MatchRuns) -> int:
+    """A join's result batch (one id column a side, right semi and anti
+    joins the whole build side) against ``join_oracle``: row count, row
+    order, values and validity exact. Returns the row count."""
+    p_idx, b_idx = join_oracle(jt, runs)
+    n = int(batch.row_count)
+    if n != len(p_idx):
+        raise AssertionError(f"{jt}: {n} rows, the oracle {len(p_idx)}")
+    sides = [(probe, p_idx), (build, b_idx)]
+    if jt in ("left semi", "left anti"):
+        sides = sides[:1]
+    elif jt in ("right semi", "right anti"):
+        sides = sides[1:]
+    for side, idx in sides:
+        c = batch.column(side.id_name)
+        vals = c.values[:n].cpu().numpy()
+        valid = (np.ones(n, dtype=bool) if c.validity is None
+                 else c.validity[:n].cpu().numpy())
+        want_valid = idx >= 0
+        if not np.array_equal(valid, want_valid) or not np.array_equal(
+                vals[want_valid], side.ids[idx[want_valid]]):
+            raise AssertionError(f"{jt}: column {side.id_name} differs "
+                                 "from the oracle")
+    return n
+
+
+def _host_columns(batch, names):
+    n = int(batch.row_count)
+    return {k: batch.column(k).values[:n].cpu().numpy() for k in names}
+
+
+def q4_oracle(orders, lineitem):
+    """Q4 in numpy over the downloaded source columns: the orders of the
+    quarter from 1993-07-01 with a lineitem received after its commit date,
+    counted by priority. o_orderkey is 1..n, so the semi join is an index
+    lookup."""
+    from arrow_tpu_torch.io.tpch_queries import DATE_1993_07_01
+    od = _host_columns(orders, ["o_orderkey", "o_orderdate",
+                                "o_orderpriority"])
+    li = _host_columns(lineitem, ["l_orderkey", "l_commitdate",
+                                  "l_receiptdate"])
+    assert np.array_equal(od["o_orderkey"],
+                          np.arange(1, len(od["o_orderkey"]) + 1))
+    has_late = np.zeros(len(od["o_orderkey"]) + 1, dtype=bool)
+    has_late[li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]] \
+        = True
+    date = od["o_orderdate"]
+    sel = (date >= DATE_1993_07_01) & (date < DATE_1993_07_01 + 92) \
+        & has_late[od["o_orderkey"]]
+    prio = orders.column("o_orderpriority").dictionary
+    counts = np.bincount(od["o_orderpriority"][sel], minlength=len(prio))
+    groups = sorted((prio[i], int(c)) for i, c in enumerate(counts) if c)
+    return {"o_orderpriority": [g[0] for g in groups],
+            "order_count": [g[1] for g in groups]}, int(sel.sum())
+
+
+def q13_oracle(customer, orders):
+    """Q13 in numpy: per customer the orders whose comment has no
+    'special' followed by 'requests', then customers per order count,
+    by count of customers then order count, both descending."""
+    special = q13_special(orders)
+    od = _host_columns(orders, ["o_custkey", "o_comment"])
+    cu = _host_columns(customer, ["c_custkey"])
+    kept = ~special[od["o_comment"]]
+    per_customer = np.bincount(od["o_custkey"][kept],
+                               minlength=int(cu["c_custkey"].max()) + 1)
+    c_count = per_customer[cu["c_custkey"]]
+    custdist = np.bincount(c_count)
+    groups = np.flatnonzero(custdist)
+    order = np.lexsort((-groups, -custdist[groups]))
+    return {"c_count": groups[order].tolist(),
+            "custdist": custdist[groups][order].tolist()}, int(kept.sum())
+
+
+def join_declaration(jt, probe, build, **kw):
+    from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
+                                       TableSourceNodeOptions)
+    inputs = [p if isinstance(p, Declaration) else
+              Declaration("table_source", TableSourceNodeOptions(p))
+              for p in (probe, build)]
+    return Declaration("hashjoin", HashJoinNodeOptions(jt, **kw),
+                       inputs=inputs)
+
+
+def null_key_tables(n_probe, n_build, device, seed=7):
+    """Probe and build batches with duplicate keys on both sides and 5%
+    null keys, and their oracle sides. Keys lie in [0, 2 n_build), so a
+    probe row matches about half a build row on average."""
+    from arrow_tpu_torch.device.column import batch_from_numpy
+    rng = np.random.default_rng(seed)
+    sides = []
+    for n, key, ident in ((n_probe, "pk", "pid"), (n_build, "bk", "bid")):
+        keys = rng.integers(0, 2 * n_build, n)
+        valid = rng.random(n) >= 0.05
+        ids = np.arange(n, dtype=np.int64) + 1
+        batch = batch_from_numpy([(key, "int64", keys, valid, None),
+                                  (ident, "int64", ids, None, None)], n,
+                                 device=device)
+        sides.append((batch, JoinSide(keys, valid, ident, ids)))
+    return sides
+
+
+def host_tables():
+    """Orders and customer from the port's host generator, uploaded."""
+    from arrow_tpu_torch.io.tpch import customer_table, orders_table
+    t0 = time.perf_counter()
+    orders = orders_table(SF)
+    customer = customer_table(SF)
+    log(f"orders ({int(orders.row_count)} rows) and customer "
+        f"({int(customer.row_count)} rows) generated on the host and "
+        f"uploaded in {time.perf_counter() - t0:.1f} s")
+    return orders, customer
+
+
+def phase_join_types(orders, customer):
+    """Every join type, each run with every launch count set to 0 just
+    before, against ``join_oracle`` and its expected launches: orders
+    probing customer filtered to one segment, then the null-key
+    tables."""
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       TableSourceNodeOptions, field)
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    log("== phase 3b: the eight join types")
+    cu = _host_columns(customer, ["c_custkey", "c_mktsegment"])
+    building = cu["c_mktsegment"] == customer.column(
+        "c_mktsegment").dictionary.index("BUILDING")
+    od = _host_columns(orders, ["o_orderkey", "o_custkey"])
+    tpch_sides = (
+        JoinSide(od["o_custkey"], np.ones(len(od["o_custkey"]), bool),
+                 "o_orderkey", od["o_orderkey"]),
+        JoinSide(cu["c_custkey"][building], np.ones(building.sum(), bool),
+                 "c_custkey", cu["c_custkey"][building]))
+    filtered_customer = Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(customer)),
+        Declaration("filter", FilterNodeOptions(
+            field("c_mktsegment") == "BUILDING"))])
+    (probe_b, probe_side), (build_b, build_side) = null_key_tables(
+        *NULL_KEY_ROWS, "cuda")
+    log(f"null-key tables: {(~probe_side.valid).sum()} of {NULL_KEY_ROWS[0]}"
+        f" probe and {(~build_side.valid).sum()} of {NULL_KEY_ROWS[1]} build "
+        "keys "
+        "null; the oracle emits them from the outer and anti joins only")
+    runs = [("orders x BUILDING customers", orders, filtered_customer,
+             dict(left_keys=["o_custkey"], right_keys=["c_custkey"],
+                  left_output=["o_orderkey"], right_output=["c_custkey"]),
+             tpch_sides, JOIN_LAUNCHES_SF10),
+            ("null keys", probe_b, build_b,
+             dict(left_keys=["pk"], right_keys=["bk"],
+                  left_output=["pid"], right_output=["bid"]),
+             (probe_side, build_side), JOIN_LAUNCHES_NULLS)]
+    for name, probe, build, kw, (ps, bs), want in runs:
+        match = match_runs(ps, bs)
+        for jt in JOIN_TYPES:
+            decl = join_declaration(jt, probe, build, **kw)
+            zero_launches()
+            batch = execute_declaration(decl)
+            got = read_launches()
+            rows = check_join(jt, batch, ps, bs, match)
+            compact_n, hash_n = want[jt]
+            check_launches(f"{name} {jt}", got, {
+                "compact": compact_n, "hash32": hash_n, "grouped_sum": 0,
+                "probe": 0})
+            log(f"  {name} {jt}: {rows} rows match the oracle")
+            del batch
+
+
 def check_result(name, result, want):
     if list(result) != list(want):
         raise AssertionError(f"{name}: columns {list(result)} != "
@@ -394,21 +713,26 @@ def check_launches(name, launches, want):
                              f"{launches}")
 
 
-def phase_main_paths():
+def phase_main_paths(orders, customer):
+    """Q1, Q3, Q4 and Q13, each with every launch count set to 0 just
+    before and read just after, against numpy oracles. Returns the
+    launches by path."""
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.device.column import download
     from arrow_tpu_torch.io.tpch_device import (q1_device_batch,
                                                 q3_device_plan)
-    from arrow_tpu_torch.io.tpch_queries import q1_chain_decls
+    from arrow_tpu_torch.io.tpch_queries import (q1_chain_decls, q4_plan,
+                                                 q13_plan)
     from arrow_tpu_torch.platform_check import self_check
-    log(f"== phase 3: the main paths, Q1 and Q3 at SF{SF:g} on the card")
+    log(f"== phase 3: the main paths, Q1, Q3, Q4 and Q13 at SF{SF:g}")
+    launches = {}
     zero_launches()
     self_check()
     batch, n = q1_device_batch(SF)
     q1 = compile_chain(q1_chain_decls())
     result = download(q1(batch))
-    q1_launches = read_launches()
-    check_launches("Q1", q1_launches, Q1_LAUNCHES)
+    launches["Q1"] = read_launches()
+    check_launches("Q1", launches["Q1"], Q1_LAUNCHES)
     check_result("Q1", result, q1_oracle(batch, n))
     log(f"Q1 result ({len(result['count_order'])} groups) matches the numpy "
         f"oracle: keys and counts exact, floats within rtol {RTOL_F64}")
@@ -420,8 +744,8 @@ def phase_main_paths():
     self_check()
     plan, n_li = q3_device_plan(SF)
     result = plan.to_table()
-    q3_launches = read_launches()
-    check_launches("Q3", q3_launches, Q3_LAUNCHES)
+    launches["Q3"] = read_launches()
+    check_launches("Q3", launches["Q3"], Q3_LAUNCHES)
     want, n_groups, n_lines = q3_oracle(plan)
     check_result("Q3", result, want)
     log(f"Q3 result matches the numpy oracle ({n_lines} joined lineitem "
@@ -429,7 +753,35 @@ def phase_main_paths():
         f"within rtol {RTOL_F64}")
     for i in range(len(result["l_orderkey"])):
         log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
-    return q1_launches, q3_launches
+    del plan
+
+    zero_launches()
+    self_check()
+    lineitem, n_li = q1_device_batch(SF)
+    result = q4_plan(orders, lineitem).to_table()
+    launches["Q4"] = read_launches()
+    check_launches("Q4", launches["Q4"], Q4_LAUNCHES)
+    want, n_orders = q4_oracle(orders, lineitem)
+    check_result("Q4", result, want)
+    log(f"Q4 result matches the numpy oracle ({n_orders} orders with a late "
+        f"lineitem, {n_li} lineitem rows): keys, counts and order exact")
+    for i in range(len(result["order_count"])):
+        log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
+    del lineitem
+
+    zero_launches()
+    self_check()
+    result = q13_plan(customer, orders).to_table()
+    launches["Q13"] = read_launches()
+    check_launches("Q13", launches["Q13"], Q13_LAUNCHES)
+    want, n_kept = q13_oracle(customer, orders)
+    check_result("Q13", result, want)
+    log(f"Q13 result matches the numpy oracle ({n_kept} orders kept, "
+        f"{len(result['c_count'])} order counts): keys, counts and order "
+        "exact")
+    log("  c_count " + " ".join(map(str, result["c_count"])))
+    log("  custdist " + " ".join(map(str, result["custdist"])))
+    return launches
 
 
 def best_wall(run, reps=6):
@@ -485,14 +837,36 @@ def bound(nbytes, ops, ops_per_s):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_times(card, q1_launches, q3_launches, errs):
+def device_ms(fn, reps: int = 20):
+    """Mean device time per call of ``fn``: the time of the kernels,
+    memsets and copies the profiler saw over ``reps`` calls after a
+    warm-up, or None where it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def phase_times(card, launches, errs, orders, customer):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
     from arrow_tpu_torch.device.column import download
     from arrow_tpu_torch.io.tpch_device import (q1_device_batch,
                                                 q3_device_plan)
-    from arrow_tpu_torch.io.tpch_queries import q1_chain_decls
+    from arrow_tpu_torch.io.tpch_queries import (q1_chain_decls, q4_plan,
+                                                 q13_plan)
     from arrow_tpu_torch.kernels.compact import compact, compact_plain
     from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
                                                      grouped_sum_plain)
@@ -515,15 +889,43 @@ def phase_times(card, q1_launches, q3_launches, errs):
         f" = {n_li / best:.6g} rows/s [{card}]")
     profile_run("Q3", plan.to_table)
 
-    def record(name, shape, kernel, plain, library, nbytes, ops, ops_per_s):
+    # Q4's lineitem is Q1's device batch: it holds l_orderkey,
+    # l_commitdate and l_receiptdate at the reference's ranges
+    lineitem4, n_li4 = q1_device_batch(SF)
+    q4 = q4_plan(orders, lineitem4)
+    walls, best = best_wall(q4.to_table)
+    log(f"Q4 SF{SF:g}: {n_li4} lineitem rows, wall "
+        f"{[round(w * 1e3, 3) for w in walls]} ms; best {best * 1e3:.3f} ms"
+        f" = {n_li4 / best:.6g} lineitem rows/s [{card}]")
+    profile_run("Q4", q4.to_table)
+    del q4, lineitem4
+
+    q13 = q13_plan(customer, orders)
+    n_ord = int(orders.row_count)
+    walls, best = best_wall(q13.to_table)
+    log(f"Q13 SF{SF:g}: {n_ord} orders rows, wall "
+        f"{[round(w * 1e3, 3) for w in walls]} ms; best {best * 1e3:.3f} ms"
+        f" = {n_ord / best:.6g} orders rows/s [{card}]")
+    profile_run("Q13", q13.to_table)
+    del q13
+
+    def record(name, shape, kernel, plain, library, nbytes, ops, ops_per_s,
+               reps=20):
         b_ms, b_by = bound(nbytes, ops, ops_per_s)
-        out = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+        out = {"ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, reps),
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": cuda_ms(library) if library else None}
-        lib = "none" if library is None else f"{out['library_ms']:.4f} ms"
-        log(f"  {name} ({shape}): kernel {out['ms']:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), plain {out['plain_ms']:.4f} ms, "
-            f"library {lib}, {nbytes / out['ms'] / 1e6:.1f} GB/s [{card}]")
+               "library_ms": cuda_ms(library, reps) if library else None,
+               # device time a call from the profiler, beside the events
+               "device_ms": device_ms(kernel, reps),
+               "library_device_ms": device_ms(library, reps) if library
+               else None}
+        lib = "none" if library is None else (
+            f"{out['library_ms']:.4f} ms (device "
+            f"{_ms(out['library_device_ms'])})")
+        log(f"  {name} ({shape}): kernel {out['ms']:.4f} ms (device "
+            f"{_ms(out['device_ms'])}), bound {b_ms:.4f} ms ({b_by}), "
+            f"plain {out['plain_ms']:.4f} ms, library {lib}, "
+            f"{nbytes / out['ms'] / 1e6:.1f} GB/s [{card}]")
         return out
 
     def grouped_sum_record(name, values, gids, s):
@@ -567,35 +969,37 @@ def phase_times(card, q1_launches, q3_launches, errs):
         INT32_OPS_PER_S)
     del keep, cols, words, lineitem, plan
 
+    # 200 back-to-back calls: the events read the host's launch rate, the
+    # profiler the kernel's own time
     x = torch.randn(8, 128, device="cuda")
-    probe_rec = {"ms": cuda_ms(lambda: probe(x), reps=200),
-                 "plain_ms": cuda_ms(lambda: probe_plain(x), reps=200),
-                 "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-                 "bound_by": "bytes",
-                 "library_ms": cuda_ms(lambda: torch.mul(x, 2.0), reps=200)}
-    log(f"  probe: kernel {probe_rec['ms']:.4f} ms, plain "
-        f"{probe_rec['plain_ms']:.4f} ms, torch.mul "
-        f"{probe_rec['library_ms']:.4f} ms [{card}]")
+    probe_rec = record("probe", "(8,128) f32", lambda: probe(x),
+                       lambda: probe_plain(x), lambda: torch.mul(x, 2.0),
+                       2 * x.numel() * 4, x.numel(), F32_OPS_PER_S,
+                       reps=200)
+
+    def by_path(name):
+        return {path: n[name] for path, n in launches.items()}
+
     return {"kernels": [
         {"name": "grouped_sum", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/grouped_sum.cu",
          "replaces": "arrow_tpu/experimental/pallas_agg.py:234",
-         "launches": q1_launches["grouped_sum"],
+         "launches": by_path("grouped_sum"),
          "max_abs_err": errs["grouped_sum"], **q1_shape},
         {"name": "probe", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/probe.cu",
          "replaces": "arrow_tpu/platform_check.py:119",
-         "launches": q1_launches["probe"], "max_abs_err": errs["probe"],
+         "launches": by_path("probe"), "max_abs_err": errs["probe"],
          **probe_rec},
         {"name": "compact", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/compact.cu",
          "replaces": "arrow_tpu/compute/pallas_move.py:189",
-         "launches": q3_launches["compact"], "max_abs_err": errs["compact"],
+         "launches": by_path("compact"), "max_abs_err": errs["compact"],
          "bit_exact": True, **compact_rec},
         {"name": "hash32", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/hash32.cu",
          "replaces": "arrow_tpu/experimental/pallas_hash.py:43",
-         "launches": q3_launches["hash32"], "max_abs_err": errs["hash32"],
+         "launches": by_path("hash32"), "max_abs_err": errs["hash32"],
          "bit_exact": True, **hash_rec},
     ]}
 
@@ -614,9 +1018,11 @@ def main() -> int:
         t0 = time.perf_counter()
         card = phase_probe()
         from arrow_tpu_torch.device.column import round_up
-        errs = phase_kernels(round_up(int(6_001_215 * SF)))
-        q1_launches, q3_launches = phase_main_paths()
-        kernel_line = phase_times(card, q1_launches, q3_launches, errs)
+        orders, customer = host_tables()
+        errs = phase_kernels(round_up(int(6_001_215 * SF)), orders)
+        launches = phase_main_paths(orders, customer)
+        phase_join_types(orders, customer)
+        kernel_line = phase_times(card, launches, errs, orders, customer)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -1,8 +1,10 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the join types, Q4 and Q13 on the card.
 
 These tests need a CUDA card, carry the ``cuda`` marker and skip elsewhere.
-The machine with the card has no JAX, so this file imports only torch and
-the port, and runs without the suite's conftest (which imports JAX):
+The machine with the card has no JAX, so this file imports only torch, the
+port and ``chip_smoke.py`` (for its join oracle), and runs without the
+suite's conftest (which imports JAX), from the root of the checkout:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -190,3 +192,49 @@ def test_refused_dtypes_raise_rather_than_fall_back():
     with pytest.raises(ValueError):
         hash32([torch.ones(16, dtype=torch.int32, device="cuda"),
                 torch.ones(16, dtype=torch.int32)])
+
+
+# --- the join types and Q4/Q13 on the card --------------------------------
+
+_JOIN_TYPES = ("inner", "left outer", "right outer", "full outer",
+               "left semi", "left anti", "right semi", "right anti")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jt", _JOIN_TYPES)
+def test_join_type_on_card_matches_oracle(jt):
+    """Null and duplicate keys on both sides, the bloom and compaction
+    kernels on the path: rows, order and validity against chip_smoke's
+    numpy oracle."""
+    _need_card()
+    import chip_smoke
+    (probe_b, probe), (build_b, build) = chip_smoke.null_key_tables(
+        50_000, 10_000, "cuda", seed=len(jt))
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    before = compact.launches
+    batch = execute_declaration(chip_smoke.join_declaration(
+        jt, probe_b, build_b, left_keys=["pk"], right_keys=["bk"],
+        left_output=["pid"], right_output=["bid"]))
+    rows = chip_smoke.check_join(jt, batch, probe, build,
+                                 chip_smoke.match_runs(probe, build))
+    assert rows > 0
+    if jt != "left outer":  # every other type compacts on the card
+        assert compact.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["q4", "q13"])
+def test_q4_q13_on_card_match_cpu(query):
+    _need_card()
+    from arrow_tpu_torch.io import tpch, tpch_queries
+    results = []
+    for device in ("cuda", "cpu"):
+        orders = tpch.orders_table(0.01, device=device)
+        if query == "q4":
+            plan = tpch_queries.q4_plan(
+                orders, tpch.lineitem_table(0.01, device=device))
+        else:
+            plan = tpch_queries.q13_plan(
+                tpch.customer_table(0.01, device=device), orders)
+        results.append(plan.to_table())
+    assert results[0] == results[1] and len(next(iter(results[0].values())))

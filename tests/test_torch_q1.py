@@ -105,10 +105,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 
 
 def _unported(kind, source, filtered):
-    if kind == "left outer join":
-        return Declaration("hashjoin", HashJoinNodeOptions(
-            "left outer", left_keys=["l_orderkey"],
-            right_keys=["l_orderkey"]), [filtered, source])
+    if kind == "count_distinct":
+        return Declaration("aggregate", AggregateNodeOptions(
+            [("l_suppkey", "count_distinct", None, "suppliers")],
+            keys=["l_returnflag"]), [filtered])
     if kind == "residual join filter":
         return Declaration("hashjoin", HashJoinNodeOptions(
             "inner", left_keys=["l_orderkey"], right_keys=["l_orderkey"],
@@ -119,11 +119,12 @@ def _unported(kind, source, filtered):
         [("l_quantity", "sum", None, "total")]), [filtered])
 
 
-@pytest.mark.parametrize("kind", ["left outer join", "residual join filter",
+@pytest.mark.parametrize("kind", ["count_distinct", "residual join filter",
                                   "union", "scalar aggregate"])
 def test_unported_nodes_raise(kind):
-    """A standalone filter and an inner hash join run; the nodes Q1 and Q3
-    do not need raise, naming their ROADMAP item."""
+    """A standalone filter and an inner hash join run; the nodes and
+    functions that Q1, Q3, Q4 and Q13 do not need raise, naming their
+    ROADMAP item."""
     tb, _ = q1_device_batch(0.001, device="cpu")
     source = Declaration("table_source", TableSourceNodeOptions(tb))
     filtered = Declaration("filter", FilterNodeOptions(
