@@ -19,9 +19,10 @@ A Declaration tree runs node by node, eagerly, with no jit:
   sizes the output and picks the unique-build path), gather the output
   rows, and append the unmatched build rows of a right or full outer join.
 
-All eight join types are ported. Residual join filters, scalar
-aggregates, and the union, as-of, sorted-merge and pivot nodes raise
-NotImplementedError naming their ROADMAP item.
+An aggregate with no keys gives one row (``_scalar_aggregate_fn``); a
+filter folds into it as into a grouped one. All eight join types are
+ported. Residual join filters and the union, as-of, sorted-merge and
+pivot nodes raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ from ..compute.grouper import (group_capacity_bound, group_ids,
                                group_slot_bound_exact)
 from ..compute.keys import sort_key_arrays, stable_sort_indices
 from ..compute.move import gather_rows
+from ..compute.elementwise import literal_tensor
 from ..compute.registry import ExecContext, get_function
 from ..compute.selection import (compact_columns, filter_batch,
                                  gather_columns, selection_mask, take_batch)
-from ..device.column import (DeviceBatch, DeviceColumn, capacity_class,
-                             download)
+from ..device.column import (BLOCK, DeviceBatch, DeviceColumn,
+                             capacity_class, download)
 from ..types import Field, Schema, from_torch_dtype
 from .expression import Expression
 from .options import (AggregateNodeOptions, FetchNodeOptions,
@@ -72,9 +74,11 @@ def _node_project(options: ProjectNodeOptions, schema):
         cols = []
         for e in exprs:
             c = e.evaluate(batch, ctx)
-            if not isinstance(c, DeviceColumn):  # broadcast literal
-                v = torch.full((batch.capacity,), c,
-                               device=batch.row_count.device)
+            if not isinstance(c, DeviceColumn):
+                # broadcast literal, in numpy's dtype for it (a float is
+                # f64), as the reference's jnp.full under x64
+                v = literal_tensor(c, batch.row_count.device).expand(
+                    batch.capacity).clone()
                 c = DeviceColumn(v, None, from_torch_dtype(v.dtype))
             cols.append(c)
         out_schema = Schema([Field(n, c.type) for n, c in zip(names, cols)])
@@ -89,9 +93,6 @@ def _node_aggregate(options: AggregateNodeOptions, schema,
     mask joins the aggregation's row mask instead of compacting rows."""
     aggs = options.aggregates
     keys = options.keys
-    if not keys:
-        raise NotImplementedError("scalar aggregates are not ported yet "
-                                  + _LONG_TAIL)
 
     def _ctx(batch):
         ctx = ExecContext(batch.capacity, batch.row_count)
@@ -101,6 +102,9 @@ def _node_aggregate(options: AggregateNodeOptions, schema,
         masked = ExecContext(batch.capacity, batch.row_count)
         masked.row_mask_ = keep
         return masked
+
+    if not keys:
+        return _scalar_aggregate_fn(aggs, _ctx), None
 
     def fn(batch: DeviceBatch) -> DeviceBatch:
         ctx = _ctx(batch)
@@ -136,6 +140,33 @@ def _node_aggregate(options: AggregateNodeOptions, schema,
                            g.num_groups.to(torch.int32))
 
     return fn, None
+
+
+def _scalar_aggregate_fn(aggs, make_ctx) -> Callable:
+    """``keys=[]``: one row at the block capacity, each aggregate's value
+    and validity at row 0 and zeros behind them (reference:
+    ``exec.py`` ``_node_aggregate_inner``)."""
+    def fn(batch: DeviceBatch) -> DeviceBatch:
+        ctx = make_ctx(batch)
+        dev = batch.row_count.device
+        cols, fields = [], []
+        for target, fname, opts, out_name in aggs:
+            impl = get_function(fname).impl
+            if fname == "count_all":
+                r = impl(ctx, **opts)
+            else:
+                r = impl(ctx, batch.column(target if isinstance(target, str)
+                                           else target[0]), **opts)
+            values = torch.zeros(BLOCK, dtype=r.value.dtype, device=dev)
+            validity = torch.zeros(BLOCK, dtype=torch.bool, device=dev)
+            values[0] = r.value
+            validity[0] = r.valid
+            cols.append(DeviceColumn(values, validity, r.type))
+            fields.append(Field(out_name, r.type))
+        return DeviceBatch(Schema(fields), cols,
+                           torch.ones((), dtype=torch.int32, device=dev))
+
+    return fn
 
 
 def _fit(c: DeviceColumn, bound: int) -> DeviceColumn:

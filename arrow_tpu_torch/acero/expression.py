@@ -2,21 +2,23 @@
 ``arrow_tpu/acero/expression.py``). An expression evaluates eagerly over a
 DeviceBatch through the compute registry. A comparison of a
 dictionary-coded column with a literal translates the literal through the
-host dictionary, and ``match_like`` on a dictionary-coded column computes
-one boolean per dictionary slot on the host and looks it up by the codes
-on the device."""
+host dictionary; the string predicates (``compute/strings.py``) and
+``if_else`` take dictionary-coded columns themselves; ``is_in`` looks the
+value set up by dictionary slot (``compute/vector_misc.py``) and keeps a
+null row null, as the reference's plans do. Every other function raises
+on a dictionary-coded column."""
 
 from __future__ import annotations
 
 import bisect
-import re
 from typing import Optional
 
 import numpy as np
-import torch
 
 from .. import types as T
 from ..compute.registry import ExecContext, get_function
+from ..compute.strings import STRING_FUNCTIONS, slot_lookup
+from ..compute.vector_misc import value_set_lookup
 from ..device.column import DeviceBatch, DeviceColumn
 
 
@@ -70,6 +72,8 @@ class Expression:
     def __rsub__(self, o): return self._bin("subtract", o, True)  # noqa: E704
     def __mul__(self, o): return self._bin("multiply", o)      # noqa: E704
     def __rmul__(self, o): return self._bin("multiply", o, True)  # noqa: E704
+    def __truediv__(self, o): return self._bin("divide", o)    # noqa: E704
+    def __rtruediv__(self, o): return self._bin("divide", o, True)  # noqa
     def __and__(self, o): return self._bin("and_kleene", o)    # noqa: E704
     def __or__(self, o): return self._bin("or_kleene", o)      # noqa: E704
     def __invert__(self): return Expression.call("invert", self)  # noqa: E704
@@ -95,6 +99,8 @@ class Expression:
 
 _COMPARISONS = ("equal", "not_equal", "less", "less_equal", "greater",
                 "greater_equal")
+# functions that take dictionary-coded columns themselves
+_DICTIONARY_FUNCTIONS = STRING_FUNCTIONS + ("if_else",)
 
 
 def _evaluate(expr: Expression, batch: DeviceBatch, ctx: ExecContext):
@@ -103,11 +109,14 @@ def _evaluate(expr: Expression, batch: DeviceBatch, ctx: ExecContext):
     if expr.kind == Expression.KIND_FIELD:
         return batch.column(expr.name)
     args = [_evaluate(a, batch, ctx) for a in expr.args]
-    if expr.fn == "match_like":
-        return match_like(*args, **expr.options)
+    if expr.fn == "is_in":
+        col = args[0]
+        return DeviceColumn(value_set_lookup(
+            col, expr.options.get("value_set", ())), col.validity, T.bool_())
     if expr.fn in _COMPARISONS:
         args = _translate_string_compare(expr.fn, args)
-    if any(_is_string_col(a) for a in args):
+    if expr.fn not in _DICTIONARY_FUNCTIONS \
+            and any(_is_string_col(a) for a in args):
         raise NotImplementedError(
             f"{expr.fn} on dictionary-coded columns is not ported yet "
             "(ROADMAP.md, queue 1, item 9: the long tail)")
@@ -116,55 +125,6 @@ def _evaluate(expr: Expression, batch: DeviceBatch, ctx: ExecContext):
 
 def _is_string_col(c) -> bool:
     return isinstance(c, DeviceColumn) and c.dictionary is not None
-
-
-def _codes(col: DeviceColumn, table: np.ndarray) -> torch.Tensor:
-    """``table`` (one entry per dictionary slot) looked up by the column's
-    codes, clamped into the dictionary."""
-    safe = col.values.long().clamp(0, len(table) - 1)
-    return torch.from_numpy(table).to(col.values.device)[safe]
-
-
-def _like_to_regex(pattern: str) -> str:
-    """SQL LIKE as an anchored regular expression: ``%`` any run, ``_`` one
-    character, a backslash escapes the next character."""
-    out = []
-    i = 0
-    while i < len(pattern):
-        c = pattern[i]
-        if c == "\\" and i + 1 < len(pattern):
-            out.append(re.escape(pattern[i + 1]))
-            i += 2
-            continue
-        if c == "%":
-            out.append(".*")
-        elif c == "_":
-            out.append(".")
-        else:
-            out.append(re.escape(c))
-        i += 1
-    return "^" + "".join(out) + "$"
-
-
-def match_like(col, pattern: str = "", ignore_case: bool = False
-               ) -> DeviceColumn:
-    """SQL LIKE on a dictionary-coded column (reference:
-    ``compute/strings.py`` ``_match_like`` and ``_map_to_lookup``): one
-    match per dictionary slot, looked up by the codes; nulls stay null."""
-    if not _is_string_col(col):
-        raise NotImplementedError(
-            "match_like on a column that is not dictionary-coded is not "
-            "ported yet (ROADMAP.md, queue 1, item 9: the long tail)")
-    rx = re.compile(_like_to_regex(pattern),
-                    re.IGNORECASE if ignore_case else 0)
-    table = np.array([v is not None and bool(rx.match(v))
-                      for v in col.dictionary], dtype=np.bool_)
-    if not len(table):
-        out = torch.zeros(col.capacity, dtype=torch.bool,
-                          device=col.values.device)
-    else:
-        out = _codes(col, table)
-    return DeviceColumn(out, col.validity, T.bool_())
 
 
 def _translate_string_compare(fn, args):
@@ -193,14 +153,15 @@ def _translate_string_compare(fn, args):
             "(ROADMAP.md, queue 1, item 9: the long tail)")
     if fn in ("equal", "not_equal"):
         hits = np.array([v == lit for v in vals], dtype=np.int64)
-        new = [DeviceColumn(_codes(col, hits), col.validity, T.int64()), 1]
+        new = [DeviceColumn(slot_lookup(col, hits), col.validity,
+                            T.int64()), 1]
     else:
         uniq = sorted(set(vals))
         rank_of = {v: i for i, v in enumerate(uniq)}
         ranks = np.array([rank_of[v] for v in vals], dtype=np.int64)
         rank = rank_of[lit] if lit in rank_of \
             else bisect.bisect_left(uniq, lit) - 0.5
-        new = [DeviceColumn(_codes(col, ranks), col.validity, T.int64()),
+        new = [DeviceColumn(slot_lookup(col, ranks), col.validity, T.int64()),
                rank]
     return new if a_str else new[::-1]
 

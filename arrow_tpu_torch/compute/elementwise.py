@@ -1,11 +1,17 @@
-"""Element-wise kernels: arithmetic, comparisons and boolean logic
-(counterpart of ``arrow_tpu/compute/elementwise.py``).
+"""Element-wise kernels: arithmetic, comparisons, boolean logic and
+``if_else`` (counterpart of ``arrow_tpu/compute/elementwise.py``).
 
 Nulls follow the reference's intersection policy: the result is null where
 any input is null. Numeric value lanes at null positions hold zeros, so
 downstream reductions are deterministic. ``and_kleene`` and ``or_kleene``
 (the ``&`` and ``|`` of expressions) follow Kleene logic instead: a valid
 false decides an AND and a valid true an OR, null or not.
+
+A Python or numpy literal takes numpy's dtype (``literal_tensor``: a
+float is f64, an int int64), the dtype JAX gives it under the reference's
+x64 setting; as a 0-d tensor it then promotes against a column as a JAX
+weak type does (an int literal keeps an int32 column int32, a float
+literal makes it f64).
 """
 
 from __future__ import annotations
@@ -13,11 +19,22 @@ from __future__ import annotations
 import operator
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..device.column import DeviceColumn
 from ..types import DataType, TypeId, bool_, from_torch_dtype
 from .registry import register
+
+
+def literal_tensor(value, device) -> torch.Tensor:
+    """A Python or numpy scalar as a 0-d tensor of numpy's dtype for it:
+    float64 for a float, int64 for an int, bool for a bool."""
+    arr = np.asarray(value)
+    if arr.dtype.kind not in "biuf":
+        raise NotImplementedError(
+            f"no device literal for {type(value).__name__} values")
+    return torch.from_numpy(arr).to(device)
 
 
 def _require_numeric(name, *args):
@@ -47,13 +64,23 @@ def _and_validity(*vs):
 
 
 def _col(values: torch.Tensor, validity: Optional[torch.Tensor],
-         type: Optional[DataType] = None) -> DeviceColumn:
+         type: Optional[DataType] = None, dictionary=None) -> DeviceColumn:
     if type is None:
         type = from_torch_dtype(values.dtype)
     # zero the null lanes for deterministic downstream math
     if validity is not None and values.dtype != torch.bool:
         values = torch.where(validity, values, values.new_zeros(()))
-    return DeviceColumn(values, validity, type)
+    return DeviceColumn(values, validity, type, dictionary)
+
+
+def _device_of(*args):
+    return next(x.values.device for x in args if isinstance(x, DeviceColumn))
+
+
+def _operand(x, device) -> torch.Tensor:
+    """A column's values, or a literal as ``literal_tensor``."""
+    return x.values if isinstance(x, DeviceColumn) \
+        else literal_tensor(x, device)
 
 
 def _arith_type(a, b) -> Optional[DataType]:
@@ -63,13 +90,18 @@ def _arith_type(a, b) -> Optional[DataType]:
     return None
 
 
+def _validity_of(*args):
+    return _and_validity(*(x.validity for x in args
+                           if isinstance(x, DeviceColumn)))
+
+
 def _binary_arith(name: str, op):
     @register(name, "elementwise")
     def _fn(ctx, a, b):
         _require_numeric(name, a, b)
-        av, avd = _as_values(a)
-        bv, bvd = _as_values(b)
-        return _col(op(av, bv), _and_validity(avd, bvd), _arith_type(a, b))
+        dev = _device_of(a, b)
+        return _col(op(_operand(a, dev), _operand(b, dev)),
+                    _validity_of(a, b), _arith_type(a, b))
     return _fn
 
 
@@ -81,10 +113,38 @@ multiply = _binary_arith("multiply", operator.mul)
 def _compare(name: str, op):
     @register(name, "elementwise")
     def _fn(ctx, a, b):
-        av, avd = _as_values(a)
-        bv, bvd = _as_values(b)
-        return _col(op(av, bv), _and_validity(avd, bvd), bool_())
+        dev = _device_of(a, b)
+        return _col(op(_operand(a, dev), _operand(b, dev)),
+                    _validity_of(a, b), bool_())
     return _fn
+
+
+@register("divide", "elementwise")
+def divide(ctx, a, b):
+    """Integers divide truncating toward zero, ``sign(a) sign(b) (|a| //
+    |b|)``, in their own dtype and type (a date32 column over an int is
+    date32, as in the reference); an integer division by zero on a live
+    row raises ZeroDivisionError: a literal zero divisor on the host, a
+    column divisor by one read of a device flag. Floats divide as IEEE
+    does."""
+    _require_numeric("divide", a, b)
+    dev = _device_of(a, b)
+    av, bv = _operand(a, dev), _operand(b, dev)
+    validity = _validity_of(a, b)
+    if av.dtype.is_floating_point or bv.dtype.is_floating_point:
+        return _col(av / bv, validity, _arith_type(a, b))
+    if isinstance(b, DeviceColumn):
+        live = ctx.row_mask() if validity is None \
+            else ctx.row_mask() & validity
+        zero = bool(((bv == 0) & live).any())
+    else:
+        zero = b == 0
+    if zero:
+        raise ZeroDivisionError("divide by zero")
+    safe_b = torch.where(bv == 0, torch.ones_like(bv), bv)
+    out = torch.sign(av) * torch.sign(safe_b) \
+        * (torch.abs(av) // torch.abs(safe_b))
+    return _col(out, validity, _arith_type(a, b))
 
 
 equal = _compare("equal", operator.eq)
@@ -156,3 +216,35 @@ def or_kleene(ctx, a, b):
     a_valid, b_valid = _valid(av, avd), _valid(bv, bvd)
     any_true = (a_valid & av) | (b_valid & bv)
     return _bool_col(any_true, any_true | (a_valid & b_valid))
+
+
+# --- conditional ------------------------------------------------------------
+
+@register("if_else", "elementwise")
+def if_else(ctx, cond, a, b):
+    """``a`` where ``cond`` is true, else ``b``; null where ``cond`` is null
+    or the chosen branch is. A non-numeric branch column (date32, a
+    dictionary) gives its type and dictionary to the result; both branch
+    dictionaries must be one."""
+    dev = _device_of(cond, a, b)
+    dicts = [x.dictionary for x in (a, b)
+             if isinstance(x, DeviceColumn) and x.dictionary is not None]
+    if dicts and (len(dicts) != 2 or dicts[0] != dicts[1]):
+        raise NotImplementedError(
+            "if_else over branches that do not share one dictionary is not "
+            "ported yet (ROADMAP.md, queue 1, item 9: the long tail)")
+    cv = _operand(cond, dev).to(torch.bool)
+    av, bv = _operand(a, dev), _operand(b, dev)
+    out = torch.where(cv, av, bv)
+    avd, bvd = (x.validity if isinstance(x, DeviceColumn) else None
+                for x in (a, b))
+    branch_validity = None
+    if avd is not None or bvd is not None:
+        ones = torch.ones(out.shape, dtype=torch.bool, device=dev)
+        branch_validity = torch.where(cv, ones if avd is None else avd,
+                                      ones if bvd is None else bvd)
+    cvd = cond.validity if isinstance(cond, DeviceColumn) else None
+    t = next((x.type for x in (a, b) if isinstance(x, DeviceColumn)), None)
+    return _col(out, _and_validity(cvd, branch_validity),
+                t if t is not None and not t.is_numeric else None,
+                dicts[0] if dicts else None)

@@ -1,19 +1,24 @@
 """TPC-H tables generated on the host (counterpart of
-``arrow_tpu/io/tpch.py``): lineitem, orders and customer.
+``arrow_tpu/io/tpch.py``): all eight tables.
 
 Each table draws from ``np.random.default_rng(seed)`` in the reference's
 order, so every column is bit-identical to the reference generator's, and
 is uploaded as a DeviceBatch (``device.column.batch_from_numpy``).
 Dictionary columns are int32 codes plus a tuple of the dictionary's
-strings. The port has no plain-string columns yet: customer's ``c_name``
-and ``c_phone`` are left out of its batch, but ``c_phone``'s random draws
-are still made, so the columns after it stay identical to the
-reference's. ``device=None`` means the card.
+strings. The port keeps every string column as codes: a plain-string
+column of the reference (``s_name``, ``s_address``, ``s_phone``,
+``n_name``, ``r_name``) is encoded here in order of first appearance, as
+the reference's upload encodes it (``_encode``), so its type, codes and
+dictionary match the reference's device batch. Customer's ``c_name`` and
+``c_phone`` and part's ``p_name`` (nearly every row distinct) are left
+out, as no ported query reads them, but their random draws are still
+made, so the columns after them stay identical to the reference's.
+``device=None`` means the card.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +37,26 @@ ORDERPRIORITY = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
 ORDERSTATUS = ("F", "O", "P")
 MKTSEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY",
                "HOUSEHOLD")
+PART_TYPES = tuple(f"{a} {b} {c}" for a in
+                   ("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY",
+                    "PROMO")
+                   for b in ("ANODIZED", "BURNISHED", "PLATED", "POLISHED",
+                             "BRUSHED")
+                   for c in ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER"))
+NATIONS = ("ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+           "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
+           "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
+           "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
+           "UNITED KINGDOM", "UNITED STATES")
+REGIONS = ("AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST")
+NATION_REGION = (0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2,
+                 3, 4, 2, 3, 3, 1)
+MANUFACTURERS = tuple(f"Manufacturer#{i}" for i in range(1, 6))
+BRANDS = tuple(f"Brand#{b}" for b in range(11, 56))
+CONTAINERS = tuple(f"{a} {b}" for a in ("SM", "LG", "MED", "JUMBO", "WRAP")
+                   for b in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK",
+                             "CAN", "DRUM"))
+_P_NAME_WORDS = 40   # the reference's p_name word pool
 # comment word salad; a fraction of orders comments embed the Q13 pattern
 # 'special ... requests'
 _COMMENT_WORDS = (
@@ -52,6 +77,33 @@ def _dict_col(rng, name: str, choices: Sequence[str], n: int) -> Column:
 
 def _col(name: str, type_name: str, values) -> Column:
     return (name, type_name, values, None, None)
+
+
+def _encode(name: str, strings: np.ndarray) -> Column:
+    """A plain-string column dictionary-encoded in order of first
+    appearance, as the reference's upload encodes it
+    (``arrow_tpu/device/column.py``, ``_dictionary_encode_host``): type
+    string, int32 codes and the dictionary."""
+    uniq, first, inverse = np.unique(strings, return_index=True,
+                                     return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(order), dtype=np.int32)
+    rank[order] = np.arange(len(order), dtype=np.int32)
+    return (name, "string", rank[inverse.reshape(-1)], None,
+            tuple(str(u) for u in uniq[order]))
+
+
+def _phone(rng, nationkey: np.ndarray) -> np.ndarray:
+    """The reference's phone strings ``NN-DDD-DDD-DDDD``, drawn in its
+    order."""
+    parts = [np.char.mod("%d", nationkey + 10)]
+    for fmt, lo, hi in (("%03d", 100, 1000), ("%03d", 100, 1000),
+                        ("%04d", 1000, 10_000)):
+        parts.append(np.char.mod(fmt, rng.integers(lo, hi, len(nationkey))))
+    out = parts[0]
+    for p in parts[1:]:
+        out = np.char.add(np.char.add(out, "-"), p)
+    return out
 
 
 def _comment_pool(rng, pool_size: int, special: Optional[str] = None,
@@ -144,3 +196,98 @@ def customer_table(scale_factor: float = 1.0, seed: int = 2,
         _dict_col(rng, "c_comment", _comment_pool(rng, 256), n),
     ]
     return batch_from_numpy(cols, n, device=device)
+
+
+def part_table(scale_factor: float = 1.0, seed: int = 3,
+               device=None) -> DeviceBatch:
+    """Part without ``p_name``. ``p_brand`` follows ``p_mfgr``'s codes and
+    comes last, as in the reference."""
+    n = max(int(200_000 * scale_factor), 2)
+    rng = np.random.default_rng(seed)
+    # the reference's first mfgr and brand draws (unused), then p_name's
+    # five word draws
+    rng.integers(1, 6, n)
+    rng.integers(1, 6, n)
+    for _ in range(5):
+        rng.integers(0, _P_NAME_WORDS, n)
+    mfgr = _dict_col(rng, "p_mfgr", MANUFACTURERS, n)
+    cols = [
+        _col("p_partkey", "int64", np.arange(1, n + 1)),
+        mfgr,
+        _dict_col(rng, "p_type", PART_TYPES, n),
+        _col("p_size", "int64", rng.integers(1, 51, n)),
+        _dict_col(rng, "p_container", CONTAINERS, n),
+        _col("p_retailprice", "float64",
+             np.round(rng.uniform(900.0, 2000.0, n), 2)),
+    ]
+    brand = (mfgr[2] + 1) * 10 + rng.integers(1, 6, n)
+    cols.append(("p_brand", "dictionary", (brand - 11).astype(np.int32),
+                 None, BRANDS))
+    return batch_from_numpy(cols, n, device=device)
+
+
+def supplier_table(scale_factor: float = 1.0, seed: int = 4,
+                   device=None) -> DeviceBatch:
+    n = max(int(10_000 * scale_factor), 2)
+    rng = np.random.default_rng(seed)
+    nationkey = rng.integers(0, 25, n)
+    keys = np.arange(1, n + 1)
+    cols = [
+        _col("s_suppkey", "int64", keys),
+        _encode("s_name", np.char.mod("Supplier#%09d", keys)),
+        _encode("s_address", np.char.mod("addr-%x",
+                                         rng.integers(0, 1 << 40, n))),
+        _col("s_nationkey", "int64", nationkey),
+        _encode("s_phone", _phone(rng, nationkey)),
+        _col("s_acctbal", "float64",
+             np.round(rng.uniform(-999.99, 9999.99, n), 2)),
+        _dict_col(rng, "s_comment", _comment_pool(
+            rng, 256, special="Customer Complaints"), n),
+    ]
+    return batch_from_numpy(cols, n, device=device)
+
+
+def partsupp_table(scale_factor: float = 1.0, seed: int = 5,
+                   device=None) -> DeviceBatch:
+    n = max(int(800_000 * scale_factor), 2)
+    rng = np.random.default_rng(seed)
+    cols = [
+        _col("ps_partkey", "int64", rng.integers(
+            1, max(int(200_000 * scale_factor), 2), n)),
+        _col("ps_suppkey", "int64", rng.integers(
+            1, max(int(10_000 * scale_factor), 2), n)),
+        _col("ps_supplycost", "float64",
+             np.round(rng.uniform(1.0, 1000.0, n), 2)),
+        _col("ps_availqty", "int64", rng.integers(1, 10_000, n)),
+    ]
+    return batch_from_numpy(cols, n, device=device)
+
+
+def nation_table(device=None) -> DeviceBatch:
+    return batch_from_numpy([
+        _col("n_nationkey", "int64", np.arange(25)),
+        _encode("n_name", np.array(NATIONS)),
+        _col("n_regionkey", "int64", np.array(NATION_REGION)),
+    ], 25, device=device)
+
+
+def region_table(device=None) -> DeviceBatch:
+    return batch_from_numpy([
+        _col("r_regionkey", "int64", np.arange(5)),
+        _encode("r_name", np.array(REGIONS)),
+    ], 5, device=device)
+
+
+def generate(scale_factor: float = 1.0, device=None) -> Dict[str, DeviceBatch]:
+    """All eight TPC-H tables by name."""
+    sf = scale_factor
+    return {
+        "lineitem": lineitem_table(sf, device=device),
+        "orders": orders_table(sf, device=device),
+        "customer": customer_table(sf, device=device),
+        "part": part_table(sf, device=device),
+        "supplier": supplier_table(sf, device=device),
+        "partsupp": partsupp_table(sf, device=device),
+        "nation": nation_table(device=device),
+        "region": region_table(device=device),
+    }

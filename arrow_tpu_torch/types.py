@@ -39,6 +39,11 @@ class DataType:
         return hash(self._key())
 
     @property
+    def is_numeric(self) -> bool:
+        return self.id in (TypeId.INT32, TypeId.INT64, TypeId.FLOAT,
+                           TypeId.DOUBLE)
+
+    @property
     def is_temporal(self) -> bool:
         return self.id == TypeId.DATE32
 

@@ -18,28 +18,36 @@ Phases; any failure exits non-zero without the final line:
    masks, at Q4's lineitem filter (SF10, all 15 columns), at Q4's and
    Q13's orders filters and Q4's semi-join selection (all 9 columns of
    SF10 orders), and at a ragged 1,000,003 rows of bool, int32, int64 and
-   f64 with NaN and -0.0 bit patterns, bit for bit with the count; the hash of
-   1, 2 and 3 words at 60M rows, and of the main path's join keys (the
-   strided int32 halves of ``l_orderkey``'s and ``o_custkey``'s equality
-   words at SF10's capacities), bit for bit.
+   f64 with NaN and -0.0 bit patterns, bit for bit with the count; the
+   grouped sum at the suite's shapes (26 slots over 131,072 rows, 1,024
+   over 1,024); the hash of 1, 2 and 3 words at 60M rows, of 4 words at
+   16,777,216 rows (Q5's two-key bloom), and of the main path's join keys
+   (the strided int32 halves of ``l_orderkey``'s and ``o_custkey``'s
+   equality words at SF10's capacities), bit for bit.
 3. The main paths, each with every launch count set to 0 just before and
    read just after. Q1: ``self_check()``, ``q1_device_batch(10.0)``,
    ``compile_chain(q1_chain_decls())`` and the download of the result.
    Q3: ``self_check()``, ``q3_device_plan(10.0)`` and ``.to_table()``.
    Q4: ``self_check()``, ``q1_device_batch(10.0)`` as lineitem and
    ``q4_plan(orders, lineitem).to_table()``. Q13: ``self_check()`` and
-   ``q13_plan(customer, orders).to_table()``. Orders and customer come
+   ``q13_plan(customer, orders).to_table()``. Every other table comes
    from the port's host generator (``io/tpch.py``) at SF10, made once.
    Each result is held against an independent numpy query over the
    downloaded source columns, and each path's launches are exact.
+   Then (3c) the JAX package's own TPC-H suite, Q6, Q10, Q12, Q5 and Q9
+   (its ``tests/test_tpch.py``), with Q14 and Q19: each ``self_check()``
+   and ``<plan>(...).to_table()`` over SF10's tables, lineitem being
+   ``q1_device_batch(10.0)``, against its numpy oracle with its launches
+   exact (``SUITE``).
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
    SF10, where the bloom engages for inner, left semi, right semi and
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
-4. Times after a warm-up: Q1, Q3, Q4 and Q13 rows/s (best of 5), a
-   profile of one run of each, and each kernel's time beside its bound,
+4. Times after a warm-up: Q1, Q3, Q4, Q13 and the suite's rows/s of
+   their largest input (best of 5), a profile of one run of each
+   (device busy time and idle share), and each kernel's time beside its bound,
    its plain version's and one library call's where there is one: by
    CUDA events around back-to-back calls, and as device time from the
    profiler.
@@ -99,6 +107,14 @@ NULL_KEY_ROWS = (1_000_000, 200_000)  # probe and build rows, 5% null keys
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def timed(phase, *args):
+    """``phase(*args)``, logging its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"-- {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -304,6 +320,12 @@ def phase_kernels(n, orders):
             raise AssertionError(f"Inf/NaN did not propagate: {got[:8]}")
         check_close(f"grouped_sum f64 Inf/NaN S={s}", got,
                     grouped_sum_plain(v, g, s), RTOL_F64)
+    # the suite's grouped sums: Q5's revenue by n_name (26 slots) over its
+    # last join's capacity, Q9's profit over its 1,024-row join output
+    for rows, s, live in ((131_072, 26, 25), (1024, 1024, 175)):
+        v, g = q1_like_inputs(rows, s, live, torch.float64, 5)
+        check_close(f"grouped_sum f64 n={rows} S={s}", grouped_sum(v, g, s),
+                    grouped_sum_plain(v, g, s), RTOL_F64)
     x = torch.randn(8, 128, device="cuda")
     errs["probe"] = check_close("probe (8,128) f32", probe(x),
                                 probe_plain(x), 0.0)
@@ -374,6 +396,12 @@ def phase_kernels(n, orders):
         check_bit_exact(f"hash32 k={k} n={h}", [hash32(words)],
                         [hash32_plain(words)])
         del words
+    # Q5's two-key bloom (l_suppkey, c_nationkey): four word planes over
+    # its probe side's capacity
+    words = hash_words(1 << 24, 4, 14)
+    check_bit_exact(f"hash32 k=4 n={1 << 24}", [hash32(words)],
+                    [hash32_plain(words)])
+    del words
     torch.cuda.synchronize()
     return errs
 
@@ -599,6 +627,256 @@ def q13_oracle(customer, orders):
             "custdist": custdist[groups][order].tolist()}, int(kept.sum())
 
 
+def _codes(batch, name, values):
+    """The codes of ``values`` in a dictionary column's dictionary."""
+    d = batch.column(name).dictionary
+    return [d.index(v) for v in values]
+
+
+def _check_keys(cols, name):
+    """The oracles join a key 1..n by indexing: check it is 1..n."""
+    assert np.array_equal(cols[name], np.arange(1, len(cols[name]) + 1)), name
+
+
+def _suite_columns(t):
+    """The downloaded source columns the suite's oracles read, by table."""
+    li = _host_columns(t["lineitem"], [
+        "l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+        "l_extendedprice", "l_discount", "l_returnflag", "l_shipdate",
+        "l_receiptdate", "l_shipinstruct", "l_shipmode"])
+    li["volume"] = li["l_extendedprice"] * (1.0 - li["l_discount"])
+    cols = {"lineitem": li}
+    for name, keys in (
+            ("orders", ["o_orderkey", "o_custkey", "o_orderdate",
+                        "o_orderpriority"]),
+            ("customer", ["c_custkey", "c_nationkey", "c_mktsegment"]),
+            ("part", ["p_partkey", "p_type", "p_brand", "p_container",
+                      "p_size"]),
+            ("supplier", ["s_suppkey", "s_nationkey"]),
+            ("partsupp", ["ps_partkey", "ps_suppkey", "ps_supplycost"]),
+            ("nation", ["n_nationkey", "n_name", "n_regionkey"]),
+            ("region", ["r_regionkey", "r_name"])):
+        cols[name] = _host_columns(t[name], keys)
+    for name, key in (("orders", "o_orderkey"), ("customer", "c_custkey"),
+                      ("part", "p_partkey"), ("supplier", "s_suppkey")):
+        _check_keys(cols[name], key)
+    assert np.array_equal(cols["nation"]["n_nationkey"], np.arange(25))
+    return cols
+
+
+def q6_oracle(t, c):
+    """Revenue of the 1994 lineitems with a discount of 5-7% and fewer
+    than 24 units."""
+    from arrow_tpu_torch.io.tpch_queries import (DATE_1994_01_01,
+                                                 DATE_1995_01_01)
+    li = c["lineitem"]
+    sel = ((li["l_shipdate"] >= DATE_1994_01_01)
+           & (li["l_shipdate"] < DATE_1995_01_01)
+           & (li["l_discount"] >= 0.05) & (li["l_discount"] <= 0.07)
+           & (li["l_quantity"] < 24.0))
+    revenue = np.sum(li["l_extendedprice"][sel] * li["l_discount"][sel])
+    return {"revenue": np.array([revenue])}, int(sel.sum())
+
+
+def q10_oracle(t, c, limit=20):
+    """Revenue of returned lineitems per customer over the orders of the
+    quarter from 1994-01-01, the top ``limit`` by revenue, then key."""
+    from arrow_tpu_torch.io.tpch_queries import DATE_1994_01_01
+    li, od, cu = c["lineitem"], c["orders"], c["customer"]
+    date = od["o_orderdate"]
+    order_ok = (date >= DATE_1994_01_01) & (date < DATE_1994_01_01 + 92)
+    (r,) = _codes(t["lineitem"], "l_returnflag", ["R"])
+    sel = (li["l_returnflag"] == r) & order_ok[li["l_orderkey"] - 1]
+    cust = od["o_custkey"][li["l_orderkey"][sel] - 1]
+    revenue = np.bincount(cust, weights=li["volume"][sel],
+                          minlength=len(cu["c_custkey"]) + 1)
+    groups = np.unique(cust)
+    top = groups[np.lexsort((groups, -revenue[groups]))[:limit]]
+    seg = t["customer"].column("c_mktsegment").dictionary
+    return {"c_custkey": top.tolist(),
+            "c_mktsegment": [seg[s] for s in cu["c_mktsegment"][top - 1]],
+            "revenue": revenue[top]}, int(sel.sum())
+
+
+def q12_oracle(t, c):
+    """Lineitems received in 1994 by mail or ship, counted per ship mode
+    for urgent or high-priority orders and for the others."""
+    from arrow_tpu_torch.io.tpch_queries import (DATE_1994_01_01,
+                                                 DATE_1995_01_01)
+    li, od = c["lineitem"], c["orders"]
+    modes = t["lineitem"].column("l_shipmode").dictionary
+    sel = ((li["l_receiptdate"] >= DATE_1994_01_01)
+           & (li["l_receiptdate"] < DATE_1995_01_01)
+           & np.isin(li["l_shipmode"], _codes(t["lineitem"], "l_shipmode",
+                                              ["MAIL", "SHIP"])))
+    urgent = np.isin(od["o_orderpriority"], _codes(
+        t["orders"], "o_orderpriority", ["1-URGENT", "2-HIGH"]))
+    high = urgent[li["l_orderkey"][sel] - 1]
+    mode = li["l_shipmode"][sel]
+    n_high = np.bincount(mode[high], minlength=len(modes))
+    n_all = np.bincount(mode, minlength=len(modes))
+    groups = sorted((modes[m], m) for m in np.flatnonzero(n_all))
+    return {"l_shipmode": [g[0] for g in groups],
+            "high_line_count": [int(n_high[m]) for _, m in groups],
+            "low_line_count": [int(n_all[m] - n_high[m]) for _, m in groups]
+            }, int(sel.sum())
+
+
+def q5_oracle(t, c, region_name="ASIA"):
+    """Revenue per nation of one region from the 1994 orders whose
+    customer and supplier share that nation, by revenue descending."""
+    from arrow_tpu_torch.io.tpch_queries import (DATE_1994_01_01,
+                                                 DATE_1995_01_01)
+    li, od, cu, su, nd, rd = (c[k] for k in (
+        "lineitem", "orders", "customer", "supplier", "nation", "region"))
+    (region,) = _codes(t["region"], "r_name", [region_name])
+    in_region = np.isin(nd["n_regionkey"],
+                        rd["r_regionkey"][rd["r_name"] == region])
+    date = od["o_orderdate"]
+    order_ok = (date >= DATE_1994_01_01) & (date < DATE_1995_01_01)
+    okey = li["l_orderkey"] - 1
+    c_nation = cu["c_nationkey"][od["o_custkey"][okey] - 1]
+    s_nation = su["s_nationkey"][li["l_suppkey"] - 1]
+    sel = order_ok[okey] & (c_nation == s_nation) & in_region[s_nation]
+    revenue = np.bincount(s_nation[sel], weights=li["volume"][sel],
+                          minlength=25)
+    groups = np.unique(s_nation[sel])
+    groups = groups[np.argsort(-revenue[groups], kind="stable")]
+    names = t["nation"].column("n_name").dictionary
+    return {"n_name": [names[nd["n_name"][g]] for g in groups],
+            "revenue": revenue[groups]}, int(sel.sum())
+
+
+def q9_oracle(t, c):
+    """Profit per nation and order year (days // 365, as date32) of the
+    lineitems of BRASS parts, each joined to every partsupp row of its
+    (part, supplier) pair; by nation ascending, year descending."""
+    import datetime
+    li, od, pt, su, ps, nd = (c[k] for k in (
+        "lineitem", "orders", "part", "supplier", "partsupp", "nation"))
+    brass = np.array(["BRASS" in v for v in
+                      t["part"].column("p_type").dictionary])
+    rows = np.flatnonzero(brass[pt["p_type"][li["l_partkey"] - 1]])
+    # each pair as one int64, searched in partsupp's sorted pairs; the
+    # lineitem pairs are sorted too (the groups' sums ignore row order),
+    # which keeps numpy's searches cache-friendly
+    radix = len(su["s_suppkey"]) + 1
+    ps_pair = ps["ps_partkey"] * radix + ps["ps_suppkey"]
+    order = np.argsort(ps_pair, kind="stable")
+    ps_sorted = ps_pair[order]
+    pair = li["l_partkey"][rows] * radix + li["l_suppkey"][rows]
+    by_pair = np.argsort(pair, kind="stable")
+    rows, pair = rows[by_pair], pair[by_pair]
+    lo = np.searchsorted(ps_sorted, pair, side="left")
+    counts = np.searchsorted(ps_sorted, pair, side="right") - lo
+    rows = np.repeat(rows, counts)
+    cost = ps["ps_supplycost"][order[np.repeat(lo, counts)
+                                     + _ranks_within(counts)]]
+    nation = su["s_nationkey"][li["l_suppkey"][rows] - 1]
+    year = od["o_orderdate"][li["l_orderkey"][rows] - 1] // 365
+    amount = li["volume"][rows] - cost * li["l_quantity"][rows]
+    groups, inverse = np.unique(nation * 1000 + year, return_inverse=True)
+    profit = np.bincount(inverse.reshape(-1), weights=amount,
+                         minlength=len(groups))
+    names = t["nation"].column("n_name").dictionary
+    keys = sorted((names[nd["n_name"][g // 1000]], -int(g % 1000), i)
+                  for i, g in enumerate(groups))
+    epoch = datetime.date(1970, 1, 1)
+    return {"nation": [k[0] for k in keys],
+            "o_year": [epoch + datetime.timedelta(days=-k[1]) for k in keys],
+            "sum_profit": profit[[k[2] for k in keys]]}, len(rows)
+
+
+def q14_oracle(t, c):
+    """100 x the revenue of PROMO parts over all revenue, lineitems
+    shipped in the month from 1995-09-01."""
+    from arrow_tpu_torch.io.tpch_queries import DATE_1995_09_01
+    li, pt = c["lineitem"], c["part"]
+    sel = (li["l_shipdate"] >= DATE_1995_09_01) \
+        & (li["l_shipdate"] < DATE_1995_09_01 + 30)
+    promo_type = np.array([v.startswith("PROMO") for v in
+                           t["part"].column("p_type").dictionary])
+    promo = promo_type[pt["p_type"][li["l_partkey"][sel] - 1]]
+    volume = li["volume"][sel]
+    return {"promo_revenue": np.array(
+        [100.0 * volume[promo].sum() / volume.sum()])}, int(sel.sum())
+
+
+def q19_oracle(t, c):
+    """Revenue of the air-shipped, delivered-in-person lineitems inside
+    one of three brand, container, quantity and size envelopes."""
+    li, pt = c["lineitem"], c["part"]
+    sel = np.isin(li["l_shipmode"], _codes(t["lineitem"], "l_shipmode",
+                                           ["AIR", "REG AIR"])) \
+        & (li["l_shipinstruct"] == _codes(t["lineitem"], "l_shipinstruct",
+                                          ["DELIVER IN PERSON"])[0])
+    rows = np.flatnonzero(sel)
+    p = li["l_partkey"][rows] - 1
+    qty = li["l_quantity"][rows]
+    keep = np.zeros(len(rows), dtype=bool)
+    for brand, size, qty_lo, size_hi in (("Brand#12", "SM", 1.0, 5),
+                                         ("Brand#23", "MED", 10.0, 10),
+                                         ("Brand#34", "LG", 20.0, 15)):
+        boxes = ("BAG", "BOX", "PKG", "PACK") if size == "MED" \
+            else ("CASE", "BOX", "PACK", "PKG")
+        keep |= ((pt["p_brand"][p] == _codes(t["part"], "p_brand",
+                                             [brand])[0])
+                 & np.isin(pt["p_container"][p], _codes(
+                     t["part"], "p_container",
+                     [f"{size} {b}" for b in boxes]))
+                 & (qty >= qty_lo) & (qty <= qty_lo + 10.0)
+                 & (pt["p_size"][p] >= 1) & (pt["p_size"][p] <= size_hi))
+    return {"revenue": np.array([li["volume"][rows][keep].sum()])}, \
+        int(keep.sum())
+
+
+class SuiteQuery(NamedTuple):
+    """One query of phase 3c: its plan in ``io/tpch_queries.py``, the
+    tables it takes, its numpy oracle and its launches a run."""
+    name: str
+    plan: str
+    tables: tuple
+    oracle: object
+    launches: dict
+
+
+def _launches(compact, hash32, grouped_sum):
+    return {"compact": compact, "hash32": hash32,
+            "grouped_sum": grouped_sum, "probe": 1}
+
+
+# Launches a run (see PERF.md §4 for the joins that take the bloom: every
+# lineitem probe here does, as does orders probing customer in Q5). Each
+# join's build side has unique keys, so each inner join takes the
+# unique-build compaction; each filter on a join input compacts, and a
+# filter below a (scalar) aggregate folds into it. Q5's revenue by n_name
+# (26 slots) and Q9's profit over its 1,024-row join output take
+# grouped_sum.
+SUITE = (
+    SuiteQuery("Q6", "q6_plan", ("lineitem",), q6_oracle,
+               _launches(0, 0, 0)),
+    SuiteQuery("Q10", "q10_style_plan", ("customer", "orders", "lineitem"),
+               q10_oracle, _launches(5, 2, 0)),
+    SuiteQuery("Q12", "q12_style_plan", ("orders", "lineitem"), q12_oracle,
+               _launches(3, 2, 0)),
+    SuiteQuery("Q5", "q5_plan", ("customer", "orders", "lineitem",
+                                 "supplier", "nation", "region"),
+               q5_oracle, _launches(11, 8, 1)),
+    SuiteQuery("Q9", "q9_style_plan", ("part", "supplier", "lineitem",
+                                       "partsupp", "orders", "nation"),
+               q9_oracle, _launches(7, 2, 1)),
+    SuiteQuery("Q14", "q14_plan", ("lineitem", "part"), q14_oracle,
+               _launches(3, 2, 0)),
+    SuiteQuery("Q19", "q19_plan", ("lineitem", "part"), q19_oracle,
+               _launches(3, 2, 0)),
+)
+
+
+def suite_plan(q: SuiteQuery, tables):
+    from arrow_tpu_torch.io import tpch_queries
+    return getattr(tpch_queries, q.plan)(*(tables[k] for k in q.tables))
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -628,15 +906,19 @@ def null_key_tables(n_probe, n_build, device, seed=7):
 
 
 def host_tables():
-    """Orders and customer from the port's host generator, uploaded."""
-    from arrow_tpu_torch.io.tpch import customer_table, orders_table
+    """Every TPC-H table but lineitem from the port's host generator at
+    SF10, uploaded, by name."""
+    from arrow_tpu_torch.io import tpch
     t0 = time.perf_counter()
-    orders = orders_table(SF)
-    customer = customer_table(SF)
-    log(f"orders ({int(orders.row_count)} rows) and customer "
-        f"({int(customer.row_count)} rows) generated on the host and "
-        f"uploaded in {time.perf_counter() - t0:.1f} s")
-    return orders, customer
+    tables = {name: getattr(tpch, f"{name}_table")(SF) for name in (
+        "orders", "customer", "part", "supplier", "partsupp")}
+    tables["nation"] = tpch.nation_table()
+    tables["region"] = tpch.region_table()
+    sizes = ", ".join(f"{k} ({int(b.row_count)} rows)"
+                      for k, b in tables.items())
+    log(f"{sizes} generated on the host and uploaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return tables
 
 
 def phase_join_types(orders, customer):
@@ -784,6 +1066,45 @@ def phase_main_paths(orders, customer):
     return launches
 
 
+def phase_suite(tables):
+    """The JAX package's TPC-H suite beyond Q1 and Q3, plus Q14 and Q19,
+    each with every launch count set to 0 just before and read just
+    after, against its numpy oracle. Every query runs before a failure is
+    raised. Returns the launches by path."""
+    from arrow_tpu_torch.platform_check import self_check
+    log(f"== phase 3c: the JAX package's TPC-H suite at SF{SF:g}")
+    t0 = time.perf_counter()
+    cols = _suite_columns(tables)
+    log(f"source columns downloaded for the oracles in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches, failures = {}, []
+    for q in SUITE:
+        plan = suite_plan(q, tables)
+        zero_launches()
+        self_check()
+        result = plan.to_table()
+        launches[q.name] = read_launches()
+        t1 = time.perf_counter()
+        want, n_rows = q.oracle(tables, cols)
+        log(f"{q.name} oracle: {time.perf_counter() - t1:.1f} s")
+        try:
+            check_launches(q.name, launches[q.name], q.launches)
+            check_result(q.name, result, want)
+        except AssertionError as exc:
+            log(f"  {q.name} FAILED: {exc}")
+            failures.append(q.name)
+            continue
+        log(f"{q.name} result matches the numpy oracle ({n_rows} rows kept "
+            f"by the oracle, {len(next(iter(result.values())))} result rows): "
+            f"keys, counts and order exact, floats within rtol {RTOL_F64}")
+        for i in range(min(len(next(iter(result.values()))), 6)):
+            log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
+        del plan, result
+    if failures:
+        raise AssertionError(f"phase 3c failed for {failures}")
+    return launches
+
+
 def best_wall(run, reps=6):
     """Host-clock seconds of ``run`` (which ends in a download) after a
     synchronize, every run; the first is the warm-up."""
@@ -801,6 +1122,7 @@ def profile_run(name, run):
     """Device time of one run by kernel, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -808,6 +1130,8 @@ def profile_run(name, run):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
+    log(f"{name} profile taken and read in "
+        f"{time.perf_counter() - t_start:.1f} s")
     # kernels only: an operator's device time repeats its kernels'
     rows = [(e.key, e.self_device_time_total, e.count) for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -858,13 +1182,12 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
-def phase_times(card, launches, errs, orders, customer):
+def phase_times(card, launches, errs, tables):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
     from arrow_tpu_torch.device.column import download
-    from arrow_tpu_torch.io.tpch_device import (q1_device_batch,
-                                                q3_device_plan)
+    from arrow_tpu_torch.io.tpch_device import q3_device_plan
     from arrow_tpu_torch.io.tpch_queries import (q1_chain_decls, q4_plan,
                                                  q13_plan)
     from arrow_tpu_torch.kernels.compact import compact, compact_plain
@@ -873,7 +1196,8 @@ def phase_times(card, launches, errs, orders, customer):
     from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
     from arrow_tpu_torch.kernels.probe import probe, probe_plain
     log(f"== phase 4: times on {card}")
-    batch, n = q1_device_batch(SF)
+    batch = tables["lineitem"]
+    n = int(batch.row_count)
     q1 = compile_chain(q1_chain_decls())
     walls, best = best_wall(lambda: download(q1(batch)))
     log(f"Q1 SF{SF:g}: {n} rows, wall {[round(w * 1e3, 3) for w in walls]}"
@@ -889,18 +1213,19 @@ def phase_times(card, launches, errs, orders, customer):
         f" = {n_li / best:.6g} rows/s [{card}]")
     profile_run("Q3", plan.to_table)
 
-    # Q4's lineitem is Q1's device batch: it holds l_orderkey,
-    # l_commitdate and l_receiptdate at the reference's ranges
-    lineitem4, n_li4 = q1_device_batch(SF)
-    q4 = q4_plan(orders, lineitem4)
+    # Q4's lineitem is Q1's device batch, as for the suite: it holds
+    # l_orderkey, l_commitdate and l_receiptdate at the reference's ranges
+    orders, lineitem = tables["orders"], tables["lineitem"]
+    n_li = int(lineitem.row_count)
+    q4 = q4_plan(orders, lineitem)
     walls, best = best_wall(q4.to_table)
-    log(f"Q4 SF{SF:g}: {n_li4} lineitem rows, wall "
+    log(f"Q4 SF{SF:g}: {n_li} lineitem rows, wall "
         f"{[round(w * 1e3, 3) for w in walls]} ms; best {best * 1e3:.3f} ms"
-        f" = {n_li4 / best:.6g} lineitem rows/s [{card}]")
+        f" = {n_li / best:.6g} lineitem rows/s [{card}]")
     profile_run("Q4", q4.to_table)
-    del q4, lineitem4
+    del q4
 
-    q13 = q13_plan(customer, orders)
+    q13 = q13_plan(tables["customer"], orders)
     n_ord = int(orders.row_count)
     walls, best = best_wall(q13.to_table)
     log(f"Q13 SF{SF:g}: {n_ord} orders rows, wall "
@@ -908,6 +1233,16 @@ def phase_times(card, launches, errs, orders, customer):
         f" = {n_ord / best:.6g} orders rows/s [{card}]")
     profile_run("Q13", q13.to_table)
     del q13
+
+    # the suite: its largest input is lineitem in every query
+    for q in SUITE:
+        run = suite_plan(q, tables).to_table
+        walls, best = best_wall(run)
+        log(f"{q.name} SF{SF:g}: {n_li} lineitem rows, wall "
+            f"{[round(w * 1e3, 3) for w in walls]} ms; best "
+            f"{best * 1e3:.3f} ms = {n_li / best:.6g} lineitem rows/s "
+            f"[{card}]")
+        profile_run(q.name, run)
 
     def record(name, shape, kernel, plain, library, nbytes, ops, ops_per_s,
                reps=20):
@@ -990,7 +1325,8 @@ def phase_times(card, launches, errs, orders, customer):
          "source": "arrow_tpu_torch/csrc/probe.cu",
          "replaces": "arrow_tpu/platform_check.py:119",
          "launches": by_path("probe"), "max_abs_err": errs["probe"],
-         **probe_rec},
+         # the floor of one launch: torch.mul's device time on the tile
+         "launch_floor_ms": probe_rec["library_device_ms"], **probe_rec},
         {"name": "compact", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/compact.cu",
          "replaces": "arrow_tpu/compute/pallas_move.py:189",
@@ -1016,13 +1352,19 @@ def main() -> int:
         return 2
     try:
         t0 = time.perf_counter()
-        card = phase_probe()
+        card = timed(phase_probe)
         from arrow_tpu_torch.device.column import round_up
-        orders, customer = host_tables()
-        errs = phase_kernels(round_up(int(6_001_215 * SF)), orders)
-        launches = phase_main_paths(orders, customer)
-        phase_join_types(orders, customer)
-        kernel_line = phase_times(card, launches, errs, orders, customer)
+        from arrow_tpu_torch.io.tpch_device import q1_device_batch
+        tables = timed(host_tables)
+        orders, customer = tables["orders"], tables["customer"]
+        errs = timed(phase_kernels, round_up(int(6_001_215 * SF)), orders)
+        launches = timed(phase_main_paths, orders, customer)
+        # the suite's lineitem: Q1's device batch, all 15 columns at the
+        # reference generator's ranges, as Q4 uses it
+        tables["lineitem"], _ = q1_device_batch(SF)
+        launches.update(timed(phase_suite, tables))
+        timed(phase_join_types, orders, customer)
+        kernel_line = timed(phase_times, card, launches, errs, tables)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

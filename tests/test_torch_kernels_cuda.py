@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the join types, Q4 and Q13 on the card.
+and the join types, Q4, Q13 and phase 3c's TPC-H suite on the card.
 
 These tests need a CUDA card, carry the ``cuda`` marker and skip elsewhere.
 The machine with the card has no JAX, so this file imports only torch, the
@@ -238,3 +238,25 @@ def test_q4_q13_on_card_match_cpu(query):
                 tpch.customer_table(0.01, device=device), orders)
         results.append(plan.to_table())
     assert results[0] == results[1] and len(next(iter(results[0].values())))
+
+
+def _suite_queries():
+    import chip_smoke
+    return chip_smoke.SUITE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", _suite_queries(), ids=lambda q: q.name)
+def test_suite_query_on_card_matches_oracle(query):
+    """Each query of chip_smoke's phase 3c over SF 0.05 tables made on the
+    card, against its numpy oracle."""
+    _need_card()
+    import chip_smoke
+    from arrow_tpu_torch.io import tpch
+    from arrow_tpu_torch.io.tpch_device import q1_device_batch
+    tables = tpch.generate(0.05)
+    tables["lineitem"], _ = q1_device_batch(0.05)
+    want, n_rows = query.oracle(tables, chip_smoke._suite_columns(tables))
+    assert n_rows > 0
+    chip_smoke.check_result(query.name, chip_smoke.suite_plan(
+        query, tables).to_table(), want)

@@ -115,16 +115,17 @@ def _unported(kind, source, filtered):
             filter=field("l_quantity") > field("l_tax")), [filtered, source])
     if kind == "union":
         return Declaration("union", None, [filtered, source])
+    # a scalar aggregate runs with its defaults; other null options raise
     return Declaration("aggregate", AggregateNodeOptions(
-        [("l_quantity", "sum", None, "total")]), [filtered])
+        [("l_quantity", "sum", {"skip_nulls": False}, "total")]), [filtered])
 
 
 @pytest.mark.parametrize("kind", ["count_distinct", "residual join filter",
                                   "union", "scalar aggregate"])
 def test_unported_nodes_raise(kind):
-    """A standalone filter and an inner hash join run; the nodes and
-    functions that Q1, Q3, Q4 and Q13 do not need raise, naming their
-    ROADMAP item."""
+    """A standalone filter and an inner hash join run; the nodes,
+    functions and options that the ported queries do not need raise,
+    naming their ROADMAP item."""
     tb, _ = q1_device_batch(0.001, device="cpu")
     source = Declaration("table_source", TableSourceNodeOptions(tb))
     filtered = Declaration("filter", FilterNodeOptions(

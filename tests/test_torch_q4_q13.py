@@ -33,8 +33,8 @@ from arrow_tpu_torch.acero import (Declaration, Expression,
                                    FilterNodeOptions, TableSourceNodeOptions,
                                    field)
 from arrow_tpu_torch.acero.exec import execute_declaration
-from arrow_tpu_torch.acero.expression import match_like
 from arrow_tpu_torch.compute.registry import ExecContext, get_function
+from arrow_tpu_torch.compute.strings import match_like
 from arrow_tpu_torch.device.column import DeviceColumn, round_up
 from arrow_tpu_torch.io import tpch
 from arrow_tpu_torch.io import tpch_queries
@@ -243,7 +243,7 @@ def test_match_like_filter_and_conjunction():
 def test_match_like_needs_a_dictionary_column():
     col = DeviceColumn(torch.arange(4), None, int64())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        match_like(col, pattern="%")
+        match_like(None, col, pattern="%")
 
 
 # --- the aggregates Q4 and Q13 need ------------------------------------------
