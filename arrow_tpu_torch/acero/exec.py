@@ -19,10 +19,12 @@ A Declaration tree runs node by node, eagerly, with no jit:
   sizes the output and picks the unique-build path), gather the output
   rows, and append the unmatched build rows of a right or full outer join.
 
-An aggregate with no keys gives one row (``_scalar_aggregate_fn``); a
-filter folds into it as into a grouped one. All eight join types are
-ported. Residual join filters and the union, as-of, sorted-merge and
-pivot nodes raise NotImplementedError naming their ROADMAP item.
+A declaration with two or more parents in the tree runs once per
+execution (``_Run``). An aggregate with no keys gives one row
+(``_scalar_aggregate_fn``); a filter folds into it as into a grouped
+one. All eight join types are ported. Residual join filters and the
+union, as-of, sorted-merge and pivot nodes raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -345,37 +347,77 @@ def compile_chain(decls: Sequence["Declaration"]) -> Callable:
 # --- the tree executor ----------------------------------------------------
 
 def execute_declaration(decl: "Declaration") -> DeviceBatch:
-    """Run a Declaration tree; the result stays on the device."""
-    if decl.factory_name == "table_source":
-        return decl.options.batch
-    if decl.factory_name == "hashjoin":
-        left_pre, lsrc = _collect_pre_chain(decl.inputs[0])
-        right_pre, rsrc = _collect_pre_chain(decl.inputs[1])
-        return _execute_hashjoin(decl.options, execute_declaration(lsrc),
-                                 execute_declaration(rsrc), left_pre,
-                                 right_pre)
-    if decl.factory_name in _CHAINABLE:
-        # the maximal linear run of chainable nodes above the next source
-        seg = []
+    """Run a Declaration tree; the result stays on the device.
+
+    A declaration with more than one parent in the tree (a common
+    subexpression: Q2's partsupp of the region's suppliers, Q11's
+    partsupp of the nation's, Q15's revenue view, Q22's customers of the
+    country codes) runs once, and each parent reads its batch. Running it
+    twice, as the reference does, would give two results whose float sums
+    may differ in their last bits, because the card's grouped sums add
+    with atomics in no fixed order: Q15's join of each supplier's revenue
+    with their maximum would then drop the supplier it must keep."""
+    return _Run(decl).execute(decl)
+
+
+class _Run:
+    """One execution of a tree: its shared declarations and their
+    batches."""
+
+    def __init__(self, root: "Declaration"):
+        parents: Dict[int, int] = {}
+
+        def walk(d):
+            for x in d.inputs:
+                parents[id(x)] = parents.get(id(x), 0) + 1
+                if parents[id(x)] == 1:
+                    walk(x)
+        walk(root)
+        self.shared = {k for k, n in parents.items() if n > 1}
+        self.done: Dict[int, DeviceBatch] = {}
+
+    def execute(self, decl: "Declaration") -> DeviceBatch:
+        if id(decl) in self.done:
+            return self.done[id(decl)]
+        out = self._execute(decl)
+        if id(decl) in self.shared:
+            self.done[id(decl)] = out
+        return out
+
+    def _execute(self, decl: "Declaration") -> DeviceBatch:
+        if decl.factory_name == "table_source":
+            return decl.options.batch
+        if decl.factory_name == "hashjoin":
+            left_pre, lsrc = self._pre_chain(decl.inputs[0])
+            right_pre, rsrc = self._pre_chain(decl.inputs[1])
+            return _execute_hashjoin(decl.options, self.execute(lsrc),
+                                     self.execute(rsrc), left_pre,
+                                     right_pre)
+        if decl.factory_name in _CHAINABLE:
+            # the maximal linear run of chainable nodes above the next
+            # source or shared declaration
+            seg = []
+            cur = decl
+            while cur.factory_name in _CHAINABLE and (
+                    cur is decl or id(cur) not in self.shared):
+                seg.append(cur)
+                cur = cur.inputs[0]
+            return _apply(list(reversed(seg)), self.execute(cur))
+        raise NotImplementedError(
+            f"{decl.factory_name!r} nodes are not ported yet " + _LONG_TAIL)
+
+    def _pre_chain(self, decl: "Declaration"):
+        """The trailing run of filter/project nodes above a join input, in
+        execution order, and the node below them; a shared declaration
+        ends the run."""
+        chain = []
         cur = decl
-        while cur.factory_name in _CHAINABLE:
-            seg.append(cur)
+        while cur.factory_name in ("filter", "project") \
+                and id(cur) not in self.shared:
+            chain.append(cur)
             cur = cur.inputs[0]
-        return _apply(list(reversed(seg)), execute_declaration(cur))
-    raise NotImplementedError(
-        f"{decl.factory_name!r} nodes are not ported yet " + _LONG_TAIL)
-
-
-def _collect_pre_chain(decl: "Declaration"):
-    """The trailing run of filter/project nodes above a join input, in
-    execution order, and the node below them."""
-    chain = []
-    cur = decl
-    while cur.factory_name in ("filter", "project"):
-        chain.append(cur)
-        cur = cur.inputs[0]
-    chain.reverse()
-    return tuple(chain), cur
+        chain.reverse()
+        return tuple(chain), cur
 
 
 _BLOOM_TYPES = ("inner", "left semi", "right semi", "right outer")

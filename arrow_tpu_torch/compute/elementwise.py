@@ -1,5 +1,6 @@
-"""Element-wise kernels: arithmetic, comparisons, boolean logic and
-``if_else`` (counterpart of ``arrow_tpu/compute/elementwise.py``).
+"""Element-wise kernels: arithmetic, comparisons, boolean logic,
+``if_else`` and ``cast`` (counterpart of
+``arrow_tpu/compute/elementwise.py``).
 
 Nulls follow the reference's intersection policy: the result is null where
 any input is null. Numeric value lanes at null positions hold zeros, so
@@ -22,8 +23,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device.column import DeviceColumn
-from ..types import DataType, TypeId, bool_, from_torch_dtype
+from ..device.column import DeviceColumn, torch_dtype_for
+from ..types import (DataType, TypeId, bool_, from_torch_dtype,
+                     type_for_name)
 from .registry import register
 
 
@@ -248,3 +250,48 @@ def if_else(ctx, cond, a, b):
     return _col(out, _and_validity(cvd, branch_validity),
                 t if t is not None and not t.is_numeric else None,
                 dicts[0] if dicts else None)
+
+
+# --- cast -------------------------------------------------------------------
+
+@register("cast", "elementwise")
+def cast(ctx, a, to_type=None, target_type=None, safe: bool = True):
+    """Numeric to numeric or bool, and date32 to date32 or to and from
+    integers. ``to_type`` or ``target_type`` is a DataType or a type name
+    (``"float64"``). With ``safe``, a cast that loses data on a live row
+    (a float with a fraction or out of range to an integer, an integer out
+    of the target's range) raises ValueError, where the reference returns
+    a deferred error. A dictionary-coded (string) column raises
+    NotImplementedError: the reference parses its dictionary on the host
+    (``_cast_parse_strings``)."""
+    t = to_type if to_type is not None else target_type
+    if t is None:
+        raise ValueError("cast requires to_type")
+    if isinstance(t, str):
+        t = type_for_name(t)
+    if not isinstance(a, DeviceColumn):
+        raise NotImplementedError("cast of a literal is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 9: the long "
+                                  "tail)")
+    if a.dictionary is not None or t.id in (TypeId.STRING,
+                                            TypeId.DICTIONARY):
+        raise NotImplementedError(
+            f"cast from {a.type!r} to {t!r} (the string tiers) is not "
+            "ported yet (ROADMAP.md, queue 1, item 9: the long tail)")
+    av = a.values
+    if a.type.is_temporal and t.is_temporal:
+        # date32 is the port's one temporal type: no unit to rescale
+        return _col(av, a.validity, t)
+    out = av.to(torch_dtype_for(t))
+    if safe and t.id != TypeId.BOOL and not out.dtype.is_floating_point \
+            and av.dtype != torch.bool:
+        live = a.valid_mask(ctx.row_mask())
+        if av.dtype.is_floating_point:
+            whole = torch.trunc(av)
+            bad = (av != whole) | (out.to(av.dtype) != whole)
+        else:
+            bad = out.to(av.dtype) != av
+        if bool((bad & live).any()):
+            raise ValueError(f"cast to {t!r} would lose data (use "
+                             "safe=False to allow)")
+    return _col(out, a.validity, t)

@@ -1,20 +1,25 @@
-"""Grouped ("hash_") aggregates: sum, mean, count, count_all (counterpart of
-``arrow_tpu/compute/hash_agg.py``).
+"""Grouped ("hash_") aggregates: sum, mean, count, count_all, min, max and
+count_distinct (counterpart of ``arrow_tpu/compute/hash_agg.py``).
 
 Each takes (values, group ids int64[capacity] with ``capacity`` on dead
 rows) and returns per-group results at the static segment bound plus the
 group count. Sums and means reduce through ``move.segment_reduce``, which
-sends float sums to the grouped-sum kernel.
+sends float sums to the grouped-sum kernel. Min and max compare a
+dictionary column by value (``rank_recode``) and keep its sorted
+dictionary; count_distinct sorts (group, value word) pairs and counts
+their boundaries.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import types as T
 from ..device.column import DeviceColumn
 from ..types import DataType, TypeId
-from .move import segment_count, segment_reduce
+from .keys import _LOW63, equality_word, order_word, stable_sort_indices
+from .move import _empty_value, segment_count, segment_reduce
 from .registry import register
 from .selection import Compacted
 
@@ -112,4 +117,129 @@ def grouped_count_all(ctx, gids, num_groups, num_segments=None):
     seg = torch.where(live, gids, 0).to(torch.int32)
     return Compacted(DeviceColumn(segment_count(live, seg, nseg), None,
                                   T.int64()),
+                     num_groups.to(torch.int32))
+
+
+def _group_has_null(ctx, values: DeviceColumn, gids, nseg) -> torch.Tensor:
+    """bool[nseg]: the group has a live row whose value is null."""
+    if values.validity is None:
+        return torch.zeros(nseg, dtype=torch.bool, device=gids.device)
+    isnull = ~values.validity & ctx.row_mask() & (gids < ctx.capacity)
+    seg = torch.where(isnull, gids, 0)
+    return segment_count(isnull, seg, nseg) > 0
+
+
+def rank_recode(col: DeviceColumn) -> DeviceColumn:
+    """A dictionary-coded column recoded so that its codes are the ranks
+    of their values, with the value-sorted dictionary (a null value last):
+    host work on the dictionary, one gather on the device (reference:
+    ``aggregate.py`` ``rank_recode``). Other columns come back as they
+    are."""
+    if col.dictionary is None:
+        return col
+    vals = list(col.dictionary)
+    order = sorted(range(len(vals)), key=lambda i: (vals[i] is None, vals[i]))
+    if order == list(range(len(vals))):
+        return col
+    rank = torch.empty(len(vals), dtype=torch.int32)
+    rank[torch.tensor(order)] = torch.arange(len(vals), dtype=torch.int32)
+    codes = rank.to(col.values.device)[col.values.long().clamp(
+        0, len(vals) - 1)]
+    return DeviceColumn(codes, col.validity, col.type,
+                        tuple(vals[i] for i in order))
+
+
+def _grouped_minmax(ctx, values: DeviceColumn, gids, num_groups, is_min,
+                    skip_nulls, num_segments):
+    """A group is valid iff it saw a value (``min_count`` does not apply,
+    as in the reference); with ``skip_nulls=False`` a null in the group
+    nulls it. Empty groups hold the reduction's identity. Floats reduce
+    as the reference's segment min and max do: a NaN in the group gives
+    NaN, and -0.0 orders below 0.0 (through ``_float_minmax``)."""
+    values = rank_recode(values)
+    nseg, live, seg = _prep(ctx, values, gids, num_segments)
+    v = values.values
+    op = "min" if is_min else "max"
+    if v.dtype.is_floating_point:
+        out = _float_minmax(v, live, seg, nseg, op)
+    else:
+        if v.dtype == torch.bool:
+            # min is an AND, max an OR: reduce the bools as bytes
+            v = v.to(torch.uint8)
+        ident = int(is_min) if values.values.dtype == torch.bool \
+            else _empty_value(v.dtype, op)
+        v = torch.where(live, v, torch.tensor(ident, dtype=v.dtype,
+                                              device=v.device))
+        out = segment_reduce(v, seg, nseg, op, ident) \
+            .to(values.values.dtype)
+    validity = segment_count(live, seg, nseg) > 0
+    if not skip_nulls:
+        validity = validity & ~_group_has_null(ctx, values, gids, nseg)
+    return Compacted(DeviceColumn(out, validity, values.type,
+                                  values.dictionary),
+                     num_groups.to(torch.int32))
+
+
+def _float_minmax(v, live, seg, nseg, op) -> torch.Tensor:
+    """Segment min or max of floats by their order words (-0.0 below
+    0.0, as XLA orders them), NaN rows left out and a group with one set
+    to NaN afterwards; empty groups hold +-inf."""
+    nan = torch.isnan(v) & live
+    inf = _empty_value(v.dtype, op)
+    w = torch.where(live & ~nan, order_word(DeviceColumn(v, None, None)),
+                    _order_word_host(inf))
+    w = segment_reduce(w, seg, nseg, op, None)
+    # a group with no row keeps the int64 identity: give it +-inf's word
+    w = torch.where(w == _empty_value(torch.int64, op), _order_word_host(inf),
+                    w)
+    out = torch.where(w < 0, w ^ _LOW63, w).view(torch.float64).to(v.dtype)
+    has_nan = segment_count(nan, torch.where(nan, seg, 0), nseg) > 0
+    return torch.where(has_nan, torch.tensor(float("nan"), dtype=v.dtype,
+                                             device=v.device), out)
+
+
+def _order_word_host(x: float) -> int:
+    """``keys.order_word`` of one f64 value, on the host."""
+    bits = int(np.array(x, dtype=np.float64).view(np.int64))
+    return bits ^ _LOW63 if bits < 0 else bits
+
+
+@register("hash_min", "hash_aggregate")
+def grouped_min(ctx, values: DeviceColumn, gids, num_groups,
+                skip_nulls: bool = True, min_count: int = 1,
+                num_segments=None):
+    return _grouped_minmax(ctx, values, gids, num_groups, True, skip_nulls,
+                           num_segments)
+
+
+@register("hash_max", "hash_aggregate")
+def grouped_max(ctx, values: DeviceColumn, gids, num_groups,
+                skip_nulls: bool = True, min_count: int = 1,
+                num_segments=None):
+    return _grouped_minmax(ctx, values, gids, num_groups, False, skip_nulls,
+                           num_segments)
+
+
+@register("hash_count_distinct", "hash_aggregate")
+def grouped_count_distinct(ctx, values: DeviceColumn, gids, num_groups,
+                           mode: str = "only_valid", num_segments=None):
+    """Distinct valid values per group: a stable sort of the (group id,
+    equality word) pairs of the live rows, then the pairs that start a run
+    counted by group. ``mode="only_null"`` gives 1 where the group has a
+    null, ``"all"`` adds that 1 to the distinct count."""
+    cap = ctx.capacity
+    nseg = num_segments if num_segments is not None else cap
+    live = values.valid_mask(ctx.row_mask()) & (gids < cap)
+    gkey = torch.where(live, gids, cap)
+    vkey = torch.where(live, equality_word(values), 0)
+    perm = stable_sort_indices([gkey, vkey])
+    sg, sv = gkey[perm], vkey[perm]
+    new_pair = torch.ones(cap, dtype=torch.bool, device=gids.device)
+    new_pair[1:] = (sg[1:] != sg[:-1]) | (sv[1:] != sv[:-1])
+    new_pair &= live[perm]
+    counts = segment_count(new_pair, torch.where(new_pair, sg, 0), nseg)
+    if mode in ("only_null", "all"):
+        has_null = _group_has_null(ctx, values, gids, nseg).to(torch.int64)
+        counts = has_null if mode == "only_null" else counts + has_null
+    return Compacted(DeviceColumn(counts, None, T.int64()),
                      num_groups.to(torch.int32))

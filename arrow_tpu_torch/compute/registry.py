@@ -51,7 +51,7 @@ def get_function(name: str) -> Function:
     if name not in _REGISTRY:
         # the modules that register functions, imported on first lookup
         from . import (aggregate, elementwise, hash_agg,  # noqa: F401
-                       strings, vector_misc)
+                       strings, temporal, vector_misc)
     f = _REGISTRY.get(name)
     if f is None:
         raise NotImplementedError(

@@ -6,14 +6,15 @@ order, so every column is bit-identical to the reference generator's, and
 is uploaded as a DeviceBatch (``device.column.batch_from_numpy``).
 Dictionary columns are int32 codes plus a tuple of the dictionary's
 strings. The port keeps every string column as codes: a plain-string
-column of the reference (``s_name``, ``s_address``, ``s_phone``,
-``n_name``, ``r_name``) is encoded here in order of first appearance, as
-the reference's upload encodes it (``_encode``), so its type, codes and
-dictionary match the reference's device batch. Customer's ``c_name`` and
-``c_phone`` and part's ``p_name`` (nearly every row distinct) are left
-out, as no ported query reads them, but their random draws are still
-made, so the columns after them stay identical to the reference's.
-``device=None`` means the card.
+column of the reference (``c_name``, ``c_phone``, ``p_name``,
+``s_name``, ``s_address``, ``s_phone``, ``n_name``, ``r_name``) is
+encoded here in order of first appearance, as the reference's upload
+encodes it (``_encode``), so its type, codes and dictionary match the
+reference's device batch. ``c_name`` and ``c_phone`` hold about 1.5M
+distinct values at SF10 and ``p_name`` about 2M, so the fixed-width
+strings are built as byte matrices (``_fixed``) and encoded by one
+``np.unique`` over them, with no loop over the rows in Python but
+``p_name``'s joins of its five words. ``device=None`` means the card.
 """
 
 from __future__ import annotations
@@ -56,7 +57,16 @@ BRANDS = tuple(f"Brand#{b}" for b in range(11, 56))
 CONTAINERS = tuple(f"{a} {b}" for a in ("SM", "LG", "MED", "JUMBO", "WRAP")
                    for b in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK",
                              "CAN", "DRUM"))
-_P_NAME_WORDS = 40   # the reference's p_name word pool
+# the reference's p_name word pool (dbgen's colours; Q20 filters
+# p_name LIKE 'forest%')
+P_NAME_WORDS = (
+    "almond", "antique", "aquamarine", "azure", "beige", "bisque", "black",
+    "blanched", "blue", "blush", "brown", "burlywood", "burnished",
+    "chartreuse", "chiffon", "chocolate", "coral", "cornflower", "cornsilk",
+    "cream", "cyan", "dark", "deep", "dim", "dodger", "drab", "firebrick",
+    "floral", "forest", "frosted", "gainsboro", "ghost", "goldenrod",
+    "green", "grey", "honeydew", "hot", "hrose", "indian", "ivory",
+)
 # comment word salad; a fraction of orders comments embed the Q13 pattern
 # 'special ... requests'
 _COMMENT_WORDS = (
@@ -83,27 +93,53 @@ def _encode(name: str, strings: np.ndarray) -> Column:
     """A plain-string column dictionary-encoded in order of first
     appearance, as the reference's upload encodes it
     (``arrow_tpu/device/column.py``, ``_dictionary_encode_host``): type
-    string, int32 codes and the dictionary."""
+    string, int32 codes and the dictionary. ``strings`` is a numpy array
+    of str or of ASCII bytes."""
     uniq, first, inverse = np.unique(strings, return_index=True,
                                      return_inverse=True)
     order = np.argsort(first, kind="stable")
     rank = np.empty(len(order), dtype=np.int32)
     rank[order] = np.arange(len(order), dtype=np.int32)
+    values = uniq[order]
+    if values.dtype.kind == "S":
+        values = values.astype(str)
     return (name, "string", rank[inverse.reshape(-1)], None,
-            tuple(str(u) for u in uniq[order]))
+            tuple(values.tolist()))
+
+
+def _digits(values: np.ndarray, width: int) -> np.ndarray:
+    """(n, width) ASCII digits of non-negative integers below
+    10**width, zero-padded as ``%0<width>d`` gives them."""
+    values = np.asarray(values, dtype=np.int64)
+    if len(values) and (values.min() < 0 or values.max() >= 10 ** width):
+        raise ValueError(f"values do not fit {width} digits")
+    powers = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return (values[:, None] // powers % 10 + ord("0")).astype(np.uint8)
+
+
+def _fixed(n: int, parts) -> np.ndarray:
+    """Fixed-width ASCII strings, one a row, as an ``S`` array: each part
+    is a (n, w) byte matrix or a str that every row holds."""
+    mats = [np.broadcast_to(np.frombuffer(p.encode("ascii"), np.uint8),
+                            (n, len(p))) if isinstance(p, str) else p
+            for p in parts]
+    mat = np.ascontiguousarray(np.concatenate(mats, axis=1))
+    return mat.view(f"S{mat.shape[1]}").reshape(n)
+
+
+def _keyed_names(prefix: str, keys: np.ndarray) -> np.ndarray:
+    """The reference's ``<prefix>#%09d`` names (``_name_col``)."""
+    return _fixed(len(keys), [prefix + "#", _digits(keys, 9)])
 
 
 def _phone(rng, nationkey: np.ndarray) -> np.ndarray:
-    """The reference's phone strings ``NN-DDD-DDD-DDDD``, drawn in its
-    order."""
-    parts = [np.char.mod("%d", nationkey + 10)]
-    for fmt, lo, hi in (("%03d", 100, 1000), ("%03d", 100, 1000),
-                        ("%04d", 1000, 10_000)):
-        parts.append(np.char.mod(fmt, rng.integers(lo, hi, len(nationkey))))
-    out = parts[0]
-    for p in parts[1:]:
-        out = np.char.add(np.char.add(out, "-"), p)
-    return out
+    """The reference's phone strings ``NN-DDD-DDD-DDDD`` (``NN`` the
+    nation key + 10), drawn in its order."""
+    n = len(nationkey)
+    parts = [_digits(nationkey + 10, 2)]
+    for width, lo, hi in ((3, 100, 1000), (3, 100, 1000), (4, 1000, 10_000)):
+        parts += ["-", _digits(rng.integers(lo, hi, n), width)]
+    return _fixed(n, parts)
 
 
 def _comment_pool(rng, pool_size: int, special: Optional[str] = None,
@@ -180,16 +216,15 @@ def orders_table(scale_factor: float = 1.0, seed: int = 1,
 
 def customer_table(scale_factor: float = 1.0, seed: int = 2,
                    device=None) -> DeviceBatch:
-    """Customer without ``c_name`` and ``c_phone`` (plain strings)."""
     n = max(int(150_000 * scale_factor), 2)
     rng = np.random.default_rng(seed)
     nationkey = rng.integers(0, 25, n)
-    # c_phone's three random parts, drawn as the reference draws them
-    for lo, hi in ((100, 1000), (100, 1000), (1000, 10_000)):
-        rng.integers(lo, hi, n)
+    keys = np.arange(1, n + 1)
     cols = [
-        _col("c_custkey", "int64", np.arange(1, n + 1)),
+        _col("c_custkey", "int64", keys),
+        _encode("c_name", _keyed_names("Customer", keys)),
         _col("c_nationkey", "int64", nationkey),
+        _encode("c_phone", _phone(rng, nationkey)),
         _dict_col(rng, "c_mktsegment", MKTSEGMENTS, n),
         _col("c_acctbal", "float64",
              np.round(rng.uniform(-999.99, 9999.99, n), 2)),
@@ -200,19 +235,22 @@ def customer_table(scale_factor: float = 1.0, seed: int = 2,
 
 def part_table(scale_factor: float = 1.0, seed: int = 3,
                device=None) -> DeviceBatch:
-    """Part without ``p_name``. ``p_brand`` follows ``p_mfgr``'s codes and
-    comes last, as in the reference."""
+    """``p_brand`` follows ``p_mfgr``'s codes and comes last, as in the
+    reference."""
     n = max(int(200_000 * scale_factor), 2)
     rng = np.random.default_rng(seed)
-    # the reference's first mfgr and brand draws (unused), then p_name's
-    # five word draws
+    # the reference's first mfgr and brand draws (unused)
     rng.integers(1, 6, n)
     rng.integers(1, 6, n)
-    for _ in range(5):
-        rng.integers(0, _P_NAME_WORDS, n)
+    # p_name: five words of the pool drawn one after another, joined by
+    # spaces
+    words = np.array(P_NAME_WORDS, dtype=object)
+    picks = [words[rng.integers(0, len(words), n)] for _ in range(5)]
+    name = np.array(list(map(" ".join, zip(*picks))), dtype="S")
     mfgr = _dict_col(rng, "p_mfgr", MANUFACTURERS, n)
     cols = [
         _col("p_partkey", "int64", np.arange(1, n + 1)),
+        _encode("p_name", name),
         mfgr,
         _dict_col(rng, "p_type", PART_TYPES, n),
         _col("p_size", "int64", rng.integers(1, 51, n)),
@@ -234,7 +272,7 @@ def supplier_table(scale_factor: float = 1.0, seed: int = 4,
     keys = np.arange(1, n + 1)
     cols = [
         _col("s_suppkey", "int64", keys),
-        _encode("s_name", np.char.mod("Supplier#%09d", keys)),
+        _encode("s_name", _keyed_names("Supplier", keys)),
         _encode("s_address", np.char.mod("addr-%x",
                                          rng.integers(0, 1 << 40, n))),
         _col("s_nationkey", "int64", nationkey),

@@ -20,10 +20,14 @@ Phases; any failure exits non-zero without the final line:
    SF10 orders), and at a ragged 1,000,003 rows of bool, int32, int64 and
    f64 with NaN and -0.0 bit patterns, bit for bit with the count; the
    grouped sum at the suite's shapes (26 slots over 131,072 rows, 1,024
-   over 1,024); the hash of 1, 2 and 3 words at 60M rows, of 4 words at
-   16,777,216 rows (Q5's two-key bloom), and of the main path's join keys
-   (the strided int32 halves of ``l_orderkey``'s and ``o_custkey``'s
-   equality words at SF10's capacities), bit for bit.
+   over 1,024, 26 over 524,288 for Q22); the compaction at Q18's HAVING
+   filter (a grouped output at lineitem's capacity) and of partsupp's
+   columns (Q11's, Q16's and Q20's semi and anti joins); the hash of 1, 2
+   and 3 words at 60M rows, of 4 words at 16,777,216 rows (Q5's two-key
+   bloom), of 2 at 33,554,432 and 1,048,576 rows (Q7's and Q21's joins
+   on a join's output), and of the main path's join keys (the strided
+   int32 halves of ``l_orderkey``'s and ``o_custkey``'s equality words at
+   SF10's capacities), bit for bit.
 3. The main paths, each with every launch count set to 0 just before and
    read just after. Q1: ``self_check()``, ``q1_device_batch(10.0)``,
    ``compile_chain(q1_chain_decls())`` and the download of the result.
@@ -39,16 +43,22 @@ Phases; any failure exits non-zero without the final line:
    and ``<plan>(...).to_table()`` over SF10's tables, lineitem being
    ``q1_device_batch(10.0)``, against its numpy oracle with its launches
    exact (``SUITE``).
+   Then (3d) the last eleven of the reference's 22 plans, Q2, Q7, Q8,
+   Q11, Q15, Q16, Q17, Q18, Q20, Q21 and Q22 (its
+   ``tests/test_tpch_full.py``), the same way (``FULL``), each with the
+   card's peak memory over its first run; Q11 takes TPC-H's fraction
+   0.0001 / SF and Q20 the nation of the first supplier it keeps.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
    SF10, where the bloom engages for inner, left semi, right semi and
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
-4. Times after a warm-up: Q1, Q3, Q4, Q13 and the suite's rows/s of
-   their largest input (best of 5), a profile of one run of each
-   (device busy time and idle share), and each kernel's time beside its bound,
-   its plain version's and one library call's where there is one: by
+4. Times after a warm-up: Q1, Q3, Q4, Q13, the suite's and the last
+   eleven plans' rows/s of their largest input (best of 5), a profile of
+   one run of each (device busy time and idle share), and each kernel's
+   time beside its bound, its plain version's and one library call's
+   where there is one: by
    CUDA events around back-to-back calls, and as device time from the
    profiler.
 
@@ -321,8 +331,11 @@ def phase_kernels(n, orders):
         check_close(f"grouped_sum f64 Inf/NaN S={s}", got,
                     grouped_sum_plain(v, g, s), RTOL_F64)
     # the suite's grouped sums: Q5's revenue by n_name (26 slots) over its
-    # last join's capacity, Q9's profit over its 1,024-row join output
-    for rows, s, live in ((131_072, 26, 25), (1024, 1024, 175)):
+    # last join's capacity, Q9's profit over its 1,024-row join output,
+    # Q22's balance by country code (26 slots, 7 live) over its anti
+    # join's capacity
+    for rows, s, live in ((131_072, 26, 25), (1024, 1024, 175),
+                          (524_288, 26, 7)):
         v, g = q1_like_inputs(rows, s, live, torch.float64, 5)
         check_close(f"grouped_sum f64 n={rows} S={s}", grouped_sum(v, g, s),
                     grouped_sum_plain(v, g, s), RTOL_F64)
@@ -389,6 +402,27 @@ def phase_kernels(n, orders):
                             device="cuda", dtype=torch.int64), f64]
     compact_case(f"compact ragged n={r} bool/int32/int64/f64",
                  torch.rand(r, generator=gen, device="cuda") < 0.5, ragged)
+    del ragged, f64
+    # Q18's HAVING filter: a grouped sum's output at lineitem's capacity
+    # (order keys, sums and their validity, a quarter of the slots live),
+    # about one group in 10^4 kept
+    keys = torch.arange(n, dtype=torch.int64, device="cuda")
+    sums = torch.rand(n, generator=gen, device="cuda",
+                      dtype=torch.float64) * 300.0
+    live = torch.rand(n, generator=gen, device="cuda") < 0.25
+    compact_case(f"compact Q18 HAVING filter n={n} int64/f64/bool",
+                 (sums > 299.97) & live, [keys, sums, live])
+    del keys, sums, live
+    # partsupp's four columns at its SF10 capacity, as Q11's, Q16's and
+    # Q20's semi and anti joins compact them
+    m = 8_000_512
+    ps = [torch.randint(1, 2_000_000, (m,), generator=gen, device="cuda"),
+          torch.randint(1, 100_000, (m,), generator=gen, device="cuda"),
+          torch.rand(m, generator=gen, device="cuda", dtype=torch.float64),
+          torch.randint(1, 10_000, (m,), generator=gen, device="cuda")]
+    compact_case(f"compact partsupp semi join n={m} x4",
+                 torch.rand(m, generator=gen, device="cuda") < 0.04, ps)
+    del ps
 
     h = 60_000_000
     for k in (1, 2, 3):
@@ -397,11 +431,13 @@ def phase_kernels(n, orders):
                         [hash32_plain(words)])
         del words
     # Q5's two-key bloom (l_suppkey, c_nationkey): four word planes over
-    # its probe side's capacity
-    words = hash_words(1 << 24, 4, 14)
-    check_bit_exact(f"hash32 k=4 n={1 << 24}", [hash32(words)],
-                    [hash32_plain(words)])
-    del words
+    # its probe side's capacity; Q7's and Q21's single int64 keys over
+    # their joins' 33,554,432- and 1,048,576-row probe sides
+    for rows, k in ((1 << 24, 4), (1 << 25, 2), (1 << 20, 2)):
+        words = hash_words(rows, k, 14 + k)
+        check_bit_exact(f"hash32 k={k} n={rows}", [hash32(words)],
+                        [hash32_plain(words)])
+        del words
     torch.cuda.synchronize()
     return errs
 
@@ -638,30 +674,35 @@ def _check_keys(cols, name):
     assert np.array_equal(cols[name], np.arange(1, len(cols[name]) + 1)), name
 
 
-def _suite_columns(t):
-    """The downloaded source columns the suite's oracles read, by table."""
-    li = _host_columns(t["lineitem"], [
-        "l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
-        "l_extendedprice", "l_discount", "l_returnflag", "l_shipdate",
-        "l_receiptdate", "l_shipinstruct", "l_shipmode"])
+def _oracle_columns(t, spec):
+    """The downloaded source columns of ``spec`` (table -> column names)
+    by table, with lineitem's volume; the keys the oracles join by
+    indexing are checked to be 1..n."""
+    cols = {name: _host_columns(t[name], keys) for name, keys in spec.items()}
+    li = cols["lineitem"]
     li["volume"] = li["l_extendedprice"] * (1.0 - li["l_discount"])
-    cols = {"lineitem": li}
-    for name, keys in (
-            ("orders", ["o_orderkey", "o_custkey", "o_orderdate",
-                        "o_orderpriority"]),
-            ("customer", ["c_custkey", "c_nationkey", "c_mktsegment"]),
-            ("part", ["p_partkey", "p_type", "p_brand", "p_container",
-                      "p_size"]),
-            ("supplier", ["s_suppkey", "s_nationkey"]),
-            ("partsupp", ["ps_partkey", "ps_suppkey", "ps_supplycost"]),
-            ("nation", ["n_nationkey", "n_name", "n_regionkey"]),
-            ("region", ["r_regionkey", "r_name"])):
-        cols[name] = _host_columns(t[name], keys)
     for name, key in (("orders", "o_orderkey"), ("customer", "c_custkey"),
                       ("part", "p_partkey"), ("supplier", "s_suppkey")):
         _check_keys(cols[name], key)
     assert np.array_equal(cols["nation"]["n_nationkey"], np.arange(25))
     return cols
+
+
+def _suite_columns(t):
+    """The downloaded source columns the suite's oracles read, by table."""
+    return _oracle_columns(t, {
+        "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                     "l_extendedprice", "l_discount", "l_returnflag",
+                     "l_shipdate", "l_receiptdate", "l_shipinstruct",
+                     "l_shipmode"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderdate",
+                   "o_orderpriority"],
+        "customer": ["c_custkey", "c_nationkey", "c_mktsegment"],
+        "part": ["p_partkey", "p_type", "p_brand", "p_container", "p_size"],
+        "supplier": ["s_suppkey", "s_nationkey"],
+        "partsupp": ["ps_partkey", "ps_suppkey", "ps_supplycost"],
+        "nation": ["n_nationkey", "n_name", "n_regionkey"],
+        "region": ["r_regionkey", "r_name"]})
 
 
 def q6_oracle(t, c):
@@ -831,13 +872,16 @@ def q19_oracle(t, c):
 
 
 class SuiteQuery(NamedTuple):
-    """One query of phase 3c: its plan in ``io/tpch_queries.py``, the
-    tables it takes, its numpy oracle and its launches a run."""
+    """One query of phase 3c or 3d: its plan in ``io/tpch_queries.py``, the
+    tables it takes, its numpy oracle, its launches a run, and a function
+    of (tables, oracle columns) that gives the plan's and the oracle's
+    parameters where the defaults do not serve at SF10."""
     name: str
     plan: str
     tables: tuple
     oracle: object
     launches: dict
+    params: object = None
 
 
 def _launches(compact, hash32, grouped_sum):
@@ -872,9 +916,428 @@ SUITE = (
 )
 
 
-def suite_plan(q: SuiteQuery, tables):
+def suite_plan(q: SuiteQuery, tables, params=None):
     from arrow_tpu_torch.io import tpch_queries
-    return getattr(tpch_queries, q.plan)(*(tables[k] for k in q.tables))
+    return getattr(tpch_queries, q.plan)(*(tables[k] for k in q.tables),
+                                         **(params or {}))
+
+
+# --- phase 3d: the last eleven of the 22 plans -------------------------------
+
+def _full_columns(t):
+    """The downloaded source columns the oracles of ``FULL`` read, by
+    table."""
+    return _oracle_columns(t, {
+        "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                     "l_extendedprice", "l_discount", "l_shipdate",
+                     "l_commitdate", "l_receiptdate"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderstatus",
+                   "o_totalprice", "o_orderdate"],
+        "customer": ["c_custkey", "c_name", "c_nationkey", "c_phone",
+                     "c_acctbal"],
+        "part": ["p_partkey", "p_name", "p_mfgr", "p_type", "p_size",
+                 "p_brand", "p_container"],
+        "supplier": ["s_suppkey", "s_name", "s_address", "s_nationkey",
+                     "s_phone", "s_acctbal", "s_comment"],
+        "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty",
+                     "ps_supplycost"],
+        "nation": ["n_nationkey", "n_name", "n_regionkey"],
+        "region": ["r_regionkey", "r_name"]})
+
+
+def _dictionary(t, table, name):
+    """A dictionary column's values as a numpy object array by code."""
+    return np.array(t[table].column(name).dictionary, dtype=object)
+
+
+def _value_ranks(t, table, name):
+    """Per dictionary code: the rank of its value in sorted order."""
+    values = _dictionary(t, table, name)
+    ranks = np.empty(len(values), dtype=np.int64)
+    ranks[np.argsort(values, kind="stable")] = np.arange(len(values))
+    return ranks
+
+
+def _days(y, m, d):
+    import datetime
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+def _dates(days):
+    import datetime
+    epoch = datetime.date(1970, 1, 1)
+    return [epoch + datetime.timedelta(days=int(d)) for d in days]
+
+
+def _year(days):
+    """The calendar year of days since 1970-01-01."""
+    return days.astype("datetime64[D]").astype("datetime64[Y]") \
+        .astype(np.int64) + 1970
+
+
+def _nation_key(t, c, name):
+    (code,) = _codes(t["nation"], "n_name", [name])
+    (key,) = c["nation"]["n_nationkey"][c["nation"]["n_name"] == code]
+    return key
+
+
+def _nations_in_region(t, c, region_name):
+    """bool per nation key: the nation lies in the region."""
+    (code,) = _codes(t["region"], "r_name", [region_name])
+    rd, nd = c["region"], c["nation"]
+    return np.isin(nd["n_regionkey"], rd["r_regionkey"][rd["r_name"] == code])
+
+
+def _nation_names(t, c, keys):
+    names = _dictionary(t, "nation", "n_name")
+    return list(names[c["nation"]["n_name"][keys]])
+
+
+def q2_oracle(t, c, size=15, type_suffix="BRASS", region_name="EUROPE",
+              limit=100):
+    """The region's partsupp rows at their part's least supply cost, for
+    parts of one size whose type ends with the suffix; top ``limit`` by
+    balance, nation, supplier and part."""
+    pt, su, ps = c["part"], c["supplier"], c["partsupp"]
+    eu = _nations_in_region(t, c, region_name)[su["s_nationkey"]]
+    rows = np.flatnonzero(eu[ps["ps_suppkey"] - 1])
+    pk, cost = ps["ps_partkey"][rows], ps["ps_supplycost"][rows]
+    least = np.full(len(pt["p_partkey"]) + 1, np.inf)
+    np.minimum.at(least, pk, cost)
+    suffix = np.array([v.endswith(type_suffix)
+                       for v in _dictionary(t, "part", "p_type")])
+    part_ok = (pt["p_size"] == size) & suffix[pt["p_type"]]
+    keep = part_ok[pk - 1] & (cost == least[pk])
+    rows, pk = rows[keep], pk[keep]
+    s = ps["ps_suppkey"][rows] - 1
+    nat = su["s_nationkey"][s]
+    acct = su["s_acctbal"][s]
+    order = np.lexsort((pk, _value_ranks(t, "supplier", "s_name")[
+        su["s_name"][s]], _value_ranks(t, "nation", "n_name")[
+        c["nation"]["n_name"][nat]], -acct))[:limit]
+    s, pk = s[order], pk[order]
+
+    def sup(name):
+        return list(_dictionary(t, "supplier", name)[su[name][s]])
+    return {"s_acctbal": acct[order], "s_name": sup("s_name"),
+            "n_name": _nation_names(t, c, nat[order]),
+            "p_partkey": pk.tolist(),
+            "p_mfgr": list(_dictionary(t, "part", "p_mfgr")[
+                pt["p_mfgr"][pk - 1]]),
+            "s_address": sup("s_address"), "s_phone": sup("s_phone"),
+            "s_comment": sup("s_comment")}, len(rows)
+
+
+def q7_oracle(t, c, nation1="FRANCE", nation2="GERMANY"):
+    """Revenue of 1995-1996 shipments between the two nations, by
+    supplier nation, customer nation and ship year."""
+    li, od, cu, su = (c[k] for k in ("lineitem", "orders", "customer",
+                                     "supplier"))
+    date = li["l_shipdate"]
+    rows = np.flatnonzero((date >= _days(1995, 1, 1))
+                          & (date <= _days(1996, 12, 31)))
+    cn = cu["c_nationkey"][od["o_custkey"][li["l_orderkey"][rows] - 1] - 1]
+    sn = su["s_nationkey"][li["l_suppkey"][rows] - 1]
+    k1, k2 = _nation_key(t, c, nation1), _nation_key(t, c, nation2)
+    ok = ((sn == k1) & (cn == k2)) | ((sn == k2) & (cn == k1))
+    rows, sn, cn = rows[ok], sn[ok], cn[ok]
+    key = (sn * 25 + cn) * 10_000 + _year(li["l_shipdate"][rows])
+    groups, inverse = np.unique(key, return_inverse=True)
+    revenue = np.bincount(inverse.reshape(-1), weights=li["volume"][rows],
+                          minlength=len(groups))
+    sn_g, cn_g = groups // 10_000 // 25, groups // 10_000 % 25
+    sn_names = _nation_names(t, c, sn_g)
+    cn_names = _nation_names(t, c, cn_g)
+    order = sorted(range(len(groups)), key=lambda i: (
+        sn_names[i], cn_names[i], groups[i] % 10_000))
+    return {"supp_nation": [sn_names[i] for i in order],
+            "cust_nation": [cn_names[i] for i in order],
+            "l_year": [int(groups[i] % 10_000) for i in order],
+            "revenue": revenue[order]}, len(rows)
+
+
+def q8_oracle(t, c, p_type="ECONOMY ANODIZED STEEL", nation_name="BRAZIL",
+              region_name="AMERICA"):
+    """By order year, the share of the nation's suppliers in the revenue
+    of one part type sold to the region's customers in 1995-1996."""
+    li, od, cu, su, pt = (c[k] for k in ("lineitem", "orders", "customer",
+                                         "supplier", "part"))
+    (type_code,) = _codes(t["part"], "p_type", [p_type])
+    in_region = _nations_in_region(t, c, region_name)
+    date = od["o_orderdate"]
+    order_ok = (date >= _days(1995, 1, 1)) & (date <= _days(1996, 12, 31))
+    okey = li["l_orderkey"] - 1
+    rows = np.flatnonzero((pt["p_type"][li["l_partkey"] - 1] == type_code)
+                          & order_ok[okey]
+                          & in_region[cu["c_nationkey"][od["o_custkey"][okey]
+                                                        - 1]])
+    year = _year(date[okey[rows]])
+    volume = li["volume"][rows]
+    mine = su["s_nationkey"][li["l_suppkey"][rows] - 1] \
+        == _nation_key(t, c, nation_name)
+    years, inverse = np.unique(year, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    total = np.bincount(inverse, weights=volume, minlength=len(years))
+    nation = np.bincount(inverse, weights=np.where(mine, volume, 0.0),
+                         minlength=len(years))
+    return {"o_year": years.tolist(), "mkt_share": nation / total}, len(rows)
+
+
+def q11_params(t, c):
+    """TPC-H's FRACTION, 0.0001 / SF (SF from the supplier count)."""
+    return {"fraction": 0.0001 * 10_000 / len(c["supplier"]["s_suppkey"])}
+
+
+def q11_oracle(t, c, nation_name="GERMANY", fraction=0.0001):
+    """Stock value per part over the nation's suppliers, the parts above
+    ``fraction`` of the total, by value descending."""
+    su, ps = c["supplier"], c["partsupp"]
+    sup_ok = su["s_nationkey"] == _nation_key(t, c, nation_name)
+    rows = np.flatnonzero(sup_ok[ps["ps_suppkey"] - 1])
+    value = ps["ps_supplycost"][rows] * ps["ps_availqty"][rows] \
+        .astype(np.float64)
+    pk = ps["ps_partkey"][rows]
+    size = len(c["part"]["p_partkey"]) + 1
+    per_part = np.bincount(pk, weights=value, minlength=size)
+    present = np.bincount(pk, minlength=size) > 0
+    parts = np.flatnonzero(present & (per_part > value.sum() * fraction))
+    parts = parts[np.lexsort((parts, -per_part[parts]))]
+    return {"ps_partkey": parts.tolist(), "value": per_part[parts]}, \
+        len(rows)
+
+
+def q15_oracle(t, c, date_lo=None):
+    """The suppliers with the largest revenue over the quarter from
+    1996-01-01."""
+    li, su = c["lineitem"], c["supplier"]
+    lo = _days(1996, 1, 1) if date_lo is None else date_lo
+    sel = (li["l_shipdate"] >= lo) & (li["l_shipdate"] < lo + 90)
+    size = len(su["s_suppkey"]) + 1
+    revenue = np.bincount(li["l_suppkey"][sel], weights=li["volume"][sel],
+                          minlength=size)
+    present = np.bincount(li["l_suppkey"][sel], minlength=size) > 0
+    top = np.flatnonzero(present & (revenue == revenue[present].max()))
+
+    def sup(name):
+        return list(_dictionary(t, "supplier", name)[su[name][top - 1]])
+    return {"s_suppkey": top.tolist(), "s_name": sup("s_name"),
+            "s_address": sup("s_address"), "s_phone": sup("s_phone"),
+            "total_revenue": revenue[top]}, int(sel.sum())
+
+
+def q16_oracle(t, c, brand="Brand#45", type_prefix="MEDIUM POLISHED",
+               sizes=(49, 14, 23, 45, 19, 3, 36, 9)):
+    """Distinct suppliers without complaints per (brand, type, size) of
+    the parts kept, by count descending, then brand, type and size."""
+    import re
+    pt, su, ps = c["part"], c["supplier"], c["partsupp"]
+    (bad_brand,) = _codes(t["part"], "p_brand", [brand])
+    types = _dictionary(t, "part", "p_type")
+    type_ok = np.array([not v.startswith(type_prefix) for v in types])
+    part_ok = (pt["p_brand"] != bad_brand) & type_ok[pt["p_type"]] \
+        & np.isin(pt["p_size"], sizes)
+    complaint = np.array([re.match("^.*Customer.*Complaints.*$", v)
+                          is not None
+                          for v in _dictionary(t, "supplier", "s_comment")])
+    bad = complaint[su["s_comment"]]
+    rows = np.flatnonzero(~bad[ps["ps_suppkey"] - 1]
+                          & part_ok[ps["ps_partkey"] - 1])
+    p = ps["ps_partkey"][rows] - 1
+    group = (pt["p_brand"][p].astype(np.int64) * len(types)
+             + pt["p_type"][p]) * 64 + pt["p_size"][p]
+    radix = len(su["s_suppkey"]) + 1
+    pairs = np.unique(group * radix + ps["ps_suppkey"][rows])
+    groups, counts = np.unique(pairs // radix, return_counts=True)
+    b, ty, size = groups // 64 // len(types), groups // 64 % len(types), \
+        groups % 64
+    order = np.lexsort((size, _value_ranks(t, "part", "p_type")[ty],
+                        _value_ranks(t, "part", "p_brand")[b], -counts))
+    return {"p_brand": list(_dictionary(t, "part", "p_brand")[b[order]]),
+            "p_type": list(types[ty[order]]),
+            "p_size": size[order].tolist(),
+            "supplier_cnt": counts[order].tolist()}, len(rows)
+
+
+def q17_oracle(t, c, brand="Brand#23", container="MED BOX"):
+    """A seventh of the price of the brand's and container's lines whose
+    quantity is under a fifth of their part's mean quantity."""
+    li, pt = c["lineitem"], c["part"]
+    (b,) = _codes(t["part"], "p_brand", [brand])
+    (k,) = _codes(t["part"], "p_container", [container])
+    part_ok = (pt["p_brand"] == b) & (pt["p_container"] == k)
+    pk = li["l_partkey"]
+    size = len(pt["p_partkey"]) + 1
+    mean = np.bincount(pk, weights=li["l_quantity"], minlength=size) \
+        / np.maximum(np.bincount(pk, minlength=size), 1)
+    sel = part_ok[pk - 1] & (li["l_quantity"] < mean[pk] * 0.2)
+    return {"avg_yearly": np.array([li["l_extendedprice"][sel].sum()
+                                    / 7.0])}, int(sel.sum())
+
+
+def q18_oracle(t, c, quantity=300.0, limit=100):
+    """The orders of more than ``quantity`` units with their customer,
+    the top ``limit`` by price, date and key."""
+    li, od, cu = c["lineitem"], c["orders"], c["customer"]
+    size = len(od["o_orderkey"]) + 1
+    units = np.bincount(li["l_orderkey"], weights=li["l_quantity"],
+                        minlength=size)
+    present = np.bincount(li["l_orderkey"], minlength=size) > 0
+    big = np.flatnonzero(present & (units > quantity))
+    price, date = od["o_totalprice"][big - 1], od["o_orderdate"][big - 1]
+    top = big[np.lexsort((big, date, -price))[:limit]]
+    cust = od["o_custkey"][top - 1]
+    return {"c_name": list(_dictionary(t, "customer", "c_name")[
+                cu["c_name"][cust - 1]]),
+            "c_custkey": cust.tolist(), "o_orderkey": top.tolist(),
+            "o_orderdate": _dates(od["o_orderdate"][top - 1]),
+            "o_totalprice": od["o_totalprice"][top - 1],
+            "sum_qty": units[top]}, len(big)
+
+
+def _q20_suppliers(t, c, name_prefix, date_lo):
+    """The suppliers with a partsupp row of a part named ``name_prefix``...
+    whose stock exceeds half of the pair's units shipped in the year."""
+    li, pt, ps = c["lineitem"], c["part"], c["partsupp"]
+    lo = _days(1994, 1, 1) if date_lo is None else date_lo
+    sel = (li["l_shipdate"] >= lo) & (li["l_shipdate"] < lo + 365)
+    radix = len(c["supplier"]["s_suppkey"]) + 1
+    pairs, inverse = np.unique(li["l_partkey"][sel] * radix
+                               + li["l_suppkey"][sel], return_inverse=True)
+    units = np.bincount(inverse.reshape(-1), weights=li["l_quantity"][sel],
+                        minlength=len(pairs))
+    names = t["part"].column("p_name").dictionary
+    named = np.fromiter((v.startswith(name_prefix) for v in names),
+                        dtype=bool, count=len(names))
+    rows = np.flatnonzero(named[pt["p_name"]][ps["ps_partkey"] - 1])
+    want = ps["ps_partkey"][rows] * radix + ps["ps_suppkey"][rows]
+    pos = np.minimum(np.searchsorted(pairs, want), max(len(pairs) - 1, 0))
+    found = (pairs[pos] == want) if len(pairs) else np.zeros(len(want), bool)
+    keep = found & (ps["ps_availqty"][rows].astype(np.float64)
+                    > units[pos] * 0.5)
+    return np.unique(ps["ps_suppkey"][rows][keep])
+
+
+def q20_params(t, c):
+    """The nation of the first supplier Q20 keeps over all nations (as
+    the reference's test picks it): at SF10 about ten suppliers qualify
+    in all, so the default nation may have none."""
+    (first,) = _q20_suppliers(t, c, "forest", None)[:1]
+    nat = c["supplier"]["s_nationkey"][first - 1]
+    return {"nation_name": _nation_names(t, c, [nat])[0]}
+
+
+def q20_oracle(t, c, name_prefix="forest", nation_name="CANADA",
+               date_lo=None):
+    """The nation's suppliers of ``_q20_suppliers``, by name."""
+    su = c["supplier"]
+    keys = _q20_suppliers(t, c, name_prefix, date_lo)
+    keys = keys[su["s_nationkey"][keys - 1]
+                == _nation_key(t, c, nation_name)]
+    keys = keys[np.argsort(_value_ranks(t, "supplier", "s_name")[
+        su["s_name"][keys - 1]], kind="stable")]
+
+    def sup(name):
+        return list(_dictionary(t, "supplier", name)[su[name][keys - 1]])
+    return {"s_name": sup("s_name"), "s_address": sup("s_address")}, \
+        len(keys)
+
+
+def q21_oracle(t, c, nation_name="SAUDI ARABIA", limit=100):
+    """Per supplier of the nation, its late lines of finished orders that
+    had more than one supplier, of which only it was late. Distinct
+    suppliers per order, in all and late, come from one sort of the
+    packed (order, supplier, late) words."""
+    li, od, su = c["lineitem"], c["orders"], c["supplier"]
+    ok, sk = li["l_orderkey"], li["l_suppkey"]
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    shift = int(sk.max()).bit_length()
+    words = np.sort(((ok << shift | sk) << 1) | late)
+    pair = words >> 1
+    last = np.ones(len(words), dtype=bool)
+    last[:-1] = pair[1:] != pair[:-1]
+    # the last word of a pair's run has the late bit iff some line is late
+    size = len(od["o_orderkey"]) + 1
+    nsupp = np.bincount(pair[last] >> shift, minlength=size)
+    nlate = np.bincount(pair[last & (words & 1 == 1)] >> shift,
+                        minlength=size)
+    (finished,) = _codes(t["orders"], "o_orderstatus", ["F"])
+    sup_ok = su["s_nationkey"] == _nation_key(t, c, nation_name)
+    rows = late & (od["o_orderstatus"][ok - 1] == finished) \
+        & sup_ok[sk - 1] & (nsupp[ok] > 1) & (nlate[ok] == 1)
+    names = su["s_name"][sk[rows] - 1]
+    counts = np.bincount(names, minlength=len(su["s_suppkey"]))
+    groups = np.flatnonzero(counts)
+    groups = groups[np.lexsort((_value_ranks(t, "supplier", "s_name")[groups],
+                                -counts[groups]))][:limit]
+    return {"s_name": list(_dictionary(t, "supplier", "s_name")[groups]),
+            "numwait": counts[groups].tolist()}, int(rows.sum())
+
+
+def q22_oracle(t, c, codes=("13", "31", "23", "29", "30", "18", "17")):
+    """Customers of the country codes (the first two characters of the
+    phone number) richer than the codes' mean positive balance and with
+    no order, counted and summed by code."""
+    cu, od = c["customer"], c["orders"]
+    phones = t["customer"].column("c_phone").dictionary
+    code = np.fromiter((int(v[:2]) for v in phones), dtype=np.int64,
+                       count=len(phones))[cu["c_phone"]]
+    sel = np.isin(code, [int(k) for k in codes])
+    bal = cu["c_acctbal"]
+    mean = bal[sel & (bal > 0.0)].mean()
+    has_order = np.bincount(od["o_custkey"],
+                            minlength=len(cu["c_custkey"]) + 1) > 0
+    rich = sel & (bal > mean) & ~has_order[cu["c_custkey"]]
+    groups, inverse = np.unique(code[rich], return_inverse=True)
+    inverse = inverse.reshape(-1)
+    return {"cntrycode": [f"{g:02d}" for g in groups],
+            "numcust": np.bincount(inverse, minlength=len(groups)).tolist(),
+            "totacctbal": np.bincount(inverse, weights=bal[rich],
+                                      minlength=len(groups))}, \
+        int(rich.sum())
+
+
+# Launches a run at SF10, reckoned from the code (PERF.md §4 has the
+# joins of each plan): each filter on a join input, and the HAVING filter
+# above Q18's grouped sum, compacts, and a filter below an aggregate folds
+# into it; an inner join whose build keys are unique takes the
+# unique-build compaction; a join takes the bloom (2 hash32 launches, 1
+# compact) where its probe capacity is at least 4x its build capacity and
+# its type is inner, left semi, right semi or right outer (at SF10 every
+# lineitem probe of orders does: 60,012,544 >= 4 x 15,000,576, while
+# partsupp probing part does not: 8,000,512 < 4 x 2,000,896); a left semi
+# or anti join compacts its probe side; a declaration with two parents
+# (Q2's region suppliers' partsupp, Q11's partsupp, Q15's revenue, Q22's
+# customers of the codes) runs once.
+# Only Q22's sum by its 25 country codes (26 slots) takes grouped_sum: the
+# other sums group on keys that are not perfect-hashable, over
+# capacities above 1,024.
+FULL = (
+    SuiteQuery("Q2", "q2_plan", ("part", "supplier", "partsupp", "nation",
+                                 "region"), q2_oracle, _launches(9, 4, 0)),
+    SuiteQuery("Q7", "q7_plan", ("supplier", "lineitem", "orders",
+                                 "customer", "nation"), q7_oracle,
+               _launches(11, 10, 0)),
+    SuiteQuery("Q8", "q8_plan", ("part", "supplier", "lineitem", "orders",
+                                 "customer", "nation", "region"), q8_oracle,
+               _launches(13, 6, 0)),
+    SuiteQuery("Q11", "q11_plan", ("partsupp", "supplier", "nation"),
+               q11_oracle, _launches(8, 6, 0), q11_params),
+    SuiteQuery("Q15", "q15_plan", ("lineitem", "supplier"), q15_oracle,
+               _launches(4, 2, 0)),
+    SuiteQuery("Q16", "q16_plan", ("partsupp", "part", "supplier"),
+               q16_oracle, _launches(4, 0, 0)),
+    SuiteQuery("Q17", "q17_plan", ("lineitem", "part"), q17_oracle,
+               _launches(4, 2, 0)),
+    SuiteQuery("Q18", "q18_plan", ("customer", "orders", "lineitem"),
+               q18_oracle, _launches(4, 2, 0)),
+    SuiteQuery("Q20", "q20_plan", ("supplier", "nation", "partsupp", "part",
+                                   "lineitem"), q20_oracle,
+               _launches(9, 4, 0), q20_params),
+    SuiteQuery("Q21", "q21_plan", ("supplier", "lineitem", "orders",
+                                   "nation"), q21_oracle, _launches(11, 6, 0)),
+    SuiteQuery("Q22", "q22_plan", ("customer", "orders"), q22_oracle,
+               _launches(5, 2, 1)),
+)
 
 
 def join_declaration(jt, probe, build, **kw):
@@ -1071,21 +1534,57 @@ def phase_suite(tables):
     each with every launch count set to 0 just before and read just
     after, against its numpy oracle. Every query runs before a failure is
     raised. Returns the launches by path."""
-    from arrow_tpu_torch.platform_check import self_check
     log(f"== phase 3c: the JAX package's TPC-H suite at SF{SF:g}")
     t0 = time.perf_counter()
     cols = _suite_columns(tables)
     log(f"source columns downloaded for the oracles in "
         f"{time.perf_counter() - t0:.1f} s")
+    return _run_queries("3c", SUITE, tables, cols)
+
+
+def phase_full(tables):
+    """The last eleven of the reference's 22 plans, as phase 3c runs its
+    queries, each also with the card's peak memory over its first run.
+    Returns the launches by path and each plan's parameters."""
+    log(f"== phase 3d: the last eleven TPC-H plans at SF{SF:g}")
+    t0 = time.perf_counter()
+    cols = _full_columns(tables)
+    log(f"source columns downloaded for the oracles in "
+        f"{time.perf_counter() - t0:.1f} s")
+    params = {}
+    for q in FULL:
+        t1 = time.perf_counter()
+        params[q.name] = q.params(tables, cols) if q.params else {}
+        if q.params:
+            log(f"{q.name} parameters {params[q.name]} "
+                f"({time.perf_counter() - t1:.1f} s)")
+    return _run_queries("3d", FULL, tables, cols, params), params
+
+
+def _run_queries(phase, queries, tables, cols, params=None):
+    """Each query with every launch count set to 0 just before its run
+    and read just after, then against its oracle and its launches; every
+    query runs before a failure is raised."""
+    from arrow_tpu_torch.platform_check import self_check
     launches, failures = {}, []
-    for q in SUITE:
-        plan = suite_plan(q, tables)
+    for q in queries:
+        kw = (params or {}).get(q.name, {})
+        plan = suite_plan(q, tables, kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         zero_launches()
         self_check()
-        result = plan.to_table()
-        launches[q.name] = read_launches()
         t1 = time.perf_counter()
-        want, n_rows = q.oracle(tables, cols)
+        result = plan.to_table()
+        first = time.perf_counter() - t1
+        launches[q.name] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{q.name} first run {first:.3f} s; peak memory "
+            f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above "
+            "the tables")
+        t1 = time.perf_counter()
+        want, n_rows = q.oracle(tables, cols, **kw)
         log(f"{q.name} oracle: {time.perf_counter() - t1:.1f} s")
         try:
             check_launches(q.name, launches[q.name], q.launches)
@@ -1101,7 +1600,7 @@ def phase_suite(tables):
             log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
         del plan, result
     if failures:
-        raise AssertionError(f"phase 3c failed for {failures}")
+        raise AssertionError(f"phase {phase} failed for {failures}")
     return launches
 
 
@@ -1182,7 +1681,7 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
-def phase_times(card, launches, errs, tables):
+def phase_times(card, launches, errs, tables, params):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
@@ -1234,13 +1733,15 @@ def phase_times(card, launches, errs, tables):
     profile_run("Q13", q13.to_table)
     del q13
 
-    # the suite: its largest input is lineitem in every query
-    for q in SUITE:
-        run = suite_plan(q, tables).to_table
+    # the suite and the last eleven plans, each by its largest input
+    for q in SUITE + FULL:
+        run = suite_plan(q, tables, params.get(q.name)).to_table
+        big = max(q.tables, key=lambda k: int(tables[k].row_count))
+        n_big = int(tables[big].row_count)
         walls, best = best_wall(run)
-        log(f"{q.name} SF{SF:g}: {n_li} lineitem rows, wall "
+        log(f"{q.name} SF{SF:g}: {n_big} {big} rows, wall "
             f"{[round(w * 1e3, 3) for w in walls]} ms; best "
-            f"{best * 1e3:.3f} ms = {n_li / best:.6g} lineitem rows/s "
+            f"{best * 1e3:.3f} ms = {n_big / best:.6g} {big} rows/s "
             f"[{card}]")
         profile_run(q.name, run)
 
@@ -1363,8 +1864,11 @@ def main() -> int:
         # reference generator's ranges, as Q4 uses it
         tables["lineitem"], _ = q1_device_batch(SF)
         launches.update(timed(phase_suite, tables))
+        full_launches, params = timed(phase_full, tables)
+        launches.update(full_launches)
         timed(phase_join_types, orders, customer)
-        kernel_line = timed(phase_times, card, launches, errs, tables)
+        kernel_line = timed(phase_times, card, launches, errs, tables,
+                            params)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -105,9 +105,9 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 
 
 def _unported(kind, source, filtered):
-    if kind == "count_distinct":
+    if kind == "product":
         return Declaration("aggregate", AggregateNodeOptions(
-            [("l_suppkey", "count_distinct", None, "suppliers")],
+            [("l_suppkey", "product", None, "suppliers")],
             keys=["l_returnflag"]), [filtered])
     if kind == "residual join filter":
         return Declaration("hashjoin", HashJoinNodeOptions(
@@ -120,7 +120,7 @@ def _unported(kind, source, filtered):
         [("l_quantity", "sum", {"skip_nulls": False}, "total")]), [filtered])
 
 
-@pytest.mark.parametrize("kind", ["count_distinct", "residual join filter",
+@pytest.mark.parametrize("kind", ["product", "residual join filter",
                                   "union", "scalar aggregate"])
 def test_unported_nodes_raise(kind):
     """A standalone filter and an inner hash join run; the nodes,

@@ -4,23 +4,21 @@ five tables the suite adds, against the JAX package's generator.
 Part, supplier, partsupp, nation and region at SF 0.005 and 0.01 are
 bit-identical to ``arrow_tpu.io.tpch``'s tables as the JAX package uploads
 them (``upload_table``): every numeric column, every dictionary column's
-codes and values, and each plain-string column (``s_name``, ``s_address``,
-``s_phone``, ``n_name``, ``r_name``) as the codes and first-appearance
-dictionary that the reference's upload gives it. Part leaves out
-``p_name``, as customer leaves out ``c_name`` and ``c_phone``, but its
-random draws are made, so every later column still matches.
+codes and values, and each plain-string column (``p_name``, ``s_name``,
+``s_address``, ``s_phone``, ``n_name``, ``r_name``) as the codes and
+first-appearance dictionary that the reference's upload gives it; so are
+customer's ``c_name`` and ``c_phone``, nearly one value a row.
 ``generate`` gives all eight tables.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from arrow_tpu.device.column import upload_table
 from arrow_tpu.io import tpch as jax_tpch
 from arrow_tpu_torch.device.column import round_up
 from arrow_tpu_torch.io import tpch
-
-LEFT_OUT = ("c_name", "c_phone", "p_name")
 
 
 def _table_pair(table, sf):
@@ -38,8 +36,7 @@ def assert_batch_matches_upload(jt, tb):
     jb = upload_table(jt)
     n = jt.num_rows
     assert int(tb.row_count) == n and tb.capacity == round_up(n)
-    assert tb.schema.names == [c for c in jt.column_names
-                               if c not in LEFT_OUT]
+    assert tb.schema.names == jt.column_names
     for f, tc in zip(tb.schema.fields, tb.columns):
         jc = jb.column(f.name)
         want = np.asarray(jc.values)[:n]
@@ -61,6 +58,25 @@ def assert_batch_matches_upload(jt, tb):
 def test_tables_bit_identical(table, sf):
     jt, tb = _table_pair(table, sf)
     assert_batch_matches_upload(jt, tb)
+
+
+@pytest.mark.parametrize("sf", [0.005, 0.01])
+@pytest.mark.parametrize("table,column", [("customer", "c_name"),
+                                          ("customer", "c_phone"),
+                                          ("part", "p_name")])
+def test_high_cardinality_strings_bit_identical(table, column, sf):
+    """The three plain-string columns with nearly one value a row: codes,
+    first-appearance dictionary and type as the reference uploads them."""
+    jt, tb = _table_pair(table, sf)
+    jc = upload_table(jt.select([column])).column(column)
+    tc = tb.column(column)
+    n = jt.num_rows
+    assert tc.values[:n].numpy().tobytes() == \
+        np.asarray(jc.values)[:n].tobytes()
+    assert tc.values.dtype == torch.int32 and tc.validity is None
+    assert int(tc.type.id) == int(jc.type.id)
+    assert list(tc.dictionary) == jc.dictionary.to_pylist()
+    assert len(tc.dictionary) > n // 2
 
 
 def test_plain_strings_encoded_in_first_appearance_order():
