@@ -2,7 +2,11 @@
 
 from .exec import Declaration, compile_chain  # noqa: F401
 from .expression import Expression, field, scalar  # noqa: F401
-from .options import (AggregateNodeOptions, FetchNodeOptions,  # noqa: F401
+from .options import (AggregateNodeOptions,  # noqa: F401
+                      AsofJoinNodeOptions, FetchNodeOptions,
                       FilterNodeOptions, HashJoinNodeOptions,
-                      OrderByNodeOptions, ProjectNodeOptions,
-                      TableSourceNodeOptions)
+                      OrderByNodeOptions, OrderBySinkNodeOptions,
+                      ProjectNodeOptions, SelectKSinkNodeOptions,
+                      SinkNodeOptions, SortedMergeNodeOptions,
+                      TableSinkNodeOptions, TableSourceNodeOptions,
+                      UnionNodeOptions)

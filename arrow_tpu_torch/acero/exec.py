@@ -6,7 +6,9 @@ A Declaration tree runs node by node, eagerly, with no jit:
   declarations lowers to DeviceBatch -> DeviceBatch functions. A filter
   directly below an aggregate (with only projects between) folds into the
   aggregate as a row mask, so its rows never move; an order_by directly
-  below a fetch of at most ``_TOPK_MAX`` rows runs as one top-k;
+  below a fetch of at most ``_TOPK_MAX`` rows runs as one top-k. A
+  segmented aggregate ends the run: it groups by its segment keys then
+  its keys, and sorts its output by the segment keys;
 * a hash join runs each side's trailing filter/project chain, recodes
   dictionary-coded key pairs into one union dictionary, prefilters the
   probe side with a bloom filter of the build keys when the probe side is
@@ -18,13 +20,23 @@ A Declaration tree runs node by node, eagerly, with no jit:
   full outer joins, the unmatched build count (the only host readback: it
   sizes the output and picks the unique-build path), gather the output
   rows, and append the unmatched build rows of a right or full outer join.
+  A join with a residual filter expands every equi-matched pair, keeps
+  the pairs that pass, and decides each join type on those
+  (``_execute_hashjoin_residual``);
+* ``union`` concatenates its inputs and moves the live rows to the front
+  with one compaction, ``sorted_merge`` sorts that union, and
+  ``asofjoin`` finds each left row's most recent right row with one
+  search (``_execute_asof_join``);
+* ``sink`` and ``table_sink`` pass their input through, ``order_by_sink``
+  sorts it and ``select_k_sink`` keeps its first k rows in order.
 
 A declaration with two or more parents in the tree runs once per
 execution (``_Run``). An aggregate with no keys gives one row
 (``_scalar_aggregate_fn``); a filter folds into it as into a grouped
-one. All eight join types are ported. Residual join filters and the
-union, as-of, sorted-merge and pivot nodes raise NotImplementedError
-naming their ROADMAP item.
+one. ``Declaration.to_table()`` prunes a plan with a hash join to the
+columns it reads first (``prune.py``). ``consuming_sink``,
+``pivot_longer`` and the host-table sources need a host Table and raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ from ..compute import join as J
 from ..compute.grouper import (group_capacity_bound, group_ids,
                                group_slot_bound_exact)
 from ..compute.keys import sort_key_arrays, stable_sort_indices
-from ..compute.move import gather_rows
+from ..compute.move import compact_by_mask, gather_rows, segment_count
 from ..compute.elementwise import literal_tensor
 from ..compute.registry import ExecContext, get_function
 from ..compute.selection import (compact_columns, filter_batch,
@@ -52,8 +64,14 @@ from .expression import Expression
 from .options import (AggregateNodeOptions, FetchNodeOptions,
                       FilterNodeOptions, HashJoinNodeOptions,
                       OrderByNodeOptions, ProjectNodeOptions)
+from .prune import prune_plan
 
-_LONG_TAIL = "(ROADMAP.md, queue 1, item 9: the long tail)"
+_HOST_BOUNDARY = "(ROADMAP.md, queue 1, item 11: the host boundary)"
+# nodes that take or give a host Table
+_HOST_NODES = ("consuming_sink", "pivot_longer", "named_table", "source",
+               "record_batch_source", "exec_batch_source",
+               "array_vector_source", "record_batch_reader_source", "scan")
+_SINKS = ("sink", "table_sink", "order_by_sink", "select_k_sink")
 
 
 def _node_filter(options: FilterNodeOptions, schema):
@@ -385,26 +403,47 @@ class _Run:
         return out
 
     def _execute(self, decl: "Declaration") -> DeviceBatch:
-        if decl.factory_name == "table_source":
+        f = decl.factory_name
+        if f == "table_source":
             return decl.options.batch
-        if decl.factory_name == "hashjoin":
+        if f == "hashjoin":
             left_pre, lsrc = self._pre_chain(decl.inputs[0])
             right_pre, rsrc = self._pre_chain(decl.inputs[1])
             return _execute_hashjoin(decl.options, self.execute(lsrc),
                                      self.execute(rsrc), left_pre,
                                      right_pre)
-        if decl.factory_name in _CHAINABLE:
+        if _segmented(decl):
+            return _segmented_aggregate(decl.options,
+                                        self.execute(decl.inputs[0]))
+        if f in _CHAINABLE:
             # the maximal linear run of chainable nodes above the next
-            # source or shared declaration
+            # source, shared declaration or segmented aggregate
             seg = []
             cur = decl
-            while cur.factory_name in _CHAINABLE and (
-                    cur is decl or id(cur) not in self.shared):
+            while cur.factory_name in _CHAINABLE and (cur is decl or (
+                    id(cur) not in self.shared and not _segmented(cur))):
                 seg.append(cur)
                 cur = cur.inputs[0]
             return _apply(list(reversed(seg)), self.execute(cur))
-        raise NotImplementedError(
-            f"{decl.factory_name!r} nodes are not ported yet " + _LONG_TAIL)
+        if f in ("union", "sorted_merge"):
+            out = _execute_union([self.execute(i) for i in decl.inputs])
+            if f == "union":
+                return out
+            return _node_order_by(OrderByNodeOptions(
+                decl.options.sort_keys, decl.options.null_placement),
+                None)[0](out)
+        if f == "asofjoin":
+            return _execute_asof_join(decl.options,
+                                      self.execute(decl.inputs[0]),
+                                      self.execute(decl.inputs[1]))
+        if f in _SINKS:
+            return _execute_sink(f, decl.options,
+                                 self.execute(decl.inputs[0]))
+        if f in _HOST_NODES:
+            raise NotImplementedError(
+                f"{f!r} nodes need a host Table, which the port does not "
+                "have yet " + _HOST_BOUNDARY)
+        raise ValueError(f"unknown node factory {f!r}")
 
     def _pre_chain(self, decl: "Declaration"):
         """The trailing run of filter/project nodes above a join input, in
@@ -429,9 +468,6 @@ def _execute_hashjoin(options: HashJoinNodeOptions, left: DeviceBatch,
     """The left input probes, the right input builds (Acero builds on
     inputs[1])."""
     jt = options.join_type
-    if options.filter_expression is not None:
-        raise NotImplementedError("joins with a residual filter are not "
-                                  "ported yet " + _LONG_TAIL)
     # bloom pushdown where an unmatched probe row gives no output: the
     # filter has no false negatives; capacities are static, so this is
     # decided on the host
@@ -439,6 +475,8 @@ def _execute_hashjoin(options: HashJoinNodeOptions, left: DeviceBatch,
                 and left.capacity >= 4 * right.capacity)
     left = _apply(left_pre, left)
     right = _apply(right_pre, right)
+    if options.filter_expression is not None:
+        return _execute_hashjoin_residual(options, left, right)
     lkeys = [left.column(k) for k in options.left_keys]
     rkeys = [right.column(k) for k in options.right_keys]
     unified = _unify_dictionary_keys(lkeys, rkeys)
@@ -507,16 +545,25 @@ def _unify_dictionary_keys(lkeys: List[DeviceColumn],
         if lk.dictionary is None or rk.dictionary is None:
             raise ValueError(
                 "hashjoin key mixes dictionary-coded and plain columns")
-        union, lmap, rmap = _plan_unify(lk.dictionary, rk.dictionary)
-        lkeys[i] = _recode(lk, lmap, union)
-        rkeys[i] = _recode(rk, rmap, union)
+        lkeys[i], rkeys[i] = _unify_dictionaries([lk, rk])
         unified.append(i)
     return unified
 
 
-def _plan_unify(ldict, rdict):
-    """(union dictionary, left code -> union code, right code -> union
-    code); the union lists the left values, then the right's new ones."""
+def _unify_dictionaries(cols: Sequence[DeviceColumn]) -> List[DeviceColumn]:
+    """Dictionary-coded columns recoded into one union dictionary
+    (reference: ``exec.py`` ``unify_dictionaries``): planned on the host,
+    codes remapped on the device."""
+    if any(c.dictionary is None for c in cols):
+        raise ValueError("mixes dictionary-coded and plain columns")
+    union, maps = _plan_unify([c.dictionary for c in cols])
+    return [_recode(c, m, union) for c, m in zip(cols, maps)]
+
+
+def _plan_unify(dicts):
+    """(union dictionary, per dictionary its code -> union code); the
+    union lists the first dictionary's values, then each next one's new
+    ones."""
     union: List = []
     index: Dict = {}
 
@@ -529,9 +576,8 @@ def _plan_unify(ldict, rdict):
             mapping[i] = index[v]
         return mapping
 
-    lmap = add(ldict)
-    rmap = add(rdict)
-    return tuple(union), lmap, rmap
+    maps = [add(d) for d in dicts]
+    return tuple(union), maps
 
 
 def _recode(c: DeviceColumn, mapping: np.ndarray, union) -> DeviceColumn:
@@ -611,6 +657,222 @@ def _set_validity(c: DeviceColumn, start: int, stop: int,
     return validity
 
 
+def _execute_hashjoin_residual(options: HashJoinNodeOptions,
+                               left: DeviceBatch,
+                               right: DeviceBatch) -> DeviceBatch:
+    """A hash join with a residual filter (reference:
+    ``_execute_hashjoin_residual``, after Acero's JoinResidualFilter): every
+    equi-matched pair is expanded, the filter is evaluated over the pair's
+    columns (a null result rejects the pair), and the join type decides on
+    the pairs that pass. Semi and anti joins filter one side by its count
+    of passing pairs. The other types read back the three counts that size
+    the output (the only readback after the pair total), then one
+    compaction orders the rows each output row reads: the passing pairs,
+    then the unmatched probe rows, then the unmatched build rows. No bloom
+    filter runs, as in the reference."""
+    jt = options.join_type
+    lkeys = [left.column(k) for k in options.left_keys]
+    rkeys = [right.column(k) for k in options.right_keys]
+    for lk, rk in zip(lkeys, rkeys):
+        if (lk.dictionary is None) != (rk.dictionary is None):
+            raise ValueError(
+                "hashjoin key mixes dictionary-coded and plain columns")
+        if lk.dictionary is not None and lk.dictionary is not rk.dictionary \
+                and lk.dictionary != rk.dictionary:
+            raise ValueError(
+                "a residual-filter join needs its dictionary-coded keys to "
+                "share one dictionary; cast them to values first")
+    plan = J.build_join_plan(rkeys, lkeys, right.row_count, left.row_count,
+                             "inner")
+    pair_cap = capacity_class(max(int(plan.total), 1))
+    probe_idx, build_idx, _ = J.join_gather_indices(plan, pair_cap, "inner")
+    passed = _residual_mask(options.filter_expression, left, right,
+                            probe_idx, build_idx, plan.total, pair_cap)
+    probe_hits = segment_count(passed, probe_idx, left.capacity)
+    build_hits = segment_count(passed, torch.where(passed, build_idx, 0),
+                               right.capacity)
+    probe_unmatched = left.row_mask() & (probe_hits == 0)
+    build_unmatched = right.row_mask() & (build_hits == 0)
+    if jt in ("left semi", "left anti"):
+        keep = probe_unmatched if jt == "left anti" \
+            else left.row_mask() & (probe_hits > 0)
+        lnames, _, schema = _join_output_schema(options, left, right)
+        cols, count = compact_columns(left.select(lnames).columns, keep)
+        return DeviceBatch(schema, cols, count)
+    if jt in ("right semi", "right anti"):
+        keep = build_unmatched if jt == "right anti" \
+            else right.row_mask() & (build_hits > 0)
+        return filter_batch(right, DeviceColumn(keep, None, T.bool_()))
+    with_probe = jt in ("left outer", "full outer")
+    with_build = jt in ("right outer", "full outer")
+    n_pass, n_probe, n_build = torch.stack(
+        [passed.sum(), probe_unmatched.sum(), build_unmatched.sum()]).tolist()
+    out_cap = capacity_class(max(n_pass + n_probe * with_probe
+                                 + n_build * with_build, 1))
+    # each output row's probe and build row, -1 where that side is null
+    dev = passed.device
+    keep, lrows, rrows = [passed], [probe_idx], [build_idx]
+    for on, unmatched, cap, own in ((with_probe, probe_unmatched,
+                                     left.capacity, lrows),
+                                    (with_build, build_unmatched,
+                                     right.capacity, rrows)):
+        if on:
+            keep.append(unmatched)
+            for rows in (lrows, rrows):
+                rows.append(torch.arange(cap, device=dev) if rows is own
+                            else torch.full((cap,), -1, device=dev))
+    (li, ri), count = compact_by_mask(torch.cat(keep),
+                                      [torch.cat(lrows), torch.cat(rrows)])
+    li, ri = _fit_rows(li, out_cap), _fit_rows(ri, out_cap)
+    lnames, rnames, schema = _join_output_schema(options, left, right)
+    cols = gather_columns(left.select(lnames).columns, li, li >= 0) \
+        + gather_columns(right.select(rnames).columns, ri, ri >= 0)
+    return DeviceBatch(schema, cols, count)
+
+
+def _residual_mask(expr: Expression, left: DeviceBatch, right: DeviceBatch,
+                   probe_idx, build_idx, total, pair_cap) -> torch.Tensor:
+    """bool[pair_cap]: the live pairs for which the filter is true. The
+    filter reads the pair's columns by their unsuffixed names, the left
+    side's where both sides have one; only those columns are gathered."""
+    names = set(expr.field_names())
+    fields, cols = [], []
+    for batch, idx in ((left, probe_idx), (right, build_idx)):
+        for f, c in zip(batch.schema.fields, batch.columns):
+            if f.name in names:
+                names.discard(f.name)
+                fields.append(f)
+                cols += gather_columns([c], idx)
+    pairs = DeviceBatch(Schema(fields), cols,
+                        total.clamp(max=pair_cap).to(torch.int32))
+    ctx = ExecContext(pair_cap, pairs.row_count)
+    passed, _ = selection_mask(ctx, expr.evaluate(pairs, ctx))
+    return passed
+
+
+def _fit_rows(rows: torch.Tensor, cap: int) -> torch.Tensor:
+    if rows.shape[0] >= cap:
+        return rows[:cap]
+    return torch.cat([rows, rows.new_full((cap - rows.shape[0],), -1)])
+
+
+def _segmented(decl: "Declaration") -> bool:
+    return decl.factory_name == "aggregate" and bool(
+        decl.options.segment_keys)
+
+
+def _segmented_aggregate(options: AggregateNodeOptions,
+                         batch: DeviceBatch) -> DeviceBatch:
+    """The segment keys group in front of the keys; the output is then
+    sorted by the segment keys, stably (reference: ``_execute_node``'s
+    segmented aggregate)."""
+    folded = AggregateNodeOptions(
+        options.aggregates, keys=options.segment_keys + options.keys)
+    out = _node_aggregate(folded, None)[0](batch)
+    by = OrderByNodeOptions([(k, "ascending") for k in options.segment_keys])
+    return _node_order_by(by, None)[0](out)
+
+
+def _execute_sink(name: str, options, batch: DeviceBatch) -> DeviceBatch:
+    if name == "order_by_sink":
+        return _node_order_by(OrderByNodeOptions(
+            options.sort_keys, options.null_placement), None)[0](batch)
+    if name == "select_k_sink":
+        # order_by then fetch(0, k), fused into a top-k as in a chain
+        return _apply([Declaration("order_by",
+                                   OrderByNodeOptions(options.sort_keys)),
+                       Declaration("fetch", FetchNodeOptions(0, options.k))],
+                      batch)
+    return batch
+
+
+def _execute_union(batches: List[DeviceBatch]) -> DeviceBatch:
+    """The inputs' columns, by position, concatenated at the sum of their
+    capacities (a dictionary column recoded into the union of its
+    dictionaries), then the live rows moved to the front in input order
+    by one compaction (reference: ``_execute_union``)."""
+    schema = batches[0].schema
+    if any(len(b.columns) != len(schema.fields) for b in batches):
+        raise ValueError("union inputs have different numbers of columns")
+    cols = []
+    for i in range(len(schema.fields)):
+        parts = [b.columns[i] for b in batches]
+        if any(c.dictionary is not None for c in parts):
+            parts = _unify_dictionaries(parts)
+        validity = None
+        if any(c.validity is not None for c in parts):
+            validity = torch.cat([c.valid_mask() for c in parts])
+        cols.append(DeviceColumn(torch.cat([c.values for c in parts]),
+                                 validity, parts[0].type,
+                                 parts[0].dictionary))
+    cols, count = compact_columns(
+        cols, torch.cat([b.row_mask() for b in batches]))
+    return DeviceBatch(schema, cols, count)
+
+
+_INT64_MAX = (1 << 63) - 1
+
+
+def _execute_asof_join(options, left: DeviceBatch,
+                       right: DeviceBatch) -> DeviceBatch:
+    """Each left row with the right payload columns (all but ``on`` and
+    the by-keys) of its most recent right row, null where there is none
+    (reference: ``_execute_asof_join``). By-keys map to shared dense ids
+    (``join._side_gids``); the right ``on`` values are ranked, and each
+    row's (id, rank) packs into one int64: id << 32 | rank, with ids below
+    2**31 and ranks at most the right capacity, below 2**32, so the sign
+    bit stays clear and the packed order is the (id, rank) order. Dead
+    right rows pack to INT64_MAX, above every live word. One stable sort
+    of the right words and one ``searchsorted`` find each left row's
+    match: among right rows with equal by-keys and ``on``, the last in
+    the right input's order. The tolerance then applies as the reference
+    applies it."""
+    lon, ron = left.column(options.left_on), right.column(options.right_on)
+    lby = [left.column(k) for k in options.left_by]
+    rby = [right.column(k) for k in options.right_by]
+    for i, (lk, rk) in enumerate(zip(lby, rby)):
+        if lk.dictionary is not None or rk.dictionary is not None:
+            lby[i], rby[i] = _unify_dictionaries([lk, rk])
+    dev = left.row_count.device
+    l_cap, r_cap = left.capacity, right.capacity
+    if r_cap >= 1 << 32:
+        raise ValueError("as-of join: the right side holds 2**32 rows or "
+                         "more")
+    lmask, rmask = left.row_mask(), right.row_mask()
+    if rby:
+        gb, gp = J._side_gids(rby, lby, rmask, lmask)
+    else:
+        gb = torch.where(rmask, 0, -(torch.arange(r_cap, device=dev) + 2))
+        gp = torch.where(lmask, 0, -1)
+    lv, rv = lon.values.long(), ron.values.long()
+    # the live right values sorted, padding above every real value
+    rv_sorted = torch.sort(torch.where(rmask, rv, 1 << 62)).values
+    # rank: the right values at or below it (a tolerance <= 0 looks back)
+    lrank = torch.searchsorted(rv_sorted, lv, right=True)
+    rrank = torch.searchsorted(rv_sorted, rv, right=True)
+    rkey = torch.where(rmask & (gb >= 0), gb.clamp(min=0) << 32 | rrank,
+                       _INT64_MAX)
+    order = stable_sort_indices([rkey])
+    lkey = gp.clamp(min=0) << 32 | lrank
+    pos = torch.searchsorted(rkey[order], lkey, right=True) - 1
+    (cand,) = gather_rows([order], pos)
+    cand_g, cand_v = gather_rows([gb, rv], cand)
+    ok = (pos >= 0) & (cand_g == gp) & (gp >= 0) & lmask
+    tol = options.tolerance
+    if tol <= 0:
+        ok &= (cand_v >= lv + tol) & (cand_v <= lv)
+    else:
+        ok &= cand_v <= lv + tol
+    rnames = [n for n in right.schema.names
+              if n not in (options.right_on, *options.right_by)]
+    rcols = gather_columns([right.column(n) for n in rnames],
+                           torch.where(ok, cand, 0), ok)
+    fields = list(left.schema.fields) + [
+        right.schema.fields[right.schema.get_field_index(n)] for n in rnames]
+    return DeviceBatch(Schema(fields), list(left.columns) + rcols,
+                       left.row_count)
+
+
 class Declaration:
     """Declarative plan node (reference: acero/exec_plan.h:400)."""
 
@@ -618,6 +880,7 @@ class Declaration:
         self.factory_name = factory_name
         self.options = options
         self.inputs = list(inputs)
+        self._pruned: Optional["Declaration"] = None
 
     @staticmethod
     def from_sequence(decls: Sequence["Declaration"]) -> "Declaration":
@@ -631,8 +894,21 @@ class Declaration:
 
     def to_table(self) -> Dict[str, list]:
         """Run the plan and download the result
-        (``device.column.download``)."""
-        return download(execute_declaration(self))
+        (``device.column.download``). A plan with a hash join runs pruned
+        to the columns it reads (``prune.prune_plan``, as the reference's
+        ``to_table`` does); the pruned tree is cached on the root."""
+        plan = self
+        if any(d.factory_name == "hashjoin" for d in _walk(self)):
+            if self._pruned is None:
+                self._pruned = prune_plan(self)
+            plan = self._pruned
+        return download(execute_declaration(plan))
 
     def __repr__(self):
         return f"Declaration({self.factory_name})"
+
+
+def _walk(decl: Declaration):
+    yield decl
+    for i in decl.inputs:
+        yield from _walk(i)

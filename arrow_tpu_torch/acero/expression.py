@@ -81,6 +81,15 @@ class Expression:
     def __hash__(self):
         return hash(repr(self))
 
+    def field_names(self) -> list:
+        """The names of the fields this expression reads."""
+        if self.kind == self.KIND_FIELD:
+            return [self.name]
+        out = []
+        for a in self.args:
+            out.extend(a.field_names())
+        return out
+
     def __repr__(self):
         if self.kind == self.KIND_LITERAL:
             return repr(self.value)

@@ -29,9 +29,12 @@ class ProjectNodeOptions:
 
 class AggregateNodeOptions:
     """aggregates: (target, function, options, output_name) each, or
-    (target, function, output_name)."""
+    (target, function, output_name). ``segment_keys`` (the reference's
+    RowSegmenter) go in front of the grouping keys, and the output comes
+    sorted by them."""
 
-    def __init__(self, aggregates: Sequence[Tuple], keys: Sequence = ()):
+    def __init__(self, aggregates: Sequence[Tuple], keys: Sequence = (),
+                 segment_keys: Sequence = ()):
         norm = []
         for agg in aggregates:
             if len(agg) == 4:
@@ -44,13 +47,18 @@ class AggregateNodeOptions:
             norm.append((target, fn, options or {}, out_name))
         self.aggregates = norm
         self.keys = [str(k) for k in keys]
+        self.segment_keys = [str(k) for k in segment_keys]
+
+
+def _sort_keys(keys) -> list:
+    return [(k, "ascending") if isinstance(k, str) else (k[0], k[1])
+            for k in keys]
 
 
 class OrderByNodeOptions:
     def __init__(self, sort_keys: Sequence[Tuple[str, str]],
                  null_placement: str = "at_end"):
-        self.sort_keys = [(k, "ascending") if isinstance(k, str) else
-                          (k[0], k[1]) for k in sort_keys]
+        self.sort_keys = _sort_keys(sort_keys)
         self.null_placement = null_placement
 
 
@@ -91,3 +99,61 @@ class HashJoinNodeOptions:
         self.output_suffix_for_left = output_suffix_for_left
         self.output_suffix_for_right = output_suffix_for_right
         self.filter_expression = filter
+
+
+class UnionNodeOptions:
+    pass
+
+
+class AsofJoinNodeOptions:
+    """For each left row, the most recent right row with the same by-keys
+    whose ``on`` value lies in ``[left on + tolerance, left on]`` for a
+    tolerance of at most 0, or at most ``left on`` (and within ``left on +
+    tolerance``) for a positive one, as the reference reads it."""
+
+    def __init__(self, left_on: str, left_by: Sequence[str],
+                 right_on: str, right_by: Sequence[str],
+                 tolerance: int = 0):
+        self.left_on = left_on
+        self.left_by = list(left_by)
+        self.right_on = right_on
+        self.right_by = list(right_by)
+        self.tolerance = int(tolerance)
+
+
+class SortedMergeNodeOptions:
+    """A merge of inputs each sorted by ``sort_keys``."""
+
+    def __init__(self, sort_keys, null_placement: str = "at_end"):
+        self.sort_keys = _sort_keys(sort_keys)
+        self.null_placement = null_placement
+
+
+class SinkNodeOptions:
+    """A terminal that passes its input through: results come out of
+    ``Declaration.to_table()``."""
+
+    def __init__(self, schema=None, backpressure=None):
+        self.schema = schema
+        self.backpressure = backpressure
+
+
+class TableSinkNodeOptions(SinkNodeOptions):
+    pass
+
+
+class OrderBySinkNodeOptions(SinkNodeOptions):
+    def __init__(self, sort_keys, null_placement: str = "at_end",
+                 schema=None):
+        super().__init__(schema)
+        self.sort_keys = _sort_keys(sort_keys)
+        self.null_placement = null_placement
+
+
+class SelectKSinkNodeOptions(SinkNodeOptions):
+    """The first ``k`` rows in ``sort_keys`` order."""
+
+    def __init__(self, k: int, sort_keys, schema=None):
+        super().__init__(schema)
+        self.k = int(k)
+        self.sort_keys = _sort_keys(sort_keys)

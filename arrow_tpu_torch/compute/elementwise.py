@@ -10,9 +10,13 @@ false decides an AND and a valid true an OR, null or not.
 
 A Python or numpy literal takes numpy's dtype (``literal_tensor``: a
 float is f64, an int int64), the dtype JAX gives it under the reference's
-x64 setting; as a 0-d tensor it then promotes against a column as a JAX
-weak type does (an int literal keeps an int32 column int32, a float
-literal makes it f64).
+x64 setting. A Python literal, as a 0-d tensor, then promotes against a
+column as a JAX weak type does (an int literal keeps an int32 column
+int32, a float literal makes it f64). A numpy scalar literal is strongly
+typed, as in JAX: the arithmetic and comparisons promote both operands by
+the type lattice first (``torch.promote_types``, which is JAX's for these
+types), so ``np.int64`` widens an int32 column and ``np.float64`` an f32
+one.
 """
 
 from __future__ import annotations
@@ -85,6 +89,16 @@ def _operand(x, device) -> torch.Tensor:
         else literal_tensor(x, device)
 
 
+def _operands(a, b, device):
+    """Both operands' values; where one is a numpy scalar literal, both
+    cast to their promoted dtype first."""
+    av, bv = _operand(a, device), _operand(b, device)
+    if isinstance(a, np.generic) or isinstance(b, np.generic):
+        dt = torch.promote_types(av.dtype, bv.dtype)
+        av, bv = av.to(dt), bv.to(dt)
+    return av, bv
+
+
 def _arith_type(a, b) -> Optional[DataType]:
     cols = [x for x in (a, b) if isinstance(x, DeviceColumn)]
     if cols and all(c.type.is_temporal for c in cols):
@@ -101,8 +115,7 @@ def _binary_arith(name: str, op):
     @register(name, "elementwise")
     def _fn(ctx, a, b):
         _require_numeric(name, a, b)
-        dev = _device_of(a, b)
-        return _col(op(_operand(a, dev), _operand(b, dev)),
+        return _col(op(*_operands(a, b, _device_of(a, b))),
                     _validity_of(a, b), _arith_type(a, b))
     return _fn
 
@@ -115,8 +128,7 @@ multiply = _binary_arith("multiply", operator.mul)
 def _compare(name: str, op):
     @register(name, "elementwise")
     def _fn(ctx, a, b):
-        dev = _device_of(a, b)
-        return _col(op(_operand(a, dev), _operand(b, dev)),
+        return _col(op(*_operands(a, b, _device_of(a, b))),
                     _validity_of(a, b), bool_())
     return _fn
 
@@ -130,8 +142,7 @@ def divide(ctx, a, b):
     column divisor by one read of a device flag. Floats divide as IEEE
     does."""
     _require_numeric("divide", a, b)
-    dev = _device_of(a, b)
-    av, bv = _operand(a, dev), _operand(b, dev)
+    av, bv = _operands(a, b, _device_of(a, b))
     validity = _validity_of(a, b)
     if av.dtype.is_floating_point or bv.dtype.is_floating_point:
         return _col(av / bv, validity, _arith_type(a, b))

@@ -3,11 +3,15 @@ count_distinct (counterpart of ``arrow_tpu/compute/hash_agg.py``).
 
 Each takes (values, group ids int64[capacity] with ``capacity`` on dead
 rows) and returns per-group results at the static segment bound plus the
-group count. Sums and means reduce through ``move.segment_reduce``, which
-sends float sums to the grouped-sum kernel. Min and max compare a
-dictionary column by value (``rank_recode``) and keep its sorted
-dictionary; count_distinct sorts (group, value word) pairs and counts
-their boundaries.
+group count. Float sums and means add in an order fixed by the input
+(``move.segment_sum``: the grouped-sum kernel up to 1,024 segments), so a
+run repeats its bits; integer sums and counts add through ``index_add_``,
+exact in any order. The sum of a bool column is uint64, as in the
+reference. Min and max compare a dictionary column by value
+(``rank_recode``) and keep its sorted dictionary; count_distinct sorts
+(group, value word) pairs and counts their boundaries. The aggregate
+options other than the defaults, and sums over dictionary columns, raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from .. import types as T
 from ..device.column import DeviceColumn
 from ..types import DataType, TypeId
 from .keys import _LOW63, equality_word, order_word, stable_sort_indices
-from .move import _empty_value, segment_count, segment_reduce
+from .move import _empty_value, segment_count, segment_reduce, segment_sum
 from .registry import register
 from .selection import Compacted
 
@@ -29,12 +33,16 @@ def _sum_dtype(dt: torch.dtype) -> torch.dtype:
 
 
 def _sum_type(t: DataType) -> DataType:
-    if t.id in (TypeId.BOOL, TypeId.INT32, TypeId.INT64):
+    """A bool sum is uint64, as in the reference (``aggregate.py``
+    ``_sum_type``); it accumulates in int64, whose bits it keeps."""
+    if t.id == TypeId.BOOL:
+        return T.uint64()
+    if t.id in (TypeId.INT32, TypeId.INT64):
         return T.int64()
     return T.float64()
 
 
-_LONG_TAIL = "(ROADMAP.md, queue 1, item 9: the long tail)"
+_LONG_TAIL = "(ROADMAP.md, queue 1, item 9.7: aggregates)"
 
 
 def _require_values(name: str, values: DeviceColumn):
@@ -62,7 +70,11 @@ def _prep(ctx, values: DeviceColumn, gids: torch.Tensor,
 
 
 def _segment_sum(v: torch.Tensor, live, seg, nseg) -> torch.Tensor:
+    """Integer sums through ``index_add_`` (exact in any order), float
+    sums in a fixed order (``move.segment_sum``), dead rows left out."""
     v = torch.where(live, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    if v.dtype.is_floating_point:
+        return segment_sum(v, seg, nseg, live)
     return segment_reduce(v, seg, nseg, "sum", 0)
 
 

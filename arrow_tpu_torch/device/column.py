@@ -38,6 +38,8 @@ def capacity_class(n: int) -> int:
 _TORCH_DTYPES = {
     TypeId.BOOL: torch.bool,
     TypeId.INT32: torch.int32, TypeId.INT64: torch.int64,
+    # uint64 as its int64 bit pattern
+    TypeId.UINT64: torch.int64,
     TypeId.FLOAT: torch.float32, TypeId.DOUBLE: torch.float64,
     TypeId.DATE32: torch.int32,
 }
@@ -174,6 +176,8 @@ def download(batch: DeviceBatch) -> Dict[str, List]:
             py = [c.dictionary[int(v)] for v in np.where(mask, vals, 0)]
         elif f.type.id == TypeId.DATE32:
             py = [_EPOCH + datetime.timedelta(days=int(v)) for v in vals]
+        elif f.type.id == TypeId.UINT64:
+            py = vals.view(np.uint64).tolist()
         else:
             py = vals.tolist()
         out[f.name] = [v if ok else None for v, ok in zip(py, mask)]

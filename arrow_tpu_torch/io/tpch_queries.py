@@ -662,6 +662,39 @@ def q21_plan(supplier: DeviceBatch, lineitem: DeviceBatch,
         _fetch(limit)])
 
 
+def q21_residual_plan(supplier: DeviceBatch, lineitem: DeviceBatch,
+                      orders: DeviceBatch, nation: DeviceBatch,
+                      nation_name: str = "SAUDI ARABIA", limit: int = 100
+                      ) -> Declaration:
+    """Q21 as TPC-H spells it: the EXISTS a left semi join and the NOT
+    EXISTS a left anti join (against the late lines) on ``l_orderkey``,
+    each with the residual filter that the other line's supplier differs.
+    The build sides are projected to renamed columns first, so the pair's
+    names do not collide. The same answer as ``q21_plan``."""
+    late = _filtered(lineitem, field("l_receiptdate") > field("l_commitdate"))
+    f_orders = _filtered(orders, field("o_orderstatus") == "F")
+    nat = _filtered(nation, field("n_name") == nation_name)
+    sup = _join("left semi", ["s_nationkey"], ["n_nationkey"], None,
+                [_src(supplier), nat])
+    l1 = _join("left semi", ["l_orderkey"], ["o_orderkey"], None,
+               [late, f_orders])
+    l1 = _join("inner", ["l_suppkey"], ["s_suppkey"], ["s_name"], [l1, sup])
+    for jt, lines, prefix in (("left semi", _src(lineitem), "l2"),
+                              ("left anti", late, "l3")):
+        other = Declaration.from_sequence([lines, _proj(
+            [field("l_orderkey"), field("l_suppkey")],
+            [f"{prefix}_orderkey", f"{prefix}_suppkey"])])
+        l1 = Declaration("hashjoin", HashJoinNodeOptions(
+            jt, left_keys=["l_orderkey"], right_keys=[f"{prefix}_orderkey"],
+            filter=field("l_suppkey") != field(f"{prefix}_suppkey")),
+            inputs=[l1, other])
+    return Declaration.from_sequence([
+        l1,
+        _agg([([], "count_all", None, "numwait")], keys=["s_name"]),
+        _order([("numwait", "descending"), ("s_name", "ascending")]),
+        _fetch(limit)])
+
+
 def q22_plan(customer: DeviceBatch, orders: DeviceBatch,
              codes=("13", "31", "23", "29", "30", "18", "17")
              ) -> Declaration:

@@ -12,6 +12,8 @@ Contract: ``values`` is a contiguous (n,) f64 or f32 tensor, ``gids`` an
 (n,) int32 tensor with ids in ``[0, num_segments)`` (dead rows carry the
 value 0), and ``1 <= num_segments <= MAX_SEGMENTS``. The result is
 (num_segments,) in the value dtype; f32 is summed in f64 and rounded once.
+The kernel adds in an order fixed by the input, so one input gives the
+same bits on every run; the plain version adds in row order.
 An id outside ``[0, num_segments)`` is undefined behaviour: the kernel
 drops its row and the plain version raises; no caller produces one.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
@@ -38,6 +40,9 @@ def grouped_sum_plain(values: torch.Tensor, gids: torch.Tensor,
     return out.to(values.dtype)
 
 
+_THREADS = 256  # a block of the first pass; each thread takes 4 rows a step
+
+
 @functools.lru_cache(maxsize=None)
 def _functions():
     lib = library("grouped_sum")
@@ -45,9 +50,25 @@ def _functions():
            torch.float32: lib.grouped_sum_f32}
     for fn in fns.values():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fns
+    lib.grouped_sum_wave.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.grouped_sum_wave.restype = ctypes.c_int
+    return fns, lib.grouped_sum_wave
+
+
+@functools.lru_cache(maxsize=None)
+def _wave(device_index: int, num_segments: int, f32: bool) -> int:
+    """Blocks resident at once on the card for this many slots."""
+    with torch.cuda.device(device_index):
+        blocks = ctypes.c_int(0)
+        err = _functions()[1](num_segments, int(f32), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"grouped_sum occupancy query failed: CUDA error "
+                           f"{err}")
+    return blocks.value
 
 
 def grouped_sum(values: torch.Tensor, gids: torch.Tensor,
@@ -69,17 +90,24 @@ def grouped_sum(values: torch.Tensor, gids: torch.Tensor,
                          f"{gids.device}: both must lie on one CUDA device")
     if not (values.is_contiguous() and gids.is_contiguous()):
         raise ValueError("values and group ids must be contiguous")
-    out = torch.zeros(num_segments, dtype=torch.float64,
-                      device=values.device)
     n = values.numel()
-    if n:
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = _functions()[values.dtype](
-            values.data_ptr(), gids.data_ptr(), n, num_segments,
-            out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"grouped_sum launch failed: CUDA error {err}")
-        grouped_sum.launches += 1
+    if not n:
+        return torch.zeros(num_segments, dtype=values.dtype,
+                           device=values.device)
+    # one wave at most; the partials of each block, summed in block order
+    blocks = min(_wave(values.device.index, num_segments,
+                       values.dtype == torch.float32),
+                 -(-max(n // 4, 1) // _THREADS))
+    partials = torch.empty(blocks * num_segments, dtype=torch.float64,
+                           device=values.device)
+    out = torch.empty(num_segments, dtype=torch.float64, device=values.device)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    err = _functions()[0][values.dtype](
+        values.data_ptr(), gids.data_ptr(), n, num_segments, blocks,
+        partials.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_sum launch failed: CUDA error {err}")
+    grouped_sum.launches += 1
     return out.to(values.dtype)
 
 

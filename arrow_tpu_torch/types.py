@@ -12,6 +12,7 @@ import torch
 class TypeId(enum.IntEnum):
     BOOL = 1
     INT32 = 7
+    UINT64 = 8
     INT64 = 9
     FLOAT = 11
     DOUBLE = 12
@@ -53,8 +54,8 @@ class DataType:
         return _NAMES[self.id]
 
 
-_NAMES = {TypeId.BOOL: "bool", TypeId.INT32: "int32", TypeId.INT64: "int64",
-          TypeId.FLOAT: "float32", TypeId.DOUBLE: "float64",
+_NAMES = {TypeId.BOOL: "bool", TypeId.INT32: "int32", TypeId.UINT64: "uint64",
+          TypeId.INT64: "int64", TypeId.FLOAT: "float32", TypeId.DOUBLE: "float64",
           TypeId.STRING: "string", TypeId.DATE32: "date32"}
 
 
@@ -68,6 +69,12 @@ def int32() -> DataType:
 
 def int64() -> DataType:
     return DataType(TypeId.INT64)
+
+
+def uint64() -> DataType:
+    """Stored as the int64 bit pattern (torch has little uint64
+    arithmetic); ``device.column.download`` reads it back unsigned."""
+    return DataType(TypeId.UINT64)
 
 
 def float32() -> DataType:
@@ -91,9 +98,9 @@ def dictionary(index_type: DataType, value_type: DataType) -> DataType:
 
 
 def type_for_name(name: str) -> DataType:
-    """``"bool"``, ``"int32"``, ``"int64"``, ``"float32"``, ``"float64"``,
-    ``"date32"``, ``"string"`` or ``"dictionary"`` (int32 codes of
-    strings)."""
+    """``"bool"``, ``"int32"``, ``"uint64"``, ``"int64"``, ``"float32"``,
+    ``"float64"``, ``"date32"``, ``"string"`` or ``"dictionary"`` (int32
+    codes of strings)."""
     if name == "dictionary":
         return dictionary(int32(), string())
     for tid, n in _NAMES.items():

@@ -12,8 +12,10 @@ Phases; any failure exits non-zero without the final line:
    source, all in parallel, into ``build/``), and ``self_check()``, which
    launches the probe kernel.
 2. Every kernel against its plain PyTorch version on the card: the grouped
-   sum in f64 at Q1's shape (SF10's capacity, 12 slots) and at 512 slots,
-   in f32 at 16 slots, and with Inf and NaN groups; the compaction at Q3's
+   sum in f64 at Q1's shape (SF10's capacity, 12 slots) and at 512 and
+   1,024 slots, in f32 at 16 slots, and with Inf and NaN groups, and at 12
+   and 1,024 slots run twice and from an unaligned copy, bit for bit the
+   same each time (its order of additions is fixed); the compaction at Q3's
    lineitem filter (SF10, four columns), under all-true and all-false
    masks, at Q4's lineitem filter (SF10, all 15 columns), at Q4's and
    Q13's orders filters and Q4's semi-join selection (all 9 columns of
@@ -37,7 +39,9 @@ Phases; any failure exits non-zero without the final line:
    ``q13_plan(customer, orders).to_table()``. Every other table comes
    from the port's host generator (``io/tpch.py``) at SF10, made once.
    Each result is held against an independent numpy query over the
-   downloaded source columns, and each path's launches are exact.
+   downloaded source columns, each path's launches are exact, and each
+   logs the card's peak memory over its run. ``to_table()`` prunes every
+   plan with a join to the columns it reads.
    Then (3c) the JAX package's own TPC-H suite, Q6, Q10, Q12, Q5 and Q9
    (its ``tests/test_tpch.py``), with Q14 and Q19: each ``self_check()``
    and ``<plan>(...).to_table()`` over SF10's tables, lineitem being
@@ -45,9 +49,17 @@ Phases; any failure exits non-zero without the final line:
    exact (``SUITE``).
    Then (3d) the last eleven of the reference's 22 plans, Q2, Q7, Q8,
    Q11, Q15, Q16, Q17, Q18, Q20, Q21 and Q22 (its
-   ``tests/test_tpch_full.py``), the same way (``FULL``), each with the
-   card's peak memory over its first run; Q11 takes TPC-H's fraction
-   0.0001 / SF and Q20 the nation of the first supplier it keeps.
+   ``tests/test_tpch_full.py``), the same way (``FULL``); Q11 takes
+   TPC-H's fraction 0.0001 / SF and Q20 the nation of the first supplier
+   it keeps.
+   Then (3e) the plan nodes beyond those plans, the same way
+   (``NODE_PATHS``): Q21 spelled as TPC-H spells it (residual semi and
+   anti joins), Q1 over a ``union`` of lineitem's two halves, a
+   ``sorted_merge`` of orders' two sorted halves, an ``asofjoin`` of
+   orders onto the finished orders by customer within 90 days, Q1 as a
+   segmented aggregate, the 100 largest orders by ``select_k_sink``, and
+   Q15 with its revenue view spelled as two declarations, each run; then
+   Q15's general-path float sum (60M rows) twice, bit for bit.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -55,12 +67,12 @@ Phases; any failure exits non-zero without the final line:
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
 4. Times after a warm-up: Q1, Q3, Q4, Q13, the suite's and the last
-   eleven plans' rows/s of their largest input (best of 5), a profile of
-   one run of each (device busy time and idle share), and each kernel's
-   time beside its bound, its plain version's and one library call's
-   where there is one: by
-   CUDA events around back-to-back calls, and as device time from the
-   profiler.
+   eleven plans' rows/s of their largest input and phase 3e's walls (best
+   of 5), a profile of one run of each (device busy time and idle share),
+   each kernel's time beside its bound, its plain version's and one
+   library call's where there is one, by CUDA events around back-to-back
+   calls and as device time from the profiler, and the general path's
+   float sum beside ``index_add_``.
 
 The line before the last is one JSON object with a record per kernel, its
 launches by path; the last is ``{"ok": true, "device": {...}}``. The
@@ -88,7 +100,7 @@ HASH_OPS_PER_WORD = 11      # xxhash32 of a word: 3 multiplies, 8 shift/xor
 HASH_OPS_PER_COMBINE = 6    # 2 shifts, 3 adds, 1 xor
 SF = 10.0
 Q1_SLOTS = 12               # (3+1) return flags x (2+1) line statuses
-RTOL_F64 = 1e-9             # the atomics reorder f64 additions
+RTOL_F64 = 1e-9             # f64 sums added in another order
 RTOL_F32 = 1e-5             # an f32 result against an f64 reference
 Q1_LAUNCHES = {"compact": 0, "hash32": 0, "grouped_sum": 7, "probe": 1}
 Q3_LAUNCHES = {"compact": 7, "hash32": 4, "grouped_sum": 0, "probe": 1}
@@ -185,7 +197,7 @@ def _bits(t):
                    8: torch.int64}[t.element_size()])
 
 
-def check_bit_exact(name, got, want):
+def check_bit_exact(name, got, want, what="its plain version"):
     """Each tensor of ``got`` equals its twin in ``want`` bit for bit;
     returns 0.0, the largest absolute error."""
     ok = len(got) == len(want) and all(
@@ -193,8 +205,7 @@ def check_bit_exact(name, got, want):
         and torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
     log(f"  {name}: {'bit-exact' if ok else 'MISMATCH'}")
     if not ok:
-        raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             "version")
+        raise AssertionError(f"{name}: disagrees with {what}")
     return 0.0
 
 
@@ -321,6 +332,23 @@ def phase_kernels(n, orders):
     errs["grouped_sum_f32"] = check_close(
         "grouped_sum f32 n=4194304 S=16", grouped_sum(v, g, 16),
         grouped_sum_plain(v.double(), g, 16), RTOL_F32)
+    # F1: one input gives the same bits on every run, and from a copy
+    # that is not 16-byte aligned (the kernel's row-by-row loads)
+    for s, live in ((Q1_SLOTS, 6), (1024, 1024)):
+        v, g = q1_like_inputs(n, s, live, torch.float64, 8)
+        first = grouped_sum(v, g, s)
+        if s == 1024:
+            check_close(f"grouped_sum f64 n={n} S={s}", first,
+                        grouped_sum_plain(v, g, s), RTOL_F64)
+        v_odd = torch.empty(n + 1, dtype=v.dtype, device="cuda")[1:]
+        g_odd = torch.empty(n + 1, dtype=g.dtype, device="cuda")[1:]
+        v_odd.copy_(v)
+        g_odd.copy_(g)
+        check_bit_exact(f"grouped_sum f64 n={n} S={s}: a second run, and "
+                        "an unaligned copy", [grouped_sum(v, g, s),
+                                              grouped_sum(v_odd, g_odd, s)],
+                        [first, first], "the first run")
+        del v, g, first, v_odd, g_odd
     for s in (Q1_SLOTS, 512):
         v, g = q1_like_inputs(1 << 20, s, s, torch.float64, 4)
         v[1000], g[1000] = float("inf"), 3
@@ -579,6 +607,25 @@ def join_oracle(jt, runs: MatchRuns):
         p_idx = np.concatenate([p_idx, np.full(len(extra), -1)])
         b_idx = np.concatenate([b_idx, extra])
     return p_idx, b_idx
+
+
+def asof_oracle(lkey, lon, rkey, ron, tolerance):
+    """Per left row, the right row an as-of join picks, -1 for none: the
+    same key, the latest ``on`` at most the left row's and at least the
+    left row's plus ``tolerance`` (at most 0), and of equal (key, on) the
+    last in the right input. Keys are non-negative integers. One stable
+    sort of the right rows by (key, on) and one search."""
+    if tolerance > 0:
+        raise ValueError("the as-of oracle looks back only")
+    base = min(lon.min(), ron.min())
+    span = int(max(lon.max(), ron.max()) - base) + 1
+    rpack = rkey.astype(np.int64) * span + (ron - base)
+    order = np.argsort(rpack, kind="stable")
+    lpack = lkey.astype(np.int64) * span + (lon - base)
+    pos = np.searchsorted(rpack[order], lpack, side="right") - 1
+    cand = order[np.maximum(pos, 0)]
+    ok = (pos >= 0) & (rkey[cand] == lkey) & (ron[cand] >= lon + tolerance)
+    return np.where(ok, cand, -1)
 
 
 def _ranks_within(counts):
@@ -1340,6 +1387,305 @@ FULL = (
 )
 
 
+# --- phase 3e: the plan nodes beyond the 22 plans ----------------------------
+
+SPLIT_DATE = _days(1995, 6, 17)     # lineitem's two halves for the union
+SPLIT_PRICE = 280_000.0             # orders' two halves for sorted_merge
+ASOF_TOLERANCE = -90                # days an as-of match may look back
+TOP_K = 100
+
+
+def _source(batch):
+    from arrow_tpu_torch.acero import Declaration, TableSourceNodeOptions
+    return Declaration("table_source", TableSourceNodeOptions(batch))
+
+
+def _chain(*decls):
+    from arrow_tpu_torch.acero import Declaration
+    return Declaration.from_sequence(list(decls))
+
+
+def _filter_decl(predicate):
+    from arrow_tpu_torch.acero import Declaration, FilterNodeOptions
+    return Declaration("filter", FilterNodeOptions(predicate))
+
+
+def spelled_apart(decl):
+    """The tree with each declaration cloned for every parent that reaches
+    it: a shared sub-plan spelled out as separate declarations, each of
+    which runs."""
+    from arrow_tpu_torch.acero import Declaration
+    return Declaration(decl.factory_name, decl.options,
+                       [spelled_apart(i) for i in decl.inputs])
+
+
+def q21_residual(t):
+    from arrow_tpu_torch.io.tpch_queries import q21_residual_plan
+    return q21_residual_plan(t["supplier"], t["lineitem"], t["orders"],
+                             t["nation"])
+
+
+def check_q21_residual(t, c, result):
+    want, n_rows = q21_oracle(t, c)
+    check_result("Q21 residual", result, want)
+    return f"{len(result['s_name'])} suppliers as q21_oracle, {n_rows} lines"
+
+
+def q1_union(t):
+    """Q1 over the union of lineitem's rows shipped by SPLIT_DATE and the
+    rest."""
+    from arrow_tpu_torch.acero import (Declaration, UnionNodeOptions,
+                                       field)
+    from arrow_tpu_torch.io.tpch_queries import q1_chain_decls
+    date = field("l_shipdate")
+    halves = [_chain(_source(t["lineitem"]), _filter_decl(p))
+              for p in (date <= SPLIT_DATE, date > SPLIT_DATE)]
+    return _chain(Declaration("union", UnionNodeOptions(), halves),
+                  *q1_chain_decls())
+
+
+def check_q1_union(t, c, result):
+    li = t["lineitem"]
+    check_result("Q1 over a union", result, q1_oracle(li, int(li.row_count)))
+    return f"{len(result['count_order'])} groups as q1_oracle"
+
+
+def q1_segmented(t):
+    """Q1's filter, project and aggregates with the return flag as the
+    segment key and the line status as the key."""
+    from arrow_tpu_torch.acero import AggregateNodeOptions, Declaration
+    from arrow_tpu_torch.io.tpch_queries import q1_chain_decls
+    filt, proj, agg, _ = q1_chain_decls()
+    return _chain(_source(t["lineitem"]), filt, proj, Declaration(
+        "aggregate", AggregateNodeOptions(
+            agg.options.aggregates, keys=["l_linestatus"],
+            segment_keys=["l_returnflag"])))
+
+
+def check_q1_segmented(t, c, result):
+    """``q1_oracle``'s rows in the reference's order: the grouper's groups
+    (by first appearance among the kept rows) stably sorted by the return
+    flag's value."""
+    from arrow_tpu_torch.io.tpch_queries import DATE_1998_09_02
+    li = t["lineitem"]
+    n = int(li.row_count)
+    want = q1_oracle(li, n)
+    cols = _host_columns(li, ["l_returnflag", "l_linestatus", "l_shipdate"])
+    rf = li.column("l_returnflag").dictionary
+    ls = li.column("l_linestatus").dictionary
+    kept = cols["l_shipdate"] <= DATE_1998_09_02
+    key = cols["l_returnflag"][kept].astype(np.int64) * len(ls) \
+        + cols["l_linestatus"][kept]
+    groups, first = np.unique(key, return_index=True)
+    first_of = {(rf[k // len(ls)], ls[k % len(ls)]): f
+                for k, f in zip(groups, first)}
+    rows = sorted(range(len(want["l_returnflag"])), key=lambda i: (
+        want["l_returnflag"][i],
+        first_of[(want["l_returnflag"][i], want["l_linestatus"][i])]))
+    want = {k: v[rows] if isinstance(v, np.ndarray) else [v[i] for i in rows]
+            for k, v in want.items()}
+    check_result("Q1 segmented", result, want)
+    return f"{len(rows)} groups, segment order " + " ".join(
+        f"{a}{b}" for a, b in zip(result["l_returnflag"],
+                                  result["l_linestatus"]))
+
+
+def sorted_merge(t):
+    """orders split by SPLIT_PRICE, each half sorted by (o_orderdate,
+    o_orderkey), merged."""
+    from arrow_tpu_torch.acero import (Declaration, OrderByNodeOptions,
+                                       SortedMergeNodeOptions, field)
+    keys = [("o_orderdate", "ascending"), ("o_orderkey", "ascending")]
+    price = field("o_totalprice")
+    halves = [_chain(_source(t["orders"]), _filter_decl(p),
+                     Declaration("order_by", OrderByNodeOptions(keys)))
+              for p in (price < SPLIT_PRICE, price >= SPLIT_PRICE)]
+    return Declaration("sorted_merge", SortedMergeNodeOptions(keys), halves)
+
+
+def check_sorted_merge(t, c, batch):
+    od = c["orders"]
+    want = od["o_orderkey"][np.lexsort((od["o_orderkey"], od["o_orderdate"]))]
+    got = _host_columns(batch, ["o_orderkey", "o_orderdate", "o_totalprice"])
+    if not (np.array_equal(got["o_orderkey"], want)
+            and np.array_equal(got["o_orderdate"], od["o_orderdate"][want - 1])
+            and np.array_equal(got["o_totalprice"],
+                               od["o_totalprice"][want - 1])):
+        raise AssertionError("sorted_merge: rows differ from np.lexsort's "
+                             "order")
+    return f"{len(want)} rows in np.lexsort's order"
+
+
+def asof_join(t):
+    """Each order with the price of its customer's latest finished order at
+    most 90 days before it (the order itself where it is finished)."""
+    from arrow_tpu_torch.acero import (AsofJoinNodeOptions, Declaration,
+                                       ProjectNodeOptions, field)
+    right = _chain(_source(t["orders"]), _filter_decl(
+        field("o_orderstatus") == "F"), Declaration(
+            "project", ProjectNodeOptions(
+                [field("o_custkey"), field("o_orderdate"),
+                 field("o_totalprice")],
+                ["o_custkey", "o_orderdate", "prev_totalprice"])))
+    return Declaration("asofjoin", AsofJoinNodeOptions(
+        "o_orderdate", ["o_custkey"], "o_orderdate", ["o_custkey"],
+        ASOF_TOLERANCE), [_source(t["orders"]), right])
+
+
+def check_asof_join(t, c, batch):
+    od = c["orders"]
+    (finished,) = _codes(t["orders"], "o_orderstatus", ["F"])
+    rows = np.flatnonzero(od["o_orderstatus"] == finished)
+    match = asof_oracle(od["o_custkey"], od["o_orderdate"],
+                        od["o_custkey"][rows], od["o_orderdate"][rows],
+                        ASOF_TOLERANCE)
+    n = int(batch.row_count)
+    col = batch.column("prev_totalprice")
+    vals = col.values[:n].cpu().numpy()
+    valid = col.validity[:n].cpu().numpy()
+    hit = match >= 0
+    got_keys = _host_columns(batch, ["o_orderkey"])["o_orderkey"]
+    if not (n == len(od["o_orderkey"])
+            and np.array_equal(got_keys, od["o_orderkey"])
+            and np.array_equal(valid, hit)
+            and np.array_equal(vals[hit], od["o_totalprice"][rows][match[hit]])):
+        raise AssertionError("asofjoin: prev_totalprice differs from the "
+                             "oracle")
+    own = rows[match[hit]] == np.flatnonzero(hit)
+    return (f"{n} rows, {int(hit.sum())} matched ({int((~own).sum())} to "
+            "an earlier order)")
+
+
+def select_k(t):
+    from arrow_tpu_torch.acero import Declaration, SelectKSinkNodeOptions
+    return _chain(_source(t["orders"]), Declaration(
+        "select_k_sink", SelectKSinkNodeOptions(
+            TOP_K, [("o_totalprice", "descending")])))
+
+
+def check_select_k(t, c, result):
+    od = c["orders"]
+    top = np.lexsort((od["o_orderkey"], -od["o_totalprice"]))[:TOP_K]
+    if result["o_orderkey"] != od["o_orderkey"][top].tolist() or \
+            result["o_totalprice"] != od["o_totalprice"][top].tolist():
+        raise AssertionError("select_k_sink: rows differ from the oracle")
+    return f"{TOP_K} orders from {result['o_totalprice'][0]}"
+
+
+def q15_two_views(t):
+    """Q15 with its revenue view spelled as two separate declarations,
+    each of which runs."""
+    from arrow_tpu_torch.io.tpch_queries import q15_plan
+    return spelled_apart(q15_plan(t["lineitem"], t["supplier"]))
+
+
+def check_q15_two_views(t, c, result):
+    want, _ = q15_oracle(t, c)
+    check_result("Q15 two views", result, want)
+    return f"suppliers {result['s_suppkey']} as q15_oracle"
+
+
+class NodePath(NamedTuple):
+    """One path of phase 3e: ``build(tables)`` gives its plan, which runs
+    through ``to_table()`` (``download``) or, for a result of millions of
+    rows, ``execute_declaration`` with the result left on the card for
+    ``check(tables, oracle columns, result)``."""
+    name: str
+    build: object
+    check: object
+    launches: dict
+    download: bool = True
+
+
+# Launches a run at SF10, reckoned from the code. Q21's residual spelling:
+# the late, finished and nation filters compact (3), the supplier ⋈ nation
+# and late ⋈ orders semi joins and the ⋈ supplier inner join each take the
+# bloom (3 compact + 6 hash32) and their own compaction (3), and the
+# residual semi and anti joins one compaction each (2). The union: its two
+# filters and itself compact (3), Q1's sums as in Q1 (7). sorted_merge: two
+# filters and the union (3). asofjoin: the right side's filter (1). The
+# segmented Q1: its filter runs apart from the aggregate and compacts (1).
+# select_k_sink: a top-k, no kernel. Q15 spelled twice: as Q15 (4 + 2).
+NODE_PATHS = (
+    NodePath("Q21 residual", q21_residual, check_q21_residual,
+             _launches(11, 6, 0)),
+    NodePath("Q1 union", q1_union, check_q1_union, _launches(3, 0, 7)),
+    NodePath("sorted_merge", sorted_merge, check_sorted_merge,
+             _launches(3, 0, 0), download=False),
+    NodePath("asofjoin", asof_join, check_asof_join, _launches(1, 0, 0),
+             download=False),
+    NodePath("Q1 segmented", q1_segmented, check_q1_segmented,
+             _launches(1, 0, 7)),
+    NodePath("select_k_sink", select_k, check_select_k, _launches(0, 0, 0)),
+    NodePath("Q15 two views", q15_two_views, check_q15_two_views,
+             _launches(4, 2, 0)),
+)
+
+
+def node_path_run(path: NodePath, plan):
+    """The function that runs the path's plan once, as phase 3e does."""
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    return plan.to_table if path.download else \
+        (lambda: execute_declaration(plan))
+
+
+def general_sum_inputs(lineitem):
+    """Q15's revenue sum on the general path: the volume of the quarter's
+    lines by supplier id over the grouper's segment bound (lineitem's
+    capacity), the other lines dead."""
+    lo = _days(1996, 1, 1)
+    date = lineitem.column("l_shipdate").values
+    live = (date >= lo) & (date < lo + 90) & lineitem.row_mask()
+    price = lineitem.column("l_extendedprice").values
+    volume = price * (1.0 - lineitem.column("l_discount").values)
+    gids = lineitem.column("l_suppkey").values
+    return (torch.where(live, volume, 0.0), torch.where(live, gids, 0), live,
+            lineitem.capacity)
+
+
+def phase_plan_nodes(tables, cols):
+    """The plan nodes at SF10, each path with every launch count set to 0
+    just before its run and read just after, against its numpy oracle,
+    with the card's peak memory over the run; then the sums' repeat
+    checks. Every path runs before a failure is raised. Returns the
+    launches by path."""
+    from arrow_tpu_torch.compute.move import segment_sum
+    from arrow_tpu_torch.platform_check import self_check
+    log(f"== phase 3e: the plan nodes at SF{SF:g}")
+    launches, failures = {}, []
+    for path in NODE_PATHS:
+        plan = path.build(tables)
+        base = memory_mark()
+        zero_launches()
+        self_check()
+        t1 = time.perf_counter()
+        result = node_path_run(path, plan)()
+        torch.cuda.synchronize()
+        log(f"{path.name} first run {time.perf_counter() - t1:.3f} s")
+        launches[path.name] = read_launches()
+        log_peak(path.name, base)
+        try:
+            check_launches(path.name, launches[path.name], path.launches)
+            log(f"{path.name} matches its oracle: "
+                f"{path.check(tables, cols, result)}")
+        except AssertionError as exc:
+            log(f"  {path.name} FAILED: {exc}")
+            failures.append(path.name)
+        del plan, result
+    # F1: the same input gives the same bits, run after run
+    v, g, live, nseg = general_sum_inputs(tables["lineitem"])
+    a, b = (segment_sum(v, g, nseg, live) for _ in range(2))
+    check_bit_exact(f"general float sum, Q15's shape n={v.numel()} "
+                    f"S={nseg}, two runs", [a], [b], "the first run")
+    want = torch.zeros(nseg, dtype=torch.float64, device="cuda")
+    check_close("general float sum against index_add_", a,
+                want.index_add_(0, g, v), RTOL_F64)
+    del v, g, live, a, b, want
+    if failures:
+        raise AssertionError(f"phase 3e failed for {failures}")
+    return launches
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -1458,6 +1804,19 @@ def check_launches(name, launches, want):
                              f"{launches}")
 
 
+def memory_mark():
+    """Resets the card's peak memory; returns the memory allocated now."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def log_peak(name, base):
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name} peak memory {peak / 2**30:.2f} GiB, "
+        f"{(peak - base) / 2**30:.2f} GiB above the tables")
+
+
 def phase_main_paths(orders, customer):
     """Q1, Q3, Q4 and Q13, each with every launch count set to 0 just
     before and read just after, against numpy oracles. Returns the
@@ -1474,9 +1833,11 @@ def phase_main_paths(orders, customer):
     zero_launches()
     self_check()
     batch, n = q1_device_batch(SF)
+    base = memory_mark()
     q1 = compile_chain(q1_chain_decls())
     result = download(q1(batch))
     launches["Q1"] = read_launches()
+    log_peak("Q1", base)
     check_launches("Q1", launches["Q1"], Q1_LAUNCHES)
     check_result("Q1", result, q1_oracle(batch, n))
     log(f"Q1 result ({len(result['count_order'])} groups) matches the numpy "
@@ -1488,8 +1849,10 @@ def phase_main_paths(orders, customer):
     zero_launches()
     self_check()
     plan, n_li = q3_device_plan(SF)
+    base = memory_mark()
     result = plan.to_table()
     launches["Q3"] = read_launches()
+    log_peak("Q3", base)
     check_launches("Q3", launches["Q3"], Q3_LAUNCHES)
     want, n_groups, n_lines = q3_oracle(plan)
     check_result("Q3", result, want)
@@ -1503,8 +1866,10 @@ def phase_main_paths(orders, customer):
     zero_launches()
     self_check()
     lineitem, n_li = q1_device_batch(SF)
+    base = memory_mark()
     result = q4_plan(orders, lineitem).to_table()
     launches["Q4"] = read_launches()
+    log_peak("Q4", base)
     check_launches("Q4", launches["Q4"], Q4_LAUNCHES)
     want, n_orders = q4_oracle(orders, lineitem)
     check_result("Q4", result, want)
@@ -1516,8 +1881,10 @@ def phase_main_paths(orders, customer):
 
     zero_launches()
     self_check()
+    base = memory_mark()
     result = q13_plan(customer, orders).to_table()
     launches["Q13"] = read_launches()
+    log_peak("Q13", base)
     check_launches("Q13", launches["Q13"], Q13_LAUNCHES)
     want, n_kept = q13_oracle(customer, orders)
     check_result("Q13", result, want)
@@ -1544,8 +1911,8 @@ def phase_suite(tables):
 
 def phase_full(tables):
     """The last eleven of the reference's 22 plans, as phase 3c runs its
-    queries, each also with the card's peak memory over its first run.
-    Returns the launches by path and each plan's parameters."""
+    queries. Returns the launches by path, each plan's parameters and the
+    oracles' source columns."""
     log(f"== phase 3d: the last eleven TPC-H plans at SF{SF:g}")
     t0 = time.perf_counter()
     cols = _full_columns(tables)
@@ -1558,7 +1925,7 @@ def phase_full(tables):
         if q.params:
             log(f"{q.name} parameters {params[q.name]} "
                 f"({time.perf_counter() - t1:.1f} s)")
-    return _run_queries("3d", FULL, tables, cols, params), params
+    return _run_queries("3d", FULL, tables, cols, params), params, cols
 
 
 def _run_queries(phase, queries, tables, cols, params=None):
@@ -1570,19 +1937,14 @@ def _run_queries(phase, queries, tables, cols, params=None):
     for q in queries:
         kw = (params or {}).get(q.name, {})
         plan = suite_plan(q, tables, kw)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
+        base = memory_mark()
         zero_launches()
         self_check()
         t1 = time.perf_counter()
         result = plan.to_table()
-        first = time.perf_counter() - t1
+        log(f"{q.name} first run {time.perf_counter() - t1:.3f} s")
         launches[q.name] = read_launches()
-        peak = torch.cuda.max_memory_allocated()
-        log(f"{q.name} first run {first:.3f} s; peak memory "
-            f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above "
-            "the tables")
+        log_peak(q.name, base)
         t1 = time.perf_counter()
         want, n_rows = q.oracle(tables, cols, **kw)
         log(f"{q.name} oracle: {time.perf_counter() - t1:.1f} s")
@@ -1685,6 +2047,7 @@ def phase_times(card, launches, errs, tables, params):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
+    from arrow_tpu_torch.compute.move import segment_sum
     from arrow_tpu_torch.device.column import download
     from arrow_tpu_torch.io.tpch_device import q3_device_plan
     from arrow_tpu_torch.io.tpch_queries import (q1_chain_decls, q4_plan,
@@ -1744,6 +2107,15 @@ def phase_times(card, launches, errs, tables, params):
             f"{best * 1e3:.3f} ms = {n_big / best:.6g} {big} rows/s "
             f"[{card}]")
         profile_run(q.name, run)
+    # phase 3e's paths
+    for path in NODE_PATHS:
+        run = node_path_run(path, path.build(tables))
+        walls, best = best_wall(run)
+        log(f"{path.name} SF{SF:g}: wall "
+            f"{[round(w * 1e3, 3) for w in walls]} ms; best "
+            f"{best * 1e3:.3f} ms [{card}]")
+        profile_run(path.name, run)
+        del run
 
     def record(name, shape, kernel, plain, library, nbytes, ops, ops_per_s,
                reps=20):
@@ -1779,11 +2151,27 @@ def phase_times(card, launches, errs, tables, params):
     v, g = q1_like_inputs(n_cap, Q1_SLOTS, 6, torch.float64, 1)
     q1_shape = grouped_sum_record("grouped_sum f64 (Q1 shape)", v, g,
                                   Q1_SLOTS)
-    v, g = q1_like_inputs(n_cap, 512, 512, torch.float64, 2)
-    grouped_sum_record("grouped_sum f64 (K3 range)", v, g, 512)
+    for s in (512, 1024):
+        v, g = q1_like_inputs(n_cap, s, s, torch.float64, 2)
+        grouped_sum_record("grouped_sum f64 (K3 range)", v, g, s)
     v, g = q1_like_inputs(n_cap, 16, 16, torch.float32, 3)
     grouped_sum_record("grouped_sum f32", v, g, 16)
-    del v, g
+    # the general path's float sum (no kernel of the port: a stable sort
+    # and torch.segment_reduce) beside the index_add_ it replaced
+    v, g, live, nseg = general_sum_inputs(tables["lineitem"])
+    _, skew = q1_like_inputs(v.numel(), 4, 4, torch.float64, 9)
+    for shape, gids, mask in (("Q15 shape", g, live),
+                              ("4 groups, all rows live", skew.long(),
+                               torch.ones_like(live))):
+        acc = torch.zeros(nseg, dtype=torch.float64, device="cuda")
+        fixed, atomic = (lambda: segment_sum(v, gids, nseg, mask),
+                         lambda: acc.index_add_(0, gids, v))
+        log(f"  general float sum ({shape}, n={v.numel()} S={nseg}): "
+            f"sorted segment sum {cuda_ms(fixed, 5):.4f} ms (device "
+            f"{_ms(device_ms(fixed, 5))}), index_add_ "
+            f"{cuda_ms(atomic, 5):.4f} ms (device "
+            f"{_ms(device_ms(atomic, 5))}) [{card}]")
+    del v, g, live, skew, gids, mask, acc, fixed, atomic
 
     lineitem, _, _ = q3_sources(plan)
     keep, cols = q3_filter_inputs(lineitem)
@@ -1864,8 +2252,10 @@ def main() -> int:
         # reference generator's ranges, as Q4 uses it
         tables["lineitem"], _ = q1_device_batch(SF)
         launches.update(timed(phase_suite, tables))
-        full_launches, params = timed(phase_full, tables)
+        full_launches, params, cols = timed(phase_full, tables)
         launches.update(full_launches)
+        launches.update(timed(phase_plan_nodes, tables, cols))
+        del cols
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
                             params)

@@ -26,7 +26,8 @@ def _need_card():
 
 
 def _rtol(dtype):
-    # the atomics reorder f64 additions; f32 is compared with an f64 sum
+    # the kernel adds f64 in another order than the plain version; f32 is
+    # compared with an f64 sum
     return 1e-9 if dtype == torch.float64 else 1e-5
 
 
@@ -56,6 +57,33 @@ def test_grouped_sum_matches_plain(num_segments, dtype):
     torch.testing.assert_close(
         got.double(), grouped_sum_plain(v[1:].double(), g[1:], num_segments),
         atol=0, rtol=_rtol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_segments", [12, 25, 1024])
+def test_grouped_sum_repeats_bit_for_bit(num_segments):
+    """One input gives the same bits on every run and from a copy that
+    is not 16-byte aligned; so does the general path's sum over more than
+    1,024 segments."""
+    from arrow_tpu_torch.compute.move import segment_sum
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(num_segments)
+    n = (1 << 22) + 1
+    v = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64)
+    g = torch.randint(0, num_segments, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    first = grouped_sum(v, g, num_segments)
+    v_odd = torch.empty(n + 1, dtype=v.dtype, device="cuda")[1:]
+    g_odd = torch.empty(n + 1, dtype=g.dtype, device="cuda")[1:]
+    v_odd.copy_(v)
+    g_odd.copy_(g)
+    for again in (grouped_sum(v, g, num_segments),
+                  grouped_sum(v_odd, g_odd, num_segments)):
+        assert torch.equal(again.view(torch.int64), first.view(torch.int64))
+    live = torch.rand(n, generator=gen, device="cuda") < 0.5
+    wide = g.long() * 977
+    runs = [segment_sum(v, wide, 1024 * 977, live) for _ in range(2)]
+    assert torch.equal(runs[0].view(torch.int64), runs[1].view(torch.int64))
 
 
 @pytest.mark.cuda

@@ -109,19 +109,16 @@ def _unported(kind, source, filtered):
         return Declaration("aggregate", AggregateNodeOptions(
             [("l_suppkey", "product", None, "suppliers")],
             keys=["l_returnflag"]), [filtered])
-    if kind == "residual join filter":
-        return Declaration("hashjoin", HashJoinNodeOptions(
-            "inner", left_keys=["l_orderkey"], right_keys=["l_orderkey"],
-            filter=field("l_quantity") > field("l_tax")), [filtered, source])
-    if kind == "union":
-        return Declaration("union", None, [filtered, source])
+    if kind in ("consuming_sink", "pivot_longer"):
+        # both need a host Table
+        return Declaration(kind, None, [filtered])
     # a scalar aggregate runs with its defaults; other null options raise
     return Declaration("aggregate", AggregateNodeOptions(
         [("l_quantity", "sum", {"skip_nulls": False}, "total")]), [filtered])
 
 
-@pytest.mark.parametrize("kind", ["product", "residual join filter",
-                                  "union", "scalar aggregate"])
+@pytest.mark.parametrize("kind", ["product", "consuming_sink",
+                                  "pivot_longer", "scalar aggregate"])
 def test_unported_nodes_raise(kind):
     """A standalone filter and an inner hash join run; the nodes,
     functions and options that the ported queries do not need raise,

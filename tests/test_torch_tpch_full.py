@@ -153,9 +153,9 @@ def test_chip_smoke_oracle_matches_port(query, smoke_tables):
 def test_shared_declaration_runs_once(tables, monkeypatch):
     """Q2 uses the partsupp of the region's suppliers (three joins) twice:
     it runs once, so its five distinct joins run five times, not eight,
-    and both parents read one batch (two runs' float sums could differ in
-    their last bits on the card, where Q15's join back on its maximum
-    revenue needs them equal)."""
+    and both parents read one batch. ``to_table()`` runs the pruned tree,
+    and pruning keeps the declaration shared, one object under both
+    parents."""
     from arrow_tpu_torch.acero import exec as texec
     _, tt = tables
     calls = []
@@ -170,3 +170,13 @@ def test_shared_declaration_runs_once(tables, monkeypatch):
     got = tpch_queries.q2_plan(*(tt[k] for k in names), **params(tt))
     assert len(got.to_table()["p_partkey"]) > 0
     assert len(calls) == 5
+    parents = Counter()
+
+    def walk(d, seen):
+        for x in d.inputs:
+            parents[id(x)] += 1
+            if id(x) not in seen:
+                seen.add(id(x))
+                walk(x, seen)
+    walk(got._pruned, set())
+    assert got._pruned is not got and max(parents.values()) == 2
