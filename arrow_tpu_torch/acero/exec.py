@@ -46,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import dtypes
 from .. import types as T
 from ..compute import bloom
 from ..compute import join as J
@@ -53,20 +54,19 @@ from ..compute.grouper import (group_capacity_bound, group_ids,
                                group_slot_bound_exact)
 from ..compute.keys import sort_key_arrays, stable_sort_indices
 from ..compute.move import compact_by_mask, gather_rows, segment_count
-from ..compute.elementwise import literal_tensor
+from ..compute.elementwise import literal_column
 from ..compute.registry import ExecContext, get_function
 from ..compute.selection import (compact_columns, filter_batch,
                                  gather_columns, selection_mask, take_batch)
 from ..device.column import (BLOCK, DeviceBatch, DeviceColumn,
                              capacity_class, download)
-from ..types import Field, Schema, from_torch_dtype
+from ..types import HOST_BOUNDARY, Field, Schema
 from .expression import Expression
 from .options import (AggregateNodeOptions, FetchNodeOptions,
                       FilterNodeOptions, HashJoinNodeOptions,
                       OrderByNodeOptions, ProjectNodeOptions)
 from .prune import prune_plan
 
-_HOST_BOUNDARY = "(ROADMAP.md, queue 1, item 11: the host boundary)"
 # nodes that take or give a host Table
 _HOST_NODES = ("consuming_sink", "pivot_longer", "named_table", "source",
                "record_batch_source", "exec_batch_source",
@@ -97,9 +97,8 @@ def _node_project(options: ProjectNodeOptions, schema):
             if not isinstance(c, DeviceColumn):
                 # broadcast literal, in numpy's dtype for it (a float is
                 # f64), as the reference's jnp.full under x64
-                v = literal_tensor(c, batch.row_count.device).expand(
-                    batch.capacity).clone()
-                c = DeviceColumn(v, None, from_torch_dtype(v.dtype))
+                c = literal_column(c, batch.capacity,
+                                   batch.row_count.device)
             cols.append(c)
         out_schema = Schema([Field(n, c.type) for n, c in zip(names, cols)])
         return DeviceBatch(out_schema, cols, batch.row_count)
@@ -442,7 +441,7 @@ class _Run:
         if f in _HOST_NODES:
             raise NotImplementedError(
                 f"{f!r} nodes need a host Table, which the port does not "
-                "have yet " + _HOST_BOUNDARY)
+                "have yet " + HOST_BOUNDARY)
         raise ValueError(f"unknown node factory {f!r}")
 
     def _pre_chain(self, decl: "Declaration"):
@@ -844,7 +843,9 @@ def _execute_asof_join(options, left: DeviceBatch,
     else:
         gb = torch.where(rmask, 0, -(torch.arange(r_cap, device=dev) + 2))
         gp = torch.where(lmask, 0, -1)
-    lv, rv = lon.values.long(), ron.values.long()
+    # unsigned values widened (uint16/uint32) before they widen to int64
+    lv, rv = (dtypes.load(c.values, c.value_dtype).long()
+              for c in (lon, ron))
     # the live right values sorted, padding above every real value
     rv_sorted = torch.sort(torch.where(rmask, rv, 1 << 62)).values
     # rank: the right values at or below it (a tolerance <= 0 looks back)

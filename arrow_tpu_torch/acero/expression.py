@@ -2,7 +2,9 @@
 ``arrow_tpu/acero/expression.py``). An expression evaluates eagerly over a
 DeviceBatch through the compute registry. A comparison of a
 dictionary-coded column with a literal translates the literal through the
-host dictionary; the string predicates (``compute/strings.py``) and
+host dictionary, and one of two dictionary-coded columns re-encodes both
+against their sorted union dictionary (``unify_device_dicts``) and
+compares the codes; the string predicates (``compute/strings.py``) and
 ``if_else`` take dictionary-coded columns themselves; ``is_in`` looks the
 value set up by dictionary slot (``compute/vector_misc.py``) and keeps a
 null row null, as the reference's plans do. Every other function raises
@@ -14,8 +16,10 @@ import bisect
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .. import types as T
+from ..compute.elementwise import unify_device_dicts
 from ..compute.registry import ExecContext, get_function
 from ..compute.strings import STRING_FUNCTIONS, slot_lookup
 from ..compute.vector_misc import value_set_lookup
@@ -147,9 +151,11 @@ def _translate_string_compare(fn, args):
     if not a_str and not b_str:
         return args
     if a_str and b_str:
-        raise NotImplementedError(
-            "comparing two dictionary-coded columns is not ported yet "
-            "(ROADMAP.md, queue 1, item 9: the long tail)")
+        # both re-encoded against their sorted union dictionary: the codes
+        # are order-preserving ranks, compared as integers
+        ua, ub = unify_device_dicts([a, b])
+        return [DeviceColumn(c.values.to(torch.int64), c.validity, T.int64())
+                for c in (ua, ub)]
     col, lit = (a, b) if a_str else (b, a)
     if isinstance(lit, bool) or not isinstance(lit, (str, bytes, int,
                                                      float)):
@@ -159,7 +165,7 @@ def _translate_string_compare(fn, args):
     if not vals:
         raise NotImplementedError(
             "comparing a column with an empty dictionary is not ported yet "
-            "(ROADMAP.md, queue 1, item 9: the long tail)")
+            "(ROADMAP.md, queue 1, item 9.9: the rest of compute)")
     if fn in ("equal", "not_equal"):
         hits = np.array([v == lit for v in vals], dtype=np.int64)
         new = [DeviceColumn(slot_lookup(col, hits), col.validity,

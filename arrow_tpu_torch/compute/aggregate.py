@@ -8,8 +8,10 @@ validity and the result type, all on the column's device, so nothing is
 read back. Null semantics are ScalarAggregateOptions' defaults
 (``skip_nulls=True, min_count=1``): an empty or all-null input gives a
 null sum, mean, min or max; other options raise NotImplementedError.
-Sums accumulate in int64 for integers and in f64 for floats, as the
-reference's ``jnp.sum`` does; no kernel runs here.
+Sums accumulate as the reference's ``jnp.sum`` does (int64 for signed
+integers and bool, uint64 for unsigned ones, f64 for floats, an exact
+int64 for a decimal's unscaled values); a decimal's mean stays a decimal,
+rounded half away from zero. No kernel runs here.
 """
 
 from __future__ import annotations
@@ -18,11 +20,12 @@ from typing import NamedTuple
 
 import torch
 
+from .. import dtypes
 from .. import types as T
 from ..device.column import DeviceColumn
 from ..types import DataType
 from .hash_agg import (_LONG_TAIL, _require_defaults, _require_values,
-                       _sum_dtype, _sum_type)
+                       _sum_type, decimal_mean, sum_values)
 from .registry import ExecContext, register
 
 
@@ -47,8 +50,10 @@ def scalar_sum(ctx, a: DeviceColumn, skip_nulls: bool = True,
                min_count: int = 1) -> AggResult:
     _require_values("sum", a)
     _require_defaults("sum", skip_nulls, min_count)
-    v, n = _masked(ctx, a, 0)
-    return AggResult(v.to(_sum_dtype(v.dtype)).sum(), n >= 1,
+    live = a.valid_mask(ctx.row_mask())
+    v = sum_values(a)
+    v = torch.where(live, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    return AggResult(v.sum(), live.sum(dtype=torch.int64) >= 1,
                      _sum_type(a.type))
 
 
@@ -59,8 +64,11 @@ def scalar_mean(ctx, a: DeviceColumn, skip_nulls: bool = True,
     _require_values("mean", a)
     _require_defaults("mean", skip_nulls, min_count)
     v, n = _masked(ctx, a, 0)
-    return AggResult(v.to(torch.float64).sum() / n.to(torch.float64),
-                     n >= 1, T.float64())
+    if a.type.is_decimal:
+        return AggResult(decimal_mean(v.to(torch.int64).sum(), n), n >= 1,
+                         a.type)
+    f = dtypes.as_float64(v, a.value_dtype)
+    return AggResult(f.sum() / n.to(torch.float64), n >= 1, T.float64())
 
 
 def _minmax(name: str, ctx, a: DeviceColumn, skip_nulls: bool,
@@ -79,8 +87,15 @@ def _minmax(name: str, ctx, a: DeviceColumn, skip_nulls: bool,
     elif dt.is_floating_point:
         identity = float("inf") if is_min else float("-inf")
     else:
-        info = torch.iinfo(dt)
-        identity = info.max if is_min else info.min
+        # integers reduce by their order keys (``dtypes.order_key``)
+        name = a.value_dtype
+        k = dtypes.order_key(dtypes.load(a.values, name), name)
+        info = torch.iinfo(k.dtype)
+        live = a.valid_mask(ctx.row_mask())
+        k = torch.where(live, k, info.max if is_min else info.min)
+        out = k.min() if is_min else k.max()
+        return AggResult(dtypes.store(dtypes.order_key(out, name), name),
+                         live.sum(dtype=torch.int64) >= 1, a.type)
     v, n = _masked(ctx, a, identity)
     return AggResult(v.min() if is_min else v.max(), n >= 1, a.type)
 

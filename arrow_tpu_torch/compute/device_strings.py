@@ -23,7 +23,7 @@ The reference's gates hold: a dictionary of fewer than
 case only for ASCII) returns None, and the caller uses the host tier, so
 the answer is the same either way. A null dictionary slot matches
 nothing. The str -> str pool transforms (``pool_transform``) are not
-ported (ROADMAP.md, queue 1, item 9).
+ported (ROADMAP.md, queue 1, item 9.8).
 """
 
 from __future__ import annotations

@@ -6,9 +6,12 @@ rows) and returns per-group results at the static segment bound plus the
 group count. Float sums and means add in an order fixed by the input
 (``move.segment_sum``: the grouped-sum kernel up to 1,024 segments), so a
 run repeats its bits; integer sums and counts add through ``index_add_``,
-exact in any order. The sum of a bool column is uint64, as in the
-reference. Min and max compare a dictionary column by value
-(``rank_recode``) and keep its sorted dictionary; count_distinct sorts
+exact in any order. Sums take the reference's types: a signed integer
+sums to int64, an unsigned one or a bool to uint64, a float (f16 and
+f32 too) to f64 and a decimal to decimal128(38, scale) as an exact int64
+sum of its unscaled values. A decimal's mean stays a decimal of its
+type, rounded half away from zero in int64, as the reference's is. Min
+and max compare a dictionary column by value (``rank_recode``) and keep its sorted dictionary; count_distinct sorts
 (group, value word) pairs and counts their boundaries. The aggregate
 options other than the defaults, and sums over dictionary columns, raise
 NotImplementedError naming their ROADMAP item.
@@ -19,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import dtypes
 from .. import types as T
 from ..device.column import DeviceColumn
 from ..types import DataType, TypeId
@@ -28,18 +32,45 @@ from .registry import register
 from .selection import Compacted
 
 
-def _sum_dtype(dt: torch.dtype) -> torch.dtype:
-    return torch.float64 if dt.is_floating_point else torch.int64
+def _sum_dtype(name: str) -> str:
+    """The accumulator of a value dtype (reference: ``aggregate.py``
+    ``_sum_dtype``): uint64 for unsigned values, int64 for signed ones and
+    bool, f64 for floats."""
+    if dtypes.is_unsigned(name):
+        return "uint64"
+    if dtypes.is_integer(name) or name == "bool":
+        return "int64"
+    return "float64"
 
 
 def _sum_type(t: DataType) -> DataType:
-    """A bool sum is uint64, as in the reference (``aggregate.py``
-    ``_sum_type``); it accumulates in int64, whose bits it keeps."""
-    if t.id == TypeId.BOOL:
+    """The type of a sum (reference: ``aggregate.py`` ``_sum_type``): a
+    decimal keeps its scale at the widest precision, a bool or an
+    unsigned integer is uint64, a signed one int64, anything else f64."""
+    if t.is_decimal:
+        return T.decimal256(76, t.scale) if t.id == TypeId.DECIMAL256 \
+            else T.decimal128(38, t.scale)
+    if t.id == TypeId.BOOL or t.is_unsigned_integer:
         return T.uint64()
-    if t.id in (TypeId.INT32, TypeId.INT64):
+    if t.is_integer:
         return T.int64()
     return T.float64()
+
+
+def sum_values(col: DeviceColumn) -> torch.Tensor:
+    """A column's values in its sum accumulator's dtype (``COMPUTE``:
+    uint64 as its int64 bits, which wrap as the reference's do)."""
+    name = col.value_dtype
+    return dtypes.convert(dtypes.load(col.values, name), name,
+                          _sum_dtype(name))
+
+
+def decimal_mean(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """int64 sums of unscaled values over counts, rounded half away from
+    zero exactly (reference: ``|m| = (2|s| + c) // (2c)``)."""
+    c = counts.clamp(min=1)
+    mag = (2 * torch.abs(sums) + c) // (2 * c)
+    return torch.where(sums < 0, -mag, mag)
 
 
 _LONG_TAIL = "(ROADMAP.md, queue 1, item 9.7: aggregates)"
@@ -85,8 +116,7 @@ def grouped_sum(ctx, values: DeviceColumn, gids, num_groups,
     _require_values("hash_sum", values)
     _require_defaults("hash_sum", skip_nulls, min_count)
     nseg, live, seg = _prep(ctx, values, gids, num_segments)
-    sums = _segment_sum(values.values.to(_sum_dtype(values.values.dtype)),
-                        live, seg, nseg)
+    sums = _segment_sum(sum_values(values), live, seg, nseg)
     validity = segment_count(live, seg, nseg) >= 1
     return Compacted(DeviceColumn(sums, validity, _sum_type(values.type)),
                      num_groups.to(torch.int32))
@@ -100,7 +130,14 @@ def grouped_mean(ctx, values: DeviceColumn, gids, num_groups,
     _require_defaults("hash_mean", skip_nulls, min_count)
     nseg, live, seg = _prep(ctx, values, gids, num_segments)
     counts = segment_count(live, seg, nseg)
-    sums = _segment_sum(values.values.to(torch.float64), live, seg, nseg)
+    if values.type.is_decimal:
+        sums = _segment_sum(values.values.to(torch.int64), live, seg, nseg)
+        return Compacted(DeviceColumn(decimal_mean(sums, counts),
+                                      counts >= 1, values.type),
+                         num_groups.to(torch.int32))
+    name = values.value_dtype
+    sums = _segment_sum(dtypes.as_float64(values.values, name), live, seg,
+                        nseg)
     means = sums / counts.clamp(min=1).to(torch.float64)
     return Compacted(DeviceColumn(means, counts >= 1, T.float64()),
                      num_groups.to(torch.int32))
@@ -172,18 +209,23 @@ def _grouped_minmax(ctx, values: DeviceColumn, gids, num_groups, is_min,
     nseg, live, seg = _prep(ctx, values, gids, num_segments)
     v = values.values
     op = "min" if is_min else "max"
+    name = values.value_dtype
     if v.dtype.is_floating_point:
         out = _float_minmax(v, live, seg, nseg, op)
+    elif v.dtype == torch.bool:
+        # min is an AND, max an OR: reduce the bools as bytes
+        ident = int(is_min)
+        b = torch.where(live, v.to(torch.uint8), ident)
+        out = segment_reduce(b, seg, nseg, op, ident).to(torch.bool)
     else:
-        if v.dtype == torch.bool:
-            # min is an AND, max an OR: reduce the bools as bytes
-            v = v.to(torch.uint8)
-        ident = int(is_min) if values.values.dtype == torch.bool \
-            else _empty_value(v.dtype, op)
-        v = torch.where(live, v, torch.tensor(ident, dtype=v.dtype,
-                                              device=v.device))
-        out = segment_reduce(v, seg, nseg, op, ident) \
-            .to(values.values.dtype)
+        # unsigned values reduce by their order keys, in their width's
+        # compute dtype (the identity is an end of that dtype's range)
+        k = dtypes.order_key(dtypes.load(v, name), name)
+        ident = _empty_value(k.dtype, op)
+        k = torch.where(live, k, torch.tensor(ident, dtype=k.dtype,
+                                              device=k.device))
+        k = segment_reduce(k, seg, nseg, op, ident)
+        out = dtypes.store(dtypes.order_key(k, name), name)
     validity = segment_count(live, seg, nseg) > 0
     if not skip_nulls:
         validity = validity & ~_group_has_null(ctx, values, gids, nseg)

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from .. import dtypes
 from ..device.column import DeviceColumn
 from .keys import equality_word, order_word, stable_sort_indices
 from .move import compact_by_mask, gather_rows
@@ -85,13 +86,15 @@ def _side_gids(build_cols: Sequence[DeviceColumn],
 
 def _direct_key_kind(col: DeviceColumn) -> Optional[str]:
     """Dtype kind for the direct single-key path: both sides must share
-    one, because order words normalise kinds differently."""
-    dt = col.values.dtype
-    if dt == torch.bool:
+    one, because order words normalise kinds differently (an unsigned
+    key joined to a signed one takes the grouper path, whose equality
+    words share one space)."""
+    name = col.value_dtype
+    if name == "bool":
         return "b"
-    if dt.is_floating_point:
+    if dtypes.is_float(name):
         return "f"
-    return "i"
+    return "u" if dtypes.is_unsigned(name) else "i"
 
 
 def _use_direct_single_key(build_cols, probe_cols) -> bool:

@@ -3,14 +3,21 @@
 
 Each sort key column becomes a (class, word) pair of int64 tensors. The
 class orders values, NaN, null and padding rows; the word's signed int64
-order is the value order. (The reference keeps uint64 words with the sign
-bit flipped; torch has no unsigned 64-bit shifts or comparisons, and signed
-order needs no flip.) Multi-key sorts are successive stable sorts, last
-key first.
+order is the value order. The reference keeps uint64 words in unsigned
+order; torch has no unsigned 64-bit comparisons, so the port's words are
+the reference's with the sign bit flipped: a signed integer's word is its
+value, an unsigned integer's its value with the sign bit flipped (so
+uint64 values of 2**63 and above order last), a float's its f64 bits
+with the negative ones reversed (f16 and f32 through f64). Temporal
+types and decimals order by their integer storage. Multi-key sorts are
+successive stable sorts, last key first.
 
 Equality words for grouping and joins are the reference's uint64 words
-with the same bits, held as int64: equal values have equal words, and
-the all-ones word (``GROUP_KEY_DEAD``) reads -1.
+with the same bits, held as int64: a signed value sign-extended, an
+unsigned one zero-extended, a float's f64 bits with one NaN word. So
+equal values have equal words, an int64 -1 and a uint64 2**64 - 1 share
+one (as in the reference), and the all-ones word (``GROUP_KEY_DEAD``)
+reads -1.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ from typing import List, Sequence
 
 import torch
 
+from .. import dtypes
 from ..device.column import DeviceColumn
+from ..dtypes import INT64_MIN
 
 _LOW63 = (1 << 63) - 1
 _QNAN_BITS = 0x7FF8000000000000
@@ -37,8 +46,9 @@ def f64_bits(f: torch.Tensor) -> torch.Tensor:
 def equality_word(col: DeviceColumn) -> torch.Tensor:
     """int64 word with value equality == word equality (bit level, like the
     reference's memcmp-able row encoding)."""
-    v = col.values
-    if v.dtype.is_floating_point:
+    name = col.value_dtype
+    v = dtypes.load(col.values, name)
+    if dtypes.is_float(name):
         return f64_bits(v)
     return v.to(torch.int64)
 
@@ -71,8 +81,11 @@ def group_key_arrays(cols: Sequence[DeviceColumn],
 def order_word(col: DeviceColumn) -> torch.Tensor:
     """int64 word whose order equals the value order (nulls and NaN are
     left to the class)."""
-    v = col.values
-    if v.dtype == torch.bool or not v.dtype.is_floating_point:
+    name = col.value_dtype
+    v = dtypes.load(col.values, name)
+    if dtypes.is_unsigned(name):
+        return v.to(torch.int64) ^ INT64_MIN
+    if not dtypes.is_float(name):
         return v.to(torch.int64)
     bits = v.to(torch.float64).view(torch.int64)
     # negative floats: flip all but the sign bit, reversing their order

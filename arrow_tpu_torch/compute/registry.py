@@ -47,6 +47,10 @@ def register(name: str, kind: str):
     return deco
 
 
+def register_alias(alias: str, name: str):
+    _REGISTRY[alias] = _REGISTRY[name]
+
+
 def get_function(name: str) -> Function:
     if name not in _REGISTRY:
         # the modules that register functions, imported on first lookup

@@ -30,7 +30,7 @@ from ..device.column import DeviceColumn
 from .device_strings import pool_predicate
 from .registry import register
 
-_LONG_TAIL = "(ROADMAP.md, queue 1, item 9: the long tail)"
+_LONG_TAIL = "(ROADMAP.md, queue 1, item 9.8: temporal and strings)"
 
 
 def slot_lookup(col: DeviceColumn, table) -> torch.Tensor:

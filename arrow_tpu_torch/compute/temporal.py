@@ -5,8 +5,8 @@ Each decomposes days since the epoch by Howard Hinnant's branch-free
 ``civil_from_days``, in int64 with floor division (torch's ``//`` on
 integer tensors floors, as ``jnp.floor_divide`` does, so days before 1970
 decompose right). The result is int64, null where the input is null.
-The other temporal functions and types are not ported (ROADMAP.md, queue
-1, item 9).
+The other temporal functions, and these over the other temporal types,
+are not ported (ROADMAP.md, queue 1, item 9.8).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def _calendar_field(name: str, index: int):
         if not isinstance(col, DeviceColumn) or col.type.id != TypeId.DATE32:
             raise NotImplementedError(
                 f"{name} of anything but a date32 column is not ported yet "
-                "(ROADMAP.md, queue 1, item 9: the long tail)")
+                "(ROADMAP.md, queue 1, item 9.8: temporal and strings)")
         out = civil_from_days(col.values.to(torch.int64))[index]
         return DeviceColumn(out, col.validity, T.int64())
     return _fn

@@ -6,7 +6,7 @@
 // planes (the TPU's vector unit is 32-bit), pulls each (256, 128) tile's
 // kept rows to the tile's front with a log-depth butterfly, and stitches
 // the tiles at exclusive base offsets. Hopper addresses bytes: this kernel
-// moves each column at its native width (1, 4 or 8 bytes) and writes every
+// moves each column at its native width (1, 2, 4 or 8 bytes) and writes every
 // kept row straight to its final slot.
 //
 // Contract (the `direct` movement mode, arrow_tpu/compute/move.py:328-333):
@@ -123,6 +123,10 @@ __device__ __forceinline__ void copy_value(const void* src, void* dst,
       static_cast<unsigned int*>(dst)[to] =
           static_cast<const unsigned int*>(src)[from];
       break;
+    case 2:
+      static_cast<unsigned short*>(dst)[to] =
+          static_cast<const unsigned short*>(src)[from];
+      break;
     default:
       static_cast<unsigned char*>(dst)[to] =
           static_cast<const unsigned char*>(src)[from];
@@ -135,6 +139,7 @@ __device__ __forceinline__ void zero_value(void* dst, int width,
   switch (width) {
     case 8: static_cast<unsigned long long*>(dst)[to] = 0ull; break;
     case 4: static_cast<unsigned int*>(dst)[to] = 0u; break;
+    case 2: static_cast<unsigned short*>(dst)[to] = 0; break;
     default: static_cast<unsigned char*>(dst)[to] = 0; break;
   }
 }
@@ -184,7 +189,7 @@ scatter(const uint8_t* __restrict__ keep, long long n,
 }  // namespace
 
 // keep: n bytes, 0 or 1. src/dst/widths: `num_columns` column pointers and
-// their widths in bytes (1, 4 or 8), each pointer aligned to its width.
+// their widths in bytes (1, 2, 4 or 8), each pointer aligned to its width.
 // scratch: ceil(n / 4096) ints. count: one int, written on the device.
 // Returns a cudaError_t; 0 when all three launches were accepted.
 extern "C" int compact_columns(const uint8_t* keep, long long n,
@@ -200,7 +205,7 @@ extern "C" int compact_columns(const uint8_t* keep, long long n,
   cols.count = num_columns;
   for (int c = 0; c < num_columns; ++c) {
     const int w = widths[c];
-    if ((w != 1 && w != 4 && w != 8) ||
+    if ((w != 1 && w != 2 && w != 4 && w != 8) ||
         reinterpret_cast<uintptr_t>(src[c]) % w != 0 ||
         reinterpret_cast<uintptr_t>(dst[c]) % w != 0) {
       return cudaErrorInvalidValue;

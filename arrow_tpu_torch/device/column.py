@@ -7,19 +7,27 @@
 * a DeviceBatch carries its ``row_count`` as a 0-d tensor beside the static
   capacity, so a data-dependent size (the number of groups) needs no
   device-to-host copy until the result is downloaded.
+
+Every type is stored at the reference's width (``dtypes``): uint16, uint32
+and uint64 as the bits of the signed dtype of that width, decimals of up
+to 18 digits as their unscaled int64, dates, timestamps, times and
+durations as their integer count of the type's unit, month intervals as
+int32 and the all-null type as int8 zeros under an all-false validity.
 """
 
 from __future__ import annotations
 
 import datetime
+import decimal
+import zoneinfo
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import default_device, dtypes
 from .. import types as T
-from ..types import DataType, Field, Schema, TypeId
+from ..types import HOST_BOUNDARY, DataType, Field, Schema, TypeId
 
 # Row capacities are padded to a multiple of this.
 BLOCK = 1024
@@ -35,24 +43,10 @@ def capacity_class(n: int) -> int:
     return max(BLOCK, 1 << (max(n, 1) - 1).bit_length())
 
 
-_TORCH_DTYPES = {
-    TypeId.BOOL: torch.bool,
-    TypeId.INT32: torch.int32, TypeId.INT64: torch.int64,
-    # uint64 as its int64 bit pattern
-    TypeId.UINT64: torch.int64,
-    TypeId.FLOAT: torch.float32, TypeId.DOUBLE: torch.float64,
-    TypeId.DATE32: torch.int32,
-}
-
-
 def torch_dtype_for(t: DataType) -> torch.dtype:
-    if t.id == TypeId.DICTIONARY:
-        return _TORCH_DTYPES[t.index_type.id]
-    if t.id == TypeId.STRING:
-        return torch.int32  # dictionary codes
-    if t.id in _TORCH_DTYPES:
-        return _TORCH_DTYPES[t.id]
-    raise NotImplementedError(f"no device representation for {t!r}")
+    """The storage dtype of a logical type: ``dtypes.STORAGE`` of its
+    value dtype (uint16/32/64 as the signed dtype of their width)."""
+    return dtypes.STORAGE[dtypes.dtype_of_type(t)]
 
 
 class DeviceColumn:
@@ -71,6 +65,12 @@ class DeviceColumn:
     @property
     def capacity(self) -> int:
         return self.values.shape[0]
+
+    @property
+    def value_dtype(self) -> str:
+        """The dtype name of the values (``dtypes``): the type's, so an
+        unsigned column reads as unsigned."""
+        return dtypes.dtype_of_values(self.values, self.type)
 
     def valid_mask(self, row_mask: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
@@ -131,18 +131,26 @@ def batch_from_numpy(columns: Sequence[tuple], row_count: int,
                      device=None) -> DeviceBatch:
     """Build a DeviceBatch from plain numpy arrays.
 
-    ``columns`` holds ``(name, type_name, values, validity_or_None,
-    dictionary_values_or_None)`` per column (type names as in
-    ``types.type_for_name``). Values are padded with zeros, and validity
-    with False, to ``round_up`` of the longest column."""
+    ``columns`` holds ``(name, type, values, validity_or_None,
+    dictionary_values_or_None)`` per column; ``type`` is a DataType or a
+    name for ``types.type_for_name``. ``values`` are the values of the
+    type's value dtype (unsigned ones as unsigned), or
+    ``datetime64``/``timedelta64`` values for a temporal type (converted
+    to its unit), or ``decimal.Decimal`` values for a decimal (scaled to
+    its unscaled integers exactly). Values are padded with zeros, and
+    validity with False, to ``round_up`` of the longest column. A null
+    column is all null. Decimals wider than 18 digits raise
+    NotImplementedError."""
     dev = default_device(device)
     cap = round_up(max([row_count] + [len(c[2]) for c in columns]))
     fields, cols = [], []
-    for name, type_name, values, validity, dictionary in columns:
-        t = T.type_for_name(type_name)
+    for name, type_, values, validity, dictionary in columns:
+        t = T.type_for_name(type_) if isinstance(type_, str) else type_
         vals = np.zeros(cap, dtype=_numpy_dtype(t))
-        vals[:len(values)] = values
+        vals[:len(values)] = _host_values(t, values)
         mask = None
+        if t.id == TypeId.NA:
+            validity = np.zeros(len(values), dtype=np.bool_)
         if validity is not None:
             m = np.zeros(cap, dtype=np.bool_)
             m[:len(validity)] = validity
@@ -156,29 +164,96 @@ def batch_from_numpy(columns: Sequence[tuple], row_count: int,
                                     device=dev))
 
 
+_NP_UNITS = {"s": "s", "ms": "ms", "us": "us", "ns": "ns"}
+
+
+def _host_values(t: DataType, values) -> np.ndarray:
+    """Host values of type ``t`` -> its storage dtype's numpy array (the
+    bits of an unsigned value, the unscaled integer of a decimal)."""
+    store = _numpy_dtype(t)
+    if t.is_decimal:
+        if t.precision > 18:
+            raise NotImplementedError(
+                f"{t!r}: decimals wider than 18 digits ride the reference's "
+                "device as dictionary codes of a host Array; not ported yet "
+                + HOST_BOUNDARY)
+        vals = list(values)
+        if vals and isinstance(vals[0], decimal.Decimal):
+            return np.array([0 if v is None else int(v.scaleb(t.scale))
+                             for v in vals], dtype=np.int64)
+        return np.asarray(vals, dtype=np.int64)
+    arr = np.asarray(values)
+    if arr.dtype.kind in "mM":
+        unit = {TypeId.DATE32: "D", TypeId.DATE64: "ms"}.get(
+            t.id, getattr(t, "unit", None))
+        kind = "datetime64" if arr.dtype.kind == "M" else "timedelta64"
+        return arr.astype(f"{kind}[{unit}]").view(np.int64).astype(store)
+    if t.id in (TypeId.STRING, TypeId.DICTIONARY) or t.id == TypeId.NA:
+        return arr.astype(store)
+    value_dtype = dtypes.dtype_of_type(t)
+    return arr.astype(value_dtype).view(store)
+
+
 def _numpy_dtype(t: DataType) -> np.dtype:
     return torch.empty(0, dtype=torch_dtype_for(t)).numpy().dtype
 
 
 _EPOCH = datetime.date(1970, 1, 1)
+_EPOCH_DT = datetime.datetime(1970, 1, 1)
+_UNIT_US = {"s": 1_000_000, "ms": 1000, "us": 1}
+
+
+def _micros(x: int, unit: str) -> int:
+    return x // 1000 if unit == "ns" else x * _UNIT_US[unit]
+
+
+def _py_value(t: DataType, x: int):
+    """One stored integer of a temporal or decimal type as the Python
+    value the reference's ``to_pylist`` gives."""
+    tid = t.id
+    if t.is_decimal:
+        return decimal.Decimal(x).scaleb(-t.scale)
+    if tid == TypeId.DATE32:
+        return _EPOCH + datetime.timedelta(days=x)
+    if tid == TypeId.DATE64:
+        return _EPOCH + datetime.timedelta(milliseconds=x)
+    us = _micros(x, t.unit)
+    if tid == TypeId.TIMESTAMP:
+        out = _EPOCH_DT + datetime.timedelta(microseconds=us)
+        if t.tz is not None:
+            tz = (datetime.timezone.utc if t.tz.upper() == "UTC"
+                  else zoneinfo.ZoneInfo(t.tz))
+            out = out.replace(tzinfo=datetime.timezone.utc).astimezone(tz)
+        return out
+    if tid == TypeId.DURATION:
+        return datetime.timedelta(microseconds=us)
+    return datetime.time(us // 3600_000_000, us // 60_000_000 % 60,
+                         us // 1_000_000 % 60, us % 1_000_000)
 
 
 def download(batch: DeviceBatch) -> Dict[str, List]:
-    """The live rows as Python lists by column name: None for nulls,
-    dictionary codes decoded, date32 as ``datetime.date``."""
+    """The live rows as Python lists by column name, as the reference's
+    ``download_table(...).to_pydict()`` gives them: None for nulls,
+    dictionary codes decoded, unsigned values unsigned, decimals as
+    ``decimal.Decimal``, dates as ``datetime.date``, timestamps as
+    ``datetime.datetime``, times as ``datetime.time`` and durations as
+    ``datetime.timedelta``."""
     n = int(batch.row_count)
     out = {}
     for f, c in zip(batch.schema.fields, batch.columns):
+        t = f.type
+        if t.id == TypeId.NA:
+            out[f.name] = [None] * n
+            continue
         vals = c.values[:n].cpu().numpy()
         mask = (np.ones(n, dtype=np.bool_) if c.validity is None
                 else c.validity[:n].cpu().numpy())
         if c.dictionary is not None:
             py = [c.dictionary[int(v)] for v in np.where(mask, vals, 0)]
-        elif f.type.id == TypeId.DATE32:
-            py = [_EPOCH + datetime.timedelta(days=int(v)) for v in vals]
-        elif f.type.id == TypeId.UINT64:
-            py = vals.view(np.uint64).tolist()
+        elif t.is_temporal or t.is_decimal:
+            py = [_py_value(t, int(v)) for v in vals.astype(np.int64)]
         else:
-            py = vals.tolist()
+            py = vals.view(dtypes.dtype_of_type(t)).tolist() \
+                if t.is_unsigned_integer else vals.tolist()
         out[f.name] = [v if ok else None for v, ok in zip(py, mask)]
     return out

@@ -10,7 +10,7 @@ tile counts and scatters every column at its native width in one pass.
 
 Contract (the reference's ``direct`` movement mode): ``keep`` is a
 contiguous (n,) bool tensor, ``arrays`` 1 to ``MAX_COLUMNS`` contiguous
-(n,) tensors of 1, 4 or 8 bytes an element on the same device. Each output
+(n,) tensors of 1, 2, 4 or 8 bytes an element on the same device. Each output
 has capacity n and holds the kept rows in order, bit for bit (NaN payloads
 and ``-0.0`` kept), then zeros. ``count`` is a 0-d int32 tensor on the
 device, never read back here. A tensor on the CPU takes the plain version;
@@ -28,7 +28,7 @@ import torch
 from ._build import library
 
 MAX_COLUMNS = 64
-WIDTHS = (1, 4, 8)
+WIDTHS = (1, 2, 4, 8)
 TILE_ROWS = 4096  # kTile in csrc/compact.cu: one scratch int per tile
 
 

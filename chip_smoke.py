@@ -16,8 +16,9 @@ Phases; any failure exits non-zero without the final line:
    1,024 slots, in f32 at 16 slots, and with Inf and NaN groups, and at 12
    and 1,024 slots run twice and from an unaligned copy, bit for bit the
    same each time (its order of additions is fixed); the compaction at Q3's
-   lineitem filter (SF10, four columns), under all-true and all-false
-   masks, at Q4's lineitem filter (SF10, all 15 columns), at Q4's and
+   lineitem filter (SF10, four columns, and an int16 and an f16 column of
+   2 bytes an element with NaN payloads and -0.0), under all-true and
+   all-false masks, at Q4's lineitem filter (SF10, all 15 columns), at Q4's and
    Q13's orders filters and Q4's semi-join selection (all 9 columns of
    SF10 orders), and at a ragged 1,000,003 rows of bool, int32, int64 and
    f64 with NaN and -0.0 bit patterns, bit for bit with the count; the
@@ -60,6 +61,15 @@ Phases; any failure exits non-zero without the final line:
    segmented aggregate, the 100 largest orders by ``select_k_sink``, and
    Q15 with its revenue view spelled as two declarations, each run; then
    Q15's general-path float sum (60M rows) twice, bit for bit.
+   Then (3f) the typed plans (``TYPED_PATHS``) over lineitem and part
+   retyped on the card by the port's ``cast``, ``multiply`` and ``round``
+   (``typed_tables``: uint32 keys, int8 line numbers, int16 quantities,
+   decimal128(12, 2) prices, an f32 tax, a timestamp[s] ship date, a
+   date64 commit date, 1% null suppliers): typed Q1, lineitem joined to
+   part on uint32 keys with revenue by brand, and a top-k over all of
+   lineitem on (date64 descending, uint32 with nulls, int64), each
+   against its numpy oracle over the typed values, integers and decimals
+   exact, with its launches exact.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -67,12 +77,13 @@ Phases; any failure exits non-zero without the final line:
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
 4. Times after a warm-up: Q1, Q3, Q4, Q13, the suite's and the last
-   eleven plans' rows/s of their largest input and phase 3e's walls (best
-   of 5), a profile of one run of each (device busy time and idle share),
-   each kernel's time beside its bound, its plain version's and one
-   library call's where there is one, by CUDA events around back-to-back
-   calls and as device time from the profiler, and the general path's
-   float sum beside ``index_add_``.
+   eleven plans' rows/s of their largest input and phase 3e's and 3f's
+   walls (best of 5), a profile of one run of each (device busy time and
+   idle share), each kernel's time beside its bound, its plain version's
+   and one library call's where there is one (the compaction also at 2
+   bytes an element), by CUDA events around back-to-back calls and as
+   device time from the profiler, and the general path's float sum beside
+   ``index_add_``.
 
 The line before the last is one JSON object with a record per kernel, its
 launches by path; the last is ``{"ok": true, "device": {...}}``. The
@@ -193,7 +204,7 @@ def check_close(name, got, want, rtol):
 
 def _bits(t):
     """An integer view of a tensor's bits, so equality is bit for bit."""
-    return t.view({1: torch.uint8, 4: torch.int32,
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
                    8: torch.int64}[t.element_size()])
 
 
@@ -241,6 +252,21 @@ def q3_filter_inputs(lineitem):
     keep = (lineitem.column("l_shipdate").values > DATE_1995_03_15) \
         & lineitem.row_mask()
     return keep, [c.values for c in lineitem.columns]
+
+
+def width2_inputs(lineitem):
+    """Q3's lineitem filter mask over two 2-byte columns: the ship date as
+    int16 days and the discount as f16, with NaN payloads, -0.0 and
+    infinities among its bit patterns."""
+    keep, _ = q3_filter_inputs(lineitem)
+    days = lineitem.column("l_shipdate").values.to(torch.int16)
+    half = lineitem.column("l_discount").values.to(torch.float16)
+    bits = half.view(torch.int16)
+    # a NaN with a payload, a negative NaN (0xFE00), -0.0 and +inf
+    for start, pattern in ((1, 0x7E01), (2, 0xFE00 - 0x10000),
+                           (3, -0x8000), (4, 0x7C00)):
+        bits[start::997] = pattern
+    return keep, [days, half]
 
 
 def q13_special(orders):
@@ -385,6 +411,10 @@ def phase_kernels(n, orders):
     m = keep.numel()
     compact_case(f"compact Q3 lineitem filter n={m} x4", keep, cols)
     errs["compact"] = 0.0
+    keep2, cols2 = width2_inputs(q3_lineitem)
+    compact_case(f"compact Q3 lineitem filter n={m}, int16 and f16 "
+                 "(2 bytes an element)", keep2, cols2)
+    del keep2, cols2
     compact_case(f"compact all kept n={m} x4",
                  torch.ones_like(keep), cols)
     compact_case(f"compact none kept n={m} x4",
@@ -1666,8 +1696,10 @@ def phase_plan_nodes(tables, cols):
         log_peak(path.name, base)
         try:
             check_launches(path.name, launches[path.name], path.launches)
-            log(f"{path.name} matches its oracle: "
-                f"{path.check(tables, cols, result)}")
+            t2 = time.perf_counter()
+            msg = path.check(tables, cols, result)
+            log(f"{path.name} matches its oracle: {msg} (oracle "
+                f"{time.perf_counter() - t2:.1f} s)")
         except AssertionError as exc:
             log(f"  {path.name} FAILED: {exc}")
             failures.append(path.name)
@@ -1684,6 +1716,374 @@ def phase_plan_nodes(tables, cols):
     if failures:
         raise AssertionError(f"phase 3e failed for {failures}")
     return launches
+
+
+# --- phase 3f: typed plans -------------------------------------------------
+
+SHIPDATE_1998_09_02_S = 904_694_400  # 1998-09-02 in seconds
+TYPED_SEED = 7
+TYPED_NULLS = 0.01                   # the share of l_suppkey's null rows
+TYPED_TOP_K = 100
+
+
+def typed_tables(lineitem, part, seed=TYPED_SEED):
+    """lineitem and part at the widths a SQL schema or Arrow's TPC-H
+    generator gives them, made from ``q1_device_batch``'s and
+    ``part_table``'s columns by the port's registered functions: the
+    keys uint32 by ``cast``, ``l_linenumber`` int8, ``l_quantity`` int16
+    (a safe cast: whole numbers), the prices decimal128(12, 2) by
+    ``multiply`` by 100, ``round``, a safe ``cast`` to int64 and a
+    ``cast`` to the decimal, ``l_tax`` float32, ``l_shipdate``
+    timestamp[s] and ``l_commitdate`` date64 by ``cast`` from date32.
+    ``l_suppkey`` gets a validity with ``TYPED_NULLS`` nulls from a
+    generator seeded with ``seed`` on the tables' device."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.compute.registry import ExecContext, get_function
+    from arrow_tpu_torch.device.column import DeviceBatch, DeviceColumn
+    from arrow_tpu_torch.types import Field, Schema
+
+    def call(batch, fn, *args, **kw):
+        ctx = ExecContext(batch.capacity, batch.row_count)
+        return get_function(fn).impl(ctx, *args, **kw)
+
+    def cast(batch, col, to):
+        return call(batch, "cast", col, to_type=to, safe=True)
+
+    def cents(batch, name):
+        c = call(batch, "multiply", batch.column(name), 100)
+        c = cast(batch, call(batch, "round", c), T.int64())
+        return cast(batch, c, T.decimal128(12, 2))
+
+    li = lineitem.column
+    dev = lineitem.row_count.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    valid = torch.rand(lineitem.capacity, generator=gen,
+                       device=dev) >= TYPED_NULLS
+    suppkey = cast(lineitem, li("l_suppkey"), T.uint32())
+    cols = {
+        "l_orderkey": li("l_orderkey"),
+        "l_partkey": cast(lineitem, li("l_partkey"), T.uint32()),
+        "l_suppkey": DeviceColumn(torch.where(valid, suppkey.values, 0),
+                                  valid, suppkey.type),
+        "l_linenumber": cast(lineitem, li("l_linenumber"), T.int8()),
+        "l_quantity": cast(lineitem, li("l_quantity"), T.int16()),
+        "l_extendedprice": cents(lineitem, "l_extendedprice"),
+        "l_discount": cents(lineitem, "l_discount"),
+        "l_tax": cast(lineitem, li("l_tax"), T.float32()),
+        "l_returnflag": li("l_returnflag"),
+        "l_linestatus": li("l_linestatus"),
+        "l_shipdate": cast(lineitem, li("l_shipdate"), T.timestamp("s")),
+        "l_commitdate": cast(lineitem, li("l_commitdate"), T.date64()),
+    }
+    pcols = {"p_partkey": cast(part, part.column("p_partkey"), T.uint32()),
+             "p_brand": part.column("p_brand")}
+
+    def batch(cs, rows):
+        return DeviceBatch(Schema([Field(k, c.type) for k, c in cs.items()]),
+                           list(cs.values()), rows)
+    return {"lineitem": batch(cols, lineitem.row_count),
+            "part": batch(pcols, part.row_count)}
+
+
+def _acero(ac):
+    if ac is None:
+        import arrow_tpu_torch.acero as ac
+    return ac
+
+
+def typed_q1(t, ac=None):
+    """Q1 over the typed lineitem: int16 quantities summed exactly in
+    int64, decimal prices and discounted prices summed exactly, the
+    decimal discount's mean a decimal, the f32 tax summed in f64."""
+    ac = _acero(ac)
+    D, f = ac.Declaration, ac.field
+    return D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(t["lineitem"])),
+        D("filter", ac.FilterNodeOptions(
+            f("l_shipdate") <= SHIPDATE_1998_09_02_S)),
+        D("project", ac.ProjectNodeOptions(
+            [f("l_returnflag"), f("l_linestatus"), f("l_quantity"),
+             f("l_extendedprice"), f("l_extendedprice") * f("l_discount"),
+             f("l_discount"), f("l_tax")],
+            ["l_returnflag", "l_linestatus", "l_quantity",
+             "l_extendedprice", "disc_price", "l_discount", "l_tax"])),
+        D("aggregate", ac.AggregateNodeOptions(
+            [("l_quantity", "hash_sum", None, "sum_qty"),
+             ("l_extendedprice", "hash_sum", None, "sum_base_price"),
+             ("disc_price", "hash_sum", None, "sum_disc_price"),
+             ("l_discount", "hash_mean", None, "avg_disc"),
+             ("l_tax", "hash_sum", None, "sum_tax"),
+             ("l_quantity", "hash_mean", None, "avg_qty"),
+             ("l_quantity", "hash_count", None, "count_order")],
+            keys=["l_returnflag", "l_linestatus"])),
+        D("order_by", ac.OrderByNodeOptions(
+            [("l_returnflag", "ascending"), ("l_linestatus", "ascending")])),
+    ])
+
+
+def typed_join(t, ac=None):
+    """The typed lineitem's early small lines joined to part on uint32
+    keys (the direct unsigned path, with the bloom), revenue and tax by
+    brand, the ten largest revenues. The lines are counted by their int16
+    quantity, so the filter's, the bloom's and the join's compactions
+    move a 2-byte column beside the 4- and 8-byte ones."""
+    ac = _acero(ac)
+    D, f = ac.Declaration, ac.field
+    lines = D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(t["lineitem"])),
+        D("filter", ac.FilterNodeOptions(
+            (f("l_linenumber") <= 2) & (f("l_quantity") < 25)))])
+    joined = D("hashjoin", ac.HashJoinNodeOptions(
+        "inner", left_keys=["l_partkey"], right_keys=["p_partkey"]),
+        inputs=[lines, D("table_source",
+                         ac.TableSourceNodeOptions(t["part"]))])
+    return D.from_sequence([
+        joined,
+        D("project", ac.ProjectNodeOptions(
+            [f("p_brand"), f("l_extendedprice") * f("l_discount"),
+             f("l_tax"), f("l_quantity")],
+            ["p_brand", "revenue", "l_tax", "l_quantity"])),
+        D("aggregate", ac.AggregateNodeOptions(
+            [("revenue", "hash_sum", None, "revenue"),
+             ("l_tax", "hash_sum", None, "sum_tax"),
+             ("l_quantity", "hash_count", None, "lines")],
+            keys=["p_brand"])),
+        D("order_by", ac.OrderByNodeOptions(
+            [("revenue", "descending"), ("p_brand", "ascending")])),
+        D("fetch", ac.FetchNodeOptions(0, 10)),
+    ])
+
+
+def typed_topk(t, ac=None):
+    """All of the typed lineitem ordered by commit date (date64)
+    descending, supplier (uint32 with nulls, last) and order key, the
+    first ``TYPED_TOP_K``: the fused top-k on typed keys."""
+    ac = _acero(ac)
+    D = ac.Declaration
+    return D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(t["lineitem"])),
+        D("order_by", ac.OrderByNodeOptions(
+            [("l_commitdate", "descending"), ("l_suppkey", "ascending"),
+             ("l_orderkey", "ascending")], null_placement="at_end")),
+        D("fetch", ac.FetchNodeOptions(0, TYPED_TOP_K)),
+    ])
+
+
+def typed_columns(t):
+    """The typed tables' live values on the host, by column: numpy arrays
+    of their stored values (unsigned ones viewed unsigned, a dictionary
+    column's codes with its values under ``<name>:dict``), and
+    ``<name>:valid`` for a column with nulls."""
+    out = {}
+    for table in t.values():
+        n = int(table.row_count)
+        for f, c in zip(table.schema.fields, table.columns):
+            v = c.values[:n].cpu().numpy()
+            if f.type.is_unsigned_integer:
+                v = v.view(np.dtype(f"uint{8 * v.itemsize}"))
+            out[f.name] = v
+            if c.dictionary is not None:
+                out[f.name + ":dict"] = c.dictionary
+            if c.validity is not None:
+                out[f.name + ":valid"] = c.validity[:n].cpu().numpy()
+    return out
+
+
+def _decimal(units, scale):
+    import decimal
+    return decimal.Decimal(int(units)).scaleb(-scale)
+
+
+def _decimal_mean(total, count):
+    """The reference's decimal mean: half away from zero, exactly."""
+    mag = (2 * abs(int(total)) + count) // (2 * count)
+    return -mag if total < 0 else mag
+
+
+def typed_q1_oracle(c):
+    """Sums by the two flags' codes with ``np.bincount``, the groups in
+    the order of their values. Integer and decimal sums are whole numbers
+    below 2**53 a group at SF10 (at most 1.05e8 a line for the discounted
+    price), so their f64 bincounts are exact."""
+    keep = c["l_shipdate"] <= SHIPDATE_1998_09_02_S
+    rfd, lsd = c["l_returnflag:dict"], c["l_linestatus:dict"]
+    key = (c["l_returnflag"][keep].astype(np.int64) * len(lsd)
+           + c["l_linestatus"][keep])
+    size = len(rfd) * len(lsd)
+    price, disc = c["l_extendedprice"][keep], c["l_discount"][keep]
+    count = np.bincount(key, minlength=size)
+
+    def total(w):
+        return np.bincount(key, weights=w.astype(np.float64),
+                           minlength=size)
+
+    qty, base = total(c["l_quantity"][keep]), total(price)
+    disc_price, disc_sum = total(price * disc), total(disc)
+    tax = total(c["l_tax"][keep])
+    groups = sorted((rfd[k // len(lsd)], lsd[k % len(lsd)], k)
+                    for k in np.nonzero(count)[0])
+    n = [int(count[k]) for _, _, k in groups]
+    return {
+        "l_returnflag": [g[0] for g in groups],
+        "l_linestatus": [g[1] for g in groups],
+        "sum_qty": [int(qty[k]) for _, _, k in groups],
+        "sum_base_price": [_decimal(base[k], 2) for _, _, k in groups],
+        "sum_disc_price": [_decimal(disc_price[k], 4)
+                           for _, _, k in groups],
+        "avg_disc": [_decimal(_decimal_mean(int(disc_sum[k]), m), 2)
+                     for (_, _, k), m in zip(groups, n)],
+        "sum_tax": [float(tax[k]) for _, _, k in groups],
+        "avg_qty": [float(qty[k]) / m for (_, _, k), m in zip(groups, n)],
+        "count_order": n,
+    }
+
+
+def typed_join_oracle(c):
+    """Each kept line's part by a search of the part keys; revenue (whole
+    units of 10**-4, below 2**53 a brand, so f64 sums are exact), tax and
+    lines by brand code."""
+    keep = (c["l_linenumber"] <= 2) & (c["l_quantity"] < 25)
+    pk = c["l_partkey"][keep].astype(np.int64)
+    order = np.argsort(c["p_partkey"])
+    pkeys = c["p_partkey"][order].astype(np.int64)
+    pos = np.clip(np.searchsorted(pkeys, pk), 0, len(pkeys) - 1)
+    hit = pkeys[pos] == pk
+    brand = c["p_brand"][order][pos[hit]].astype(np.int64)
+    names = c["p_brand:dict"]
+    revenue = (c["l_extendedprice"][keep] * c["l_discount"][keep])[hit]
+    tax = c["l_tax"][keep][hit].astype(np.float64)
+    nb = len(names)
+    rev = np.bincount(brand, weights=revenue.astype(np.float64),
+                      minlength=nb)
+    taxes = np.bincount(brand, weights=tax, minlength=nb)
+    lines = np.bincount(brand, minlength=nb)
+    rows = sorted((-int(rev[b]), names[b], float(taxes[b]), int(lines[b]))
+                  for b in range(nb) if lines[b])[:10]
+    return {"p_brand": [r[1] for r in rows],
+            "revenue": [_decimal(-r[0], 4) for r in rows],
+            "sum_tax": [r[2] for r in rows], "lines": [r[3] for r in rows]}
+
+
+def typed_topk_oracle(c):
+    """The first rows by commit date descending, supplier ascending with
+    nulls last, order key ascending, as their keys: the rows at or after
+    the ``TYPED_TOP_K``-th latest commit date, sorted."""
+    date = c["l_commitdate"]
+    kth = np.partition(date, len(date) - TYPED_TOP_K)[len(date) - TYPED_TOP_K]
+    rows = np.nonzero(date >= kth)[0]
+    valid = c["l_suppkey:valid"][rows]
+    supp = np.where(valid, c["l_suppkey"][rows].astype(np.int64), 0)
+    rows = rows[np.lexsort((c["l_orderkey"][rows], supp, ~valid,
+                            -date[rows]))[:TYPED_TOP_K]]
+    valid = c["l_suppkey:valid"][rows]
+    return {"l_orderkey": c["l_orderkey"][rows].tolist(),
+            "l_suppkey": [int(s) if ok else None
+                          for s, ok in zip(c["l_suppkey"][rows], valid)],
+            "l_commitdate_ms": date[rows].tolist()}
+
+
+def check_typed_q1(c, result):
+    check_typed("typed Q1", result, typed_q1_oracle(c))
+    return (f"{len(result['count_order'])} groups, "
+            f"{sum(result['count_order'])} lines as typed_q1_oracle")
+
+
+def check_typed_join(c, result):
+    check_typed("typed join", result, typed_join_oracle(c))
+    return f"top brand {result['p_brand'][0]} at {result['revenue'][0]}"
+
+
+def check_typed_topk(c, result):
+    import datetime
+    want = typed_topk_oracle(c)
+    epoch = datetime.date(1970, 1, 1)
+    got_ms = [(d - epoch).days * 86_400_000 for d in result["l_commitdate"]]
+    if result["l_orderkey"] != want["l_orderkey"] or \
+            result["l_suppkey"] != want["l_suppkey"] or \
+            got_ms != want["l_commitdate_ms"]:
+        raise AssertionError("typed top-k: rows differ from the oracle")
+    return (f"{len(got_ms)} rows from {result['l_commitdate'][0]}, "
+            f"{sum(s is None for s in result['l_suppkey'])} null suppliers")
+
+
+def check_typed(name, result, want):
+    """Keys, counts, integers and decimals exact; floats within
+    ``RTOL_F64`` (the f32 taxes are summed in f64 in another order)."""
+    if list(result) != list(want):
+        raise AssertionError(f"{name}: columns {list(result)} != "
+                             f"{list(want)}")
+    for col, w in want.items():
+        got = result[col]
+        if w and isinstance(w[0], float):
+            ok = len(got) == len(w) and np.allclose(
+                np.asarray(got, dtype=np.float64), w, rtol=RTOL_F64, atol=0)
+        else:
+            ok = got == w and all(type(g) is type(x)
+                                  for g, x in zip(got, w))
+        if not ok:
+            raise AssertionError(f"{name} {col}: {got} != {w}")
+
+
+# Launches a run at SF10, predicted before the first run on the card.
+# Typed Q1: its filter folds into the aggregate; the f32 tax sum and the
+# int16 quantity mean add in f64 (2 grouped sums), the decimal sums, the
+# decimal mean, the int16 sum and the count add in int64 (no kernel).
+# Typed join: the lineitem filter compacts (1), the bloom over the uint32
+# keys hashes both sides (2 hash32) and compacts the probe side (1), the
+# unique-build join compacts its output (1); the tax sum by brand (26
+# slots) is one grouped sum. The top-k: one sort, no kernel.
+TYPED_PATHS = (
+    NodePath("typed Q1", typed_q1, check_typed_q1, _launches(0, 0, 2)),
+    NodePath("typed join", typed_join, check_typed_join,
+             _launches(3, 2, 1)),
+    NodePath("typed top-k", typed_topk, check_typed_topk,
+             _launches(0, 0, 0)),
+)
+
+
+def phase_typed(tables):
+    """The typed plans at SF10 over ``typed_tables`` of lineitem and
+    part, each with every launch count set to 0 just before its run and
+    read just after, against its numpy oracle over the typed values, with
+    the card's peak memory over the run. Returns (launches by path, the
+    typed tables)."""
+    from arrow_tpu_torch.platform_check import self_check
+    log(f"== phase 3f: typed plans at SF{SF:g}")
+    t0 = time.perf_counter()
+    typed = typed_tables(tables["lineitem"], tables["part"])
+    torch.cuda.synchronize()
+    log(f"typed lineitem and part made on the card in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{f.name} {f.type!r}" for f in typed["lineitem"].schema.fields))
+    t0 = time.perf_counter()
+    cols = typed_columns(typed)
+    log(f"typed columns downloaded in {time.perf_counter() - t0:.1f} s")
+    launches, failures = {}, []
+    for path in TYPED_PATHS:
+        plan = path.build(typed)
+        base = memory_mark()
+        zero_launches()
+        self_check()
+        t1 = time.perf_counter()
+        result = plan.to_table()
+        log(f"{path.name} first run {time.perf_counter() - t1:.3f} s")
+        launches[path.name] = read_launches()
+        log_peak(path.name, base)
+        try:
+            check_launches(path.name, launches[path.name], path.launches)
+            t2 = time.perf_counter()
+            msg = path.check(cols, result)
+            log(f"{path.name} matches its oracle: {msg} (oracle "
+                f"{time.perf_counter() - t2:.1f} s)")
+            for i in range(min(len(next(iter(result.values()))), 4)):
+                log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
+        except AssertionError as exc:
+            log(f"  {path.name} FAILED: {exc}")
+            failures.append(path.name)
+        del plan, result
+    if failures:
+        raise AssertionError(f"phase 3f failed for {failures}")
+    return launches, typed
 
 
 def join_declaration(jt, probe, build, **kw):
@@ -2043,7 +2443,7 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
-def phase_times(card, launches, errs, tables, params):
+def phase_times(card, launches, errs, tables, typed, params):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
@@ -2107,15 +2507,16 @@ def phase_times(card, launches, errs, tables, params):
             f"{best * 1e3:.3f} ms = {n_big / best:.6g} {big} rows/s "
             f"[{card}]")
         profile_run(q.name, run)
-    # phase 3e's paths
-    for path in NODE_PATHS:
-        run = node_path_run(path, path.build(tables))
+    # phase 3e's and phase 3f's paths
+    paths = [(p, node_path_run(p, p.build(tables))) for p in NODE_PATHS] + \
+        [(p, p.build(typed).to_table) for p in TYPED_PATHS]
+    for path, run in paths:
         walls, best = best_wall(run)
         log(f"{path.name} SF{SF:g}: wall "
             f"{[round(w * 1e3, 3) for w in walls]} ms; best "
             f"{best * 1e3:.3f} ms [{card}]")
         profile_run(path.name, run)
-        del run
+    del paths, run
 
     def record(name, shape, kernel, plain, library, nbytes, ops, ops_per_s,
                reps=20):
@@ -2183,6 +2584,14 @@ def phase_times(card, launches, errs, tables, params):
         lambda: compact_plain(keep, cols),
         lambda: [c[keep] for c in cols], m * (1 + 2 * width), 0,
         INT32_OPS_PER_S)
+    keep2, cols2 = width2_inputs(lineitem)
+    compact_w2 = record(
+        "compact at 2 bytes (Q3 lineitem filter)", f"n={m}, int16 and "
+        "f16 columns, 4 bytes a row", lambda: compact(keep2, cols2),
+        lambda: compact_plain(keep2, cols2),
+        lambda: [c[keep2] for c in cols2], m * (1 + 2 * 4), 0,
+        INT32_OPS_PER_S)
+    del keep2, cols2
     words = int64_halves(equality_word(lineitem.column("l_orderkey")))
     k = len(words)
     hash_rec = record(
@@ -2220,7 +2629,9 @@ def phase_times(card, launches, errs, tables, params):
          "source": "arrow_tpu_torch/csrc/compact.cu",
          "replaces": "arrow_tpu/compute/pallas_move.py:189",
          "launches": by_path("compact"), "max_abs_err": errs["compact"],
-         "bit_exact": True, **compact_rec},
+         "bit_exact": True, **compact_rec,
+         # the same mask over an int16 and an f16 column
+         "width_2": compact_w2},
         {"name": "hash32", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/hash32.cu",
          "replaces": "arrow_tpu/experimental/pallas_hash.py:43",
@@ -2256,9 +2667,11 @@ def main() -> int:
         launches.update(full_launches)
         launches.update(timed(phase_plan_nodes, tables, cols))
         del cols
+        typed_launches, typed = timed(phase_typed, tables)
+        launches.update(typed_launches)
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
-                            params)
+                            typed, params)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()
