@@ -4,9 +4,12 @@ of ``csrc/compact.cu`` and its plain PyTorch version.
 The kernel replaces the TPU kernel K2 (``arrow_tpu/compute/pallas_move.py``,
 ``_compact_kernel`` driven by ``compact_planes_pallas`` and
 ``compact_arrays_pallas``). It is bound by memory bandwidth: it must read
-the mask and every column once and write every output slot once,
-``n * (1 + 2 * sum of widths)`` bytes. The source says how it scans the
-tile counts and scatters every column at its native width in one pass.
+the mask once, each column's 32-byte sectors that hold a kept row once,
+and write every output slot once: about ``n * (1 + 2 * sum of widths)``
+bytes at a dense mask, ``n * (1 + sum of widths)`` at a sparse one. The
+source says how it counts the mask's tiles and chains their offsets by
+decoupled look-back, then moves each column through shared memory with
+16-byte loads and stores.
 
 Contract (the reference's ``direct`` movement mode): ``keep`` is a
 contiguous (n,) bool tensor, ``arrays`` 1 to ``MAX_COLUMNS`` contiguous
@@ -29,7 +32,8 @@ from ._build import library
 
 MAX_COLUMNS = 64
 WIDTHS = (1, 2, 4, 8)
-TILE_ROWS = 4096  # kTile in csrc/compact.cu: one scratch int per tile
+# the fewest rows a tile of csrc/compact.cu has (256 threads x 16 rows)
+TILE_ROWS = 4096
 
 
 def compact_plain(keep: torch.Tensor, arrays: Sequence[torch.Tensor]
@@ -83,18 +87,20 @@ def compact(keep: torch.Tensor, arrays: Sequence[torch.Tensor]
     if not (keep.is_contiguous() and all(a.is_contiguous() for a in arrays)):
         raise ValueError("compact takes contiguous tensors")
     n = keep.numel()
-    count = torch.zeros((), dtype=torch.int32, device=keep.device)
     outs = [torch.empty_like(a) for a in arrays]
     if n == 0:
-        return outs, count
+        return outs, torch.zeros((), dtype=torch.int32, device=keep.device)
     if n >= 1 << 31:
         raise ValueError(f"{n} rows: compact takes fewer than 2**31")
     k = len(arrays)
     src = (ctypes.c_void_p * k)(*[a.data_ptr() for a in arrays])
     dst = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
     widths = (ctypes.c_int * k)(*[a.element_size() for a in arrays])
-    scratch = torch.empty((n + TILE_ROWS - 1) // TILE_ROWS,
-                          dtype=torch.int32, device=keep.device)
+    count = torch.empty((), dtype=torch.int32, device=keep.device)
+    # zeroed 64-bit words: the tile counter, one status word a count tile,
+    # one int a move tile (both tiles at least TILE_ROWS rows)
+    scratch = torch.zeros(1 + 2 * ((n + TILE_ROWS - 1) // TILE_ROWS),
+                          dtype=torch.int64, device=keep.device)
     stream = torch.cuda.current_stream(keep.device).cuda_stream
     err = _function()(keep.data_ptr(), n, src, dst, widths, k,
                       scratch.data_ptr(), count.data_ptr(), stream)

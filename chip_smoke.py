@@ -5,6 +5,10 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --compact`` runs phase 1, phase 2's compactions
+(but those of SF10 orders) and phase 4's compaction times alone: the quick
+comparison of two trees of that kernel in one call.
+
 Phases; any failure exits non-zero without the final line:
 
 1. Probe: versions, the card's name and power limit, the build of every
@@ -17,11 +21,17 @@ Phases; any failure exits non-zero without the final line:
    and 1,024 slots run twice and from an unaligned copy, bit for bit the
    same each time (its order of additions is fixed); the compaction at Q3's
    lineitem filter (SF10, four columns, and an int16 and an f16 column of
-   2 bytes an element with NaN payloads and -0.0), under all-true and
-   all-false masks, at Q4's lineitem filter (SF10, all 15 columns), at Q4's and
+   2 bytes an element with NaN payloads and -0.0, and one bool column),
+   from column bases 1 and 3 elements and a mask 5 and 15 bytes past
+   16-byte alignment, under all-true and all-false masks, at Q4's
+   lineitem filter (SF10, all 15 columns), at Q4's and
    Q13's orders filters and Q4's semi-join selection (all 9 columns of
    SF10 orders), and at a ragged 1,000,003 rows of bool, int32, int64 and
-   f64 with NaN and -0.0 bit patterns, bit for bit with the count; the
+   f64 with NaN and -0.0 bit patterns (and a bool and an int32 column with
+   the mask at each byte offset 1-15 of a 16-byte line), at 2**26 + 5
+   rows (4,097 count tiles chained by look-back) run twice for the same
+   bits,
+   bit for bit with the count; the
    grouped sum at the suite's shapes (26 slots over 131,072 rows, 1,024
    over 1,024, 26 over 524,288 for Q22); the compaction at Q18's HAVING
    filter (a grouped output at lineitem's capacity) and of partsupp's
@@ -80,8 +90,11 @@ Phases; any failure exits non-zero without the final line:
    eleven plans' rows/s of their largest input and phase 3e's and 3f's
    walls (best of 5), a profile of one run of each (device busy time and
    idle share), each kernel's time beside its bound, its plain version's
-   and one library call's where there is one (the compaction also at 2
-   bytes an element), by CUDA events around back-to-back calls and as
+   and one library call's where there is one (the compaction at five
+   shapes: Q3's filter, its mask over 2-byte columns and over one bool
+   column, Q4's filter over all 15 columns and Q18's sparse HAVING filter,
+   each with its device time split by kernel name), by CUDA events around
+   back-to-back calls and as
    device time from the profiler, and the general path's float sum beside
    ``index_add_``.
 
@@ -92,6 +105,7 @@ script imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -269,6 +283,42 @@ def width2_inputs(lineitem):
     return keep, [days, half]
 
 
+def bool_column_inputs(lineitem):
+    """Q3's lineitem filter mask over one bool column alone, as a validity
+    buffer moves: 1% of its rows false (seeded)."""
+    keep, _ = q3_filter_inputs(lineitem)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    valid = torch.rand(keep.numel(), generator=gen, device="cuda") >= 0.01
+    return keep, [valid]
+
+
+def q4_lineitem_keep(lineitem):
+    """Q4's lineitem filter: commit date before receipt date."""
+    return (lineitem.column("l_commitdate").values
+            < lineitem.column("l_receiptdate").values) & lineitem.row_mask()
+
+
+def offset_copy(t, k):
+    """A copy of ``t`` that starts ``k`` elements into a larger tensor, so
+    that its base lies ``k * element_size`` bytes past the allocation's
+    alignment."""
+    out = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:]
+    out.copy_(t)
+    return out
+
+
+def q18_having_inputs(n):
+    """Q18's HAVING filter: a grouped sum's output at lineitem's capacity
+    (order keys, sums and their validity, a quarter of the slots live),
+    about one group in 10^4 kept."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    keys = torch.arange(n, dtype=torch.int64, device="cuda")
+    sums = torch.rand(n, generator=gen, device="cuda",
+                      dtype=torch.float64) * 300.0
+    live = torch.rand(n, generator=gen, device="cuda") < 0.25
+    return (sums > 299.97) & live, [keys, sums, live]
+
+
 def q13_special(orders):
     """Per ``o_comment`` dictionary slot: the comment is like
     '%special%requests%'."""
@@ -283,8 +333,7 @@ def q4_q13_filter_inputs(lineitem, orders):
     of lineitem's columns, Q4's and Q13's orders filters and Q4's semi
     join selection (of the filtered orders) all of orders' columns."""
     from arrow_tpu_torch.io.tpch_queries import DATE_1993_07_01
-    li_keep = (lineitem.column("l_commitdate").values
-               < lineitem.column("l_receiptdate").values) & lineitem.row_mask()
+    li_keep = q4_lineitem_keep(lineitem)
     date = orders.column("o_orderdate").values
     q4_keep = (date >= DATE_1993_07_01) & (date < DATE_1993_07_01 + 92) \
         & orders.row_mask()
@@ -323,7 +372,7 @@ def phase_probe():
         f"{[s.name for s in _build.sources()]}")
     for name, out in _build.BUILD_LOG.items():
         for line in out.strip().splitlines():
-            if "registers" in line or "smem" in line or "error" in line:
+            if any(k in line for k in ("registers", "smem", "stack", "error")):
                 log(f"  ptxas {name}: {line.strip()}")
     before = probe.launches
     info = self_check()
@@ -336,9 +385,7 @@ def phase_probe():
 def phase_kernels(n, orders):
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
-    from arrow_tpu_torch.io.tpch_device import (q1_device_batch,
-                                                q3_device_plan)
-    from arrow_tpu_torch.kernels.compact import compact, compact_plain
+    from arrow_tpu_torch.io.tpch_device import q3_device_plan
     from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
                                                      grouped_sum_plain)
     from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
@@ -397,28 +444,8 @@ def phase_kernels(n, orders):
     errs["probe"] = check_close("probe (8,128) f32", probe(x),
                                 probe_plain(x), 0.0)
 
-    def compact_case(name, keep, cols):
-        outs, count = compact(keep, cols)
-        want, want_count = compact_plain(keep, cols)
-        if count.device.type != "cuda" or count.dtype != torch.int32 \
-                or int(count) != int(want_count):
-            raise AssertionError(f"{name}: count {count} != {want_count}")
-        check_bit_exact(f"{name}, count {int(count)}", outs, want)
-        return outs, count
-
     q3_lineitem, q3_orders, _ = q3_sources(q3_device_plan(SF)[0])
-    keep, cols = q3_filter_inputs(q3_lineitem)
-    m = keep.numel()
-    compact_case(f"compact Q3 lineitem filter n={m} x4", keep, cols)
-    errs["compact"] = 0.0
-    keep2, cols2 = width2_inputs(q3_lineitem)
-    compact_case(f"compact Q3 lineitem filter n={m}, int16 and f16 "
-                 "(2 bytes an element)", keep2, cols2)
-    del keep2, cols2
-    compact_case(f"compact all kept n={m} x4",
-                 torch.ones_like(keep), cols)
-    compact_case(f"compact none kept n={m} x4",
-                 torch.zeros_like(keep), cols)
+    errs["compact"] = phase_compact(n, q3_lineitem, orders)
     # the join keys as the bloom hashes them: two strided int32 views of
     # each int64 equality word
     for batch, key in ((q3_lineitem, "l_orderkey"), (q3_orders, "o_custkey")):
@@ -430,10 +457,79 @@ def phase_kernels(n, orders):
         if key == "l_orderkey":
             errs["hash32"] = err
         del words
-    del q3_lineitem, q3_orders, keep, cols
+    del q3_lineitem, q3_orders
+
+    h = 60_000_000
+    for k in (1, 2, 3):
+        words = hash_words(h, k, 10 + k)
+        check_bit_exact(f"hash32 k={k} n={h}", [hash32(words)],
+                        [hash32_plain(words)])
+        del words
+    # Q5's two-key bloom (l_suppkey, c_nationkey): four word planes over
+    # its probe side's capacity; Q7's and Q21's single int64 keys over
+    # their joins' 33,554,432- and 1,048,576-row probe sides
+    for rows, k in ((1 << 24, 4), (1 << 25, 2), (1 << 20, 2)):
+        words = hash_words(rows, k, 14 + k)
+        check_bit_exact(f"hash32 k={k} n={rows}", [hash32(words)],
+                        [hash32_plain(words)])
+        del words
+    torch.cuda.synchronize()
+    return errs
+
+
+def compact_case(name, keep, cols):
+    """``compact`` against ``compact_plain`` on one input: the count on the
+    card and every output bit for bit."""
+    from arrow_tpu_torch.kernels.compact import compact, compact_plain
+    outs, count = compact(keep, cols)
+    want, want_count = compact_plain(keep, cols)
+    if count.device.type != "cuda" or count.dtype != torch.int32 \
+            or int(count) != int(want_count):
+        raise AssertionError(f"{name}: count {count} != {want_count}")
+    check_bit_exact(f"{name}, count {int(count)}", outs, want)
+    return outs, count
+
+
+def phase_compact(n, q3_lineitem, orders):
+    """The compaction against its plain version at every shape the main
+    paths give it, at the edges of its tiles, from bases off the 16-byte
+    alignment of its vector loads and stores, and run again for the same
+    bits (its tiles chain their offsets through a look-back). Without
+    ``orders`` (``--compact``) the orders' shapes are left out. Returns the
+    largest absolute error, 0.0."""
+    from arrow_tpu_torch.io.tpch_device import q1_device_batch
+    from arrow_tpu_torch.kernels.compact import compact
+    keep, cols = q3_filter_inputs(q3_lineitem)
+    m = keep.numel()
+    compact_case(f"compact Q3 lineitem filter n={m} x4", keep, cols)
+    for k in (1, 3):
+        # every column k elements (k, 2k, 4k, 8k bytes) and the mask 5k
+        # bytes past 16-byte alignment
+        compact_case(f"compact Q3 lineitem filter n={m} x4, bases {k} "
+                     f"elements and the mask {5 * k} bytes off alignment",
+                     offset_copy(keep, 5 * k),
+                     [offset_copy(c, k) for c in cols])
+    keep2, cols2 = width2_inputs(q3_lineitem)
+    compact_case(f"compact Q3 lineitem filter n={m}, int16 and f16 "
+                 "(2 bytes an element)", keep2, cols2)
+    del keep2, cols2
+    keep1, cols1 = bool_column_inputs(q3_lineitem)
+    compact_case(f"compact Q3 lineitem filter n={m}, one bool column",
+                 keep1, cols1)
+    del keep1, cols1
+    compact_case(f"compact all kept n={m} x4",
+                 torch.ones_like(keep), cols)
+    compact_case(f"compact none kept n={m} x4",
+                 torch.zeros_like(keep), cols)
+    del keep, cols
     # Q4's and Q13's compactions, each over every column of its batch
     lineitem, _ = q1_device_batch(SF)
-    cases, li_keep = q4_q13_filter_inputs(lineitem, orders)
+    if orders is None:
+        li_keep = q4_lineitem_keep(lineitem)
+        cases = [("Q4 lineitem filter", li_keep,
+                  [c.values for c in lineitem.columns])]
+    else:
+        cases, li_keep = q4_q13_filter_inputs(lineitem, orders)
     for name, keep, cols in cases:
         outs, count = compact_case(
             f"compact {name} n={keep.numel()} x{len(cols)}", keep, cols)
@@ -458,19 +554,16 @@ def phase_kernels(n, orders):
                             device="cuda", dtype=torch.int32),
               torch.randint(-2**62, 2**62, (r,), generator=gen,
                             device="cuda", dtype=torch.int64), f64]
-    compact_case(f"compact ragged n={r} bool/int32/int64/f64",
-                 torch.rand(r, generator=gen, device="cuda") < 0.5, ragged)
-    del ragged, f64
-    # Q18's HAVING filter: a grouped sum's output at lineitem's capacity
-    # (order keys, sums and their validity, a quarter of the slots live),
-    # about one group in 10^4 kept
-    keys = torch.arange(n, dtype=torch.int64, device="cuda")
-    sums = torch.rand(n, generator=gen, device="cuda",
-                      dtype=torch.float64) * 300.0
-    live = torch.rand(n, generator=gen, device="cuda") < 0.25
+    keep = torch.rand(r, generator=gen, device="cuda") < 0.5
+    compact_case(f"compact ragged n={r} bool/int32/int64/f64", keep, ragged)
+    # a 1-byte column and the mask at every byte offset of a 16-byte line
+    for k in range(1, 16):
+        compact_case(f"compact ragged n={r} bool, base and mask {k} bytes "
+                     "off alignment", offset_copy(keep, k),
+                     [offset_copy(ragged[0], k), offset_copy(ragged[1], k)])
+    del ragged, f64, keep
     compact_case(f"compact Q18 HAVING filter n={n} int64/f64/bool",
-                 (sums > 299.97) & live, [keys, sums, live])
-    del keys, sums, live
+                 *q18_having_inputs(n))
     # partsupp's four columns at its SF10 capacity, as Q11's, Q16's and
     # Q20's semi and anti joins compact them
     m = 8_000_512
@@ -481,23 +574,27 @@ def phase_kernels(n, orders):
     compact_case(f"compact partsupp semi join n={m} x4",
                  torch.rand(m, generator=gen, device="cuda") < 0.04, ps)
     del ps
-
-    h = 60_000_000
-    for k in (1, 2, 3):
-        words = hash_words(h, k, 10 + k)
-        check_bit_exact(f"hash32 k={k} n={h}", [hash32(words)],
-                        [hash32_plain(words)])
-        del words
-    # Q5's two-key bloom (l_suppkey, c_nationkey): four word planes over
-    # its probe side's capacity; Q7's and Q21's single int64 keys over
-    # their joins' 33,554,432- and 1,048,576-row probe sides
-    for rows, k in ((1 << 24, 4), (1 << 25, 2), (1 << 20, 2)):
-        words = hash_words(rows, k, 14 + k)
-        check_bit_exact(f"hash32 k={k} n={rows}", [hash32(words)],
-                        [hash32_plain(words)])
-        del words
+    # 2**26 rows: 4,097 count tiles chain their offsets; the same input
+    # again must give the same bits and count
+    big = (1 << 26) + 5
+    keep = torch.rand(big, generator=gen, device="cuda") < 0.5
+    cols = [keep.clone(),
+            torch.randint(-2**15, 2**15, (big,), generator=gen,
+                          device="cuda", dtype=torch.int16),
+            torch.randint(-2**31, 2**31 - 1, (big,), generator=gen,
+                          device="cuda", dtype=torch.int32),
+            torch.randint(-2**62, 2**62, (big,), generator=gen,
+                          device="cuda", dtype=torch.int64)]
+    outs, count = compact_case(f"compact n={big} widths 1/2/4/8", keep, cols)
+    again, again_count = compact(keep, cols)
+    if int(again_count) != int(count):
+        raise AssertionError(f"compact n={big}: count {int(again_count)} "
+                             f"on a second run, {int(count)} on the first")
+    check_bit_exact(f"compact n={big}: a second run", again, outs,
+                    "the first run")
+    del keep, cols, outs, again
     torch.cuda.synchronize()
-    return errs
+    return 0.0
 
 
 def q1_oracle(batch, n):
@@ -2443,6 +2540,101 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
+def record(card, name, shape, kernel, plain, library, nbytes, ops, ops_per_s,
+           reps=20):
+    """A kernel's record: its time (CUDA events and profiler device time)
+    beside its bound, its plain version's and the library call's."""
+    b_ms, b_by = bound(nbytes, ops, ops_per_s)
+    out = {"ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, reps),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(library, reps) if library else None,
+           # device time a call from the profiler, beside the events
+           "device_ms": device_ms(kernel, reps),
+           "library_device_ms": device_ms(library, reps) if library
+           else None}
+    lib = "none" if library is None else (
+        f"{out['library_ms']:.4f} ms (device "
+        f"{_ms(out['library_device_ms'])})")
+    log(f"  {name} ({shape}): kernel {out['ms']:.4f} ms (device "
+        f"{_ms(out['device_ms'])}), bound {b_ms:.4f} ms ({b_by}), "
+        f"plain {out['plain_ms']:.4f} ms, library {lib}, "
+        f"{nbytes / out['ms'] / 1e6:.1f} GB/s [{card}]")
+    return out
+
+
+def device_split(fn, reps: int = 20):
+    """Device ms a call of ``fn`` by kernel name (memsets and copies
+    included), from the profiler over ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / reps / 1e3, e.count / reps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def compact_bytes(keep, cols):
+    """The bytes ``compact(keep, cols)`` must move on this input: the mask
+    read once, each column's 32-byte sectors that hold a kept row read
+    once (a sector is the least the card reads; an unkept value in a
+    sector of no kept row need not be read), every output row written once
+    (the zero tail included) and the count."""
+    n = keep.numel()
+    rows = torch.nonzero(keep).flatten()
+    nbytes = n + 4
+    for c in cols:
+        w = c.element_size()
+        sector = (c.data_ptr() + rows * w) // 32
+        # rows ascend, so a sector's kept rows are adjacent
+        nbytes += 32 * int((sector[1:] != sector[:-1]).sum()
+                           + min(1, sector.numel())) + n * w
+    return nbytes
+
+
+def compact_times(card, q3_lineitem, lineitem):
+    """``compact``'s record at five shapes: Q3's lineitem filter (four
+    columns, 28 bytes a row), its mask over an int16 and an f16 column (4
+    bytes), Q4's lineitem filter over all 15 columns of
+    ``q1_device_batch(10.0)``, Q3's mask over one bool column and Q18's
+    HAVING filter (sparse), each with the profiler's device time split by
+    kernel name."""
+    from arrow_tpu_torch.kernels.compact import compact, compact_plain
+    shapes = (("q3", "Q3 lineitem filter", q3_filter_inputs(q3_lineitem)),
+              ("width_2", "Q3 lineitem filter, int16 and f16",
+               width2_inputs(q3_lineitem)),
+              ("q4", "Q4 lineitem filter, all columns",
+               (q4_lineitem_keep(lineitem),
+                [c.values for c in lineitem.columns])),
+              ("bool", "Q3 lineitem filter, one bool column",
+               bool_column_inputs(q3_lineitem)),
+              ("q18", "Q18 HAVING filter, 1 in 10^4 kept",
+               q18_having_inputs(q3_lineitem.capacity)))
+    recs = {}
+    for key, name, (keep, cols) in shapes:
+        m = keep.numel()
+        width = sum(c.element_size() for c in cols)
+        nbytes = compact_bytes(keep, cols)
+        recs[key] = rec = record(
+            card, f"compact ({name})", f"n={m}, {len(cols)} columns of "
+            f"{width} bytes a row, {int(keep.sum())} kept",
+            lambda: compact(keep, cols), lambda: compact_plain(keep, cols),
+            lambda: [c[keep] for c in cols], nbytes, 0,
+            INT32_OPS_PER_S)
+        rec["row_bytes"] = width
+        rec["bound_bytes"] = nbytes
+        rec["split"] = split = device_split(lambda: compact(keep, cols))
+        log("    device ms a call by kernel: " + "; ".join(
+            f"{k[:60]} {ms:.4f} (x{c:g})" for k, ms, c in split))
+    return recs
+
+
 def phase_times(card, launches, errs, tables, typed, params):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
@@ -2452,7 +2644,6 @@ def phase_times(card, launches, errs, tables, typed, params):
     from arrow_tpu_torch.io.tpch_device import q3_device_plan
     from arrow_tpu_torch.io.tpch_queries import (q1_chain_decls, q4_plan,
                                                  q13_plan)
-    from arrow_tpu_torch.kernels.compact import compact, compact_plain
     from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
                                                      grouped_sum_plain)
     from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
@@ -2518,31 +2709,12 @@ def phase_times(card, launches, errs, tables, typed, params):
         profile_run(path.name, run)
     del paths, run
 
-    def record(name, shape, kernel, plain, library, nbytes, ops, ops_per_s,
-               reps=20):
-        b_ms, b_by = bound(nbytes, ops, ops_per_s)
-        out = {"ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, reps),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": cuda_ms(library, reps) if library else None,
-               # device time a call from the profiler, beside the events
-               "device_ms": device_ms(kernel, reps),
-               "library_device_ms": device_ms(library, reps) if library
-               else None}
-        lib = "none" if library is None else (
-            f"{out['library_ms']:.4f} ms (device "
-            f"{_ms(out['library_device_ms'])})")
-        log(f"  {name} ({shape}): kernel {out['ms']:.4f} ms (device "
-            f"{_ms(out['device_ms'])}), bound {b_ms:.4f} ms ({b_by}), "
-            f"plain {out['plain_ms']:.4f} ms, library {lib}, "
-            f"{nbytes / out['ms'] / 1e6:.1f} GB/s [{card}]")
-        return out
-
     def grouped_sum_record(name, values, gids, s):
         acc = torch.zeros(s, dtype=values.dtype, device="cuda")
         n_rows = values.numel()
         # one f64 addition a row, f32 input included
         return record(
-            name, f"n={n_rows} S={s}",
+            card, name, f"n={n_rows} S={s}",
             lambda: grouped_sum(values, gids, s),
             lambda: grouped_sum_plain(values, gids, s),
             lambda: acc.index_add_(0, gids, values),
@@ -2575,37 +2747,22 @@ def phase_times(card, launches, errs, tables, typed, params):
     del v, g, live, skew, gids, mask, acc, fixed, atomic
 
     lineitem, _, _ = q3_sources(plan)
-    keep, cols = q3_filter_inputs(lineitem)
-    m = keep.numel()
-    width = sum(c.element_size() for c in cols)
-    compact_rec = record(
-        "compact (Q3 lineitem filter)", f"n={m}, {len(cols)} columns of "
-        f"{width} bytes a row", lambda: compact(keep, cols),
-        lambda: compact_plain(keep, cols),
-        lambda: [c[keep] for c in cols], m * (1 + 2 * width), 0,
-        INT32_OPS_PER_S)
-    keep2, cols2 = width2_inputs(lineitem)
-    compact_w2 = record(
-        "compact at 2 bytes (Q3 lineitem filter)", f"n={m}, int16 and "
-        "f16 columns, 4 bytes a row", lambda: compact(keep2, cols2),
-        lambda: compact_plain(keep2, cols2),
-        lambda: [c[keep2] for c in cols2], m * (1 + 2 * 4), 0,
-        INT32_OPS_PER_S)
-    del keep2, cols2
+    compact_recs = compact_times(card, lineitem, tables["lineitem"])
+    m = int(lineitem.capacity)
     words = int64_halves(equality_word(lineitem.column("l_orderkey")))
     k = len(words)
     hash_rec = record(
-        "hash32 (Q3 lineitem probe keys)", f"n={m}, k={k} words",
+        card, "hash32 (Q3 lineitem probe keys)", f"n={m}, k={k} words",
         lambda: hash32(words), lambda: hash32_plain(words), None,
         m * (4 * k + 4),
         m * (k * HASH_OPS_PER_WORD + (k - 1) * HASH_OPS_PER_COMBINE),
         INT32_OPS_PER_S)
-    del keep, cols, words, lineitem, plan
+    del words, lineitem, plan
 
     # 200 back-to-back calls: the events read the host's launch rate, the
     # profiler the kernel's own time
     x = torch.randn(8, 128, device="cuda")
-    probe_rec = record("probe", "(8,128) f32", lambda: probe(x),
+    probe_rec = record(card, "probe", "(8,128) f32", lambda: probe(x),
                        lambda: probe_plain(x), lambda: torch.mul(x, 2.0),
                        2 * x.numel() * 4, x.numel(), F32_OPS_PER_S,
                        reps=200)
@@ -2629,9 +2786,12 @@ def phase_times(card, launches, errs, tables, typed, params):
          "source": "arrow_tpu_torch/csrc/compact.cu",
          "replaces": "arrow_tpu/compute/pallas_move.py:189",
          "launches": by_path("compact"), "max_abs_err": errs["compact"],
-         "bit_exact": True, **compact_rec,
-         # the same mask over an int16 and an f16 column
-         "width_2": compact_w2},
+         "bit_exact": True, **compact_recs["q3"],
+         # the same mask over an int16 and an f16 column, Q4's filter
+         # over all of lineitem's 15 columns, Q3's mask over one bool
+         # column and Q18's sparse HAVING filter
+         "width_2": compact_recs["width_2"], "q4": compact_recs["q4"],
+         "bool": compact_recs["bool"], "q18": compact_recs["q18"]},
         {"name": "hash32", "route": "cuda",
          "source": "arrow_tpu_torch/csrc/hash32.cu",
          "replaces": "arrow_tpu/experimental/pallas_hash.py:43",
@@ -2640,7 +2800,24 @@ def phase_times(card, launches, errs, tables, typed, params):
     ]}
 
 
+def phase_compact_only(card):
+    """``--compact``: phase 2's compactions and their times alone, for a
+    quick comparison of two trees of the kernel in one call."""
+    from arrow_tpu_torch.device.column import round_up
+    from arrow_tpu_torch.io.tpch_device import q1_device_batch, q3_device_plan
+    q3_lineitem = q3_sources(q3_device_plan(SF)[0])[0]
+    phase_compact(round_up(int(6_001_215 * SF)), q3_lineitem, None)
+    lineitem, _ = q1_device_batch(SF)
+    log(f"== compact times on {card}")
+    return {"compact": compact_times(card, q3_lineitem, lineitem)}
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--compact", action="store_true",
+                        help="phase 1, phase 2's compactions and their "
+                        "times alone (no final line)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2653,6 +2830,10 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         card = timed(phase_probe)
+        if args.compact:
+            print(card)
+            print(json.dumps(timed(phase_compact_only, card)))
+            return 0
         from arrow_tpu_torch.device.column import round_up
         from arrow_tpu_torch.io.tpch_device import q1_device_batch
         tables = timed(host_tables)

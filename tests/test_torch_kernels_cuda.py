@@ -194,10 +194,133 @@ def test_compact_many_columns():
     gen = torch.Generator(device="cuda").manual_seed(5)
     n = 70_001
     keep = torch.rand(n, generator=gen, device="cuda") < 0.4
-    cols = [c for _ in range(12) for c in _columns(n, gen)][:MAX_COLUMNS]
+    # widths 1, 4, 8, 8, 4 and 2, over and over
+    cols = [c for _ in range(11) for c in _columns(n, gen) + [
+        torch.randint(-2**15, 2**15, (n,), generator=gen, device="cuda",
+                      dtype=torch.int16)]][:MAX_COLUMNS]
     outs, _ = compact(keep, cols)
     want, _ = compact_plain(keep, cols)
     assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(outs, want))
+
+
+_WIDTH_DTYPES = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
+
+def _random_column(n, width, gen):
+    """n random elements of ``width`` bytes (every bit pattern)."""
+    raw = torch.randint(0, 256, (n * width,), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    return raw.view(_WIDTH_DTYPES[width])
+
+
+def _assert_compacts(keep, cols):
+    """compact against compact_plain: the count and every output bit for
+    bit; returns the outputs and the count."""
+    before = compact.launches
+    outs, count = compact(keep, cols)
+    torch.cuda.synchronize()
+    assert compact.launches == before + 1
+    want, want_count = compact_plain(keep, cols)
+    assert count.dtype == torch.int32 and count.device.type == "cuda"
+    assert int(count) == int(want_count) == int(keep.sum())
+    for got, w in zip(outs, want):
+        assert got.dtype == w.dtype and got.shape == w.shape
+        assert torch.equal(_bits(got), _bits(w))
+    return outs, count
+
+
+def _mask(n, pattern, gen):
+    if pattern in ("half", "sparse"):
+        # 2% kept: a tile reads its 2-, 4- and 8-byte columns row by row
+        # where kept and copies its 1-byte ones whole
+        frac = 0.5 if pattern == "half" else 0.02
+        return torch.rand(n, generator=gen, device="cuda") < frac
+    keep = torch.zeros(n, dtype=torch.bool, device="cuda")
+    if pattern == "all":
+        keep[:] = True
+    elif pattern == "first":
+        keep[0] = True
+    elif pattern == "last":
+        keep[-1] = True
+    return keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(1, 2, 4, 8), (2, 1), (1,)])
+@pytest.mark.parametrize("pattern", ["half", "sparse", "none", "all", "first",
+                                     "last"])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, 4096, 4097, 8193, 16383,
+                               16384, 16385, 3 * 16384 + 5])
+def test_compact_tile_edges(n, pattern, widths):
+    """Row counts at the edges of a thread's 16 rows and of the tiles of
+    4,096, 8,192 and 16,384 rows (a row with a 4- or 8-byte column, with 2
+    bytes at most, with 1 byte), under masks that keep half, 2%, none, all,
+    only the first or only the last row."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    cols = [_random_column(n, w, gen) for w in widths]
+    _assert_compacts(_mask(n, pattern, gen), cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(1,), (2,), (4,), (8,), (1, 2, 4, 8),
+                                    (8, 1, 8, 2, 4, 1)])
+def test_compact_each_width(widths):
+    """Every width alone and mixed, 1,000,003 rows."""
+    _need_card()
+    n = 1_000_003
+    gen = torch.Generator(device="cuda").manual_seed(sum(widths))
+    cols = [_random_column(n, w, gen) for w in widths]
+    for pattern in ("half", "sparse", "first", "last"):
+        _assert_compacts(_mask(n, pattern, gen), cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_compact_bases_off_alignment(offset):
+    """Columns and the mask that start ``offset`` bytes past a 16-byte
+    line (a slice of a larger tensor), at each width where the offset is
+    a multiple of it, beside an aligned column."""
+    _need_card()
+    n = 300_007
+    gen = torch.Generator(device="cuda").manual_seed(offset)
+    keep = (torch.rand(n + offset, generator=gen, device="cuda")
+            < 0.5)[offset:]
+    cols = [_random_column(n, 8, gen)]
+    for w in (1, 2, 4, 8):
+        if offset % w == 0:
+            cols.append(_random_column(n + offset // w, w, gen)[offset // w:])
+    assert all(c.data_ptr() % 16 == offset for c in cols[1:])
+    assert keep.data_ptr() % 16 == offset
+    _assert_compacts(keep, cols)
+
+
+@pytest.mark.cuda
+def test_compact_chains_many_tiles():
+    """2**26 + 7 rows: 4,097 count tiles chain their offsets by
+    look-back."""
+    _need_card()
+    n = (1 << 26) + 7
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    cols = [_random_column(n, w, gen) for w in (1, 4)]
+    _assert_compacts(torch.rand(n, generator=gen, device="cuda") < 0.3, cols)
+
+
+@pytest.mark.cuda
+def test_compact_repeats_bit_for_bit():
+    """The same input 20 times: the same count and bits each time."""
+    _need_card()
+    n = 5_000_011
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    keep = torch.rand(n, generator=gen, device="cuda") < 0.5
+    cols = [_random_column(n, w, gen) for w in (2, 8)]
+    first, count = _assert_compacts(keep, cols)
+    for _ in range(19):
+        outs, again = compact(keep, cols)
+        assert int(again) == int(count)
+        assert all(torch.equal(_bits(o), _bits(f))
+                   for o, f in zip(outs, first))
 
 
 @pytest.mark.cuda
