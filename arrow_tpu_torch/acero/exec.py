@@ -150,8 +150,13 @@ def _node_aggregate(options: AggregateNodeOptions, schema,
                                     else target[0])
                 r = impl(ctx, tcol, g.group_ids, g.num_groups,
                          num_segments=nseg, **opts)
-            out_cols.append(r.column)
-            out_fields.append(Field(out_name, r.column.type))
+            # hash_min_max gives {"min": ..., "max": ...}: two columns
+            parts = r.items() if isinstance(r, dict) else [(None, r)]
+            for sub, rr in parts:
+                out_cols.append(rr.column)
+                out_fields.append(Field(
+                    out_name if sub is None else f"{out_name}_{sub}",
+                    rr.column.type))
         # pad every output to the block-multiple bound on the group count
         bound = group_capacity_bound(key_cols, cap)
         return DeviceBatch(Schema(out_fields),
@@ -164,24 +169,34 @@ def _node_aggregate(options: AggregateNodeOptions, schema,
 def _scalar_aggregate_fn(aggs, make_ctx) -> Callable:
     """``keys=[]``: one row at the block capacity, each aggregate's value
     and validity at row 0 and zeros behind them (reference:
-    ``exec.py`` ``_node_aggregate_inner``)."""
+    ``exec.py`` ``_node_aggregate_inner``). A struct or list result
+    (``min_max``, ``first_last``, ``quantile`` of several ``q``) gives a
+    column ``{out}_{field}`` a field; a code result keeps its
+    dictionary. ``count_all`` is handed the first column, as in the
+    reference, and reads none."""
     def fn(batch: DeviceBatch) -> DeviceBatch:
         ctx = make_ctx(batch)
         dev = batch.row_count.device
         cols, fields = [], []
         for target, fname, opts, out_name in aggs:
             impl = get_function(fname).impl
-            if fname == "count_all":
-                r = impl(ctx, **opts)
+            tcol = batch.columns[0] if fname == "count_all" else \
+                batch.column(target if isinstance(target, str)
+                             else target[0])
+            r = impl(ctx, tcol, **opts)
+            if r.fields is None:
+                parts = [(out_name, r.value, r.valid, r.type)]
             else:
-                r = impl(ctx, batch.column(target if isinstance(target, str)
-                                           else target[0]), **opts)
-            values = torch.zeros(BLOCK, dtype=r.value.dtype, device=dev)
-            validity = torch.zeros(BLOCK, dtype=torch.bool, device=dev)
-            values[0] = r.value
-            validity[0] = r.valid
-            cols.append(DeviceColumn(values, validity, r.type))
-            fields.append(Field(out_name, r.type))
+                # every field has the first's type (a list has one)
+                parts = [(f"{out_name}_{name}", v, ok, r.type.fields[0].type)
+                         for name, v, ok in zip(r.fields, r.value, r.valid)]
+            for name, value, valid, t in parts:
+                values = torch.zeros(BLOCK, dtype=value.dtype, device=dev)
+                validity = torch.zeros(BLOCK, dtype=torch.bool, device=dev)
+                values[0] = value
+                validity[0] = valid
+                cols.append(DeviceColumn(values, validity, t, r.dictionary))
+                fields.append(Field(name, t))
         return DeviceBatch(Schema(fields), cols,
                            torch.ones((), dtype=torch.int32, device=dev))
 

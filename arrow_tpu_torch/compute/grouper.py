@@ -7,6 +7,10 @@ needs no sort (the perfect-hash path). Other keys take the general
 grouper: a stable sort of the keys' equality words, run heads, and a rank
 by first appearance. Either way group ids are assigned in order of first
 appearance, as in the reference.
+
+The same grouping serves ``unique``, ``value_counts``,
+``dictionary_encode`` and ``unique_batch``: values come out in order of
+first appearance (``torch.unique`` would sort them).
 """
 
 from __future__ import annotations
@@ -15,11 +19,13 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from ..device.column import DeviceColumn, round_up
+from .. import types as T
+from ..device.column import DeviceBatch, DeviceColumn, round_up
 from ..types import TypeId
 from .keys import GROUP_KEY_DEAD, group_key_arrays, stable_sort_indices
-from .move import segment_reduce
-from .registry import ExecContext
+from .move import segment_count, segment_reduce
+from .registry import ExecContext, register
+from .selection import Compacted, gather_columns, take_batch
 
 
 class GroupResult(NamedTuple):
@@ -154,3 +160,53 @@ def group_capacity_bound(key_cols: Sequence[DeviceColumn], cap: int) -> int:
     for s in sizes:
         n *= s
     return min(cap, round_up(n, 1024))
+
+
+def _first_rows(ctx: ExecContext, g: GroupResult) -> torch.Tensor:
+    """Each group's first row, 0 past the group count."""
+    idx = torch.arange(ctx.capacity, dtype=torch.int64,
+                       device=g.rep_indices.device)
+    return torch.where(idx < g.num_groups, g.rep_indices, 0)
+
+
+def unique_batch(ctx: ExecContext, batch: DeviceBatch,
+                 key_names: Sequence[str]) -> DeviceBatch:
+    """The distinct rows of ``key_names``, in order of first appearance."""
+    g = group_ids(ctx, [batch.column(n) for n in key_names])
+    return take_batch(batch.select(list(key_names)), _first_rows(ctx, g),
+                      g.num_groups.to(torch.int32))
+
+
+@register("unique", "vector")
+def unique(ctx, col: DeviceColumn) -> Compacted:
+    g = group_ids(ctx, [col])
+    (out,) = gather_columns([col], _first_rows(ctx, g))
+    return Compacted(out, g.num_groups.to(torch.int32))
+
+
+@register("value_counts", "vector")
+def value_counts(ctx, col: DeviceColumn):
+    """``{"values": the distinct values, "counts": their rows}``, in order
+    of first appearance."""
+    g = group_ids(ctx, [col])
+    cap = ctx.capacity
+    live = g.group_ids < cap
+    counts = segment_count(live, torch.where(live, g.group_ids, 0), cap)
+    (rep,) = gather_columns([col], _first_rows(ctx, g))
+    n = g.num_groups.to(torch.int32)
+    return {"values": Compacted(rep, n),
+            "counts": Compacted(DeviceColumn(counts, None, T.int64()), n)}
+
+
+@register("dictionary_encode", "vector")
+def dictionary_encode(ctx, col: DeviceColumn) -> Compacted:
+    """Each row's group id as an int32 code (0 on dead rows), typed as a
+    dictionary of the column's type: the codes of the values in order of
+    first appearance. The values themselves stay with the column, as in
+    the reference."""
+    g = group_ids(ctx, [col])
+    codes = torch.where(g.group_ids < ctx.capacity, g.group_ids,
+                        0).to(torch.int32)
+    return Compacted(DeviceColumn(codes, col.validity,
+                                  T.dictionary(T.int32(), col.type)),
+                     ctx.row_count)

@@ -1,5 +1,7 @@
-"""Grouped ("hash_") aggregates: sum, mean, count, count_all, min, max and
-count_distinct (counterpart of ``arrow_tpu/compute/hash_agg.py``).
+"""Grouped ("hash_") aggregates (counterpart of
+``arrow_tpu/compute/hash_agg.py``): sum, product, mean, count, count_all,
+min, max, min_max, any, all, variance, stddev, first, last, one and
+count_distinct, with their options.
 
 Each takes (values, group ids int64[capacity] with ``capacity`` on dead
 rows) and returns per-group results at the static segment bound plus the
@@ -12,9 +14,17 @@ f32 too) to f64 and a decimal to decimal128(38, scale) as an exact int64
 sum of its unscaled values. A decimal's mean stays a decimal of its
 type, rounded half away from zero in int64, as the reference's is. Min
 and max compare a dictionary column by value (``rank_recode``) and keep its sorted dictionary; count_distinct sorts
-(group, value word) pairs and counts their boundaries. The aggregate
-options other than the defaults, and sums over dictionary columns, raise
-NotImplementedError naming their ROADMAP item.
+(group, value word) pairs and counts their boundaries. A dictionary of
+numbers decodes to its values for the sums, means, products and
+variances (``aggregate.decode_numeric_dict``).
+
+Every function reduces at ``num_segments`` (the node passes the bound to
+all of them; the reference passes it only where a signature names it, and
+its any, all, variance and first run at the row capacity: the two agree
+on the live groups). Float products multiply in an order fixed by the
+input (``move.segment_product``); the variance's two sums go through
+``move.segment_sum``. First and last take each group's least (greatest)
+live row index, dead rows at an identity position.
 """
 
 from __future__ import annotations
@@ -25,69 +35,13 @@ import torch
 from .. import dtypes
 from .. import types as T
 from ..device.column import DeviceColumn
-from ..types import DataType, TypeId
+from .aggregate import (_dec_factor, _sum_type, decimal_mean,
+                        decode_numeric_dict, rank_recode, sum_values)
 from .keys import _LOW63, equality_word, order_word, stable_sort_indices
-from .move import _empty_value, segment_count, segment_reduce, segment_sum
+from .move import (_empty_value, segment_count, segment_product,
+                   segment_reduce, segment_sum)
 from .registry import register
 from .selection import Compacted
-
-
-def _sum_dtype(name: str) -> str:
-    """The accumulator of a value dtype (reference: ``aggregate.py``
-    ``_sum_dtype``): uint64 for unsigned values, int64 for signed ones and
-    bool, f64 for floats."""
-    if dtypes.is_unsigned(name):
-        return "uint64"
-    if dtypes.is_integer(name) or name == "bool":
-        return "int64"
-    return "float64"
-
-
-def _sum_type(t: DataType) -> DataType:
-    """The type of a sum (reference: ``aggregate.py`` ``_sum_type``): a
-    decimal keeps its scale at the widest precision, a bool or an
-    unsigned integer is uint64, a signed one int64, anything else f64."""
-    if t.is_decimal:
-        return T.decimal256(76, t.scale) if t.id == TypeId.DECIMAL256 \
-            else T.decimal128(38, t.scale)
-    if t.id == TypeId.BOOL or t.is_unsigned_integer:
-        return T.uint64()
-    if t.is_integer:
-        return T.int64()
-    return T.float64()
-
-
-def sum_values(col: DeviceColumn) -> torch.Tensor:
-    """A column's values in its sum accumulator's dtype (``COMPUTE``:
-    uint64 as its int64 bits, which wrap as the reference's do)."""
-    name = col.value_dtype
-    return dtypes.convert(dtypes.load(col.values, name), name,
-                          _sum_dtype(name))
-
-
-def decimal_mean(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """int64 sums of unscaled values over counts, rounded half away from
-    zero exactly (reference: ``|m| = (2|s| + c) // (2c)``)."""
-    c = counts.clamp(min=1)
-    mag = (2 * torch.abs(sums) + c) // (2 * c)
-    return torch.where(sums < 0, -mag, mag)
-
-
-_LONG_TAIL = "(ROADMAP.md, queue 1, item 9.7: aggregates)"
-
-
-def _require_values(name: str, values: DeviceColumn):
-    if values.dictionary is not None:
-        raise NotImplementedError(
-            f"{name} over a dictionary-coded column is not ported yet "
-            + _LONG_TAIL)
-
-
-def _require_defaults(name: str, skip_nulls: bool, min_count: int):
-    if not skip_nulls or min_count != 1:
-        raise NotImplementedError(
-            f"{name} with skip_nulls={skip_nulls}, min_count={min_count} is "
-            "not ported yet; only the defaults are " + _LONG_TAIL)
 
 
 def _prep(ctx, values: DeviceColumn, gids: torch.Tensor,
@@ -109,53 +63,85 @@ def _segment_sum(v: torch.Tensor, live, seg, nseg) -> torch.Tensor:
     return segment_reduce(v, seg, nseg, "sum", 0)
 
 
+def _validity(ctx, values, gids, counts, nseg, min_count, skip_nulls):
+    """At least ``min_count`` live values (0 keeps even an empty group's
+    identity), and no null in the group where ``skip_nulls`` is False."""
+    ok = counts >= min_count
+    if not skip_nulls:
+        ok = ok & ~_group_has_null(ctx, values, gids, nseg)
+    return ok
+
+
+def _out(column: DeviceColumn, num_groups) -> Compacted:
+    return Compacted(column, num_groups.to(torch.int32))
+
+
 @register("hash_sum", "hash_aggregate")
 def grouped_sum(ctx, values: DeviceColumn, gids, num_groups,
                 skip_nulls: bool = True, min_count: int = 1,
                 num_segments=None):
-    _require_values("hash_sum", values)
-    _require_defaults("hash_sum", skip_nulls, min_count)
+    values = decode_numeric_dict(values)
     nseg, live, seg = _prep(ctx, values, gids, num_segments)
     sums = _segment_sum(sum_values(values), live, seg, nseg)
-    validity = segment_count(live, seg, nseg) >= 1
-    return Compacted(DeviceColumn(sums, validity, _sum_type(values.type)),
-                     num_groups.to(torch.int32))
+    counts = segment_count(live, seg, nseg)
+    return _out(DeviceColumn(sums, _validity(
+        ctx, values, gids, counts, nseg, min_count, skip_nulls),
+        _sum_type(values.type)), num_groups)
+
+
+@register("hash_product", "hash_aggregate")
+def grouped_product(ctx, values: DeviceColumn, gids, num_groups,
+                    skip_nulls: bool = True, min_count: int = 1,
+                    num_segments=None):
+    """In the sum's accumulator (an integer product wraps at 64 bits, as
+    numpy's does); an empty group holds 1. A decimal multiplies its
+    unscaled values, as the reference does."""
+    values = decode_numeric_dict(values)
+    nseg, live, seg = _prep(ctx, values, gids, num_segments)
+    prods = segment_product(sum_values(values), seg, nseg, live)
+    counts = segment_count(live, seg, nseg)
+    return _out(DeviceColumn(prods, _validity(
+        ctx, values, gids, counts, nseg, min_count, skip_nulls),
+        _sum_type(values.type)), num_groups)
 
 
 @register("hash_mean", "hash_aggregate")
 def grouped_mean(ctx, values: DeviceColumn, gids, num_groups,
                  skip_nulls: bool = True, min_count: int = 1,
                  num_segments=None):
-    _require_values("hash_mean", values)
-    _require_defaults("hash_mean", skip_nulls, min_count)
+    values = decode_numeric_dict(values)
     nseg, live, seg = _prep(ctx, values, gids, num_segments)
     counts = segment_count(live, seg, nseg)
+    validity = _validity(ctx, values, gids, counts, nseg, min_count,
+                         skip_nulls)
     if values.type.is_decimal:
         sums = _segment_sum(values.values.to(torch.int64), live, seg, nseg)
-        return Compacted(DeviceColumn(decimal_mean(sums, counts),
-                                      counts >= 1, values.type),
-                         num_groups.to(torch.int32))
+        return _out(DeviceColumn(decimal_mean(sums, counts), validity,
+                                 values.type), num_groups)
     name = values.value_dtype
     sums = _segment_sum(dtypes.as_float64(values.values, name), live, seg,
                         nseg)
     means = sums / counts.clamp(min=1).to(torch.float64)
-    return Compacted(DeviceColumn(means, counts >= 1, T.float64()),
-                     num_groups.to(torch.int32))
+    return _out(DeviceColumn(means, validity, T.float64()), num_groups)
 
 
 @register("hash_count", "hash_aggregate")
 def grouped_count(ctx, values: DeviceColumn, gids, num_groups,
                   mode: str = "only_valid", num_segments=None):
-    if mode != "only_valid":
-        raise NotImplementedError(
-            f"hash_count with mode={mode!r} is not ported yet " + _LONG_TAIL)
+    """The group's valid rows (``only_valid``), null rows
+    (``only_null``) or all its rows (``all``)."""
     cap = ctx.capacity
     nseg = num_segments if num_segments is not None else cap
-    live = values.valid_mask(ctx.row_mask()) & (gids < cap)
+    if mode == "only_valid":
+        live = values.valid_mask(ctx.row_mask())
+    elif mode == "only_null":
+        live = ~values.valid_mask() & ctx.row_mask()
+    else:
+        live = ctx.row_mask()
+    live = live & (gids < cap)
     seg = torch.where(live, gids, 0).to(torch.int32)
-    return Compacted(DeviceColumn(segment_count(live, seg, nseg), None,
-                                  T.int64()),
-                     num_groups.to(torch.int32))
+    return _out(DeviceColumn(segment_count(live, seg, nseg), None,
+                             T.int64()), num_groups)
 
 
 @register("hash_count_all", "hash_aggregate")
@@ -176,26 +162,6 @@ def _group_has_null(ctx, values: DeviceColumn, gids, nseg) -> torch.Tensor:
     isnull = ~values.validity & ctx.row_mask() & (gids < ctx.capacity)
     seg = torch.where(isnull, gids, 0)
     return segment_count(isnull, seg, nseg) > 0
-
-
-def rank_recode(col: DeviceColumn) -> DeviceColumn:
-    """A dictionary-coded column recoded so that its codes are the ranks
-    of their values, with the value-sorted dictionary (a null value last):
-    host work on the dictionary, one gather on the device (reference:
-    ``aggregate.py`` ``rank_recode``). Other columns come back as they
-    are."""
-    if col.dictionary is None:
-        return col
-    vals = list(col.dictionary)
-    order = sorted(range(len(vals)), key=lambda i: (vals[i] is None, vals[i]))
-    if order == list(range(len(vals))):
-        return col
-    rank = torch.empty(len(vals), dtype=torch.int32)
-    rank[torch.tensor(order)] = torch.arange(len(vals), dtype=torch.int32)
-    codes = rank.to(col.values.device)[col.values.long().clamp(
-        0, len(vals) - 1)]
-    return DeviceColumn(codes, col.validity, col.type,
-                        tuple(vals[i] for i in order))
 
 
 def _grouped_minmax(ctx, values: DeviceColumn, gids, num_groups, is_min,
@@ -272,6 +238,132 @@ def grouped_max(ctx, values: DeviceColumn, gids, num_groups,
                 num_segments=None):
     return _grouped_minmax(ctx, values, gids, num_groups, False, skip_nulls,
                            num_segments)
+
+
+@register("hash_min_max", "hash_aggregate")
+def grouped_min_max(ctx, values: DeviceColumn, gids, num_groups,
+                    skip_nulls: bool = True, min_count: int = 1,
+                    num_segments=None):
+    """``{"min": ..., "max": ...}``: the node makes two columns of it."""
+    return {"min": _grouped_minmax(ctx, values, gids, num_groups, True,
+                                   skip_nulls, num_segments),
+            "max": _grouped_minmax(ctx, values, gids, num_groups, False,
+                                   skip_nulls, num_segments)}
+
+
+def _any_true(ctx, values, gids, num_segments, want: bool):
+    """(group has a live row whose value is ``want``, live counts)."""
+    nseg, live, seg = _prep(ctx, values, gids, num_segments)
+    hit = live & (values.values.to(torch.bool) == want)
+    return (segment_count(hit, torch.where(hit, seg, 0), nseg) > 0,
+            segment_count(live, seg, nseg))
+
+
+@register("hash_any", "hash_aggregate")
+def grouped_any(ctx, values: DeviceColumn, gids, num_groups,
+                skip_nulls: bool = True, min_count: int = 0,
+                num_segments=None):
+    """Nulls are skipped whatever ``skip_nulls`` says, as in the
+    reference; a validity only where ``min_count`` > 0."""
+    out, counts = _any_true(ctx, values, gids, num_segments, True)
+    validity = counts >= min_count if min_count > 0 else None
+    return _out(DeviceColumn(out, validity, T.bool_()), num_groups)
+
+
+@register("hash_all", "hash_aggregate")
+def grouped_all(ctx, values: DeviceColumn, gids, num_groups,
+                skip_nulls: bool = True, min_count: int = 0,
+                num_segments=None):
+    """As ``hash_any``; an empty group is True."""
+    any_false, counts = _any_true(ctx, values, gids, num_segments, False)
+    validity = counts >= min_count if min_count > 0 else None
+    return _out(DeviceColumn(~any_false, validity, T.bool_()), num_groups)
+
+
+@register("hash_variance", "hash_aggregate")
+def grouped_variance(ctx, values: DeviceColumn, gids, num_groups,
+                     ddof: int = 0, skip_nulls: bool = True,
+                     min_count: int = 0, num_segments=None):
+    """Two passes in f64 (a decimal descaled): the group means, then the
+    sums of squared deviations, each through ``move.segment_sum`` (the
+    grouped-sum kernel up to 1,024 groups). Valid where the group has
+    more than ``ddof`` and at least ``min_count`` values."""
+    values = decode_numeric_dict(values)
+    nseg, live, seg = _prep(ctx, values, gids, num_segments)
+    v = dtypes.as_float64(values.values, values.value_dtype)
+    f = _dec_factor(values.type)
+    if f is not None:
+        v = v * f
+    v = torch.where(live, v, 0.0)
+    counts = segment_count(live, seg, nseg)
+    means = segment_sum(v, seg, nseg, live) / counts.clamp(min=1).to(
+        torch.float64)
+    centred = torch.where(live, v - means[seg.long()], 0.0)
+    m2 = segment_sum(centred * centred, seg, nseg, live)
+    var = m2 / (counts.to(torch.float64) - ddof).clamp(min=1.0)
+    validity = (counts > ddof) & _validity(ctx, values, gids, counts, nseg,
+                                           min_count, skip_nulls)
+    return _out(DeviceColumn(var, validity, T.float64()), num_groups)
+
+
+@register("hash_stddev", "hash_aggregate")
+def grouped_stddev(ctx, values: DeviceColumn, gids, num_groups,
+                   ddof: int = 0, skip_nulls: bool = True,
+                   min_count: int = 0, num_segments=None):
+    r = grouped_variance(ctx, values, gids, num_groups, ddof, skip_nulls,
+                         min_count, num_segments)
+    return Compacted(DeviceColumn(torch.sqrt(r.column.values),
+                                  r.column.validity, T.float64()), r.count)
+
+
+def _grouped_first_last(ctx, values: DeviceColumn, gids, num_groups,
+                        is_first: bool, skip_nulls: bool, num_segments):
+    """Each group's first (last) live row: a segment min (max) of row
+    indices, dead rows at ``cap`` (-1). With ``skip_nulls=False`` a null
+    row counts and gives a null. A group with no such row is null over
+    row 0's value."""
+    cap = ctx.capacity
+    nseg = num_segments if num_segments is not None else cap
+    live = values.valid_mask(ctx.row_mask()) if skip_nulls \
+        else ctx.row_mask()
+    live = live & (gids < cap)
+    seg = torch.where(live, gids, 0)
+    # int32 positions: the card's native 32-bit atomic min and max
+    idx = torch.arange(cap, dtype=torch.int32, device=gids.device)
+    ident = cap if is_first else -1
+    pos = segment_reduce(torch.where(live, idx, ident), seg, nseg,
+                         "min" if is_first else "max", ident).long()
+    has = (pos >= 0) & (pos < cap)
+    safe = torch.where(has, pos, 0)
+    validity = has
+    if values.validity is not None and not skip_nulls:
+        validity = has & values.validity[safe]
+    return _out(DeviceColumn(values.values[safe], validity, values.type,
+                             values.dictionary), num_groups)
+
+
+@register("hash_first", "hash_aggregate")
+def grouped_first(ctx, values: DeviceColumn, gids, num_groups,
+                  skip_nulls: bool = True, min_count: int = 0,
+                  num_segments=None):
+    return _grouped_first_last(ctx, values, gids, num_groups, True,
+                               skip_nulls, num_segments)
+
+
+@register("hash_last", "hash_aggregate")
+def grouped_last(ctx, values: DeviceColumn, gids, num_groups,
+                 skip_nulls: bool = True, min_count: int = 0,
+                 num_segments=None):
+    return _grouped_first_last(ctx, values, gids, num_groups, False,
+                               skip_nulls, num_segments)
+
+
+@register("hash_one", "hash_aggregate")
+def grouped_one(ctx, values: DeviceColumn, gids, num_groups,
+                num_segments=None):
+    """A group's first valid value."""
+    return _grouped_first_last(ctx, values, gids, num_groups, True, True,
+                               num_segments)
 
 
 @register("hash_count_distinct", "hash_aggregate")

@@ -94,6 +94,51 @@ def segment_sum(values: torch.Tensor, gids: torch.Tensor,
     return out
 
 
+def segment_product(values: torch.Tensor, gids: torch.Tensor,
+                    num_segments: int, live: torch.Tensor) -> torch.Tensor:
+    """Per-segment product of the ``live`` rows; an empty segment holds 1.
+    Integers multiply through ``scatter_reduce_`` (wrapping, exact in any
+    order); floats in an order fixed by the input, as ``segment_sum``'s
+    sorted route adds: the live rows stably sorted by segment, each run
+    multiplied in row order by ``torch.segment_reduce``."""
+    out = torch.ones(num_segments, dtype=values.dtype, device=values.device)
+    if not values.dtype.is_floating_point:
+        one = torch.ones((), dtype=values.dtype, device=values.device)
+        return out.scatter_reduce_(0, gids.long(),
+                                   torch.where(live, values, one), "prod")
+    rows = live.nonzero().squeeze(1)
+    seg, v = gids.to(torch.int32)[rows], values[rows]
+    if not seg.numel():
+        return out
+    order = torch.argsort(seg, stable=True)
+    present, lengths = torch.unique_consecutive(seg[order],
+                                                return_counts=True)
+    out[present.long()] = torch.segment_reduce(v[order], "prod",
+                                               lengths=lengths, unsafe=True)
+    return out
+
+
+def spread_rows(dest: torch.Tensor, live: torch.Tensor,
+                arrays: Sequence[torch.Tensor], dest_size: int):
+    """``out_k[dest[i]] = arrays_k[i]`` for the live rows whose
+    destination lies in ``[0, dest_size)``; other slots hold zeros.
+    Returns (outs, slot_live). Destinations are assumed unique (the
+    reference's ``direct`` branch, ``move.py:559-574``)."""
+    dev = dest.device
+    keep = live & (dest >= 0) & (dest < dest_size)
+    # dropped rows write to one extra slot, cut off below
+    slot = torch.where(keep, dest.long(), dest_size)
+    outs = []
+    for a in arrays:
+        out = torch.zeros((dest_size + 1,) + tuple(a.shape[1:]),
+                          dtype=a.dtype, device=dev)
+        out[slot] = a
+        outs.append(out[:dest_size])
+    slot_live = torch.zeros(dest_size + 1, dtype=torch.bool, device=dev)
+    slot_live[slot] = keep
+    return outs, slot_live[:dest_size]
+
+
 def segment_count(live: torch.Tensor, gids: torch.Tensor,
                   num_segments: int) -> torch.Tensor:
     """Count live rows per segment (int64)."""

@@ -51,14 +51,23 @@ def register_alias(alias: str, name: str):
     _REGISTRY[alias] = _REGISTRY[name]
 
 
+# names of the reference's registry that are not ported yet, by the
+# ROADMAP item (queue 1) that holds them; any other unknown name is item 9
+_QUEUED = {"tdigest": "9.9", "hash_tdigest": "9.9", "hash32": "10",
+           **{n: "11" for n in ("list", "distinct", "pivot_wider",
+                                "hash_list", "hash_distinct",
+                                "hash_pivot_wider")}}
+
+
 def get_function(name: str) -> Function:
     if name not in _REGISTRY:
         # the modules that register functions, imported on first lookup
-        from . import (aggregate, elementwise, hash_agg,  # noqa: F401
-                       strings, temporal, vector_misc)
+        from . import (aggregate, elementwise, grouper,  # noqa: F401
+                       hash_agg, selection, strings, temporal, vector_misc,
+                       vector_sort)
     f = _REGISTRY.get(name)
     if f is None:
         raise NotImplementedError(
             f"compute function {name!r} is not ported yet (ROADMAP.md, "
-            "queue 1, item 9: the long tail)")
+            f"queue 1, item {_QUEUED.get(name, '9: the long tail')})")
     return f

@@ -1,10 +1,15 @@
-"""Selection helpers (counterpart of ``arrow_tpu/compute/selection.py``):
-filter masks, compaction of filtered rows and row gathers.
+"""Selection (counterpart of ``arrow_tpu/compute/selection.py``): filter
+masks, compaction of filtered rows, row gathers, and the registered vector
+functions ``filter``, ``array_filter``, ``drop_null``, ``take``,
+``array_take``, ``inverse_permutation`` and ``scatter``.
 
 Filtered rows keep the batch's static capacity: the kept rows move to the
 front and the live count rides as a 0-d device tensor. ``compact_columns``
 moves every buffer of a batch through one launch of the compaction kernel
-(``move.compact_by_mask``).
+(``move.compact_by_mask``): ``filter``, ``array_filter`` and ``drop_null``
+are one launch each. ``take`` with ``boundscheck=True`` reads one flag
+back and raises IndexError on a live index out of range, where the
+reference returns an ``ErrGuard``.
 """
 
 from __future__ import annotations
@@ -13,9 +18,10 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from .. import dtypes
 from ..device.column import DeviceBatch, DeviceColumn
 from .move import compact_by_mask
-from .registry import ExecContext
+from .registry import ExecContext, register
 
 
 class Compacted:
@@ -117,3 +123,102 @@ def take_batch(batch: DeviceBatch, indices: torch.Tensor,
     indices)."""
     return DeviceBatch(batch.schema, gather_columns(batch.columns, indices),
                        count)
+
+
+# --- registered vector functions ----------------------------------------------
+
+@register("filter", "vector")
+def filter_values(ctx, values: DeviceColumn, mask: DeviceColumn,
+                  null_selection_behavior: str = "drop") -> Compacted:
+    keep, emit_null = selection_mask(ctx, mask, null_selection_behavior)
+    (out,), count = compact_columns([values], keep, emit_null)
+    return Compacted(out, count)
+
+
+@register("array_filter", "vector")
+def array_filter(ctx, values: DeviceColumn, mask: DeviceColumn,
+                 null_selection_behavior: str = "drop") -> Compacted:
+    return filter_values(ctx, values, mask, null_selection_behavior)
+
+
+@register("drop_null", "vector")
+def drop_null(ctx, values: DeviceColumn) -> Compacted:
+    (out,), count = compact_columns([values],
+                                    values.valid_mask(ctx.row_mask()))
+    return Compacted(out, count)
+
+
+@register("take", "vector")
+def take(ctx, values: DeviceColumn, indices: DeviceColumn, n_values=None,
+         boundscheck: bool = True) -> Compacted:
+    """Rows ``indices`` of ``values``; ``ctx`` is the indices' context. A
+    null index gives a null row; an index out of ``[0, n_values)`` (the
+    values' capacity by default) reads row 0, under the indices' and row
+    0's validity, as the reference's does, or raises IndexError where
+    ``boundscheck`` is set."""
+    idx = dtypes.load(indices.values, indices.value_dtype).to(torch.int64)
+    live = indices.valid_mask(ctx.row_mask())
+    limit = values.capacity if n_values is None else n_values
+    in_range = (idx >= 0) & (idx < limit)
+    if boundscheck and bool((live & ~in_range).any()):
+        raise IndexError("take: index out of bounds")
+    safe = torch.where(live & in_range, idx, 0).clamp(0, values.capacity - 1)
+    validity = None
+    if indices.validity is not None or values.validity is not None:
+        validity = torch.ones(indices.capacity, dtype=torch.bool,
+                              device=idx.device)
+        if indices.validity is not None:
+            validity = validity & indices.validity
+        if values.validity is not None:
+            validity = validity & values.validity[safe]
+    return Compacted(DeviceColumn(values.values[safe], validity, values.type,
+                                  values.dictionary), ctx.row_count)
+
+
+@register("array_take", "vector")
+def array_take(ctx, values: DeviceColumn, indices: DeviceColumn,
+               n_values=None, boundscheck: bool = True) -> Compacted:
+    return take(ctx, values, indices, n_values, boundscheck)
+
+
+def _scatter_slots(ctx, indices: DeviceColumn) -> torch.Tensor:
+    """Each row's slot for ``.at[idx].set(..., mode="drop")``: negative
+    indices count from the end, as jnp's do; dead rows and indices out of
+    range go to the extra slot ``cap``, which is cut off."""
+    cap = ctx.capacity
+    idx = dtypes.load(indices.values, indices.value_dtype).to(torch.int64)
+    idx = torch.where(idx < 0, idx + cap, idx)
+    ok = indices.valid_mask(ctx.row_mask()) & (idx >= 0) & (idx < cap)
+    return torch.where(ok, idx, cap)
+
+
+@register("inverse_permutation", "vector")
+def inverse_permutation(ctx, indices: DeviceColumn,
+                        max_index=None) -> Compacted:
+    """``out[indices[i]] = i`` over the live indices, in the indices'
+    dtype; slots no index reached are null."""
+    cap = ctx.capacity
+    slot = _scatter_slots(ctx, indices)
+    dev = slot.device
+    out = torch.zeros(cap + 1, dtype=indices.values.dtype, device=dev)
+    out[slot] = torch.arange(cap, device=dev).to(indices.values.dtype)
+    hit = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+    hit[slot] = True
+    return Compacted(DeviceColumn(out[:cap], hit[:cap], indices.type),
+                     ctx.row_count)
+
+
+@register("scatter", "vector")
+def scatter(ctx, values: DeviceColumn, indices: DeviceColumn,
+            max_index=None) -> Compacted:
+    """``out[indices[i]] = values[i]`` over the live indices; a slot is
+    valid where the value written there was."""
+    cap = values.capacity
+    slot = _scatter_slots(ctx, indices)
+    dev = slot.device
+    out = torch.zeros(cap + 1, dtype=values.values.dtype, device=dev)
+    out[slot] = values.values
+    hit = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+    hit[slot] = values.valid_mask()
+    return Compacted(DeviceColumn(out[:cap], hit[:cap], values.type,
+                                  values.dictionary), ctx.row_count)

@@ -7,7 +7,9 @@ all-null type, decimals of up to 18 digits (as unscaled int64), strings
 (as dictionary codes) and dictionaries. Decimals wider than 18 digits and
 fixed-size binary reach the reference's device as dictionary codes of a
 host Array; the port raises on them (ROADMAP.md, queue 1, item 11: the host
-boundary)."""
+boundary). ``struct`` and ``list_`` exist only as the types of aggregate
+results with several values (``min_max``, ``first_last``, ``quantile`` of
+several ``q``): no column holds them."""
 
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ class TypeId(enum.IntEnum):
     TIME64 = 20
     INTERVAL_MONTHS = 21
     DECIMAL128 = 23
+    LIST = 25
+    STRUCT = 26
     DECIMAL256 = 24
     DICTIONARY = 29
     DURATION = 33
@@ -201,6 +205,43 @@ class DurationType(DataType):
         return f"duration[{self.unit}]"
 
 
+class StructType(DataType):
+    """A struct of named fields: the type of an aggregate result with one
+    value a field."""
+    __slots__ = ("fields",)
+
+    def __init__(self, fields: Sequence["Field"]):
+        super().__init__(TypeId.STRUCT)
+        self.fields = tuple(fields)
+
+    def _key(self):
+        return (self.id, tuple((f.name, f.type) for f in self.fields))
+
+    def __repr__(self):
+        return "struct<" + ", ".join(f"{f.name}: {f.type!r}"
+                                     for f in self.fields) + ">"
+
+
+class ListType(DataType):
+    """A list of one value type: the type of ``quantile`` at several
+    ``q``."""
+    __slots__ = ("value_field",)
+
+    def __init__(self, value_type: DataType):
+        super().__init__(TypeId.LIST)
+        self.value_field = Field("item", value_type)
+
+    @property
+    def fields(self):
+        return (self.value_field,)
+
+    def _key(self):
+        return (self.id, self.value_field.type)
+
+    def __repr__(self):
+        return f"list<{self.value_field.type!r}>"
+
+
 _NAMES = {TypeId.NA: "null", TypeId.BOOL: "bool", TypeId.INT8: "int8",
           TypeId.INT16: "int16", TypeId.INT32: "int32", TypeId.INT64: "int64",
           TypeId.UINT8: "uint8", TypeId.UINT16: "uint16",
@@ -313,6 +354,16 @@ def decimal256(precision: int, scale: int = 0) -> DecimalType:
 
 def dictionary(index_type: DataType, value_type: DataType) -> DataType:
     return DataType(TypeId.DICTIONARY, index_type, value_type)
+
+
+def struct(fields) -> StructType:
+    """From ``Field``s or (name, type) pairs."""
+    return StructType([f if isinstance(f, Field) else Field(f[0], f[1])
+                       for f in fields])
+
+
+def list_(value_type: DataType) -> ListType:
+    return ListType(value_type)
 
 
 _ALIASES = {"boolean": "bool", "i1": "int8", "i2": "int16", "i4": "int32",

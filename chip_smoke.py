@@ -80,6 +80,19 @@ Phases; any failure exits non-zero without the final line:
    lineitem on (date64 descending, uint32 with nulls, int64), each
    against its numpy oracle over the typed values, integers and decimals
    exact, with its launches exact.
+   Then (3g) the vector functions and the statistics aggregates
+   (``STATS_PATHS``) over Q1's lineitem and the typed lineitem: a
+   three-key sort with nulls (``BASELINE.json`` config 3), the takes by
+   it, its inverse, a top 1,000 and ranks under all four tiebreakers;
+   running sums, extremes and means and pairwise differences; unique,
+   value_counts, dictionary_encode and count_distinct; filter under a
+   nullable mask both ways, drop_null and take with null indices (an index
+   out of range must raise IndexError); statistics by Q1's flags and per
+   order (15M groups); moments, quantiles and the rest with ``keys=[]``.
+   Each against a numpy oracle (run in a thread each while the next path
+   runs), with its launches exact; the compaction and the grouped sum
+   against their plain versions at the shapes these paths give them; the
+   float results run twice, bit for bit.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -87,8 +100,8 @@ Phases; any failure exits non-zero without the final line:
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
 4. Times after a warm-up: Q1, Q3, Q4, Q13, the suite's and the last
-   eleven plans' rows/s of their largest input and phase 3e's and 3f's
-   walls (best of 5), a profile of one run of each (device busy time and
+   eleven plans' rows/s of their largest input and phase 3e's, 3f's and
+   3g's walls (best of 5), a profile of one run of each (device busy time and
    idle share), each kernel's time beside its bound, its plain version's
    and one library call's where there is one (the compaction at five
    shapes: Q3's filter, its mask over 2-byte columns and over one bool
@@ -106,6 +119,7 @@ script imports torch, numpy and the port only.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import sys
 import time
@@ -2183,6 +2197,803 @@ def phase_typed(tables):
     return launches, typed
 
 
+# --- phase 3g: the vector functions and the statistics aggregates ------------
+
+SHIPDATE_1998_09_02 = 10_471        # 1998-09-02 in days (Q1's filter)
+STATS_SEED = 11
+STATS_K = 1_000                     # select_k_unstable's k
+STATS_NULL_MASK = 0.05              # the share of the filter mask's nulls
+STATS_NULL_INDICES = 0.01           # the share of take's null indices
+INDEX_SUPPLIER = 4_242              # the supplier ``index`` looks for
+TIEBREAKERS = ("first", "min", "max", "dense")
+INTERPOLATIONS = ("linear", "lower", "higher", "nearest", "midpoint")
+QUANTILES = [0.01, 0.5, 0.99]
+TAKE_COLUMNS = ("l_orderkey", "l_suppkey", "l_shipdate", "l_extendedprice",
+                "l_quantity")
+SORT_KEYS = [("l_suppkey", "ascending"), ("l_shipdate", "descending"),
+             ("l_extendedprice", "ascending")]
+TOPK_KEYS = [("l_extendedprice", "descending"), ("l_orderkey", "ascending")]
+
+
+def _call(ctx, fn, *args, **kw):
+    from arrow_tpu_torch.compute.registry import get_function
+    return get_function(fn).impl(ctx, *args, **kw)
+
+
+def _context(batch):
+    return _rows_context(batch.capacity, batch.row_count)
+
+
+def _rows_context(capacity, count):
+    from arrow_tpu_torch.compute.registry import ExecContext
+    return ExecContext(capacity, count)
+
+
+def stats_inputs(lineitem, typed, seed=STATS_SEED):
+    """Phase 3g's inputs: Q1's lineitem, the typed lineitem of phase 3f,
+    a nullable filter mask (``l_quantity > 45`` under
+    ``STATS_NULL_MASK`` nulls), take indices over the live rows with
+    ``STATS_NULL_INDICES`` nulls, and indices with one out of range; the
+    random draws from a generator seeded with ``seed`` on the tables'
+    device."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.device.column import DeviceColumn
+    t = typed["lineitem"]
+    dev = t.row_count.device
+    n, cap = int(t.row_count), t.capacity
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    big = _call(_context(t), "greater", t.column("l_quantity"), 45)
+    mask = DeviceColumn(big.values, torch.rand(cap, generator=gen,
+                                               device=dev)
+                        >= STATS_NULL_MASK, big.type)
+    idx = torch.randint(0, n, (cap,), generator=gen, device=dev)
+    ivalid = torch.rand(cap, generator=gen, device=dev) >= STATS_NULL_INDICES
+    bad = idx.clone()
+    bad[n // 3] = cap + 5
+    return {"lineitem": lineitem, "typed": t, "mask": mask,
+            "idx": DeviceColumn(idx, ivalid, T.int64()),
+            "bad_idx": DeviceColumn(bad, None, T.int64())}
+
+
+def stats_columns(s):
+    """The host copies phase 3g's oracles read: the typed lineitem's
+    columns (``typed_columns``), Q1's lineitem's (``plain``; l_orderkey at
+    its whole capacity, padding rows included, for pairwise_diff), the
+    mask and the take indices."""
+    li = s["lineitem"]
+    n = int(li.row_count)
+    c = typed_columns({"lineitem": s["typed"]})
+    c["n"] = n
+    c["plain"] = {k: li.column(k).values[:n].cpu().numpy() for k in (
+        "l_extendedprice", "l_discount", "l_shipdate", "l_linenumber")}
+    c["plain"]["l_orderkey"] = li.column("l_orderkey").values.cpu().numpy()
+    for name in ("mask", "idx"):
+        c[name] = s[name].values[:n].cpu().numpy()
+        c[name + ":valid"] = s[name].validity[:n].cpu().numpy()
+    return c
+
+
+def _host(col, n):
+    """(values, validity or None) of a result column's first n rows."""
+    v = col.values[:n].cpu().numpy()
+    if col.type.is_unsigned_integer:
+        v = v.view(np.dtype(f"uint{8 * v.itemsize}"))
+    return v, None if col.validity is None else \
+        col.validity[:n].cpu().numpy()
+
+
+def _expect(name, ok, detail=""):
+    if not ok:
+        raise AssertionError(f"{name} differs from its oracle {detail}")
+
+
+def _expect_equal(name, got, want):
+    _expect(name, got.shape == want.shape and np.array_equal(got, want),
+            f"(first rows {got[:5]} against {want[:5]})")
+
+
+def _expect_close(name, got, want, rtol=RTOL_F64):
+    """Within ``rtol`` of ``want``, NaN where it is NaN."""
+    ok = got.shape == want.shape
+    if ok:
+        with np.errstate(invalid="ignore"):
+            ok = bool(((np.abs(got - want) <= rtol * np.abs(want))
+                       | (np.isnan(got) & np.isnan(want))).all())
+    _expect(name, ok, f"(first rows {got[:5]} against {want[:5]})")
+
+
+# sort_take: BASELINE config 3's multi-key sort with nulls, then the rows
+def sort_take_run(s):
+    t = s["typed"]
+    li, ctx = t.column, _context(t)
+    perm = _call(ctx, "sort_indices", *[li(k) for k, _ in SORT_KEYS],
+                 sort_keys=SORT_KEYS, null_placement="at_start")
+    pctx = _rows_context(perm.column.capacity, perm.count)
+    taken = {k: _call(pctx, "take", li(k), perm.column).column
+             for k in TAKE_COLUMNS}
+    inv = _call(pctx, "inverse_permutation", perm.column)
+    back = _call(pctx, "take", perm.column, inv.column)
+    topk = _call(ctx, "select_k_unstable", *[li(k) for k, _ in TOPK_KEYS],
+                 k=STATS_K, sort_keys=TOPK_KEYS)
+    ranks = {tb: _call(ctx, "rank", li("l_quantity"), tiebreaker=tb)
+             for tb in TIEBREAKERS}
+    part = _call(ctx, "partition_nth_indices", li("l_quantity"),
+                 pivot=int(t.row_count) // 2)
+    return {"perm": perm, "taken": taken, "back": back, "topk": topk,
+            "ranks": ranks, "part": part}
+
+
+def sort_word(c):
+    """One int64 word a row whose order is SORT_KEYS' order: the supplier
+    (nulls first, as 0), the ship day descending, the price in cents."""
+    valid = c["l_suppkey:valid"]
+    k1 = np.where(valid, c["l_suppkey"].astype(np.int64) + 1, 0)
+    day = c["l_shipdate"] // 86_400
+    k2 = day.max() + 1 - day
+    k3 = c["l_extendedprice"]
+    if k1.max() >= 1 << 17 or k2.max() >= 1 << 12 or k3.min() < 0 or \
+            k3.max() >= 1 << 24:
+        raise AssertionError("sort_take: keys out of the word's fields")
+    return (k1 << 36) | (k2 << 24) | k3
+
+
+def rank_oracle(q):
+    """The four ranks of ``q`` (small non-negative integers, ascending)
+    and its stable argsort: ``first`` is the inverse of that argsort; a
+    tie's ``min``, ``max`` and ``dense`` ranks are tables by value, from
+    the counts of the values below it (``np.bincount``)."""
+    n = len(q)
+    order = np.argsort(q, kind="stable")
+    first = np.empty(n, dtype=np.int64)
+    first[order] = np.arange(1, n + 1)
+    counts = np.bincount(q)
+    below = np.cumsum(counts) - counts
+    dense = np.cumsum(counts > 0)
+    return {"first": first, "min": (below + 1)[q], "max": (below + counts)[q],
+            "dense": dense[q]}, order
+
+
+def check_sort_take(c, r):
+    """The permutation: each live row once, its words non-decreasing and,
+    among equal words, its rows ascending: that is the one stable sort by
+    SORT_KEYS, checked in one pass. The taken columns are the rows it
+    names, the inverse gives the row order back, the top k is
+    ``np.lexsort``'s over the rows at or above the k-th largest price,
+    and the ranks and the partition are ``rank_oracle``'s."""
+    n = c["n"]
+    perm_col = r["perm"]
+    _expect("sort_indices count", int(perm_col.count) == n)
+    perm, _ = _host(perm_col.column, n)
+    perm = perm.astype(np.int64)
+    _expect("sort_indices is a permutation", perm.min() >= 0 and
+            perm.max() < n and np.bincount(perm, minlength=n).max() == 1)
+    w = sort_word(c)[perm]
+    ties = w[1:] == w[:-1]
+    _expect("sort_indices order", bool((w[1:] >= w[:-1]).all()) and
+            bool((perm[1:][ties] > perm[:-1][ties]).all()))
+    for k in TAKE_COLUMNS:
+        v, valid = _host(r["taken"][k], n)
+        _expect_equal(f"take {k}", v, c[k][perm])
+        if k == "l_suppkey":
+            _expect_equal("take l_suppkey validity", valid,
+                          c["l_suppkey:valid"][perm])
+    back, back_valid = _host(r["back"].column, n)
+    _expect_equal("inverse_permutation", back.astype(np.int64),
+                  np.arange(n, dtype=np.int64))
+    _expect("inverse_permutation validity",
+            back_valid is None or bool(back_valid.all()))
+    price, okey = c["l_extendedprice"], c["l_orderkey"]
+    kth = np.partition(price, n - STATS_K)[n - STATS_K]
+    cand = np.flatnonzero(price >= kth)
+    want = cand[np.lexsort((okey[cand], -price[cand]))][:STATS_K]
+    topk, _ = _host(r["topk"].column, STATS_K)
+    _expect("select_k count", int(r["topk"].count) == STATS_K)
+    _expect_equal("select_k_unstable", topk.astype(np.int64), want)
+    ranks, order = rank_oracle(c["l_quantity"])
+    for tb in TIEBREAKERS:
+        got, _ = _host(r["ranks"][tb].column, n)
+        _expect_equal(f"rank {tb}", got.astype(np.int64), ranks[tb])
+    part, _ = _host(r["part"].column, n)
+    _expect_equal("partition_nth_indices", part.astype(np.int64), order)
+    return (f"{n} rows sorted by 3 keys ({int((~c['l_suppkey:valid']).sum())}"
+            f" null suppliers first), 5 columns taken, top {STATS_K} from "
+            f"price {price[want[0]] / 100:.2f}, 4 ranks, partition")
+
+
+# cumulative: running sums, extremes and means, and pairwise differences
+def cumulative_run(s):
+    li, t = s["lineitem"], s["typed"]
+    price, supp = li.column("l_extendedprice"), t.column("l_suppkey")
+    ctx = _context(li)
+    out = {}
+    for fn in ("cumulative_sum", "cumulative_min", "cumulative_max",
+               "cumulative_mean"):
+        out[("price", fn)] = _call(ctx, fn, price)
+        for skip in (False, True):
+            out[("supp", fn, skip)] = _call(ctx, fn, supp, skip_nulls=skip)
+    for period in (1, -3):
+        out[("diff", period)] = _call(ctx, "pairwise_diff",
+                                      li.column("l_orderkey"), period=period)
+    return out
+
+
+def check_cumulative(c, r):
+    """numpy's cumsum, minimum/maximum.accumulate and running means:
+    f64 within RTOL_F64, uint32 sums exact (wrapping at 32 bits, as
+    numpy's uint32 cumsum does), extremes exact; validity the column's
+    own with skip_nulls, else valid up to the first null."""
+    n = c["n"]
+    price = c["plain"]["l_extendedprice"]
+    want = {"cumulative_sum": np.cumsum(price),
+            "cumulative_min": np.minimum.accumulate(price),
+            "cumulative_max": np.maximum.accumulate(price),
+            "cumulative_mean": np.cumsum(price) / np.arange(1, n + 1)}
+    for fn, w in want.items():
+        got, _ = _host(r[("price", fn)], n)
+        (_expect_close if fn in ("cumulative_sum", "cumulative_mean")
+         else _expect_equal)(f"{fn} of l_extendedprice", got, w)
+    valid = c["l_suppkey:valid"]
+    supp = c["l_suppkey"]
+    live_count = np.cumsum(valid)
+    want = {"cumulative_sum": np.cumsum(np.where(valid, supp, 0),
+                                        dtype=np.uint32),
+            "cumulative_min": np.minimum.accumulate(
+                np.where(valid, supp, np.uint32(0xFFFFFFFF))),
+            "cumulative_max": np.maximum.accumulate(
+                np.where(valid, supp, np.uint32(0))),
+            "cumulative_mean": np.cumsum(np.where(valid, supp, 0),
+                                         dtype=np.float64)
+            / np.maximum(live_count, 1)}
+    poisoned = valid & (np.cumsum(~valid) == 0)
+    for fn, w in want.items():
+        for skip in (False, True):
+            got, got_valid = _host(r[("supp", fn, skip)], n)
+            (_expect_close if fn == "cumulative_mean" else _expect_equal)(
+                f"{fn} of l_suppkey (skip_nulls={skip})", got, w)
+            _expect_equal(f"{fn} of l_suppkey validity (skip_nulls={skip})",
+                          got_valid, valid if skip else poisoned)
+    okey = c["plain"]["l_orderkey"]
+    cap = len(okey)
+    for period in (1, -3):
+        got, got_valid = _host(r[("diff", period)], n)
+        idx = np.arange(n)
+        _expect_equal(f"pairwise_diff {period}", got,
+                      okey[:n] - okey[(idx - period) % cap])
+        _expect_equal(f"pairwise_diff {period} validity", got_valid,
+                      idx >= period if period >= 0 else idx < cap + period)
+    return (f"sum of l_extendedprice {want['cumulative_sum'][-1]}, "
+            f"{int(poisoned.sum())} rows before the first null supplier")
+
+
+# distinct: unique, value_counts, dictionary_encode, count_distinct
+def distinct_run(s):
+    t = s["typed"]
+    ctx, supp = _context(t), t.column("l_suppkey")
+    return {"unique": _call(ctx, "unique", supp),
+            "value_counts": _call(ctx, "value_counts", supp),
+            "encode": _call(ctx, "dictionary_encode", supp),
+            "flags": _call(ctx, "unique", t.column("l_returnflag")),
+            "parts": _call(ctx, "count_distinct", t.column("l_partkey")),
+            "suppliers": _call(ctx, "count_distinct", supp, mode="all")}
+
+
+def first_appearance(key, size):
+    """(the keys present in order of first appearance, each one's row
+    count and first row, and the rank of every key value), for keys in
+    [0, size): ``np.minimum.at`` and ``np.bincount``, no sort of the
+    rows."""
+    n = len(key)
+    first = np.full(size, n, dtype=np.int64)
+    np.minimum.at(first, key, np.arange(n, dtype=np.int64))
+    present = np.flatnonzero(first < n)
+    order = present[np.argsort(first[present])]
+    rank = np.full(size, -1, dtype=np.int64)
+    rank[order] = np.arange(len(order))
+    return order, np.bincount(key, minlength=size)[order], first[order], \
+        rank
+
+
+def check_distinct(c, r):
+    """The supplier values (null as one value) in order of first
+    appearance, their counts and every row's code; the return flags'
+    codes in that order; distinct part keys by ``np.bincount``; the
+    suppliers' distinct valid values plus one for the nulls."""
+    n = c["n"]
+    valid = c["l_suppkey:valid"]
+    key = np.where(valid, c["l_suppkey"].astype(np.int64) + 1, 0)
+    order, counts, _, rank = first_appearance(key, int(key.max()) + 1)
+    g = len(order)
+    _expect("unique count", int(r["unique"].count) == g)
+    got, got_valid = _host(r["unique"].column, g)
+    _expect_equal("unique validity", got_valid, order > 0)
+    _expect_equal("unique values", got[order > 0].astype(np.int64),
+                  order[order > 0] - 1)
+    got, _ = _host(r["value_counts"]["counts"].column, g)
+    _expect_equal("value_counts", got, counts)
+    got, got_valid = _host(r["value_counts"]["values"].column, g)
+    _expect_equal("value_counts values", got[order > 0].astype(np.int64),
+                  order[order > 0] - 1)
+    codes, codes_valid = _host(r["encode"].column, n)
+    _expect_equal("dictionary_encode", codes.astype(np.int64), rank[key])
+    _expect_equal("dictionary_encode validity", codes_valid, valid)
+    flags = c["l_returnflag"].astype(np.int64)
+    forder, _, _, _ = first_appearance(flags, len(c["l_returnflag:dict"]))
+    got, _ = _host(r["flags"].column, len(forder))
+    _expect("unique l_returnflag count", int(r["flags"].count) == len(forder))
+    _expect_equal("unique l_returnflag", got.astype(np.int64), forder)
+    parts = np.count_nonzero(np.bincount(c["l_partkey"].astype(np.int64)))
+    _expect("count_distinct l_partkey", int(r["parts"].value) == parts and
+            bool(r["parts"].valid), f"({int(r['parts'].value)}, {parts})")
+    supps = int(np.count_nonzero(counts[order > 0])) + int((~valid).any())
+    _expect("count_distinct l_suppkey all",
+            int(r["suppliers"].value) == supps)
+    return (f"{g} supplier values (with null), {parts} part keys, flags "
+            f"{[c['l_returnflag:dict'][f] for f in forder]}")
+
+
+# select: filter under a nullable mask both ways, drop_null, take
+def select_run(s):
+    t = s["typed"]
+    ctx, supp = _context(t), t.column("l_suppkey")
+    out = {"drop": _call(ctx, "filter", supp, s["mask"]),
+           "emit_null": _call(ctx, "array_filter", supp, s["mask"],
+                              null_selection_behavior="emit_null"),
+           "drop_null": _call(ctx, "drop_null", supp)}
+    # take's context is its indices'
+    ictx = _rows_context(s["idx"].capacity, t.row_count)
+    out["take"] = _call(ictx, "take", t.column("l_extendedprice"), s["idx"])
+    try:
+        _call(ictx, "take", t.column("l_extendedprice"), s["bad_idx"])
+    except IndexError:
+        out["bad_take_raised"] = True
+    else:
+        out["bad_take_raised"] = False
+    return out
+
+
+def check_select(c, r):
+    """Boolean indexing in numpy: a null mask slot drops its row, or
+    emits a null row; drop_null keeps the valid rows; take gathers with
+    null indices giving nulls; an index out of range raised IndexError."""
+    supp, valid = c["l_suppkey"], c["l_suppkey:valid"]
+    m, mv = c["mask"], c["mask:valid"]
+    for name, keep, out_valid in (
+            ("drop", m & mv, valid), ("emit_null", (m & mv) | ~mv,
+                                      valid & mv),
+            ("drop_null", valid, valid)):
+        res = r[name]
+        k = int(keep.sum())
+        _expect(f"filter {name} count", int(res.count) == k,
+                f"({int(res.count)}, {k})")
+        got, got_valid = _host(res.column, k)
+        _expect_equal(f"filter {name} validity", got_valid, out_valid[keep])
+        _expect_equal(f"filter {name} values", got[got_valid],
+                      supp[keep][got_valid])
+    n = c["n"]
+    idx, iv = c["idx"], c["idx:valid"]
+    got, got_valid = _host(r["take"].column, n)
+    _expect_equal("take validity", got_valid, iv)
+    _expect_equal("take values", got[iv], c["l_extendedprice"][idx[iv]])
+    if not r["bad_take_raised"]:
+        raise AssertionError("take with an index out of range did not "
+                             "raise IndexError")
+    return (f"{int((m & mv).sum())} rows kept, {int((~mv).sum())} null "
+            f"mask slots, {int((~iv).sum())} null indices; the bad index "
+            "raised IndexError")
+
+
+# stats_grouped: statistics by Q1's flags, and per order
+def stats_grouped_decls(s, ac=None):
+    """(the typed declaration keyed on the two flags, Q1's lineitem keyed
+    on l_orderkey), each with Q1's filter folded in."""
+    ac = _acero(ac)
+    D, f = ac.Declaration, ac.field
+    flags = D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(s["typed"])),
+        D("filter", ac.FilterNodeOptions(
+            f("l_shipdate") <= SHIPDATE_1998_09_02_S)),
+        D("project", ac.ProjectNodeOptions(
+            [f("l_returnflag"), f("l_linestatus"), f("l_extendedprice"),
+             f("l_tax"), f("l_suppkey"), f("l_shipdate"),
+             f("l_quantity") > 45, f("l_linenumber"), f("l_discount")],
+            ["l_returnflag", "l_linestatus", "l_extendedprice", "l_tax",
+             "l_suppkey", "l_shipdate", "big", "l_linenumber",
+             "l_discount"])),
+        D("aggregate", ac.AggregateNodeOptions(
+            [("l_extendedprice", "hash_variance", None, "var_price"),
+             ("l_tax", "hash_stddev", {"ddof": 1}, "sd_tax"),
+             ("l_suppkey", "hash_min_max", None, "supp"),
+             ("l_suppkey", "hash_first", {"skip_nulls": False},
+              "first_supp"),
+             ("l_suppkey", "hash_last", None, "last_supp"),
+             ("l_shipdate", "hash_one", None, "one_ship"),
+             ("big", "hash_any", None, "any_big"),
+             ("big", "hash_all", None, "all_big"),
+             ("l_linenumber", "hash_product", None, "prod_line"),
+             ("l_suppkey", "hash_sum", {"skip_nulls": False,
+                                        "min_count": 0}, "sum_supp"),
+             ("l_suppkey", "hash_count", {"mode": "only_null"},
+              "null_supp"),
+             ("l_discount", "hash_mean", None, "avg_disc")],
+            keys=["l_returnflag", "l_linestatus"]))])
+    orders = D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(s["lineitem"])),
+        D("filter", ac.FilterNodeOptions(
+            f("l_shipdate") <= SHIPDATE_1998_09_02)),
+        D("project", ac.ProjectNodeOptions(
+            [f("l_orderkey"), 1.0 + f("l_discount"), f("l_extendedprice"),
+             f("l_linenumber")],
+            ["l_orderkey", "disc1", "l_extendedprice", "l_linenumber"])),
+        D("aggregate", ac.AggregateNodeOptions(
+            [("disc1", "hash_product", None, "prod_disc"),
+             ("l_extendedprice", "hash_variance", None, "var_price"),
+             ("l_linenumber", "hash_first", None, "first_line"),
+             ("l_linenumber", "hash_last", None, "last_line")],
+            keys=["l_orderkey"]))])
+    return flags, orders
+
+
+def stats_grouped_run(s, decls=None):
+    """The flags' statistics downloaded (``to_table``); the per-order
+    ones left on the device (``execute_declaration``: about 15M
+    groups)."""
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    flags, orders = decls or stats_grouped_decls(s)
+    return {"flags": flags.to_table(), "orders": execute_declaration(orders)}
+
+
+def _group_rows(key, keep):
+    """The kept rows of each key value in order of first appearance:
+    (the present keys, each one's kept rows)."""
+    rows = np.flatnonzero(keep)
+    order, _, _, _ = first_appearance(key[rows], int(key.max()) + 1)
+    return [(k, rows[key[rows] == k]) for k in order]
+
+
+def _variance(x, ddof=0):
+    m = x.sum() / len(x)
+    return float(((x - m) ** 2).sum() / max(len(x) - ddof, 1))
+
+
+def stats_flags_oracle(c):
+    """The flags' statistics in numpy, group by group (at most 6 live
+    groups of 10M rows): two-pass f64 moments, the integer reductions
+    exact (the int8 product wraps in int64, as numpy's does)."""
+    import datetime
+    keep = c["l_shipdate"] <= SHIPDATE_1998_09_02_S
+    rfd, lsd = c["l_returnflag:dict"], c["l_linestatus:dict"]
+    key = c["l_returnflag"].astype(np.int64) * len(lsd) + c["l_linestatus"]
+    valid, supp = c["l_suppkey:valid"], c["l_suppkey"].astype(np.int64)
+    out = {k: [] for k in (
+        "l_returnflag", "l_linestatus", "var_price", "sd_tax", "supp_min",
+        "supp_max", "first_supp", "last_supp", "one_ship", "any_big",
+        "all_big", "prod_line", "sum_supp", "null_supp", "avg_disc")}
+    epoch = datetime.datetime(1970, 1, 1)
+    for k, rows in _group_rows(key, keep):
+        v = valid[rows]
+        sv = supp[rows][v]
+        big = c["l_quantity"][rows] > 45
+        disc = int(c["l_discount"][rows].sum())
+        first, last = rows[0], rows[v][-1]
+        vals = {
+            "l_returnflag": rfd[k // len(lsd)],
+            "l_linestatus": lsd[k % len(lsd)],
+            "var_price": _variance(c["l_extendedprice"][rows] * 0.01),
+            "sd_tax": float(np.sqrt(_variance(
+                c["l_tax"][rows].astype(np.float64), 1))),
+            "supp_min": int(sv.min()), "supp_max": int(sv.max()),
+            "first_supp": int(supp[first]) if valid[first] else None,
+            "last_supp": int(supp[last]),
+            "one_ship": epoch + datetime.timedelta(
+                seconds=int(c["l_shipdate"][first])),
+            "any_big": bool(big.any()), "all_big": bool(big.all()),
+            "prod_line": int(np.prod(c["l_linenumber"][rows].astype(
+                np.int64))),
+            "sum_supp": None if not v.all() else int(sv.sum()),
+            "null_supp": int((~v).sum()),
+            "avg_disc": _decimal(_decimal_mean(disc, len(rows)), 2)}
+        for name, x in vals.items():
+            out[name].append(x)
+    return out
+
+
+def check_orders(c, batch):
+    """The per-order statistics against ``np.minimum.at`` (first rows),
+    ``np.maximum.at`` (last rows), ``np.multiply.at`` and ``np.add.at``
+    (products and sums in row order) and a second pass for the squared
+    deviations: the groups in order of first appearance, products and
+    variances within RTOL_F64, line numbers exact."""
+    p = c["plain"]
+    n = c["n"]
+    keep = p["l_shipdate"] <= SHIPDATE_1998_09_02
+    rows = np.flatnonzero(keep)
+    key = p["l_orderkey"][:n][rows]
+    size = int(key.max()) + 1
+    first = np.full(size, n, dtype=np.int64)
+    np.minimum.at(first, key, rows)
+    last = np.full(size, -1, dtype=np.int64)
+    np.maximum.at(last, key, rows)
+    counts = np.bincount(key, minlength=size)
+    prod = np.ones(size)
+    np.multiply.at(prod, key, 1.0 + p["l_discount"][rows])
+    price = p["l_extendedprice"][rows]
+    sums = np.bincount(key, weights=price, minlength=size)
+    mean = sums / np.maximum(counts, 1)
+    dev = price - mean[key]
+    m2 = np.bincount(key, weights=dev * dev, minlength=size)
+    g = int(batch.row_count)
+    _expect("per-order group count", g == int((counts > 0).sum()),
+            f"({g}, {int((counts > 0).sum())})")
+    okey, _ = _host(batch.column("l_orderkey"), g)
+    firsts = first[okey]
+    _expect("per-order groups in order of first appearance",
+            bool((counts[okey] > 0).all()) and
+            bool((firsts[1:] > firsts[:-1]).all()))
+    got, _ = _host(batch.column("prod_disc"), g)
+    _expect_close("per-order hash_product", got, prod[okey])
+    got, got_valid = _host(batch.column("var_price"), g)
+    _expect_close("per-order hash_variance", got,
+                  m2[okey] / np.maximum(counts[okey], 1))
+    line = p["l_linenumber"]
+    for name, at in (("first_line", first), ("last_line", last)):
+        got, _ = _host(batch.column(name), g)
+        _expect_equal(f"per-order {name}", got, line[at[okey]])
+    return g
+
+
+def check_stats_grouped(c, r):
+    check_typed("stats by flags", r["flags"], stats_flags_oracle(c))
+    g = check_orders(c, r["orders"])
+    return (f"{len(r['flags']['var_price'])} flag groups, {g} orders "
+            "(general grouper)")
+
+
+# stats_scalar: moments, quantiles and the rest with keys=[]
+def stats_scalar_decl(s, ac=None):
+    ac = _acero(ac)
+    D, f = ac.Declaration, ac.field
+    aggs = [("l_extendedprice", fn, None, fn)
+            for fn in ("variance", "stddev", "skew", "kurtosis")]
+    aggs += [("l_tax", "quantile", {"q": QUANTILES, "interpolation": i},
+              f"q_{i}") for i in INTERPOLATIONS]
+    aggs += [("l_tax", "median", None, "median"),
+             ("l_tax", "approximate_median", None, "approx_median"),
+             ("l_suppkey", "min_max", None, "supp"),
+             ("l_suppkey", "first_last", {"skip_nulls": False}, "fl"),
+             ("l_suppkey", "index", {"value": INDEX_SUPPLIER}, "idx"),
+             ("big", "any", None, "any_big"), ("big", "all", None, "all_big"),
+             ("l_linenumber", "product", None, "prod_line")]
+    return D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(s["typed"])),
+        D("project", ac.ProjectNodeOptions(
+            [f("l_extendedprice"), f("l_tax"), f("l_suppkey"),
+             f("l_quantity") > 45, f("l_linenumber")],
+            ["l_extendedprice", "l_tax", "l_suppkey", "big",
+             "l_linenumber"])),
+        D("aggregate", ac.AggregateNodeOptions(aggs, keys=[]))])
+
+
+def sorted_cents(x):
+    """``x`` (the tax: whole cents, few distinct values) as its distinct
+    values ascending and their cumulative counts, from ``np.bincount``,
+    with no sort of the rows."""
+    cents = np.rint(x * 100).astype(np.int64)
+    counts = np.bincount(cents)
+    present = np.flatnonzero(counts)
+    table = np.zeros(len(counts))
+    table[present] = [x[np.argmax(cents == k)] for k in present]
+    if not np.array_equal(table[cents], x):
+        raise AssertionError("quantile oracle: a tax is not a whole cent")
+    return table[present], np.cumsum(counts[present])
+
+
+def quantile_oracle(values, ends, q, interpolation):
+    """The reference's rule on the sorted values (``sorted_cents``): the
+    two order statistics around ``q * (n - 1)``."""
+    def at(k):
+        return float(values[np.searchsorted(ends, k, side="right")])
+
+    pos = q * (ends[-1] - 1.0)
+    lo, hi = np.floor(pos), np.ceil(pos)
+    frac = pos - lo
+    vlo, vhi = at(int(lo)), at(int(hi))
+    return {"linear": vlo + (vhi - vlo) * frac, "lower": vlo,
+            "higher": vhi, "nearest": vlo if frac <= 0.5 else vhi,
+            "midpoint": (vlo + vhi) * 0.5}[interpolation]
+
+
+def stats_scalar_oracle(c):
+    """Two-pass f64 moments of the prices (descaled), the quantiles of
+    the f32 tax by ``quantile_oracle``, and the integer results exact."""
+    x = c["l_extendedprice"] * 0.01
+    n = len(x)
+    cdev = x - x.sum() / n
+    c2 = cdev * cdev
+    m2, m3, m4 = c2.sum(), (c2 * cdev).sum(), (c2 * c2).sum()
+    var = m2 / n
+    out = {"variance": [var], "stddev": [float(np.sqrt(var))],
+           "skew": [(m3 / n) / var ** 1.5],
+           "kurtosis": [(m4 / n) / var ** 2 - 3.0]}
+    taxes = sorted_cents(c["l_tax"].astype(np.float64))
+    for i in INTERPOLATIONS:
+        for j, q in enumerate(QUANTILES):
+            out[f"q_{i}_q{j}"] = [quantile_oracle(*taxes, q, i)]
+    out["median"] = [quantile_oracle(*taxes, 0.5, "linear")]
+    out["approx_median"] = out["median"]
+    valid, supp = c["l_suppkey:valid"], c["l_suppkey"].astype(np.int64)
+    hits = np.flatnonzero(valid & (supp == INDEX_SUPPLIER))
+    big = c["l_quantity"] > 45
+    out.update({
+        "supp_min": [int(supp[valid].min())],
+        "supp_max": [int(supp[valid].max())],
+        "fl_first": [int(supp[0]) if valid[0] else None],
+        "fl_last": [int(supp[-1]) if valid[-1] else None],
+        "idx": [int(hits[0]) if len(hits) else -1],
+        "any_big": [bool(big.any())], "all_big": [bool(big.all())],
+        "prod_line": [int(np.prod(c["l_linenumber"].astype(np.int64)))]})
+    return out
+
+
+def check_stats_scalar(c, result):
+    check_typed("stats (keys=[])", result, stats_scalar_oracle(c))
+    return (f"variance {result['variance'][0]:.6g}, median tax "
+            f"{result['median'][0]}, index of supplier {INDEX_SUPPLIER} "
+            f"{result['idx'][0]}")
+
+
+def stats_scalar_run(s, decl=None):
+    return (decl or stats_scalar_decl(s)).to_table()
+
+
+class StatsPath(NamedTuple):
+    """One path of phase 3g: ``run(inputs)`` gives its results,
+    ``check(host columns, results)`` holds them against numpy."""
+    name: str
+    run: object
+    check: object
+    launches: dict
+
+
+# Launches a run at SF10, reckoned from the code. sort_take, cumulative,
+# distinct and stats_scalar: sorts, scans, gathers and scatters, no kernel.
+# select: filter, array_filter and drop_null compact once each (3), take
+# gathers. stats_grouped: Q1's filter folds into both aggregates; by the
+# flags (12 slots) hash_variance's and hash_stddev's two sums each run the
+# grouped sum (4); the decimal mean, the integer sums, products and counts
+# add in int64; per order (15M groups) the sums and the product take the
+# sorted route (no kernel).
+STATS_PATHS = (
+    StatsPath("sort_take", sort_take_run, check_sort_take,
+              _launches(0, 0, 0)),
+    StatsPath("cumulative", cumulative_run, check_cumulative,
+              _launches(0, 0, 0)),
+    StatsPath("distinct", distinct_run, check_distinct, _launches(0, 0, 0)),
+    StatsPath("select", select_run, check_select, _launches(3, 0, 0)),
+    StatsPath("stats_grouped", stats_grouped_run, check_stats_grouped,
+              _launches(0, 0, 4)),
+    StatsPath("stats_scalar", stats_scalar_run, check_stats_scalar,
+              _launches(0, 0, 0)),
+)
+
+
+def stats_repeats(s):
+    """The float results phase 3g holds to the same bits on a second
+    run: cumulative_sum of l_extendedprice, both hash_variance results
+    (by flags, per order), the per-order hash_product and the quantiles
+    of l_tax."""
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    ctx = _context(s["lineitem"])
+    flags, orders = stats_grouped_decls(s)
+    flags_batch = execute_declaration(flags)
+    orders_batch = execute_declaration(orders)
+    tax = s["typed"].column("l_tax")
+    q = _call(_context(s["typed"]), "quantile", tax, q=QUANTILES,
+              interpolation="linear")
+    return [_call(ctx, "cumulative_sum",
+                  s["lineitem"].column("l_extendedprice")).values,
+            flags_batch.column("var_price").values,
+            orders_batch.column("var_price").values,
+            orders_batch.column("prod_disc").values,
+            torch.stack(list(q.value))]
+
+
+def phase_stats_kernels(s):
+    """The two kernels on phase 3g's paths against their plain versions
+    at the shapes the paths give them: the compaction of the select
+    path's supplier column (values and validity) under the nullable mask,
+    dropped and emitting nulls, bit for bit; the grouped sum of the flags'
+    hash_variance (its values and its squared deviations, 12 slots),
+    within RTOL_F64. Launches here are outside every path's count."""
+    from arrow_tpu_torch.compute.grouper import (group_ids,
+                                                 group_slot_bound_exact)
+    from arrow_tpu_torch.compute.selection import _buffers, selection_mask
+    from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
+                                                     grouped_sum_plain)
+    t = s["typed"]
+    ctx, supp = _context(t), t.column("l_suppkey")
+    for behavior in ("drop", "emit_null"):
+        keep, emit_null = selection_mask(ctx, s["mask"], behavior)
+        arrays, _ = _buffers([supp], emit_null)
+        compact_case(f"compact (select, {behavior}, n={keep.numel()})",
+                     keep, arrays)
+    keep = t.column("l_shipdate").values <= SHIPDATE_1998_09_02_S
+    fctx = _context(t)
+    fctx.row_mask_ = keep & ctx.row_mask()
+    keys = [t.column("l_returnflag"), t.column("l_linestatus")]
+    g = group_ids(fctx, keys)
+    nseg = group_slot_bound_exact(keys, t.capacity)
+    live = fctx.row_mask() & (g.group_ids < t.capacity)
+    seg = torch.where(live, g.group_ids, 0).to(torch.int32)
+    v = torch.where(live, t.column("l_extendedprice").values.double()
+                    * 0.01, 0.0)
+    err = check_close(f"grouped_sum (hash_variance sums, S={nseg})",
+                      grouped_sum(v, seg, nseg),
+                      grouped_sum_plain(v, seg, nseg), RTOL_F64)
+    counts = torch.zeros(nseg, dtype=torch.int64, device=v.device)
+    counts.index_add_(0, seg.long(), live.long())
+    mean = grouped_sum_plain(v, seg, nseg) / counts.clamp(min=1)
+    dev = torch.where(live, v - mean[seg.long()], 0.0)
+    err = max(err, check_close(
+        f"grouped_sum (hash_variance squares, S={nseg})",
+        grouped_sum(dev * dev, seg, nseg),
+        grouped_sum_plain(dev * dev, seg, nseg), RTOL_F64))
+    return err
+
+
+def _timed_check(path, cols, result):
+    t0 = time.perf_counter()
+    return path.check(cols, result), time.perf_counter() - t0
+
+
+def phase_stats(tables, typed):
+    """Phase 3g: the vector functions and the statistics aggregates at
+    SF10 over Q1's lineitem and phase 3f's typed lineitem, each path with
+    every launch count set to 0 just before its run and read just after,
+    against its numpy oracle, with the card's peak memory over the run;
+    then the float results run twice for the same bits. Returns (launches
+    by path, the inputs)."""
+    from arrow_tpu_torch.platform_check import self_check
+    log(f"== phase 3g: vector functions and statistics at SF{SF:g}")
+    t0 = time.perf_counter()
+    s = stats_inputs(tables["lineitem"], typed)
+    cols = stats_columns(s)
+    log(f"inputs made and downloaded in {time.perf_counter() - t0:.1f} s")
+    errs = phase_stats_kernels(s)
+    launches, failures, checks = {}, [], {}
+    # the paths run one by one; their numpy oracles run meanwhile, one
+    # thread each (numpy leaves the interpreter lock in its loops)
+    with concurrent.futures.ThreadPoolExecutor(len(STATS_PATHS)) as pool:
+        for path in STATS_PATHS:
+            base = memory_mark()
+            zero_launches()
+            self_check()
+            t1 = time.perf_counter()
+            result = path.run(s)
+            torch.cuda.synchronize()
+            log(f"{path.name} first run {time.perf_counter() - t1:.3f} s")
+            launches[path.name] = read_launches()
+            log_peak(path.name, base)
+            checks[path.name] = pool.submit(_timed_check, path, cols, result)
+            del result
+        for path in STATS_PATHS:
+            try:
+                msg, seconds = checks[path.name].result()
+                check_launches(path.name, launches[path.name], path.launches)
+                log(f"{path.name} matches its oracle: {msg} (oracle "
+                    f"{seconds:.1f} s)")
+            except AssertionError as exc:
+                log(f"  {path.name} FAILED: {exc}")
+                failures.append(path.name)
+    first, second = stats_repeats(s), stats_repeats(s)
+    check_bit_exact("phase 3g float results, two runs", first, second,
+                    "the first run")
+    if failures:
+        raise AssertionError(f"phase 3g failed for {failures}")
+    log(f"phase 3g: {time.perf_counter() - t0:.1f} s (kernels against "
+        f"their plain versions: max_abs_err {errs!r})")
+    return launches, s
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -2635,7 +3446,7 @@ def compact_times(card, q3_lineitem, lineitem):
     return recs
 
 
-def phase_times(card, launches, errs, tables, typed, params):
+def phase_times(card, launches, errs, tables, typed, params, stats):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
@@ -2698,9 +3509,10 @@ def phase_times(card, launches, errs, tables, typed, params):
             f"{best * 1e3:.3f} ms = {n_big / best:.6g} {big} rows/s "
             f"[{card}]")
         profile_run(q.name, run)
-    # phase 3e's and phase 3f's paths
+    # phase 3e's, phase 3f's and phase 3g's paths
     paths = [(p, node_path_run(p, p.build(tables))) for p in NODE_PATHS] + \
-        [(p, p.build(typed).to_table) for p in TYPED_PATHS]
+        [(p, p.build(typed).to_table) for p in TYPED_PATHS] + \
+        [(p, lambda p=p: p.run(stats)) for p in STATS_PATHS]
     for path, run in paths:
         walls, best = best_wall(run)
         log(f"{path.name} SF{SF:g}: wall "
@@ -2850,9 +3662,11 @@ def main() -> int:
         del cols
         typed_launches, typed = timed(phase_typed, tables)
         launches.update(typed_launches)
+        stats_launches, stats = timed(phase_stats, tables, typed)
+        launches.update(stats_launches)
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
-                            typed, params)
+                            typed, params, stats)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -121,7 +121,7 @@ _AGG_CASES = [
     ("hash_count", "float64", {}),
 ]
 
-# options Q1 does not use; the port raises until a query needs them
+# options Q1 does not use (ported with the aggregates, item 9.7)
 _UNPORTED_OPTS = [
     ("hash_sum", {"min_count": 0}), ("hash_sum", {"skip_nulls": False}),
     ("hash_mean", {"skip_nulls": False}),
@@ -150,12 +150,19 @@ _PY_NAMES = {"hash_sum": "grouped_sum", "hash_mean": "grouped_mean",
 
 @pytest.mark.parametrize("fname,opts", _UNPORTED_OPTS)
 def test_unported_options_raise(fname, opts):
-    rng, ctx, _, pkeys, _ = _setup(2, False, _KEY_SPECS["q1"])
+    """These options raised until the aggregates were ported (ROADMAP.md
+    queue 1, item 9.7); each now gives the reference's groups, validity
+    included, at the node's segment bound."""
+    rng, ctx, jctx, pkeys, jkeys = _setup(2, False, _KEY_SPECS["q1"])
     g = group_ids(ctx, pkeys)
-    pcol, _ = _value_col(rng, "float64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(hash_agg, _PY_NAMES[fname])(
-            ctx, pcol, g.group_ids, g.num_groups, **opts)
+    jg = jax_group_ids(jctx, jkeys)
+    nseg = group_slot_bound_exact(pkeys, CAP)
+    pcol, jcol = _value_col(rng, "float64")
+    port = getattr(hash_agg, _PY_NAMES[fname])(
+        ctx, pcol, g.group_ids, g.num_groups, num_segments=nseg, **opts)
+    jax = getattr(jax_hash_agg, _PY_NAMES[fname])(
+        jctx, jcol, jg.group_ids, jg.num_groups, num_segments=nseg, **opts)
+    _compare_column(port, jax, nseg, 1e-9)
 
 
 @pytest.mark.parametrize("filtered", [False, True])

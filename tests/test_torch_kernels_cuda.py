@@ -441,3 +441,127 @@ def test_suite_query_on_card_matches_oracle(query):
     assert n_rows > 0
     chip_smoke.check_result(query.name, chip_smoke.suite_plan(
         query, tables).to_table(), want)
+
+
+# --- the vector functions and statistics on the card -----------------------
+
+_TYPED_WIDTHS = {1: "int8", 2: "int16", 4: "uint32", 8: "float64"}
+
+
+def _typed_column(n, width, gen):
+    """A column of ``width`` bytes with every bit pattern and 10% nulls,
+    typed as the port types such a column."""
+    from arrow_tpu_torch.device.column import DeviceColumn
+    from arrow_tpu_torch.types import type_for_name
+    valid = torch.rand(n, generator=gen, device="cuda") >= 0.1
+    return DeviceColumn(_random_column(n, width, gen).view(
+        {1: torch.int8, 2: torch.int16, 4: torch.int32,
+         8: torch.float64}[width]), valid,
+        type_for_name(_TYPED_WIDTHS[width]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["drop", "emit_null", "drop_null"])
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+def test_filter_on_typed_columns_is_bit_exact(width, fn):
+    """``filter`` under a nullable mask (both behaviours) and
+    ``drop_null`` launch K2 once each; values and validity are those of
+    ``compact_plain`` on the same buffers, bit for bit."""
+    from arrow_tpu_torch.compute.registry import ExecContext, get_function
+    from arrow_tpu_torch.compute.selection import _buffers, selection_mask
+    from arrow_tpu_torch.device.column import DeviceColumn
+    from arrow_tpu_torch.types import type_for_name
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    n = (1 << 20) + 11
+    col = _typed_column(n, width, gen)
+    ctx = ExecContext(n + 5, torch.tensor(n - 3, dtype=torch.int32,
+                                          device="cuda"))
+    col = DeviceColumn(torch.cat([col.values, col.values[:5]]),
+                       torch.cat([col.validity, col.validity[:5]]), col.type)
+    mask = DeviceColumn(torch.rand(n + 5, generator=gen, device="cuda") < 0.4,
+                        torch.rand(n + 5, generator=gen, device="cuda") >= 0.2,
+                        type_for_name("bool"))
+    before = compact.launches
+    if fn == "drop_null":
+        got = get_function("drop_null").impl(ctx, col)
+        keep, extra = col.valid_mask(ctx.row_mask()), None
+    else:
+        got = get_function("filter").impl(ctx, col, mask,
+                                          null_selection_behavior=fn)
+        keep, extra = selection_mask(ctx, mask, fn)
+    torch.cuda.synchronize()
+    assert compact.launches == before + 1
+    arrays, _ = _buffers([col], extra)
+    want, count = compact_plain(keep, arrays)
+    assert int(got.count) == int(count)
+    assert torch.equal(_bits(got.column.values), _bits(want[0]))
+    assert torch.equal(got.column.validity, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_segments", [12, 1024])
+def test_hash_variance_sums_match_plain(num_segments):
+    """``hash_variance``'s two sums (the values, then the squared
+    deviations) go through K1 up to 1,024 groups: two launches, each
+    within 1e-9 of its plain version, and the variance within 1e-9 of
+    the one computed from the plain sums."""
+    from arrow_tpu_torch.compute.registry import ExecContext, get_function
+    from arrow_tpu_torch.device.column import DeviceColumn
+    from arrow_tpu_torch.types import type_for_name
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(num_segments)
+    n = (1 << 22) + 3
+    v = torch.randn(n, generator=gen, device="cuda",
+                    dtype=torch.float64) * 1e3 + 5e4
+    valid = torch.rand(n, generator=gen, device="cuda") >= 0.05
+    gids = torch.randint(0, num_segments, (n,), generator=gen,
+                         device="cuda")
+    ctx = ExecContext(n, torch.tensor(n, dtype=torch.int32, device="cuda"))
+    col = DeviceColumn(v, valid, type_for_name("float64"))
+    before = grouped_sum.launches
+    got = get_function("hash_variance").impl(
+        ctx, col, gids, torch.tensor(num_segments, device="cuda"),
+        num_segments=num_segments)
+    torch.cuda.synchronize()
+    assert grouped_sum.launches == before + 2
+    seg = gids.to(torch.int32)
+    x = torch.where(valid, v, 0.0)
+    counts = torch.zeros(num_segments, dtype=torch.int64, device="cuda")
+    counts.index_add_(0, gids, valid.long())
+    sums = grouped_sum(x, seg, num_segments)
+    torch.testing.assert_close(sums, grouped_sum_plain(x, seg, num_segments),
+                               atol=0, rtol=1e-9)
+    mean = grouped_sum_plain(x, seg, num_segments) / counts.clamp(min=1)
+    dev = torch.where(valid, x - mean[gids], 0.0)
+    squares = grouped_sum(dev * dev, seg, num_segments)
+    plain_squares = grouped_sum_plain(dev * dev, seg, num_segments)
+    torch.testing.assert_close(squares, plain_squares, atol=0, rtol=1e-9)
+    torch.testing.assert_close(got.column.values,
+                               plain_squares / counts.clamp(min=1),
+                               atol=0, rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_segment_product_and_scan_repeat_bit_for_bit():
+    """The float product over many segments (``segment_reduce`` with
+    "prod" on the card) and the blocked cumulative sum give the same bits
+    on every run, and agree with the CPU within 1e-12."""
+    from arrow_tpu_torch.compute.move import segment_product
+    from arrow_tpu_torch.compute.vector_sort import _scan
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = (1 << 22) + 7
+    v = 1.0 + torch.rand(n, generator=gen, device="cuda",
+                         dtype=torch.float64) * 1e-3
+    gids = torch.randint(0, 1 << 20, (n,), generator=gen, device="cuda")
+    live = torch.rand(n, generator=gen, device="cuda") >= 0.1
+    first = segment_product(v, gids, 1 << 20, live)
+    assert torch.equal(first, segment_product(v, gids, 1 << 20, live))
+    torch.testing.assert_close(
+        first.cpu(), segment_product(v.cpu(), gids.cpu(), 1 << 20,
+                                     live.cpu()), atol=0, rtol=1e-12)
+    s1 = _scan(v, "sum")
+    assert torch.equal(s1, _scan(v, "sum"))
+    torch.testing.assert_close(s1.cpu(), _scan(v.cpu(), "sum"), atol=0,
+                               rtol=1e-12)

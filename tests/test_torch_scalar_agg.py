@@ -8,7 +8,8 @@ aggregate node of the port against the JAX package.
   result type must match; floats within rtol 1e-9.
 * The node: one row at the block capacity, value and validity at row 0;
   a filter below it folds into it as a row mask, so no row moves; an
-  empty filter window gives nulls; options other than the defaults raise.
+  empty filter window gives nulls; the null options (``skip_nulls``,
+  ``min_count``, count modes) give the reference's results.
 """
 
 import jax.numpy as jnp
@@ -169,12 +170,21 @@ def test_scalar_aggregate_output_layout():
     ("sum", {"skip_nulls": False}), ("mean", {"min_count": 0}),
     ("min", {"skip_nulls": False}), ("count", {"mode": "all"})])
 def test_scalar_aggregate_options_raise(fn, opts):
-    batch = carry_across(upload_table(_scalar_table(
-        np.random.default_rng(6))))
-    plan = tacero.Declaration.from_sequence([
-        tacero.Declaration("table_source",
-                           tacero.TableSourceNodeOptions(batch)),
-        tacero.Declaration("aggregate", tacero.AggregateNodeOptions(
-            [("x", fn, opts, "out")], keys=[]))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan.to_table()
+    """These options raised until the aggregates were ported (ROADMAP.md
+    queue 1, item 9.7); the plan now runs them and gives the reference's
+    table, over a column with nulls and over an empty filter window."""
+    table = _scalar_table(np.random.default_rng(6))
+    batch = carry_across(upload_table(table))
+
+    def plan(mod, t, hi):
+        return mod.Declaration.from_sequence([
+            mod.Declaration("table_source", mod.TableSourceNodeOptions(t)),
+            mod.Declaration("filter", mod.FilterNodeOptions(
+                mod.field("k") < hi)),
+            mod.Declaration("aggregate", mod.AggregateNodeOptions(
+                [("x", fn, opts, "out")], keys=[]))])
+
+    for hi in (900, 0):
+        got = plan(tacero, batch, hi).to_table()
+        assert_tables_match(got, plan(jacero, table, hi).to_table()
+                            .to_pydict())
