@@ -4,11 +4,12 @@ DeviceBatch through the compute registry. A comparison of a
 dictionary-coded column with a literal translates the literal through the
 host dictionary, and one of two dictionary-coded columns re-encodes both
 against their sorted union dictionary (``unify_device_dicts``) and
-compares the codes; the string predicates (``compute/strings.py``) and
-``if_else`` take dictionary-coded columns themselves; ``is_in`` looks the
-value set up by dictionary slot (``compute/vector_misc.py``) and keeps a
-null row null, as the reference's plans do. Every other function raises
-on a dictionary-coded column."""
+compares the codes; the string functions (``compute/strings.py`` and
+``compute/extra_kernels.py``) and ``if_else`` take dictionary-coded
+columns themselves; ``is_in`` looks the value set up by dictionary slot
+(``compute/vector_misc.py``) and keeps a null row null, as the
+reference's plans do. Every other function raises on a dictionary-coded
+column."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import types as T
+from ..compute import extra_kernels  # noqa: F401 - registers string names
 from ..compute.elementwise import unify_device_dicts
 from ..compute.registry import ExecContext, get_function
 from ..compute.strings import STRING_FUNCTIONS, slot_lookup
@@ -113,7 +115,7 @@ class Expression:
 _COMPARISONS = ("equal", "not_equal", "less", "less_equal", "greater",
                 "greater_equal")
 # functions that take dictionary-coded columns themselves
-_DICTIONARY_FUNCTIONS = STRING_FUNCTIONS + ("if_else",)
+_DICTIONARY_FUNCTIONS = frozenset(STRING_FUNCTIONS + ["if_else"])
 
 
 def _evaluate(expr: Expression, batch: DeviceBatch, ctx: ExecContext):

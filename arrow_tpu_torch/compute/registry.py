@@ -52,19 +52,33 @@ def register_alias(alias: str, name: str):
 
 
 # names of the reference's registry that are not ported yet, by the
-# ROADMAP item (queue 1) that holds them; any other unknown name is item 9
-_QUEUED = {"tdigest": "9.9", "hash_tdigest": "9.9", "hash32": "10",
-           **{n: "11" for n in ("list", "distinct", "pivot_wider",
-                                "hash_list", "hash_distinct",
-                                "hash_pivot_wider")}}
+# ROADMAP item (queue 1) that holds them; any other unknown name is item 9.
+# Item 11 holds every name the reference registers for its host tier.
+_HOST_TIER = (
+    "ascii_split_whitespace", "binary_join", "day_time_interval_between",
+    "dictionary_decode", "extract_regex", "extract_regex_span",
+    "iso_calendar", "list_element", "list_flatten", "list_parent_indices",
+    "list_slice", "list_value_length", "make_struct", "map_lookup", "mode",
+    "month_day_nano_interval_between", "pivot_wider", "random",
+    "run_end_decode", "split_pattern", "split_pattern_regex", "strftime",
+    "strptime", "struct_field", "utf8_split_whitespace", "year_month_day")
+_QUEUED = {
+    **{n: "9.9" for n in (
+        "hypot", "round_binary", "indices_nonzero", "winsorize",
+        "rank_quantile", "rank_normal", "tdigest", "hash_tdigest",
+        "hash_first_last", "hash_skew", "hash_kurtosis",
+        "hash_approximate_median")},
+    "hash32": "10",
+    **{n: "11" for n in _HOST_TIER + ("list", "distinct", "hash_list",
+                                       "hash_distinct", "hash_pivot_wider")}}
 
 
 def get_function(name: str) -> Function:
     if name not in _REGISTRY:
         # the modules that register functions, imported on first lookup
-        from . import (aggregate, elementwise, grouper,  # noqa: F401
-                       hash_agg, selection, strings, temporal, vector_misc,
-                       vector_sort)
+        from . import (aggregate, elementwise, extra_kernels,  # noqa: F401
+                       grouper, hash_agg, selection, strings, temporal,
+                       vector_misc, vector_sort)
     f = _REGISTRY.get(name)
     if f is None:
         raise NotImplementedError(

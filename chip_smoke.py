@@ -93,6 +93,24 @@ Phases; any failure exits non-zero without the final line:
    runs), with its launches exact; the compaction and the grouped sum
    against their plain versions at the shapes these paths give them; the
    float results run twice, bit for bit.
+   Then (3h) the temporal and string functions (``STRING_PATHS``):
+   temporal_fields, every temporal name with every option over six
+   columns (lineitem's date32 ship date, the typed timestamp[s] and
+   date64, and a timestamp[ns] with nulls, a time64[us] and a
+   duration[ms] made on the card), each result held on the card against
+   numpy's datetime64 units and Python's ``datetime`` over the distinct
+   inputs; temporal_plan, a calendar filter and projection of lineitem;
+   strings_pool, every str -> str name on ``p_name`` (2M values, the byte
+   pool) and on ``p_type`` (the host tier) and every predicate and length
+   on ``p_name``, ``p_type`` and ``c_comment`` against Python's ``str``
+   and ``re``, and p_brand, p_container and a separator joined;
+   strings_plan, lineitem joined to part, a regex filter, revenue by two
+   keys made of string functions (7 and 201 slots: K1 and K3), against
+   numpy and run twice for the same bits; the pool and host tiers of two
+   of p_name's transforms, the same dictionary and codes; Q22 again, its
+   slice of ``c_phone`` on the byte pool. Launches exact; the compaction,
+   the hash and the grouped sum against their plain versions at these
+   paths' shapes.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -100,10 +118,11 @@ Phases; any failure exits non-zero without the final line:
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
 4. Times after a warm-up: Q1, Q3, Q4, Q13, the suite's and the last
-   eleven plans' rows/s of their largest input and phase 3e's, 3f's and
-   3g's walls (best of 5), a profile of one run of each (device busy time and
-   idle share), each kernel's time beside its bound, its plain version's
-   and one library call's where there is one (the compaction at five
+   eleven plans' rows/s of their largest input and phase 3e's, 3f's, 3g's
+   and 3h's walls (best of 5; one run for 3h's two sweeps, which phase
+   3h ran), a profile of one run of each (device busy time and idle
+   share), each kernel's time beside its bound, its plain version's and
+   one library call's where there is one (the compaction at five
    shapes: Q3's filter, its mask over 2-byte columns and over one bool
    column, Q4's filter over all 15 columns and Q18's sparse HAVING filter,
    each with its device time split by kernel name), by CUDA events around
@@ -120,10 +139,14 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import datetime
+import functools
 import json
+import re
 import sys
 import time
 import traceback
+import unicodedata
 from typing import NamedTuple
 
 import numpy as np
@@ -2994,6 +3017,1033 @@ def phase_stats(tables, typed):
     return launches, s
 
 
+# --- phase 3h: the temporal and string functions -----------------------------
+
+TEMPORAL_SEED = 13
+OFFSET_SLOTS = 1_009            # seeded offsets within the day, by ship day
+TEMPORAL_NULLS = 0.01           # the share of the timestamp[ns] column's nulls
+NS_PER_DAY = 86_400 * 10 ** 9
+EPOCH = datetime.date(1970, 1, 1)
+TEMPORAL_COLUMNS = ("date32", "timestamp[s]", "date64", "timestamp[ns]",
+                    "time64[us]", "duration[ms]")
+TEMPORAL_UNARY = ("year", "month", "day", "hour", "minute", "second",
+                  "millisecond", "microsecond", "nanosecond", "quarter",
+                  "day_of_year", "iso_year", "iso_week", "us_week",
+                  "us_year", "is_leap_year", "is_dst", "subsecond")
+ROUNDINGS = (("day", 1, True), ("week", 1, True), ("week", 1, False),
+             ("month", 1, True), ("quarter", 1, True), ("year", 1, True),
+             ("minute", 15, True))
+BETWEEN = ("years_between", "quarters_between", "month_interval_between",
+           "days_between", "hours_between", "minutes_between",
+           "seconds_between", "milliseconds_between", "microseconds_between",
+           "nanoseconds_between")
+BETWEEN_PAIRS = (("date32", "receipt"), ("timestamp[ns]", "date64"))
+
+
+def temporal_calls():
+    """(function, input column names, options) of the temporal_fields
+    path: every temporal name over the six columns; every option of
+    ``day_of_week`` and ``week`` over the date32 column; the three
+    roundings at day, week (both starts), month, quarter, year and 15
+    minutes over the date32 and timestamp[ns] columns, floor_temporal at
+    those units over the other roundable ones; each ``*_between`` of the
+    two pairs. (Each call is some tens of integer divisions over 60M rows
+    on the card, so the options' product stays on two columns.)"""
+    roundings = ("floor_temporal", "ceil_temporal", "round_temporal")
+    calls = []
+    for c in TEMPORAL_COLUMNS:
+        calls += [(fn, (c,), {}) for fn in TEMPORAL_UNARY]
+        every = c == "date32"
+        calls += [("day_of_week", (c,), {"count_from_zero": z,
+                                         "week_start": s})
+                  for z in (True, False) for s in range(1, 8)
+                  if every or (z, s) == (True, 1)]
+        calls += [("week", (c,), {"week_starts_monday": m,
+                                  "count_from_zero": z,
+                                  "first_week_is_fully_in_year": f})
+                  for m in (True, False) for z in (False, True)
+                  for f in (False, True) if every or (m, z, f) == (
+                      True, False, False)]
+        if c != "duration[ms]":
+            calls += [(fn, (c,), {"unit": u, "multiple": k,
+                                  "week_starts_monday": m})
+                      for fn in roundings for u, k, m in ROUNDINGS
+                      if c in ("date32", "timestamp[ns]")
+                      or fn == "floor_temporal"]
+        if c.startswith("timestamp"):
+            calls += [("local_timestamp", (c,), {}),
+                      ("assume_timezone", (c,), {"timezone": "UTC"})]
+    for pair in BETWEEN_PAIRS:
+        calls += [(fn, pair, {}) for fn in BETWEEN]
+        calls += [("weeks_between", pair, {"week_start": s})
+                  for s in (1, 4, 7)]
+    return calls
+
+
+def temporal_inputs(lineitem, typed, seed=TEMPORAL_SEED):
+    """Phase 3h's temporal columns: Q1's lineitem's ``l_shipdate`` (date32)
+    and ``l_receiptdate``, the typed lineitem's ``l_shipdate``
+    (timestamp[s]) and ``l_commitdate`` (date64), and three made on the
+    card: a timestamp[ns] of the ship day plus an offset within the day
+    (one of ``OFFSET_SLOTS`` drawn from a generator seeded with ``seed``,
+    by the ship day; ``TEMPORAL_NULLS`` of its rows null), the time64[us]
+    of that offset and the duration[ms] from ship to receipt. Each input
+    has its distinct values (host) and each live row's index among them
+    (card), which the oracles read."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.device.column import DeviceColumn
+    dev = lineitem.row_count.device
+    n = int(lineitem.row_count)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    offsets = torch.randint(0, NS_PER_DAY, (OFFSET_SLOTS,), generator=gen,
+                            device=dev)
+    ship = lineitem.column("l_shipdate").values.long()
+    receipt = lineitem.column("l_receiptdate").values.long()
+    off = offsets[ship % OFFSET_SLOTS]
+    valid = torch.rand(lineitem.capacity, generator=gen,
+                       device=dev) >= TEMPORAL_NULLS
+    cols = {
+        "date32": lineitem.column("l_shipdate"),
+        "receipt": lineitem.column("l_receiptdate"),
+        "timestamp[s]": typed["lineitem"].column("l_shipdate"),
+        "date64": typed["lineitem"].column("l_commitdate"),
+        "timestamp[ns]": DeviceColumn(ship * NS_PER_DAY + off, valid,
+                                      T.timestamp("ns")),
+        "time64[us]": DeviceColumn(off // 1000, None, T.time64("us")),
+        "duration[ms]": DeviceColumn((receipt - ship) * 86_400_000, None,
+                                     T.duration("ms")),
+    }
+    distinct = {}
+    for key, col in cols.items():
+        vals, inv = torch.unique(col.values[:n].long(), return_inverse=True)
+        distinct[key] = ([vals.cpu().numpy()], inv)
+    return {"cols": cols, "n": n, "distinct": distinct}
+
+
+def _np_time(values, t):
+    """Stored values of temporal type ``t`` as numpy datetime64 of its
+    unit (a time or a duration counts from the epoch, as in the
+    reference)."""
+    from arrow_tpu_torch.types import TypeId
+    unit = {TypeId.DATE32: "D", TypeId.DATE64: "ms"}.get(t.id) or t.unit
+    return values.astype(np.int64).astype(f"datetime64[{unit}]")
+
+
+# the days the calendar table covers: 1900-01-01 to 2099-12-31
+CALENDAR_DAYS = (-25_567, 47_482)
+
+
+def _calendar_table():
+    """Python's ``datetime`` fields of every day of ``CALENDAR_DAYS``:
+    year, month, day, weekday (Monday 0), day of the year, ISO year and
+    week, and the ISO year and week of the next day."""
+    lo, hi = CALENDAR_DAYS
+    dates = [EPOCH + datetime.timedelta(days=d) for d in range(lo, hi + 1)]
+    iso = [d.isocalendar() for d in dates]
+    return {"year": [d.year for d in dates],
+            "month": [d.month for d in dates],
+            "day": [d.day for d in dates],
+            "weekday": [d.weekday() for d in dates],
+            "yday": [d.timetuple().tm_yday for d in dates],
+            "iso_year": [i[0] for i in iso], "iso_week": [i[1] for i in iso],
+            "us_year": [i[0] for i in iso[1:]] + [iso[-1][0]],
+            "us_week": [i[1] for i in iso[1:]] + [iso[-1][1]]}
+
+
+_CALENDAR = {}
+
+
+def calendar(days):
+    """The calendar table's fields of each day number (of the table's
+    range but its last day)."""
+    if not _CALENDAR:
+        _CALENDAR.update({k: np.array(v, dtype=np.int64)
+                          for k, v in _calendar_table().items()})
+    lo, hi = CALENDAR_DAYS
+    i = np.asarray(days, dtype=np.int64) - lo
+    if i.size and (i.min() < 0 or i.max() >= hi - lo):
+        raise AssertionError(f"days outside the calendar table: "
+                             f"{i.min() + lo}..{i.max() + lo}")
+    return {k: v[i] for k, v in _CALENDAR.items()}
+
+
+def _day_numbers(us):
+    return us.astype("datetime64[D]").astype(np.int64)
+
+
+def _round_oracle(fn, us, t, unit, multiple, monday):
+    """floor/ceil/round of ``us`` (datetime64[us]) by numpy's calendar
+    units, back in type ``t``'s unit. Weeks start on Sundays where
+    ``week_starts_monday`` and on Mondays where not: the reference's
+    swap, kept (ROADMAP.md §3). A ceil to months, quarters or years moves
+    a value on the boundary up, as the reference's does."""
+    from arrow_tpu_torch.types import TypeId
+    step = None
+    if unit == "day":
+        lo = us.astype("datetime64[D]").astype("datetime64[us]")
+        step = np.timedelta64(1, "D")
+    elif unit == "week":
+        start = np.datetime64("1970-01-04" if monday else "1970-01-05")
+        weeks = (us.astype("datetime64[D]") - start) // np.timedelta64(7, "D")
+        lo = (start + weeks * np.timedelta64(7, "D")).astype("datetime64[us]")
+        step = np.timedelta64(7, "D")
+    elif unit == "minute":
+        minutes = us.astype("datetime64[m]").astype(np.int64)
+        lo = (minutes // multiple * multiple).astype("datetime64[m]") \
+            .astype("datetime64[us]")
+        step = np.timedelta64(multiple, "m")
+    else:
+        per = {"month": 1, "quarter": 3, "year": 12}[unit] * multiple
+        months = us.astype("datetime64[M]").astype(np.int64)
+        lo_m = months // per * per
+        lo = lo_m.astype("datetime64[M]").astype("datetime64[us]")
+        hi = (lo_m + per).astype("datetime64[M]").astype("datetime64[us]")
+    if step is not None:
+        hi = lo + step
+    if fn == "floor_temporal":
+        out = lo
+    elif fn == "ceil_temporal":
+        out = hi if step is None else np.where(us == lo, lo, hi)
+    else:
+        out = np.where(us - lo < hi - us, lo, hi)
+    unit_out = {TypeId.DATE32: "D", TypeId.DATE64: "ms"}.get(t.id) or t.unit
+    return out.astype(f"datetime64[{unit_out}]").astype(np.int64)
+
+
+def temporal_oracle(fn, types, values, opts):
+    """(expected values over the distinct inputs, expected type) of a
+    temporal call of one column, by numpy's datetime64 units and Python's
+    datetime."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.types import TypeId
+    t = types[0]
+    dt = _np_time(values[0], t)
+    us = dt.astype("datetime64[us]")
+    if fn in ("floor_temporal", "ceil_temporal", "round_temporal"):
+        return _round_oracle(fn, us, t, opts["unit"], opts["multiple"],
+                             opts["week_starts_monday"]), t
+    if fn == "local_timestamp":
+        return values[0], T.timestamp(t.unit)
+    if fn == "assume_timezone":
+        return values[0], T.timestamp(t.unit, opts["timezone"])
+    days = _day_numbers(us)
+    cal = calendar(days)
+    clock = {u: us.astype(f"datetime64[{u}]") for u in ("h", "m", "s", "ms")}
+    day = us.astype("datetime64[D]")
+    if fn == "day_of_week":
+        out = (cal["weekday"] - (opts["week_start"] - 1)) % 7
+        return out + (0 if opts["count_from_zero"] else 1), T.int64()
+    if fn == "week":
+        shift = 0 if opts["week_starts_monday"] else 1
+        wk = calendar(days + shift)["iso_week"]
+        if opts["first_week_is_fully_in_year"]:
+            jan1 = _day_numbers(us.astype("datetime64[Y]"))
+            wk = np.where((calendar(jan1)["weekday"] + shift) % 7 != 0,
+                          wk - 1, wk)
+        return wk - (1 if opts["count_from_zero"] else 0), T.int64()
+    if fn == "subsecond":
+        return ((us - clock["s"]) // np.timedelta64(1, "us")) / 1e6, \
+            T.float64()
+    if fn in ("is_leap_year", "is_dst"):
+        y = cal["year"]
+        leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
+        return (leap if fn == "is_leap_year"
+                else np.zeros(len(y), dtype=np.bool_)), T.bool_()
+    ns = t.id in (TypeId.TIMESTAMP, TypeId.TIME64, TypeId.DURATION) \
+        and t.unit == "ns"
+    out = {"year": lambda: cal["year"], "month": lambda: cal["month"],
+           "day": lambda: cal["day"],
+           "quarter": lambda: (cal["month"] - 1) // 3 + 1,
+           "day_of_year": lambda: cal["yday"],
+           "iso_year": lambda: cal["iso_year"],
+           "iso_week": lambda: cal["iso_week"],
+           "us_year": lambda: cal["us_year"],
+           "us_week": lambda: cal["us_week"],
+           "hour": lambda: (clock["h"] - day) // np.timedelta64(1, "h"),
+           "minute": lambda: (clock["m"] - clock["h"])
+           // np.timedelta64(1, "m"),
+           "second": lambda: (clock["s"] - clock["m"])
+           // np.timedelta64(1, "s"),
+           "millisecond": lambda: (clock["ms"] - clock["s"])
+           // np.timedelta64(1, "ms"),
+           "microsecond": lambda: (us - clock["ms"])
+           // np.timedelta64(1, "us"),
+           "nanosecond": lambda: (dt - us) // np.timedelta64(1, "ns") if ns
+           else np.zeros(len(days), dtype=np.int64)}[fn]()
+    return out, T.int64()
+
+
+def _between_parts(values, t, week_start):
+    """The per-value indices a ``*_between`` subtracts: microseconds and
+    days since the epoch, year, quarter and month counts, and the day
+    number of the value's week's start (weeks starting on ``week_start``,
+    1 = Monday), by numpy's datetime64 and Python's calendar."""
+    us = _np_time(values, t).astype("datetime64[us]")
+    days = _day_numbers(us)
+    cal = calendar(days)
+    return {"us": us.astype(np.int64), "days": days, "year": cal["year"],
+            "quarter": cal["year"] * 4 + (cal["month"] - 1) // 3,
+            "month": cal["year"] * 12 + cal["month"],
+            "week": days - (cal["weekday"] - (week_start - 1)) % 7}
+
+
+# *_between of a span in microseconds: its unit in microseconds (0: the
+# span times 1,000, in nanoseconds)
+_SPAN_UNITS = {"hours_between": 3_600_000_000, "minutes_between": 60_000_000,
+               "seconds_between": 1_000_000, "milliseconds_between": 1000,
+               "microseconds_between": 1, "nanoseconds_between": 0}
+# *_between of a calendar count: the index it subtracts
+_COUNTS = {"years_between": "year", "quarters_between": "quarter",
+           "month_interval_between": "month", "days_between": "days",
+           "weeks_between": "week"}
+
+
+def between_expected(fn, types, distinct, opts):
+    """(expected values on the card, expected type) of ``fn(a, b)``: each
+    column's parts over its distinct values, gathered by each row's index
+    among them on the card and subtracted there; a span in microseconds
+    floor-divided by its unit."""
+    from arrow_tpu_torch import types as T
+    parts = []
+    for t, (values, inv) in zip(types, distinct):
+        p = _between_parts(values[0], t, opts.get("week_start", 1))
+        key = "us" if fn in _SPAN_UNITS else _COUNTS[fn]
+        parts.append(torch.from_numpy(p[key]).to(inv.device)[inv])
+    diff = parts[1] - parts[0]
+    if fn == "weeks_between":
+        return diff // 7, T.int64()
+    if fn == "month_interval_between":
+        return diff, T.month_interval()
+    if fn in _SPAN_UNITS:
+        unit = _SPAN_UNITS[fn]
+        return (diff * 1000 if unit == 0 else torch.div(
+            diff, unit, rounding_mode="floor")), T.int64()
+    return diff, T.int64()
+
+
+class CardCheck:
+    """Holds results against expected tables on the card: each check
+    gathers a table over distinct inputs by each live row's index and
+    compares, keeping a 0-d flag; ``failures()`` reads the flags back
+    once."""
+
+    def __init__(self):
+        self.labels, self.flags = [], []
+        self.seconds = 0.0   # host time of the oracles and checks
+
+    def start(self, got):
+        """Waits for ``got`` on the card and starts the oracle's clock."""
+        if got.values.is_cuda:
+            torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        self.seconds += time.perf_counter() - self.t0
+
+    def values(self, label, got, table, inv, valid=None):
+        """``got`` (a column) equals ``table[inv]`` on its first
+        ``len(inv)`` rows, and its validity equals ``valid`` there (None:
+        none or all valid)."""
+        self.tensor(label, got, torch.from_numpy(np.ascontiguousarray(
+            table)).to(got.values.device)[inv], valid)
+
+    def tensor(self, label, got, exp, valid=None):
+        """``got`` (a column) equals ``exp`` (a tensor on its device) on
+        its first ``len(exp)`` rows, and its validity equals ``valid``
+        there."""
+        n = exp.numel()
+        g = got.values[:n]
+        if exp.dtype == torch.bool:
+            ok = torch.equal(g, exp)
+        elif exp.dtype.is_floating_point:
+            ok = torch.equal(g.double(), exp.double())
+        else:
+            ok = torch.equal(g.long(), exp.long())
+        flag = torch.tensor(ok, device=g.device)
+        if valid is None:
+            if got.validity is not None:
+                flag = flag & got.validity[:n].all()
+        elif got.validity is None:
+            flag = flag & valid[:n].all()
+        else:
+            flag = flag & torch.equal(got.validity[:n], valid[:n])
+        self.labels.append(label)
+        self.flags.append(flag)
+
+    def host(self, label, ok):
+        self.labels.append(label)
+        self.flags.append(torch.tensor(bool(ok)))
+
+    def failures(self):
+        flags = torch.stack([f.cpu() for f in self.flags]).tolist()
+        return [lab for lab, ok in zip(self.labels, flags) if not ok]
+
+
+def _label(fn, names, opts):
+    args = ", ".join(names) + "".join(f", {k}={v!r}" for k, v in opts.items())
+    return f"{fn}({args})"
+
+
+def temporal_fields_run(h, check=None):
+    """Every call of ``temporal_calls()`` over the inputs of
+    ``temporal_inputs``; with ``check`` each result is held against its
+    oracle as soon as it is made (and dropped)."""
+    from arrow_tpu_torch.compute.elementwise import _and_validity
+    cols = h["cols"]
+    date32 = cols["date32"]
+    ctx = _rows_context(date32.capacity, torch.tensor(
+        h["n"], device=date32.values.device))
+    for fn, names, opts in temporal_calls():
+        got = _call(ctx, fn, *[cols[k] for k in names], **opts)
+        if check is None:
+            continue
+        check.start(got)
+        types = [cols[k].type for k in names]
+        valid = _and_validity(*(cols[k].validity for k in names))
+        label = _label(fn, names, opts)
+        if len(names) == 2:
+            exp, out_type = between_expected(
+                fn, types, [h["distinct"][k] for k in names], opts)
+            check.tensor(label, got, exp, valid)
+        else:
+            values, inv = h["distinct"][names[0]]
+            table, out_type = temporal_oracle(fn, types, values, opts)
+            check.values(label, got, table, inv, valid)
+        check.host(label + " type", got.type == out_type)
+        check.stop()
+    return check
+
+
+# temporal_plan: a filter on the calendar and a projection of its fields
+def temporal_plan(lineitem, ac=None):
+    """lineitem's Friday and Saturday shipments of the fourth quarter
+    received more than 20 days after their commit date: their ship year,
+    ISO week and month, order key and price."""
+    ac = _acero(ac)
+    D, f, call = ac.Declaration, ac.field, ac.Expression.call
+    ship = f("l_shipdate")
+    return D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(lineitem)),
+        D("filter", ac.FilterNodeOptions(
+            (call("day_of_week", ship, week_start=7) >= 5)
+            & (call("quarter", ship) == 4)
+            & (call("days_between", f("l_commitdate"), f("l_receiptdate"))
+               > 20))),
+        D("project", ac.ProjectNodeOptions(
+            [call("year", ship), call("iso_week", ship),
+             call("floor_temporal", ship, unit="month"), f("l_orderkey"),
+             f("l_extendedprice")],
+            ["l_year", "l_week", "l_month", "l_orderkey",
+             "l_extendedprice"])),
+    ])
+
+
+def temporal_plan_oracle(c):
+    """The plan in numpy over the downloaded lineitem columns, the
+    calendar from Python's datetime over the day range."""
+    ship, commit, receipt = (c[k].astype(np.int64) for k in (
+        "l_shipdate", "l_commitdate", "l_receiptdate"))
+    lo = int(ship.min())
+    cal = calendar(np.arange(lo, int(ship.max()) + 1))
+    i = ship - lo
+    sunday0 = (cal["weekday"][i] + 1) % 7
+    keep = (sunday0 >= 5) & ((cal["month"][i] - 1) // 3 + 1 == 4) \
+        & (receipt - commit > 20)
+    idx = i[keep]
+    first = np.array([(datetime.date(int(y), int(m), 1) - EPOCH).days
+                      for y, m in zip(cal["year"], cal["month"])])
+    return {"l_year": cal["year"][idx].tolist(),
+            "l_week": cal["iso_week"][idx].tolist(),
+            "l_month": [EPOCH + datetime.timedelta(days=int(d))
+                        for d in first[idx]],
+            "l_orderkey": c["l_orderkey"][keep].tolist(),
+            "l_extendedprice": c["l_extendedprice"][keep]}, int(keep.sum())
+
+
+def check_temporal_plan(c, result):
+    want, kept = temporal_plan_oracle(c)
+    check_result("temporal_plan", result, want)
+    return f"{kept} rows kept, fields and row order exact"
+
+
+# strings: str -> str, predicates and lengths over part and customer
+def _zero_fill(v, width, padding):
+    if v and v[0] not in "+-":
+        return v.rjust(width, padding)
+    return v[0] + v[1:].rjust(width - 1, padding) if v else v
+
+
+def _regex_find(rx, v):
+    m = rx.search(v)
+    return m.start() if m else -1
+
+
+@functools.lru_cache(maxsize=None)
+def _regex(pattern, flags=0):
+    return re.compile(pattern, flags)
+
+
+# name -> Python's function of one value and the options
+STR_ORACLES = {
+    "utf8_upper": lambda v: v.upper(), "utf8_lower": lambda v: v.lower(),
+    "utf8_swapcase": lambda v: v.swapcase(),
+    "utf8_capitalize": lambda v: v.capitalize(),
+    "utf8_title": lambda v: v.title(), "utf8_reverse": lambda v: v[::-1],
+    "binary_reverse": lambda v: v[::-1],
+    "utf8_trim_whitespace": lambda v: v.strip(),
+    "utf8_ltrim_whitespace": lambda v: v.lstrip(),
+    "utf8_rtrim_whitespace": lambda v: v.rstrip(),
+    "utf8_trim": lambda v, characters: v.strip(characters),
+    "utf8_ltrim": lambda v, characters: v.lstrip(characters),
+    "utf8_rtrim": lambda v, characters: v.rstrip(characters),
+    "utf8_lpad": lambda v, width, padding=" ": v.rjust(width, padding),
+    "utf8_rpad": lambda v, width, padding=" ": v.ljust(width, padding),
+    "utf8_center": lambda v, width, padding=" ": v.center(width, padding),
+    "utf8_slice_codeunits": lambda v, start, stop=None, step=1:
+        v[start:stop:step],
+    "binary_slice": lambda v, start, stop=None, step=1: v[start:stop:step],
+    "binary_repeat": lambda v, num_repeats: v * num_repeats,
+    "utf8_zero_fill": lambda v, width, padding="0":
+        _zero_fill(v, width, padding),
+    "utf8_normalize": lambda v, form: unicodedata.normalize(form, v),
+    "utf8_replace_slice": lambda v, start, stop, replacement:
+        v[:start] + replacement + v[stop:],
+    "binary_replace_slice": lambda v, start, stop, replacement:
+        v[:start] + replacement.decode() + v[stop:],
+    "replace_substring": lambda v, pattern, replacement:
+        v.replace(pattern, replacement),
+    "replace_substring_regex": lambda v, pattern, replacement:
+        _regex(pattern).sub(replacement, v),
+    "utf8_is_alnum": str.isalnum, "utf8_is_alpha": str.isalpha,
+    "utf8_is_decimal": str.isdecimal, "utf8_is_digit": str.isdigit,
+    "utf8_is_numeric": str.isnumeric, "utf8_is_lower": str.islower,
+    "utf8_is_upper": str.isupper, "utf8_is_space": str.isspace,
+    "utf8_is_title": str.istitle, "utf8_is_printable": str.isprintable,
+    "ascii_is_alnum": lambda v: v.isascii() and v.isalnum(),
+    "ascii_is_alpha": lambda v: v.isascii() and v.isalpha(),
+    "ascii_is_decimal": lambda v: v.isascii() and v.isdecimal(),
+    "ascii_is_lower": lambda v: v.isascii() and v.islower(),
+    "ascii_is_upper": lambda v: v.isascii() and v.isupper(),
+    "ascii_is_space": lambda v: v.isascii() and v.isspace(),
+    "ascii_is_printable": str.isprintable, "ascii_is_title": str.istitle,
+    "string_is_ascii": str.isascii, "utf8_length": len,
+    "binary_length": lambda v: len(v.encode()),
+    "match_substring": lambda v, pattern, ignore_case=False:
+        (pattern.lower() in v.lower()) if ignore_case else pattern in v,
+    "starts_with": lambda v, pattern: v.startswith(pattern),
+    "ends_with": lambda v, pattern: v.endswith(pattern),
+    "match_like": lambda v, pattern: _regex(
+        pattern.replace("%", ".*").replace("_", "."), re.S).fullmatch(v)
+    is not None,
+    "count_substring": lambda v, pattern, ignore_case=False:
+        v.lower().count(pattern.lower()) if ignore_case
+        else v.count(pattern),
+    "find_substring": lambda v, pattern, ignore_case=False:
+        v.lower().find(pattern.lower()) if ignore_case else v.find(pattern),
+    "match_substring_regex": lambda v, pattern:
+        _regex(pattern).search(v) is not None,
+    "count_substring_regex": lambda v, pattern:
+        len(_regex(pattern).findall(v)),
+    "find_substring_regex": lambda v, pattern:
+        _regex_find(_regex(pattern), v),
+}
+_NS = np.strings
+# numpy's vectorised forms of some of the oracles over a str array, for
+# the 2M values of p_name: Python's str and numpy's strings agree on them
+# (not on the pads: numpy 2.0's ljust cuts a longer value to the width),
+# and numpy runs them without the interpreter's loop
+NP_ORACLES = {
+    "utf8_upper": _NS.upper, "utf8_lower": _NS.lower,
+    "utf8_swapcase": _NS.swapcase, "utf8_capitalize": _NS.capitalize,
+    "utf8_title": _NS.title, "utf8_trim_whitespace": _NS.strip,
+    "utf8_ltrim_whitespace": _NS.lstrip, "utf8_rtrim_whitespace": _NS.rstrip,
+    "utf8_trim": lambda a, characters: _NS.strip(a, characters),
+    "utf8_ltrim": lambda a, characters: _NS.lstrip(a, characters),
+    "utf8_rtrim": lambda a, characters: _NS.rstrip(a, characters),
+    "utf8_is_alnum": _NS.isalnum, "utf8_is_alpha": _NS.isalpha,
+    "utf8_is_decimal": _NS.isdecimal, "utf8_is_digit": _NS.isdigit,
+    "utf8_is_numeric": _NS.isnumeric, "utf8_is_lower": _NS.islower,
+    "utf8_is_upper": _NS.isupper, "utf8_is_space": _NS.isspace,
+    "utf8_is_title": _NS.istitle, "ascii_is_title": _NS.istitle,
+    "utf8_length": _NS.str_len,
+    "starts_with": lambda a, pattern: _NS.startswith(a, pattern),
+    "ends_with": lambda a, pattern: _NS.endswith(a, pattern),
+    "match_substring": lambda a, pattern, ignore_case=False: _NS.find(
+        _NS.lower(a), pattern.lower()) >= 0 if ignore_case
+    else _NS.find(a, pattern) >= 0,
+    "count_substring": lambda a, pattern, ignore_case=False: _NS.count(
+        _NS.lower(a), pattern.lower()) if ignore_case
+    else _NS.count(a, pattern),
+    "find_substring": lambda a, pattern, ignore_case=False: _NS.find(
+        _NS.lower(a), pattern.lower()) if ignore_case
+    else _NS.find(a, pattern),
+}
+# the ascii_* predicates: numpy's form under the values' ASCII mask
+NP_ASCII = {f"ascii_is_{k}": f"utf8_is_{k}" for k in (
+    "alnum", "alpha", "decimal", "lower", "upper", "space")}
+# the transforms the byte pool serves (on p_name), and the others
+POOL_TRANSFORMS = (
+    ("utf8_upper", {}), ("utf8_lower", {}), ("utf8_swapcase", {}),
+    ("utf8_capitalize", {}), ("utf8_title", {}), ("utf8_reverse", {}),
+    ("utf8_trim_whitespace", {}), ("utf8_ltrim_whitespace", {}),
+    ("utf8_rtrim_whitespace", {}), ("utf8_trim", {"characters": "ab "}),
+    ("utf8_ltrim", {"characters": "fr"}),
+    ("utf8_rtrim", {"characters": "0123456789 "}),
+    ("utf8_lpad", {"width": 60, "padding": "*"}),
+    ("utf8_rpad", {"width": 40}),
+    ("utf8_center", {"width": 64, "padding": "-"}),
+    ("utf8_slice_codeunits", {"start": 0, "stop": 5}),
+    ("utf8_slice_codeunits", {"start": 6, "stop": 12}))
+HOST_TRANSFORMS = (
+    ("binary_reverse", {}), ("binary_repeat", {"num_repeats": 2}),
+    ("utf8_zero_fill", {"width": 30}), ("utf8_normalize", {"form": "NFKD"}),
+    ("binary_slice", {"start": 1, "stop": 9}),
+    ("utf8_slice_codeunits", {"start": 0, "stop": None, "step": 2}),
+    ("utf8_replace_slice", {"start": 0, "stop": 5, "replacement": "X"}),
+    ("binary_replace_slice", {"start": 2, "stop": 4, "replacement": b"--"}),
+    ("replace_substring", {"pattern": "BRASS", "replacement": "brass"}),
+    ("replace_substring_regex", {"pattern": "[AEIOU]", "replacement": "_"}))
+STRING_PREDICATES = tuple(
+    (n, {}) for n in STR_ORACLES if "_is_" in n or n in (
+        "string_is_ascii", "utf8_length", "binary_length")) + (
+    ("match_substring", {"pattern": "green"}),
+    ("match_substring", {"pattern": "GREEN", "ignore_case": True}),
+    ("starts_with", {"pattern": "forest"}), ("ends_with", {"pattern": "e"}),
+    ("match_like", {"pattern": "%red%"}),
+    ("match_like", {"pattern": "f_rest%"}),
+    ("count_substring", {"pattern": "e"}),
+    ("count_substring", {"pattern": "re"}),
+    ("count_substring", {"pattern": ""}),
+    ("find_substring", {"pattern": "red"}),
+    ("find_substring", {"pattern": "RED", "ignore_case": True}),
+    ("match_substring_regex", {"pattern": "^(green|red) "}),
+    ("count_substring_regex", {"pattern": "[aeiou]"}),
+    ("find_substring_regex", {"pattern": "r[aeiou]d"}))
+# the string columns: (table, column)
+STRING_COLUMNS = {"p_name": ("part", "p_name"), "p_type": ("part", "p_type"),
+                  "c_comment": ("customer", "c_comment")}
+
+
+def string_calls():
+    """(function, column, options) of the strings_pool path."""
+    return ([(fn, "p_name", o) for fn, o in POOL_TRANSFORMS]
+            + [(fn, "p_type", o) for fn, o in POOL_TRANSFORMS
+               + HOST_TRANSFORMS]
+            + [(fn, c, o) for c in STRING_COLUMNS
+               for fn, o in STRING_PREDICATES])
+
+
+def strings_inputs(tables):
+    """part with ``sep`` (a dictionary column of one value, "-", made on
+    the card), customer, and the string columns' values as numpy arrays
+    for the oracles."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.device.column import DeviceBatch, DeviceColumn
+    from arrow_tpu_torch.types import Field, Schema
+    part = tables["part"]
+    sep = DeviceColumn(torch.zeros(part.capacity, dtype=torch.int32,
+                                   device=part.row_count.device), None,
+                       T.dictionary(T.int32(), T.string()), ("-",))
+    part = DeviceBatch(Schema(part.schema.fields + [Field("sep", sep.type)]),
+                       part.columns + [sep], part.row_count)
+    batches = {"part": part, "customer": tables["customer"]}
+    return {**batches, "arrays": {
+        name: _str_arrays(batches[t].column(c))
+        for name, (t, c) in STRING_COLUMNS.items()}}
+
+
+def _string_oracle(check, label, got, col, n, fn, opts, arrays):
+    """A str -> str result against Python's function of each value (the
+    new dictionary in order of first appearance, the codes remapped), a
+    str -> bool or int result against Python's table; numpy's form of
+    the function where it has one (``arrays``: the values as a str array
+    and their ASCII mask, or None)."""
+    if arrays is not None and (fn in NP_ORACLES or fn in NP_ASCII):
+        values, ascii_mask = arrays
+        if fn in NP_ASCII:
+            vals = ascii_mask & NP_ORACLES[NP_ASCII[fn]](values)
+        else:
+            vals = NP_ORACLES[fn](values, **opts)
+        if got.dictionary is not None:
+            vals = vals.tolist()
+    else:
+        vals = list(map(functools.partial(STR_ORACLES[fn], **opts),
+                        col.dictionary))
+    if got.dictionary is None:
+        check.values(label, got, np.asarray(vals), col.values[:n].long(),
+                     col.validity)
+        return
+    first = dict.fromkeys(vals)
+    if len(first) == len(vals):
+        remap = np.arange(len(vals))
+    else:
+        index = {v: i for i, v in enumerate(first)}
+        remap = np.fromiter(map(index.__getitem__, vals), dtype=np.int64,
+                            count=len(vals))
+    check.host(label + " dictionary", got.dictionary == tuple(first))
+    check.values(label, got, remap, col.values[:n].long(), col.validity)
+
+
+def _str_arrays(col):
+    """A dictionary without nulls as a numpy str array and its values'
+    ASCII mask (None for a dictionary with a null slot)."""
+    if None in col.dictionary:
+        return None
+    return (np.array(col.dictionary, dtype=str),
+            np.fromiter(map(str.isascii, col.dictionary), dtype=np.bool_,
+                        count=len(col.dictionary)))
+
+
+def strings_pool_run(s, check=None):
+    """Every call of ``string_calls()`` and the product of p_brand,
+    p_container and sep; with ``check`` each result is held against its
+    oracle as soon as it is made (and dropped)."""
+    part = s["part"]
+    for fn, name, opts in string_calls() + [
+            ("binary_join_element_wise", None, {})]:
+        batch = part if name != "c_comment" else s["customer"]
+        ctx = _context(batch)
+        if name is None:
+            args = [part.column(k)
+                    for k in ("p_brand", "p_container", "sep")]
+        else:
+            args = [batch.column(STRING_COLUMNS[name][1])]
+        got = _call(ctx, fn, *args, **opts)
+        if check is None:
+            continue
+        check.start(got)
+        label = _label(fn, [name or "p_brand, p_container, sep"], opts)
+        n = int(batch.row_count)
+        if name is not None:
+            _string_oracle(check, label, got, args[0], n, fn, opts,
+                           s["arrays"][name])
+        else:
+            brand, cont, _ = args
+            vals = tuple(b + "-" + c for b in brand.dictionary
+                         for c in cont.dictionary)
+            codes = brand.values[:n].long() * len(cont.dictionary) \
+                + cont.values[:n].long()
+            check.host(label + " dictionary", got.dictionary == vals)
+            check.values(label, got, np.arange(len(vals)), codes)
+        check.stop()
+    return check
+
+
+def pool_and_host_tiers(s):
+    """utf8_upper and a slice of p_name on the byte pool and on the host
+    tier: the same dictionary and codes."""
+    from arrow_tpu_torch.compute import device_strings
+    part = s["part"]
+    col, ctx = part.column("p_name"), _context(part)
+    out = []
+    for fn, opts in (("utf8_upper", {}),
+                     ("utf8_slice_codeunits", {"start": 0, "stop": 5})):
+        pool = _call(ctx, fn, col, **opts)
+        gate = device_strings.DEVICE_STRINGS_MIN
+        device_strings.DEVICE_STRINGS_MIN = 1 << 62
+        try:
+            host = _call(ctx, fn, col, **opts)
+        finally:
+            device_strings.DEVICE_STRINGS_MIN = gate
+        out.append(pool.dictionary == host.dictionary
+                   and torch.equal(pool.values, host.values))
+    return out
+
+
+# strings_plan: lineitem joined to part, a regex filter, two string keys
+def strings_plan(lineitem, s, key, ac=None):
+    """lineitem joined to part (with the bloom), the parts whose name
+    starts with green or red in containers of up to 7 characters, revenue
+    by ``key``: "type" (the upper case of p_type's first 5 characters, 6
+    values) or "mfgr_container" (p_mfgr, p_container and sep joined, 200
+    values)."""
+    ac = _acero(ac)
+    D, f, call = ac.Declaration, ac.field, ac.Expression.call
+    joined = D("hashjoin", ac.HashJoinNodeOptions(
+        "inner", left_keys=["l_partkey"], right_keys=["p_partkey"]),
+        inputs=[D("table_source", ac.TableSourceNodeOptions(lineitem)),
+                D("table_source", ac.TableSourceNodeOptions(s["part"]))])
+    keys = {"type": call("utf8_upper", call(
+                "utf8_slice_codeunits", f("p_type"), start=0, stop=5)),
+            "mfgr_container": call("binary_join_element_wise", f("p_mfgr"),
+                                   f("p_container"), f("sep"))}
+    return D.from_sequence([
+        joined,
+        D("filter", ac.FilterNodeOptions(
+            call("match_substring_regex", f("p_name"),
+                 pattern="^(green|red) ")
+            & (call("utf8_length", f("p_container")) <= 7))),
+        D("project", ac.ProjectNodeOptions(
+            [keys[key], f("l_extendedprice") * (1.0 - f("l_discount"))],
+            ["key", "revenue"])),
+        D("aggregate", ac.AggregateNodeOptions(
+            [("revenue", "hash_sum", None, "revenue")], keys=["key"])),
+    ])
+
+
+def strings_plan_run(lineitem, s):
+    return {key: strings_plan(lineitem, s, key).to_table()
+            for key in ("type", "mfgr_container")}
+
+
+def strings_plan_oracle(c):
+    """Revenue by each key of the kept parts' lineitems, by numpy over the
+    downloaded columns and Python over the dictionaries."""
+    names = c["p_name:dict"]
+    green_red = np.fromiter((re.match("(green|red) ", v) is not None
+                             for v in names), dtype=np.bool_,
+                            count=len(names))
+    short = np.array([len(v) <= 7 for v in c["p_container:dict"]])
+    part = c["l_partkey"] - 1
+    keep = green_red[c["p_name"][part]] & short[c["p_container"][part]]
+    revenue = (c["l_extendedprice"] * (1.0 - c["l_discount"]))[keep]
+    out = {}
+    type_key = np.array([v[:5].upper() for v in c["p_type:dict"]])
+    mfgrs, conts = c["p_mfgr:dict"], c["p_container:dict"]
+    pair = np.array([m + "-" + k for m in mfgrs for k in conts])
+    for key, labels in (
+            ("type", type_key[c["p_type"][part[keep]]]),
+            ("mfgr_container", pair[c["p_mfgr"][part[keep]] * len(conts)
+                                    + c["p_container"][part[keep]]])):
+        groups, inv = np.unique(labels, return_inverse=True)
+        out[key] = dict(zip(groups.tolist(), np.bincount(
+            inv.reshape(-1), weights=revenue, minlength=len(groups))))
+    return out, int(keep.sum())
+
+
+def strings_plan_columns(li, s):
+    part = s["part"]
+    c = _host_columns(li, ["l_partkey", "l_extendedprice", "l_discount"])
+    c.update(_host_columns(part, ["p_partkey", "p_name", "p_type",
+                                  "p_mfgr", "p_container"]))
+    _check_keys(c, "p_partkey")
+    for k in ("p_name", "p_type", "p_mfgr", "p_container"):
+        c[k + ":dict"] = part.column(k).dictionary
+    return c
+
+
+def check_strings_plan(c, result):
+    want, kept = strings_plan_oracle(c)
+    for key, w in want.items():
+        got = dict(zip(result[key]["key"], result[key]["revenue"]))
+        if sorted(got) != sorted(w):
+            raise AssertionError(f"strings_plan by {key}: keys "
+                                 f"{sorted(got)[:5]} != {sorted(w)[:5]}")
+        g = np.array([got[k] for k in sorted(w)])
+        _expect_close(f"strings_plan revenue by {key}", g,
+                      np.array([w[k] for k in sorted(w)]))
+    return (f"{kept} lineitem rows kept, {len(want['type'])} and "
+            f"{len(want['mfgr_container'])} groups, keys exact, revenue "
+            f"within rtol {RTOL_F64}")
+
+
+class FunctionPath(NamedTuple):
+    """One path of phase 3h: ``run(inputs, check)`` hands each result to
+    ``check`` as it is made, or gives results ``verify(columns,
+    results)`` holds against numpy. Phase 4 takes the best of ``reps - 1``
+    walls after a warm-up."""
+    name: str
+    run: object
+    launches: dict
+    verify: object = None
+    reps: int = 6
+
+
+# Launches a run at SF10, reckoned from the code. temporal_fields and
+# strings_pool: element-wise arithmetic, gathers by codes and the byte
+# pool's transforms (its rows grouped by a sort), no kernel. temporal_plan:
+# the filter compacts lineitem once. strings_plan, twice (one plan a key):
+# lineitem probes part with the bloom (2 hash32 launches and a compaction,
+# 60,012,544 >= 4 x 2,000,896) and the unique-build compaction; the filter
+# folds into the aggregate; revenue by the type key (7 slots) and by the
+# manufacturer and container key (201 slots, K3's range) takes
+# grouped_sum.
+# Q22 as in phase 3d.
+STRING_PATHS = (
+    # the two sweeps of hundreds of calls each: one run (phase 3h's run
+    # warmed them)
+    FunctionPath("temporal_fields",
+                 lambda i, check: temporal_fields_run(i["temporal"], check),
+                 _launches(0, 0, 0), reps=1),
+    FunctionPath("temporal_plan",
+                 lambda i, check: temporal_plan(i["lineitem"]).to_table(),
+                 _launches(1, 0, 0), check_temporal_plan),
+    FunctionPath("strings_pool",
+                 lambda i, check: strings_pool_run(i["strings"], check),
+                 _launches(0, 0, 0), reps=1),
+    FunctionPath("strings_plan",
+                 lambda i, check: strings_plan_run(i["lineitem"],
+                                                   i["strings"]),
+                 _launches(4, 4, 2), check_strings_plan),
+)
+
+
+def _timed_verify(verify, cols, result):
+    t0 = time.perf_counter()
+    return verify(cols, result), time.perf_counter() - t0
+
+
+def strings_inputs_all(tables, typed):
+    """Phase 3h's inputs: Q1's lineitem, the temporal columns and the
+    string tables."""
+    return {"lineitem": tables["lineitem"],
+            "temporal": temporal_inputs(tables["lineitem"], typed),
+            "strings": strings_inputs(tables)}
+
+
+def phase_strings_kernels(h):
+    """The kernels on phase 3h's paths against their plain versions at the
+    shapes the paths give them: the compaction of temporal_plan's filter
+    (all 15 columns of lineitem under its mask) bit for bit; the hash of
+    strings_plan's join keys (the strided int32 halves of l_partkey's and
+    p_partkey's equality words) bit for bit; the grouped sum of its
+    revenue by the type key (7 slots) and by the brand and container key
+    (201 slots, K3's range) over lineitem's capacity, within RTOL_F64.
+    Launches here are outside every path's count."""
+    from arrow_tpu_torch.compute.hashing import int64_halves
+    from arrow_tpu_torch.compute.keys import equality_word
+    from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
+                                                     grouped_sum_plain)
+    from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
+    li, part = h["lineitem"], h["strings"]["part"]
+    ctx = _context(li)
+    mask = temporal_plan(li).inputs[0].options.filter_expression.evaluate(
+        li, ctx)
+    keep = mask.values & mask.valid_mask(ctx.row_mask())
+    compact_case(f"compact (temporal_plan filter, n={keep.numel()})", keep,
+                 [c.values for c in li.columns])
+    errs = {"compact": 0.0}   # bit for bit, or compact_case raised
+    for batch, key in ((li, "l_partkey"), (part, "p_partkey")):
+        words = int64_halves(equality_word(batch.column(key)))
+        errs["hash32 " + key] = check_bit_exact(
+            f"hash32 {key} halves n={words[0].numel()}", [hash32(words)],
+            [hash32_plain(words)])
+    rows = li.column("l_partkey").values.long() - 1
+    rows = rows.clamp(0, part.capacity - 1)
+    revenue = li.column("l_extendedprice").values \
+        * (1.0 - li.column("l_discount").values)
+    live = ctx.row_mask()
+    for name, codes, s in (
+            ("type key", part.column("p_type").values, 7),
+            ("manufacturer and container key",
+             part.column("p_mfgr").values * 40
+             + part.column("p_container").values, 201)):
+        gid = torch.where(live, codes.long()[rows] % (s - 1), s - 1) \
+            .to(torch.int32)
+        v = torch.where(live, revenue, 0.0)
+        errs[f"grouped_sum S={s}"] = check_close(
+            f"grouped_sum ({name}, n={v.numel()} S={s})",
+            grouped_sum(v, gid, s), grouped_sum_plain(v, gid, s), RTOL_F64)
+    torch.cuda.synchronize()
+    return errs
+
+
+def q22_on_the_pool(tables):
+    """Q22 with the byte-pool cache emptied first: its result against
+    ``q22_oracle``, its launches as in phase 3d, and c_phone's dictionary
+    pooled by the run (its slice took the pool tier)."""
+    from arrow_tpu_torch.compute import device_strings
+    from arrow_tpu_torch.platform_check import self_check
+    q22 = next(q for q in FULL if q.name == "Q22")
+    customer = tables["customer"]
+    device_strings.clear_pools()
+    base = memory_mark()
+    zero_launches()
+    self_check()
+    t1 = time.perf_counter()
+    result = suite_plan(q22, tables).to_table()
+    log(f"Q22 (pool tier) first run {time.perf_counter() - t1:.3f} s")
+    launches = read_launches()
+    log_peak("Q22 (pool tier)", base)
+    check_launches("Q22 (pool tier)", launches, q22.launches)
+    c = {"customer": _host_columns(customer, ["c_custkey", "c_phone",
+                                              "c_acctbal"]),
+         "orders": _host_columns(tables["orders"], ["o_custkey"])}
+    want, _ = q22.oracle(tables, c)
+    check_result("Q22 (pool tier)", result, want)
+    if not device_strings.is_pooled(customer.column("c_phone").dictionary,
+                                    customer.row_count.device):
+        raise AssertionError("Q22's slice of c_phone did not take the "
+                             "byte pool")
+    log("Q22 (pool tier) matches its oracle; c_phone's slice took the byte "
+        "pool")
+    return launches
+
+
+def phase_strings(tables, typed):
+    """Phase 3h: the temporal and string functions at SF10, each path with
+    every launch count set to 0 just before its run and read just after,
+    against its oracle (the function sweeps result by result on the card,
+    the plans by numpy in a thread each), with the card's peak memory over
+    the run; the pool and host tiers of p_name's transforms; Q22 on the
+    pool tier; strings_plan run twice for the same bits. Returns
+    (launches by path, the inputs)."""
+    from arrow_tpu_torch.platform_check import self_check
+    log(f"== phase 3h: temporal and string functions at SF{SF:g}")
+    t0 = time.perf_counter()
+    h = strings_inputs_all(tables, typed)
+    cols = {"temporal_plan": _host_columns(tables["lineitem"], [
+        "l_shipdate", "l_commitdate", "l_receiptdate", "l_orderkey",
+        "l_extendedprice"]),
+        "strings_plan": strings_plan_columns(tables["lineitem"],
+                                             h["strings"])}
+    log(f"inputs made, distinct values found and columns downloaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    errs = phase_strings_kernels(h)
+    launches, failures, checks = {}, [], {}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for path in STRING_PATHS:
+            base = memory_mark()
+            zero_launches()
+            self_check()
+            check = None if path.verify else CardCheck()
+            t1 = time.perf_counter()
+            result = path.run(h, check)
+            torch.cuda.synchronize()
+            log(f"{path.name} first run {time.perf_counter() - t1:.3f} s"
+                + (" (its checks included)" if check else ""))
+            launches[path.name] = read_launches()
+            log_peak(path.name, base)
+            checks[path.name] = pool.submit(
+                _timed_verify, path.verify, cols[path.name], result) \
+                if path.verify else check
+            del result
+        for path in STRING_PATHS:
+            try:
+                check_launches(path.name, launches[path.name], path.launches)
+                if path.verify:
+                    msg, seconds = checks[path.name].result()
+                    log(f"{path.name} matches its oracle: {msg} (oracle "
+                        f"{seconds:.1f} s)")
+                    continue
+                bad = checks[path.name].failures()
+                if bad:
+                    raise AssertionError(f"{len(bad)} results differ: "
+                                         f"{bad[:8]}")
+                log(f"{path.name}: all {len(checks[path.name].labels)} "
+                    "checks match their oracles (oracles and checks "
+                    f"{checks[path.name].seconds:.1f} s of its first run)")
+            except AssertionError as exc:
+                log(f"  {path.name} FAILED: {exc}")
+                failures.append(path.name)
+    same = pool_and_host_tiers(h["strings"])
+    log(f"p_name's utf8_upper and slice on the pool and the host tier: "
+        f"same dictionary and codes {same}")
+    if not all(same):
+        failures.append("pool and host tiers")
+    launches["Q22 (pool tier)"] = q22_on_the_pool(tables)
+    first, second = (strings_plan_run(h["lineitem"], h["strings"])
+                     for _ in "ab")
+    check_bit_exact("phase 3h strings_plan revenue, two runs", [
+        torch.tensor(first[k]["revenue"]) for k in first], [
+        torch.tensor(second[k]["revenue"]) for k in first], "the first run")
+    if failures:
+        raise AssertionError(f"phase 3h failed for {failures}")
+    log(f"phase 3h: {time.perf_counter() - t0:.1f} s (kernels against "
+        f"their plain versions: max_abs_err {errs!r})")
+    return launches, h
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -3276,7 +4326,8 @@ def _run_queries(phase, queries, tables, cols, params=None):
 
 def best_wall(run, reps=6):
     """Host-clock seconds of ``run`` (which ends in a download) after a
-    synchronize, every run; the first is the warm-up."""
+    synchronize, every run; the first is the warm-up, but where ``reps``
+    is 1 (a path the phase before ran already)."""
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -3284,7 +4335,7 @@ def best_wall(run, reps=6):
         run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    return walls, min(walls[1:])
+    return walls, min(walls[1:] or walls)
 
 
 def profile_run(name, run):
@@ -3446,7 +4497,19 @@ def compact_times(card, q3_lineitem, lineitem):
     return recs
 
 
-def phase_times(card, launches, errs, tables, typed, params, stats):
+def time_paths(card, paths):
+    """Each (path, run)'s walls (``path.reps``, best after a warm-up) and
+    one profiled run."""
+    for path, run in paths:
+        walls, best = best_wall(run, getattr(path, "reps", 6))
+        log(f"{path.name} SF{SF:g}: wall "
+            f"{[round(w * 1e3, 3) for w in walls]} ms; best "
+            f"{best * 1e3:.3f} ms [{card}]")
+        profile_run(path.name, run)
+
+
+def phase_times(card, launches, errs, tables, typed, params, stats,
+                strings):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
@@ -3510,16 +4573,10 @@ def phase_times(card, launches, errs, tables, typed, params, stats):
             f"[{card}]")
         profile_run(q.name, run)
     # phase 3e's, phase 3f's and phase 3g's paths
-    paths = [(p, node_path_run(p, p.build(tables))) for p in NODE_PATHS] + \
-        [(p, p.build(typed).to_table) for p in TYPED_PATHS] + \
-        [(p, lambda p=p: p.run(stats)) for p in STATS_PATHS]
-    for path, run in paths:
-        walls, best = best_wall(run)
-        log(f"{path.name} SF{SF:g}: wall "
-            f"{[round(w * 1e3, 3) for w in walls]} ms; best "
-            f"{best * 1e3:.3f} ms [{card}]")
-        profile_run(path.name, run)
-    del paths, run
+    time_paths(card, [(p, node_path_run(p, p.build(tables)))
+                      for p in NODE_PATHS]
+               + [(p, p.build(typed).to_table) for p in TYPED_PATHS]
+               + [(p, lambda p=p: p.run(stats)) for p in STATS_PATHS])
 
     def grouped_sum_record(name, values, gids, s):
         acc = torch.zeros(s, dtype=values.dtype, device="cuda")
@@ -3578,6 +4635,12 @@ def phase_times(card, launches, errs, tables, typed, params, stats):
                        lambda: probe_plain(x), lambda: torch.mul(x, 2.0),
                        2 * x.numel() * 4, x.numel(), F32_OPS_PER_S,
                        reps=200)
+
+    # phase 3h's paths last: a profile of its sweeps (thousands of
+    # kernels) fills the profiler's buffer, and the kernels' device times
+    # read after it come out short
+    time_paths(card, [(p, lambda p=p: p.run(strings, None))
+                      for p in STRING_PATHS])
 
     def by_path(name):
         return {path: n[name] for path, n in launches.items()}
@@ -3664,9 +4727,11 @@ def main() -> int:
         launches.update(typed_launches)
         stats_launches, stats = timed(phase_stats, tables, typed)
         launches.update(stats_launches)
+        strings_launches, strings = timed(phase_strings, tables, typed)
+        launches.update(strings_launches)
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
-                            typed, params, stats)
+                            typed, params, stats, strings)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -565,3 +565,101 @@ def test_segment_product_and_scan_repeat_bit_for_bit():
     assert torch.equal(s1, _scan(v, "sum"))
     torch.testing.assert_close(s1.cpu(), _scan(v.cpu(), "sum"), atol=0,
                                rtol=1e-12)
+
+
+# --- the temporal and string functions on the card ---------------------------
+
+def _words(n, seed):
+    """``n`` distinct ASCII values (a dictionary above the pool's gate),
+    case variants that one case function maps to one, a null slot."""
+    import random
+    rng = random.Random(seed)
+    words = ("forest", "Forest", "green", "RED", "lace", "o'neil", "3rd")
+    vals = {" ".join(rng.choice(words) for _ in range(3)) + f" {i % 3000}"
+            for i in range(n)}
+    return tuple(sorted(vals)) + (None, "", "  \t x  ")
+
+
+def _dict_columns(words, seed):
+    """The same dictionary-coded column on the card and on the CPU."""
+    from arrow_tpu_torch.device.column import DeviceColumn
+    from arrow_tpu_torch.types import type_for_name
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = 50_000
+    codes = torch.randint(0, len(words), (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    valid = torch.rand(n, generator=gen, device="cuda") >= 0.05
+    card = DeviceColumn(codes, valid, type_for_name("dictionary"), words)
+    return card, DeviceColumn(codes.cpu(), valid.cpu(), card.type, words)
+
+
+_POOL_CALLS = [
+    ("utf8_upper", {}), ("utf8_lower", {}), ("utf8_swapcase", {}),
+    ("utf8_capitalize", {}), ("utf8_title", {}), ("utf8_reverse", {}),
+    ("utf8_trim_whitespace", {}), ("utf8_ltrim", {"characters": "Ff "}),
+    ("utf8_rtrim", {"characters": "0123456789"}),
+    ("utf8_lpad", {"width": 70, "padding": "*"}), ("utf8_rpad", {"width": 9}),
+    ("utf8_center", {"width": 31}),
+    ("utf8_slice_codeunits", {"start": 2, "stop": 8}),
+    ("utf8_length", {}), ("binary_length", {}), ("string_is_ascii", {}),
+    ("count_substring", {"pattern": "re"}),
+    ("count_substring", {"pattern": ""}),
+    ("find_substring", {"pattern": "RE", "ignore_case": True}),
+    ("match_substring", {"pattern": "lace"}),
+    ("starts_with", {"pattern": "forest"}), ("ends_with", {"pattern": "7"}),
+    ("match_like", {"pattern": "green%"})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,options", _POOL_CALLS,
+                         ids=[f"{f}-{i}" for i, (f, _) in
+                              enumerate(_POOL_CALLS)])
+def test_pool_tier_on_card_equals_cpu(fn, options):
+    """Each byte-pool transform and predicate over a dictionary of 5,000
+    values gives on the card the dictionary, codes, values and validity it
+    gives on the CPU."""
+    from arrow_tpu_torch.compute import device_strings
+    from arrow_tpu_torch.compute.registry import ExecContext, get_function
+    _need_card()
+    words = _words(5_000, 1)
+    card, cpu = _dict_columns(words, 2)
+    assert len(words) >= device_strings.DEVICE_STRINGS_MIN
+    n = card.capacity
+    got = get_function(fn).impl(ExecContext(n, torch.tensor(n)), card,
+                                **options)
+    want = get_function(fn).impl(ExecContext(n, torch.tensor(n)), cpu,
+                                 **options)
+    assert device_strings.is_pooled(words, card.values.device)
+    assert got.values.device.type == "cuda"
+    assert got.dictionary == want.dictionary
+    assert torch.equal(got.values.cpu(), want.values)
+    assert torch.equal(got.validity.cpu(), want.validity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,slots", [("type", 7), ("mfgr_container", 201)])
+def test_derived_string_keys_take_k1_and_k3(key, slots):
+    """Revenue by a key made of string functions (``strings_plan``'s two
+    keys over SF 0.01's lineitem and part): one grouped-sum launch at 7
+    slots (K1) and at 201 (K3's range), each key's revenue within 1e-9 of
+    the CPU's run of the same plan."""
+    import chip_smoke
+    from arrow_tpu_torch.io import tpch
+    from arrow_tpu_torch.io.tpch_device import q1_device_batch
+    _need_card()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lineitem, _ = q1_device_batch(0.01, device=dev)
+        tables = {"part": tpch.part_table(0.01, device=dev),
+                  "customer": tpch.customer_table(0.01, device=dev)}
+        s = chip_smoke.strings_inputs(tables)
+        before = grouped_sum.launches
+        result = chip_smoke.strings_plan(lineitem, s, key).to_table()
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert grouped_sum.launches == before + 1
+        runs[dev] = dict(zip(result["key"], result["revenue"]))
+    assert sorted(runs["cuda"]) == sorted(runs["cpu"])
+    assert len(runs["cuda"]) <= slots - 1
+    for k, v in runs["cpu"].items():
+        assert runs["cuda"][k] == pytest.approx(v, rel=1e-9, abs=0)
