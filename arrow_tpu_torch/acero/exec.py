@@ -99,6 +99,11 @@ def _node_project(options: ProjectNodeOptions, schema):
                 # f64), as the reference's jnp.full under x64
                 c = literal_column(c, batch.capacity,
                                    batch.row_count.device)
+            elif c.values.dim() == 0:
+                # a cast literal: broadcast (the reference's plan raises
+                # IndexError on a 0-d column here)
+                c = DeviceColumn(c.values.expand(batch.capacity).clone(),
+                                 None, c.type)
             cols.append(c)
         out_schema = Schema([Field(n, c.type) for n, c in zip(names, cols)])
         return DeviceBatch(out_schema, cols, batch.row_count)

@@ -4,12 +4,15 @@ DeviceBatch through the compute registry. A comparison of a
 dictionary-coded column with a literal translates the literal through the
 host dictionary, and one of two dictionary-coded columns re-encodes both
 against their sorted union dictionary (``unify_device_dicts``) and
-compares the codes; the string functions (``compute/strings.py`` and
-``compute/extra_kernels.py``) and ``if_else`` take dictionary-coded
-columns themselves; ``is_in`` looks the value set up by dictionary slot
-(``compute/vector_misc.py``) and keeps a null row null, as the
-reference's plans do. Every other function raises on a dictionary-coded
-column."""
+compares the codes (an empty dictionary compares as null on every row,
+as every row of such a column is null); the string functions
+(``compute/strings.py`` and ``compute/extra_kernels.py``), ``if_else``,
+``coalesce``, the null and float predicates, ``index_in``, ``cast`` and
+``hash32`` take dictionary-coded columns themselves; ``is_in`` looks the
+value set up by dictionary slot (``compute/vector_misc.py``) and keeps a
+null row null, as the reference's plans do. A function of the values
+(arithmetic, rounding, the math functions) raises on a dictionary-coded
+column: its codes are not values."""
 
 from __future__ import annotations
 
@@ -115,7 +118,10 @@ class Expression:
 _COMPARISONS = ("equal", "not_equal", "less", "less_equal", "greater",
                 "greater_equal")
 # functions that take dictionary-coded columns themselves
-_DICTIONARY_FUNCTIONS = frozenset(STRING_FUNCTIONS + ["if_else"])
+_DICTIONARY_FUNCTIONS = frozenset(STRING_FUNCTIONS + [
+    "if_else", "coalesce", "fill_null", "is_null", "is_valid", "is_nan",
+    "is_finite", "is_inf", "true_unless_null", "index_in", "cast",
+    "hash32"])
 
 
 def _evaluate(expr: Expression, batch: DeviceBatch, ctx: ExecContext):
@@ -126,15 +132,15 @@ def _evaluate(expr: Expression, batch: DeviceBatch, ctx: ExecContext):
     args = [_evaluate(a, batch, ctx) for a in expr.args]
     if expr.fn == "is_in":
         col = args[0]
-        return DeviceColumn(value_set_lookup(
-            col, expr.options.get("value_set", ())), col.validity, T.bool_())
+        found, _ = value_set_lookup(col, expr.options.get("value_set", ()))
+        return DeviceColumn(found, col.validity, T.bool_())
     if expr.fn in _COMPARISONS:
         args = _translate_string_compare(expr.fn, args)
     if expr.fn not in _DICTIONARY_FUNCTIONS \
             and any(_is_string_col(a) for a in args):
         raise NotImplementedError(
-            f"{expr.fn} on dictionary-coded columns is not ported yet "
-            "(ROADMAP.md, queue 1, item 9: the long tail)")
+            f"{expr.fn} does not take dictionary-coded (string) columns: "
+            "their codes are not values")
     return get_function(expr.fn).impl(ctx, *args, **expr.options)
 
 
@@ -164,10 +170,6 @@ def _translate_string_compare(fn, args):
         raise TypeError(
             f"cannot compare dictionary-coded values with {type(lit)}")
     vals = list(col.dictionary)
-    if not vals:
-        raise NotImplementedError(
-            "comparing a column with an empty dictionary is not ported yet "
-            "(ROADMAP.md, queue 1, item 9.9: the rest of compute)")
     if fn in ("equal", "not_equal"):
         hits = np.array([v == lit for v in vals], dtype=np.int64)
         new = [DeviceColumn(slot_lookup(col, hits), col.validity,

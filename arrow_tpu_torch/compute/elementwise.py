@@ -19,27 +19,30 @@ as its bits), the operation runs there, and the result is stored at its
 own width, so integer arithmetic wraps as the reference's does.
 
 Where the reference defers an error to an ``ErrGuard`` (the checked
-arithmetic, an integer division by zero, a lossy safe cast), the port
-raises at once: ArithmeticError, ZeroDivisionError or ValueError. The
-other ``_checked`` names are aliases of their plain forms, as in the
-reference.
+arithmetic, an integer division by zero, a lossy safe cast, a string that
+does not parse), the port raises at once: ArithmeticError,
+ZeroDivisionError or ValueError. The other ``_checked`` names are aliases
+of their plain forms, as in the reference.
+
+``if_else`` and ``coalesce`` over dictionary columns with different
+dictionaries re-encode them against their union first
+(``unify_device_dicts``), as the reference's eager call does.
 """
 
 from __future__ import annotations
 
+import datetime
 import operator
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import dtypes
 from .. import types as T
 from ..device.column import DeviceColumn
 from ..types import DataType, TypeId, bool_, type_for_name
-from .registry import register, register_alias
-
-CAST_TIERS = "(ROADMAP.md, queue 1, item 9.9: the cast tiers)"
-REST = "(ROADMAP.md, queue 1, item 9.9: the rest of compute)"
+from .registry import ExecContext, register, register_alias
 
 
 # --- operands -------------------------------------------------------------
@@ -857,15 +860,10 @@ def if_else(ctx, cond, a, b):
     """``a`` where ``cond`` is true, else ``b``, promoted as
     ``jnp.where``; null where ``cond`` is null or the chosen branch is. A
     non-numeric first branch column (a date, a decimal, a dictionary)
-    gives its type and dictionary to the result; both branch dictionaries
-    must be one."""
+    gives its type and dictionary to the result; two branch dictionaries
+    that differ are re-encoded against their union first."""
     dev = _device_of(cond, a, b)
-    dicts = [x.dictionary for x in (a, b)
-             if isinstance(x, DeviceColumn) and x.dictionary is not None]
-    if dicts and (len(dicts) != 2 or dicts[0] != dicts[1]):
-        raise NotImplementedError(
-            "if_else over branches that do not share one dictionary is not "
-            "ported yet " + REST)
+    a, b = one_dictionary([a, b])
     cv = _load(cond, "bool", dev)
     kind, out = _select(cv, a, b, dev)
     avd, bvd = (x.validity if isinstance(x, DeviceColumn) else None
@@ -876,15 +874,22 @@ def if_else(ctx, cond, a, b):
         branch_validity = torch.where(cv, ones if avd is None else avd,
                                       ones if bvd is None else bvd)
     return _col(out, _and_validity(_validity_of(cond), branch_validity),
-                _branch_type(a, b), dicts[0] if dicts else None,
+                _branch_type(a, b), _shared_dictionary(a, b),
                 name=dtypes.promote(kind))
 
 
 @register("coalesce", "elementwise")
 def coalesce(ctx, *args):
     """The first valid value of the arguments, promoted as ``jnp.where``
-    promotes them. A first argument without nulls comes back typed by
-    its dtype, as in the reference."""
+    promotes them; dictionaries that differ are re-encoded against their
+    union first. A first argument without nulls comes back typed by its
+    dtype, as in the reference, but a dictionary column, which comes back
+    as itself (Arrow's answer; the reference gives its codes as int32)."""
+    first = args[0]
+    if isinstance(first, DeviceColumn) and first.dictionary is not None \
+            and first.validity is None:
+        return first
+    args = one_dictionary(list(args))
     first = args[0]
     dev = _device_of(*args)
     kind = _kind(first)
@@ -976,6 +981,17 @@ def unify_device_dicts(prepared: list) -> list:
     return out
 
 
+def one_dictionary(args: list) -> list:
+    """``args`` with one dictionary among their dictionary columns: as
+    they are where the dictionaries are equal, else re-encoded against
+    their union (``unify_device_dicts``)."""
+    dicts = [x.dictionary for x in args
+             if isinstance(x, DeviceColumn) and x.dictionary is not None]
+    if all(d == dicts[0] for d in dicts[1:]):
+        return args
+    return unify_device_dicts(args)
+
+
 # --- cast -------------------------------------------------------------------
 
 _UNIT_NS = {"day": 86_400_000_000_000, "s": 1_000_000_000, "ms": 1_000_000,
@@ -1013,22 +1029,25 @@ def cast(ctx, a, to_type=None, target_type=None, safe: bool = True):
     (``"float64"``). With ``safe``, a float to integer cast of a live row
     with a fraction or out of range, and an integer to integer cast that
     does not convert back to the same value, raise ValueError, where the
-    reference returns a deferred error. A dictionary-coded (string)
-    column raises NotImplementedError: the reference parses its
-    dictionary on the host (``_cast_parse_strings``)."""
+    reference returns a deferred error. A dictionary (string) column
+    parses its dictionary (``_cast_strings``); a literal casts as the
+    reference's ``jnp.asarray`` of it does, to a 0-d column."""
     t = to_type if to_type is not None else target_type
     if t is None:
         raise ValueError("cast requires to_type")
     if isinstance(t, str):
         t = type_for_name(t)
     if not isinstance(a, DeviceColumn):
-        raise NotImplementedError("cast of a literal is not ported yet "
-                                  + CAST_TIERS)
-    if a.dictionary is not None or t.id in (TypeId.STRING,
-                                            TypeId.DICTIONARY):
+        return _cast_literal(ctx, a, t, safe)
+    if t.id in (TypeId.STRING, TypeId.DICTIONARY):
+        if a.dictionary is not None:
+            return a
         raise NotImplementedError(
-            f"cast from {a.type!r} to {t!r} (the string tiers) is not "
-            "ported yet " + CAST_TIERS)
+            f"cast from {a.type!r} to {t!r}: formatting values as strings "
+            "is not ported yet (ROADMAP.md, queue 1, item 11: the host "
+            "boundary)")
+    if a.dictionary is not None:
+        return _cast_strings(ctx, a, t, safe)
     if t.is_decimal and t.precision > 18:
         raise NotImplementedError(
             f"cast to {t!r}: decimals wider than 18 digits are dictionary "
@@ -1053,3 +1072,82 @@ def cast(ctx, a, to_type=None, target_type=None, safe: bool = True):
             raise ValueError(f"cast to {t!r} would lose data (use "
                              "safe=False to allow)")
     return _col(out, a.validity, t, name=dst)
+
+
+def _cast_literal(ctx, x, t: DataType, safe: bool) -> DeviceColumn:
+    """A Python or numpy literal in the dtype ``jnp.asarray`` gives it,
+    cast as a one-row column: a 0-d column of type ``t``, which
+    broadcasts against the columns it meets."""
+    if isinstance(x, (str, bytes)):
+        raise TypeError(f"cast of the string literal {x!r}: a device "
+                        "literal is a number, as in the reference")
+    src = dtypes.literal_dtype(x)
+    dev = ctx.row_count.device
+    one = DeviceColumn(dtypes.store(dtypes.literal(x, src, dev), src)
+                       .reshape(1), None, dtypes.type_of_dtype(src))
+    r = cast(ExecContext(1, torch.ones((), dtype=torch.int32, device=dev)),
+             one, to_type=t, safe=safe)
+    return DeviceColumn(r.values[0], None, r.type)
+
+
+# the reference's units of a parsed timestamp (``_UNIT_US``, ``_UNIT_US_INV``)
+_US_PER_UNIT = {"s": 1_000_000, "ms": 1000, "us": 1, "ns": 1}
+_UNITS_PER_US = {"s": 1, "ms": 1, "us": 1, "ns": 1000}
+_EPOCH_ORDINAL = datetime.date(1970, 1, 1).toordinal()
+
+
+def _parse_one(v: str, t: DataType):
+    """One string as the Python value of ``t``, by the reference's rules
+    (``arrow_tpu/compute/elementwise.py`` ``_parse_one``); ValueError where
+    it does not parse."""
+    s = v.strip()
+    if t.id == TypeId.BOOL:
+        lv = s.lower()
+        if lv in ("true", "1", "t", "yes"):
+            return True
+        if lv in ("false", "0", "f", "no"):
+            return False
+        raise ValueError(s)
+    if t.is_integer:
+        return int(s)
+    if t.is_floating:
+        return float(s)
+    if t.id == TypeId.DATE32:
+        return datetime.date.fromisoformat(s).toordinal() - _EPOCH_ORDINAL
+    if t.id == TypeId.DATE64:
+        return (datetime.date.fromisoformat(s).toordinal()
+                - _EPOCH_ORDINAL) * 86_400_000
+    if t.id == TypeId.TIMESTAMP:
+        dt = datetime.datetime.fromisoformat(s)
+        delta = dt - datetime.datetime(1970, 1, 1, tzinfo=dt.tzinfo)
+        us = (delta.days * 86_400 + delta.seconds) * 1_000_000 \
+            + delta.microseconds
+        return us * _UNITS_PER_US[t.unit] // _US_PER_UNIT[t.unit]
+    raise ValueError(f"cannot parse string as {t!r}")
+
+
+def _cast_strings(ctx, a: DeviceColumn, t: DataType,
+                  safe: bool) -> DeviceColumn:
+    """A string column to bool, a number, a date or a timestamp: each
+    dictionary value parsed once on the host, the results gathered by the
+    codes on the device. A live row that does not parse raises ValueError
+    with ``safe``, else is null."""
+    parsed, bad = [], []
+    for v in a.dictionary:
+        try:
+            parsed.append(0 if v is None else _parse_one(v, t))
+            bad.append(False)
+        except (ValueError, ArithmeticError):
+            parsed.append(0)
+            bad.append(True)
+    from .strings import slot_lookup
+    name = dtypes.dtype_of_type(t)
+    table = np.asarray(parsed, dtype=name).view(
+        torch.empty(0, dtype=dtypes.STORAGE[name]).numpy().dtype)
+    out = slot_lookup(a, table)
+    unparsed = slot_lookup(a, np.asarray(bad, dtype=np.bool_))
+    if safe:
+        if bool((unparsed & a.valid_mask(ctx.row_mask())).any()):
+            raise ValueError(f"cast: could not parse string as {t!r}")
+        return _col(out, a.validity, t, name=name)
+    return _col(out, a.valid_mask() & ~unparsed, t, name=name)

@@ -1,19 +1,19 @@
-"""The temporal and string functions of the reference's long-tail module
-(counterpart of part of ``arrow_tpu/compute/extra_kernels.py``):
-``subsecond``, ``local_timestamp``, ``floor_temporal``/``ceil_temporal``/
-``round_temporal``, ``week``, ``us_year``, the ``*_between`` of seconds
-down to nanoseconds, weeks, quarters and months; ``ascii_is_printable``,
-``ascii_is_title``, ``utf8_zero_fill``, ``utf8_normalize``,
-``binary_slice``, the two ``*_replace_slice`` functions, the counts and
-finds of a regex, and the reference's ``ascii_*`` aliases of the trims and
-of center.
+"""The long-tail functions of the reference's ``extra_kernels.py``
+(counterpart of ``arrow_tpu/compute/extra_kernels.py``): the
+``is_in_meta_binary``/``index_in_meta_binary`` aliases, ``hypot``,
+``round_binary``, ``indices_nonzero``, ``winsorize``, ``rank_quantile``,
+``rank_normal`` and ``tdigest``; ``subsecond``, ``local_timestamp``,
+``floor_temporal``/``ceil_temporal``/``round_temporal``, ``week``,
+``us_year``, the ``*_between`` of seconds down to nanoseconds, weeks,
+quarters and months; ``ascii_is_printable``, ``ascii_is_title``,
+``utf8_zero_fill``, ``utf8_normalize``, ``binary_slice``, the two
+``*_replace_slice`` functions, the counts and finds of a regex, and the
+reference's ``ascii_*`` aliases of the trims and of center. Its grouped
+aggregates (``hash_first_last``, ``hash_skew``, ``hash_kurtosis``,
+``hash_approximate_median``, ``hash_tdigest``) are in ``hash_agg.py``.
 
-The rest of the reference module (``hypot``, ``round_binary``,
-``indices_nonzero``, ``winsorize``, the two ranks, ``tdigest`` and the
-grouped ``tdigest``, ``first_last``, ``skew``, ``kurtosis`` and
-``approximate_median``) is ROADMAP.md queue 1 item 9.9; its host-tier
-functions (``iso_calendar``, ``extract_regex``, the interval
-``*_between``, ...) are item 11.
+Its host-tier functions (``iso_calendar``, ``extract_regex``, the
+interval ``*_between``, ...) are ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -25,14 +25,141 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import dtypes
 from .. import types as T
 from ..device.column import DeviceColumn
 from ..types import TypeId
-from .registry import register
+from . import elementwise as E
+from . import vector_misc  # noqa: F401 - registers is_in and index_in
+from .aggregate import _dec_factor, scalar_quantile
+from .move import compact_by_mask
+from .registry import register, register_alias
+from .selection import Compacted
 from .strings import (_alias, _str_to_bool, _string, host_table,
                       require_string, slot_lookup, transform)
 from .temporal import (US_PER_DAY, between, between_columns, civil_from_days,
                        days_from_civil, iso_year_week, to_days_and_us)
+
+register_alias("is_in_meta_binary", "is_in")
+register_alias("index_in_meta_binary", "index_in")
+
+
+# --- math --------------------------------------------------------------------
+
+@register("hypot", "elementwise")
+def hypot(ctx, a, b):
+    """``sqrt(a**2 + b**2)``: ``a``'s integers as f64 (``b``'s as they
+    are), in the dtype ``jnp.hypot`` promotes them to; f16 and f32
+    computed in f64 and rounded once."""
+    k = E._kind(a)
+    if dtypes.is_integer(k) or k == dtypes.WEAK_INT:
+        k = "float64"
+    dt = E._inexact(k, E._kind(b))
+    dev = E._device_of(a, b)
+    out = E._wide(torch.hypot, E._load(a, dt, dev), E._load(b, dt, dev))
+    return E._col(out, E._validity_of(a, b), name=dt)
+
+
+@register("round_binary", "elementwise")
+def round_binary(ctx, a, b, round_mode: str = "half_to_even"):
+    """``a`` rounded to ``b`` decimal digits a row, in f64: ``a * 10**b``
+    rounded by ``round_mode`` (``half_to_even``, ``down``, ``up``,
+    ``towards_zero``; every other mode half away from zero, as in the
+    reference), divided by ``10**b``."""
+    dev = E._device_of(a, b)
+    scale = torch.pow(10.0, E._load(b, "float64", dev))
+    x = E._load(a, "float64", dev) * scale
+    if round_mode == "half_to_even":
+        r = torch.round(x)
+    elif round_mode == "down":
+        r = torch.floor(x)
+    elif round_mode == "up":
+        r = torch.ceil(x)
+    elif round_mode == "towards_zero":
+        r = torch.trunc(x)
+    else:
+        r = torch.trunc(x + torch.sign(x) * 0.5)
+    return E._col(r / scale, E._validity_of(a, b), T.float64())
+
+
+# --- statistics and ranks ----------------------------------------------------
+
+@register("indices_nonzero", "vector")
+def indices_nonzero(ctx, col: DeviceColumn) -> Compacted:
+    """The positions of the valid, live, non-zero rows (a NaN counts, -0.0
+    does not), uint64, through one compaction."""
+    nz = col.valid_mask(ctx.row_mask()) & (col.values != 0)
+    idx = torch.arange(ctx.capacity, dtype=torch.int64, device=nz.device)
+    (out,), count = compact_by_mask(nz, [idx])
+    return Compacted(DeviceColumn(out, None, T.uint64()), count)
+
+
+def _live_quantile(v: torch.Tensor, live: torch.Tensor, q: float,
+                   higher: bool) -> torch.Tensor:
+    """The value at ``q * (n - 1)`` among the live lanes, rounded up
+    (``higher``) or down, as the reference reads it: the lanes sorted
+    with the rest at +inf (a NaN sorts after them and counts in ``n``)."""
+    sv = torch.sort(torch.where(live, v, float("inf"))).values
+    nf = live.sum(dtype=torch.int64).clamp(min=1).to(torch.float64)
+    pos = q * (nf - 1.0)
+    pos = torch.ceil(pos) if higher else torch.floor(pos)
+    return sv[pos.long().clamp(0, v.shape[0] - 1)]
+
+
+@register("winsorize", "vector")
+def winsorize(ctx, col: DeviceColumn, lower_limit: float = 0.0,
+              upper_limit: float = 1.0) -> DeviceColumn:
+    """Values clipped to the ``lower_limit`` quantile (rounded up) and the
+    ``upper_limit`` one (rounded down) of the live values, in f64: a
+    float column keeps its dtype and type, a decimal its unscaled values
+    and type, every other column comes out f64."""
+    name = col.value_dtype
+    live = col.valid_mask(ctx.row_mask())
+    v = dtypes.as_float64(col.values, name)
+    lo = _live_quantile(v, live, float(lower_limit), True)
+    hi = _live_quantile(v, live, float(upper_limit), False)
+    out = torch.minimum(torch.maximum(v, lo), hi)
+    if _dec_factor(col.type) is not None or dtypes.is_float(name):
+        return DeviceColumn(out.to(col.values.dtype), col.validity,
+                            col.type)
+    return DeviceColumn(out, col.validity, T.float64())
+
+
+def _rank_fraction(ctx, col, null_placement) -> torch.Tensor:
+    """``(mean of the min and max ranks - 0.5) / n``, f64, where ``n``
+    counts every live row, nulls included; ranked ascending whatever
+    ``sort_keys`` says, as in the reference."""
+    from .vector_sort import rank
+    r = [rank(ctx, col, "ascending", null_placement, tb).column.values
+         .to(torch.float64) for tb in ("min", "max")]
+    n = ctx.row_mask().sum(dtype=torch.int64).to(torch.float64)
+    return ((r[0] + r[1]) * 0.5 - 0.5) / n.clamp(min=1.0)
+
+
+@register("rank_quantile", "vector")
+def rank_quantile(ctx, col, sort_keys="ascending",
+                  null_placement: str = "at_end") -> Compacted:
+    return Compacted(DeviceColumn(_rank_fraction(ctx, col, null_placement),
+                                  None, T.float64()), ctx.row_count)
+
+
+@register("rank_normal", "vector")
+def rank_normal(ctx, col, sort_keys="ascending",
+                null_placement: str = "at_end") -> Compacted:
+    """The probit (``torch.special.ndtri``) of ``rank_quantile``."""
+    q = _rank_fraction(ctx, col, null_placement)
+    return Compacted(DeviceColumn(torch.special.ndtri(q), None,
+                                  T.float64()), ctx.row_count)
+
+
+@register("tdigest", "aggregate")
+def tdigest(ctx, a: DeviceColumn, q=0.5, delta: int = 100,
+            buffer_size: int = 500, skip_nulls: bool = True,
+            min_count: int = 0):
+    """The exact linear quantile (``quantile``), as the reference gives
+    it; NaN is left out, as the port's ``quantile`` leaves it out."""
+    return scalar_quantile(ctx, a, q, "linear", skip_nulls, min_count)
+
 
 # --- temporal: subsecond, local time, rounding -------------------------------
 

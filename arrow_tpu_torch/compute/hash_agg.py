@@ -1,7 +1,9 @@
 """Grouped ("hash_") aggregates (counterpart of
-``arrow_tpu/compute/hash_agg.py``): sum, product, mean, count, count_all,
-min, max, min_max, any, all, variance, stddev, first, last, one and
-count_distinct, with their options.
+``arrow_tpu/compute/hash_agg.py`` and of the grouped ones of
+``arrow_tpu/compute/extra_kernels.py``): sum, product, mean, count,
+count_all, min, max, min_max, any, all, variance, stddev, first, last,
+one and count_distinct, with their options; first_last, skew, kurtosis,
+approximate_median and tdigest.
 
 Each takes (values, group ids int64[capacity] with ``capacity`` on dead
 rows) and returns per-group results at the static segment bound plus the
@@ -24,7 +26,11 @@ its any, all, variance and first run at the row capacity: the two agree
 on the live groups). Float products multiply in an order fixed by the
 input (``move.segment_product``); the variance's two sums go through
 ``move.segment_sum``. First and last take each group's least (greatest)
-live row index, dead rows at an identity position.
+live row index, dead rows at an identity position. Skew and kurtosis
+sum the centred moments through ``move.segment_sum`` too, so a run
+repeats their bits. The grouped quantiles sort the live rows by (group,
+value) and read each group's run; NaN is left out of the values and the
+counts, as the port's scalar ``quantile`` leaves it out.
 """
 
 from __future__ import annotations
@@ -389,3 +395,122 @@ def grouped_count_distinct(ctx, values: DeviceColumn, gids, num_groups,
         counts = has_null if mode == "only_null" else counts + has_null
     return Compacted(DeviceColumn(counts, None, T.int64()),
                      num_groups.to(torch.int32))
+
+
+@register("hash_first_last", "hash_aggregate")
+def grouped_first_last(ctx, values: DeviceColumn, gids, num_groups,
+                       skip_nulls: bool = True, min_count: int = 0,
+                       num_segments=None):
+    """``{"first": ..., "last": ...}``: the node makes two columns of it."""
+    return {"first": grouped_first(ctx, values, gids, num_groups,
+                                   skip_nulls, min_count, num_segments),
+            "last": grouped_last(ctx, values, gids, num_groups, skip_nulls,
+                                 min_count, num_segments)}
+
+
+def _centred_moments(ctx, values: DeviceColumn, gids, num_segments,
+                     power: int):
+    """(segment bound, live counts, the sums of the centred values'
+    squares and of their ``power``-th powers), in f64, a decimal
+    descaled: three ``segment_sum`` calls, the reference's two passes."""
+    values = decode_numeric_dict(values)
+    nseg, live, seg = _prep(ctx, values, gids, num_segments)
+    v = dtypes.as_float64(values.values, values.value_dtype)
+    f = _dec_factor(values.type)
+    if f is not None:
+        v = v * f
+    v = torch.where(live, v, 0.0)
+    counts = segment_count(live, seg, nseg)
+    means = segment_sum(v, seg, nseg, live) / counts.clamp(min=1).to(
+        torch.float64)
+    c = torch.where(live, v - means[seg.long()], 0.0)
+    m2 = segment_sum(c * c, seg, nseg, live)
+    mp = segment_sum(c * c * c if power == 3 else c * c * c * c, seg, nseg,
+                     live)
+    return nseg, counts, m2, mp
+
+
+@register("hash_skew", "hash_aggregate")
+def grouped_skew(ctx, values: DeviceColumn, gids, num_groups,
+                 skip_nulls: bool = True, biased: bool = True,
+                 min_count: int = 0, num_segments=None):
+    """``sqrt(n) * m3 / m2**1.5``, as the reference's; ``biased=False``
+    and ``skip_nulls=False`` as the port's scalar ``skew`` (the reference
+    ignores both here). Valid where the group has ``max(min_count, 1)``
+    values."""
+    nseg, counts, m2, m3 = _centred_moments(ctx, values, gids,
+                                            num_segments, 3)
+    n = counts.to(torch.float64)
+    sk = torch.sqrt(n.clamp(min=1.0)) * m3 / m2.clamp(min=1e-300) ** 1.5
+    if not biased:
+        sk = sk * torch.sqrt(n * (n - 1.0)) / (n - 2.0).clamp(min=1.0)
+    return _out(DeviceColumn(sk, _validity(
+        ctx, values, gids, counts, nseg, max(min_count, 1), skip_nulls),
+        T.float64()), num_groups)
+
+
+@register("hash_kurtosis", "hash_aggregate")
+def grouped_kurtosis(ctx, values: DeviceColumn, gids, num_groups,
+                     skip_nulls: bool = True, biased: bool = True,
+                     min_count: int = 0, num_segments=None):
+    """``n * m4 / m2**2 - 3``, as the reference's; ``biased`` and
+    ``skip_nulls`` as ``hash_skew``'s."""
+    nseg, counts, m2, m4 = _centred_moments(ctx, values, gids,
+                                            num_segments, 4)
+    n = counts.to(torch.float64)
+    kt = n.clamp(min=1.0) * m4 / (m2 * m2).clamp(min=1e-300) - 3.0
+    if not biased:
+        kt = ((n - 1.0) / ((n - 2.0) * (n - 3.0)).clamp(min=1.0)
+              * ((n + 1.0) * kt + 6.0))
+    return _out(DeviceColumn(kt, _validity(
+        ctx, values, gids, counts, nseg, max(min_count, 1), skip_nulls),
+        T.float64()), num_groups)
+
+
+def _grouped_quantile(ctx, values: DeviceColumn, gids, num_groups,
+                      q: float, num_segments) -> Compacted:
+    """Each group's linear quantile: the live, non-NaN rows sorted by
+    (group, value order), each group's run read at ``q * (n - 1)``; null
+    where the group has no such row."""
+    values = decode_numeric_dict(values)
+    cap = ctx.capacity
+    nseg, live, _ = _prep(ctx, values, gids, num_segments)
+    v = dtypes.as_float64(values.values, values.value_dtype)
+    f = _dec_factor(values.type)
+    if f is not None:
+        v = v * f
+    live = live & ~torch.isnan(v)
+    seg = torch.where(live, gids, 0)
+    gkey = torch.where(live, gids, cap)
+    perm = stable_sort_indices([gkey, order_word(DeviceColumn(v, None,
+                                                              None))])
+    sv = torch.where(live, v, float("inf"))[perm]
+    counts = segment_count(live, seg, nseg)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = q * (counts.clamp(min=1).to(torch.float64) - 1.0)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    vlo = sv[(starts + lo.long()).clamp(0, cap - 1)]
+    vhi = sv[(starts + hi.long()).clamp(0, cap - 1)]
+    return _out(DeviceColumn(vlo + (vhi - vlo) * (pos - lo), counts > 0,
+                             T.float64()), num_groups)
+
+
+@register("hash_approximate_median", "hash_aggregate")
+def grouped_approximate_median(ctx, values: DeviceColumn, gids, num_groups,
+                               skip_nulls: bool = True, min_count: int = 0,
+                               num_segments=None):
+    """The exact median, as the reference gives it (which ignores
+    ``skip_nulls`` and ``min_count`` here, as the port does)."""
+    return _grouped_quantile(ctx, values, gids, num_groups, 0.5,
+                             num_segments)
+
+
+@register("hash_tdigest", "hash_aggregate")
+def grouped_tdigest(ctx, values: DeviceColumn, gids, num_groups, q=0.5,
+                    delta: int = 100, buffer_size: int = 500,
+                    skip_nulls: bool = True, min_count: int = 0,
+                    num_segments=None):
+    """The exact linear quantile at ``q`` (the first of several)."""
+    qq = q[0] if isinstance(q, (list, tuple)) else q
+    return _grouped_quantile(ctx, values, gids, num_groups, float(qq),
+                             num_segments)

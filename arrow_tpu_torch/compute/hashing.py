@@ -7,6 +7,16 @@ primes, the avalanche finalizer and the multi-column combiner
 row's words is ``kernels.hash32.hash32``, the hash kernel on a CUDA tensor;
 its plain version is built from the steps here.
 
+``column_words`` splits a column's stored values into the uint32 words the
+reference hashes (``arrow_tpu/compute/hashing.py``), following each
+type's value: a value of up to 32 bits is one word, sign-extended for the
+signed integers and zero-extended for the unsigned ones (uint16 and
+uint32 are stored as signed bits here), f16 through f32, an f32 by its
+raw bits; a 64-bit value is its low word then its high word, an f64 by
+its bits with every NaN one quiet NaN (-0.0 keeps its own bits). A
+dictionary column hashes its int32 codes. A null row hashes the value
+stored under it, as in the reference.
+
 torch has no uint32 arithmetic: the steps carry each uint32 in an int64 and
 mask with ``& 0xFFFFFFFF`` after every multiply and shift, so ``h >> s`` on
 the non-negative int64 is the logical shift. Words are int32 tensors
@@ -18,6 +28,12 @@ from __future__ import annotations
 from typing import List
 
 import torch
+
+from .. import dtypes
+from .. import types as T
+from ..device.column import DeviceColumn
+from .keys import f64_bits
+from .registry import register
 
 MASK32 = 0xFFFFFFFF
 
@@ -64,3 +80,39 @@ def int64_halves(w: torch.Tensor) -> List[torch.Tensor]:
     views (no copy)."""
     bits = w.contiguous().view(torch.int32)
     return [bits[0::2], bits[1::2]]
+
+
+def column_words(col: DeviceColumn) -> List[torch.Tensor]:
+    """A column's values as int32 planes of uint32 words: one for a value
+    of up to 32 bits, the (low, high) halves of a 64-bit one as strided
+    views of its storage."""
+    name = col.value_dtype
+    v = col.values
+    if name == "float64":
+        return int64_halves(f64_bits(v))
+    if v.element_size() == 8:
+        return int64_halves(v)
+    if dtypes.is_float(name):
+        return [v.to(torch.float32).view(torch.int32)]
+    if name == "uint32":
+        return [v]
+    # bool 0 or 1, uint8 and uint16 zero-extended, the rest sign-extended
+    return [dtypes.load(v, name).to(torch.int32)]
+
+
+def hash_columns(cols) -> torch.Tensor:
+    """The hash of each row's words over ``cols`` (at most
+    ``kernels.hash32.MAX_WORDS`` words), as int32 bits of the uint32
+    hash: the hash kernel on a CUDA tensor."""
+    from ..kernels.hash32 import hash32
+    words: List[torch.Tensor] = []
+    for c in cols:
+        words.extend(column_words(c))
+    return hash32(words)
+
+
+@register("hash32", "elementwise")
+def hash32_function(ctx, col: DeviceColumn) -> DeviceColumn:
+    """xxhash32 of one column (the reference's Hashing32): uint32, stored
+    as int32 bits, with the column's validity."""
+    return DeviceColumn(hash_columns([col]), col.validity, T.uint32())

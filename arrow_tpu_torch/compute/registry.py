@@ -51,9 +51,9 @@ def register_alias(alias: str, name: str):
     _REGISTRY[alias] = _REGISTRY[name]
 
 
-# names of the reference's registry that are not ported yet, by the
-# ROADMAP item (queue 1) that holds them; any other unknown name is item 9.
-# Item 11 holds every name the reference registers for its host tier.
+# The names of the reference's registry that are not ported yet: every
+# one is the host boundary, ROADMAP.md queue 1 item 11 (the 26 names the
+# reference registers for its host tier, and its host-tier aggregates).
 _HOST_TIER = (
     "ascii_split_whitespace", "binary_join", "day_time_interval_between",
     "dictionary_decode", "extract_regex", "extract_regex_span",
@@ -62,26 +62,23 @@ _HOST_TIER = (
     "month_day_nano_interval_between", "pivot_wider", "random",
     "run_end_decode", "split_pattern", "split_pattern_regex", "strftime",
     "strptime", "struct_field", "utf8_split_whitespace", "year_month_day")
-_QUEUED = {
-    **{n: "9.9" for n in (
-        "hypot", "round_binary", "indices_nonzero", "winsorize",
-        "rank_quantile", "rank_normal", "tdigest", "hash_tdigest",
-        "hash_first_last", "hash_skew", "hash_kurtosis",
-        "hash_approximate_median")},
-    "hash32": "10",
-    **{n: "11" for n in _HOST_TIER + ("list", "distinct", "hash_list",
-                                       "hash_distinct", "hash_pivot_wider")}}
+_QUEUED = frozenset(_HOST_TIER + ("list", "distinct", "hash_list",
+                                  "hash_distinct", "hash_pivot_wider"))
 
 
 def get_function(name: str) -> Function:
     if name not in _REGISTRY:
         # the modules that register functions, imported on first lookup
         from . import (aggregate, elementwise, extra_kernels,  # noqa: F401
-                       grouper, hash_agg, selection, strings, temporal,
-                       vector_misc, vector_sort)
+                       grouper, hash_agg, hashing, selection, strings,
+                       temporal, vector_misc, vector_sort)
     f = _REGISTRY.get(name)
     if f is None:
+        if name not in _QUEUED:
+            raise NotImplementedError(
+                f"no compute function {name!r}: the reference registers "
+                "none by that name")
         raise NotImplementedError(
             f"compute function {name!r} is not ported yet (ROADMAP.md, "
-            f"queue 1, item {_QUEUED.get(name, '9: the long tail')})")
+            "queue 1, item 11: the host boundary)")
     return f

@@ -111,6 +111,24 @@ Phases; any failure exits non-zero without the final line:
    slice of ``c_phone`` on the byte pool. Launches exact; the compaction,
    the hash and the grouped sum against their plain versions at these
    paths' shapes.
+   Then (3i) the rest of compute (``REST_PATHS``): hash_types, the
+   registered ``hash32`` of the typed lineitem's 12 columns and of an f64
+   column with NaN, -0.0 and nulls, bit for bit against numpy's xxhash32
+   from the reference's constants, null rows included; vector_misc, the
+   null fills of l_suppkey, ``run_end_encode`` of l_orderkey in order
+   (15M runs) and of l_returnflag, ``replace_with_mask``, ``index_in``
+   and the ``*_meta_binary`` aliases; math_stats, ``hypot``,
+   ``round_binary``, ``indices_nonzero``, ``winsorize``, the two ranks
+   and ``tdigest`` over 60M rows; grouped_flags and grouped_k3, skew,
+   kurtosis, median, quantile and first/last by Q1's flags (12 slots)
+   and by a 160-slot key; orders_median per order (15M groups); and
+   customer_plan, a cast of the phone's country code as a group key,
+   ``is_null``/``is_valid``/``is_nan``/``index_in`` of a nullable
+   segment, ``coalesce`` and ``if_else`` over two dictionaries and a
+   filter on a column with an empty dictionary. Each against a numpy
+   oracle in a thread, launches exact, the kernels against their plain
+   versions at these shapes, the grouped moments bit for bit over two
+   runs.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -118,8 +136,8 @@ Phases; any failure exits non-zero without the final line:
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
 4. Times after a warm-up: Q1, Q3, Q4, Q13, the suite's and the last
-   eleven plans' rows/s of their largest input and phase 3e's, 3f's, 3g's
-   and 3h's walls (best of 5; one run for 3h's two sweeps, which phase
+   eleven plans' rows/s of their largest input and phase 3e's, 3f's, 3g's,
+   3i's and 3h's walls (best of 5; one run for 3h's two sweeps, which phase
    3h ran), a profile of one run of each (device busy time and idle
    share), each kernel's time beside its bound, its plain version's and
    one library call's where there is one (the compaction at five
@@ -2869,7 +2887,7 @@ def stats_scalar_run(s, decl=None):
 
 
 class StatsPath(NamedTuple):
-    """One path of phase 3g: ``run(inputs)`` gives its results,
+    """One path of phase 3g or 3i: ``run(inputs)`` gives its results,
     ``check(host columns, results)`` holds them against numpy."""
     name: str
     run: object
@@ -4044,6 +4062,727 @@ def phase_strings(tables, typed):
     return launches, h
 
 
+# --- phase 3i: the rest of compute -----------------------------------------
+
+REST_SEED = 17
+REST_NULLS = 0.1                # the share of the customer segment's nulls
+REST_SPECIALS = 0.01            # each of NaN, -0.0 and 0.0 in the f64 column
+HASH_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+                "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                "l_returnflag", "l_linestatus", "l_shipdate", "l_commitdate")
+SEGMENT_SET = ["MACHINERY", None, "BUILDING", "NOT A SEGMENT"]
+SHIPMODE_SET = ["MAIL", None, "SHIP", "TRUCK", "NOT A MODE"]
+REST_QUANTILES = [0.1, 0.5, 0.9]
+WINSOR = (0.05, 0.95)
+RICH = 5_000.0                  # if_else's balance for the segment
+# 8 x 5 x 4 = 160 perfect-hash slots: the grouped-sum kernel's K3 range
+K3_KEYS = ["l_shipmode", "l_shipinstruct", "l_returnflag"]
+FLAG_KEYS = ["l_returnflag", "l_linestatus"]
+_XXH = (2246822519, 3266489917, 668265263, 374761393)  # PRIME32_2 .. _5
+
+
+def rest_inputs(tables, typed, seed=REST_SEED):
+    """Phase 3i's inputs: Q1's lineitem and phase 3f's typed lineitem (its
+    12 columns for the hash, l_suppkey with its 1% nulls for the fills),
+    an f64 column (l_extendedprice with ``REST_SPECIALS`` each of NaN, -0.0
+    and 0.0, and 1% nulls), l_orderkey in order (lineitem as TPC-H's
+    dbgen writes it: each order's lines together), a nullable mask
+    (``l_quantity > 45``, 5% null) and its replacements, ``round_binary``'s digits (l_linenumber
+    - 1: 0 to 6), and customer's phone and balance beside its segment
+    with ``REST_NULLS`` nulls and a column with an empty dictionary (every
+    row null); the draws from a generator seeded with ``seed`` on the
+    tables' device."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.device.column import DeviceBatch, DeviceColumn
+    from arrow_tpu_torch.types import Field, Schema
+    li, t = tables["lineitem"], typed["lineitem"]
+    dev = t.row_count.device
+    cap = t.capacity
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    price = li.column("l_extendedprice").values
+    r = torch.rand(cap, generator=gen, device=dev)
+    special = torch.where(r < REST_SPECIALS, float("nan"), torch.where(
+        r < 2 * REST_SPECIALS, -0.0, torch.where(
+            r < 3 * REST_SPECIALS, 0.0, price)))
+    f64 = DeviceColumn(special, torch.rand(cap, generator=gen, device=dev)
+                       >= 0.01, T.float64())
+    big = _call(_context(t), "greater", t.column("l_quantity"), 45)
+    mask = DeviceColumn(big.values, torch.rand(cap, generator=gen,
+                                               device=dev) >= 0.05, big.type)
+    digits = _call(_context(t), "subtract", t.column("l_linenumber"), 1)
+    okey = li.column("l_orderkey")
+    n = int(li.row_count)
+    in_order = DeviceColumn(torch.cat([torch.sort(okey.values[:n]).values,
+                                       okey.values[n:]]), None, okey.type)
+    cust = tables["customer"]
+    ccap = cust.capacity
+    seg = cust.column("c_mktsegment")
+    cols = {
+        "c_phone": cust.column("c_phone"),
+        "c_acctbal": cust.column("c_acctbal"),
+        "c_segment": DeviceColumn(seg.values, torch.rand(
+            ccap, generator=gen, device=dev) >= REST_NULLS, seg.type,
+            seg.dictionary),
+        "c_empty": DeviceColumn(torch.zeros(ccap, dtype=torch.int32,
+                                            device=dev),
+                                torch.zeros(ccap, dtype=torch.bool,
+                                            device=dev), seg.type, ())}
+    customer = DeviceBatch(Schema([Field(k, c.type) for k, c in
+                                   cols.items()]), list(cols.values()),
+                           cust.row_count)
+    return {"lineitem": li, "typed": t, "f64": f64, "mask": mask,
+            "digits": digits, "okey_in_order": in_order,
+            "customer": customer}
+
+
+def rest_columns(s):
+    """The host copies phase 3i's oracles read: the typed lineitem's
+    columns (``typed_columns``), Q1's lineitem's, the f64 column, the
+    mask, the digits and the customer columns (strings decoded)."""
+    from arrow_tpu_torch.device.column import DeviceBatch
+    from arrow_tpu_torch.types import Field, Schema
+    li = s["lineitem"]
+    n = int(li.row_count)
+    c = typed_columns({"lineitem": s["typed"]})
+    c["n"] = n
+    c["plain"] = typed_columns({"lineitem": li.select([
+        "l_orderkey", "l_returnflag", "l_linestatus", "l_shipmode",
+        "l_shipinstruct", "l_extendedprice", "l_tax", "l_discount",
+        "l_quantity", "l_shipdate"])})
+    extra = {k: s[k] for k in ("f64", "mask", "digits", "okey_in_order")}
+    c["extra"] = typed_columns({"x": DeviceBatch(
+        Schema([Field(k, v.type) for k, v in extra.items()]),
+        list(extra.values()), li.row_count)})
+    cust = typed_columns({"customer": s["customer"]})
+    for k in ("c_phone", "c_segment"):
+        cust[k + ":str"] = np.array(cust[k + ":dict"], dtype=object)
+    c["customer"] = cust
+    return c
+
+
+def _np_hash32(words):
+    """xxhash32 of uint32 words a row with the combiner, from the
+    reference's constants (its ``hashing.py``), in numpy."""
+    p2, p3, p4, p5 = (np.uint32(x) for x in _XXH)
+    out = None
+    for w in words:
+        h = np.uint32(p5 + np.uint32(4)) + w * p3
+        h = ((h << np.uint32(17)) | (h >> np.uint32(15))) * p4
+        h ^= h >> np.uint32(15)
+        h *= p2
+        h ^= h >> np.uint32(13)
+        h *= p3
+        h ^= h >> np.uint32(16)
+        out = h if out is None else out ^ (
+            h + np.uint32(0x9E3779B9) + (out << np.uint32(6))
+            + (out >> np.uint32(2)))
+    return out
+
+
+def _np_words(v):
+    """A column's host values as the reference's uint32 words: a 64-bit
+    value low word first (an f64 by its bits, every NaN one quiet NaN),
+    an f32 by its bits, an f16 through f32, a narrower integer widened
+    by its sign (unsigned ones by zero)."""
+    if v.dtype == np.float64:
+        b = v.view(np.uint64).copy()
+        b[np.isnan(v)] = 0x7FF8000000000000
+        v = b
+    if v.itemsize == 8:
+        u = v.view(np.uint64)
+        return [(u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                (u >> np.uint64(32)).astype(np.uint32)]
+    if v.dtype.kind == "f":
+        return [v.astype(np.float32).view(np.uint32)]
+    return [v.astype(np.int64).astype(np.uint32)]
+
+
+def hash_types_run(s):
+    ctx = _context(s["typed"])
+    cols = [s["typed"].column(k) for k in HASH_COLUMNS] + [s["f64"]]
+    return [_call(ctx, "hash32", col) for col in cols]
+
+
+def check_hash_types(c, r):
+    n = c["n"]
+    names = HASH_COLUMNS + ("f64",)
+    for name, got in zip(names, r):
+        v = c["extra"][name] if name == "f64" else c[name]
+        want = _np_hash32(_np_words(v))
+        src = c["extra"] if name == "f64" else c
+        h, valid = _host(got, n)
+        _expect_equal(f"hash32({name}), null rows included", h, want)
+        want_valid = src.get(name + ":valid")
+        _expect(f"hash32({name}) validity", (valid is None) == (
+            want_valid is None) and (valid is None or np.array_equal(
+                valid, want_valid)))
+        _expect(f"hash32({name}) type", repr(got.type) == "uint32")
+    f = c["extra"]["f64"]
+    return (f"13 columns bit-exact ({int(np.isnan(f).sum())} NaN, "
+            f"{int(((f == 0) & np.signbit(f)).sum())} -0.0 rows)")
+
+
+def vector_misc_run(s):
+    t, li = s["typed"], s["lineitem"]
+    ctx = _context(t)
+    supp = t.column("l_suppkey")
+    return {
+        "forward": _call(ctx, "fill_null_forward", supp),
+        "backward": _call(ctx, "fill_null_backward", supp),
+        "runs_order": _call(ctx, "run_end_encode", s["okey_in_order"]),
+        "runs_flag": _call(ctx, "run_end_encode", li.column("l_returnflag")),
+        "replaced": _call(ctx, "replace_with_mask", supp, s["mask"],
+                          t.column("l_partkey")),
+        "mode_index": _call(ctx, "index_in", li.column("l_shipmode"),
+                            value_set=SHIPMODE_SET),
+        "line_in": _call(ctx, "is_in_meta_binary", t.column("l_linenumber"),
+                         value_set=[1, 7]),
+        "line_index": _call(ctx, "index_in_meta_binary",
+                            t.column("l_linenumber"), value_set=[3, None, 1])}
+
+
+def _fill_oracle(v, valid, forward):
+    idx = np.arange(len(v))
+    if forward:
+        src = np.maximum.accumulate(np.where(valid, idx, -1))
+    else:
+        src = np.minimum.accumulate(np.where(valid, idx, len(v))[::-1])[::-1]
+    has = (src >= 0) & (src < len(v))
+    return v[np.where(has, src, 0)], has
+
+
+def _runs_oracle(v):
+    new = np.ones(len(v), dtype=np.bool_)
+    new[1:] = v[1:] != v[:-1]
+    starts = np.flatnonzero(new)
+    return np.append(starts[1:], len(v)), v[starts]
+
+
+def _index_oracle(labels, codes, valid, value_set):
+    """The reference's index_in over a column's values: the first index in
+    the set, a null row the set's first null, else null."""
+    first = {}
+    for i, x in enumerate(value_set):
+        if x is not None and x not in first:
+            first[x] = i
+    table = np.array([first.get(x, -1) for x in labels], dtype=np.int64)
+    idx = table[codes]
+    null_idx = next(i for i, x in enumerate(value_set) if x is None)
+    if valid is None:
+        valid = np.ones(len(codes), dtype=np.bool_)
+    idx = np.where(valid, idx, null_idx)
+    ok = idx >= 0
+    return np.where(ok, idx, 0), ok
+
+
+def _expect_column(name, col, n, values, valid=None):
+    """A result column's first ``n`` values where valid, and validity."""
+    got, got_valid = _host(col, n)
+    if valid is None:
+        _expect(f"{name} validity", got_valid is None or bool(
+            got_valid.all()))
+        _expect_equal(name, got, values)
+        return
+    if got_valid is None:
+        got_valid = np.ones(n, dtype=np.bool_)
+    _expect_equal(f"{name} validity", got_valid, valid)
+    _expect_equal(name, got[valid], values[valid])
+
+
+def check_vector_misc(c, r):
+    n = c["n"]
+    supp, sv = c["l_suppkey"], c["l_suppkey:valid"]
+    for name in ("forward", "backward"):
+        want, has = _fill_oracle(supp, sv, name == "forward")
+        _expect_column(f"fill_null_{name}", r[name], n, want, has)
+    runs = {}
+    for name, col in (("runs_order", c["extra"]["okey_in_order"]),
+                      ("runs_flag", c["plain"]["l_returnflag"])):
+        ends, values = _runs_oracle(col)
+        got = r[name]
+        k = int(got["run_ends"].count)
+        _expect(f"run_end_encode {name} count", k == len(ends),
+                f"({k}, {len(ends)})")
+        _expect_column(f"{name} ends", got["run_ends"].column, k,
+                       ends.astype(np.int32))
+        _expect_column(f"{name} values", got["values"].column, k, values,
+                       np.ones(k, dtype=np.bool_))
+        runs[name] = k
+    m, mv = c["extra"]["mask"], c["extra"]["mask:valid"]
+    take = m & mv
+    k = np.cumsum(take) - 1
+    want = np.where(take, c["l_partkey"][np.clip(k, 0, n - 1)], supp)
+    _expect_column("replace_with_mask", r["replaced"].column, n, want,
+                   np.where(take, True, sv) & mv)
+    p = c["plain"]
+    idx, ok = _index_oracle(p["l_shipmode:dict"], p["l_shipmode"], None,
+                            SHIPMODE_SET)
+    _expect_column("index_in(l_shipmode)", r["mode_index"], n,
+                   idx.astype(np.int32), ok)
+    line = c["l_linenumber"]
+    _expect_column("is_in_meta_binary", r["line_in"], n,
+                   (line == 1) | (line == 7))
+    want = np.select([line == 3, line == 1], [0, 2], -1)
+    _expect_column("index_in_meta_binary", r["line_index"], n,
+                   np.maximum(want, 0).astype(np.int32), want >= 0)
+    return (f"{runs['runs_order']} order runs, {runs['runs_flag']} flag "
+            f"runs, {int((~sv).sum())} suppliers filled")
+
+
+def math_stats_run(s):
+    li = s["lineitem"]
+    ctx = _context(li)
+    price = li.column("l_extendedprice")
+    return {
+        "hypot": _call(ctx, "hypot", price, li.column("l_tax")),
+        "round": _call(ctx, "round_binary", price, s["digits"]),
+        "nonzero": _call(ctx, "indices_nonzero", li.column("l_discount")),
+        "winsor": _call(ctx, "winsorize", price, lower_limit=WINSOR[0],
+                        upper_limit=WINSOR[1]),
+        "rank_q": _call(ctx, "rank_quantile", price),
+        "rank_n": _call(ctx, "rank_normal", price),
+        "tdigest": _call(ctx, "tdigest", price, q=REST_QUANTILES)}
+
+
+def _sorted_at(uniq, ends, pos):
+    """The value at sorted position ``pos`` of values given as sorted
+    distinct values and their cumulative counts."""
+    return uniq[np.searchsorted(ends, pos, side="right")]
+
+
+def check_math_stats(c, r):
+    import statistics
+    n = c["n"]
+    p = c["plain"]
+    price = p["l_extendedprice"]
+    _expect_close("hypot", _host(r["hypot"], n)[0],
+                  np.hypot(price, p["l_tax"]))
+    scale = 10.0 ** c["extra"]["digits"].astype(np.float64)
+    _expect_close("round_binary", _host(r["round"], n)[0],
+                  np.round(price * scale) / scale)
+    nz = np.flatnonzero(p["l_discount"] != 0)
+    got = r["nonzero"]
+    _expect(f"indices_nonzero count", int(got.count) == len(nz))
+    _expect_equal("indices_nonzero", _host(got.column, len(nz))[0], nz)
+    uniq, inv, counts = np.unique(price, return_inverse=True,
+                                  return_counts=True)
+    ends = np.cumsum(counts)
+    lo = _sorted_at(uniq, ends, np.ceil(WINSOR[0] * (n - 1)))
+    hi = _sorted_at(uniq, ends, np.floor(WINSOR[1] * (n - 1)))
+    _expect_equal("winsorize", _host(r["winsor"], n)[0],
+                  np.clip(price, lo, hi))
+    rank = ((ends - counts + 1) + ends) * 0.5
+    q = (rank - 0.5) / n
+    _expect_equal("rank_quantile", _host(r["rank_q"].column, n)[0], q[inv])
+    # the probit of a sample of the exactly checked quantile ranks
+    rows = np.arange(0, n, 997)
+    normal = np.array([statistics.NormalDist().inv_cdf(x)
+                       for x in q[inv[rows]]])
+    got = _host(r["rank_n"].column, n)[0][rows]
+    _expect(f"rank_normal within {NDTRI_TOL}", bool(
+        (np.abs(got - normal) <= NDTRI_TOL * np.maximum(
+            np.abs(normal), 1.0)).all()))
+    for qi, got, ok in zip(REST_QUANTILES, r["tdigest"].value,
+                           r["tdigest"].valid):
+        pos = qi * (n - 1)
+        a = _sorted_at(uniq, ends, np.floor(pos))
+        b = _sorted_at(uniq, ends, np.ceil(pos))
+        _expect_close(f"tdigest q={qi}", np.array([float(got)]),
+                      np.array([a + (b - a) * (pos - np.floor(pos))]))
+        _expect(f"tdigest q={qi} validity", bool(ok))
+    return (f"{len(nz)} non-zero discounts, {len(uniq)} distinct prices "
+            f"ranked")
+
+
+def _moment_aggregates():
+    return [("l_extendedprice", "hash_skew", None, "skew"),
+            ("l_extendedprice", "hash_kurtosis", None, "kurt"),
+            ("l_extendedprice", "hash_approximate_median", None, "median"),
+            ("l_quantity", "hash_tdigest", {"q": 0.9}, "q90"),
+            ("l_quantity", "hash_first_last", None, "qty")]
+
+
+def grouped_rest_decl(s, keys, ac=None):
+    """Q1's lineitem under Q1's filter (folded into the aggregate), the
+    five grouped names by ``keys``."""
+    ac = _acero(ac)
+    D, f = ac.Declaration, ac.field
+    names = keys + ["l_extendedprice", "l_quantity"]
+    return D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(s["lineitem"])),
+        D("filter", ac.FilterNodeOptions(
+            f("l_shipdate") <= SHIPDATE_1998_09_02)),
+        D("project", ac.ProjectNodeOptions([f(k) for k in names], names)),
+        D("aggregate", ac.AggregateNodeOptions(_moment_aggregates(),
+                                               keys=keys))])
+
+
+def grouped_flags_run(s):
+    return grouped_rest_decl(s, FLAG_KEYS).to_table()
+
+
+def grouped_k3_run(s):
+    return grouped_rest_decl(s, K3_KEYS).to_table()
+
+
+def _groups_in_order(key, keep):
+    """The kept rows of each key value, in order of first appearance:
+    one stable sort of the kept rows by key."""
+    rows = np.flatnonzero(keep)
+    order = np.argsort(key[rows], kind="stable")
+    sk = key[rows][order]
+    bounds = np.flatnonzero(np.diff(sk)) + 1
+    groups = np.split(rows[order], bounds)
+    return sorted(((int(key[g[0]]), g) for g in groups),
+                  key=lambda kg: kg[1][0])
+
+
+def _linear(x, q):
+    """The linear quantile of ``x``, by a partition."""
+    pos = q * (len(x) - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    part = np.partition(x, [lo, hi])
+    return part[lo] + (part[hi] - part[lo]) * (pos - lo)
+
+
+def grouped_rest_oracle(c, keys):
+    """The five grouped names in numpy, group by group (groups in order of
+    first appearance): two-pass f64 moments, medians and quantiles by a
+    sort of the group."""
+    p = c["plain"]
+    keep = p["l_shipdate"] <= SHIPDATE_1998_09_02
+    key = np.zeros(c["n"], dtype=np.int64)
+    for k in keys:
+        key = key * (len(p[k + ":dict"]) + 1) + p[k]
+    out = {k: [] for k in keys + ["skew", "kurt", "median", "q90",
+                                  "qty_first", "qty_last"]}
+    for k, rows in _groups_in_order(key, keep):
+        x = p["l_extendedprice"][rows]
+        dev = x - x.sum() / len(x)
+        m2, m3, m4 = ((dev ** e).sum() for e in (2, 3, 4))
+        qty = p["l_quantity"][rows]
+        vals = {"skew": np.sqrt(len(x)) * m3 / max(m2, 1e-300) ** 1.5,
+                "kurt": len(x) * m4 / max(m2 * m2, 1e-300) - 3.0,
+                "median": _linear(x, 0.5), "q90": _linear(qty, 0.9),
+                "qty_first": qty[0], "qty_last": qty[-1]}
+        rest = k
+        for name in reversed(keys):
+            size = len(p[name + ":dict"]) + 1
+            vals[name] = p[name + ":dict"][rest % size]
+            rest //= size
+        for name, v in vals.items():
+            out[name].append(v)
+    return out
+
+
+def check_grouped_rest(c, result, keys):
+    want = grouped_rest_oracle(c, keys)
+    for name, w in want.items():
+        got = result[name]
+        _expect(f"{name}: {len(got)} groups", len(got) == len(w),
+                f"(against {len(w)})")
+        if isinstance(w[0], str):
+            _expect(name, list(got) == list(w))
+        else:
+            _expect_close(name, np.array(got, dtype=np.float64),
+                          np.array(w, dtype=np.float64))
+    return f"{len(want['skew'])} groups by {'/'.join(keys)}"
+
+
+def orders_median_decl(s, ac=None):
+    ac = _acero(ac)
+    D, f = ac.Declaration, ac.field
+    return D.from_sequence([
+        D("table_source", ac.TableSourceNodeOptions(s["lineitem"])),
+        D("project", ac.ProjectNodeOptions(
+            [f("l_orderkey"), f("l_extendedprice")],
+            ["l_orderkey", "l_extendedprice"])),
+        D("aggregate", ac.AggregateNodeOptions(
+            [("l_extendedprice", "hash_approximate_median", None,
+              "median")], keys=["l_orderkey"]))])
+
+
+def orders_median_run(s):
+    """The per-order medians left on the device (about 15M groups)."""
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    return execute_declaration(orders_median_decl(s))
+
+
+def check_orders_median(c, batch):
+    """Each order's median price: the rows stably sorted by order key, the
+    orders of each size sorted as the rows of a matrix; the groups in
+    order of first appearance."""
+    p = c["plain"]
+    okey, price = p["l_orderkey"], p["l_extendedprice"]
+    order = np.argsort(okey, kind="stable")
+    sk = okey[order]
+    new = np.ones(len(sk), dtype=np.bool_)
+    new[1:] = sk[1:] != sk[:-1]
+    starts = np.flatnonzero(new)
+    lengths = np.diff(np.append(starts, len(sk)))
+    median = np.zeros(len(starts))
+    for size in np.unique(lengths):
+        at = np.flatnonzero(lengths == size)
+        rows = np.sort(price[order[starts[at][:, None] + np.arange(size)]],
+                       axis=1)
+        lo, hi = rows[:, (size - 1) // 2], rows[:, size // 2]
+        median[at] = lo + (hi - lo) * 0.5
+    firsts = order[starts]
+    by_first = np.argsort(firsts)
+    g = int(batch.row_count)
+    _expect(f"per-order groups {g}", g == len(starts), f"({len(starts)})")
+    got_key, _ = _host(batch.column("l_orderkey"), g)
+    _expect_equal("per-order keys in order of first appearance", got_key,
+                  sk[starts][by_first])
+    got, valid = _host(batch.column("median"), g)
+    _expect_close("per-order hash_approximate_median", got,
+                  median[by_first])
+    _expect("per-order medians valid", valid is None or bool(valid.all()))
+    return f"{g} orders"
+
+
+def customer_decls(s, ac=None):
+    """(customer's balance by phone country code, the rows): a filter on a
+    comparison against the empty dictionary (null on every row) or a
+    positive balance; the code ``cast(utf8_slice_codeunits(c_phone, 0, 2),
+    int32)``; is_null, is_valid, is_nan and index_in of the nullable
+    segment; coalesce and if_else of the segment and the code's string
+    (two dictionaries)."""
+    ac = _acero(ac)
+    D, f, call = ac.Declaration, ac.field, ac.Expression.call
+    source = D("table_source", ac.TableSourceNodeOptions(s["customer"]))
+    keep = D("filter", ac.FilterNodeOptions(
+        (f("c_empty") == "x") | (f("c_acctbal") > 0.0)))
+    code_str = call("utf8_slice_codeunits", f("c_phone"), start=0, stop=2)
+    project = D("project", ac.ProjectNodeOptions(
+        [call("cast", code_str, to_type="int32"), f("c_acctbal"),
+         call("is_null", f("c_segment")), call("is_valid", f("c_segment")),
+         call("is_nan", f("c_segment")),
+         call("index_in", f("c_segment"), value_set=SEGMENT_SET),
+         call("coalesce", f("c_segment"), code_str),
+         call("if_else", f("c_acctbal") > RICH, f("c_segment"), code_str)],
+        ["code", "c_acctbal", "seg_null", "seg_valid", "seg_nan",
+         "seg_index", "seg_or_code", "rich_seg"]))
+    grouped = D.from_sequence([source, keep, project, D(
+        "aggregate", ac.AggregateNodeOptions(
+            [(None, "count_all", None, "n"),
+             ("c_acctbal", "hash_sum", None, "balance"),
+             ("seg_null", "hash_sum", None, "nulls"),
+             ("seg_index", "hash_count", None, "indexed")],
+            keys=["code"]))])
+    rows = D.from_sequence([source, keep, project])
+    return grouped, rows
+
+
+def customer_run(s):
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    grouped, rows = customer_decls(s)
+    return {"grouped": grouped.to_table(), "rows": execute_declaration(rows)}
+
+
+def _strings_of(col, n):
+    """A dictionary column's first ``n`` values as an object array, None
+    where null."""
+    codes, valid = _host(col, n)
+    out = np.array(col.dictionary, dtype=object)[codes]
+    if valid is not None:
+        out[~valid] = None
+    return out
+
+
+def check_customer(c, r):
+    cu = c["customer"]
+    keep = cu["c_acctbal"] > 0.0
+    phone = cu["c_phone:str"][cu["c_phone"]][keep]
+    code_str = np.array([x[:2] for x in phone], dtype=object)
+    code = code_str.astype(np.int64)
+    seg = cu["c_segment:str"][cu["c_segment"]][keep].copy()
+    sv = cu["c_segment:valid"][keep]
+    seg[~sv] = None
+    bal = cu["c_acctbal"][keep]
+    idx, ok = _index_oracle(cu["c_segment:dict"], cu["c_segment"][keep], sv,
+                            SEGMENT_SET)
+    b = r["rows"]
+    n = int(b.row_count)
+    _expect(f"customer rows {n}", n == int(keep.sum()))
+    _expect_column("cast(slice(c_phone), int32)", b.column("code"), n,
+                   code.astype(np.int32))
+    _expect_column("is_null(segment)", b.column("seg_null"), n, ~sv)
+    _expect_column("is_valid(segment)", b.column("seg_valid"), n, sv)
+    _expect_column("is_nan(segment)", b.column("seg_nan"), n,
+                   np.zeros(n, dtype=np.bool_), sv)
+    _expect_column("index_in(segment)", b.column("seg_index"), n,
+                   idx.astype(np.int32), ok)
+    _expect_equal("coalesce(segment, code)",
+                  _strings_of(b.column("seg_or_code"), n),
+                  np.where(sv, seg, code_str))
+    _expect_equal("if_else(rich, segment, code)",
+                  _strings_of(b.column("rich_seg"), n),
+                  np.where(bal > RICH, seg, code_str))
+    g = r["grouped"]
+    keys, first = np.unique(code, return_index=True)
+    order = np.argsort(first)
+    inv = np.searchsorted(keys, code)
+    want = {"code": keys[order],
+            "n": np.bincount(inv)[order],
+            "balance": np.bincount(inv, weights=bal)[order],
+            "nulls": np.bincount(inv, weights=~sv)[order],
+            "indexed": np.bincount(inv, weights=ok)[order]}
+    for name, w in want.items():
+        got = np.array(g[name], dtype=np.float64)
+        if name == "balance":
+            _expect_close(f"balance by code", got, w)
+        else:
+            _expect_equal(f"{name} by code", got, w.astype(np.float64))
+    return f"{n} customers, {len(keys)} country codes"
+
+
+NDTRI_TOL = 1e-12               # rank_normal: torch's ndtri beside inv_cdf
+
+# Launches a run at SF10, reckoned from the code. hash_types: the
+# registered hash32 of 13 columns, one hash32 each. vector_misc: the two
+# run_end_encodes find their runs' starts by one compaction each; the
+# fills are blocked scans and gathers, the lookups gathers by codes or
+# compares. math_stats: indices_nonzero compacts once; winsorize and the
+# ranks sort. grouped_flags and grouped_k3: Q1's filter folds into the
+# aggregate; skew's and kurtosis' three sums each (their mean, squares,
+# cubes or fourth powers) take grouped_sum over 12 slots (K1) and over
+# 160 (K3); the medians and quantiles sort. orders_median: the general
+# grouper and a sort, no kernel. customer_plan: the grouped plan's filter
+# folds into its aggregate (by the general grouper: the sums take the
+# sorted route); the rows' filter compacts once.
+REST_PATHS = (
+    StatsPath("hash_types", hash_types_run, check_hash_types,
+              _launches(0, 13, 0)),
+    StatsPath("vector_misc", vector_misc_run, check_vector_misc,
+              _launches(2, 0, 0)),
+    StatsPath("math_stats", math_stats_run, check_math_stats,
+              _launches(1, 0, 0)),
+    StatsPath("grouped_flags", grouped_flags_run,
+              lambda c, r: check_grouped_rest(c, r, FLAG_KEYS),
+              _launches(0, 0, 6)),
+    StatsPath("grouped_k3", grouped_k3_run,
+              lambda c, r: check_grouped_rest(c, r, K3_KEYS),
+              _launches(0, 0, 6)),
+    StatsPath("orders_median", orders_median_run, check_orders_median,
+              _launches(0, 0, 0)),
+    StatsPath("customer_plan", customer_run, check_customer,
+              _launches(1, 0, 0)),
+)
+
+
+def phase_rest_kernels(s):
+    """The kernels on phase 3i's paths against their plain versions at
+    the shapes the paths give them: the hash of the 13 columns' words bit
+    for bit; the compaction of run_end_encode's run starts (l_orderkey in
+    order) and of indices_nonzero's positions bit for bit; the grouped sum of the
+    moments' values by the flags (12 slots) and by the K3 key (160
+    slots) within RTOL_F64. Launches here are outside every path's
+    count."""
+    from arrow_tpu_torch.compute.hashing import column_words
+    from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
+                                                     grouped_sum_plain)
+    from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
+    t, li = s["typed"], s["lineitem"]
+    errs = {"hash32": 0.0, "compact": 0.0}
+    for name in HASH_COLUMNS + ("f64",):
+        col = s["f64"] if name == "f64" else t.column(name)
+        words = column_words(col)
+        check_bit_exact(f"hash32 {name} ({len(words)} words, n="
+                        f"{words[0].numel()})", [hash32(words)],
+                        [hash32_plain(words)])
+    ctx = _context(li)
+    live = ctx.row_mask()
+    okey = s["okey_in_order"].values
+    new = torch.ones_like(live)
+    new[1:] = okey[1:] != okey[:-1]
+    idx = torch.arange(li.capacity, dtype=torch.int32, device=live.device)
+    compact_case(f"compact (run_end_encode starts, n={live.numel()})",
+                 new & live, [idx])
+    compact_case(f"compact (indices_nonzero, n={live.numel()})",
+                 live & (li.column("l_discount").values != 0),
+                 [idx.long()])
+    keep = li.column("l_shipdate").values <= SHIPDATE_1998_09_02
+    price = li.column("l_extendedprice").values
+    for keys in (FLAG_KEYS, K3_KEYS):
+        slot = torch.zeros_like(idx)
+        for k in keys:
+            col = li.column(k)
+            slot = slot * (len(col.dictionary) + 1) + col.values
+        size = int(np.prod([len(li.column(k).dictionary) + 1
+                            for k in keys]))
+        seg = torch.where(keep & live, slot, 0)
+        v = torch.where(keep & live, price, 0.0)
+        errs[f"grouped_sum S={size}"] = check_close(
+            f"grouped_sum (moments' values, S={size})",
+            grouped_sum(v, seg, size), grouped_sum_plain(v, seg, size),
+            RTOL_F64)
+        cube = v * v * v
+        errs[f"grouped_sum S={size} cubes"] = check_close(
+            f"grouped_sum (cubes, S={size})", grouped_sum(cube, seg, size),
+            grouped_sum_plain(cube, seg, size), RTOL_F64)
+    torch.cuda.synchronize()
+    return errs
+
+
+def rest_repeats(s):
+    """The grouped moments by the flags (K1) and the K3 key, whose sums
+    phase 3i holds to the same bits on a second run."""
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    out = []
+    for keys in (FLAG_KEYS, K3_KEYS):
+        b = execute_declaration(grouped_rest_decl(s, keys))
+        out += [b.column("skew").values, b.column("kurt").values]
+    return out
+
+
+def phase_rest(tables, typed):
+    """Phase 3i: the rest of compute at SF10, each path with every launch
+    count set to 0 just before its run and read just after, against its
+    numpy oracle (a thread each while the next path runs), with the
+    card's peak memory over the run; the kernels against their plain
+    versions at these paths' shapes; the grouped moments run twice for
+    the same bits. Returns (launches by path, the inputs)."""
+    from arrow_tpu_torch.platform_check import self_check
+    log(f"== phase 3i: the rest of compute at SF{SF:g}")
+    t0 = time.perf_counter()
+    s = rest_inputs(tables, typed)
+    cols = rest_columns(s)
+    log(f"inputs made and downloaded in {time.perf_counter() - t0:.1f} s")
+    errs = phase_rest_kernels(s)
+    launches, failures, checks = {}, [], {}
+    with concurrent.futures.ThreadPoolExecutor(len(REST_PATHS)) as pool:
+        for path in REST_PATHS:
+            base = memory_mark()
+            zero_launches()
+            self_check()
+            t1 = time.perf_counter()
+            result = path.run(s)
+            torch.cuda.synchronize()
+            log(f"{path.name} first run {time.perf_counter() - t1:.3f} s")
+            launches[path.name] = read_launches()
+            log_peak(path.name, base)
+            checks[path.name] = pool.submit(_timed_check, path, cols, result)
+            del result
+        for path in REST_PATHS:
+            try:
+                msg, seconds = checks[path.name].result()
+                check_launches(path.name, launches[path.name], path.launches)
+                log(f"{path.name} matches its oracle: {msg} (oracle "
+                    f"{seconds:.1f} s)")
+            except AssertionError as exc:
+                log(f"  {path.name} FAILED: {exc}")
+                failures.append(path.name)
+    first, second = rest_repeats(s), rest_repeats(s)
+    check_bit_exact("phase 3i grouped moments (K1, K3), two runs", first,
+                    second, "the first run")
+    if failures:
+        raise AssertionError(f"phase 3i failed for {failures}")
+    log(f"phase 3i: {time.perf_counter() - t0:.1f} s (kernels against "
+        f"their plain versions: max_abs_err {errs!r})")
+    return launches, s
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -4509,7 +5248,7 @@ def time_paths(card, paths):
 
 
 def phase_times(card, launches, errs, tables, typed, params, stats,
-                strings):
+                strings, rest):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
@@ -4576,7 +5315,8 @@ def phase_times(card, launches, errs, tables, typed, params, stats,
     time_paths(card, [(p, node_path_run(p, p.build(tables)))
                       for p in NODE_PATHS]
                + [(p, p.build(typed).to_table) for p in TYPED_PATHS]
-               + [(p, lambda p=p: p.run(stats)) for p in STATS_PATHS])
+               + [(p, lambda p=p: p.run(stats)) for p in STATS_PATHS]
+               + [(p, lambda p=p: p.run(rest)) for p in REST_PATHS])
 
     def grouped_sum_record(name, values, gids, s):
         acc = torch.zeros(s, dtype=values.dtype, device="cuda")
@@ -4729,9 +5469,11 @@ def main() -> int:
         launches.update(stats_launches)
         strings_launches, strings = timed(phase_strings, tables, typed)
         launches.update(strings_launches)
+        rest_launches, rest = timed(phase_rest, tables, typed)
+        launches.update(rest_launches)
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
-                            typed, params, stats, strings)
+                            typed, params, stats, strings, rest)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -663,3 +663,77 @@ def test_derived_string_keys_take_k1_and_k3(key, slots):
     assert len(runs["cuda"]) <= slots - 1
     for k, v in runs["cpu"].items():
         assert runs["cuda"][k] == pytest.approx(v, rel=1e-9, abs=0)
+
+
+_HASH_TYPES = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
+               "uint32", "uint64", "float16", "float32", "float64", "date32",
+               "timestamp[ns]", "decimal128(12, 2)", "dictionary"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _HASH_TYPES)
+def test_registered_hash32_on_card_matches_plain(name):
+    """The registered ``hash32`` over a column of each type launches the
+    hash kernel once and gives the plain version's bits, null rows (over
+    stored values), NaN and -0.0 included."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.compute.hashing import column_words
+    from arrow_tpu_torch.compute.registry import ExecContext, get_function
+    from arrow_tpu_torch.device.column import DeviceColumn, torch_dtype_for
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(len(name))
+    n = (1 << 20) + 5
+    t = T.type_for_name(name)
+    bits = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
+                         device="cuda", dtype=torch.int64)
+    store = torch_dtype_for(t)
+    if store == torch.bool:
+        values = bits % 2 == 0
+    elif store.is_floating_point:
+        values = (bits.double() / (1 << 40)).to(store)
+        values[::7] = float("nan")
+        values[1::11] = -0.0
+    else:
+        values = bits.to(store)
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.1
+    col = DeviceColumn(values, valid, t, ("a", "b") if name == "dictionary"
+                       else None)
+    ctx = ExecContext(n, torch.tensor(n, dtype=torch.int32, device="cuda"))
+    before = hash32.launches
+    got = get_function("hash32").impl(ctx, col)
+    torch.cuda.synchronize()
+    assert hash32.launches == before + 1
+    assert got.validity is valid and repr(got.type) == "uint32"
+    want = hash32_plain(column_words(col))
+    assert torch.equal(got.values, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32, torch.bool])
+def test_indices_nonzero_on_card_matches_plain(dtype):
+    """``indices_nonzero`` launches the compaction once and keeps the
+    positions of the live, valid, non-zero rows in order."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.compute.registry import ExecContext, get_function
+    from arrow_tpu_torch.device.column import DeviceColumn
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, live = (1 << 21) + 3, (1 << 21) - 1000
+    values = torch.randint(0, 4, (n,), generator=gen, device="cuda").to(dtype)
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.05
+    t = {torch.float64: T.float64(), torch.int32: T.int32(),
+         torch.bool: T.bool_()}[dtype]
+    ctx = ExecContext(n, torch.tensor(live, dtype=torch.int32,
+                                      device="cuda"))
+    before = compact.launches
+    got = get_function("indices_nonzero").impl(ctx, DeviceColumn(
+        values, valid, t))
+    torch.cuda.synchronize()
+    assert compact.launches == before + 1
+    keep = valid & (values != 0)
+    keep[live:] = False
+    idx = torch.arange(n, dtype=torch.int64, device="cuda")
+    (want,), count = compact_plain(keep, [idx])
+    assert int(got.count) == int(count)
+    assert torch.equal(got.column.values, want)
+    assert repr(got.column.type) == "uint64"
