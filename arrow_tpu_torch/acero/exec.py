@@ -34,20 +34,34 @@ A declaration with two or more parents in the tree runs once per
 execution (``_Run``). An aggregate with no keys gives one row
 (``_scalar_aggregate_fn``); a filter folds into it as into a grouped
 one. ``Declaration.to_table()`` prunes a plan with a hash join to the
-columns it reads first (``prune.py``). ``consuming_sink``,
-``pivot_longer`` and the host-table sources need a host Table and raise
-NotImplementedError naming their ROADMAP item.
+columns it reads first (``prune.py``), and streams it in fixed-capacity
+chunks where ``chunk_rows`` (or ``ARROW_TPU_CHUNK_ROWS``) asks for it
+(``chunked.py``). ``consuming_sink``, ``pivot_longer`` and the host-table
+sources need a host Table and raise NotImplementedError naming their
+ROADMAP item.
+
+Each execution of a node polls the default stop token
+(``cancel.py``), runs under a ``torch.profiler.record_function`` span
+``arrow_tpu::<factory>`` and records its dispatch wall time in
+``last_plan_metrics``; under ``QueryOptions`` (``query_context.py``) its
+output bytes are tracked against the query's budget. A linear run of
+nodes executes as one, recorded under its last node, as the reference's
+fused segment is.
 """
 
 from __future__ import annotations
 
+import os
+import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import dtypes
+from .. import default_device, dtypes
 from .. import types as T
+from ..cancel import default_stop_token
 from ..compute import bloom
 from ..compute import join as J
 from ..compute.grouper import (group_capacity_bound, group_ids,
@@ -58,20 +72,49 @@ from ..compute.elementwise import literal_column
 from ..compute.registry import ExecContext, get_function
 from ..compute.selection import (compact_columns, filter_batch,
                                  gather_columns, selection_mask, take_batch)
-from ..device.column import (BLOCK, DeviceBatch, DeviceColumn,
+from ..device.column import (BLOCK, DeviceBatch, DeviceColumn, batch_to,
                              capacity_class, download)
 from ..types import HOST_BOUNDARY, Field, Schema
 from .expression import Expression
 from .options import (AggregateNodeOptions, FetchNodeOptions,
                       FilterNodeOptions, HashJoinNodeOptions,
-                      OrderByNodeOptions, ProjectNodeOptions)
+                      OrderByNodeOptions, ProjectNodeOptions,
+                      TableSourceNodeOptions)
 from .prune import prune_plan
+from .query_context import QueryContext, current_query_context, query_scope
 
 # nodes that take or give a host Table
 _HOST_NODES = ("consuming_sink", "pivot_longer", "named_table", "source",
                "record_batch_source", "exec_batch_source",
                "array_vector_source", "record_batch_reader_source", "scan")
 _SINKS = ("sink", "table_sink", "order_by_sink", "select_k_sink")
+
+
+class PlanMetrics:
+    """Per-node observability (reference: ExecPlan::ToString and OTel
+    spans). Records the dispatch wall time of each node of the most recent
+    plan execution; kernels run asynchronously, so a node's time measures
+    its launches and any host readback it makes. A streamed run also
+    leaves its chunk source (``source``: ``chunked._ChunkSource``, with
+    its chunks, ``h2d_bytes``, ``uploads`` and ``copy_ms()``), else
+    None."""
+
+    def __init__(self):
+        self.reset()
+
+    def record(self, factory: str, seconds: float):
+        self.nodes.append((factory, seconds))
+
+    def reset(self):
+        self.nodes: List[tuple] = []
+        self.source = None
+
+    def to_string(self) -> str:
+        return "\n".join(f"{f}: {s * 1000:.2f} ms dispatch"
+                         for f, s in self.nodes)
+
+
+last_plan_metrics = PlanMetrics()
 
 
 def _node_filter(options: FilterNodeOptions, schema):
@@ -383,8 +426,10 @@ def compile_chain(decls: Sequence["Declaration"]) -> Callable:
 
 # --- the tree executor ----------------------------------------------------
 
-def execute_declaration(decl: "Declaration") -> DeviceBatch:
-    """Run a Declaration tree; the result stays on the device.
+def execute_declaration(decl: "Declaration",
+                        _root: bool = True) -> DeviceBatch:
+    """Run a Declaration tree; the result stays on the device. A root
+    execution starts ``last_plan_metrics`` anew.
 
     A declaration with more than one parent in the tree (a common
     subexpression: Q2's partsupp of the region's suppliers, Q11's
@@ -394,6 +439,8 @@ def execute_declaration(decl: "Declaration") -> DeviceBatch:
     may differ in their last bits, because the card's grouped sums add
     with atomics in no fixed order: Q15's join of each supplier's revenue
     with their maximum would then drop the supplier it must keep."""
+    if _root:
+        last_plan_metrics.reset()
     return _Run(decl).execute(decl)
 
 
@@ -414,9 +461,22 @@ class _Run:
         self.done: Dict[int, DeviceBatch] = {}
 
     def execute(self, decl: "Declaration") -> DeviceBatch:
+        """Run ``decl`` (once, where it is shared), with the cancellation
+        poll, the profiler span, the query's accounting and the node's
+        metrics (reference: ``execute_declaration``)."""
         if id(decl) in self.done:
             return self.done[id(decl)]
-        out = self._execute(decl)
+        f = decl.factory_name
+        default_stop_token().poll()
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(f"arrow_tpu::{f}"):
+            out = self._execute(decl)
+        qc = current_query_context()
+        if qc is not None:
+            qc.stop_token.poll()
+            nbytes = qc.track_batch(f, out)
+            qc.record_node(f, time.perf_counter() - t0, nbytes)
+        last_plan_metrics.record(f, time.perf_counter() - t0)
         if id(decl) in self.shared:
             self.done[id(decl)] = out
         return out
@@ -913,17 +973,97 @@ class Declaration:
                                   else [current])
         return current
 
-    def to_table(self) -> Dict[str, list]:
-        """Run the plan and download the result
-        (``device.column.download``). A plan with a hash join runs pruned
-        to the columns it reads (``prune.prune_plan``, as the reference's
-        ``to_table`` does); the pruned tree is cached on the root."""
-        plan = self
+    def _plan(self) -> "Declaration":
+        """The tree to run: a plan with a hash join pruned to the columns
+        it reads (``prune.prune_plan``, as the reference's ``to_table``
+        does), the pruned tree cached on the root."""
         if any(d.factory_name == "hashjoin" for d in _walk(self)):
             if self._pruned is None:
                 self._pruned = prune_plan(self)
-            plan = self._pruned
-        return download(execute_declaration(plan))
+            return self._pruned
+        return self
+
+    def to_table(self, chunk_rows: Optional[int] = None,
+                 query_options=None, device=None) -> Dict[str, list]:
+        """Run the plan and download the result
+        (``device.column.download``), following the reference's
+        ``to_table``:
+
+        * ``query_options`` (``QueryOptions``): the run gets a
+          ``QueryContext`` (byte budget, node metrics), left on the root
+          as ``last_query_context``;
+        * a plan with a hash join runs pruned (``_plan``);
+        * ``chunk_rows`` (or ``ARROW_TPU_CHUNK_ROWS``): the plan streams
+          its source in chunks of that many rows on ``device``
+          (``chunked.maybe_execute_chunked``; ``device=None`` is the card,
+          ``default_device``). A plan that cannot stream warns (raises
+          ValueError under ``ARROW_TPU_REQUIRE_CHUNKED=1``) and runs
+          whole, its sources moved to ``device``, as the reference's
+          whole-table upload does; so does a source of one chunk;
+        * otherwise the plan runs whole on ``device`` where one is named,
+          else where its sources are, a pinned host batch counting as
+          the card's. A batch lies in unpinned host memory only where its
+          maker named ``device="cpu"`` (``batch_from_numpy`` and
+          ``io.tpch`` put theirs on the card), so the card is never given
+          up because it was not named.
+        """
+        if query_options is not None:
+            qc = QueryContext(query_options)
+            with query_scope(qc):
+                out = self.to_table(chunk_rows=chunk_rows, device=device)
+            self.last_query_context = qc
+            return out
+        from . import chunked
+        last_plan_metrics.reset()
+        plan = self._plan()
+        rows = chunk_rows if chunk_rows is not None \
+            else chunked.chunk_rows_env()
+        if rows:
+            dev = default_device(device)
+            out = chunked.maybe_execute_chunked(plan, rows, dev)
+            if out is not None:
+                return out
+            reason = chunked.LAST_FALLBACK_REASON
+            if reason is not None:
+                # streaming was asked for and this plan shape cannot
+                # stream: its memory bound is gone for this query, so say
+                # so (or refuse, with the knob)
+                n = _plan_source_rows(plan)
+                msg = (f"chunked execution unavailable ({reason}); "
+                       "falling back to whole-table upload"
+                       + (f" of {n} rows" if n else ""))
+                if os.environ.get("ARROW_TPU_REQUIRE_CHUNKED") == "1":
+                    raise ValueError(msg)
+                warnings.warn(msg, stacklevel=2)
+            plan = _sources_on(plan, dev)
+        elif device is not None or _pinned_source(plan):
+            plan = _sources_on(plan, default_device(device))
+        return download(execute_declaration(plan, _root=False))
+
+    def to_batches(self, chunk_rows: Optional[int] = None,
+                   device=None) -> List[Dict[str, list]]:
+        """The result as a list of batches: the one ``to_table(chunk_rows,
+        device=device)`` gives (the reference's ``RecordBatch``es, until
+        the port has a host batch type)."""
+        return [self.to_table(chunk_rows=chunk_rows, device=device)]
+
+    def to_reader(self, chunk_rows: Optional[int] = None, device=None):
+        """Streaming results (reference: DeclarationToReader,
+        exec_plan.cc:780 family): an iterator of ``download`` dicts. A
+        terminal-free linear plan yields one dict a chunk of
+        ``chunk_rows`` (``ARROW_TPU_CHUNK_ROWS``, else 2**18) rows on
+        ``device`` (the card unless another is named) as soon as that
+        chunk is done (``chunked.stream_batches``); any other plan runs
+        ``to_table(chunk_rows, device=device)`` and yields its one
+        result."""
+        from . import chunked
+        last_plan_metrics.reset()
+        rows = chunk_rows if chunk_rows is not None \
+            else (chunked.chunk_rows_env() or 1 << 18)
+        gen = chunked.stream_batches(self._plan(), rows, device)
+        if gen is not None:
+            return gen
+        return iter([self.to_table(chunk_rows=rows, device=device)])
 
     def __repr__(self):
         return f"Declaration({self.factory_name})"
@@ -933,3 +1073,45 @@ def _walk(decl: Declaration):
     yield decl
     for i in decl.inputs:
         yield from _walk(i)
+
+
+def _plan_source_rows(decl: Declaration) -> int:
+    return sum(int(d.options.batch.row_count) for d in _walk(decl)
+               if d.factory_name == "table_source")
+
+
+def _pinned_source(decl: Declaration) -> bool:
+    """Whether a table source of ``decl`` is held in pinned host memory
+    (``pin_batch``): held for the card."""
+    return any(d.factory_name == "table_source"
+               and d.options.batch.row_count.device.type == "cpu"
+               and d.options.batch.row_count.is_pinned()
+               for d in _walk(decl))
+
+
+def _on(t: torch.Tensor, dev: torch.device) -> bool:
+    return t.device.type == dev.type and (
+        dev.index is None or t.device.index == dev.index)
+
+
+def _sources_on(decl: Declaration, device) -> Declaration:
+    """``decl``'s tree with every table source's batch on ``device``
+    (``batch_to``): the declarations whose sources are there already are
+    kept, and a shared declaration stays shared."""
+    dev = torch.device(device)
+    memo: Dict[int, Declaration] = {}
+
+    def walk(d: Declaration) -> Declaration:
+        if id(d) not in memo:
+            if d.factory_name == "table_source":
+                b = d.options.batch
+                memo[id(d)] = d if _on(b.row_count, dev) else Declaration(
+                    "table_source", TableSourceNodeOptions(batch_to(b, dev)))
+            else:
+                ins = [walk(i) for i in d.inputs]
+                memo[id(d)] = d if all(
+                    a is b for a, b in zip(ins, d.inputs)) else Declaration(
+                        d.factory_name, d.options, ins)
+        return memo[id(d)]
+
+    return walk(decl)

@@ -179,31 +179,37 @@ def _grouped_minmax(ctx, values: DeviceColumn, gids, num_groups, is_min,
     NaN, and -0.0 orders below 0.0 (through ``_float_minmax``)."""
     values = rank_recode(values)
     nseg, live, seg = _prep(ctx, values, gids, num_segments)
-    v = values.values
-    op = "min" if is_min else "max"
-    name = values.value_dtype
-    if v.dtype.is_floating_point:
-        out = _float_minmax(v, live, seg, nseg, op)
-    elif v.dtype == torch.bool:
-        # min is an AND, max an OR: reduce the bools as bytes
-        ident = int(is_min)
-        b = torch.where(live, v.to(torch.uint8), ident)
-        out = segment_reduce(b, seg, nseg, op, ident).to(torch.bool)
-    else:
-        # unsigned values reduce by their order keys, in their width's
-        # compute dtype (the identity is an end of that dtype's range)
-        k = dtypes.order_key(dtypes.load(v, name), name)
-        ident = _empty_value(k.dtype, op)
-        k = torch.where(live, k, torch.tensor(ident, dtype=k.dtype,
-                                              device=k.device))
-        k = segment_reduce(k, seg, nseg, op, ident)
-        out = dtypes.store(dtypes.order_key(k, name), name)
+    out = segment_minmax(values.values, values.value_dtype, live, seg, nseg,
+                         "min" if is_min else "max")
     validity = segment_count(live, seg, nseg) > 0
     if not skip_nulls:
         validity = validity & ~_group_has_null(ctx, values, gids, nseg)
     return Compacted(DeviceColumn(out, validity, values.type,
                                   values.dictionary),
                      num_groups.to(torch.int32))
+
+
+def segment_minmax(v: torch.Tensor, name: str, live, seg, nseg,
+                   op: str) -> torch.Tensor:
+    """Per-segment min or max (``op``) of the ``live`` rows of values
+    ``v`` of dtype ``name``, in their storage dtype; an empty segment holds
+    the reduction's identity. Floats through ``_float_minmax``, bools as
+    bytes, integers by their order keys."""
+    if v.dtype.is_floating_point:
+        return _float_minmax(v, live, seg, nseg, op)
+    if v.dtype == torch.bool:
+        # min is an AND, max an OR: reduce the bools as bytes
+        ident = int(op == "min")
+        b = torch.where(live, v.to(torch.uint8), ident)
+        return segment_reduce(b, seg, nseg, op, ident).to(torch.bool)
+    # unsigned values reduce by their order keys, in their width's
+    # compute dtype (the identity is an end of that dtype's range)
+    k = dtypes.order_key(dtypes.load(v, name), name)
+    ident = _empty_value(k.dtype, op)
+    k = torch.where(live, k, torch.tensor(ident, dtype=k.dtype,
+                                          device=k.device))
+    k = segment_reduce(k, seg, nseg, op, ident)
+    return dtypes.store(dtypes.order_key(k, name), name)
 
 
 def _float_minmax(v, live, seg, nseg, op) -> torch.Tensor:

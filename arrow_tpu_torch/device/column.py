@@ -164,6 +164,78 @@ def batch_from_numpy(columns: Sequence[tuple], row_count: int,
                                     device=dev))
 
 
+def batch_from_arrays(schema: Schema, columns: Sequence[tuple],
+                      row_count: int) -> DeviceBatch:
+    """A CPU DeviceBatch from numpy arrays already in their storage dtype
+    (what a download of the columns gives): ``(values, validity_or_None,
+    dictionary_or_None)`` a field of ``schema``, padded with zeros (and
+    False) to ``round_up(row_count)``."""
+    cap = round_up(row_count)
+    cols = []
+    for values, validity, dictionary in columns:
+        vals = np.zeros(cap, dtype=values.dtype)
+        vals[:row_count] = values
+        mask = None
+        if validity is not None:
+            mask = np.zeros(cap, dtype=np.bool_)
+            mask[:row_count] = validity
+            mask = torch.from_numpy(mask)
+        cols.append((torch.from_numpy(vals), mask, dictionary))
+    return DeviceBatch(schema, [DeviceColumn(v, m, f.type, d) for (v, m, d), f
+                                in zip(cols, schema.fields)],
+                       torch.tensor(row_count, dtype=torch.int32))
+
+
+def _map_tensors(batch: DeviceBatch, fn) -> DeviceBatch:
+    return DeviceBatch(batch.schema, [
+        DeviceColumn(fn(c.values), None if c.validity is None
+                     else fn(c.validity), c.type, c.dictionary)
+        for c in batch.columns], fn(batch.row_count))
+
+
+def batch_to(batch: DeviceBatch, device) -> DeviceBatch:
+    """``batch`` with every tensor on ``device`` (the same tensors where
+    they are there already); dictionaries are shared."""
+    dev = torch.device(device)
+    return _map_tensors(batch, lambda t: t.to(dev))
+
+
+def pin_batch(batch: DeviceBatch) -> DeviceBatch:
+    """A CPU ``batch`` with every tensor in pinned (page-locked) memory, so
+    a copy to the card can run asynchronously: a tensor already pinned is
+    kept, any other is copied once."""
+    return _map_tensors(
+        batch, lambda t: t if t.is_pinned() else t.pin_memory())
+
+
+def slice_rows(batch: DeviceBatch, start: int, length: int, capacity: int,
+               row_count: torch.Tensor) -> DeviceBatch:
+    """Rows ``[start, start + length)`` of ``batch`` at ``capacity`` on
+    ``row_count``'s device, dictionaries shared. On the batch's own device
+    a column is a view where ``capacity`` rows from ``start`` lie within
+    its buffer (the rows past ``length`` are then padding the row count
+    masks), else a copy padded with zeros and False. To another device
+    each column is copied with ``non_blocking=True`` on the current
+    stream, its tail zeroed: from pinned memory to the card the copy runs
+    asynchronously."""
+    dev = row_count.device
+    same = batch.row_count.device == dev
+    fits = start + capacity <= batch.capacity
+
+    def part(t: torch.Tensor) -> torch.Tensor:
+        if same and fits:
+            return t[start:start + capacity]
+        out = torch.empty(capacity, dtype=t.dtype, device=dev)
+        out[:length].copy_(t[start:start + length], non_blocking=True)
+        out[length:].zero_()
+        return out
+
+    return DeviceBatch(batch.schema, [
+        DeviceColumn(part(c.values), None if c.validity is None
+                     else part(c.validity), c.type, c.dictionary)
+        for c in batch.columns], row_count)
+
+
 _NP_UNITS = {"s": "s", "ms": "ms", "us": "us", "ns": "ns"}
 
 

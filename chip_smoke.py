@@ -129,6 +129,23 @@ Phases; any failure exits non-zero without the final line:
    oracle in a thread, launches exact, the kernels against their plain
    versions at these shapes, the grouped moments bit for bit over two
    runs.
+   Then (3j) streaming (``STREAM_PATHS``): SF10's lineitem from the
+   port's host generator (``io/tpch.py``, all 15 columns) held in pinned
+   host memory and run in chunks of 2**23 rows (8 chunks, each copied to
+   the card on a copy stream while the chunk before computes), each path
+   against its numpy oracle and the same plan whole-table over a copy of
+   lineitem on the card, with its launches exact, the peak memory of
+   both runs and the bytes copied and their time: Q1 (run twice for the
+   same bits), Q6, Q3 (its build side, orders x customer, run once, each
+   probe chunk taking the bloom), ``to_reader`` over lineitem filtered to
+   about 0.18% of its rows (the time to the first dict and the last), an
+   external ``order_by`` of those rows, a top-100 over all rows, a
+   fetch, lines and quantity per order (15M groups: the default state
+   overflows, ``ARROW_TPU_STATE_ROWS=16777216`` holds them), and Q3 under
+   ``QueryOptions`` (its node metrics, and ``ArrowMemoryError`` at the
+   node the tracking predicts under a limit one byte below its total);
+   the copies' overlap with kernels from a profiled run of Q1 and Q3;
+   the kernels against their plain versions at a chunk's shapes.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -137,8 +154,8 @@ Phases; any failure exits non-zero without the final line:
    rows with duplicate keys on both sides and 5% null keys.
 4. Times after a warm-up: Q1, Q3, Q4, Q13, the suite's and the last
    eleven plans' rows/s of their largest input and phase 3e's, 3f's, 3g's,
-   3i's and 3h's walls (best of 5; one run for 3h's two sweeps, which phase
-   3h ran), a profile of one run of each (device busy time and idle
+   3i's, 3j's and 3h's walls (best of 5, of 3 for 3j's; one run for 3h's
+   two sweeps, which phase 3h ran), a profile of one run of each (device busy time and idle
    share), each kernel's time beside its bound, its plain version's and
    one library call's where there is one (the compaction at five
    shapes: Q3's filter, its mask over 2-byte columns and over one bool
@@ -182,6 +199,7 @@ SF = 10.0
 Q1_SLOTS = 12               # (3+1) return flags x (2+1) line statuses
 RTOL_F64 = 1e-9             # f64 sums added in another order
 RTOL_F32 = 1e-5             # an f32 result against an f64 reference
+NODE_SPAN = "arrow_tpu::"   # the executor's profiler span of a plan node
 Q1_LAUNCHES = {"compact": 0, "hash32": 0, "grouped_sum": 7, "probe": 1}
 Q3_LAUNCHES = {"compact": 7, "hash32": 4, "grouped_sum": 0, "probe": 1}
 Q4_LAUNCHES = {"compact": 3, "hash32": 0, "grouped_sum": 0, "probe": 1}
@@ -4783,6 +4801,463 @@ def phase_rest(tables, typed):
     return launches, s
 
 
+# --- phase 3j: streaming and per-query control -------------------------------
+
+# Chunks of 2**23 rows: SF10's lineitem streams in 8 of them, and Q3's
+# streamed probe chunk is then 4x the capacity of its build side (orders x
+# customer: 1,478,464 rows at the 2**21 capacity class), so every chunk
+# takes the bloom, as the whole-table Q3 does.
+STREAM_CHUNK_ROWS = 1 << 23
+STREAM_STATE_ROWS = 1 << 24     # a state that holds SF10's 15M orders
+STREAM_COLUMNS = ["l_orderkey", "l_linenumber", "l_extendedprice",
+                  "l_quantity"]
+STREAM_KEYS = [("l_extendedprice", "descending"), ("l_orderkey", "ascending"),
+               ("l_linenumber", "ascending")]
+STREAM_FETCH = (10_000, 10_000)  # offset, count: inside the first two chunks
+STREAM_TOP_K = 100
+STREAM_TOP_ORDERS = 20
+
+
+def stream_inputs(tables):
+    """SF10's lineitem from the port's host generator, held in pinned host
+    memory, and a copy on the card for the whole-table runs, beside
+    orders and customer on the card; the host columns for the oracles."""
+    from arrow_tpu_torch.device.column import batch_to, pin_batch
+    from arrow_tpu_torch.io import tpch
+    t0 = time.perf_counter()
+    host = tpch.lineitem_table(SF, device="cpu")
+    t1 = time.perf_counter()
+    host = pin_batch(host)
+    t2 = time.perf_counter()
+    card = batch_to(host, "cuda")
+    torch.cuda.synchronize()
+    n = int(host.row_count)
+    nbytes = sum(c.values.numel() * c.values.element_size()
+                 for c in host.columns)
+    log(f"stream lineitem: {n} rows, {len(host.columns)} columns, "
+        f"{nbytes / 1e9:.3f} GB; generated on the host in {t1 - t0:.1f} s, "
+        f"pinned in {t2 - t1:.1f} s, copied to the card in "
+        f"{time.perf_counter() - t2:.1f} s")
+    cols = {f.name: c.values[:n].numpy()
+            for f, c in zip(host.schema.fields, host.columns)}
+    return {"host": host, "card": card, "orders": tables["orders"],
+            "customer": tables["customer"], "cols": cols, "n": n,
+            "nbytes": nbytes}
+
+
+def _stream_rows(c):
+    """The rows phase 3j's row paths keep: about 0.18% of lineitem."""
+    return (c["l_quantity"] == 1.0) & (c["l_discount"] == 0.0)
+
+
+def _stream_filter(ac):
+    return ac.Declaration("filter", ac.FilterNodeOptions(
+        (ac.field("l_quantity") == 1.0) & (ac.field("l_discount") == 0.0)))
+
+
+def _stream_project(ac):
+    return ac.Declaration("project", ac.ProjectNodeOptions(
+        [ac.field(k) for k in STREAM_COLUMNS], STREAM_COLUMNS))
+
+
+def _stream_chain(li, *nodes):
+    import arrow_tpu_torch.acero as ac
+    return ac.Declaration.from_sequence(
+        [ac.Declaration("table_source", ac.TableSourceNodeOptions(li))]
+        + [n(ac) for n in nodes])
+
+
+def stream_q1(s, li):
+    from arrow_tpu_torch.io.tpch_queries import q1_plan
+    return q1_plan(li)
+
+
+def stream_q6(s, li):
+    from arrow_tpu_torch.io.tpch_queries import q6_plan
+    return q6_plan(li)
+
+
+def stream_q3(s, li):
+    from arrow_tpu_torch.io.tpch_queries import q3_plan
+    return q3_plan(s["customer"], s["orders"], li)
+
+
+def stream_rows_plan(s, li):
+    return _stream_chain(li, _stream_filter, _stream_project)
+
+
+def stream_order_by(s, li):
+    return _stream_chain(li, _stream_filter, _stream_project,
+                         lambda ac: ac.Declaration(
+                             "order_by", ac.OrderByNodeOptions(STREAM_KEYS)))
+
+
+def stream_top_k(s, li):
+    return _stream_chain(
+        li, _stream_project,
+        lambda ac: ac.Declaration("order_by",
+                                  ac.OrderByNodeOptions(STREAM_KEYS)),
+        lambda ac: ac.Declaration("fetch",
+                                  ac.FetchNodeOptions(0, STREAM_TOP_K)))
+
+
+def stream_fetch(s, li):
+    return _stream_chain(li, _stream_filter, _stream_project,
+                         lambda ac: ac.Declaration(
+                             "fetch", ac.FetchNodeOptions(*STREAM_FETCH)))
+
+
+def stream_orders(s, li):
+    """Lines and quantity per order (15M groups), the 20 largest."""
+    return _stream_chain(
+        li,
+        lambda ac: ac.Declaration("aggregate", ac.AggregateNodeOptions(
+            [(None, "hash_count_all", None, "n"),
+             ("l_quantity", "hash_sum", None, "q")], keys=["l_orderkey"])),
+        lambda ac: ac.Declaration("order_by", ac.OrderByNodeOptions(
+            [("q", "descending"), ("l_orderkey", "ascending")])),
+        lambda ac: ac.Declaration("fetch",
+                                  ac.FetchNodeOptions(0, STREAM_TOP_ORDERS)))
+
+
+def _chunked(plan, **kw):
+    return plan.to_table(chunk_rows=STREAM_CHUNK_ROWS, **kw)
+
+
+def _read_all(plan):
+    """``to_reader``'s dicts concatenated; logs the time to the first and
+    the last dict, their number, and the uploads enqueued when the first
+    came."""
+    from arrow_tpu_torch.acero import chunked
+    from arrow_tpu_torch.acero.exec import last_plan_metrics
+    t0 = time.perf_counter()
+    reader = plan.to_reader(chunk_rows=STREAM_CHUNK_ROWS)
+    parts = [next(reader)]
+    t_first = time.perf_counter() - t0
+    source = last_plan_metrics.source
+    enqueued = source.uploads
+    parts += list(reader)
+    t_last = time.perf_counter() - t0
+    log(f"  to_reader: first dict after {t_first * 1e3:.1f} ms "
+        f"({len(next(iter(parts[0].values())))} rows, {enqueued} of "
+        f"{source.n_chunks} chunk uploads enqueued), last after "
+        f"{t_last * 1e3:.1f} ms, {len(parts)} dicts")
+    if len(parts) != source.n_chunks or enqueued >= source.n_chunks:
+        raise AssertionError("to_reader: the first dict did not come "
+                             "before the last chunk was consumed")
+    return chunked._concat_dicts(parts)
+
+
+def _orders_state_rows(run):
+    import os
+    os.environ["ARROW_TPU_STATE_ROWS"] = str(STREAM_STATE_ROWS)
+    try:
+        return run()
+    finally:
+        del os.environ["ARROW_TPU_STATE_ROWS"]
+
+
+def _query_q3(plan):
+    from arrow_tpu_torch.acero import QueryOptions
+    return _chunked(plan, query_options=QueryOptions())
+
+
+def q1_stream_oracle(s):
+    return q1_oracle(s["host"], s["n"])
+
+
+def q6_stream_oracle(s):
+    return q6_oracle(None, {"lineitem": s["cols"]})[0]
+
+
+def q3_stream_oracle(s):
+    return q3_oracle(stream_q3(s, s["host"]))[0]
+
+
+def rows_oracle(s):
+    c = s["cols"]
+    keep = _stream_rows(c)
+    return {k: c[k][keep].tolist() for k in STREAM_COLUMNS}
+
+
+def order_by_oracle(s, limit=None):
+    c = s["cols"]
+    idx = np.nonzero(_stream_rows(c))[0] if limit is None else None
+    if limit is not None:
+        # the rows at or above the limit-th largest price, then sorted
+        price = c["l_extendedprice"]
+        kth = np.partition(price, len(price) - limit)[len(price) - limit]
+        idx = np.nonzero(price >= kth)[0]
+    order = np.lexsort((c["l_linenumber"][idx], c["l_orderkey"][idx],
+                        -c["l_extendedprice"][idx]))
+    idx = idx[order][:limit]
+    return {k: c[k][idx].tolist() for k in STREAM_COLUMNS}
+
+
+def fetch_oracle(s):
+    off, cnt = STREAM_FETCH
+    return {k: v[off:off + cnt] for k, v in rows_oracle(s).items()}
+
+
+def orders_oracle(s):
+    c = s["cols"]
+    okey = c["l_orderkey"]
+    n = np.bincount(okey)
+    q = np.bincount(okey, weights=c["l_quantity"])
+    keys = np.nonzero(n)[0]
+    top = keys[np.lexsort((keys, -q[keys]))][:STREAM_TOP_ORDERS]
+    return {"l_orderkey": top.tolist(), "n": n[top].tolist(), "q": q[top]}
+
+
+class StreamPath(NamedTuple):
+    """One path of phase 3j: ``plan(inputs, lineitem)`` over the pinned
+    host lineitem runs chunked through ``run(plan)``, over the card's copy
+    whole through ``to_table()``; ``oracle(inputs)`` is numpy's answer.
+    Phase 4 takes the best of ``reps - 1`` walls after a warm-up."""
+    name: str
+    plan: object
+    oracle: object
+    launches: dict
+    run: object = _chunked
+    reps: int = 4
+
+
+# Launches a run at SF10, reckoned from the code, over 8 chunks of 2**23
+# rows. A middle filter compacts once a chunk (it is not folded into a
+# chunked aggregate). Q1: each chunk's seven float sums (four sums, three
+# means) at its group bound of 1,024 slots take grouped_sum (K3); the
+# merges into the 2**23-row state take the sorted route. Q6: one sum a
+# chunk at the keyless bound of 1,024 (K3). Q3: orders x customer runs
+# once (2 filters, the bloom's 2 hash32 and compaction, the unique-build
+# compaction); each chunk filters, takes the bloom (2**23 >= 4 x 2**21)
+# and the unique-build compaction; the per-order sums take the sorted
+# route. The row paths: the filter a chunk (the fetch stops after 2); the
+# top-k and the orders sort and group without a kernel.
+STREAM_PATHS = (
+    StreamPath("Q1 chunked", stream_q1, q1_stream_oracle,
+               _launches(8, 0, 56)),
+    StreamPath("Q6 chunked", stream_q6, q6_stream_oracle,
+               _launches(8, 0, 8)),
+    StreamPath("Q3 chunked", stream_q3, q3_stream_oracle,
+               _launches(28, 18, 0)),
+    StreamPath("to_reader", stream_rows_plan, rows_oracle,
+               _launches(8, 0, 0), _read_all),
+    StreamPath("external order_by", stream_order_by, order_by_oracle,
+               _launches(8, 0, 0)),
+    StreamPath("top-k", stream_top_k,
+               lambda s: order_by_oracle(s, STREAM_TOP_K),
+               _launches(0, 0, 0)),
+    StreamPath("fetch", stream_fetch, fetch_oracle, _launches(2, 0, 0)),
+    StreamPath("orders state", stream_orders, orders_oracle,
+               _launches(0, 0, 0),
+               lambda plan: _orders_state_rows(lambda: _chunked(plan))),
+    StreamPath("Q3 QueryOptions", stream_q3, q3_stream_oracle,
+               _launches(28, 18, 0), _query_q3),
+)
+
+
+def as_expected(result):
+    """A result of the port as ``check_result`` takes an oracle's: float
+    columns as arrays, held within RTOL_F64."""
+    return {k: np.asarray(v) if v and isinstance(v[0], float) else v
+            for k, v in result.items()}
+
+
+def copy_overlap(prof):
+    """(ms of host-to-card copies, the share of it under kernels) of a
+    profiled run, from the profiler's device events; None where it saw no
+    copy."""
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        if "HtoD" in e.name:
+            copies.append(iv)
+        elif not e.name.startswith(("Memcpy", "Memset", NODE_SPAN)):
+            kernels.append(iv)
+    if not copies:
+        return None
+    merged = []
+    for a, b in sorted(kernels):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = sum(b - a for a, b in copies)
+    under = 0.0
+    for a, b in copies:
+        for ka, kb in merged:
+            under += max(0.0, min(b, kb) - max(a, ka))
+    return total / 1e3, under / max(total, 1e-9)
+
+
+def stream_profile(name, run):
+    """One profiled run: device busy share and the copies' overlap with
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ov = copy_overlap(prof)
+    if ov is None:
+        log(f"  {name} profile: the profiler saw no host-to-card copy "
+            "(overlap not measured)")
+        return
+    log(f"  {name} profile: host-to-card copies {ov[0]:.1f} ms of "
+        f"{wall_ms:.1f} ms wall, {ov[1]:.3f} of the copy time under "
+        "kernels of the compute stream (profiler on)")
+
+
+def phase_stream_kernels(s):
+    """The kernels on phase 3j's paths against their plain versions at a
+    chunk's shapes: the compaction of Q1's filter over one chunk of all 15
+    columns and of the row paths' filter, bit for bit; the grouped sum at
+    a chunk's 1,024-slot bound with Q1's 6 and Q6's 1 live slot within
+    RTOL_F64; the hash of a chunk's and of Q3's build side's keys, bit
+    for bit. Launches here are outside every path's count."""
+    from arrow_tpu_torch.compute.hashing import int64_halves
+    from arrow_tpu_torch.compute.keys import equality_word
+    from arrow_tpu_torch.device.column import round_up, slice_rows
+    from arrow_tpu_torch.io.tpch_queries import DATE_1998_09_02
+    from arrow_tpu_torch.kernels.grouped_sum import (grouped_sum,
+                                                     grouped_sum_plain)
+    from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
+    card = s["card"]
+    cap = round_up(STREAM_CHUNK_ROWS)
+    chunk = slice_rows(card, 0, STREAM_CHUNK_ROWS, cap,
+                       torch.tensor(STREAM_CHUNK_ROWS, dtype=torch.int32,
+                                    device="cuda"))
+    live = chunk.row_mask()
+    cols = [c.values for c in chunk.columns]
+    compact_case(f"compact (Q1's filter over a chunk, n={cap}, 15 columns)",
+                 live & (chunk.column("l_shipdate").values
+                         <= DATE_1998_09_02), cols)
+    compact_case(f"compact (the row paths' filter over a chunk, n={cap})",
+                 live & (chunk.column("l_quantity").values == 1.0)
+                 & (chunk.column("l_discount").values == 0.0), cols)
+    errs = {}
+    for slots, seed in ((6, 21), (1, 22)):
+        v, g = q1_like_inputs(cap, 1024, slots, torch.float64, seed)
+        errs[f"grouped_sum S=1024 ({slots} live)"] = check_close(
+            f"grouped_sum (a chunk's bound, S=1024, {slots} live)",
+            grouped_sum(v, g, 1024), grouped_sum_plain(v, g, 1024), RTOL_F64)
+    words = int64_halves(equality_word(chunk.column("l_orderkey")))
+    check_bit_exact(f"hash32 (a chunk's l_orderkey, n={cap})",
+                    [hash32(words)], [hash32_plain(words)])
+    o = s["orders"].column("o_orderkey")
+    words = int64_halves(equality_word(o))
+    check_bit_exact(f"hash32 (orders' keys, n={o.capacity})",
+                    [hash32(words)], [hash32_plain(words)])
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_stream(tables):
+    """Phase 3j: streaming at SF10. Each path runs chunked from the pinned
+    host lineitem with every launch count set to 0 just before and read
+    just after, against its numpy oracle and the same plan whole-table
+    over lineitem on the card, with the card's peak memory of both runs
+    above the tables and the bytes copied to the card and their time. Q1
+    runs twice for the same bits; the orders path first overflows the
+    default state; the QueryOptions path prints its node metrics and
+    raises at the node its tracking predicts under a limit one byte below
+    its total. Returns (launches by path, the inputs)."""
+    from arrow_tpu_torch.acero import ArrowMemoryError, QueryOptions
+    from arrow_tpu_torch.acero.exec import last_plan_metrics
+    from arrow_tpu_torch.platform_check import self_check
+    log(f"== phase 3j: streaming at SF{SF:g} in chunks of "
+        f"{STREAM_CHUNK_ROWS} rows")
+    t0 = time.perf_counter()
+    s = stream_inputs(tables)
+    errs = phase_stream_kernels(s)
+    launches, failures = {}, []
+    for path in STREAM_PATHS:
+        plan = path.plan(s, s["host"])
+        base = memory_mark()
+        zero_launches()
+        self_check()
+        t1 = time.perf_counter()
+        result = path.run(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches[path.name] = read_launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        src = last_plan_metrics.source
+        log(f"{path.name} first run {wall:.3f} s; {src.n_chunks} chunks, "
+            f"{src.h2d_bytes / 1e9:.3f} GB to the card in "
+            f"{src.copy_ms():.1f} ms of copies "
+            f"({src.h2d_bytes / max(src.copy_ms(), 1e-9) / 1e6:.1f} GB/s)")
+        base = memory_mark()
+        whole = path.plan(s, s["card"]).to_table()
+        whole_peak = torch.cuda.max_memory_allocated() - base
+        log(f"{path.name} peak memory above the tables: chunked "
+            f"{peak / 2**30:.2f} GiB, whole-table {whole_peak / 2**30:.2f} "
+            f"GiB with lineitem's {s['nbytes'] / 2**30:.2f} GiB on the card")
+        try:
+            check_launches(path.name, launches[path.name], path.launches)
+            check_result(path.name, result, path.oracle(s))
+            check_result(f"{path.name} against the whole-table run",
+                         result, as_expected(whole))
+        except AssertionError as exc:
+            log(f"  {path.name} FAILED: {exc}")
+            failures.append(path.name)
+            continue
+        log(f"{path.name} matches its numpy oracle and the whole-table run "
+            f"({len(next(iter(result.values())))} rows): keys, counts and "
+            f"order exact, floats within rtol {RTOL_F64}")
+        if path.name == "Q1 chunked":
+            again = path.run(plan)
+            check_bit_exact("Q1 chunked floats, two runs",
+                            [torch.tensor(again[k], dtype=torch.float64)
+                             for k in again
+                             if isinstance(again[k][0], float)],
+                            [torch.tensor(result[k], dtype=torch.float64)
+                             for k in result
+                             if isinstance(result[k][0], float)],
+                            "the first run")
+        if path.name in ("Q1 chunked", "Q3 chunked"):
+            stream_profile(path.name, lambda: path.run(plan))
+        if path.name == "Q3 QueryOptions":
+            qc = plan.last_query_context
+            log("  node metrics:\n    " + qc.to_string().replace(
+                "\n", "\n    "))
+            node = qc.node_metrics[-1][0]
+            limit = qc.bytes_materialized - 1
+            try:
+                _chunked(plan, query_options=QueryOptions(limit))
+            except ArrowMemoryError as exc:
+                if f"at node '{node}'" not in str(exc):
+                    raise AssertionError(f"raised elsewhere: {exc}") \
+                        from None
+                log(f"  memory_limit={limit}: ArrowMemoryError at node "
+                    f"'{node}', as the tracking predicts: {exc}")
+            else:
+                raise AssertionError("memory_limit below the total did "
+                                     "not raise")
+        if path.name == "orders state":
+            try:
+                _chunked(plan)
+            except ValueError as exc:
+                if "exceeded the group-state capacity" not in str(exc):
+                    raise
+                log(f"  the default state ({STREAM_CHUNK_ROWS} rows) "
+                    f"overflows: {exc}")
+            else:
+                raise AssertionError("the default state did not overflow")
+        del result, whole
+    s["card"] = None
+    if failures:
+        raise AssertionError(f"phase 3j failed for {failures}")
+    log(f"phase 3j: {time.perf_counter() - t0:.1f} s (kernels against "
+        f"their plain versions: max_abs_err {errs!r})")
+    return launches, s
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -5091,10 +5566,13 @@ def profile_run(name, run):
     events = prof.key_averages()
     log(f"{name} profile taken and read in "
         f"{time.perf_counter() - t_start:.1f} s")
-    # kernels only: an operator's device time repeats its kernels'
-    rows = [(e.key, e.self_device_time_total, e.count) for e in events
+    # kernels only: an operator's device time repeats its kernels', and a
+    # plan node's span (``arrow_tpu::<factory>``) the kernels under it
+    cuda = [(e.key, e.self_device_time_total, e.count) for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
+    rows = [r for r in cuda if not r[0].startswith(NODE_SPAN)]
+    spans = [r for r in cuda if r[0].startswith(NODE_SPAN)]
     device_us = sum(r[1] for r in rows)
     if not rows:
         log(f"{name} profile: the profiler saw no device time (not "
@@ -5102,8 +5580,20 @@ def profile_run(name, run):
         return
     log(f"{name} profile: device busy {device_us:.1f} us of {wall_us:.1f} "
         f"us wall (idle share {1 - device_us / wall_us:.3f}; profiler on)")
+    h2d_us = sum(r[1] for r in rows if r[0].startswith("Memcpy HtoD"))
+    if h2d_us:
+        # a streamed run copies on a stream of its own, beside the kernels
+        compute_us = device_us - h2d_us
+        log(f"{name} profile: {h2d_us:.1f} us of host-to-card copies; the "
+            f"rest busy {compute_us:.1f} us (idle share "
+            f"{1 - compute_us / wall_us:.3f})")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:14]:
         log(f"  {us:12.1f} us  x{count:<4d} {key[:110]}")
+    if spans:
+        # nested: a node's span holds those of the nodes below it
+        log(f"{name} device span by plan node: " + ", ".join(
+            f"{k[len(NODE_SPAN):]} {us / 1e3:.1f} ms (x{c})"
+            for k, us, c in sorted(spans, key=lambda r: -r[1])))
     # the host operators that launched that device time (self time: each
     # kernel counts once, under the operator that launched it)
     ops = [(e.key, e.self_device_time_total, e.count) for e in events
@@ -5248,7 +5738,7 @@ def time_paths(card, paths):
 
 
 def phase_times(card, launches, errs, tables, typed, params, stats,
-                strings, rest):
+                strings, rest, stream):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
@@ -5376,11 +5866,14 @@ def phase_times(card, launches, errs, tables, typed, params, stats,
                        2 * x.numel() * 4, x.numel(), F32_OPS_PER_S,
                        reps=200)
 
-    # phase 3h's paths last: a profile of its sweeps (thousands of
-    # kernels) fills the profiler's buffer, and the kernels' device times
-    # read after it come out short
-    time_paths(card, [(p, lambda p=p: p.run(strings, None))
-                      for p in STRING_PATHS])
+    # phase 3j's and 3h's paths last: a profile of thousands of kernels
+    # (3j's chunks, 3h's sweeps) fills the profiler's buffer, and the
+    # kernels' device times read after it come out short
+    time_paths(card, [(p, functools.partial(p.run, p.plan(stream,
+                                                          stream["host"])))
+                      for p in STREAM_PATHS]
+               + [(p, lambda p=p: p.run(strings, None))
+                  for p in STRING_PATHS])
 
     def by_path(name):
         return {path: n[name] for path, n in launches.items()}
@@ -5471,9 +5964,11 @@ def main() -> int:
         launches.update(strings_launches)
         rest_launches, rest = timed(phase_rest, tables, typed)
         launches.update(rest_launches)
+        stream_launches, stream = timed(phase_stream, tables)
+        launches.update(stream_launches)
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
-                            typed, params, stats, strings, rest)
+                            typed, params, stats, strings, rest, stream)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -46,6 +46,7 @@ from arrow_tpu_torch.device.column import DeviceColumn
 
 from test_torch_types import CAP, N, TYPES, column_pair, run_both
 from test_torch_vector_functions import DICTS, assert_same, dict_pair
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 FLOATS = ("float16", "float32", "float64")
 CASES = list(TYPES) + [f"{f}_finite" for f in FLOATS] + list(DICTS)

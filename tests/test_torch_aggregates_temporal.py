@@ -45,6 +45,7 @@ from arrow_tpu_torch.types import TypeId, type_for_name
 from test_torch_grouper_agg import (_KEY_SPECS, CAP, _compare_column,
                                     _contexts, _setup)
 from test_torch_q1 import assert_tables_match, carry_across
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 _JAX_TYPES = {"float64": at.float64(), "float32": at.float32(),
               "int64": at.int64(), "int32": at.int32(), "bool": at.bool_(),

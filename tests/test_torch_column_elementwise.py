@@ -19,6 +19,7 @@ from arrow_tpu_torch.compute.registry import ExecContext, get_function
 from arrow_tpu_torch.device.column import (DeviceColumn, batch_from_numpy,
                                            download, round_up)
 from arrow_tpu_torch.types import type_for_name
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 N = 300
 

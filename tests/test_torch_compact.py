@@ -26,6 +26,7 @@ from arrow_tpu_torch.compute.move import compact_by_mask
 from arrow_tpu_torch.compute.selection import compact_columns, filter_batch
 from arrow_tpu_torch.device.column import DeviceBatch, DeviceColumn
 from arrow_tpu_torch.types import Field, Schema, type_for_name
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 _DTYPES = ["bool", "int32", "int64", "date32", "float32", "float64"]
 _NP = {"bool": np.bool_, "int32": np.int32, "int64": np.int64,

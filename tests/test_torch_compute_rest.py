@@ -53,6 +53,7 @@ from arrow_tpu_torch.device.column import DeviceColumn
 from test_torch_types import (CAP, N, TYPES, assert_same_result, column_pair,
                               contexts, run_both, type_name)
 from test_torch_vector_functions import DICTS, assert_same, dict_pair
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 ALL = list(TYPES) + list(DICTS)
 

@@ -16,6 +16,7 @@ import pytest
 
 from test_torch_types import (N, TYPES, assert_same_result, column_pair,
                               run_both)
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 ALL = tuple(TYPES)
 

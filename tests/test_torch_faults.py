@@ -28,6 +28,7 @@ from arrow_tpu_torch.kernels.grouped_sum import grouped_sum
 from arrow_tpu_torch.types import TypeId
 
 from test_torch_q1 import assert_tables_match, carry_across
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 _I = [1, 2, 3, 2**30, None, -5]
 _X = [1.5, -2.0, 0.25, 3.0, None, 7.0]

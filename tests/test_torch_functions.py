@@ -37,6 +37,7 @@ from arrow_tpu_torch.device.column import DeviceColumn
 
 from test_torch_q1 import assert_tables_match, carry_across
 from test_torch_q4_q13 import _strings_table
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 N = 600
 _TYPES = {"int64": (np.int64, at.int64(), TT.int64()),

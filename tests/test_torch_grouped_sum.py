@@ -16,6 +16,7 @@ from arrow_tpu.compute.pallas_move import grouped_sum_pallas as k3_pallas
 from arrow_tpu.experimental.pallas_agg import grouped_sum_pallas as k1_pallas
 from arrow_tpu_torch.kernels.grouped_sum import (MAX_SEGMENTS, grouped_sum,
                                                  grouped_sum_plain)
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 _PER = 500
 

@@ -23,6 +23,7 @@ from arrow_tpu_torch.compute.grouper import (group_capacity_bound,
 from arrow_tpu_torch.compute.registry import ExecContext
 from arrow_tpu_torch.device.column import DeviceColumn
 from arrow_tpu_torch.types import type_for_name
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 CAP = 4096
 ROWS = 3500

@@ -36,6 +36,7 @@ from arrow_tpu_torch.device.column import DeviceColumn
 from arrow_tpu_torch.types import type_for_name
 
 from test_torch_q1 import assert_tables_match, carry_across
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 CAP = 4096
 ROWS = 3900

@@ -22,6 +22,7 @@ from arrow_tpu_torch.compute import bloom
 from arrow_tpu_torch.device.column import DeviceColumn
 from arrow_tpu_torch.kernels.hash32 import hash32
 from arrow_tpu_torch.types import type_for_name
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 _EDGE = np.array([0, 0x80000000, 0xFFFFFFFF, 1, 0x7FFFFFFF],
                  dtype=np.uint32)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the join types, Q4, Q13 and phase 3c's TPC-H suite on the card.
+the join types, Q4, Q13 and phase 3c's TPC-H suite on the card, and plans
+streamed from pinned host memory over a copy stream.
 
 These tests need a CUDA card, carry the ``cuda`` marker and skip elsewhere.
 The machine with the card has no JAX, so this file imports only torch, the
@@ -737,3 +738,132 @@ def test_indices_nonzero_on_card_matches_plain(dtype):
     assert int(got.count) == int(count)
     assert torch.equal(got.column.values, want)
     assert repr(got.column.type) == "uint64"
+
+
+def _same_result(got, want, rtol=1e-9):
+    """Keys, counts, nulls and order exact, floats within ``rtol``."""
+    assert list(got) == list(want)
+    for k, w in want.items():
+        g = got[k]
+        assert [v is None for v in g] == [v is None for v in w], k
+        if any(isinstance(v, float) for v in w):
+            torch.testing.assert_close(
+                torch.tensor([0.0 if v is None else v for v in g],
+                             dtype=torch.float64),
+                torch.tensor([0.0 if v is None else v for v in w],
+                             dtype=torch.float64), rtol=rtol, atol=0)
+        else:
+            assert g == w, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["q1", "q3"])
+def test_chunked_from_pinned_host_matches_whole(query):
+    """Q1 and Q3 at SF 0.1 streamed from a pinned host lineitem in 5
+    chunks on the card equal the same plan over lineitem on the card."""
+    from arrow_tpu_torch.acero import chunked
+    from arrow_tpu_torch.acero.exec import last_plan_metrics
+    from arrow_tpu_torch.device.column import batch_to, pin_batch
+    from arrow_tpu_torch.io import tpch
+    from arrow_tpu_torch.io.tpch_queries import q1_plan, q3_plan
+    _need_card()
+    host = pin_batch(tpch.lineitem_table(0.1, device="cpu"))
+    card = batch_to(host, "cuda")
+    if query == "q1":
+        plans = [q1_plan(li) for li in (host, card)]
+    else:
+        c, o = tpch.customer_table(0.1), tpch.orders_table(0.1)
+        plans = [q3_plan(c, o, li) for li in (host, card)]
+    got = plans[0].to_table(chunk_rows=1 << 17)
+    source = last_plan_metrics.source
+    assert chunked.LAST_FALLBACK_REASON is None
+    assert source.n_chunks == 5 and source.stream is not None
+    assert source.h2d_bytes > 0 and source.copy_ms() > 0
+    _same_result(got, plans[1].to_table())
+
+
+def _host_batch(n, pinned):
+    import numpy as np
+    from arrow_tpu_torch.device.column import batch_from_numpy, pin_batch
+    rng = np.random.default_rng(5)
+    b = batch_from_numpy([
+        ("k", "int64", rng.integers(0, 1000, n), None, None),
+        ("v", "float64", rng.normal(size=n), rng.random(n) > 0.1, None),
+        ("s", "string", rng.integers(0, 3, n), None, ("a", "b", "c"))],
+        n, device="cpu")
+    return pin_batch(b) if pinned else b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [True, False])
+def test_chunk_source_copies_on_its_own_stream(pinned):
+    """Chunks land on the card from pinned memory, copied on the source's
+    own stream (not the current one); a pageable source is pinned once,
+    at set-up, and its pinned copy kept for the next run."""
+    from arrow_tpu_torch.acero import TableSourceNodeOptions
+    from arrow_tpu_torch.acero.chunked import _ChunkSource
+    _need_card()
+    n, rows = 200_003, 1 << 16
+    b = _host_batch(n, pinned)
+    opts = TableSourceNodeOptions(b)
+    source = _ChunkSource(opts, rows, torch.device("cuda"))
+    assert source.stream is not None
+    assert source.stream.cuda_stream != torch.cuda.current_stream().cuda_stream
+    assert all(c.values.is_pinned() for c in source.batch.columns)
+    assert all(c.values.is_pinned() == pinned for c in b.columns)
+    again = _ChunkSource(opts, rows, torch.device("cuda"))
+    assert again.batch is source.batch
+    chunks = list(source)
+    assert len(chunks) == 4 and source.h2d_bytes == n * (8 + 9 + 4)
+    torch.cuda.synchronize()
+    for i, chunk in enumerate(chunks):
+        length = min(rows, n - i * rows)
+        assert int(chunk.row_count) == length
+        for c, h in zip(chunk.columns, b.columns):
+            assert c.values.device.type == "cuda" and c.capacity == rows
+            assert c.dictionary is h.dictionary
+            assert torch.equal(c.values[:length].cpu(),
+                               h.values[i * rows:i * rows + length])
+            assert not c.values[length:].any()
+    assert source.copy_ms() > 0
+
+
+@pytest.mark.cuda
+def test_streamed_float_sums_repeat_bit_for_bit():
+    """A chunked grouped float sum on the card gives the same bits on a
+    second run (``segment_sum``, not atomics)."""
+    from arrow_tpu_torch.acero import (AggregateNodeOptions, Declaration,
+                                       TableSourceNodeOptions)
+    _need_card()
+    b = _host_batch(300_000, True)
+    plan = Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(b)),
+        Declaration("aggregate", AggregateNodeOptions(
+            [("v", "hash_sum", None, "s"), ("v", "hash_mean", None, "m")],
+            keys=["s"]))])
+    first = plan.to_table(chunk_rows=1 << 16)
+    second = plan.to_table(chunk_rows=1 << 16)
+    for k in ("s", "m"):
+        a, b = (torch.tensor(r[k], dtype=torch.float64).view(torch.int64)
+                for r in (first, second))
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pinned_source_runs_on_the_card_unasked():
+    """A pinned host batch's plan run whole with no device named
+    (``to_table()``, ``to_batches()``) runs on the card: its filter
+    launches K2."""
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       TableSourceNodeOptions, field)
+    _need_card()
+    b = _host_batch(100_000, True)
+    plan = Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(b)),
+        Declaration("filter", FilterNodeOptions(field("k") < 500))])
+    want = int((b.column("k").values[:100_000] < 500).sum())
+    for run in (plan.to_table, lambda: plan.to_batches()[0]):
+        before = compact.launches
+        out = run()
+        assert compact.launches == before + 1
+        assert len(out["k"]) == want

@@ -35,6 +35,7 @@ from arrow_tpu_torch.device.column import batch_from_numpy
 
 import chip_smoke
 from test_torch_q1 import assert_tables_match, carry_across
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 JOIN_TYPES = ("inner", "left outer", "right outer", "full outer",
               "left semi", "left anti", "right semi", "right anti")

@@ -36,6 +36,7 @@ from arrow_tpu_torch.io import tpch_queries
 import test_torch_tpch_full as full
 from test_torch_q1 import assert_tables_match, carry_across
 from test_torch_tpch_suite import QUERIES as SUITE_QUERIES
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 SF = full.SF
 # every plan -> its tables in argument order, its parameters at SF

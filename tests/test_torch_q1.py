@@ -33,6 +33,7 @@ from arrow_tpu_torch.acero import (AggregateNodeOptions, Declaration,
 from arrow_tpu_torch.device.column import batch_from_numpy, download
 from arrow_tpu_torch.io.tpch_device import q1_device_batch
 from arrow_tpu_torch.io.tpch_queries import q1_chain_decls, q1_plan
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -20,6 +20,7 @@ from arrow_tpu_torch.io.tpch_device import q3_device_plan
 from arrow_tpu_torch.io.tpch_queries import q3_plan
 
 from test_torch_q1 import assert_tables_match, carry_across
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 RTOL = 1e-9
 

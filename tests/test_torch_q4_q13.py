@@ -44,6 +44,7 @@ from arrow_tpu_torch.types import bool_, int64
 import chip_smoke
 from test_torch_join_types import _case_tables, _run_both
 from test_torch_q1 import assert_tables_match
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 SCALE_FACTORS = [0.005, 0.01]
 

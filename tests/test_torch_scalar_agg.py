@@ -31,6 +31,7 @@ from arrow_tpu_torch.compute.registry import ExecContext, get_function
 from arrow_tpu_torch.device.column import BLOCK, DeviceColumn
 
 from test_torch_q1 import assert_tables_match, carry_across
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 N = 1000
 _TYPES = {"f64": (np.float64, at.float64(), TT.float64()),

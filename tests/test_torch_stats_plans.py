@@ -29,6 +29,7 @@ from arrow_tpu_torch.types import TypeId
 
 from test_torch_typed_plans import _ref_type, _same, _to_reference
 from test_torch_vector_functions import assert_same
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 SF = 0.01
 

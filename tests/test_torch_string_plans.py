@@ -40,6 +40,7 @@ from arrow_tpu_torch.kernels.hash32 import hash32, hash32_plain
 
 from test_torch_q1 import assert_tables_match
 from test_torch_typed_plans import _to_reference
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 SF = 0.01
 

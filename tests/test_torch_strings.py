@@ -48,6 +48,7 @@ from arrow_tpu_torch.compute.registry import ExecContext, get_function
 from arrow_tpu_torch.device.column import DeviceColumn
 
 from test_torch_q1 import assert_tables_match, carry_across
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 SMALL = ("forest green", "Été à Paris", "straße", None, "", "   ",
          "  padded  ", "3rd avenue", "o'neil", "Hello World", "12345", "٣٤",

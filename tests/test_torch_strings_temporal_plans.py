@@ -36,6 +36,7 @@ from arrow_tpu_torch.io.tpch_device import q1_device_batch
 from test_torch_q1 import assert_tables_match
 from test_torch_typed_plans import _ref_type, _to_reference
 from test_torch_types import type_name
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 SF = 0.01
 

@@ -33,6 +33,7 @@ from arrow_tpu_torch.device.column import DeviceColumn
 
 from test_torch_types import (CAP, N, assert_same_column, assert_same_result,
                               run_both)
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 # name -> (port type, reference type)
 TEMPORAL = {

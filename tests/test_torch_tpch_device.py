@@ -7,6 +7,7 @@ import pytest
 
 from arrow_tpu.io.tpch_device import q1_device_batch as jax_q1_device_batch
 from arrow_tpu_torch.io.tpch_device import q1_device_batch
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [0, 3])

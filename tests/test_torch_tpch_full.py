@@ -27,6 +27,7 @@ from arrow_tpu_torch.io.tpch_device import q1_device_batch
 
 import chip_smoke
 from test_torch_q1 import assert_tables_match
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 SF = 0.005
 

@@ -37,6 +37,7 @@ from arrow_tpu_torch.types import TypeId
 
 import chip_smoke
 from test_torch_q1 import assert_tables_match, carry_across
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 # query -> the tables it takes, in its plan's argument order
 QUERIES = {

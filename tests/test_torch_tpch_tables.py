@@ -19,6 +19,7 @@ from arrow_tpu.device.column import upload_table
 from arrow_tpu.io import tpch as jax_tpch
 from arrow_tpu_torch.device.column import round_up
 from arrow_tpu_torch.io import tpch
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 
 def _table_pair(table, sf):

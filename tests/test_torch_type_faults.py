@@ -18,6 +18,7 @@ import arrow_tpu_torch.acero as tacero
 from arrow_tpu.table import Table
 from arrow_tpu_torch.compute import join
 from arrow_tpu_torch.device.column import batch_from_numpy
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 U64 = np.array([2 ** 63, 5, 2 ** 64 - 1, 0, 2 ** 63 - 1, 2 ** 63 + 9] * 30,
                dtype=np.uint64)

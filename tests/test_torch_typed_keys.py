@@ -35,6 +35,7 @@ from arrow_tpu_torch.device.column import DeviceBatch
 from arrow_tpu_torch.kernels.compact import compact, compact_plain
 from arrow_tpu_torch.types import Field, Schema
 from test_torch_types import CAP, N, TYPES, column_pair
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 KEY_TYPES = ("bool", "int8", "int16", "uint8", "uint16", "uint32", "uint64",
              "float16", "float32", "date64", "timestamp[s]", "time32[ms]",

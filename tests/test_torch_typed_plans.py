@@ -31,6 +31,7 @@ import chip_smoke
 from arrow_tpu_torch.io import tpch
 from arrow_tpu_torch.io.tpch_device import q1_device_batch
 from arrow_tpu_torch.types import TypeId
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 SF = 0.01
 

@@ -40,6 +40,7 @@ from arrow_tpu_torch import types as PT
 from arrow_tpu_torch.compute.registry import ExecContext, get_function
 from arrow_tpu_torch.device.column import (DeviceColumn, batch_from_numpy,
                                            download, round_up)
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 N = 200
 CAP = round_up(N)

@@ -54,6 +54,7 @@ from arrow_tpu_torch.device.column import DeviceBatch, DeviceColumn
 
 from test_torch_types import (CAP, N, TYPES, _close, column_pair, contexts,
                               run_both, type_name)
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
 
 ALL_TYPES = list(TYPES)
 DICTS = {
