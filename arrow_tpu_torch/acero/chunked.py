@@ -77,8 +77,12 @@ from .options import (AggregateNodeOptions, FetchNodeOptions,
 from .query_context import current_query_context
 
 # a streamed probe cannot carry the build side's matched state across
-# chunks, so right semi/anti/outer and full outer joins do not stream
+# chunks, so right semi/anti/outer and full outer joins do not stream; the
+# distributed layer partitions by key instead and takes all eight
+# (``dist_exec`` passes ``_ALL_JOIN_TYPES`` to ``_linearize``)
 _STREAM_JOIN_TYPES = ("inner", "left outer", "left semi", "left anti")
+_ALL_JOIN_TYPES = _STREAM_JOIN_TYPES + (
+    "right semi", "right anti", "right outer", "full outer")
 
 
 def chunk_rows_env() -> int:
@@ -123,7 +127,7 @@ def _reject(reason: str):
     return None
 
 
-def _linearize(decl) -> Optional[_Linear]:
+def _linearize(decl, join_types=_STREAM_JOIN_TYPES) -> Optional[_Linear]:
     chain = []
     cur = decl
     while True:
@@ -136,7 +140,7 @@ def _linearize(decl) -> Optional[_Linear]:
             if f == "aggregate" and cur.options.segment_keys:
                 return _reject("segmented aggregate")
             if f == "hashjoin":
-                if cur.options.join_type not in _STREAM_JOIN_TYPES:
+                if cur.options.join_type not in join_types:
                     return _reject("hashjoin type "
                                    f"{cur.options.join_type!r}")
                 if cur.options.filter_expression is not None:
@@ -940,6 +944,47 @@ def stream_batches(decl, chunk_rows: int, device=None):
     return gen()
 
 
+def _aggregate(lin: _Linear, aggs, source: _ChunkSource, runner,
+               dev: torch.device) -> DeviceBatch:
+    """The aggregate terminal over the chunks, then its post ops whole."""
+    gb = _ChunkedGroupBy(lin.terminal.options, aggs,
+                         state_rows_env(source.capacity))
+    for chunk in source:
+        gb.consume(runner(chunk))
+    out = gb.finalize()
+    if not lin.post_ops:
+        return out
+    cur = Declaration("table_source", TableSourceNodeOptions(out))
+    for d in lin.post_ops:
+        # a post-op hashjoin keeps its own build subtree; only its probe
+        # side is the aggregated result
+        cur = Declaration(d.factory_name, d.options,
+                          inputs=[cur] + list(d.inputs[1:]))
+    return execute_declaration(_sources_on(cur, dev), _root=False)
+
+
+def execute_chunked_aggregate(decl, chunk_rows: int,
+                              device=None) -> Optional[DeviceBatch]:
+    """A plan whose terminal is a chunkable aggregate, run in chunks of
+    ``chunk_rows`` source rows as ``maybe_execute_chunked`` runs it, its
+    result left on the device; None for any other shape (whose chunked
+    result equals the whole run's: no float sum meets a chunk boundary)
+    and where the source fits one chunk."""
+    lin = _linearize(decl)
+    if lin is None or lin.terminal is None \
+            or lin.terminal.factory_name != "aggregate" \
+            or int(lin.source.batch.row_count) <= chunk_rows:
+        return None
+    aggs = _norm_aggs(lin.terminal.options)
+    if aggs is None:
+        return None
+    dev = default_device(device)
+    source = _ChunkSource(lin.source, chunk_rows, dev)
+    last_plan_metrics.source = source
+    return _aggregate(lin, aggs, source, _middle_runner(lin.middle, dev),
+                      dev)
+
+
 def maybe_execute_chunked(decl, chunk_rows: int,
                           device=None) -> Optional[Dict[str, list]]:
     """Run the Declaration chunked on ``device`` (the card by default) if
@@ -971,21 +1016,7 @@ def maybe_execute_chunked(decl, chunk_rows: int,
 
     f = term.factory_name
     if f == "aggregate":
-        gb = _ChunkedGroupBy(term.options, aggs,
-                             state_rows_env(source.capacity))
-        for chunk in source:
-            gb.consume(runner(chunk))
-        out = gb.finalize()
-        if not lin.post_ops:
-            return download(out)
-        cur = Declaration("table_source", TableSourceNodeOptions(out))
-        for d in lin.post_ops:
-            # a post-op hashjoin keeps its own build subtree; only its
-            # probe side is the aggregated result
-            cur = Declaration(d.factory_name, d.options,
-                              inputs=[cur] + list(d.inputs[1:]))
-        return download(execute_declaration(_sources_on(cur, dev),
-                                            _root=False))
+        return download(_aggregate(lin, aggs, source, runner, dev))
 
     if f == "order_by":
         pf = lin.post_fetch

@@ -984,7 +984,8 @@ class Declaration:
         return self
 
     def to_table(self, chunk_rows: Optional[int] = None,
-                 query_options=None, device=None) -> Dict[str, list]:
+                 query_options=None, device=None, distributed: bool = False,
+                 mesh=None) -> Dict[str, list]:
         """Run the plan and download the result
         (``device.column.download``), following the reference's
         ``to_table``:
@@ -1000,6 +1001,13 @@ class Declaration:
           ValueError under ``ARROW_TPU_REQUIRE_CHUNKED=1``) and runs
           whole, its sources moved to ``device``, as the reference's
           whole-table upload does; so does a source of one chunk;
+        * ``distributed=True`` or a ``mesh`` (``parallel.Mesh``; None
+          makes one of the default process group on ``device``): every
+          rank of the group calls this alike, and the plan runs across
+          them (``dist_exec``); each rank gets the whole result, rows in
+          the single-rank order. ``chunk_rows`` does not apply. A table
+          source may then hold a ``ShardBatch`` (this rank's rows), which
+          a plan run otherwise refuses;
         * otherwise the plan runs whole on ``device`` where one is named,
           else where its sources are, a pinned host batch counting as
           the card's. A batch lies in unpinned host memory only where its
@@ -1010,11 +1018,24 @@ class Declaration:
         if query_options is not None:
             qc = QueryContext(query_options)
             with query_scope(qc):
-                out = self.to_table(chunk_rows=chunk_rows, device=device)
+                out = self.to_table(chunk_rows=chunk_rows, device=device,
+                                    distributed=distributed, mesh=mesh)
             self.last_query_context = qc
             return out
         from . import chunked
         last_plan_metrics.reset()
+        if distributed or mesh is not None:
+            from . import dist_exec
+            from ..parallel.distributed import make_mesh
+            if mesh is None:
+                mesh = make_mesh(device=device)
+            return download(dist_exec.whole(mesh, dist_exec.run(self, mesh)))
+        from ..parallel.distributed import ShardBatch
+        if any(d.factory_name == "table_source"
+               and isinstance(d.options.batch, ShardBatch)
+               for d in _walk(self)):
+            raise ValueError("a table source holds a ShardBatch (one rank's "
+                             "rows): run the plan with distributed=True")
         plan = self._plan()
         rows = chunk_rows if chunk_rows is not None \
             else chunked.chunk_rows_env()
@@ -1067,6 +1088,19 @@ class Declaration:
 
     def __repr__(self):
         return f"Declaration({self.factory_name})"
+
+
+def execute_distributed(decl: Declaration, mesh=None) -> DeviceBatch:
+    """Run ``decl`` across the ranks of ``mesh`` (the default process
+    group's where None), as ``to_table(distributed=True)`` does, and return
+    this rank's part of the result on its device: a ``ShardBatch``, a
+    contiguous range of the result's rows in the single-rank order."""
+    from . import dist_exec
+    from ..parallel.distributed import make_mesh, shard_batch
+    if mesh is None:
+        mesh = make_mesh()
+    last_plan_metrics.reset()
+    return shard_batch(mesh, dist_exec.run(decl, mesh))
 
 
 def _walk(decl: Declaration):

@@ -15,7 +15,7 @@ an arithmetic shift with the high bits masked off, and the constants above
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -70,9 +70,11 @@ def _mix_scalar(u: int) -> int:
 
 def _gen_column(cap: int, i: int, kind: str, lo: int, hi: int,
                 dtype: torch.dtype, seed: int,
-                device: torch.device) -> torch.Tensor:
+                device: torch.device, start: int = 0) -> torch.Tensor:
+    """Rows ``[start, start + cap)`` of generated column ``i``."""
     key = _as_int64(_mix_scalar(((i + 1) * _GOLDEN + seed) & _U64))
-    h = _mix(torch.arange(cap, dtype=torch.int64, device=device) ^ key)
+    h = _mix(torch.arange(start, start + cap, dtype=torch.int64,
+                          device=device) ^ key)
     u = _srl(_srl(h, 32) * (hi - lo), 32) + lo
     if kind == "cents":
         return u.to(torch.float64) * 0.01
@@ -81,10 +83,13 @@ def _gen_column(cap: int, i: int, kind: str, lo: int, hi: int,
     return u.to(dtype)
 
 
-def q1_device_batch(scale_factor: float, seed: int = 0,
-                    device=None) -> Tuple[DeviceBatch, int]:
+def q1_device_batch(scale_factor: float, seed: int = 0, device=None,
+                    rows: Optional[Tuple[int, int]] = None
+                    ) -> Tuple[DeviceBatch, int]:
     """A 15-column lineitem DeviceBatch of ``int(6,001,215 * SF)`` rows made
-    on the device. Returns (batch, row count)."""
+    on the device; ``rows=(start, stop)`` makes only those rows (a rank's
+    shard), bit for bit the whole table's. Returns (batch, the whole
+    table's row count)."""
     dev = default_device(device)
     n = int(6_001_215 * scale_factor)
     sf = scale_factor
@@ -118,27 +123,34 @@ def q1_device_batch(scale_factor: float, seed: int = 0,
          torch.int32),
         ("l_shipmode", "dict", 0, len(SHIPMODES), dict_t, torch.int32),
     ]
-    return _device_batch(spec, n, dicts, seed, dev)
+    return _device_batch(spec, n, dicts, seed, dev, rows)
 
 
-def _device_batch(spec, n: int, dicts, seed: int,
-                  device: torch.device) -> Tuple[DeviceBatch, int]:
+def _device_batch(spec, n: int, dicts, seed: int, device: torch.device,
+                  rows: Optional[Tuple[int, int]] = None
+                  ) -> Tuple[DeviceBatch, int]:
     """A DeviceBatch of n rows from a column spec: (name, kind, lo, hi,
     type, device dtype) a column, where kind ``iota`` gives the keys
     1..capacity (o_orderkey, c_custkey), ``zeros`` zeros, and any other
-    kind a generated column. Returns (batch, n)."""
-    cap = round_up(n)
+    kind a generated column; only rows ``[start, stop)`` where ``rows`` is
+    given. Returns (batch, n)."""
+    start, stop = rows if rows is not None else (0, n)
+    if not 0 <= start <= stop <= n:
+        raise ValueError(f"rows {rows} outside the table's {n}")
+    cap = round_up(stop - start)
     cols = []
     for i, (name, kind, lo, hi, t, dt) in enumerate(spec):
         if kind == "iota":
-            v = torch.arange(cap, dtype=torch.int64, device=device) + 1
+            v = torch.arange(start, start + cap, dtype=torch.int64,
+                             device=device) + 1
         elif kind == "zeros":
             v = torch.zeros(cap, dtype=dt, device=device)
         else:
-            v = _gen_column(cap, i, kind, lo, hi, dt, seed, device)
+            v = _gen_column(cap, i, kind, lo, hi, dt, seed, device, start)
         cols.append(DeviceColumn(v, None, t, dicts.get(name)))
     schema = Schema([Field(name, t) for name, _k, _lo, _hi, t, _d in spec])
-    return DeviceBatch(schema, cols, torch.tensor(n, dtype=torch.int32,
+    return DeviceBatch(schema, cols, torch.tensor(stop - start,
+                                                  dtype=torch.int32,
                                                   device=device)), n
 
 
@@ -152,29 +164,55 @@ def q3_device_plan(scale_factor: float, seed: int = 0, limit: int = 10,
     (plan, lineitem rows)."""
     from .tpch_queries import q3_plan
 
+    t = q3_device_tables(scale_factor, seed, device)
+    return q3_plan(t["customer"][0], t["orders"][0], t["lineitem"][0],
+                   limit), t["lineitem"][1]
+
+
+def q3_device_tables(scale_factor: float, seed: int = 0, device=None,
+                     shard: Optional[Tuple[int, int]] = None):
+    """``q3_device_plan``'s three tables by name, each (batch, the whole
+    table's rows); ``shard=(rank, size)`` makes only each table's
+    contiguous ``ceil(n / size)`` rows of that rank, bit for bit the
+    whole table's."""
     dev = default_device(device)
     sf = scale_factor
     n_li = int(6_001_215 * sf)
     n_ord = max(int(1_500_000 * sf), 2)
     n_cust = max(int(150_000 * sf), 2)
     dict_t = T.dictionary(T.int32(), T.string())
-    cust, _ = _device_batch([
-        ("c_custkey", "iota", 0, 0, T.int64(), torch.int64),
-        ("c_mktsegment", "int", 0, len(MKTSEGMENTS), dict_t, torch.int32),
-    ], n_cust, {"c_mktsegment": MKTSEGMENTS}, seed + 11, dev)
-    orders, _ = _device_batch([
-        ("o_orderkey", "iota", 0, 0, T.int64(), torch.int64),
-        ("o_custkey", "int", 1, n_cust, T.int64(), torch.int64),
-        ("o_orderdate", "int", _EPOCH_1992, _EPOCH_1998 - 151, T.date32(),
-         torch.int32),
-        ("o_shippriority", "zeros", 0, 0, T.int64(), torch.int64),
-    ], n_ord, {}, seed + 23, dev)
-    lineitem, _ = _device_batch([
-        ("l_orderkey", "int", 1, n_ord + 1, T.int64(), torch.int64),
-        ("l_extendedprice", "cents", 90_000, 10_500_000, T.float64(),
-         torch.float64),
-        ("l_discount", "cents", 0, 11, T.float64(), torch.float64),
-        ("l_shipdate", "int", _EPOCH_1992, _EPOCH_1998, T.date32(),
-         torch.int32),
-    ], n_li, {}, seed + 37, dev)
-    return q3_plan(cust, orders, lineitem, limit), n_li
+
+    def rows(n):
+        return None if shard is None else shard_rows(n, *shard)
+
+    return {
+        "customer": _device_batch([
+            ("c_custkey", "iota", 0, 0, T.int64(), torch.int64),
+            ("c_mktsegment", "int", 0, len(MKTSEGMENTS), dict_t,
+             torch.int32),
+        ], n_cust, {"c_mktsegment": MKTSEGMENTS}, seed + 11, dev,
+            rows(n_cust)),
+        "orders": _device_batch([
+            ("o_orderkey", "iota", 0, 0, T.int64(), torch.int64),
+            ("o_custkey", "int", 1, n_cust, T.int64(), torch.int64),
+            ("o_orderdate", "int", _EPOCH_1992, _EPOCH_1998 - 151,
+             T.date32(), torch.int32),
+            ("o_shippriority", "zeros", 0, 0, T.int64(), torch.int64),
+        ], n_ord, {}, seed + 23, dev, rows(n_ord)),
+        "lineitem": _device_batch([
+            ("l_orderkey", "int", 1, n_ord + 1, T.int64(), torch.int64),
+            ("l_extendedprice", "cents", 90_000, 10_500_000, T.float64(),
+             torch.float64),
+            ("l_discount", "cents", 0, 11, T.float64(), torch.float64),
+            ("l_shipdate", "int", _EPOCH_1992, _EPOCH_1998, T.date32(),
+             torch.int32),
+        ], n_li, {}, seed + 37, dev, rows(n_li)),
+    }
+
+
+def shard_rows(n: int, rank: int, size: int) -> Tuple[int, int]:
+    """(start, stop) of rank's contiguous ``ceil(n / size)`` rows of n, as
+    the distributed layer splits a whole batch."""
+    per = -(-n // size) if n else 0
+    start = min(rank * per, n)
+    return start, min(start + per, n)

@@ -146,6 +146,27 @@ Phases; any failure exits non-zero without the final line:
    node the tracking predicts under a limit one byte below its total);
    the copies' overlap with kernels from a profiled run of Q1 and Q3;
    the kernels against their plain versions at a chunk's shapes.
+   Then (3k) distribution (``phase_dist``): the single-rank run of each
+   path on this process against its numpy oracle, then four ranks under
+   gloo spawned on this one card (NCCL refuses two ranks of one
+   communicator on one GPU; a rank a GPU is its production use), each
+   making lineitem's and Q3's tables by row range on the card and reading
+   the host generator's through CUDA IPC, each path with the rank's
+   launches zeroed just before and read just after: Q1 through
+   ``to_table(distributed=True)`` and ``distributed_q1``, Q3, the eight
+   join types (orders probing customer), an ``order_by`` of lineitem on
+   (l_shipdate, l_orderkey), a broadcast join of lineitem to supplier, a
+   partitioned and a salted join of lineitem with 2/3 of its rows on one
+   l_orderkey to orders (``BASELINE.json`` config 5), and Q9-style on a
+   two-rank subgroup (config 4). Each result against the single-rank run
+   (results of a few rows by value, floats within rtol 1e-9; the rest by
+   digests of every column's bits, through ``execute_distributed``), the
+   float results twice for the same bits, ``EXCHANGE_COUNTS`` and the
+   launches a rank as reckoned from the code, the salted join's largest
+   rank under 1/2 of the probe rows where the partitioned join's holds
+   2/3 or more; each path's wall, bytes exchanged, the collectives' time
+   and each rank's peak memory; then a one-rank NCCL group exchanges Q3's
+   filtered lineitem here, bit for bit.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -177,6 +198,7 @@ import concurrent.futures
 import datetime
 import functools
 import json
+import os
 import re
 import sys
 import time
@@ -5258,6 +5280,527 @@ def phase_stream(tables):
     return launches, s
 
 
+# --- phase 3k: distribution --------------------------------------------------
+
+DIST_RANKS = 4
+DIST_PAIR = 2                    # Q9-style's ranks: BASELINE.json config 4
+DIST_TIMEOUT = 600               # seconds a rank may take for the phase
+DIST_HOT_EVERY = 3               # 2 of every 3 probe rows on one key
+DIST_HOT_KEY = 1                 # ... that l_orderkey
+DIST_SALTS = 4 * DIST_RANKS
+DIST_SORT_KEYS = [("l_shipdate", "ascending"), ("l_orderkey", "ascending")]
+DIST_SORT_COLUMNS = ["l_orderkey", "l_linenumber", "l_shipdate",
+                     "l_extendedprice"]
+# Launches a rank, each path +1 probe (self_check): Q1 its middle filter
+# (not folded into the state's consume) and 7 float sums at the 1,024-slot
+# bound (K3), then 7 more in each of the 3 merges of the ranks' states
+# (merged at the capacity their groups need, 1,024 slots: K3); Q3 the
+# build side whole on each rank (the orders and customer filters, a bloom
+# join: 4 compact, 2 hash32), the lineitem filter, and the local join of
+# what each rank received (a bloom: 2 hash32, 2 compact); distributed_q1
+# 7 sums over each rank's rows and 7 over the groups it received (K1, 12
+# slots)
+DIST_LAUNCHES = {
+    "Q1": {"compact": 1, "hash32": 0, "grouped_sum": 28, "probe": 1},
+    "distributed_q1": {"compact": 0, "hash32": 0, "grouped_sum": 14,
+                       "probe": 1},
+    "Q3": {"compact": 7, "hash32": 4, "grouped_sum": 0, "probe": 1},
+}
+# EXCHANGE_COUNTS by path, reckoned from dist_exec: Q1's spine, then its
+# 6-row result sorted over the ranks; Q3's one join exchange (its build
+# side, orders x customer, holds no aggregate: whole on each rank) with
+# the lineitem filter run before it, then the spine and the top-10's sort;
+# Q9-style's five joins; each join type one exchange; the order_by one
+# range exchange
+_NONE = {"join_exchange": 0, "join_fused_pre": 0, "sort_exchange": 0,
+         "spmd_aggregate": 0, "chunked_fallback": 0}
+DIST_COUNTS = {
+    "Q1": {**_NONE, "spmd_aggregate": 1, "sort_exchange": 1},
+    "Q3": {**_NONE, "join_exchange": 1, "join_fused_pre": 1,
+           "spmd_aggregate": 1, "sort_exchange": 1},
+    "Q9-style": {**_NONE, "join_exchange": 5, "spmd_aggregate": 1,
+                 "sort_exchange": 1},
+    "order_by": {**_NONE, "sort_exchange": 1},
+    **{f"join {jt}": {**_NONE, "join_exchange": 1} for jt in JOIN_TYPES},
+}
+
+
+def digest(batch, offset=0):
+    """Per column, an order-sensitive digest of its live rows: the int64
+    sum of splitmix64(value bits ^ splitmix64(global position)), values 0
+    under a null, then the same of the validity. A part's digests at its
+    offset add (mod 2**64) to the whole's."""
+    from arrow_tpu_torch.io.tpch_device import _mix
+    n = int(batch.row_count)
+    key = _mix(torch.arange(offset, offset + n, dtype=torch.int64,
+                            device=batch.row_count.device))
+    out = []
+    for c in batch.columns:
+        valid = c.valid_mask()[:n]
+        v = torch.where(valid, _bits(c.values[:n]).long(), 0)
+        out += [int(_mix(v ^ key).sum()), int(_mix(valid.long() ^ key).sum())]
+    return out
+
+
+def _wrap(x):
+    return (x + 2**63) % 2**64 - 2**63
+
+
+def dist_tables(tables):
+    """The tables the ranks read whole or by their range, narrowed to the
+    columns of the paths (CUDA IPC shares them; big dictionaries stay
+    behind)."""
+    cols = {"orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+            "customer": ["c_custkey", "c_mktsegment"],
+            "part": ["p_partkey", "p_type"],
+            "supplier": ["s_suppkey", "s_nationkey"],
+            "partsupp": ["ps_partkey", "ps_suppkey", "ps_supplycost"],
+            "nation": ["n_nationkey", "n_name"]}
+    return {k: tables[k].select(v) for k, v in cols.items()}
+
+
+def _skewed(lineitem, start):
+    """lineitem's (l_orderkey, l_extendedprice) with 2 of every 3 rows
+    (by global position from ``start``) on l_orderkey DIST_HOT_KEY."""
+    from arrow_tpu_torch.device.column import DeviceBatch, DeviceColumn
+    b = lineitem.select(["l_orderkey", "l_extendedprice"])
+    pos = torch.arange(start, start + b.capacity, device=b.row_count.device)
+    key = b.columns[0]
+    hot = torch.where(pos % DIST_HOT_EVERY < DIST_HOT_EVERY - 1,
+                      DIST_HOT_KEY, key.values)
+    return DeviceBatch(b.schema, [DeviceColumn(hot, None, key.type),
+                                  b.columns[1]], b.row_count)
+
+
+def _orders_customer(ac, orders, customer, jt):
+    building = ac.Declaration.from_sequence([
+        ac.Declaration("table_source", ac.TableSourceNodeOptions(customer)),
+        ac.Declaration("filter", ac.FilterNodeOptions(
+            ac.field("c_mktsegment") == "BUILDING"))])
+    return join_declaration(jt, orders, building, left_keys=["o_custkey"],
+                            right_keys=["c_custkey"],
+                            left_output=["o_orderkey"],
+                            right_output=["c_custkey"])
+
+
+def _sort_decl(ac, lineitem):
+    return ac.Declaration.from_sequence([
+        ac.Declaration("table_source", ac.TableSourceNodeOptions(lineitem)),
+        ac.Declaration("project", ac.ProjectNodeOptions(
+            [ac.field(c) for c in DIST_SORT_COLUMNS], DIST_SORT_COLUMNS)),
+        ac.Declaration("order_by", ac.OrderByNodeOptions(DIST_SORT_KEYS))])
+
+
+def _broadcast_sides(lineitem, supplier):
+    return (lineitem.select(["l_orderkey", "l_suppkey", "l_extendedprice"]),
+            supplier.select(["s_suppkey", "s_nationkey"]))
+
+
+def _rank_path(res, name, run, device, repeat=False):
+    """One path on a rank: launches zeroed just before and read just after
+    (with the probe of ``self_check``), EXCHANGE_COUNTS, the exchanges'
+    bytes and time, the wall and this rank's peak memory; ``repeat`` runs
+    it a second time for the float bits. Keeps what ``run`` returns."""
+    from arrow_tpu_torch.acero import dist_exec
+    from arrow_tpu_torch.parallel import distributed as D
+    from arrow_tpu_torch.platform_check import self_check
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    D.reset_stats()
+    dist_exec.reset_exchange_counts()
+    zero_launches()
+    self_check()
+    t0 = time.perf_counter()
+    out = run()
+    if cuda:
+        torch.cuda.synchronize()
+    rec = {"wall": time.perf_counter() - t0, "launches": read_launches(),
+           "counts": dict(dist_exec.EXCHANGE_COUNTS), "stats": dict(D.STATS),
+           "peak": (torch.cuda.max_memory_allocated() - base) if cuda else 0,
+           "out": out}
+    if repeat:
+        rec["again"] = run()
+    res[name] = rec
+
+
+def _part_record(part):
+    """(offset, rows, total, digests) of this rank's part of a result."""
+    return (part.offset, int(part.row_count), part.total,
+            digest(part, part.offset))
+
+
+def dist_rank(rank, world, store, shared, sf, device, outbox):
+    """One rank of phase 3k: joins the gloo group, makes its shards, runs
+    every path and puts its records (or its traceback) in ``outbox``."""
+    import datetime as dt
+    import torch.distributed as dist
+    res = {}
+    try:
+        device = torch.device(device)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world, timeout=dt.timedelta(seconds=DIST_TIMEOUT))
+        pair = dist.new_group(list(range(DIST_PAIR)))
+        _dist_paths(rank, world, pair, shared, sf, device, res)
+        outbox.put((rank, "ok", res))
+    except BaseException:  # noqa: BLE001 - the parent fails the phase
+        outbox.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _dist_paths(rank, world, pair, shared, sf, device, res):
+    """Phase 3k's paths on one rank, each recorded in ``res``."""
+    import arrow_tpu_torch.acero as ac
+    from arrow_tpu_torch.acero.exec import execute_distributed
+    from arrow_tpu_torch.device.column import download
+    from arrow_tpu_torch.io.tpch_device import (q1_device_batch,
+                                                q3_device_tables, shard_rows)
+    from arrow_tpu_torch.io.tpch_queries import q1_plan, q3_plan, q9_style_plan
+    from arrow_tpu_torch.parallel import (ShardBatch, broadcast_join_batches,
+                                          distributed_join_batches,
+                                          distributed_q1, make_mesh,
+                                          salted_join_batches)
+    from arrow_tpu_torch.parallel import distributed as D
+    mesh = make_mesh(device=device)
+
+    def own(batch, n, start):
+        return ShardBatch(batch.schema, batch.columns, batch.row_count, start,
+                          n)
+
+    n_li = int(6_001_215 * sf)
+    start, stop = shard_rows(n_li, rank, world)
+    li, _ = q1_device_batch(sf, device=device, rows=(start, stop))
+    li = own(li, n_li, start)
+    _rank_path(res, "Q1", lambda: q1_plan(li).to_table(mesh=mesh), device,
+               repeat=True)
+    _rank_path(res, "distributed_q1",
+               lambda: download(distributed_q1(mesh, li)), device,
+               repeat=True)
+    q3 = {k: own(b, n, shard_rows(n, rank, world)[0])
+          for k, (b, n) in q3_device_tables(sf, device=device,
+                                            shard=(rank, world)).items()}
+    _rank_path(res, "Q3", lambda: q3_plan(
+        q3["customer"], q3["orders"], q3["lineitem"]).to_table(mesh=mesh),
+        device, repeat=True)
+    del q3
+    for jt in JOIN_TYPES:
+        _rank_path(res, f"join {jt}", lambda jt=jt: _part_record(
+            execute_distributed(_orders_customer(
+                ac, shared["orders"], shared["customer"], jt), mesh)),
+            device)
+    _rank_path(res, "order_by", lambda: _part_record(
+        execute_distributed(_sort_decl(ac, li), mesh)), device)
+    probe, build = _broadcast_sides(li, shared["supplier"])
+    _rank_path(res, "broadcast", lambda: _part_record(
+        broadcast_join_batches(mesh, probe, build, ["l_suppkey"],
+                               ["s_suppkey"])), device)
+    skewed = own(_skewed(li, start), n_li, start)
+    orders = shared["orders"].select(["o_orderkey", "o_custkey"])
+    for name, fn, kw in (
+            ("partitioned", distributed_join_batches, {}),
+            ("salted", salted_join_batches,
+             {"hot_threshold": n_li // 10, "n_salts": DIST_SALTS})):
+        _rank_path(res, name, lambda fn=fn, kw=kw: _part_record(
+            fn(mesh, skewed, orders, ["l_orderkey"], ["o_orderkey"], **kw)),
+            device)
+        res[name]["received"] = D.LAST_JOIN["probe_rows"]
+    del li, probe, skewed
+    if rank < DIST_PAIR:
+        pair_mesh = make_mesh(pair, device=device)
+        rows = shard_rows(n_li, rank, DIST_PAIR)
+        li2, _ = q1_device_batch(sf, device=device, rows=rows)
+        li2 = own(li2, n_li, rows[0])
+        _rank_path(res, "Q9-style", lambda: q9_style_plan(
+            shared["part"], shared["supplier"], li2, shared["partsupp"],
+            shared["orders"], shared["nation"]).to_table(mesh=pair_mesh),
+            device, repeat=True)
+
+
+def _dist_expected(tables, shared, sf, device):
+    """The single-rank whole-table run of every phase 3k path on this
+    process, each held against its numpy oracle: small results as
+    ``download`` dicts, the rest as (rows, digests)."""
+    import arrow_tpu_torch.acero as ac
+    from arrow_tpu_torch.acero.exec import execute_declaration
+    from arrow_tpu_torch.device.column import batch_from_numpy, download
+    from arrow_tpu_torch.io.tpch_device import q3_device_plan
+    from arrow_tpu_torch.io.tpch_queries import q1_plan
+    t0 = time.perf_counter()
+    li = tables["lineitem"]
+    n = int(li.row_count)
+    exp = {}
+    exp["Q1"] = q1_plan(li).to_table()
+    check_result("Q1 single-rank", exp["Q1"], q1_oracle(li, n))
+    plan, _ = q3_device_plan(sf, device=device)
+    exp["Q3"] = plan.to_table()
+    check_result("Q3 single-rank", exp["Q3"], q3_oracle(plan)[0])
+    del plan
+    q9 = next(q for q in SUITE if q.name == "Q9")
+    exp["Q9-style"] = suite_plan(q9, tables).to_table()
+    check_result("Q9-style single-rank", exp["Q9-style"],
+                 q9.oracle(tables, _suite_columns(tables))[0])
+    log(f"3k: Q1, Q3 and Q9-style single-rank runs match their oracles "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    def whole(batch):
+        return int(batch.row_count), digest(batch)
+
+    orders, customer = shared["orders"], shared["customer"]
+    cu = _host_columns(customer, ["c_custkey", "c_mktsegment"])
+    building = cu["c_mktsegment"] == customer.column(
+        "c_mktsegment").dictionary.index("BUILDING")
+    od = _host_columns(orders, ["o_orderkey", "o_custkey"])
+    ps = JoinSide(od["o_custkey"], np.ones(len(od["o_custkey"]), bool),
+                  "o_orderkey", od["o_orderkey"])
+    bs = JoinSide(cu["c_custkey"][building], np.ones(building.sum(), bool),
+                  "c_custkey", cu["c_custkey"][building])
+    runs = match_runs(ps, bs)
+    for jt in JOIN_TYPES:
+        batch = execute_declaration(_orders_customer(ac, orders, customer,
+                                                     jt))
+        check_join(jt, batch, ps, bs, runs)
+        exp[f"join {jt}"] = whole(batch)
+    del batch
+
+    def on_card(cols, rows):
+        return batch_from_numpy(cols, rows, device=device)
+
+    batch = execute_declaration(_sort_decl(ac, li))
+    exp["order_by"] = whole(batch)
+    del batch
+    host = _host_columns(li, DIST_SORT_COLUMNS + ["l_suppkey"])
+    perm = np.argsort(host["l_shipdate"].astype(np.int64) << 32
+                      | host["l_orderkey"], kind="stable")
+    sort_types = {"l_orderkey": "int64", "l_linenumber": "int64",
+                  "l_shipdate": "date32", "l_extendedprice": "float64"}
+    want = digest(on_card([(c, sort_types[c], host[c][perm], None, None)
+                           for c in DIST_SORT_COLUMNS], n))
+    if want != exp["order_by"][1]:
+        raise AssertionError("order_by: the single-rank run differs from "
+                             "numpy's stable argsort")
+    del perm
+    probe, build = _broadcast_sides(li, shared["supplier"])
+    batch = execute_declaration(join_declaration(
+        "inner", probe, build, left_keys=["l_suppkey"],
+        right_keys=["s_suppkey"], output_suffix_for_left="_l",
+        output_suffix_for_right="_r"))
+    exp["broadcast"] = whole(batch)
+    nations = _host_columns(shared["supplier"],
+                            ["s_nationkey"])["s_nationkey"]
+    sk = host["l_suppkey"]
+    want = digest(on_card([
+        ("l_orderkey", "int64", host["l_orderkey"], None, None),
+        ("l_suppkey", "int64", sk, None, None),
+        ("l_extendedprice", "float64", host["l_extendedprice"], None, None),
+        ("s_suppkey", "int64", sk, None, None),
+        ("s_nationkey", "int64", nations[sk - 1], None, None)], n))
+    if want != exp["broadcast"][1]:
+        raise AssertionError("broadcast: the single-rank join differs from "
+                             "its numpy lookup")
+    skewed = _skewed(li, 0)
+    batch = execute_declaration(join_declaration(
+        "inner", skewed, orders.select(["o_orderkey", "o_custkey"]),
+        left_keys=["l_orderkey"], right_keys=["o_orderkey"],
+        output_suffix_for_left="_l", output_suffix_for_right="_r"))
+    exp["partitioned"] = exp["salted"] = whole(batch)
+    keys = _host_columns(skewed, ["l_orderkey"])["l_orderkey"]
+    want = digest(on_card([
+        ("l_orderkey", "int64", keys, None, None),
+        ("l_extendedprice", "float64", host["l_extendedprice"], None, None),
+        ("o_orderkey", "int64", keys, None, None),
+        ("o_custkey", "int64", od["o_custkey"][keys - 1], None, None)], n))
+    if want != exp["salted"][1]:
+        raise AssertionError("skewed join: the single-rank join differs from "
+                             "its numpy lookup")
+    del batch, skewed, host
+    log(f"3k: the single-rank runs of the joins, the order_by and the "
+        f"skewed join match their oracles "
+        f"({time.perf_counter() - t0:.1f} s with the above)")
+    return exp
+
+
+def _same_bits(a, b):
+    return {k: [repr(v) for v in c] for k, c in a.items()} == \
+        {k: [repr(v) for v in c] for k, c in b.items()}
+
+
+def _dist_check(results, exp, cuda):
+    """Every rank's records of phase 3k against the single-rank runs and
+    the counts and launches reckoned from the code. Returns rank 0's
+    launches by path."""
+    W = len(results)
+    for name in results[0]:
+        recs = [r[name] for r in results if name in r]
+        wall = max(r["wall"] for r in recs)
+        sent = sum(r["stats"]["bytes_sent"] for r in recs)
+        remote = sum(r["stats"]["bytes_remote"] for r in recs)
+        ex_s = max(r["stats"]["seconds"] for r in recs)
+        peaks = ", ".join(f"{r['peak'] / 2**30:.2f}" for r in recs)
+        log(f"3k {name} ({len(recs)} gloo ranks sharing one card): wall "
+            f"{wall:.3f} s, {sent / 1e9:.3f} GB exchanged ({remote / 1e9:.3f}"
+            f" GB between ranks) in {ex_s:.3f} s of collectives, peak GiB "
+            f"a rank {peaks}; counts {recs[0]['counts']}")
+        for r in recs:
+            want = DIST_COUNTS.get(name)
+            if want is not None and r["counts"] != want:
+                raise AssertionError(f"3k {name}: EXCHANGE_COUNTS "
+                                     f"{r['counts']}, reckoned {want}")
+            if cuda and name in DIST_LAUNCHES:
+                check_launches(f"3k {name} (a rank)", r["launches"],
+                               DIST_LAUNCHES[name])
+            if "again" in r and not _same_bits(r["again"], r["out"]):
+                raise AssertionError(f"3k {name}: a second run gave other "
+                                     "float bits")
+        want = exp.get(name)
+        if isinstance(want, dict):
+            for r in recs:
+                check_result(f"3k {name} against the single-rank run",
+                             r["out"], as_expected(want))
+            log(f"  {name}: every rank's result matches the single-rank "
+                f"run and its oracle (keys, counts and order exact, floats "
+                f"within rtol {RTOL_F64}), the same float bits twice")
+        elif want is not None:
+            parts = [r["out"] for r in recs]
+            offsets = [p[0] for p in parts]
+            counts = [p[1] for p in parts]
+            if offsets != [sum(counts[:i]) for i in range(len(parts))] or \
+                    any(p[2] != sum(counts) for p in parts):
+                raise AssertionError(f"3k {name}: parts not contiguous: "
+                                     f"{[p[:3] for p in parts]}")
+            got = [_wrap(sum(col)) for col in zip(*(p[3] for p in parts))]
+            if sum(counts) != want[0] or got != want[1]:
+                same = "agree" if got == want[1] else "differ"
+                raise AssertionError(f"3k {name}: {sum(counts)} rows, "
+                                     f"single-rank {want[0]}; digests "
+                                     f"{same}")
+            log(f"  {name}: {sum(counts)} rows in rank parts {counts}, bit "
+                f"for bit the single-rank run's")
+    plain = [r["partitioned"]["received"] for r in results]
+    salted = [r["salted"]["received"] for r in results]
+    n = sum(plain)
+    log(f"3k skew: probe rows received by rank, partitioned {plain}, "
+        f"salted {salted} (of {n})")
+    if max(plain) < 2 * n / 3 or max(salted) >= n / 2:
+        raise AssertionError("3k skew: salting did not spread the hot key")
+    if W != DIST_RANKS:
+        raise AssertionError(f"{W} ranks answered")
+    return {f"3k {name}": rec["launches"]
+            for name, rec in results[0].items()}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_check(sf, device):
+    """A one-rank NCCL group in this process: Q3's filtered lineitem through
+    ``exchange_rows`` comes back bit for bit."""
+    import torch.distributed as dist
+    from arrow_tpu_torch.acero import compile_chain
+    from arrow_tpu_torch.acero import Declaration, FilterNodeOptions, field
+    from arrow_tpu_torch.io.tpch_device import q3_device_tables
+    from arrow_tpu_torch.io.tpch_queries import DATE_1995_03_15
+    from arrow_tpu_torch.parallel import exchange_rows, make_mesh
+    li, _ = q3_device_tables(sf, device=device)["lineitem"]
+    kept = compile_chain([Declaration("filter", FilterNodeOptions(
+        field("l_shipdate") > DATE_1995_03_15))])(li)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        n = int(kept.row_count)
+        back = exchange_rows(mesh, kept, torch.zeros(
+            kept.capacity, dtype=torch.int32, device=mesh.device))
+        if int(back.row_count) != n:
+            raise AssertionError("NCCL exchange: row count changed")
+        check_bit_exact(f"3k one-rank NCCL exchange of Q3's filtered "
+                        f"lineitem ({n} rows, {mesh!r})",
+                        [c.values[:n] for c in back.columns],
+                        [c.values[:n] for c in kept.columns], "its input")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist(tables, sf=SF, device="cuda"):
+    """Phase 3k: distribution. The single-rank runs first, each against its
+    oracle; then DIST_RANKS gloo ranks sharing this card, spawned, each
+    making its shards (lineitem and Q3's tables by row range on the card,
+    the host generator's tables by its range of this process's, shared
+    through CUDA IPC), every path with its launches zeroed just before and
+    read just after; then the one-rank NCCL exchange here. A rank that
+    fails or does not answer within DIST_TIMEOUT fails the phase. Returns
+    rank 0's launches by path."""
+    import queue
+    import shutil
+    import tempfile
+    import torch.multiprocessing as tmp
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    log(f"== phase 3k: distribution at SF{sf:g}: {DIST_RANKS} ranks under "
+        f"gloo sharing one {dev.type} device (NCCL takes one rank a GPU: "
+        f"it refuses two ranks of one communicator on one card); Q9-style "
+        f"on ranks 0-{DIST_PAIR - 1}")
+    t0 = time.perf_counter()
+    if cuda:
+        from arrow_tpu_torch.kernels import _build
+        for src in _build.sources():
+            _build.library(src.stem)
+    shared = dist_tables(tables)
+    exp = _dist_expected(tables, shared, sf, dev)
+    if cuda:
+        torch.cuda.empty_cache()
+    ctx = tmp.get_context("spawn")
+    d = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    outbox = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank, args=(
+        r, DIST_RANKS, os.path.join(d, "store"), shared, sf, device, outbox))
+        for r in range(DIST_RANKS)]
+    results, errors = [None] * DIST_RANKS, []
+    t1 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT
+        for _ in procs:
+            while True:
+                try:
+                    rank, status, value = outbox.get(timeout=1.0)
+                    break
+                except queue.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode]
+                    if dead or time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"3k: a rank died (exit codes {dead}) or did "
+                            f"not answer within {DIST_TIMEOUT} s") from None
+            if status == "error":
+                errors.append(f"rank {rank}:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(d, ignore_errors=True)
+    if errors:
+        raise AssertionError("3k: " + "\n".join(errors))
+    log(f"3k: the ranks ran every path in {time.perf_counter() - t1:.1f} s, "
+        f"spawning included")
+    launches = _dist_check(results, exp, cuda)
+    if cuda:
+        _nccl_check(sf, dev)
+    log(f"phase 3k: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -5966,6 +6509,7 @@ def main() -> int:
         launches.update(rest_launches)
         stream_launches, stream = timed(phase_stream, tables)
         launches.update(stream_launches)
+        launches.update(timed(phase_dist, tables))
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
                             typed, params, stats, strings, rest, stream)
