@@ -10,6 +10,12 @@ Entry points run on the card: ``device=None`` means ``"cuda"``, and where
 CUDA is absent they raise instead of running on the CPU. Pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels on the
 CPU.
+
+The host data model is Arrow's: ``array()`` and ``Array``, ``table()``,
+``record_batch()``, ``Table``, ``RecordBatch`` and ``ChunkedArray`` hold
+columns in host memory; a ``Table`` goes into a plan through
+``acero.TableSourceNodeOptions`` or into ``compute``'s functions, and
+results come back as host Tables and Arrays.
 """
 
 from __future__ import annotations
@@ -25,3 +31,8 @@ def default_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to "
                            "run on the CPU")
     return dev
+
+
+from .array.array import Array, array  # noqa: E402,F401
+from .table import (ChunkedArray, RecordBatch, RecordBatchReader,  # noqa
+                    Table, chunked_array, record_batch, table)

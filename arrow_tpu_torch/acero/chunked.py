@@ -24,10 +24,12 @@ is O(chunk + state) whatever the source's size:
 * hashjoin: the build side runs once, whole; the probe side streams;
 * filter / project: a stateless map over each chunk.
 
-The source is a table source's DeviceBatch (the port has no host Table
-until ROADMAP item 11). Held in host memory and run on the card, it is
-pinned once and each chunk is copied with ``non_blocking=True`` on a copy
-stream of its own, chunk i+1's copy enqueued before chunk i's compute
+The source is a table source's host Table or DeviceBatch. A host Table
+streams through its columns' device representations (``HostColumn``),
+each prepared once (``source_cache``), so every chunk shares one
+dictionary a column. Held in host memory and run on the card, the source is pinned once
+and each chunk is copied with ``non_blocking=True`` on a copy stream of
+its own, chunk i+1's copy enqueued before chunk i's compute
 (``_ChunkSource``); already on the card it is sliced in place.
 
 Streaming is asked for by ``Declaration.to_table(chunk_rows=N)`` or
@@ -66,8 +68,10 @@ from ..compute.move import (gather_rows, segment_count, segment_product,
 from ..compute.registry import ExecContext
 from ..compute.selection import gather_columns
 from ..device.column import (BLOCK, DeviceBatch, DeviceColumn,
-                             batch_from_arrays, download, pin_batch,
+                             batch_from_arrays, download_batch,
+                             download_table, pin_batch,
                              round_up, slice_rows)
+from ..table import Table
 from ..types import Field, Schema
 from .exec import (Declaration, _execute_hashjoin, _fit, _rank_col,
                    _segment_fns, _sources_on, _unify_dictionaries,
@@ -75,6 +79,7 @@ from .exec import (Declaration, _execute_hashjoin, _fit, _rank_col,
 from .options import (AggregateNodeOptions, FetchNodeOptions,
                       OrderByNodeOptions, TableSourceNodeOptions)
 from .query_context import current_query_context
+from .source_cache import host_column
 
 # a streamed probe cannot carry the build side's matched state across
 # chunks, so right semi/anti/outer and full outer joins do not stream; the
@@ -204,7 +209,7 @@ class _ChunkSource:
     dictionary tuples.
 
     A batch in host memory run on the card is pinned once (``pin_batch``;
-    cached on the source options) and each chunk is copied on a copy
+    cached on the source options; a host Table's columns on the columns) and each chunk is copied on a copy
     stream of its own with ``non_blocking=True``: chunk i+1's copy is
     enqueued before chunk i is handed on, the compute stream waits on an
     event recorded after chunk i's copy, and each chunk tensor is marked
@@ -216,7 +221,9 @@ class _ChunkSource:
 
     def __init__(self, options: TableSourceNodeOptions, chunk_rows: int,
                  device: torch.device):
-        batch = options.batch
+        cuda = device.type == "cuda"
+        batch = _host_batch(options, cuda) if options.is_host \
+            else options.batch
         self.n = int(batch.row_count)
         self.chunk_rows = chunk_rows
         self.capacity = round_up(min(chunk_rows, max(self.n, 1)))
@@ -226,11 +233,11 @@ class _ChunkSource:
         self.stream = None
         self.h2d_bytes = 0
         self._events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
-        if device.type == "cuda" and batch.row_count.device.type == "cpu":
-            pinned = getattr(options, "_pinned", None)
-            if pinned is None:
-                pinned = options._pinned = pin_batch(batch)
-            batch = pinned
+        if cuda and batch.row_count.device.type == "cpu":
+            if not options.is_host:
+                if getattr(options, "_pinned", None) is None:
+                    options._pinned = pin_batch(batch)
+                batch = options._pinned
             self.stream = torch.cuda.Stream(device)
         self.batch = batch
         # every chunk's row count, moved once
@@ -290,6 +297,17 @@ class _ChunkSource:
         for _, done in self._events:
             done.synchronize()
         return sum(s.elapsed_time(d) for s, d in self._events)
+
+
+def _host_batch(options: TableSourceNodeOptions,
+                pinned: bool) -> DeviceBatch:
+    """A host source's prepared columns as an unpadded CPU DeviceBatch,
+    one dictionary a column for every chunk: over their numpy memory, or,
+    for the card, pinned once (``source_cache.host_column``)."""
+    return DeviceBatch(options.table.schema,
+                       [host_column(c, pinned)
+                        for c in options.table.columns],
+                       torch.tensor(options.num_rows, dtype=torch.int32))
 
 
 # --- middle pipeline ---------------------------------------------------------
@@ -816,10 +834,8 @@ def _sort_keys(batch: DeviceBatch, options: OrderByNodeOptions, live):
                            options.null_placement, live)
 
 
-def _fetch_slice(out: Dict[str, list], offset: int,
-                 count: int) -> Dict[str, list]:
-    stop = None if count < 0 else offset + count
-    return {k: v[offset:stop] for k, v in out.items()}
+def _fetch_slice(out: Table, offset: int, count: int) -> Table:
+    return out.slice(offset, None if count < 0 else count)
 
 
 class _ChunkedOrderBy:
@@ -848,10 +864,9 @@ class _ChunkedOrderBy:
                       else c.validity[:n].cpu().numpy())
                      for c in chunk.columns]})
 
-    def finalize(self, post_fetch: Optional[FetchNodeOptions]
-                 ) -> Dict[str, list]:
+    def finalize(self, post_fetch: Optional[FetchNodeOptions]) -> Table:
         if not self._rows:
-            return {}
+            raise ValueError("an external sort over no chunks")
         nk = len(self._rows[0]["keys"])
         keys = [np.concatenate([r["keys"][i] for r in self._rows])
                 for i in range(nk)]
@@ -871,8 +886,8 @@ class _ChunkedOrderBy:
                     [m if m is not None else np.ones(r["n"], np.bool_)
                      for m, r in zip(masks, self._rows)])[order]
             cols.append((vals[order], mask, self._dicts[ci]))
-        return download(batch_from_arrays(self._schema, cols,
-                                          int(order.shape[0])))
+        return download_table(batch_from_arrays(self._schema, cols,
+                                                int(order.shape[0])))
 
 
 class _ChunkedTopK:
@@ -905,33 +920,31 @@ class _ChunkedTopK:
         self.state = DeviceBatch(merged.schema, cols,
                                  live.sum().clamp(max=self.k).to(torch.int32))
 
-    def finalize(self, post_fetch: FetchNodeOptions) -> Dict[str, list]:
+    def finalize(self, post_fetch: FetchNodeOptions) -> Table:
         if self.state is None:
-            return {}
-        return _fetch_slice(download(self.state), post_fetch.offset,
+            raise ValueError("a top-k over no chunks")
+        return _fetch_slice(download_table(self.state), post_fetch.offset,
                             post_fetch.count)
 
 
 # --- entry points ------------------------------------------------------------
 
-def _concat_dicts(parts: List[Dict[str, list]]) -> Dict[str, list]:
-    return {k: [v for p in parts for v in p[k]] for k in parts[0]}
-
-
-def _n_rows(out: Dict[str, list]) -> int:
-    return len(next(iter(out.values()))) if out else 0
+def _concat_tables(parts: List[Table]) -> Table:
+    """The chunks' tables as one Table of one chunk."""
+    return Table.from_batches([b for p in parts for b in p.to_batches()],
+                              parts[0].schema).combine_chunks()
 
 
 def stream_batches(decl, chunk_rows: int, device=None):
     """Incremental execution of a terminal-free linear plan: a generator
-    of one ``download`` dict a chunk, each as soon as its chunk is done
+    of one ``RecordBatch`` a chunk, each as soon as its chunk is done
     (reference: DeclarationToReader, exec_plan.cc:780 family: results
     flow while the plan still runs). None where the plan needs a terminal
     (aggregate, sort) or is not linear: the caller then runs it whole."""
     lin = _linearize(decl)
     if lin is None or lin.terminal is not None or lin.post_ops:
         return None
-    if int(lin.source.batch.row_count) == 0:
+    if lin.source.num_rows == 0:
         return None
     dev = default_device(device)
     source = _ChunkSource(lin.source, chunk_rows, dev)
@@ -940,7 +953,7 @@ def stream_batches(decl, chunk_rows: int, device=None):
 
     def gen():
         for chunk in source:
-            yield download(runner(chunk))
+            yield download_batch(runner(chunk))
     return gen()
 
 
@@ -973,7 +986,7 @@ def execute_chunked_aggregate(decl, chunk_rows: int,
     lin = _linearize(decl)
     if lin is None or lin.terminal is None \
             or lin.terminal.factory_name != "aggregate" \
-            or int(lin.source.batch.row_count) <= chunk_rows:
+            or lin.source.num_rows <= chunk_rows:
         return None
     aggs = _norm_aggs(lin.terminal.options)
     if aggs is None:
@@ -986,9 +999,9 @@ def execute_chunked_aggregate(decl, chunk_rows: int,
 
 
 def maybe_execute_chunked(decl, chunk_rows: int,
-                          device=None) -> Optional[Dict[str, list]]:
+                          device=None) -> Optional[Table]:
     """Run the Declaration chunked on ``device`` (the card by default) if
-    its shape streams, giving ``download``'s dict; None to fall back to
+    its shape streams, giving the result Table; None to fall back to
     whole-table execution (``LAST_FALLBACK_REASON`` says why;
     ``to_table`` reports it)."""
     global LAST_FALLBACK_REASON
@@ -996,7 +1009,7 @@ def maybe_execute_chunked(decl, chunk_rows: int,
     lin = _linearize(decl)
     if lin is None:
         return None
-    if int(lin.source.batch.row_count) <= chunk_rows:
+    if lin.source.num_rows <= chunk_rows:
         # one chunk: the whole-table run is the same, and as bounded, so
         # this is not a fallback of shape
         return None
@@ -1012,11 +1025,11 @@ def maybe_execute_chunked(decl, chunk_rows: int,
     runner = _middle_runner(lin.middle, dev)
 
     if term is None:
-        return _concat_dicts([download(runner(c)) for c in source])
+        return _concat_tables([download_table(runner(c)) for c in source])
 
     f = term.factory_name
     if f == "aggregate":
-        return download(_aggregate(lin, aggs, source, runner, dev))
+        return download_table(_aggregate(lin, aggs, source, runner, dev))
 
     if f == "order_by":
         pf = lin.post_fetch
@@ -1036,19 +1049,19 @@ def maybe_execute_chunked(decl, chunk_rows: int,
     parts = []
     taken = 0
     for chunk in source:
-        out = download(runner(chunk))
-        n = _n_rows(out)
+        out = download_table(runner(chunk))
+        n = out.num_rows
         if off >= n:
             off -= n
             continue
         need = -1 if cnt < 0 else cnt - taken
         out = _fetch_slice(out, off, need)
         off = 0
-        taken += _n_rows(out)
+        taken += out.num_rows
         parts.append(out)
         if cnt >= 0 and taken >= cnt:
             break
     if not parts:
         # the offset passed every row: the last chunk's columns, empty
-        return {name: [] for name in out}
-    return _concat_dicts(parts)
+        return out.slice(0, 0)
+    return _concat_tables(parts)

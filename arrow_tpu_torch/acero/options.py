@@ -1,17 +1,128 @@
 """Plan node options (counterpart of ``arrow_tpu/acero/options.py``). A table
-source holds a DeviceBatch: the port has no host Table."""
+source holds a host ``Table`` or ``RecordBatch``, or a ``DeviceBatch``."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
 from ..device.column import DeviceBatch
+from ..table import RecordBatch, Table
 from .expression import Expression
+from .source_cache import uploaded_column
 
 
 class TableSourceNodeOptions:
-    def __init__(self, batch: DeviceBatch):
-        self.batch = batch
+    """A plan source: a host ``Table`` or ``RecordBatch`` (``table``), or a
+    DeviceBatch already made (``batch``). A host source's columns are
+    prepared and uploaded once a device, and kept a column by
+    ``source_cache``: a repeated run, and every source of the same table,
+    reuses their tensors and dictionaries, so their codes stay
+    comparable. ``source_cache.release`` frees them."""
+
+    def __init__(self, table):
+        if isinstance(table, DeviceBatch):
+            self.table = None
+            self._batch = table
+        elif isinstance(table, (Table, RecordBatch)):
+            self.table = table if isinstance(table, Table) \
+                else Table.from_batches([table])
+            self._batch = None
+        else:
+            raise TypeError("a table source takes a Table, a RecordBatch "
+                            f"or a DeviceBatch, not {type(table).__name__}")
+
+    @property
+    def is_host(self) -> bool:
+        return self.table is not None
+
+    @property
+    def batch(self) -> DeviceBatch:
+        """The source's DeviceBatch; a host source's upload to the card."""
+        return self._batch if self._batch is not None else self.upload()
+
+    @property
+    def num_rows(self) -> int:
+        return self.table.num_rows if self._batch is None \
+            else int(self._batch.row_count)
+
+    @property
+    def names(self):
+        return (self.table if self._batch is None
+                else self._batch).schema.names
+
+    def upload(self, device=None) -> DeviceBatch:
+        """The host source as a DeviceBatch on ``device`` (the card by
+        default), over its columns' uploads there
+        (``source_cache.uploaded_column``)."""
+        import torch
+        from .. import default_device
+        dev = default_device(device)
+        return DeviceBatch(
+            self.table.schema,
+            [uploaded_column(c, dev) for c in self.table.columns],
+            torch.tensor(self.table.num_rows, dtype=torch.int32,
+                         device=dev))
+
+    def select(self, names: Sequence[str]) -> "TableSourceNodeOptions":
+        """A source of ``names`` alone: a host source is narrowed before
+        it is uploaded."""
+        if self._batch is not None:
+            return TableSourceNodeOptions(self._batch.select(names))
+        return TableSourceNodeOptions(self.table.select(names))
+
+
+class RecordBatchReaderSourceNodeOptions:
+    """A source that drains a ``RecordBatchReader`` (source_node.cc:582),
+    once, into a host table source."""
+
+    def __init__(self, reader, schema=None):
+        self.reader = reader
+        self.schema = schema
+        self._source: Optional[TableSourceNodeOptions] = None
+
+    def source(self) -> TableSourceNodeOptions:
+        if self._source is None:
+            batches = list(self.reader)
+            schema = batches[0].schema if batches else (
+                self.schema or self.reader.schema)
+            self._source = TableSourceNodeOptions(
+                Table.from_batches(batches, schema))
+        return self._source
+
+
+class ConsumingSinkNodeOptions:
+    """Push each output batch into ``consumer`` (sink_node.cc
+    "consuming_sink"): it is called with each RecordBatch, and its
+    ``finish`` is called, where it has one, when the plan is done."""
+
+    def __init__(self, consumer):
+        self.consumer = consumer
+
+
+class PivotLongerRowTemplate:
+    """One output row a template for each input row (acero/options.h):
+    ``feature_values`` the literal strings of the feature columns,
+    ``measurement_values`` the input columns (None for null) of the
+    measurement columns."""
+
+    def __init__(self, feature_values: Sequence[str],
+                 measurement_values: Sequence[Optional[str]]):
+        self.feature_values = list(feature_values)
+        self.measurement_values = list(measurement_values)
+
+
+class PivotLongerNodeOptions:
+    """Wide to long (acero/options.h PivotLongerNodeOptions): every input
+    column not read as a measurement, then the feature and measurement
+    columns; each input row gives one row a template."""
+
+    def __init__(self, row_templates, feature_field_names: Sequence[str],
+                 measurement_field_names: Sequence[str]):
+        self.row_templates = [
+            t if isinstance(t, PivotLongerRowTemplate)
+            else PivotLongerRowTemplate(*t) for t in row_templates]
+        self.feature_field_names = list(feature_field_names)
+        self.measurement_field_names = list(measurement_field_names)
 
 
 class FilterNodeOptions:

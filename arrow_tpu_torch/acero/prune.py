@@ -5,7 +5,8 @@ above reads of its output, then
 
 * narrows a hash join's ``left_output``/``right_output`` to them, so its
   gathers and compactions move only those columns;
-* narrows a table source to them (``batch.select``: no data moves);
+* narrows a table source to them (``TableSourceNodeOptions.select``: no
+  data moves; a host Table is narrowed before it is uploaded);
 * drops the project expressions whose outputs nothing reads.
 
 The root's own output is never narrowed. ``Declaration.to_table()`` runs
@@ -21,7 +22,7 @@ from __future__ import annotations
 import copy
 from typing import Dict, List, Optional, Set
 
-from .options import ProjectNodeOptions, TableSourceNodeOptions
+from .options import ProjectNodeOptions
 
 _PROBE_ONLY = ("left semi", "left anti")
 _BUILD_ONLY = ("right semi", "right anti")
@@ -33,7 +34,7 @@ def output_names(decl) -> Optional[List[str]]:
     f = decl.factory_name
     o = decl.options
     if f == "table_source":
-        return list(o.batch.schema.names)
+        return list(o.names)
     if f in ("filter", "fetch", "order_by"):
         return output_names(decl.inputs[0])
     if f == "project":
@@ -120,14 +121,15 @@ def _rewrite(decl, required: Optional[Set[str]]):
     f = decl.factory_name
     o = decl.options
     if f == "table_source":
-        names = o.batch.schema.names
+        names = o.names
         if required is None:
             return o, []
         keep = [n for n in names if n in required]
         # a source that none of its columns is asked of keeps them all
         if len(keep) == len(names) or not keep:
             return o, []
-        return TableSourceNodeOptions(o.batch.select(keep)), []
+        # a host source is narrowed before its upload
+        return o.select(keep), []
     if f == "filter":
         need = None if required is None \
             else set(required) | set(o.filter_expression.field_names())

@@ -1,0 +1,79 @@
+"""The device state of host table sources, kept a column.
+
+A host column (``ChunkedArray``) that a table source reads gets, at most
+once each: its device representation prepared on the host (``HostColumn``),
+its upload to each device, and its page-locked copy for a chunked run on
+the card. Every source that holds the column, a narrowed one or a repeated
+run's, shares these, so its dictionary and its codes stay one object and a
+second run uploads nothing.
+
+The maps hold the column weakly: an entry goes with the column, when the
+user's Table is dropped. ``release(table)`` drops a Table's entries sooner,
+and ``release()`` every entry, freeing the card memory and the page-locked
+memory they hold (an SF10 lineitem holds about 5.5 GB of each).
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Dict
+
+from ..device.column import DeviceColumn, HostColumn, host_column_repr, \
+    host_tensor, round_up
+
+_prepared: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_uploads: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_pinned: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def prepared_column(col) -> HostColumn:
+    """``col``'s device representation on the host, made once."""
+    hc = _prepared.get(col)
+    if hc is None:
+        hc = _prepared[col] = host_column_repr(col.combine())
+    return hc
+
+
+def uploaded_column(col, dev) -> DeviceColumn:
+    """``col`` uploaded to the torch device ``dev`` (padded to
+    ``round_up`` of its length), made once a device."""
+    per_device: Dict[str, DeviceColumn] = _uploads.setdefault(col, {})
+    key = str(dev)
+    if key not in per_device:
+        n = len(col)
+        per_device[key] = prepared_column(col).slice_upload(
+            0, n, round_up(n), dev)
+    return per_device[key]
+
+
+def host_column(col, pinned: bool) -> DeviceColumn:
+    """``col``'s prepared values as an unpadded CPU DeviceColumn: over
+    their numpy memory, or, ``pinned``, copied once into page-locked
+    memory for copies to the card."""
+    if pinned and col in _pinned:
+        return _pinned[col]
+    hc = prepared_column(col)
+    out = DeviceColumn(host_tensor(hc.values),
+                       None if hc.mask is None else host_tensor(hc.mask),
+                       hc.type, hc.dictionary)
+    if pinned:
+        out = _pinned[col] = DeviceColumn(
+            out.values.pin_memory(),
+            None if out.validity is None else out.validity.pin_memory(),
+            out.type, out.dictionary)
+    return out
+
+
+def release(table=None) -> None:
+    """Drop the cached state of ``table``'s columns (a Table or a
+    RecordBatch's Table), or of every column when ``table`` is None. A
+    later run of a source over them prepares and uploads them anew, with
+    new dictionary objects."""
+    maps = (_prepared, _uploads, _pinned)
+    if table is None:
+        for m in maps:
+            m.clear()
+        return
+    for col in table.columns:
+        for m in maps:
+            m.pop(col, None)

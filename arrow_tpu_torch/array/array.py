@@ -1,0 +1,329 @@
+"""The host Array (counterpart of ``arrow_tpu/array/array.py``; reference:
+cpp/src/arrow/array/array_base.h:53): one class over ArrayData, its type id
+driving its behaviour. The methods that compute go through the port's eager
+API (``compute``), which runs them on the card unless ``device="cpu"`` is
+given."""
+
+from __future__ import annotations
+
+import datetime as _dt
+import decimal as _decimal
+import zoneinfo
+from typing import Any, List, Optional
+
+import numpy as np
+
+from ..types import DataType, TypeId
+from .construct import array_data_from_sequence
+from .data import ArrayData
+
+
+class Array:
+    __slots__ = ("data",)
+
+    def __init__(self, data: ArrayData):
+        self.data = data
+
+    @property
+    def type(self) -> DataType:
+        return self.data.type
+
+    @property
+    def null_count(self) -> int:
+        return self.data.null_count
+
+    @property
+    def offset(self) -> int:
+        return self.data.offset
+
+    def __len__(self) -> int:
+        return self.data.length
+
+    @property
+    def dictionary(self) -> Optional["Array"]:
+        return Array(self.data.dictionary) if self.data.dictionary else None
+
+    @property
+    def indices(self) -> "Array":
+        if self.type.id != TypeId.DICTIONARY:
+            raise ValueError("not a dictionary array")
+        d = self.data
+        return Array(ArrayData(self.type.index_type, d.length,
+                               [d.buffers[0], d.buffers[1]],
+                               null_count=d._null_count, offset=d.offset))
+
+    @property
+    def values(self) -> "Array":
+        """The flattened child of a list type."""
+        if self.type.id in (TypeId.LIST, TypeId.LARGE_LIST,
+                            TypeId.FIXED_SIZE_LIST, TypeId.MAP):
+            return Array(self.data.children[0])
+        raise ValueError(f"{self.type!r} has no values child")
+
+    def is_valid_mask(self) -> np.ndarray:
+        m = self.data.validity_mask()
+        return np.ones(len(self), dtype=np.bool_) if m is None else m
+
+    def to_numpy(self, zero_copy_only: bool = False) -> np.ndarray:
+        """A primitive array as numpy; nulls only in a float array (as
+        NaN)."""
+        vals = self.data.values()
+        if self.null_count:
+            if zero_copy_only:
+                raise ValueError("nulls present")
+            if not self.type.is_floating:
+                raise ValueError("nulls present in non-float array")
+            vals = vals.copy()
+            vals[~self.is_valid_mask()] = np.nan
+        return vals
+
+    def to_pylist(self) -> List[Any]:
+        return _to_pylist(self.data)
+
+    tolist = to_pylist
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            start, stop, step = i.indices(len(self))
+            if step != 1:
+                raise ValueError("only unit-step slices")
+            return Array(self.data.slice(start, stop - start))
+        if i < 0:
+            i += len(self)
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        return _to_pylist(self.data.slice(i, 1))[0]
+
+    def slice(self, offset: int, length: Optional[int] = None) -> "Array":
+        return Array(self.data.slice(offset, length))
+
+    def equals(self, other: "Array") -> bool:
+        """Deep equality with NaN equal to NaN (the reference's
+        ``nans_equal=True``)."""
+        if self.type != other.type or len(self) != len(other):
+            return False
+        return pylist_equal(self.to_pylist(), other.to_pylist())
+
+    def __eq__(self, other):
+        return isinstance(other, Array) and self.equals(other)
+
+    __hash__ = None
+
+    def __repr__(self):
+        vals = self.to_pylist()
+        shown = vals if len(vals) <= 20 else vals[:10] + ["..."] + vals[-5:]
+        return f"<arrow_tpu_torch.Array {self.type!r}>\n{shown}"
+
+    def buffers(self):
+        return list(self.data.buffers)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.size for b in self.data.buffers if b is not None)
+
+    # the methods that compute, through the eager API
+    def _call(self, fname, *args, device=None, **opts):
+        from ..compute.registry import call_function
+        return call_function(fname, [self, *args], options=opts or None,
+                             device=device)
+
+    def cast(self, target: DataType, device=None) -> "Array":
+        return self._call("cast", device=device, to_type=target)
+
+    def filter(self, mask, null_selection_behavior: str = "drop",
+               device=None):
+        return self._call("filter", mask, device=device,
+                          null_selection_behavior=null_selection_behavior)
+
+    def take(self, indices, device=None):
+        return self._call("take", indices, device=device)
+
+    def drop_null(self, device=None):
+        return self._call("drop_null", device=device)
+
+    def sort(self, order: str = "ascending", device=None, **kwargs):
+        idx = self._call("array_sort_indices", device=device, order=order,
+                         **kwargs)
+        return self.take(idx, device=device)
+
+    def unique(self, device=None):
+        return self._call("unique", device=device)
+
+    def value_counts(self, device=None):
+        from ..compute import value_counts
+        return value_counts(self, device=device)
+
+    def dictionary_encode(self, device=None):
+        if self.type.id == TypeId.DICTIONARY:
+            return self
+        from ..compute import dictionary_encode
+        return dictionary_encode(self, device=device)
+
+    def fill_null(self, fill_value, device=None):
+        return self._call("coalesce", fill_value, device=device)
+
+    def is_null(self, nan_is_null: bool = False, device=None):
+        return self._call("is_null", device=device, nan_is_null=nan_is_null)
+
+    def is_valid(self, device=None):
+        return self._call("is_valid", device=device)
+
+    def is_nan(self, device=None):
+        return self._call("is_nan", device=device)
+
+    def sum(self, device=None, **kwargs):
+        return self._call("sum", device=device, **kwargs)
+
+
+def pylist_equal(a, b) -> bool:
+    """Element equality with NaN equal to NaN, into containers."""
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (a != a and b != b)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(pylist_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return (a.keys() == b.keys()
+                and all(pylist_equal(a[k], b[k]) for k in a))
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return len(a) == len(b) and all(pylist_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def array(values, type: Optional[DataType] = None) -> Array:
+    """An Array from a Python sequence or a numpy array."""
+    if isinstance(values, Array):
+        return values if type is None else values.cast(type)
+    return Array(array_data_from_sequence(values, type))
+
+
+_EPOCH = _dt.date(1970, 1, 1)
+_EPOCH_DT = _dt.datetime(1970, 1, 1)
+_UNIT_US = {"s": 1_000_000, "ms": 1000, "us": 1}
+
+
+def _micros(x: int, unit: str) -> int:
+    return x // 1000 if unit == "ns" else x * _UNIT_US[unit]
+
+
+def _temporal(t: DataType):
+    """The conversion of one stored integer of a temporal type to the
+    Python value the reference gives."""
+    tid = t.id
+    if tid == TypeId.DATE32:
+        return lambda x: _EPOCH + _dt.timedelta(days=x)
+    if tid == TypeId.DATE64:
+        return lambda x: _EPOCH + _dt.timedelta(milliseconds=x)
+    unit = t.unit
+    if tid == TypeId.TIMESTAMP:
+        tz = None if t.tz is None else (
+            _dt.timezone.utc if t.tz.upper() == "UTC"
+            else zoneinfo.ZoneInfo(t.tz))
+
+        def ts(x):
+            out = _EPOCH_DT + _dt.timedelta(microseconds=_micros(x, unit))
+            return out if tz is None else out.replace(
+                tzinfo=_dt.timezone.utc).astimezone(tz)
+        return ts
+    if tid == TypeId.DURATION:
+        return lambda x: _dt.timedelta(microseconds=_micros(x, unit))
+
+    def tm(x):
+        us = _micros(x, unit)
+        return _dt.time(us // 3600_000_000, us // 60_000_000 % 60,
+                        us // 1_000_000 % 60, us % 1_000_000)
+    return tm
+
+
+def _with_nulls(out: list, mask) -> list:
+    if mask is None:
+        return out
+    return [v if m else None for v, m in zip(out, mask.tolist())]
+
+
+def _to_pylist(d: ArrayData) -> List[Any]:
+    t = d.type
+    tid = t.id
+    n = d.length
+    if tid == TypeId.NA:
+        return [None] * n
+    mask = d.validity_mask()
+
+    if tid == TypeId.BOOL or t.is_numeric or tid == TypeId.INTERVAL_MONTHS:
+        return _with_nulls(np.asarray(d.values()).tolist(), mask)
+
+    if t.is_temporal:
+        conv = _temporal(t)
+        vals = d.values().tolist()
+        if mask is None:
+            return [conv(x) for x in vals]
+        return [conv(x) if m else None for x, m in zip(vals, mask.tolist())]
+
+    if tid in (TypeId.STRING, TypeId.LARGE_STRING, TypeId.BINARY,
+               TypeId.LARGE_BINARY):
+        offl = np.asarray(d.offsets()).tolist()
+        raw = d.data_bytes().tobytes()
+        if tid in (TypeId.STRING, TypeId.LARGE_STRING):
+            # one decode of the whole buffer; for ASCII the byte offsets
+            # are the character offsets
+            try:
+                text = raw.decode("utf-8")
+            except UnicodeDecodeError:
+                text = None
+            if text is not None and len(text) == len(raw):
+                out = [text[offl[i]:offl[i + 1]] for i in range(n)]
+            else:
+                out = [raw[offl[i]:offl[i + 1]].decode("utf-8", "replace")
+                       if mask is None or mask[i] else None
+                       for i in range(n)]
+        else:
+            out = [raw[offl[i]:offl[i + 1]] for i in range(n)]
+        return _with_nulls(out, mask)
+
+    if tid == TypeId.FIXED_SIZE_BINARY:
+        vals = d.values()
+        return _with_nulls([r.tobytes() for r in vals], mask)
+
+    if t.is_decimal:
+        vals = d.values()
+        scale = -t.scale
+        out = [_decimal.Decimal(int.from_bytes(r.tobytes(), "little",
+                                               signed=True)).scaleb(scale)
+               for r in vals]
+        return _with_nulls(out, mask)
+
+    if tid in (TypeId.LIST, TypeId.LARGE_LIST):
+        offs = d.offsets().tolist()
+        child = _to_pylist(d.children[0])
+        return _with_nulls([child[offs[i]:offs[i + 1]] for i in range(n)],
+                           mask)
+
+    if tid == TypeId.MAP:
+        offs = d.offsets().tolist()
+        entries = _to_pylist(d.children[0])
+        return _with_nulls([[(e["key"], e["value"])
+                             for e in entries[offs[i]:offs[i + 1]]]
+                            for i in range(n)], mask)
+
+    if tid == TypeId.FIXED_SIZE_LIST:
+        sz = t.list_size
+        child = _to_pylist(d.children[0].slice(d.offset * sz, n * sz))
+        return _with_nulls([child[i * sz:(i + 1) * sz] for i in range(n)],
+                           mask)
+
+    if tid == TypeId.STRUCT:
+        cols = [_to_pylist(c.slice(d.offset, n)) for c in d.children]
+        names = [f.name for f in t.fields]
+        return _with_nulls([dict(zip(names, row)) for row in zip(*cols)]
+                           if cols else [{} for _ in range(n)], mask)
+
+    if tid == TypeId.DICTIONARY:
+        dict_vals = _to_pylist(d.dictionary)
+        idx = d.values().tolist()
+        if mask is None:
+            return [dict_vals[i] for i in idx]
+        return [dict_vals[i] if m else None
+                for i, m in zip(idx, mask.tolist())]
+
+    raise NotImplementedError(f"to_pylist for {t!r}")

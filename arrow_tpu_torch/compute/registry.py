@@ -1,12 +1,50 @@
-"""Compute function registry and execution context (counterpart of
-``arrow_tpu/compute/registry.py``). A function is a Python callable over
-DeviceColumns that runs PyTorch operations eagerly."""
+"""Compute function registry, execution context and the eager entry point
+(counterpart of ``arrow_tpu/compute/registry.py``). A function is a Python
+callable over DeviceColumns that runs PyTorch operations eagerly;
+``call_function`` takes host Arrays, ChunkedArrays and Python scalars,
+uploads them, runs the function and downloads its result."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Sequence
 
 import torch
+
+
+class ArrowInvalid(ValueError):
+    pass
+
+
+class ArrowNotImplementedError(NotImplementedError):
+    pass
+
+
+class Scalar:
+    """A typed single value (reference: scalar.h:54): a Python value, or
+    None for null."""
+
+    __slots__ = ("value", "type")
+
+    def __init__(self, value, type):
+        self.value = value
+        self.type = type
+
+    @property
+    def is_valid(self) -> bool:
+        return self.value is not None
+
+    def as_py(self):
+        return self.value
+
+    def __repr__(self):
+        return f"Scalar({self.value!r}, {self.type!r})"
+
+    def __eq__(self, other):
+        if isinstance(other, Scalar):
+            return self.value == other.value and self.type == other.type
+        return self.value == other
+
+    __hash__ = None
 
 
 class ExecContext:
@@ -29,20 +67,34 @@ class ExecContext:
 
 
 class Function:
-    __slots__ = ("name", "kind", "impl")
+    """kind: 'elementwise', 'aggregate', 'hash_aggregate', 'vector' or
+    'host' (runs on host Arrays). ``ctx_arg``: the array argument whose
+    row count the call's context takes (``take`` keys off its
+    indices)."""
+    __slots__ = ("name", "kind", "impl", "ctx_arg")
 
-    def __init__(self, name: str, kind: str, impl: Callable):
+    def __init__(self, name: str, kind: str, impl: Callable,
+                 ctx_arg: int = 0):
         self.name = name
         self.kind = kind
         self.impl = impl
+        self.ctx_arg = ctx_arg
 
 
 _REGISTRY: Dict[str, Function] = {}
 
 
-def register(name: str, kind: str):
+def register(name: str, kind: str, ctx_arg: int = 0):
     def deco(fn):
-        _REGISTRY[name] = Function(name, kind, fn)
+        _REGISTRY[name] = Function(name, kind, fn, ctx_arg)
+        return fn
+    return deco
+
+
+def register_host(name: str):
+    """A host-tier function: runs on host Arrays directly."""
+    def deco(fn):
+        _REGISTRY[name] = Function(name, "host", fn)
         return fn
     return deco
 
@@ -52,8 +104,8 @@ def register_alias(alias: str, name: str):
 
 
 # The names of the reference's registry that are not ported yet: every
-# one is the host boundary, ROADMAP.md queue 1 item 11 (the 26 names the
-# reference registers for its host tier, and its host-tier aggregates).
+# one is the rest of the host boundary, ROADMAP.md queue 1 item 11 (the 26
+# names the reference registers for its host tier).
 _HOST_TIER = (
     "ascii_split_whitespace", "binary_join", "day_time_interval_between",
     "dictionary_decode", "extract_regex", "extract_regex_span",
@@ -62,16 +114,45 @@ _HOST_TIER = (
     "month_day_nano_interval_between", "pivot_wider", "random",
     "run_end_decode", "split_pattern", "split_pattern_regex", "strftime",
     "strptime", "struct_field", "utf8_split_whitespace", "year_month_day")
-_QUEUED = frozenset(_HOST_TIER + ("list", "distinct", "hash_list",
-                                  "hash_distinct", "hash_pivot_wider"))
+_QUEUED = frozenset(_HOST_TIER)
+
+
+def _load():
+    # the modules that register functions, imported on first lookup
+    from . import (aggregate, elementwise, extra_kernels,  # noqa: F401
+                   grouper, hash_agg, hashing, selection, strings,
+                   temporal, vector_misc, vector_sort)
+
+
+def _host_only_grouped(name: str):
+    """A grouped aggregate whose output is a list or a struct: the
+    aggregate node's host path runs it (``acero/host_agg.py``), as the
+    reference registers it (``extra_kernels.py:722-735``)."""
+    @register(name, "hash_aggregate")
+    def _impl(ctx, values, gids, num_groups, **options):
+        raise ArrowInvalid(
+            f"{name} runs via Table.group_by / the aggregate node "
+            "(host-tier variable-length output)")
+    return _impl
+
+
+for _name in ("hash_list", "hash_distinct", "hash_pivot_wider"):
+    _host_only_grouped(_name)
+
+
+def list_functions() -> List[str]:
+    _load()
+    return sorted(_REGISTRY)
+
+
+def function_registry() -> Dict[str, Function]:
+    _load()
+    return _REGISTRY
 
 
 def get_function(name: str) -> Function:
     if name not in _REGISTRY:
-        # the modules that register functions, imported on first lookup
-        from . import (aggregate, elementwise, extra_kernels,  # noqa: F401
-                       grouper, hash_agg, hashing, selection, strings,
-                       temporal, vector_misc, vector_sort)
+        _load()
     f = _REGISTRY.get(name)
     if f is None:
         if name not in _QUEUED:
@@ -82,3 +163,123 @@ def get_function(name: str) -> Function:
             f"compute function {name!r} is not ported yet (ROADMAP.md, "
             "queue 1, item 11: the host boundary)")
     return f
+
+
+# --- the eager entry point ----------------------------------------------------
+
+def _host_value(v):
+    from ..array.array import Array
+    from ..table import ChunkedArray
+    if isinstance(v, ChunkedArray):
+        return v.combine().to_pylist()
+    if isinstance(v, Array):
+        return v.to_pylist()
+    return v
+
+
+def call_function(name: str, args: Sequence, options=None, device=None):
+    """The pyarrow.compute entry point (reference: ``call_function``):
+    host ``Array``s, ``ChunkedArray``s (a Table's columns), ``Scalar``s
+    and Python scalars are uploaded to ``device`` (the card unless
+    ``device="cpu"`` is given), the port's device function runs there,
+    and its result comes back as a host ``Array`` or ``Scalar``
+    (``materialize``). An element-wise function first applies the
+    reference's implicit casts (``dispatch.unify_inputs``) and recodes
+    two or more dictionary columns into one sorted union
+    (``dispatch.unify_device_dicts``)."""
+    from .. import default_device
+    from ..array.array import Array
+    from ..device.column import DeviceColumn, round_up, upload_column
+    from ..table import ChunkedArray
+    from ..types import DataType, type_for_name
+    options = {k: _host_value(v) for k, v in (options or {}).items()}
+    args = list(args)
+    if name == "cast" and len(args) >= 2 and \
+            isinstance(args[1], (DataType, str)):
+        t = args[1]
+        options.setdefault("to_type", type_for_name(t)
+                           if isinstance(t, str) else t)
+        args = args[:1] + args[2:]
+    elif any(isinstance(a, DataType) for a in args):
+        raise ArrowInvalid(f"{name}: pass DataType arguments via options, "
+                           "not positionally")
+    fn = get_function(name)
+    if fn.kind == "host":
+        return fn.impl(*[a.combine() if isinstance(a, ChunkedArray) else a
+                         for a in args], **options)
+    dev = default_device(device)
+    if fn.kind == "elementwise" and name != "cast":
+        from .dispatch import unify_inputs
+        args = unify_inputs(name, args, options, dev)
+    args = [a.combine() if isinstance(a, ChunkedArray) else
+            a.value if isinstance(a, Scalar) else a for a in args]
+    arrays = [(i, a) for i, a in enumerate(args) if isinstance(a, Array)]
+    prepared = list(args)
+    if arrays:
+        if fn.kind == "elementwise":
+            n = len(arrays[0][1])
+            if any(len(a) != n for _, a in arrays[1:]):
+                raise ArrowInvalid("array arguments must have equal length")
+            for i, a in arrays:
+                prepared[i] = upload_column(a, round_up(n), dev)
+        else:
+            n = len(arrays[min(fn.ctx_arg, len(arrays) - 1)][1])
+            for i, a in arrays:
+                prepared[i] = upload_column(a, round_up(len(a)), dev)
+    cols = [p for p in prepared if isinstance(p, DeviceColumn)]
+    if not cols:
+        raise ArrowInvalid(f"{name}: need at least one array argument")
+    if not arrays:
+        n = cols[0].capacity
+    if fn.kind == "elementwise" and name != "cast":
+        from .dispatch import unify_device_dicts
+        prepared = unify_device_dicts(prepared)
+    ctx_col = cols[min(fn.ctx_arg, len(cols) - 1)]
+    ctx = ExecContext(ctx_col.capacity,
+                      torch.tensor(n, dtype=torch.int32, device=dev))
+    return materialize(fn.impl(ctx, *prepared, **options), n)
+
+
+def materialize(result, n: int):
+    """A device result as host values: a DeviceColumn (its first ``n``
+    rows) or a ``Compacted`` (its live rows) as an ``Array``, an
+    ``AggResult`` as a ``Scalar``, a tuple or dict of them likewise."""
+    from .aggregate import AggResult
+    from .selection import Compacted
+    from ..device.column import DeviceColumn, download_column
+    if isinstance(result, Compacted):
+        return download_column(result.column, int(result.count))
+    if isinstance(result, DeviceColumn):
+        return download_column(result, n)
+    if isinstance(result, AggResult):
+        return _agg_scalar(result)
+    if isinstance(result, tuple):
+        return tuple(materialize(r, n) for r in result)
+    if isinstance(result, dict):
+        return {k: materialize(v, n) for k, v in result.items()}
+    if isinstance(result, torch.Tensor) and result.dim() == 0:
+        return result.item()
+    raise TypeError(f"unexpected kernel result {type(result)}")
+
+
+def _py_scalar(value, t, dictionary):
+    """One device value of type ``t`` as the reference's Python value (a
+    code decoded through ``dictionary``)."""
+    from ..device.column import DeviceColumn, download_column
+    if dictionary is not None:
+        return dictionary[int(value)]
+    v = value if isinstance(value, torch.Tensor) else torch.tensor(value)
+    col = DeviceColumn(v.reshape(1).cpu(), None, t)
+    return download_column(col, 1).to_pylist()[0]
+
+
+def _agg_scalar(r) -> Scalar:
+    if r.fields is not None:
+        ftypes = [f.type for f in getattr(r.type, "fields", ())] or \
+            [None] * len(r.fields)
+        return Scalar({name: _py_scalar(v, ft, r.dictionary) if bool(ok)
+                       else None for name, v, ok, ft in zip(
+                           r.fields, r.value, r.valid, ftypes)}, r.type)
+    if not bool(r.valid):
+        return Scalar(None, r.type)
+    return Scalar(_py_scalar(r.value, r.type, r.dictionary), r.type)

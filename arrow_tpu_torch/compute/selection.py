@@ -148,7 +148,7 @@ def drop_null(ctx, values: DeviceColumn) -> Compacted:
     return Compacted(out, count)
 
 
-@register("take", "vector")
+@register("take", "vector", ctx_arg=1)
 def take(ctx, values: DeviceColumn, indices: DeviceColumn, n_values=None,
          boundscheck: bool = True) -> Compacted:
     """Rows ``indices`` of ``values``; ``ctx`` is the indices' context. A
@@ -175,7 +175,7 @@ def take(ctx, values: DeviceColumn, indices: DeviceColumn, n_values=None,
                                   values.dictionary), ctx.row_count)
 
 
-@register("array_take", "vector")
+@register("array_take", "vector", ctx_arg=1)
 def array_take(ctx, values: DeviceColumn, indices: DeviceColumn,
                n_values=None, boundscheck: bool = True) -> Compacted:
     return take(ctx, values, indices, n_values, boundscheck)

@@ -57,7 +57,16 @@ _TYPE_DTYPES = {
     TypeId.TIME64: "int64", TypeId.DURATION: "int64",
     TypeId.INTERVAL_MONTHS: "int32", TypeId.DECIMAL32: "int64",
     TypeId.DECIMAL64: "int64", TypeId.DECIMAL128: "int64",
-    TypeId.DECIMAL256: "int64"}
+    TypeId.DECIMAL256: "int64",
+    # code-valued on the device: int32 codes over a host dictionary
+    # (strings and binaries), over a value-sorted dictionary (fixed-size
+    # binary, decimals wider than 18 digits) or row ids over the host
+    # Array (nested types)
+    TypeId.BINARY: "int32", TypeId.LARGE_STRING: "int32",
+    TypeId.LARGE_BINARY: "int32", TypeId.FIXED_SIZE_BINARY: "int32",
+    TypeId.LIST: "int32", TypeId.LARGE_LIST: "int32",
+    TypeId.FIXED_SIZE_LIST: "int32", TypeId.STRUCT: "int32",
+    TypeId.MAP: "int32"}
 
 _MAKE = {"bool": T.bool_, "int8": T.int8, "int16": T.int16,
          "int32": T.int32, "int64": T.int64, "uint8": T.uint8,
@@ -75,6 +84,8 @@ def dtype_of_type(t: DataType) -> str:
     """The value dtype of a logical type (a dictionary's: its codes')."""
     if t.id == TypeId.DICTIONARY:
         return _TYPE_DTYPES[t.index_type.id]
+    if t.is_decimal and t.precision > 18:
+        return "int32"
     try:
         return _TYPE_DTYPES[t.id]
     except KeyError:

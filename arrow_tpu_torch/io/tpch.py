@@ -3,7 +3,9 @@
 
 Each table draws from ``np.random.default_rng(seed)`` in the reference's
 order, so every column is bit-identical to the reference generator's, and
-is uploaded as a DeviceBatch (``device.column.batch_from_numpy``).
+is uploaded as a DeviceBatch (``device.column.batch_from_numpy``), or made
+a host ``Table`` (``*_host_table``, ``generate_host``; ``host_and_device``
+makes both of one generation).
 Dictionary columns are int32 codes plus a tuple of the dictionary's
 strings. The port keeps every string column as codes: a plain-string
 column of the reference (``c_name``, ``c_phone``, ``p_name``,
@@ -23,7 +25,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..device.column import DeviceBatch, batch_from_numpy
+from .. import types as T
+from ..array.array import Array, array as make_array
+from ..array.data import ArrayData
+from ..buffer import Buffer
+from ..device.column import (DeviceBatch, _gather_bytes, _host_values,
+                             batch_from_numpy)
+from ..table import Table
 
 _EPOCH_1992 = 8035   # days from 1970-01-01 to 1992-01-01
 _EPOCH_1998 = 10561  # ... to 1998-12-01
@@ -157,8 +165,7 @@ def _comment_pool(rng, pool_size: int, special: Optional[str] = None,
     return pool
 
 
-def lineitem_table(scale_factor: float = 1.0, seed: int = 0,
-                   device=None) -> DeviceBatch:
+def _lineitem_columns(scale_factor: float = 1.0, seed: int = 0):
     n = int(6_001_215 * scale_factor)
     rng = np.random.default_rng(seed)
     n_orders = max(int(1_500_000 * scale_factor), 1)
@@ -188,11 +195,10 @@ def lineitem_table(scale_factor: float = 1.0, seed: int = 0,
         _dict_col(rng, "l_shipinstruct", SHIPINSTRUCT, n),
         _dict_col(rng, "l_shipmode", SHIPMODES, n),
     ]
-    return batch_from_numpy(cols, n, device=device)
+    return cols, n
 
 
-def orders_table(scale_factor: float = 1.0, seed: int = 1,
-                 device=None) -> DeviceBatch:
+def _orders_columns(scale_factor: float = 1.0, seed: int = 1):
     n = max(int(1_500_000 * scale_factor), 1)
     rng = np.random.default_rng(seed)
     n_cust = max(int(150_000 * scale_factor), 2)
@@ -211,11 +217,10 @@ def orders_table(scale_factor: float = 1.0, seed: int = 1,
         _dict_col(rng, "o_comment", _comment_pool(
             rng, 256, special="special requests"), n),
     ]
-    return batch_from_numpy(cols, n, device=device)
+    return cols, n
 
 
-def customer_table(scale_factor: float = 1.0, seed: int = 2,
-                   device=None) -> DeviceBatch:
+def _customer_columns(scale_factor: float = 1.0, seed: int = 2):
     n = max(int(150_000 * scale_factor), 2)
     rng = np.random.default_rng(seed)
     nationkey = rng.integers(0, 25, n)
@@ -230,11 +235,10 @@ def customer_table(scale_factor: float = 1.0, seed: int = 2,
              np.round(rng.uniform(-999.99, 9999.99, n), 2)),
         _dict_col(rng, "c_comment", _comment_pool(rng, 256), n),
     ]
-    return batch_from_numpy(cols, n, device=device)
+    return cols, n
 
 
-def part_table(scale_factor: float = 1.0, seed: int = 3,
-               device=None) -> DeviceBatch:
+def _part_columns(scale_factor: float = 1.0, seed: int = 3):
     """``p_brand`` follows ``p_mfgr``'s codes and comes last, as in the
     reference."""
     n = max(int(200_000 * scale_factor), 2)
@@ -261,11 +265,10 @@ def part_table(scale_factor: float = 1.0, seed: int = 3,
     brand = (mfgr[2] + 1) * 10 + rng.integers(1, 6, n)
     cols.append(("p_brand", "dictionary", (brand - 11).astype(np.int32),
                  None, BRANDS))
-    return batch_from_numpy(cols, n, device=device)
+    return cols, n
 
 
-def supplier_table(scale_factor: float = 1.0, seed: int = 4,
-                   device=None) -> DeviceBatch:
+def _supplier_columns(scale_factor: float = 1.0, seed: int = 4):
     n = max(int(10_000 * scale_factor), 2)
     rng = np.random.default_rng(seed)
     nationkey = rng.integers(0, 25, n)
@@ -282,11 +285,10 @@ def supplier_table(scale_factor: float = 1.0, seed: int = 4,
         _dict_col(rng, "s_comment", _comment_pool(
             rng, 256, special="Customer Complaints"), n),
     ]
-    return batch_from_numpy(cols, n, device=device)
+    return cols, n
 
 
-def partsupp_table(scale_factor: float = 1.0, seed: int = 5,
-                   device=None) -> DeviceBatch:
+def _partsupp_columns(scale_factor: float = 1.0, seed: int = 5):
     n = max(int(800_000 * scale_factor), 2)
     rng = np.random.default_rng(seed)
     cols = [
@@ -298,34 +300,157 @@ def partsupp_table(scale_factor: float = 1.0, seed: int = 5,
              np.round(rng.uniform(1.0, 1000.0, n), 2)),
         _col("ps_availqty", "int64", rng.integers(1, 10_000, n)),
     ]
-    return batch_from_numpy(cols, n, device=device)
+    return cols, n
 
 
-def nation_table(device=None) -> DeviceBatch:
-    return batch_from_numpy([
+def _nation_columns():
+    return [
         _col("n_nationkey", "int64", np.arange(25)),
         _encode("n_name", np.array(NATIONS)),
         _col("n_regionkey", "int64", np.array(NATION_REGION)),
-    ], 25, device=device)
+    ], 25
+
+
+def _region_columns():
+    return [
+        _col("r_regionkey", "int64", np.arange(5)),
+        _encode("r_name", np.array(REGIONS)),
+    ], 5
+
+
+def nation_table(device=None) -> DeviceBatch:
+    return batch_from_numpy(*_nation_columns(), device=device)
 
 
 def region_table(device=None) -> DeviceBatch:
-    return batch_from_numpy([
-        _col("r_regionkey", "int64", np.arange(5)),
-        _encode("r_name", np.array(REGIONS)),
-    ], 5, device=device)
+    return batch_from_numpy(*_region_columns(), device=device)
+
+
+def nation_host_table() -> Table:
+    return host_table(*_nation_columns())
+
+
+def region_host_table() -> Table:
+    return host_table(*_region_columns())
+
+
+TABLES = ("lineitem", "orders", "customer", "part", "supplier", "partsupp",
+          "nation", "region")
+
+
+def _columns(name: str, scale_factor: float):
+    if name in ("nation", "region"):
+        return globals()[f"_{name}_columns"]()
+    return globals()[f"_{name}_columns"](scale_factor)
 
 
 def generate(scale_factor: float = 1.0, device=None) -> Dict[str, DeviceBatch]:
     """All eight TPC-H tables by name."""
-    sf = scale_factor
-    return {
-        "lineitem": lineitem_table(sf, device=device),
-        "orders": orders_table(sf, device=device),
-        "customer": customer_table(sf, device=device),
-        "part": part_table(sf, device=device),
-        "supplier": supplier_table(sf, device=device),
-        "partsupp": partsupp_table(sf, device=device),
-        "nation": nation_table(device=device),
-        "region": region_table(device=device),
-    }
+    return {name: batch_from_numpy(*_columns(name, scale_factor),
+                                   device=device) for name in TABLES}
+
+
+def generate_host(scale_factor: float = 1.0) -> Dict[str, Table]:
+    """All eight TPC-H tables by name, as host Tables: the counterparts of
+    the reference's ``*_table`` makers."""
+    return {name: host_table(*_columns(name, scale_factor))
+            for name in TABLES}
+
+
+def host_and_device(name: str, scale_factor: float = 1.0, device=None
+                    ) -> Tuple[Table, DeviceBatch]:
+    """One table generated once, as a host Table and as the DeviceBatch
+    its maker (``<name>_table``) gives: the host numpy arrays serve
+    both."""
+    cols, n = _columns(name, scale_factor)
+    return host_table(cols, n), batch_from_numpy(cols, n, device=device)
+
+
+def host_table(columns: Sequence[Column], n: int) -> Table:
+    """A host Table of ``batch_from_numpy`` column specs: a ``dictionary``
+    spec as a dictionary array (its codes over its strings), a ``string``
+    spec as a string array (its codes decoded: the strings the encoder
+    was given), any other as its values. ``upload_table`` of it gives the
+    batch ``batch_from_numpy`` makes of the same specs, bit for bit."""
+    arrays, names = [], []
+    for name, type_name, values, _, dictionary in columns:
+        t = T.type_for_name(type_name)
+        if type_name == "dictionary":
+            arr = Array(ArrayData(t, n, [None, Buffer(
+                np.asarray(values, dtype=np.int32))], null_count=0,
+                dictionary=make_array(list(dictionary), T.string()).data))
+        elif type_name == "string":
+            codes = np.asarray(values, dtype=np.int64)
+            dd = make_array(list(dictionary), T.string()).data
+            doffs = dd.offsets().astype(np.int64)
+            offs, data = _gather_bytes(dd.data_bytes(), doffs[codes],
+                                       doffs[codes + 1] - doffs[codes])
+            arr = Array(ArrayData(t, n, [None, Buffer(offs.astype(np.int32)),
+                                         Buffer(data)], null_count=0))
+        else:
+            store = _host_values(t, values)
+            arr = Array(ArrayData(t, n, [None, Buffer(
+                store.view(t.to_numpy_dtype()))], null_count=0))
+        arrays.append(arr)
+        names.append(name)
+    return Table.from_arrays(arrays, names)
+
+
+def lineitem_table(scale_factor: float = 1.0, seed: int = 0,
+               device=None) -> DeviceBatch:
+    return batch_from_numpy(*_lineitem_columns(scale_factor, seed),
+                            device=device)
+
+
+def lineitem_host_table(scale_factor: float = 1.0, seed: int = 0) -> Table:
+    return host_table(*_lineitem_columns(scale_factor, seed))
+
+
+def orders_table(scale_factor: float = 1.0, seed: int = 1,
+               device=None) -> DeviceBatch:
+    return batch_from_numpy(*_orders_columns(scale_factor, seed),
+                            device=device)
+
+
+def orders_host_table(scale_factor: float = 1.0, seed: int = 1) -> Table:
+    return host_table(*_orders_columns(scale_factor, seed))
+
+
+def customer_table(scale_factor: float = 1.0, seed: int = 2,
+               device=None) -> DeviceBatch:
+    return batch_from_numpy(*_customer_columns(scale_factor, seed),
+                            device=device)
+
+
+def customer_host_table(scale_factor: float = 1.0, seed: int = 2) -> Table:
+    return host_table(*_customer_columns(scale_factor, seed))
+
+
+def part_table(scale_factor: float = 1.0, seed: int = 3,
+               device=None) -> DeviceBatch:
+    return batch_from_numpy(*_part_columns(scale_factor, seed),
+                            device=device)
+
+
+def part_host_table(scale_factor: float = 1.0, seed: int = 3) -> Table:
+    return host_table(*_part_columns(scale_factor, seed))
+
+
+def supplier_table(scale_factor: float = 1.0, seed: int = 4,
+               device=None) -> DeviceBatch:
+    return batch_from_numpy(*_supplier_columns(scale_factor, seed),
+                            device=device)
+
+
+def supplier_host_table(scale_factor: float = 1.0, seed: int = 4) -> Table:
+    return host_table(*_supplier_columns(scale_factor, seed))
+
+
+def partsupp_table(scale_factor: float = 1.0, seed: int = 5,
+               device=None) -> DeviceBatch:
+    return batch_from_numpy(*_partsupp_columns(scale_factor, seed),
+                            device=device)
+
+
+def partsupp_host_table(scale_factor: float = 1.0, seed: int = 5) -> Table:
+    return host_table(*_partsupp_columns(scale_factor, seed))

@@ -1,20 +1,22 @@
-"""Logical types, fields and schemas: the reference device's type set from
-``arrow_tpu/types.py``. Type ids keep the reference's numbering.
+"""Logical types, fields and schemas: the reference's type set from
+``arrow_tpu/types.py``, as far as a host Array or a device column holds it.
+Type ids keep the reference's numbering.
 
 The device holds bool, the eight integer widths, the three floats, date32
 and date64, timestamps, time32 and time64, durations, month intervals, the
 all-null type, decimals of up to 18 digits (as unscaled int64), strings
-(as dictionary codes) and dictionaries. Decimals wider than 18 digits and
-fixed-size binary reach the reference's device as dictionary codes of a
-host Array; the port raises on them (ROADMAP.md, queue 1, item 11: the host
-boundary). ``struct`` and ``list_`` exist only as the types of aggregate
-results with several values (``min_max``, ``first_last``, ``quantile`` of
-several ``q``): no column holds them."""
+and binaries of both offset widths (as dictionary codes) and dictionaries.
+Decimals wider than 18 digits and fixed-size binary ride as codes over a
+value-sorted dictionary, and lists, large lists, fixed-size lists, structs
+and maps as row ids over the host Array they came from
+(``device.column.host_column_repr``)."""
 
 from __future__ import annotations
 
 import enum
 from typing import List, Optional, Sequence
+
+import numpy as np
 
 HOST_BOUNDARY = "(ROADMAP.md, queue 1, item 11: the host boundary)"
 
@@ -34,6 +36,7 @@ class TypeId(enum.IntEnum):
     FLOAT = 11
     DOUBLE = 12
     STRING = 13
+    BINARY = 14
     FIXED_SIZE_BINARY = 15
     DATE32 = 16
     DATE64 = 17
@@ -46,7 +49,12 @@ class TypeId(enum.IntEnum):
     STRUCT = 26
     DECIMAL256 = 24
     DICTIONARY = 29
+    MAP = 30
+    FIXED_SIZE_LIST = 32
     DURATION = 33
+    LARGE_STRING = 34
+    LARGE_BINARY = 35
+    LARGE_LIST = 36
     DECIMAL32 = 43
     DECIMAL64 = 44
 
@@ -58,6 +66,20 @@ _DECIMALS = (TypeId.DECIMAL32, TypeId.DECIMAL64, TypeId.DECIMAL128,
              TypeId.DECIMAL256)
 _TEMPORAL = (TypeId.DATE32, TypeId.DATE64, TypeId.TIMESTAMP, TypeId.TIME32,
              TypeId.TIME64, TypeId.DURATION)
+
+_NESTED = (TypeId.LIST, TypeId.LARGE_LIST, TypeId.FIXED_SIZE_LIST,
+           TypeId.STRUCT, TypeId.MAP)
+
+_NUMPY_DTYPES = {
+    TypeId.BOOL: "bool", TypeId.INT8: "int8", TypeId.INT16: "int16",
+    TypeId.INT32: "int32", TypeId.INT64: "int64", TypeId.UINT8: "uint8",
+    TypeId.UINT16: "uint16", TypeId.UINT32: "uint32",
+    TypeId.UINT64: "uint64", TypeId.HALF_FLOAT: "float16",
+    TypeId.FLOAT: "float32", TypeId.DOUBLE: "float64",
+    TypeId.DATE32: "int32", TypeId.DATE64: "int64",
+    TypeId.TIMESTAMP: "int64", TypeId.TIME32: "int32",
+    TypeId.TIME64: "int64", TypeId.DURATION: "int64",
+    TypeId.INTERVAL_MONTHS: "int32"}
 
 _BIT_WIDTHS = {
     TypeId.BOOL: 1, TypeId.INT8: 8, TypeId.UINT8: 8, TypeId.INT16: 16,
@@ -120,10 +142,33 @@ class DataType:
         return self.id in _TEMPORAL
 
     @property
+    def is_nested(self) -> bool:
+        return self.id in _NESTED
+
+    @property
     def bit_width(self) -> int:
         if self.id in _BIT_WIDTHS:
             return _BIT_WIDTHS[self.id]
+        if self.id == TypeId.DICTIONARY:
+            return self.index_type.bit_width
         raise ValueError(f"{self!r} is not fixed-width")
+
+    @property
+    def byte_width(self) -> int:
+        return self.bit_width // 8
+
+    def to_numpy_dtype(self) -> np.dtype:
+        """The numpy dtype of a host Array's value buffer."""
+        if self.id in _NUMPY_DTYPES:
+            return np.dtype(_NUMPY_DTYPES[self.id])
+        raise ValueError(f"no 1:1 numpy dtype for {self!r}")
+
+    def equals(self, other: "DataType") -> bool:
+        return self == other
+
+    @property
+    def fields(self):
+        return ()
 
     def __repr__(self):
         if self.id == TypeId.DICTIONARY:
@@ -143,6 +188,10 @@ class DecimalType(DataType):
 
     def _key(self):
         return (self.id, self.precision, self.scale)
+
+    @property
+    def byte_width(self) -> int:
+        return _BIT_WIDTHS[self.id] // 8
 
     def __repr__(self):
         bits = {TypeId.DECIMAL32: 32, TypeId.DECIMAL64: 64,
@@ -205,41 +254,121 @@ class DurationType(DataType):
         return f"duration[{self.unit}]"
 
 
+class FixedSizeBinaryType(DataType):
+    __slots__ = ("byte_width_",)
+
+    def __init__(self, byte_width: int):
+        super().__init__(TypeId.FIXED_SIZE_BINARY)
+        self.byte_width_ = int(byte_width)
+
+    @property
+    def bit_width(self) -> int:
+        return self.byte_width_ * 8
+
+    @property
+    def byte_width(self) -> int:
+        return self.byte_width_
+
+    def _key(self):
+        return (self.id, self.byte_width_)
+
+    def __repr__(self):
+        return f"fixed_size_binary[{self.byte_width_}]"
+
+
 class StructType(DataType):
-    """A struct of named fields: the type of an aggregate result with one
-    value a field."""
-    __slots__ = ("fields",)
+    """A struct of named fields (also the type of an aggregate result with
+    one value a field)."""
+    __slots__ = ("fields_",)
 
     def __init__(self, fields: Sequence["Field"]):
         super().__init__(TypeId.STRUCT)
-        self.fields = tuple(fields)
+        self.fields_ = tuple(fields)
+
+    @property
+    def fields(self):
+        return self.fields_
+
+    def get_field_index(self, name: str) -> int:
+        for i, f in enumerate(self.fields_):
+            if f.name == name:
+                return i
+        return -1
 
     def _key(self):
-        return (self.id, tuple((f.name, f.type) for f in self.fields))
+        return (self.id, tuple((f.name, f.type, f.nullable)
+                               for f in self.fields_))
 
     def __repr__(self):
         return "struct<" + ", ".join(f"{f.name}: {f.type!r}"
-                                     for f in self.fields) + ">"
+                                     for f in self.fields_) + ">"
 
 
 class ListType(DataType):
-    """A list of one value type: the type of ``quantile`` at several
-    ``q``."""
+    """A list (or large list, or map) of one value type; ``value_type`` is
+    its items' type."""
     __slots__ = ("value_field",)
 
-    def __init__(self, value_type: DataType):
-        super().__init__(TypeId.LIST)
-        self.value_field = Field("item", value_type)
+    def __init__(self, value_type, type_id: TypeId = TypeId.LIST):
+        vf = value_type if isinstance(value_type, Field) \
+            else Field("item", value_type)
+        super().__init__(type_id, None, vf.type)
+        self.value_field = vf
 
     @property
     def fields(self):
         return (self.value_field,)
 
     def _key(self):
-        return (self.id, self.value_field.type)
+        return (self.id, self.value_field.name, self.value_field.type)
 
     def __repr__(self):
-        return f"list<{self.value_field.type!r}>"
+        base = {TypeId.LIST: "list", TypeId.LARGE_LIST: "large_list"}[
+            self.id]
+        return f"{base}<{self.value_field.type!r}>"
+
+
+class MapType(ListType):
+    """A list of ``entries`` structs of a non-null key and a value."""
+    __slots__ = ()
+
+    def __init__(self, key_type: DataType, item_type: DataType):
+        super().__init__(Field("entries", StructType([
+            Field("key", key_type, nullable=False),
+            Field("value", item_type)]), nullable=False), TypeId.MAP)
+
+    @property
+    def key_type(self) -> DataType:
+        return self.value_type.fields[0].type
+
+    @property
+    def item_type(self) -> DataType:
+        return self.value_type.fields[1].type
+
+    def __repr__(self):
+        return f"map<{self.key_type!r}, {self.item_type!r}>"
+
+
+class FixedSizeListType(DataType):
+    __slots__ = ("value_field", "list_size")
+
+    def __init__(self, value_type, list_size: int):
+        vf = value_type if isinstance(value_type, Field) \
+            else Field("item", value_type)
+        super().__init__(TypeId.FIXED_SIZE_LIST, None, vf.type)
+        self.value_field = vf
+        self.list_size = int(list_size)
+
+    @property
+    def fields(self):
+        return (self.value_field,)
+
+    def _key(self):
+        return (self.id, self.value_field.name, self.value_field.type,
+                self.list_size)
+
+    def __repr__(self):
+        return f"fixed_size_list<{self.value_type!r}>[{self.list_size}]"
 
 
 _NAMES = {TypeId.NA: "null", TypeId.BOOL: "bool", TypeId.INT8: "int8",
@@ -248,6 +377,8 @@ _NAMES = {TypeId.NA: "null", TypeId.BOOL: "bool", TypeId.INT8: "int8",
           TypeId.UINT32: "uint32", TypeId.UINT64: "uint64",
           TypeId.HALF_FLOAT: "float16", TypeId.FLOAT: "float32",
           TypeId.DOUBLE: "float64", TypeId.STRING: "string",
+          TypeId.BINARY: "binary", TypeId.LARGE_STRING: "large_string",
+          TypeId.LARGE_BINARY: "large_binary",
           TypeId.DATE32: "date32", TypeId.DATE64: "date64",
           TypeId.INTERVAL_MONTHS: "month_interval"}
 
@@ -308,6 +439,22 @@ def string() -> DataType:
     return DataType(TypeId.STRING)
 
 
+def binary() -> DataType:
+    return DataType(TypeId.BINARY)
+
+
+def large_string() -> DataType:
+    return DataType(TypeId.LARGE_STRING)
+
+
+def large_binary() -> DataType:
+    return DataType(TypeId.LARGE_BINARY)
+
+
+def fixed_size_binary(byte_width: int) -> FixedSizeBinaryType:
+    return FixedSizeBinaryType(byte_width)
+
+
 def date32() -> DataType:
     return DataType(TypeId.DATE32)
 
@@ -362,8 +509,36 @@ def struct(fields) -> StructType:
                        for f in fields])
 
 
-def list_(value_type: DataType) -> ListType:
+def list_(value_type) -> ListType:
     return ListType(value_type)
+
+
+def large_list(value_type) -> ListType:
+    return ListType(value_type, TypeId.LARGE_LIST)
+
+
+def fixed_size_list(value_type, list_size: int) -> FixedSizeListType:
+    return FixedSizeListType(value_type, list_size)
+
+
+def map_(key_type: DataType, item_type: DataType) -> MapType:
+    return MapType(key_type, item_type)
+
+
+def from_numpy_dtype(dtype) -> DataType:
+    """The type of a numpy dtype (the reference's ``from_numpy_dtype``):
+    datetime64/timedelta64 as timestamps/durations of their unit, str as
+    string and bytes as binary."""
+    dtype = np.dtype(dtype)
+    if dtype.kind == "M":
+        return timestamp(np.datetime_data(dtype)[0])
+    if dtype.kind == "m":
+        return duration(np.datetime_data(dtype)[0])
+    if dtype.kind in "UO":
+        return string()
+    if dtype.kind == "S":
+        return binary()
+    return type_for_name(dtype.name)
 
 
 _ALIASES = {"boolean": "bool", "i1": "int8", "i2": "int16", "i4": "int32",
@@ -400,39 +575,76 @@ def type_for_name(name: str) -> DataType:
         if name.startswith(prefix) and name.endswith(")"):
             p, _, s = name[len(prefix):-1].partition(",")
             return make(int(p), int(s or 0))
-    if name.startswith("fixed_size_binary") or name in ("binary",
-                                                         "large_string",
-                                                         "large_binary"):
-        raise NotImplementedError(
-            f"{name!r} columns ride the reference's device as dictionary "
-            "codes of a host Array; not ported yet " + HOST_BOUNDARY)
+    if name.startswith("fixed_size_binary[") and name.endswith("]"):
+        return fixed_size_binary(int(name[len("fixed_size_binary["):-1]))
     raise NotImplementedError(f"no port type named {name!r}")
 
 
 class Field:
-    __slots__ = ("name", "type")
+    __slots__ = ("name", "type", "nullable")
 
-    def __init__(self, name: str, type: DataType):
+    def __init__(self, name: str, type: DataType, nullable: bool = True):
         self.name = name
         self.type = type
+        self.nullable = bool(nullable)
+
+    def _key(self):
+        return (self.name, self.type, self.nullable)
+
+    def __eq__(self, other):
+        return isinstance(other, Field) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def equals(self, other: "Field") -> bool:
+        return self == other
 
     def __repr__(self):
         return f"Field({self.name}: {self.type!r})"
 
 
 class Schema:
-    __slots__ = ("fields",)
+    __slots__ = ("fields", "metadata")
 
-    def __init__(self, fields: Sequence[Field]):
+    def __init__(self, fields: Sequence[Field], metadata=None):
         self.fields = list(fields)
+        self.metadata = metadata
 
     @property
     def names(self) -> List[str]:
         return [f.name for f in self.fields]
 
+    @property
+    def types(self) -> List[DataType]:
+        return [f.type for f in self.fields]
+
     def get_field_index(self, name: str) -> int:
         names = self.names
         return names.index(name) if name in names else -1
+
+    def field(self, i) -> Field:
+        return self.fields[self.get_field_index(i) if isinstance(i, str)
+                           else i]
+
+    def __len__(self) -> int:
+        return len(self.fields)
+
+    def __getitem__(self, i) -> Field:
+        return self.field(i)
+
+    def __iter__(self):
+        return iter(self.fields)
+
+    def equals(self, other: "Schema") -> bool:
+        """Names, types and nullability alike (the metadata is not
+        compared, as in the reference's default)."""
+        return isinstance(other, Schema) and self.fields == other.fields
+
+    def __eq__(self, other):
+        return self.equals(other)
+
+    __hash__ = None
 
     def __repr__(self):
         return f"Schema({self.fields!r})"

@@ -167,6 +167,23 @@ Phases; any failure exits non-zero without the final line:
    2/3 or more; each path's wall, bytes exchanged, the collectives' time
    and each rank's peak memory; then a one-rank NCCL group exchanges Q3's
    filtered lineitem here, bit for bit.
+   Then (3l) the host boundary (``phase_host``): the eight TPC-H tables
+   made once on the host by ``io/tpch.py`` as host Tables and as their
+   makers' batches; each Table's source uploaded (timed, GB/s) and held
+   bit for bit to its maker's batch; Q1, Q3, Q9, Q13 and Q18 from host
+   Tables through ``to_table()`` to a host Table, against their numpy
+   oracles and, digest for digest, the same plan over the batches, with
+   their launches equal to that plan's, and the plan and the download
+   walls apart; Q1 streamed from the host lineitem Table in chunks of
+   2**23 rows against the whole-table run; ``hash_list`` and
+   ``hash_distinct`` of lineitem by its flags, ``hash_pivot_wider`` of
+   l_quantity's sums over l_shipmode by l_returnflag, and a list mixed
+   with a device sum (K1); a ``consuming_sink`` over a filter of
+   lineitem, its batches equal to ``to_table()``; and the eager
+   ``compute.filter`` (K2), the registered ``hash32`` (K4) and
+   ``Table.group_by(...).aggregate`` with a sum (K1) over 60M-row host
+   Arrays, each against numpy. Each path's launches are set to 0 just
+   before and read just after.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -1847,7 +1864,7 @@ NODE_PATHS = (
 def node_path_run(path: NodePath, plan):
     """The function that runs the path's plan once, as phase 3e does."""
     from arrow_tpu_torch.acero.exec import execute_declaration
-    return plan.to_table if path.download else \
+    return (lambda: plan.to_table().to_pydict()) if path.download else \
         (lambda: execute_declaration(plan))
 
 
@@ -2257,7 +2274,7 @@ def phase_typed(tables):
         zero_launches()
         self_check()
         t1 = time.perf_counter()
-        result = plan.to_table()
+        result = plan.to_table().to_pydict()
         log(f"{path.name} first run {time.perf_counter() - t1:.3f} s")
         launches[path.name] = read_launches()
         log_peak(path.name, base)
@@ -2720,7 +2737,7 @@ def stats_grouped_run(s, decls=None):
     groups)."""
     from arrow_tpu_torch.acero.exec import execute_declaration
     flags, orders = decls or stats_grouped_decls(s)
-    return {"flags": flags.to_table(), "orders": execute_declaration(orders)}
+    return {"flags": flags.to_table().to_pydict(), "orders": execute_declaration(orders)}
 
 
 def _group_rows(key, keep):
@@ -2923,7 +2940,7 @@ def check_stats_scalar(c, result):
 
 
 def stats_scalar_run(s, decl=None):
-    return (decl or stats_scalar_decl(s)).to_table()
+    return (decl or stats_scalar_decl(s)).to_table().to_pydict()
 
 
 class StatsPath(NamedTuple):
@@ -3840,7 +3857,7 @@ def strings_plan(lineitem, s, key, ac=None):
 
 
 def strings_plan_run(lineitem, s):
-    return {key: strings_plan(lineitem, s, key).to_table()
+    return {key: strings_plan(lineitem, s, key).to_table().to_pydict()
             for key in ("type", "mfgr_container")}
 
 
@@ -3924,7 +3941,7 @@ STRING_PATHS = (
                  lambda i, check: temporal_fields_run(i["temporal"], check),
                  _launches(0, 0, 0), reps=1),
     FunctionPath("temporal_plan",
-                 lambda i, check: temporal_plan(i["lineitem"]).to_table(),
+                 lambda i, check: temporal_plan(i["lineitem"]).to_table().to_pydict(),
                  _launches(1, 0, 0), check_temporal_plan),
     FunctionPath("strings_pool",
                  lambda i, check: strings_pool_run(i["strings"], check),
@@ -4009,7 +4026,7 @@ def q22_on_the_pool(tables):
     zero_launches()
     self_check()
     t1 = time.perf_counter()
-    result = suite_plan(q22, tables).to_table()
+    result = suite_plan(q22, tables).to_table().to_pydict()
     log(f"Q22 (pool tier) first run {time.perf_counter() - t1:.3f} s")
     launches = read_launches()
     log_peak("Q22 (pool tier)", base)
@@ -4458,11 +4475,11 @@ def grouped_rest_decl(s, keys, ac=None):
 
 
 def grouped_flags_run(s):
-    return grouped_rest_decl(s, FLAG_KEYS).to_table()
+    return grouped_rest_decl(s, FLAG_KEYS).to_table().to_pydict()
 
 
 def grouped_k3_run(s):
-    return grouped_rest_decl(s, K3_KEYS).to_table()
+    return grouped_rest_decl(s, K3_KEYS).to_table().to_pydict()
 
 
 def _groups_in_order(key, keep):
@@ -4617,7 +4634,7 @@ def customer_decls(s, ac=None):
 def customer_run(s):
     from arrow_tpu_torch.acero.exec import execute_declaration
     grouped, rows = customer_decls(s)
-    return {"grouped": grouped.to_table(), "rows": execute_declaration(rows)}
+    return {"grouped": grouped.to_table().to_pydict(), "rows": execute_declaration(rows)}
 
 
 def _strings_of(col, n):
@@ -4943,15 +4960,15 @@ def stream_orders(s, li):
 
 
 def _chunked(plan, **kw):
-    return plan.to_table(chunk_rows=STREAM_CHUNK_ROWS, **kw)
+    return plan.to_table(chunk_rows=STREAM_CHUNK_ROWS, **kw).to_pydict()
 
 
 def _read_all(plan):
-    """``to_reader``'s dicts concatenated; logs the time to the first and
-    the last dict, their number, and the uploads enqueued when the first
-    came."""
-    from arrow_tpu_torch.acero import chunked
+    """``to_reader``'s batches concatenated, as a dict; logs the time to
+    the first and the last batch, their number, and the uploads enqueued
+    when the first came."""
     from arrow_tpu_torch.acero.exec import last_plan_metrics
+    from arrow_tpu_torch.table import Table
     t0 = time.perf_counter()
     reader = plan.to_reader(chunk_rows=STREAM_CHUNK_ROWS)
     parts = [next(reader)]
@@ -4960,14 +4977,14 @@ def _read_all(plan):
     enqueued = source.uploads
     parts += list(reader)
     t_last = time.perf_counter() - t0
-    log(f"  to_reader: first dict after {t_first * 1e3:.1f} ms "
-        f"({len(next(iter(parts[0].values())))} rows, {enqueued} of "
+    log(f"  to_reader: first batch after {t_first * 1e3:.1f} ms "
+        f"({parts[0].num_rows} rows, {enqueued} of "
         f"{source.n_chunks} chunk uploads enqueued), last after "
-        f"{t_last * 1e3:.1f} ms, {len(parts)} dicts")
+        f"{t_last * 1e3:.1f} ms, {len(parts)} batches")
     if len(parts) != source.n_chunks or enqueued >= source.n_chunks:
-        raise AssertionError("to_reader: the first dict did not come "
+        raise AssertionError("to_reader: the first batch did not come "
                              "before the last chunk was consumed")
-    return chunked._concat_dicts(parts)
+    return Table.from_batches(parts).to_pydict()
 
 
 def _orders_state_rows(run):
@@ -5215,7 +5232,7 @@ def phase_stream(tables):
             f"{src.copy_ms():.1f} ms of copies "
             f"({src.h2d_bytes / max(src.copy_ms(), 1e-9) / 1e6:.1f} GB/s)")
         base = memory_mark()
-        whole = path.plan(s, s["card"]).to_table()
+        whole = path.plan(s, s["card"]).to_table().to_pydict()
         whole_peak = torch.cuda.max_memory_allocated() - base
         log(f"{path.name} peak memory above the tables: chunked "
             f"{peak / 2**30:.2f} GiB, whole-table {whole_peak / 2**30:.2f} "
@@ -5476,7 +5493,7 @@ def _dist_paths(rank, world, pair, shared, sf, device, res):
     start, stop = shard_rows(n_li, rank, world)
     li, _ = q1_device_batch(sf, device=device, rows=(start, stop))
     li = own(li, n_li, start)
-    _rank_path(res, "Q1", lambda: q1_plan(li).to_table(mesh=mesh), device,
+    _rank_path(res, "Q1", lambda: q1_plan(li).to_table(mesh=mesh).to_pydict(), device,
                repeat=True)
     _rank_path(res, "distributed_q1",
                lambda: download(distributed_q1(mesh, li)), device,
@@ -5485,7 +5502,7 @@ def _dist_paths(rank, world, pair, shared, sf, device, res):
           for k, (b, n) in q3_device_tables(sf, device=device,
                                             shard=(rank, world)).items()}
     _rank_path(res, "Q3", lambda: q3_plan(
-        q3["customer"], q3["orders"], q3["lineitem"]).to_table(mesh=mesh),
+        q3["customer"], q3["orders"], q3["lineitem"]).to_table(mesh=mesh).to_pydict(),
         device, repeat=True)
     del q3
     for jt in JOIN_TYPES:
@@ -5517,7 +5534,7 @@ def _dist_paths(rank, world, pair, shared, sf, device, res):
         li2 = own(li2, n_li, rows[0])
         _rank_path(res, "Q9-style", lambda: q9_style_plan(
             shared["part"], shared["supplier"], li2, shared["partsupp"],
-            shared["orders"], shared["nation"]).to_table(mesh=pair_mesh),
+            shared["orders"], shared["nation"]).to_table(mesh=pair_mesh).to_pydict(),
             device, repeat=True)
 
 
@@ -5534,14 +5551,14 @@ def _dist_expected(tables, shared, sf, device):
     li = tables["lineitem"]
     n = int(li.row_count)
     exp = {}
-    exp["Q1"] = q1_plan(li).to_table()
+    exp["Q1"] = q1_plan(li).to_table().to_pydict()
     check_result("Q1 single-rank", exp["Q1"], q1_oracle(li, n))
     plan, _ = q3_device_plan(sf, device=device)
-    exp["Q3"] = plan.to_table()
+    exp["Q3"] = plan.to_table().to_pydict()
     check_result("Q3 single-rank", exp["Q3"], q3_oracle(plan)[0])
     del plan
     q9 = next(q for q in SUITE if q.name == "Q9")
-    exp["Q9-style"] = suite_plan(q9, tables).to_table()
+    exp["Q9-style"] = suite_plan(q9, tables).to_table().to_pydict()
     check_result("Q9-style single-rank", exp["Q9-style"],
                  q9.oracle(tables, _suite_columns(tables))[0])
     log(f"3k: Q1, Q3 and Q9-style single-rank runs match their oracles "
@@ -5801,6 +5818,436 @@ def phase_dist(tables, sf=SF, device="cuda"):
     return launches
 
 
+# --- phase 3l: the host boundary ---------------------------------------------
+
+HOST_CHUNK_ROWS = 1 << 23
+HOST_PLANS = (("Q1", "q1_plan", ("lineitem",)),
+              ("Q3", "q3_plan", ("customer", "orders", "lineitem")),
+              ("Q9", "q9_style_plan", ("part", "supplier", "lineitem",
+                                       "partsupp", "orders", "nation")),
+              ("Q13", "q13_plan", ("customer", "orders")),
+              ("Q18", "q18_plan", ("customer", "orders", "lineitem")))
+HOST_FLAGS = ["l_returnflag", "l_linestatus"]
+HOST_SINK_QUANTITY = 49.0       # the consuming sink's filter: ~2% of rows
+HOST_EAGER_QUANTITY = 25.0      # compute.filter's mask: about half the rows
+
+
+def table_digest(tbl):
+    """Per column, a digest of its combined Array's bits: type, length,
+    null count, every buffer, its children and its dictionary."""
+    import hashlib
+
+    def data(h, d):
+        h.update(repr((d.type, d.length, d.offset, d.null_count)).encode())
+        for b in d.buffers:
+            h.update(b"-" if b is None else b.to_pybytes())
+        for c in d.children:
+            data(h, c)
+        if d.dictionary is not None:
+            data(h, d.dictionary)
+
+    out = []
+    for f, col in zip(tbl.schema.fields, tbl.columns):
+        h = hashlib.sha256(f.name.encode())
+        data(h, col.combine().data)
+        out.append(h.hexdigest()[:16])
+    return out
+
+
+def host_inputs(sf, device):
+    """``sf``'s eight TPC-H tables generated once on the host: each as a
+    host Table and as its maker's DeviceBatch on ``device``."""
+    from arrow_tpu_torch.io import tpch
+    t0 = time.perf_counter()
+    host, made = {}, {}
+    for name in tpch.TABLES:
+        host[name], made[name] = tpch.host_and_device(name, sf,
+                                                      device=device)
+    _sync(device)
+    log(f"eight host Tables at SF{sf:g} ({host['lineitem'].num_rows} "
+        f"lineitem rows) and their makers' batches generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return host, made
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _same_batch(name, got, want):
+    """Bit for bit: schema, capacity, row count, every column's values,
+    validity and dictionary."""
+    if got.schema.names != want.schema.names or \
+            got.capacity != want.capacity or \
+            int(got.row_count) != int(want.row_count):
+        raise AssertionError(f"{name}: batch shape differs")
+    for f, a, b in zip(want.schema.fields, got.columns, want.columns):
+        if a.type != b.type or a.values.dtype != b.values.dtype or \
+                not torch.equal(a.values, b.values):
+            raise AssertionError(f"{name}.{f.name}: values differ")
+        if (a.validity is None) != (b.validity is None) or (
+                a.validity is not None
+                and not torch.equal(a.validity, b.validity)):
+            raise AssertionError(f"{name}.{f.name}: validity differs")
+        if a.dictionary != b.dictionary:
+            raise AssertionError(f"{name}.{f.name}: dictionary differs")
+
+
+def _uploads(host, made, device):
+    """Each host Table's source uploaded (its columns' uploads kept by
+    ``acero.source_cache`` for the paths after), timed, against its
+    maker's batch bit for bit."""
+    from arrow_tpu_torch.acero import TableSourceNodeOptions
+    total_bytes, total_wall = 0, 0.0
+    for name in host:
+        _sync(device)
+        t0 = time.perf_counter()
+        batch = TableSourceNodeOptions(host[name]).upload(device)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        nbytes = sum(c.values.numel() * c.values.element_size()
+                     + (0 if c.validity is None else c.validity.numel())
+                     for c in batch.columns)
+        _same_batch(f"upload_table({name})", batch, made[name])
+        total_bytes += nbytes
+        total_wall += wall
+        log(f"  upload {name}: {host[name].num_rows} rows, "
+            f"{nbytes / 1e9:.3f} GB in {wall:.3f} s "
+            f"({nbytes / wall / 1e9:.2f} GB/s), bit-identical to "
+            f"{name}_table()")
+    log(f"uploads: {total_bytes / 1e9:.3f} GB in {total_wall:.3f} s "
+        f"({total_bytes / total_wall / 1e9:.2f} GB/s, host encoding "
+        "included)")
+    return total_bytes, total_wall
+
+
+def _host_plan_oracle(name, made, cols, plan_over_made):
+    if name == "Q1":
+        return q1_oracle(made["lineitem"], int(made["lineitem"].row_count))
+    if name == "Q3":
+        return q3_oracle(plan_over_made)[0]
+    if name == "Q9":
+        return q9_oracle(made, cols)[0]
+    if name == "Q13":
+        return q13_oracle(made["customer"], made["orders"])[0]
+    return q18_oracle(made, cols)[0]
+
+
+def _host_plans(host, made, cols, device, cuda, launches):
+    """Q1, Q3, Q9, Q13 and Q18 through ``table_source(Table)`` ->
+    ``to_table()``, launches counted, against their oracles and, digest
+    for digest, the same plan over the makers' batches; then the plan and
+    the download apart."""
+    from arrow_tpu_torch.acero.exec import _sources_on, execute_declaration
+    from arrow_tpu_torch.device.column import download_table
+    from arrow_tpu_torch.io import tpch_queries
+    from arrow_tpu_torch.platform_check import self_check
+    walls = {}
+    for name, fn, names in HOST_PLANS:
+        plan = getattr(tpch_queries, fn)(*(host[k] for k in names))
+        over_made = getattr(tpch_queries, fn)(*(made[k] for k in names))
+        if cuda:
+            zero_launches()
+            self_check()
+        _sync(device)
+        t0 = time.perf_counter()
+        result = plan.to_table(device=device)
+        _sync(device)
+        first = time.perf_counter() - t0
+        if cuda:
+            launches[f"3l {name}"] = read_launches()
+            zero_launches()
+        if cuda:
+            zero_launches()
+            self_check()
+        want_tbl = over_made.to_table(device=device)
+        if cuda:
+            made_launches = read_launches()
+            log(f"{name} launches: Table source {launches[f'3l {name}']}, "
+                f"DeviceBatch source {made_launches} (the probe "
+                "launched once before each)")
+            if made_launches != launches[f"3l {name}"] or not any(
+                    v for k, v in made_launches.items() if k != "probe"):
+                raise AssertionError(f"3l {name}: launches differ or none")
+        check_result(f"3l {name}", result.to_pydict(),
+                     _host_plan_oracle(name, made, cols, over_made))
+        if table_digest(result) != table_digest(want_tbl):
+            raise AssertionError(f"3l {name}: digests differ from the "
+                                 "DeviceBatch source's run")
+        # the plan and the download apart (the sources' uploads are kept)
+        pruned = _sources_on(plan._plan(), device)
+        _sync(device)
+        t0 = time.perf_counter()
+        batch = execute_declaration(pruned)
+        _sync(device)
+        t1 = time.perf_counter()
+        again = download_table(batch)
+        t2 = time.perf_counter()
+        if table_digest(again) != table_digest(result):
+            raise AssertionError(f"3l {name}: a second run differs")
+        walls[name] = (first, t1 - t0, t2 - t1)
+        log(f"{name} from host Tables: {result.num_rows} rows, first "
+            f"to_table() {first:.3f} s; plan {t1 - t0:.3f} s, download "
+            f"{(t2 - t1) * 1e3:.1f} ms; matches its oracle and the "
+            "DeviceBatch source's digests")
+    return walls
+
+
+def _flag_groups(c):
+    """Lineitem's (returnflag, linestatus) group a row, groups in order of
+    first appearance, and the two flags' values a group."""
+    rf, ls = c["l_returnflag"], c["l_linestatus"]
+    key = rf.astype(np.int64) * 8 + ls
+    uniq, first, inverse = np.unique(key, return_index=True,
+                                     return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    return rank[inverse.reshape(-1)], uniq[order]
+
+
+def _list_parts(tbl, name):
+    arr = tbl.column(name).combine()
+    return arr.data.offsets().astype(np.int64), \
+        arr.values.data.values()
+
+
+def _host_aggregates(host, c, device, cuda, launches):
+    """hash_list and hash_distinct by lineitem's flags, hash_pivot_wider of
+    l_quantity's sums over l_shipmode by l_returnflag, and a hash_list
+    mixed with a device sum, each against numpy."""
+    from arrow_tpu_torch.acero import (AggregateNodeOptions, Declaration,
+                                       TableSourceNodeOptions)
+    from arrow_tpu_torch.io.tpch import SHIPMODES
+    from arrow_tpu_torch.platform_check import self_check
+    li = host["lineitem"]
+    gid, keys = _flag_groups(c)
+    ngroups = len(keys)
+    order = np.argsort(gid, kind="stable")
+    counts = np.bincount(gid, minlength=ngroups)
+
+    def src():
+        return Declaration("table_source", TableSourceNodeOptions(li))
+
+    def run(name, decl):
+        if cuda:
+            zero_launches()
+            self_check()
+        _sync(device)
+        t0 = time.perf_counter()
+        out = decl.to_table(device=device)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        if cuda:
+            launches[f"3l {name}"] = read_launches()
+        log(f"{name}: {out.num_rows} groups in {wall:.3f} s, launches "
+            f"{launches.get(f'3l {name}')}")
+        return out
+
+    out = run("hash_list", Declaration("aggregate", AggregateNodeOptions(
+        [("l_quantity", "hash_list", None, "lst")], keys=HOST_FLAGS),
+        [src()]))
+    offs, vals = _list_parts(out, "lst")
+    want = c["l_quantity"][order]
+    if not (np.array_equal(offs, np.concatenate([[0], np.cumsum(counts)]))
+            and np.array_equal(vals.view(np.int64), want.view(np.int64))):
+        raise AssertionError("hash_list: lists differ from numpy's")
+
+    out = run("hash_distinct", Declaration("aggregate", AggregateNodeOptions(
+        [("l_linenumber", "hash_distinct", None, "dst")], keys=HOST_FLAGS),
+        [src()]))
+    ln = c["l_linenumber"]
+    _, first = np.unique(gid * 8 + ln, return_index=True)
+    first = first[np.lexsort((first, gid[first]))]
+    offs, vals = _list_parts(out, "dst")
+    if not (np.array_equal(vals, ln[first]) and np.array_equal(
+            np.diff(offs), np.bincount(gid[first], minlength=ngroups))):
+        raise AssertionError("hash_distinct: lists differ from numpy's")
+
+    inner = Declaration("aggregate", AggregateNodeOptions(
+        [("l_quantity", "hash_sum", None, "qty")],
+        keys=["l_returnflag", "l_shipmode"]), [src()])
+    out = run("hash_pivot_wider", Declaration(
+        "aggregate", AggregateNodeOptions(
+            [(["l_shipmode", "qty"], "hash_pivot_wider",
+              {"key_names": list(SHIPMODES)}, "by_mode")],
+            keys=["l_returnflag"]), [inner]))
+    rf, sm = c["l_returnflag"], c["l_shipmode"]
+    sums = np.bincount(rf.astype(np.int64) * len(SHIPMODES) + sm,
+                       weights=c["l_quantity"],
+                       minlength=3 * len(SHIPMODES))
+    _, rf_first = np.unique(rf, return_index=True)
+    rf_order = np.unique(rf)[np.argsort(rf_first)]
+    got = out.to_pydict()
+    flags = c["dict:l_returnflag"]
+    if got["l_returnflag"] != [flags[k] for k in rf_order]:
+        raise AssertionError("hash_pivot_wider: groups differ")
+    for row, k in zip(got["by_mode"], rf_order):
+        check_close("hash_pivot_wider sums", torch.tensor(
+            [row[m] for m in SHIPMODES], dtype=torch.float64), torch.tensor(
+                sums[k * len(SHIPMODES):(k + 1) * len(SHIPMODES)]),
+            RTOL_F64)
+
+    out = run("hash_list + hash_sum", Declaration(
+        "aggregate", AggregateNodeOptions(
+            [("l_quantity", "hash_list", None, "lst"),
+             ("l_extendedprice", "hash_sum", None, "revenue")],
+            keys=HOST_FLAGS), [src()]))
+    offs, vals = _list_parts(out, "lst")
+    if not np.array_equal(vals.view(np.int64), want.view(np.int64)):
+        raise AssertionError("hash_list + hash_sum: lists differ")
+    check_close("hash_list + hash_sum revenue", torch.tensor(
+        out.column("revenue").to_numpy()), torch.tensor(np.bincount(
+            gid, weights=c["l_extendedprice"], minlength=ngroups)),
+        RTOL_F64)
+    if cuda and not launches["3l hash_list + hash_sum"]["grouped_sum"]:
+        raise AssertionError("the mixed aggregate's sum did not take K1")
+
+
+def _consuming_sink(host, device, cuda, launches):
+    """A filter of lineitem into a consuming sink: its batches equal
+    ``to_table()`` of the same filter."""
+    from arrow_tpu_torch.acero import (ConsumingSinkNodeOptions, Declaration,
+                                       FilterNodeOptions,
+                                       TableSourceNodeOptions, field)
+    from arrow_tpu_torch.platform_check import self_check
+    from arrow_tpu_torch.table import Table
+    seen = []
+
+    def chain():
+        return Declaration("filter", FilterNodeOptions(
+            field("l_quantity") > HOST_SINK_QUANTITY), [Declaration(
+                "table_source", TableSourceNodeOptions(host["lineitem"]))])
+    if cuda:
+        zero_launches()
+        self_check()
+    Declaration("consuming_sink", ConsumingSinkNodeOptions(seen.append),
+                [chain()]).to_table(device=device)
+    if cuda:
+        launches["3l consuming_sink"] = read_launches()
+    want = chain().to_table(device=device)
+    got = Table.from_batches(seen, want.schema)
+    if table_digest(got) != table_digest(want):
+        raise AssertionError("consuming_sink: batches differ from "
+                             "to_table()")
+    log(f"consuming_sink: {len(seen)} batch(es), {got.num_rows} rows, equal "
+        f"to to_table(); launches {launches.get('3l consuming_sink')}")
+
+
+def _eager(host, c, device, cuda, launches):
+    """compute.filter and the registered hash32 over 60M-row host Arrays,
+    and Table.group_by(...).aggregate with a sum, each against numpy."""
+    import arrow_tpu_torch.compute as pc
+    from arrow_tpu_torch.array.array import array
+    from arrow_tpu_torch.platform_check import self_check
+    li = host["lineitem"]
+
+    def timed_call(name, fn):
+        if cuda:
+            zero_launches()
+            self_check()
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        if cuda:
+            launches[f"3l {name}"] = read_launches()
+        log(f"{name}: {time.perf_counter() - t0:.3f} s, launches "
+            f"{launches.get(f'3l {name}')}")
+        return out
+
+    mask = c["l_quantity"] > HOST_EAGER_QUANTITY
+    price = li.column("l_extendedprice")
+    got = timed_call("compute.filter", lambda: pc.filter(
+        price, array(mask), device=device))
+    if not np.array_equal(got.to_numpy(), c["l_extendedprice"][mask]):
+        raise AssertionError("compute.filter differs from numpy's")
+    got = timed_call("compute.hash32", lambda: pc.hash32(
+        li.column("l_orderkey"), device=device))
+    if not np.array_equal(got.to_numpy(),
+                          _np_hash32(_np_words(c["l_orderkey"]))):
+        raise AssertionError("compute.hash32 differs from numpy's")
+    got = timed_call("Table.group_by", lambda: li.group_by(
+        HOST_FLAGS).aggregate([("l_extendedprice", "sum")], device=device))
+    gid, _ = _flag_groups(c)
+    check_close("Table.group_by sum", torch.tensor(
+        got.column("l_extendedprice_sum").to_numpy()), torch.tensor(
+            np.bincount(gid, weights=c["l_extendedprice"])), RTOL_F64)
+    if cuda:
+        for name, k in (("compute.filter", "compact"),
+                        ("compute.hash32", "hash32"),
+                        ("Table.group_by", "grouped_sum")):
+            if not launches[f"3l {name}"][k]:
+                raise AssertionError(f"{name} did not launch {k}")
+
+
+def _host_stream(host, device, cuda, launches):
+    """Q1 streamed from the host lineitem Table in chunks, against the
+    whole-table run."""
+    from arrow_tpu_torch.acero.exec import last_plan_metrics
+    from arrow_tpu_torch.io.tpch_queries import q1_plan
+    from arrow_tpu_torch.platform_check import self_check
+    plan = q1_plan(host["lineitem"])
+    if cuda:
+        zero_launches()
+        self_check()
+    rows = HOST_CHUNK_ROWS if cuda else max(host["lineitem"].num_rows // 7,
+                                            1)
+    t0 = time.perf_counter()
+    got = plan.to_table(chunk_rows=rows, device=device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    if cuda:
+        launches["3l Q1 chunked"] = read_launches()
+    src = last_plan_metrics.source
+    whole = q1_plan(host["lineitem"]).to_table(device=device).to_pydict()
+    check_result("3l Q1 chunked", got.to_pydict(), {
+        k: np.asarray(v) if isinstance(v[0], float) else v
+        for k, v in whole.items()})
+    log(f"Q1 chunked from the host Table: {src.n_chunks} chunks of {rows} "
+        f"rows in {wall:.3f} s, {src.h2d_bytes / 1e9:.3f} GB copied; equals "
+        f"the whole-table run; launches {launches.get('3l Q1 chunked')}")
+
+
+def phase_host(sf=SF, device="cuda"):
+    """Phase 3l: the host boundary at ``sf``. The eight TPC-H tables made
+    once on the host as Tables and as their makers' batches; each Table
+    uploaded (timed) bit for bit the batch; Q1, Q3, Q9, Q13 and Q18 from
+    host Tables to a host Table; Q1 streamed from the host lineitem;
+    the host-tier aggregates; a consuming sink; the eager API over
+    lineitem's host Arrays. Each path's launches are set to 0 just before
+    and read just after (on the card). Returns the launches by path."""
+    cuda = torch.device(device).type == "cuda"
+    log(f"== phase 3l: the host boundary at SF{sf:g} on {device}")
+    t0 = time.perf_counter()
+    host, made = host_inputs(sf, device)
+    launches = {}
+    nbytes, up_wall = _uploads(host, made, device)
+    t1 = time.perf_counter()
+    cols = _full_columns(made)
+    li = _host_columns(made["lineitem"], ["l_returnflag", "l_linestatus",
+                                          "l_shipmode", "l_linenumber",
+                                          "l_orderkey"])
+    cols["lineitem"].update(li)
+    cols["lineitem"]["dict:l_returnflag"] = \
+        made["lineitem"].column("l_returnflag").dictionary
+    log(f"oracle columns downloaded in {time.perf_counter() - t1:.1f} s")
+    walls = _host_plans(host, made, cols, device, cuda, launches)
+    _host_stream(host, device, cuda, launches)
+    _host_aggregates(host, cols["lineitem"], device, cuda, launches)
+    _consuming_sink(host, device, cuda, launches)
+    _eager(host, cols["lineitem"], device, cuda, launches)
+    from arrow_tpu_torch.acero import release_uploads
+    for tbl in host.values():
+        release_uploads(tbl)
+    log(f"phase 3l: {time.perf_counter() - t0:.1f} s (uploads "
+        f"{nbytes / 1e9:.3f} GB in {up_wall:.3f} s; plan walls "
+        + ", ".join(f"{k} {v[1]:.3f} s + download {v[2] * 1e3:.1f} ms"
+                    for k, v in walls.items()) + ")")
+    return launches
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -5965,7 +6412,7 @@ def phase_main_paths(orders, customer):
     self_check()
     plan, n_li = q3_device_plan(SF)
     base = memory_mark()
-    result = plan.to_table()
+    result = plan.to_table().to_pydict()
     launches["Q3"] = read_launches()
     log_peak("Q3", base)
     check_launches("Q3", launches["Q3"], Q3_LAUNCHES)
@@ -5982,7 +6429,7 @@ def phase_main_paths(orders, customer):
     self_check()
     lineitem, n_li = q1_device_batch(SF)
     base = memory_mark()
-    result = q4_plan(orders, lineitem).to_table()
+    result = q4_plan(orders, lineitem).to_table().to_pydict()
     launches["Q4"] = read_launches()
     log_peak("Q4", base)
     check_launches("Q4", launches["Q4"], Q4_LAUNCHES)
@@ -5997,7 +6444,7 @@ def phase_main_paths(orders, customer):
     zero_launches()
     self_check()
     base = memory_mark()
-    result = q13_plan(customer, orders).to_table()
+    result = q13_plan(customer, orders).to_table().to_pydict()
     launches["Q13"] = read_launches()
     log_peak("Q13", base)
     check_launches("Q13", launches["Q13"], Q13_LAUNCHES)
@@ -6056,7 +6503,7 @@ def _run_queries(phase, queries, tables, cols, params=None):
         zero_launches()
         self_check()
         t1 = time.perf_counter()
-        result = plan.to_table()
+        result = plan.to_table().to_pydict()
         log(f"{q.name} first run {time.perf_counter() - t1:.3f} s")
         launches[q.name] = read_launches()
         log_peak(q.name, base)
@@ -6510,6 +6957,7 @@ def main() -> int:
         stream_launches, stream = timed(phase_stream, tables)
         launches.update(stream_launches)
         launches.update(timed(phase_dist, tables))
+        launches.update(timed(phase_host))
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
                             typed, params, stats, strings, rest, stream)

@@ -342,7 +342,7 @@ def test_group_by_a_derived_dictionary_matches_jax():
                  ("bal", "max", None, "top")], keys=["code"])),
             d("order_by", mod.OrderByNodeOptions([("code", "ascending")]))])
 
-    got = plan(tacero, carry_across(upload_table(table))).to_table()
+    got = plan(tacero, carry_across(upload_table(table))).to_table().to_pydict()
     want = plan(jacero, table).to_table().to_pydict()
     assert got["code"] == ["13", "17", "18", "23", "29", "30", "31"]
     assert_tables_match(got, want)

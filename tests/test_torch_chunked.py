@@ -40,6 +40,7 @@ from arrow_tpu_torch.acero.chunked import (_ChunkedGroupBy, _ChunkSource,
 from arrow_tpu_torch.acero.exec import last_plan_metrics
 from arrow_tpu_torch.device.column import download
 from arrow_tpu_torch.io import tpch_queries as tq
+from arrow_tpu_torch.table import Table as TTable
 
 from test_torch_q1 import assert_tables_match, carry_across
 from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
@@ -84,7 +85,7 @@ def check(make, tables, chunk_rows):
     assert got is not None, chunked.LAST_FALLBACK_REASON
     assert last_plan_metrics.source.n_chunks > 1
     assert_tables_match(got, want.to_pydict(), RTOL)
-    assert_tables_match(got, td.to_table(), RTOL)
+    assert_tables_match(got, td.to_table().to_pydict(), RTOL)
     return got
 
 
@@ -228,7 +229,8 @@ def test_fetch_past_the_end_gives_the_empty_schema(table):
     t, b = table
     want = jchunked.maybe_execute_chunked(make(ja, src(ja, t)), 600)
     assert want.num_rows == 0
-    got = maybe_execute_chunked(make(ta, src(ta, b)), 600, "cpu")
+    got = maybe_execute_chunked(make(ta, src(ta, b)), 600,
+                                "cpu").to_pydict()
     assert last_plan_metrics.source.n_chunks > 1
     assert got == {name: [] for name in want.schema.names} == \
         {"k": [], "i2": []}
@@ -273,10 +275,10 @@ def test_streamed_probe_join(join_type, join_sides):
     jd = make(ja, *[src(ja, t) for t, _ in join_sides])
     want = jchunked.maybe_execute_chunked(jd, 512).to_pydict()
     td = make(ta, *[src(ta, b) for _, b in join_sides])
-    got = maybe_execute_chunked(td, 512, "cpu")
+    got = maybe_execute_chunked(td, 512, "cpu").to_pydict()
     # chunk-major in both packages, in the same order
     assert_tables_match(got, want, RTOL)
-    whole = td.to_table()
+    whole = td.to_table().to_pydict()
     assert list(got) == list(whole)
     assert _rows(got) == _rows(whole)
 
@@ -336,11 +338,11 @@ def test_env_var_enables_chunking(monkeypatch):
     monkeypatch.setenv("ARROW_TPU_CHUNK_ROWS", "300")
     want = jd.to_table().to_pydict()
     last_plan_metrics.reset()
-    via_env = td.to_table(device="cpu")
+    via_env = td.to_table(device="cpu").to_pydict()
     assert last_plan_metrics.source.n_chunks == 4
     monkeypatch.delenv("ARROW_TPU_CHUNK_ROWS")
     assert_tables_match(via_env, want, RTOL)
-    assert_tables_match(via_env, td.to_table(), RTOL)
+    assert_tables_match(via_env, td.to_table().to_pydict(), RTOL)
 
 
 def test_single_chunk_falls_back():
@@ -373,7 +375,7 @@ def test_q1_q6_chunked_matches_whole(query, tpch_tables):
     got = maybe_execute_chunked(td, 8192, "cpu")
     assert last_plan_metrics.source.n_chunks == 4
     assert_tables_match(got, want, RTOL)
-    assert_tables_match(got, td.to_table(), RTOL)
+    assert_tables_match(got, td.to_table().to_pydict(), RTOL)
 
 
 def test_q3_chunked_matches_whole(tpch_tables):
@@ -381,17 +383,18 @@ def test_q3_chunked_matches_whole(tpch_tables):
     jd = jq.q3_plan(*[tpch_tables[k][0] for k in names])
     td = tq.q3_plan(*[tpch_tables[k][1] for k in names])
     want = jchunked.maybe_execute_chunked(jd, 8192).to_pydict()
-    got = td.to_table(chunk_rows=8192, device="cpu")
+    got = td.to_table(chunk_rows=8192, device="cpu").to_pydict()
     assert chunked.LAST_FALLBACK_REASON is None
     assert last_plan_metrics.source.n_chunks == 4
     assert len(got["revenue"]) == 10
     assert_tables_match(got, want, RTOL)
-    assert_tables_match(got, td.to_table(), RTOL)
+    assert_tables_match(got, td.to_table().to_pydict(), RTOL)
 
 
 class TestStreamingReader:
-    """``Declaration.to_reader`` yields a dict a chunk for a terminal-free
-    plan while the plan still runs (reference: DeclarationToReader)."""
+    """``Declaration.to_reader`` yields a RecordBatch a chunk for a
+    terminal-free plan while the plan still runs (reference:
+    DeclarationToReader)."""
 
     def test_streams_incrementally(self):
         rng = np.random.default_rng(0)
@@ -410,13 +413,14 @@ class TestStreamingReader:
         td = make(ta, src(ta, carry_across(upload_table(t))))
         reader = td.to_reader(chunk_rows=65536, device="cpu")
         first = next(reader)
-        # the first dict comes before the source's later chunks are cut
+        # the first batch comes before the source's later chunks are cut
         assert last_plan_metrics.source.n_chunks == 5
         got = [first] + list(reader)
         assert len(got) == len(want) == 5
         for g, w in zip(got, want):
             assert_tables_match(g, w, RTOL)
-        assert_tables_match(chunked._concat_dicts(got), td.to_table(), RTOL)
+        assert_tables_match(TTable.from_batches(got),
+                            td.to_table().to_pydict(), RTOL)
 
     def test_terminal_plans_fall_back(self):
         t = at.table({"k": [1, 2, 1], "v": [1.0, 2.0, 3.0]})
@@ -511,12 +515,12 @@ def test_fallback_warns_or_raises(reason, small_sides, monkeypatch):
     td = _reason_plan(ta, reason, tt, to)
     with pytest.warns(UserWarning, match="chunked execution unavailable"
                       rf" \({reason}\); falling back to whole-table upload"):
-        got = td.to_table(chunk_rows=700, device="cpu")
+        got = td.to_table(chunk_rows=700, device="cpu").to_pydict()
     assert chunked.LAST_FALLBACK_REASON == reason
-    assert_tables_match(got, td.to_table(), RTOL)
+    assert_tables_match(got, td.to_table().to_pydict(), RTOL)
     monkeypatch.setenv("ARROW_TPU_REQUIRE_CHUNKED", "1")
     with pytest.raises(ValueError, match="chunked execution unavailable"):
-        td.to_table(chunk_rows=700, device="cpu")
+        td.to_table(chunk_rows=700, device="cpu").to_pydict()
 
 
 def test_merge_states_equals_one_state(table):
@@ -592,7 +596,7 @@ def test_host_source_refuses_the_cpu_unless_asked(table):
     _, b = table
     plan = filter_project(ta, src(ta, b))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        plan.to_table(chunk_rows=700)
+        plan.to_table(chunk_rows=700).to_pydict()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         next(plan.to_reader(chunk_rows=700))
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -607,7 +611,7 @@ def test_to_batches_streams_as_to_table_does(table):
     batches = plan.to_batches(chunk_rows=700, device="cpu")
     assert last_plan_metrics.source.n_chunks == 8
     assert len(batches) == 1
-    assert_tables_match(batches[0], plan.to_table(device="cpu"), RTOL)
+    assert_tables_match(batches[0], plan.to_table(device="cpu").to_pydict(), RTOL)
     assert last_plan_metrics.source is None
 
 
@@ -615,8 +619,8 @@ def test_repeat_runs_give_the_same_bits(table):
     _, b = table
     td = agg_plan([("f", "hash_sum", None, "s"),
                    ("f", "hash_variance", None, "v")], ["k"])(ta, src(ta, b))
-    first = maybe_execute_chunked(td, 700, "cpu")
-    second = maybe_execute_chunked(td, 700, "cpu")
+    first = maybe_execute_chunked(td, 700, "cpu").to_pydict()
+    second = maybe_execute_chunked(td, 700, "cpu").to_pydict()
     for name in ("s", "v"):
         a = np.array([np.nan if x is None else x for x in first[name]])
         c = np.array([np.nan if x is None else x for x in second[name]])

@@ -61,6 +61,21 @@ def test_plan_over_shard_sources(ranks, query):
     assert_tables_match(agreed(out), agreed(whole), float_rtol=0)
 
 
+def test_plan_over_host_table_sources(ranks, reference):
+    """Q3 over host Tables on every rank (each uploaded whole to the
+    rank's device): the reference's result and exchange counts."""
+    tables, mesh = reference
+    fn, names = TPCH["q3"]
+    kw = TPCH_KWARGS.get("q3", {})
+    plan = getattr(jax_queries, fn)(*(tables[n] for n in names), **kw)
+    jdist.reset_exchange_counts()
+    want = plan.to_table(mesh=mesh).to_pydict()
+    want_counts = dict(jdist.EXCHANGE_COUNTS)
+    out = ranks.run("tpch_host_case", "q3", SF, kw)
+    assert out[0]["counts"] == want_counts
+    assert_tables_match(agreed(out), want)
+
+
 def test_all_22_plans():
     assert len(TPCH) == 22
     assert {fn for fn, _ in TPCH.values()} <= set(dir(jax_queries))

@@ -577,4 +577,4 @@ def test_shard_source_refuses_a_local_run():
                          device="cpu")
     shard = tpar.ShardBatch(b.schema, b.columns, b.row_count, 0, 10)
     with pytest.raises(ValueError, match="distributed=True"):
-        Declaration("table_source", TableSourceNodeOptions(shard)).to_table()
+        Declaration("table_source", TableSourceNodeOptions(shard)).to_table().to_pydict()

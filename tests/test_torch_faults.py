@@ -67,7 +67,7 @@ def test_numpy_literal_promotes_like_jax(name):
     want_tbl = plan(jacero, jt).to_table()
     want = want_tbl.to_pydict()
     got = plan(tacero, tb)
-    assert_tables_match(got.to_table(), want)
+    assert_tables_match(got.to_table().to_pydict(), want)
     assert int(execute_declaration(got).schema.fields[0].type.id) == \
         int(want_tbl.schema.field("out").type.id)
 
@@ -81,12 +81,12 @@ def test_f2_table_rows():
             [_F2[name](tacero)], ["out"]), [tacero.Declaration(
                 "table_source", tacero.TableSourceNodeOptions(tb))])
 
-    assert run("i == np.int64(2**32 + 1)").to_table()["out"] == \
+    assert run("i == np.int64(2**32 + 1)").to_table().to_pydict()["out"] == \
         [False, False, False, False, None, False]
-    assert run("i < np.int64(2**31)").to_table()["out"] == \
+    assert run("i < np.int64(2**31)").to_table().to_pydict()["out"] == \
         [True, True, True, True, None, True]
     got = run("i * np.int64(4)")
-    assert got.to_table()["out"] == [4, 8, 12, 4294967296, None, -20]
+    assert got.to_table().to_pydict()["out"] == [4, 8, 12, 4294967296, None, -20]
     assert execute_declaration(got).schema.fields[0].type.id == \
         TypeId.INT64
     got = execute_declaration(run("x * np.float64(2.5)"))
@@ -113,21 +113,21 @@ def test_bool_sum_is_uint64(keys):
 
     want_tbl = plan(jacero, jt).to_table()
     got = plan(tacero, tb)
-    assert_tables_match(got.to_table(), want_tbl.to_pydict())
+    assert_tables_match(got.to_table().to_pydict(), want_tbl.to_pydict())
     (want_type,) = [f.type.id for f in want_tbl.schema
                     if f.name == "total"]
     assert want_type == JaxTypeId.UINT64 == 8
     out = execute_declaration(got)
     assert out.column("total").type.id == TypeId.UINT64
     if not keys:
-        assert got.to_table()["total"] == [4]
+        assert got.to_table().to_pydict()["total"] == [4]
 
 
 def test_uint64_downloads_unsigned():
     b = batch_from_numpy([("u", "uint64", np.array([1, -1, 5]), None,
                            None)], 3, device="cpu")
     assert tacero.Declaration("table_source", tacero.TableSourceNodeOptions(
-        b)).to_table()["u"] == [1, 2**64 - 1, 5]
+        b)).to_table().to_pydict()["u"] == [1, 2**64 - 1, 5]
 
 
 # --- F1 ------------------------------------------------------------------------
@@ -198,7 +198,7 @@ def test_general_grouper_float_sums_match_jax_and_repeat(fn):
                 [("k", "ascending")]))])
 
     want = plan(jacero, jt).to_table().to_pydict()
-    got = [plan(tacero, tb).to_table() for _ in range(2)]
+    got = [plan(tacero, tb).to_table().to_pydict() for _ in range(2)]
     assert len(want["k"]) > 1024
     assert_tables_match(got[0], want)
     assert got[0] == got[1]

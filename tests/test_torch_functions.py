@@ -183,7 +183,7 @@ def test_expression_true_divide():
     assert repr(1.0 / tacero.field("b")) == \
         repr(tacero.Expression.call("divide", 1.0, tacero.field("b")))
     want = plan(jacero, table).to_table().to_pydict()
-    got = plan(tacero, carry_across(upload_table(table))).to_table()
+    got = plan(tacero, carry_across(upload_table(table))).to_table().to_pydict()
     assert_tables_match(got, want)
 
 
@@ -252,7 +252,7 @@ def test_if_else_keeps_a_shared_dictionary():
                 ["k", "s2"]))])
 
     want = plan(jacero, table).to_table().to_pydict()
-    got = plan(tacero, carry_across(upload_table(table))).to_table()
+    got = plan(tacero, carry_across(upload_table(table))).to_table().to_pydict()
     assert_tables_match(got, want)
     assert None in got["s2"]
 
@@ -297,7 +297,7 @@ def test_is_in_dictionary_matches_jax(value_set):
                 ["k", "hit"]))])
 
     want = plan(jacero, table).to_table().to_pydict()
-    got = plan(tacero, tb).to_table()
+    got = plan(tacero, tb).to_table().to_pydict()
     assert_tables_match(got, want)
     assert None in got["hit"]
 
@@ -339,7 +339,7 @@ def test_string_predicates_match_jax(fn, pattern, ignore_case):
             mod.Declaration("project", mod.ProjectNodeOptions(
                 [mod.field("k"), call, ~call], ["k", "m", "not_m"]))])
 
-    assert_tables_match(plan(tacero, tb).to_table(),
+    assert_tables_match(plan(tacero, tb).to_table().to_pydict(),
                         plan(jacero, table).to_table().to_pydict())
 
 

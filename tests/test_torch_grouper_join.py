@@ -168,7 +168,7 @@ def _multi_key_tables(rng):
 def _run_both(make, probe, build):
     want = make(jacero, probe, build).to_table().to_pydict()
     got = make(tacero, carry_across(upload_table(probe)),
-               carry_across(upload_table(build))).to_table()
+               carry_across(upload_table(build))).to_table().to_pydict()
     return got, want
 
 

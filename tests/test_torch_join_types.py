@@ -99,7 +99,7 @@ def _join(mod, jt, probe, build, **kw):
 def _run_both(make, probe, build):
     want = make(jacero, probe, build).to_table().to_pydict()
     got = make(tacero, carry_across(upload_table(probe)),
-               carry_across(upload_table(build))).to_table()
+               carry_across(upload_table(build))).to_table().to_pydict()
     return got, want
 
 
@@ -164,7 +164,7 @@ def test_dictionary_and_plain_key_raises():
     with pytest.raises(ValueError, match="mixes dictionary-coded and plain"):
         _join(tacero, "inner", carry_across(upload_table(probe)),
               carry_across(upload_table(build)), left_keys=["pk"],
-              right_keys=["bk"]).to_table()
+              right_keys=["bk"]).to_table().to_pydict()
 
 
 @pytest.mark.parametrize("jt", JOIN_TYPES)
@@ -192,4 +192,4 @@ def test_chip_smoke_oracle_matches_port(jt):
     rows = chip_smoke.check_join(
         jt, execute_declaration(decl), probe_side, build_side,
         chip_smoke.match_runs(probe_side, build_side))
-    assert rows == len(decl.to_table()["bk" if "right" in jt else "pk"]) > 0
+    assert rows == len(decl.to_table().to_pydict()["bk" if "right" in jt else "pk"]) > 0

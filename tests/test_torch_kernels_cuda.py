@@ -418,7 +418,7 @@ def test_q4_q13_on_card_match_cpu(query):
         else:
             plan = tpch_queries.q13_plan(
                 tpch.customer_table(0.01, device=device), orders)
-        results.append(plan.to_table())
+        results.append(plan.to_table().to_pydict())
     assert results[0] == results[1] and len(next(iter(results[0].values())))
 
 
@@ -441,7 +441,7 @@ def test_suite_query_on_card_matches_oracle(query):
     want, n_rows = query.oracle(tables, chip_smoke._suite_columns(tables))
     assert n_rows > 0
     chip_smoke.check_result(query.name, chip_smoke.suite_plan(
-        query, tables).to_table(), want)
+        query, tables).to_table().to_pydict(), want)
 
 
 # --- the vector functions and statistics on the card -----------------------
@@ -655,7 +655,7 @@ def test_derived_string_keys_take_k1_and_k3(key, slots):
                   "customer": tpch.customer_table(0.01, device=dev)}
         s = chip_smoke.strings_inputs(tables)
         before = grouped_sum.launches
-        result = chip_smoke.strings_plan(lineitem, s, key).to_table()
+        result = chip_smoke.strings_plan(lineitem, s, key).to_table().to_pydict()
         torch.cuda.synchronize()
         if dev == "cuda":
             assert grouped_sum.launches == before + 1
@@ -774,12 +774,12 @@ def test_chunked_from_pinned_host_matches_whole(query):
     else:
         c, o = tpch.customer_table(0.1), tpch.orders_table(0.1)
         plans = [q3_plan(c, o, li) for li in (host, card)]
-    got = plans[0].to_table(chunk_rows=1 << 17)
+    got = plans[0].to_table(chunk_rows=1 << 17).to_pydict()
     source = last_plan_metrics.source
     assert chunked.LAST_FALLBACK_REASON is None
     assert source.n_chunks == 5 and source.stream is not None
     assert source.h2d_bytes > 0 and source.copy_ms() > 0
-    _same_result(got, plans[1].to_table())
+    _same_result(got, plans[1].to_table().to_pydict())
 
 
 def _host_batch(n, pinned):
@@ -841,8 +841,8 @@ def test_streamed_float_sums_repeat_bit_for_bit():
         Declaration("aggregate", AggregateNodeOptions(
             [("v", "hash_sum", None, "s"), ("v", "hash_mean", None, "m")],
             keys=["s"]))])
-    first = plan.to_table(chunk_rows=1 << 16)
-    second = plan.to_table(chunk_rows=1 << 16)
+    first = plan.to_table(chunk_rows=1 << 16).to_pydict()
+    second = plan.to_table(chunk_rows=1 << 16).to_pydict()
     for k in ("s", "m"):
         a, b = (torch.tensor(r[k], dtype=torch.float64).view(torch.int64)
                 for r in (first, second))
@@ -867,3 +867,68 @@ def test_pinned_source_runs_on_the_card_unasked():
         out = run()
         assert compact.launches == before + 1
         assert len(out["k"]) == want
+
+
+@pytest.mark.cuda
+def test_host_table_uploads_to_the_card():
+    """A host Table of TPC-H orders uploaded to the card: the maker's
+    batch bit for bit, kept on the source for the next run."""
+    from arrow_tpu_torch.acero import TableSourceNodeOptions
+    from arrow_tpu_torch.device.column import batch_to
+    from arrow_tpu_torch.io import tpch
+    _need_card()
+    tbl, made = tpch.host_and_device("orders", 0.05, device="cuda")
+    opts = TableSourceNodeOptions(tbl)
+    up = opts.upload()
+    assert up.row_count.device.type == "cuda"
+    assert all(a is b for a, b in zip(up.columns, opts.upload().columns))
+    for a, b in zip(up.columns, made.columns):
+        assert a.values.is_cuda and torch.equal(a.values, b.values)
+        assert a.dictionary == b.dictionary
+    back = batch_to(up, "cpu")
+    assert int(back.row_count) == tbl.num_rows
+
+
+@pytest.mark.cuda
+def test_q1_from_a_host_table_takes_k1():
+    """Q1 from a host lineitem Table, run with no device named: on the
+    card, its sums through the grouped-sum kernel, a host Table back equal
+    to the CPU run."""
+    from arrow_tpu_torch.io import tpch
+    from arrow_tpu_torch.io.tpch_queries import q1_plan
+    from arrow_tpu_torch.table import Table
+    _need_card()
+    li = tpch.lineitem_host_table(0.01)
+    before = grouped_sum.launches
+    got = q1_plan(li).to_table()
+    torch.cuda.synchronize()
+    assert grouped_sum.launches == before + 7
+    assert isinstance(got, Table)
+    want = q1_plan(li).to_table(device="cpu").to_pydict()
+    got = got.to_pydict()
+    assert list(got) == list(want)
+    for k in want:
+        if isinstance(want[k][0], float):
+            torch.testing.assert_close(torch.tensor(got[k]),
+                                       torch.tensor(want[k]),
+                                       rtol=1e-9, atol=0)
+        else:
+            assert got[k] == want[k], k
+
+
+@pytest.mark.cuda
+def test_eager_filter_takes_k2():
+    """``compute.filter`` over host Arrays runs on the card unasked and
+    launches the compaction kernel; the result equals numpy's."""
+    import numpy as np
+
+    import arrow_tpu_torch.compute as pc
+    from arrow_tpu_torch.array.array import array
+    _need_card()
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal(1_000_003)
+    mask = v > 0.3
+    before = compact.launches
+    got = pc.filter(array(v), array(mask))
+    assert compact.launches == before + 1
+    assert np.array_equal(got.to_numpy(), v[mask])

@@ -106,7 +106,7 @@ def test_pruned_tree_matches_jax(query, tables):
                                    if q not in ("q1_plan", "q6_plan")])
 def test_pruned_plan_gives_the_unpruned_table(query, tables):
     _, port = _plans(query, tables)
-    got = port.to_table()
+    got = port.to_table().to_pydict()
     assert port._pruned is not None
     want = download(execute_declaration(port))
     assert got == want
@@ -116,7 +116,7 @@ def test_pruned_plan_gives_the_unpruned_table(query, tables):
 def test_plans_without_a_join_are_not_pruned(tables):
     for query in ("q1_plan", "q6_plan"):
         _, port = _plans(query, tables)
-        port.to_table()
+        port.to_table().to_pydict()
         assert port._pruned is None
 
 
@@ -155,7 +155,7 @@ def test_join_outputs_narrowed_under_a_project():
     assert (j.options.left_output, j.options.right_output) == (["a"], ["c"])
     assert output_names(j.inputs[0]) == ["k", "a"]
     assert output_names(j.inputs[1]) == ["k", "c"]
-    assert_tables_match(port.to_table(), ref.to_table().to_pydict())
+    assert_tables_match(port.to_table().to_pydict(), ref.to_table().to_pydict())
 
 
 @pytest.mark.parametrize("jt", ["inner", "left outer", "full outer",
@@ -166,8 +166,8 @@ def test_join_types_under_an_aggregate(jt):
         m.Declaration("aggregate", m.AggregateNodeOptions(
             [("a", "sum", None, "sa")], keys=[]))]))
     _walk_pair(ref_p, port_p, False)
-    assert_tables_match(port.to_table(), ref.to_table().to_pydict())
-    assert port.to_table() == download(execute_declaration(port))
+    assert_tables_match(port.to_table().to_pydict(), ref.to_table().to_pydict())
+    assert port.to_table().to_pydict() == download(execute_declaration(port))
 
 
 def test_collision_partner_kept():
@@ -176,7 +176,7 @@ def test_collision_partner_kept():
     _walk_pair(ref_p, port_p, False)
     j = port_p.inputs[0]
     assert "b" in j.options.left_output and "b" in j.options.right_output
-    assert_tables_match(port.to_table(), ref.to_table().to_pydict())
+    assert_tables_match(port.to_table().to_pydict(), ref.to_table().to_pydict())
 
 
 def test_project_expressions_dropped():
@@ -194,7 +194,7 @@ def test_project_expressions_dropped():
     mid = port_p.inputs[0]
     assert [repr(e) for e in mid.options.expressions] == \
         [repr(port.inputs[0].options.expressions[0])]
-    assert download(execute_declaration(port_p)) == port.to_table()
+    assert download(execute_declaration(port_p)) == port.to_table().to_pydict()
 
 
 def test_residual_filter_fields_stay():
@@ -212,16 +212,16 @@ def test_residual_filter_fields_stay():
 
     ref, ref_p, port, port_p = _both(make)
     _walk_pair(ref_p, port_p, False)
-    assert_tables_match(port.to_table(), ref.to_table().to_pydict())
+    assert_tables_match(port.to_table().to_pydict(), ref.to_table().to_pydict())
 
 
 def test_pruned_plan_cached_on_the_root():
     port = tacero.Declaration.from_sequence([
         _join_plan(tacero), _project(tacero, [tacero.field("a")], ["a"])])
-    first = port.to_table()
+    first = port.to_table().to_pydict()
     cached = port._pruned
     assert cached is not None
-    assert port.to_table() == first and port._pruned is cached
+    assert port.to_table().to_pydict() == first and port._pruned is cached
 
 
 def test_a_join_keeps_one_column():
@@ -246,6 +246,6 @@ def test_a_join_keeps_one_column():
     port = make(tacero, *(carry_across(upload_table(t))
                           for t in (left, right)))
     kept = np.isin(left.column("k").to_pylist(), list(range(0, 20, 3)))
-    assert port.to_table() == {"n": [int(kept.sum())]} \
+    assert port.to_table().to_pydict() == {"n": [int(kept.sum())]} \
         == download(execute_declaration(port))
     assert port._pruned.inputs[0].options.left_output == ["k"]

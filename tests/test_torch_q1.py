@@ -56,6 +56,10 @@ def carry_across(jax_batch, device="cpu"):
 
 
 def assert_tables_match(port, jax, float_rtol=1e-9):
+    """``port``: a dict of columns, or the port's host Table (its
+    ``to_pydict()``)."""
+    if hasattr(port, "to_pydict"):
+        port = port.to_pydict()
     assert list(port) == list(jax)
     for name in jax:
         a, b = port[name], jax[name]
@@ -84,7 +88,7 @@ def test_q1_plan_over_carried_lineitem():
     lineitem = tpch.lineitem_table(0.01)
     want = jax_q1_plan(lineitem).to_table().to_pydict()
     port_batch = carry_across(upload_table(lineitem))
-    got = q1_plan(port_batch).to_table()
+    got = q1_plan(port_batch).to_table().to_pydict()
     assert_tables_match(got, want)
 
 
@@ -105,18 +109,26 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         batch_from_numpy([("x", "int64", np.arange(3), None, None)], 3)
 
 
-def _unported(kind, source, filtered):
+def _unported(kind, source, filtered, seen):
+    from arrow_tpu_torch.acero import (ConsumingSinkNodeOptions,
+                                       PivotLongerNodeOptions,
+                                       ProjectNodeOptions)
     if kind == "product":
-        # product (item 9.7) and tdigest (item 9.9) are ported; the host
-        # tier's grouped aggregates (item 11) are not
+        # product (item 9.7) and tdigest (item 9.9) were ported first; the
+        # host tier's grouped aggregates came with the host boundary
         return Declaration("aggregate", AggregateNodeOptions(
             [("l_suppkey", "hash_list", None, "suppliers")],
             keys=["l_returnflag"]), [filtered])
-    if kind in ("consuming_sink", "pivot_longer"):
-        # both need a host Table
-        return Declaration(kind, None, [filtered])
-    # a scalar aggregate's null options are ported (item 9.7); the host
-    # tier's aggregates (item 11) are not
+    if kind == "consuming_sink":
+        return Declaration(kind, ConsumingSinkNodeOptions(
+            lambda rb: seen.append(rb.to_pydict())), [filtered])
+    if kind == "pivot_longer":
+        return Declaration(kind, PivotLongerNodeOptions(
+            [(["q"], ["l_quantity"]), (["d"], ["l_discount"])], ["which"],
+            ["value"]), [Declaration("project", ProjectNodeOptions(
+                [field("l_orderkey"), field("l_quantity"),
+                 field("l_discount")],
+                ["l_orderkey", "l_quantity", "l_discount"]), [filtered])])
     return Declaration("aggregate", AggregateNodeOptions(
         [("l_quantity", "distinct", None, "total")]), [filtered])
 
@@ -124,22 +136,41 @@ def _unported(kind, source, filtered):
 @pytest.mark.parametrize("kind", ["product", "consuming_sink",
                                   "pivot_longer", "scalar aggregate"])
 def test_unported_nodes_raise(kind):
-    """A standalone filter and an inner hash join run; the nodes,
-    functions and options that the ported queries do not need raise,
-    naming their ROADMAP item."""
+    """A standalone filter and an inner hash join run; so do the nodes and
+    functions that raised naming their ROADMAP item until the host
+    boundary ported them (a grouped and a scalar host-tier aggregate, a
+    consuming sink, pivot_longer), each against numpy over the filtered
+    rows; a ``scan`` source still raises, naming its item."""
     tb, _ = q1_device_batch(0.001, device="cpu")
     source = Declaration("table_source", TableSourceNodeOptions(tb))
     filtered = Declaration("filter", FilterNodeOptions(
         field("l_quantity") > 45.0), [source])
-    kept = filtered.to_table()
+    kept = filtered.to_table().to_pydict()
     quantity = tb.column("l_quantity").values[:int(tb.row_count)]
     assert len(kept["l_quantity"]) == int((quantity > 45.0).sum()) > 0
     joined = Declaration("hashjoin", HashJoinNodeOptions(
         "inner", left_keys=["l_orderkey"], right_keys=["l_orderkey"],
-        right_output=["l_linenumber"]), [filtered, source]).to_table()
+        right_output=["l_linenumber"]), [filtered, source]).to_table(
+            ).to_pydict()
     assert len(joined["l_orderkey"]) >= len(kept["l_orderkey"])
+    seen = []
+    got = _unported(kind, source, filtered, seen).to_table(
+        device="cpu").to_pydict()
+    if kind == "product":
+        flags = list(dict.fromkeys(kept["l_returnflag"]))
+        assert got == {"l_returnflag": flags, "suppliers": [
+            [s for f, s in zip(kept["l_returnflag"], kept["l_suppkey"])
+             if f == g] for g in flags]}
+    elif kind == "consuming_sink":
+        assert seen == [kept] and got == kept
+    elif kind == "pivot_longer":
+        assert got["which"] == ["q", "d"] * len(kept["l_quantity"])
+        assert got["value"] == [v for pair in zip(
+            kept["l_quantity"], kept["l_discount"]) for v in pair]
+    else:
+        assert got == {"total": [list(dict.fromkeys(kept["l_quantity"]))]}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _unported(kind, source, filtered).to_table()
+        Declaration("scan", None).to_table(device="cpu")
 
 
 def _port_sources():
@@ -163,6 +194,34 @@ def test_no_jax_or_reference_import(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "arrow_tpu", "pyarrow"), \
                 f"{path.name} imports {name}"
+
+
+_HOST_BOUNDARY_MODULES = (
+    "buffer.py", "utils/bits.py", "array/data.py", "array/construct.py",
+    "array/array.py", "table.py", "compute/host_concat.py",
+    "compute/dispatch.py", "compute/__init__.py", "compute/registry.py",
+    "acero/host_agg.py", "acero/options.py", "acero/exec.py",
+    "acero/chunked.py", "acero/source_cache.py", "device/column.py",
+    "io/tpch.py", "types.py")
+
+
+@pytest.mark.parametrize("module", _HOST_BOUNDARY_MODULES)
+def test_the_host_boundary_modules_are_guarded(module):
+    """The host boundary's modules are among the guarded sources above,
+    and import no pandas either (the card's machine has none)."""
+    path = REPO / "arrow_tpu_torch" / module
+    assert path in _port_sources()
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "arrow_tpu",
+                                              "pyarrow", "pandas"), name
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_reference():

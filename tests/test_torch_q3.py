@@ -30,7 +30,7 @@ def test_q3_device_plan_matches_jax(sf):
     jplan, jn = jax_q3_device_plan(sf)
     want = jplan.to_table().to_pydict()
     plan, n = q3_device_plan(sf, device="cpu")
-    got = plan.to_table()
+    got = plan.to_table().to_pydict()
     assert n == jn
     assert len(got["l_orderkey"]) == 10
     assert_tables_match(got, want, RTOL)
@@ -41,7 +41,7 @@ def test_q3_plan_over_carried_tables():
               tpch.lineitem_table(0.01)]
     want = jax_q3_plan(*tables).to_table().to_pydict()
     got = q3_plan(*[carry_across(upload_table(t)) for t in tables]) \
-        .to_table()
+        .to_table().to_pydict()
     assert len(got["l_orderkey"]) == 10
     assert_tables_match(got, want, RTOL)
 

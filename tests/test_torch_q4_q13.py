@@ -80,7 +80,7 @@ def test_q4_matches_jax(sf):
         .to_table().to_pydict()
     got = tpch_queries.q4_plan(tpch.orders_table(sf, device="cpu"),
                                tpch.lineitem_table(sf, device="cpu")) \
-        .to_table()
+        .to_table().to_pydict()
     assert got["o_orderpriority"] == list(tpch.ORDERPRIORITY)
     assert sum(got["order_count"]) > 0
     assert_tables_match(got, want)
@@ -93,7 +93,7 @@ def test_q13_matches_jax(sf):
         .to_table().to_pydict()
     got = tpch_queries.q13_plan(tpch.customer_table(sf, device="cpu"),
                                 tpch.orders_table(sf, device="cpu")) \
-        .to_table()
+        .to_table().to_pydict()
     assert sum(got["custdist"]) == int(150_000 * sf)
     assert_tables_match(got, want)
 
@@ -106,11 +106,11 @@ def test_chip_smoke_oracles_match_port(sf):
     want, n_orders = chip_smoke.q4_oracle(orders, lineitem)
     assert n_orders == sum(want["order_count"]) > 0
     chip_smoke.check_result(
-        "Q4", tpch_queries.q4_plan(orders, lineitem).to_table(), want)
+        "Q4", tpch_queries.q4_plan(orders, lineitem).to_table().to_pydict(), want)
     want, n_kept = chip_smoke.q13_oracle(customer, orders)
     assert 0 < n_kept < int(orders.row_count)
     chip_smoke.check_result(
-        "Q13", tpch_queries.q13_plan(customer, orders).to_table(), want)
+        "Q13", tpch_queries.q13_plan(customer, orders).to_table().to_pydict(), want)
 
 
 def test_chip_smoke_filter_inputs_match_plans():

@@ -89,7 +89,7 @@ def metrics(qc):
 def test_accounting_and_metrics(plans):
     jplan, tplan = plans
     want = jplan.to_table(query_options=JOptions()).to_pydict()
-    out = tplan.to_table(query_options=QueryOptions())
+    out = tplan.to_table(query_options=QueryOptions()).to_pydict()
     assert_tables_match(out, want, RTOL)
     assert len(out["k"]) == 7
     qc, jqc = tplan.last_query_context, jplan.last_query_context
@@ -108,7 +108,7 @@ def test_memory_limit_enforced(plans):
     with pytest.raises(JMemoryError) as jerr:
         jplan.to_table(query_options=JOptions(memory_limit=128))
     with pytest.raises(ArrowMemoryError) as err:
-        tplan.to_table(query_options=QueryOptions(memory_limit=128))
+        tplan.to_table(query_options=QueryOptions(memory_limit=128)).to_pydict()
     assert isinstance(err.value, ValueError)
     assert str(err.value) == str(jerr.value)
     assert "at node 'table_source'" in str(err.value)
@@ -118,22 +118,22 @@ def test_memory_limit_just_below_the_total_raises_at_the_last_node(plans):
     """A limit one byte under the tracked total raises at the node the
     tracking reaches it, the last."""
     _, tplan = plans
-    tplan.to_table(query_options=QueryOptions())
+    tplan.to_table(query_options=QueryOptions()).to_pydict()
     total = tplan.last_query_context.bytes_materialized
     with pytest.raises(ArrowMemoryError, match="at node 'aggregate'"):
-        tplan.to_table(query_options=QueryOptions(memory_limit=total - 1))
-    tplan.to_table(query_options=QueryOptions(memory_limit=total))
+        tplan.to_table(query_options=QueryOptions(memory_limit=total - 1)).to_pydict()
+    tplan.to_table(query_options=QueryOptions(memory_limit=total)).to_pydict()
 
 
 def test_no_context_unaffected(plans):
     _, tplan = plans
     assert current_query_context() is None
-    assert len(tplan.to_table()["k"]) == 7
+    assert len(tplan.to_table().to_pydict()["k"]) == 7
 
 
 def test_collect_metrics_off_still_tracks(plans):
     _, tplan = plans
-    tplan.to_table(query_options=QueryOptions(collect_metrics=False))
+    tplan.to_table(query_options=QueryOptions(collect_metrics=False)).to_pydict()
     qc = tplan.last_query_context
     assert qc.node_metrics == [] and qc.bytes_materialized > 0
 
@@ -149,7 +149,7 @@ def test_filter_query_context_of_misc_components():
     jd = make(ja, src(ja, t))
     td = make(ta, src(ta, carry_across(upload_table(t))))
     want = jd.to_table(query_options=JOptions()).to_pydict()
-    out = td.to_table(query_options=QueryOptions())
+    out = td.to_table(query_options=QueryOptions()).to_pydict()
     assert len(out["a"]) == 3
     assert_tables_match(out, want, RTOL)
     assert metrics(td.last_query_context) == metrics(jd.last_query_context)
@@ -162,7 +162,7 @@ def test_join_plan_metrics_match_the_reference(join_plans):
     jplan, tplan = join_plans
     want = jplan.to_table(query_options=JOptions()).to_pydict()
     jnodes = [f for f, _ in jexec.last_plan_metrics.nodes]
-    out = tplan.to_table(query_options=QueryOptions())
+    out = tplan.to_table(query_options=QueryOptions()).to_pydict()
     assert_tables_match(out, want, RTOL)
     tnodes = [f for f, _ in texec.last_plan_metrics.nodes]
     assert tnodes == jnodes == ["table_source", "table_source", "hashjoin",
@@ -174,8 +174,8 @@ def test_join_plan_metrics_match_the_reference(join_plans):
 
 def test_last_plan_metrics_restart_each_run(plans):
     _, tplan = plans
-    tplan.to_table()
-    tplan.to_table()
+    tplan.to_table().to_pydict()
+    tplan.to_table().to_pydict()
     assert [f for f, _ in texec.last_plan_metrics.nodes] == \
         ["table_source", "aggregate"]
 
@@ -195,14 +195,14 @@ def test_cancelled_stop_source_stops_a_plan(plans, stopped):
     with pytest.raises(jcancel.CancelledError):
         jplan.to_table()
     with pytest.raises(cancel.CancelledError, match="operation cancelled"):
-        tplan.to_table()
+        tplan.to_table().to_pydict()
     assert isinstance(cancel.CancelledError("x"), RuntimeError)
 
 
 def test_cancelled_stop_source_stops_a_streamed_plan(plans, stopped):
     _, tplan = plans
     with pytest.raises(cancel.CancelledError):
-        tplan.to_table(chunk_rows=1000, device="cpu")
+        tplan.to_table(chunk_rows=1000, device="cpu").to_pydict()
 
 
 def test_context_stop_token_stops_after_a_node(plans):
@@ -214,7 +214,7 @@ def test_context_stop_token_stops_after_a_node(plans):
     qc = QueryContext(QueryOptions(), source.token())
     with query_scope(qc):
         with pytest.raises(cancel.CancelledError):
-            tplan.to_table()
+            tplan.to_table().to_pydict()
     assert qc.node_metrics == []
     assert current_query_context() is None
     assert cancel.default_stop_token().is_stop_requested() is False

@@ -180,14 +180,14 @@ def test_stats_grouped_matches_reference(stats):
     for got_decl, want_decl in zip(chip_smoke.stats_grouped_decls(s),
                                    chip_smoke.stats_grouped_decls(ref,
                                                                   jacero)):
-        got = got_decl.to_table()
+        got = got_decl.to_table().to_pydict()
         assert len(next(iter(got.values()))) > 0
         _same(got, want_decl.to_table().to_pydict())
 
 
 def test_stats_scalar_matches_reference(stats):
     s, _ = stats
-    got = chip_smoke.stats_scalar_decl(s).to_table()
+    got = chip_smoke.stats_scalar_decl(s).to_table().to_pydict()
     want = chip_smoke.stats_scalar_decl(_reference_inputs(s),
                                         jacero).to_table().to_pydict()
     _same(got, want)

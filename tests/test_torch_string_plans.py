@@ -124,7 +124,7 @@ def _reference_customer(batch):
 def test_customer_plan_matches_jax(rest, keys):
     s, _ = rest
     assert s["customer"].column("c_empty").dictionary == ()
-    got = _customer_plan(tacero, s["customer"], keys).to_table()
+    got = _customer_plan(tacero, s["customer"], keys).to_table().to_pydict()
     want = _customer_plan(jacero, _reference_customer(s["customer"]),
                           keys).to_table().to_pydict()
     assert len(got["code"]) > 0
@@ -140,7 +140,7 @@ def test_a_cast_literal_broadcasts_in_a_projection(rest):
     out = D.from_sequence([
         D("table_source", tacero.TableSourceNodeOptions(s["customer"])),
         D("project", tacero.ProjectNodeOptions(
-            [call("cast", 7, to_type="float32")], ["seven"]))]).to_table()
+            [call("cast", 7, to_type="float32")], ["seven"]))]).to_table().to_pydict()
     n = int(s["customer"].row_count)
     assert out["seven"] == [7.0] * n
     with pytest.raises(IndexError):
@@ -161,4 +161,4 @@ def test_functions_of_values_refuse_string_columns(rest):
         D.from_sequence([
             D("table_source", tacero.TableSourceNodeOptions(s["customer"])),
             D("project", tacero.ProjectNodeOptions(
-                [f("c_segment") + 1], ["x"]))]).to_table()
+                [f("c_segment") + 1], ["x"]))]).to_table().to_pydict()

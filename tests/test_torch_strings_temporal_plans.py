@@ -165,7 +165,7 @@ def test_product_of_brand_container_and_sep_matches_jax(phase):
 def test_temporal_plan_matches_jax(phase):
     tables, _ = phase
     li = tables["lineitem"]
-    got = chip_smoke.temporal_plan(li).to_table()
+    got = chip_smoke.temporal_plan(li).to_table().to_pydict()
     want = chip_smoke.temporal_plan(_to_reference(li), jacero).to_table() \
         .to_pydict()
     assert len(got["l_year"]) > 100
@@ -176,7 +176,7 @@ def test_temporal_plan_matches_jax(phase):
 def test_strings_plan_matches_jax(phase, key):
     tables, h = phase
     li = tables["lineitem"]
-    got = chip_smoke.strings_plan(li, h["strings"], key).to_table()
+    got = chip_smoke.strings_plan(li, h["strings"], key).to_table().to_pydict()
     ref = {"lineitem": _to_reference(li),
            "part": _to_reference(h["strings"]["part"])}
     want = chip_smoke.strings_plan(ref["lineitem"], ref, key, jacero) \
@@ -186,7 +186,7 @@ def test_strings_plan_matches_jax(phase, key):
     assert sorted(g) == sorted(w) and len(g) > 3
     for k, v in w.items():
         assert g[k] == pytest.approx(v, rel=1e-9, abs=0)
-    again = chip_smoke.strings_plan(li, h["strings"], key).to_table()
+    again = chip_smoke.strings_plan(li, h["strings"], key).to_table().to_pydict()
     assert np.array_equal(np.array(again["revenue"]).view(np.int64),
                           np.array(got["revenue"]).view(np.int64))
 
@@ -204,7 +204,7 @@ def test_pool_and_host_tiers_and_q22_on_the_pool(phase, monkeypatch):
     q22 = next(q for q in chip_smoke.FULL if q.name == "Q22")
     monkeypatch.setattr(device_strings, "DEVICE_STRINGS_MIN", 1_000)
     device_strings.clear_pools()
-    got = chip_smoke.suite_plan(q22, tables, _Q22_CODES).to_table()
+    got = chip_smoke.suite_plan(q22, tables, _Q22_CODES).to_table().to_pydict()
     phone = tables["customer"].column("c_phone").dictionary
     assert device_strings.is_pooled(phone, torch.device("cpu"))
     c = {"customer": chip_smoke._host_columns(

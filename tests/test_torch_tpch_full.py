@@ -110,7 +110,7 @@ def test_query_matches_jax(query, tables):
     want = getattr(jax_queries, query)(*(jt[k] for k in names), **kw) \
         .to_table().to_pydict()
     got = getattr(tpch_queries, query)(*(tt[k] for k in names),
-                                       **kw).to_table()
+                                       **kw).to_table().to_pydict()
     assert_tables_match(got, want)
     assert len(next(iter(got.values()))) > 0
     assert all(v is not None for col in got.values() for v in col)
@@ -146,7 +146,7 @@ def test_chip_smoke_oracle_matches_port(query, smoke_tables):
     kw.update(_SMALL_SF_PARAMS.get(query.name, {}))
     want, n_rows = query.oracle(t, cols, **kw)
     assert n_rows > 0
-    got = chip_smoke.suite_plan(query, t, kw).to_table()
+    got = chip_smoke.suite_plan(query, t, kw).to_table().to_pydict()
     assert len(next(iter(got.values()))) > 0
     chip_smoke.check_result(query.name, got, want)
 
@@ -169,7 +169,7 @@ def test_shared_declaration_runs_once(tables, monkeypatch):
     monkeypatch.setattr(texec, "_execute_hashjoin", counted)
     names, params = QUERIES["q2_plan"]
     got = tpch_queries.q2_plan(*(tt[k] for k in names), **params(tt))
-    assert len(got.to_table()["p_partkey"]) > 0
+    assert len(got.to_table().to_pydict()["p_partkey"]) > 0
     assert len(calls) == 5
     parents = Counter()
 

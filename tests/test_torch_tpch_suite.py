@@ -69,7 +69,7 @@ def test_query_matches_jax(query, sf):
     names = QUERIES[query]
     want = getattr(jax_queries, query)(*(jt[k] for k in names)) \
         .to_table().to_pydict()
-    got = getattr(tpch_queries, query)(*(tt[k] for k in names)).to_table()
+    got = getattr(tpch_queries, query)(*(tt[k] for k in names)).to_table().to_pydict()
     assert_tables_match(got, want)
     rows = len(next(iter(got.values())))
     assert rows > 0 and all(v is not None for col in got.values()
@@ -86,7 +86,7 @@ def test_q14_empty_window_is_null():
     after = tpch_queries.DATE_1995_09_01 + 20 * 365
     want = jax_queries.q14_plan(jt["lineitem"], jt["part"], after) \
         .to_table().to_pydict()
-    got = tpch_queries.q14_plan(tt["lineitem"], tt["part"], after).to_table()
+    got = tpch_queries.q14_plan(tt["lineitem"], tt["part"], after).to_table().to_pydict()
     assert got == {"promo_revenue": [None]}
     assert_tables_match(got, want)
 
@@ -98,7 +98,7 @@ def test_q9_year_is_date32():
     col = out.column("o_year")
     assert col.type.id == TypeId.DATE32 and col.dictionary is None
     years = tacero.Declaration("table_source", tacero.TableSourceNodeOptions(
-        out)).to_table()["o_year"]
+        out)).to_table().to_pydict()["o_year"]
     assert all(isinstance(y, datetime.date) for y in years)
     assert {y.toordinal() - datetime.date(1970, 1, 1).toordinal()
             for y in years} <= set(range(22, 29))
@@ -147,7 +147,7 @@ def test_two_key_join_matches_jax(jt, bloom):
     tb = carry_across(upload_table(build))
     assert tp.capacity >= 4 * tb.capacity  # the bloom engages when asked
     want = plan(jacero, probe, build).to_table().to_pydict()
-    got = plan(tacero, tp, tb).to_table()
+    got = plan(tacero, tp, tb).to_table().to_pydict()
     assert_tables_match(got, want)
     assert 0 < len(got["a"]) < probe.num_rows or jt == "left outer"
 
@@ -188,7 +188,7 @@ def test_join_whose_build_side_is_a_join():
         .to_table().to_pydict()
     got = plan(tacero, carry_across(upload_table(facts)),
                tpch.nation_table(device="cpu"),
-               tpch.region_table(device="cpu")).to_table()
+               tpch.region_table(device="cpu")).to_table().to_pydict()
     assert got["n_name"] == ["FRANCE", "GERMANY", "ROMANIA", "RUSSIA",
                              "UNITED KINGDOM"]
     assert_tables_match(got, want)
@@ -210,4 +210,4 @@ def test_chip_smoke_oracle_matches_port(query, smoke_tables):
     want, n_rows = query.oracle(tables, cols)
     assert n_rows > 0
     chip_smoke.check_result(
-        query.name, chip_smoke.suite_plan(query, tables).to_table(), want)
+        query.name, chip_smoke.suite_plan(query, tables).to_table().to_pydict(), want)

@@ -38,7 +38,7 @@ def test_uint64_sorts_unsigned():
     def plan(mod, t):
         return mod.Declaration("order_by", mod.OrderByNodeOptions(
             [("k", "ascending")]), inputs=[_src(mod, t)])
-    got = plan(tacero, port).to_table()["k"]
+    got = plan(tacero, port).to_table().to_pydict()["k"]
     want = plan(jacero, ref).to_table().to_pydict()["k"]
     assert got == want
     live = [v for v in got if v is not None]
@@ -69,7 +69,7 @@ def test_uint64_to_int64_join_takes_the_grouper_path():
         return mod.Declaration("hashjoin", mod.HashJoinNodeOptions(
             "inner", left_keys=["pk"], right_keys=["bk"]),
             inputs=[_src(mod, p), _src(mod, b)])
-    got = plan(tacero, probe, build).to_table()
+    got = plan(tacero, probe, build).to_table().to_pydict()
     want = plan(jacero, rprobe, rbuild).to_table().to_pydict()
     assert got == want
     assert -1 in got["pk"] and 2 ** 64 - 1 in got["bk"]

@@ -88,7 +88,7 @@ def _same(got, want):
 
 def _run(make, *tables):
     want = make(jacero, *[t[1] for t in tables]).to_table().to_pydict()
-    got = make(tacero, *[t[0] for t in tables]).to_table()
+    got = make(tacero, *[t[0] for t in tables]).to_table().to_pydict()
     return got, want
 
 

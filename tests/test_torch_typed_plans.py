@@ -126,7 +126,7 @@ def _same(got, want):
                          ids=lambda p: p.name)
 def test_typed_plan_matches_reference_and_oracle(typed, path):
     _, _, t = typed
-    got = path.build(t).to_table()
+    got = path.build(t).to_table().to_pydict()
     assert len(next(iter(got.values()))) > 0
     ref = {k: _to_reference(b) for k, b in t.items()}
     want = path.build(ref, jacero).to_table().to_pydict()
@@ -149,7 +149,7 @@ def test_typed_q1_types(typed):
         "sum_disc_price": "decimal128(38, 4)",
         "avg_disc": "decimal128(12, 2)", "sum_tax": "float64",
         "avg_qty": "float64", "count_order": "int64"}
-    result = chip_smoke.typed_q1(t).to_table()
+    result = chip_smoke.typed_q1(t).to_table().to_pydict()
     assert all(isinstance(v, decimal.Decimal)
                for v in result["sum_disc_price"])
 
@@ -160,7 +160,7 @@ def test_typed_q1_types(typed):
 def test_typed_oracle_rejects_a_wrong_result(typed, path, column):
     """Each oracle's check fails on a result off by one in one row."""
     _, _, t = typed
-    got = path.build(t).to_table()
+    got = path.build(t).to_table().to_pydict()
     bad = dict(got)
     bad[column] = [got[column][0] + 1] + list(got[column][1:])
     with pytest.raises(AssertionError):

@@ -309,8 +309,12 @@ def test_round_trip_decimal_and_temporal_host_values():
 @pytest.mark.parametrize("spec", ["decimal128(20, 2)", "decimal256(40, 0)",
                                   "fixed_size_binary[4]", "binary"])
 def test_refused_types_name_the_host_boundary(spec):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t = PT.type_for_name(spec)
+    """These types ride the device as codes over a host dictionary: they
+    are named now, and ``batch_from_numpy`` (plain numpy values) refuses
+    them, pointing to the host boundary's ``upload_column``."""
+    t = PT.type_for_name(spec)
+    assert repr(t) == spec
+    with pytest.raises(ValueError, match="host boundary"):
         batch_from_numpy([("c", t, [decimal.Decimal(1)], None, None)], 1,
                          device="cpu")
 

@@ -184,7 +184,7 @@ def _plan_runs(mesh, make_plan):
     def once():
         plan = make_plan()
         dist_exec.reset_exchange_counts()
-        out = plan.to_table(mesh=mesh)
+        out = plan.to_table(mesh=mesh).to_pydict()
         counts.setdefault("c", dict(dist_exec.EXCHANGE_COUNTS))
         return out
 
@@ -206,6 +206,16 @@ def tpch_case(mesh, query, sf, kwargs=None):
     tables, made on each rank (``_plan_runs``)."""
     from arrow_tpu_torch.io import tpch, tpch_queries
     t = tpch.generate(sf, device="cpu")
+    fn, names = TPCH[query]
+    return _plan_runs(mesh, lambda: getattr(tpch_queries, fn)(
+        *(t[n] for n in names), **(kwargs or {})))
+
+
+def tpch_host_case(mesh, query, sf, kwargs=None):
+    """``tpch_case`` over host Tables (``io.tpch.generate_host``): each
+    rank uploads them whole to its device and runs the plan."""
+    from arrow_tpu_torch.io import tpch, tpch_queries
+    t = tpch.generate_host(sf)
     fn, names = TPCH[query]
     return _plan_runs(mesh, lambda: getattr(tpch_queries, fn)(
         *(t[n] for n in names), **(kwargs or {})))
