@@ -3,7 +3,9 @@
 rank of a ``parallel.Mesh``, each rank on its share of the rows.
 
 * A table source is whole (each rank takes its contiguous range of
-  ``ceil(n / W)`` rows) or a ``ShardBatch`` (this rank's rows already).
+  ``ceil(n / W)`` rows) or a ``ShardBatch`` (this rank's rows already). A
+  host Table source becomes a ShardBatch of that range, and each rank
+  uploads only its rows (``split_host_sources``).
 * The scan -> filter -> project -> aggregate spine runs on each rank's
   partition into a ``_ChunkedGroupBy`` state (the chunked engine's
   consume / merge / finalize); the states are all-gathered and merged in
@@ -121,6 +123,46 @@ def maybe_execute_distributed(decl: Declaration, mesh: Optional[Mesh] = None
     _count("chunked_fallback")
     return execute_chunked_aggregate(_whole_sources(decl, mesh), part_rows,
                                      mesh.device)
+
+
+def split_host_sources(decl: Declaration, mesh: Mesh) -> Declaration:
+    """``decl`` with every host Table source as this rank's ShardBatch:
+    its ``shard_rows`` range uploaded to the mesh's device, as the
+    reference stages only each device's own rows. A string column is coded
+    once over the whole column (``source_cache.prepared_column``: every
+    rank computes the same codes in order of first appearance and
+    uploads only its range of them), so the ranks' parts share one
+    dictionary; codes made a slice apart would differ from rank to rank.
+    Other sources go to the device as ``to_table`` puts them."""
+    from ..io.tpch_device import shard_rows
+    from .exec import _SOURCES, _source_on
+    memo: Dict[int, Declaration] = {}
+
+    def walk(d: Declaration) -> Declaration:
+        if id(d) in memo:
+            return memo[id(d)]
+        if d.factory_name in _SOURCES + ("record_batch_reader_source",):
+            o = d.options
+            if not isinstance(o, TableSourceNodeOptions):
+                o = o.source()
+            if o.is_host:
+                n = o.num_rows
+                rows = shard_rows(n, mesh.rank, mesh.size)
+                b = o.upload(mesh.device, rows)
+                out = Declaration("table_source", TableSourceNodeOptions(
+                    ShardBatch(b.schema, b.columns, b.row_count, rows[0],
+                               n)))
+            else:
+                o = _source_on(o, mesh.device, hosts_only=True)
+                out = d if o is None else Declaration("table_source", o)
+        else:
+            ins = [walk(i) for i in d.inputs]
+            out = d if all(a is b for a, b in zip(ins, d.inputs)) \
+                else Declaration(d.factory_name, d.options, ins)
+        memo[id(d)] = out
+        return out
+
+    return walk(decl)
 
 
 # --- local runs --------------------------------------------------------------

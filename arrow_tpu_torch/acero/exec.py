@@ -1058,7 +1058,9 @@ class Declaration:
 
         * ``query_options`` (``QueryOptions``): the run gets a
           ``QueryContext`` (byte budget, node metrics), left on the root
-          as ``last_query_context``;
+          as ``last_query_context`` and, where ``ARROW_TPU_OTEL_EXPORT``
+          names a file or URL, exported there as OTLP/JSON spans
+          (``utils/otel.py``);
         * a plan with a hash join runs pruned (``_plan``), a host source
           narrowed to the columns the plan reads before it is uploaded;
         * an aggregate root with a host-tier function (``list``,
@@ -1095,6 +1097,9 @@ class Declaration:
                 out = self.to_table(chunk_rows=chunk_rows, device=device,
                                     distributed=distributed, mesh=mesh)
             self.last_query_context = qc
+            if os.environ.get("ARROW_TPU_OTEL_EXPORT"):
+                from ..utils.otel import export_query
+                export_query(qc, plan_name=self.factory_name)
             return out
         from . import chunked
         last_plan_metrics.reset()
@@ -1103,7 +1108,7 @@ class Declaration:
             from ..parallel.distributed import make_mesh
             if mesh is None:
                 mesh = make_mesh(device=device)
-            plan = _host_sources_on(self, mesh.device)
+            plan = dist_exec.split_host_sources(self._plan(), mesh)
             return download_table(dist_exec.whole(mesh,
                                                   dist_exec.run(plan, mesh)))
         from ..parallel.distributed import ShardBatch
@@ -1194,7 +1199,7 @@ def execute_distributed(decl: Declaration, mesh=None) -> DeviceBatch:
         mesh = make_mesh()
     last_plan_metrics.reset()
     return shard_batch(mesh, dist_exec.run(
-        _host_sources_on(decl, mesh.device), mesh))
+        dist_exec.split_host_sources(decl._plan(), mesh), mesh))
 
 
 def _walk(decl: Declaration):
@@ -1269,7 +1274,3 @@ def _sources_on(decl: Declaration, device,
 
     return walk(decl)
 
-
-def _host_sources_on(decl: Declaration, device) -> Declaration:
-    """``decl``'s tree with its host sources uploaded to ``device``."""
-    return _sources_on(decl, device, hosts_only=True)

@@ -50,18 +50,19 @@ class TableSourceNodeOptions:
         return (self.table if self._batch is None
                 else self._batch).schema.names
 
-    def upload(self, device=None) -> DeviceBatch:
+    def upload(self, device=None, rows=None) -> DeviceBatch:
         """The host source as a DeviceBatch on ``device`` (the card by
         default), over its columns' uploads there
-        (``source_cache.uploaded_column``)."""
+        (``source_cache.uploaded_column``): all of its rows, or its rows
+        ``rows`` = (start, stop)."""
         import torch
         from .. import default_device
         dev = default_device(device)
+        n = self.table.num_rows if rows is None else rows[1] - rows[0]
         return DeviceBatch(
             self.table.schema,
-            [uploaded_column(c, dev) for c in self.table.columns],
-            torch.tensor(self.table.num_rows, dtype=torch.int32,
-                         device=dev))
+            [uploaded_column(c, dev, rows) for c in self.table.columns],
+            torch.tensor(n, dtype=torch.int32, device=dev))
 
     def select(self, names: Sequence[str]) -> "TableSourceNodeOptions":
         """A source of ``names`` alone: a host source is narrowed before

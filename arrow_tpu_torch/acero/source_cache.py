@@ -2,8 +2,9 @@
 
 A host column (``ChunkedArray``) that a table source reads gets, at most
 once each: its device representation prepared on the host (``HostColumn``),
-its upload to each device, and its page-locked copy for a chunked run on
-the card. Every source that holds the column, a narrowed one or a repeated
+its upload to each device (or a rank's range of rows to its device, in a
+distributed run), and its page-locked copy for a chunked run on the
+card. Every source that holds the column, a narrowed one or a repeated
 run's, shares these, so its dictionary and its codes stay one object and a
 second run uploads nothing.
 
@@ -34,15 +35,32 @@ def prepared_column(col) -> HostColumn:
     return hc
 
 
-def uploaded_column(col, dev) -> DeviceColumn:
-    """``col`` uploaded to the torch device ``dev`` (padded to
-    ``round_up`` of its length), made once a device."""
+# the rows and padded bytes of the uploads made (``reset_upload_stats``)
+UPLOAD_STATS = {"rows": 0, "bytes": 0}
+
+
+def reset_upload_stats() -> None:
+    for k in UPLOAD_STATS:
+        UPLOAD_STATS[k] = 0
+
+
+def uploaded_column(col, dev, rows=None) -> DeviceColumn:
+    """``col``'s rows ``rows`` = (start, stop) (all of them where None)
+    uploaded to the torch device ``dev``, padded to ``round_up`` of their
+    count, made once a device and range. The values come from the column's
+    one prepared form, so every range of it shares its dictionary and its
+    codes."""
     per_device: Dict[str, DeviceColumn] = _uploads.setdefault(col, {})
-    key = str(dev)
+    start, stop = (0, len(col)) if rows is None else rows
+    key = str(dev) if rows is None else f"{dev}[{start}:{stop}]"
     if key not in per_device:
-        n = len(col)
-        per_device[key] = prepared_column(col).slice_upload(
-            0, n, round_up(n), dev)
+        n = stop - start
+        out = per_device[key] = prepared_column(col).slice_upload(
+            start, n, round_up(n), dev)
+        UPLOAD_STATS["rows"] += n
+        UPLOAD_STATS["bytes"] += out.values.numel() * \
+            out.values.element_size() + (0 if out.validity is None
+                                         else out.validity.numel())
     return per_device[key]
 
 

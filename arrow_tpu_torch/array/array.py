@@ -54,11 +54,21 @@ class Array:
 
     @property
     def values(self) -> "Array":
-        """The flattened child of a list type."""
+        """The flattened child of a list type; a run-end encoded array's
+        values, one a run."""
         if self.type.id in (TypeId.LIST, TypeId.LARGE_LIST,
                             TypeId.FIXED_SIZE_LIST, TypeId.MAP):
             return Array(self.data.children[0])
+        if self.type.id == TypeId.RUN_END_ENCODED:
+            return Array(self.data.children[1])
         raise ValueError(f"{self.type!r} has no values child")
+
+    @property
+    def run_ends(self) -> "Array":
+        """A run-end encoded array's run ends."""
+        if self.type.id != TypeId.RUN_END_ENCODED:
+            raise ValueError("not a run-end encoded array")
+        return Array(self.data.children[0])
 
     def is_valid_mask(self) -> np.ndarray:
         m = self.data.validity_mask()
@@ -252,6 +262,26 @@ def _to_pylist(d: ArrayData) -> List[Any]:
 
     if tid == TypeId.BOOL or t.is_numeric or tid == TypeId.INTERVAL_MONTHS:
         return _with_nulls(np.asarray(d.values()).tolist(), mask)
+
+    if tid == TypeId.INTERVAL_DAY_TIME:
+        pairs = d.buffers[1].view(np.int32).reshape(-1, 2)[
+            d.offset:d.offset + n]
+        return _with_nulls([tuple(p) for p in pairs.tolist()], mask)
+
+    if tid == TypeId.INTERVAL_MONTH_DAY_NANO:
+        raw = d.buffers[1].to_numpy().reshape(-1, 16)[d.offset:d.offset + n]
+        md = np.ascontiguousarray(raw[:, :8]).view(np.int32).tolist()
+        ns = np.ascontiguousarray(raw[:, 8:]).view(np.int64)[:, 0].tolist()
+        return _with_nulls([(m, dd, x) for (m, dd), x in zip(md, ns)],
+                           mask)
+
+    if tid == TypeId.RUN_END_ENCODED:
+        # logical row i is in the first run whose end exceeds it
+        ends = np.asarray(d.children[0].values(), np.int64)
+        run = np.searchsorted(ends, np.arange(d.offset, d.offset + n),
+                              side="right")
+        vals = _to_pylist(d.children[1])
+        return [vals[r] for r in run.tolist()]
 
     if t.is_temporal:
         conv = _temporal(t)

@@ -168,6 +168,24 @@ def array_data_from_sequence(values: Sequence[Any],
         dt = type.to_numpy_dtype()
         data = np.array([v if v is not None else 0 for v in values], dtype=dt)
         return ArrayData(type, n, [_make_validity(mask), Buffer(data)])
+    if tid == TypeId.INTERVAL_DAY_TIME:
+        # (days, milliseconds) int32 pairs
+        data = np.zeros((n, 2), dtype=np.int32)
+        for i, v in enumerate(values):
+            if v is not None:
+                data[i] = (v.days, v.milliseconds) if hasattr(v, "days") \
+                    else (v[0], v[1])
+        return ArrayData(type, n, [_make_validity(mask),
+                                   Buffer(data.reshape(-1))])
+    if tid == TypeId.INTERVAL_MONTH_DAY_NANO:
+        # (months int32, days int32, nanoseconds int64) records
+        rec = np.zeros(n, dtype=[("m", "<i4"), ("d", "<i4"), ("ns", "<i8")])
+        for i, v in enumerate(values):
+            if v is not None:
+                rec[i] = (v.months, v.days, v.nanoseconds) \
+                    if hasattr(v, "months") else (v[0], v[1], v[2])
+        return ArrayData(type, n, [_make_validity(mask),
+                                   Buffer(rec.view(np.uint8))])
     if type.is_temporal or tid == TypeId.INTERVAL_MONTHS:
         data = np.array([_temporal_to_int(v, type) if v is not None else 0
                          for v in values], dtype=type.to_numpy_dtype())

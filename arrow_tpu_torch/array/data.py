@@ -15,6 +15,12 @@ the reference's do:
   FIXED_SIZE_LIST         [validity_bitmap] + child
   STRUCT                  [validity_bitmap] + children
   DICTIONARY              [validity_bitmap, indices_data] (+ .dictionary)
+  INTERVAL_DAY_TIME       [validity_bitmap, (days i32, ms i32) pairs]
+  INTERVAL_MONTH_DAY_NANO [validity_bitmap, (months i32, days i32, ns i64)]
+  RUN_END_ENCODED         [] + children [run_ends, values]
+
+An ArrayData can be held weakly (``compute/device_nested.py`` keeps a list
+column's device form by it).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ _FIXED_BYTES = (TypeId.FIXED_SIZE_BINARY, TypeId.DECIMAL128,
 
 class ArrayData:
     __slots__ = ("type", "length", "_null_count", "offset", "buffers",
-                 "children", "dictionary")
+                 "children", "dictionary", "__weakref__")
 
     def __init__(self, type: DataType, length: int,
                  buffers: Sequence[Optional[Buffer]],
@@ -56,7 +62,8 @@ class ArrayData:
         if self._null_count == UNKNOWN_NULL_COUNT:
             if self.type.id == TypeId.NA:
                 self._null_count = self.length
-            elif self.buffers and self.buffers[0] is not None:
+            elif self.buffers and self.buffers[0] is not None \
+                    and self.type.id != TypeId.RUN_END_ENCODED:
                 valid = bitutil.count_set_bits(
                     self.buffers[0].to_numpy(), self.length, self.offset)
                 self._null_count = self.length - valid
@@ -68,7 +75,8 @@ class ArrayData:
         """bool[length] (True = valid), or None when every row is valid."""
         if self.type.id == TypeId.NA:
             return np.zeros(self.length, dtype=np.bool_)
-        if not self.buffers or self.buffers[0] is None:
+        if not self.buffers or self.buffers[0] is None \
+                or self.type.id == TypeId.RUN_END_ENCODED:
             return None
         return bitutil.unpack_bits(self.buffers[0].to_numpy(),
                                    self.length, self.offset)

@@ -7,8 +7,12 @@ runs the port's device function on ``device`` (the card unless
 ``device="cpu"`` is given) and gives a host ``Array`` or ``Scalar``
 (``registry.call_function``). Besides the explicit wrappers below, every
 registered name is a wrapper of its own (``__getattr__``): ``compute.add(a,
-b, device="cpu")``; ``and_``/``or_`` for the keywords. The UDF
-registrations are not ported (ROADMAP.md, item 11)."""
+b, device="cpu")``; ``and_``/``or_`` for the keywords.
+
+User-defined functions (reference: ``register_scalar_function`` and the
+rest, python/pyarrow/_compute.pyx): a UDF is a Python function of a
+``UdfContext`` and host Arrays, registered as a host-tier function; its
+body may call this module's functions, which run on the card."""
 
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ __all__ = [
     "filter", "take", "drop_null", "sort_indices", "array_sort_indices",
     "select_k_unstable", "rank", "unique", "value_counts",
     "dictionary_encode", "partition_nth_indices", "top_k_unstable",
-    "bottom_k_unstable",
+    "bottom_k_unstable", "UdfContext", "register_scalar_function",
+    "register_aggregate_function", "register_vector_function",
+    "register_tabular_function", "call_tabular_function",
 ]
 
 
@@ -190,6 +196,87 @@ def bottom_k_unstable(values, k, sort_keys=None, device=None):
         else [(n, "ascending") for n in sort_keys]
     return call_function("select_k_unstable", [_combine(values)],
                          {"k": k, "sort_keys": keys}, device=device)
+
+
+class UdfContext:
+    """The first argument of a UDF (pyarrow.compute.UdfContext): the
+    default memory pool and the length of the call's batch."""
+
+    def __init__(self, batch_length: int = 0):
+        from ..memory import default_memory_pool
+        self.memory_pool = default_memory_pool()
+        self.batch_length = batch_length
+
+
+def _udf_doc(function_doc) -> str:
+    return function_doc.get("summary", "") if isinstance(function_doc, dict) \
+        else str(function_doc)
+
+
+def _register_udf(function_name, impl):
+    from .registry import _REGISTRY, Function
+    _REGISTRY[function_name] = Function(function_name, "host", impl)
+    globals()[function_name] = _make_wrapper(function_name)
+
+
+def register_scalar_function(func, function_name, function_doc, in_types,
+                             out_type):
+    """A scalar UDF: ``func(ctx, *arrays)`` gives an Array (or values made
+    one of ``out_type``); called through ``call_function`` and as
+    ``compute.<function_name>`` on host Arrays."""
+    from ..array.array import Array, array as make_array
+    from ..table import ChunkedArray
+
+    def impl(*args, **options):
+        args = [_combine(a) for a in args]
+        out = func(UdfContext(len(args[0]) if args and hasattr(
+            args[0], "__len__") else 0), *args)
+        if not isinstance(out, (Array, ChunkedArray)) and \
+                out_type is not None and not hasattr(out, "type"):
+            out = make_array(out, out_type)
+        return out
+    impl.__doc__ = _udf_doc(function_doc)
+    _register_udf(function_name, impl)
+
+
+def register_aggregate_function(func, function_name, function_doc,
+                                in_types, out_type):
+    """An aggregate UDF: ``func(ctx, *arrays)`` gives one value, returned
+    as a ``Scalar`` of ``out_type``."""
+    def impl(*args, **options):
+        args = [_combine(a) for a in args]
+        out = func(UdfContext(len(args[0]) if args else 0), *args)
+        return out if isinstance(out, Scalar) else Scalar(out, out_type)
+    impl.__doc__ = _udf_doc(function_doc)
+    _register_udf(function_name, impl)
+
+
+def register_vector_function(func, function_name, function_doc, in_types,
+                             out_type):
+    """A vector UDF (whole arrays in, an array out)."""
+    register_scalar_function(func, function_name, function_doc, in_types,
+                             out_type)
+
+
+_TABULAR_FUNCS: dict = {}
+
+
+def register_tabular_function(func, function_name, function_doc, in_types,
+                              out_type):
+    """A UDF that makes a table: ``func(ctx, *args)`` gives a Table or a
+    RecordBatchReader."""
+    _TABULAR_FUNCS[function_name] = func
+
+
+def call_tabular_function(function_name, args=None, func_registry=None):
+    """The registered tabular UDF's output as a RecordBatchReader (a Table
+    it gives is read batch by batch)."""
+    from ..table import Table
+    fn = _TABULAR_FUNCS.get(function_name)
+    if fn is None:
+        raise KeyError(f"no tabular function {function_name!r}")
+    out = fn(UdfContext(), *(args or ()))
+    return out.to_reader() if isinstance(out, Table) else out
 
 
 def _make_wrapper(name: str):

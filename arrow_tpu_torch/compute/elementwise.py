@@ -1042,17 +1042,17 @@ def cast(ctx, a, to_type=None, target_type=None, safe: bool = True):
     if t.id in (TypeId.STRING, TypeId.DICTIONARY):
         if a.dictionary is not None:
             return a
-        raise NotImplementedError(
-            f"cast from {a.type!r} to {t!r}: formatting values as strings "
-            "is not ported yet (ROADMAP.md, queue 1, item 11: the host "
-            "boundary)")
+        # the reference's plan gives codes with no dictionary, which its
+        # download refuses with this message; an eager cast of a host
+        # Array formats on the host (registry._cast_to_string_host)
+        raise ValueError("string column missing dictionary")
     if a.dictionary is not None:
         return _cast_strings(ctx, a, t, safe)
     if t.is_decimal and t.precision > 18:
-        raise NotImplementedError(
-            f"cast to {t!r}: decimals wider than 18 digits are dictionary "
-            "codes on the reference's device; not ported yet "
-            + T.HOST_BOUNDARY)
+        raise ValueError(
+            f"cast to {t!r} in a plan: a decimal wider than 18 digits is "
+            "codes over a dictionary on the device; cast the host Array "
+            "(compute.cast, decimal_host)")
     if a.type.is_temporal and t.is_temporal:
         return _col(temporal_rescale(a.values, a.type, t), a.validity, t,
                     name=dtypes.dtype_of_type(t))

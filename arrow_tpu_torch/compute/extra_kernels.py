@@ -12,12 +12,18 @@ reference's ``ascii_*`` aliases of the trims and of center. Its grouped
 aggregates (``hash_first_last``, ``hash_skew``, ``hash_kurtosis``,
 ``hash_approximate_median``, ``hash_tdigest``) are in ``hash_agg.py``.
 
-Its host-tier functions (``iso_calendar``, ``extract_regex``, the
-interval ``*_between``, ...) are ROADMAP.md queue 1 item 11.
+Its host-tier functions run on host Arrays, a row at a time in Python, as
+the reference's do: ``day_time_interval_between``,
+``month_day_nano_interval_between``, ``iso_calendar``, ``year_month_day``,
+``extract_regex``, ``extract_regex_span``, ``split_pattern_regex``,
+``list_slice``, ``dictionary_decode`` and the scalar ``pivot_wider``, with
+the ``ascii_split_whitespace`` alias of ``host_kernels``'
+``utf8_split_whitespace``.
 """
 
 from __future__ import annotations
 
+import datetime
 import re
 import unicodedata
 from typing import Optional
@@ -33,7 +39,9 @@ from . import elementwise as E
 from . import vector_misc  # noqa: F401 - registers is_in and index_in
 from .aggregate import _dec_factor, scalar_quantile
 from .move import compact_by_mask
-from .registry import register, register_alias
+from . import host_kernels  # noqa: F401 - registers utf8_split_whitespace
+from ..array.array import Array, array as make_array
+from .registry import ArrowInvalid, register, register_alias, register_host
 from .selection import Compacted
 from .strings import (_alias, _str_to_bool, _string, host_table,
                       require_string, slot_lookup, transform)
@@ -432,3 +440,180 @@ def find_substring_regex(ctx, col, pattern: str = "",
                          ignore_case: bool = False):
     return _regex_lookup("find_substring_regex", col, pattern, ignore_case,
                          _regex_find, -1)
+
+
+# --- the host tier -------------------------------------------------------------
+
+def _as_datetime(v):
+    if isinstance(v, datetime.date) and not isinstance(v, datetime.datetime):
+        return datetime.datetime(v.year, v.month, v.day)
+    return v
+
+
+@register_host("day_time_interval_between")
+def day_time_interval_between(a: Array, b: Array) -> Array:
+    out = []
+    for x, y in zip(a.to_pylist(), b.to_pylist()):
+        if x is None or y is None:
+            out.append(None)
+            continue
+        delta = _as_datetime(y) - _as_datetime(x)
+        out.append((delta.days,
+                    delta.seconds * 1000 + delta.microseconds // 1000))
+    return make_array(out, T.day_time_interval())
+
+
+@register_host("month_day_nano_interval_between")
+def month_day_nano_interval_between(a: Array, b: Array) -> Array:
+    out = []
+    midnight = datetime.time()
+    for x, y in zip(a.to_pylist(), b.to_pylist()):
+        if x is None or y is None:
+            out.append(None)
+            continue
+        dx = x.date() if isinstance(x, datetime.datetime) else x
+        dy = y.date() if isinstance(y, datetime.datetime) else y
+        tx = x.time() if isinstance(x, datetime.datetime) else midnight
+        ty = y.time() if isinstance(y, datetime.datetime) else midnight
+        nanos = ((ty.hour - tx.hour) * 3600 + (ty.minute - tx.minute) * 60
+                 + (ty.second - tx.second)) * 10**9 \
+            + (ty.microsecond - tx.microsecond) * 1000
+        out.append(((dy.year - dx.year) * 12 + (dy.month - dx.month),
+                    dy.day - dx.day, nanos))
+    return make_array(out, T.month_day_nano_interval())
+
+
+@register_host("iso_calendar")
+def iso_calendar(arr: Array) -> Array:
+    out = []
+    for v in arr.to_pylist():
+        if v is None:
+            out.append(None)
+        else:
+            iso = v.isocalendar()
+            out.append({"iso_year": iso[0], "iso_week": iso[1],
+                        "iso_day_of_week": iso[2]})
+    return make_array(out, T.struct([("iso_year", T.int64()),
+                                     ("iso_week", T.int64()),
+                                     ("iso_day_of_week", T.int64())]))
+
+
+@register_host("year_month_day")
+def year_month_day(arr: Array) -> Array:
+    return make_array([None if v is None else
+                       {"year": v.year, "month": v.month, "day": v.day}
+                       for v in arr.to_pylist()],
+                      T.struct([("year", T.int64()), ("month", T.int64()),
+                                ("day", T.int64())]))
+
+
+register_alias("ascii_split_whitespace", "utf8_split_whitespace")
+
+
+def _group_names(name, pattern):
+    rx = re.compile(pattern)
+    names = list(rx.groupindex)
+    if not names:
+        raise ArrowInvalid(f"{name} needs named capture groups")
+    return rx, names
+
+
+def _matches(rx, arr: Array):
+    return [rx.search(v) if v is not None else None
+            for v in arr.to_pylist()]
+
+
+def _struct_of(children, fields, matched) -> Array:
+    """A struct Array of its children's ArrayData, null where no row
+    matched (a null row's fields null too)."""
+    from ..array.data import ArrayData
+    from ..buffer import Buffer
+    from ..utils import bits
+    ok = np.fromiter((m is not None for m in matched), np.bool_,
+                     len(matched))
+    nulls = int(len(ok) - ok.sum())
+    return Array(ArrayData(T.struct(fields), len(ok), [
+        Buffer(bits.pack_bits(ok)) if nulls else None], children,
+        null_count=nulls))
+
+
+@register_host("extract_regex")
+def extract_regex(arr: Array, pattern: str = "") -> Array:
+    """Each named group of the first match, null where none matches
+    (built a field at a time)."""
+    rx, names = _group_names("extract_regex", pattern)
+    matched = _matches(rx, arr)
+    return _struct_of([make_array([m.group(n) if m else None
+                                   for m in matched], T.string()).data
+                       for n in names],
+                      [(n, T.string()) for n in names], matched)
+
+
+@register_host("extract_regex_span")
+def extract_regex_span(arr: Array, pattern: str = "") -> Array:
+    """Each named group's [start, length] in the first match, null where
+    none matches."""
+    from ..array.data import ArrayData
+    from ..buffer import Buffer
+    from ..utils import bits
+    rx, names = _group_names("extract_regex_span", pattern)
+    matched = _matches(rx, arr)
+    t = T.fixed_size_list(T.int32(), 2)
+    ok = np.fromiter((m is not None for m in matched), np.bool_,
+                     len(matched))
+    validity = None if ok.all() else Buffer(bits.pack_bits(ok))
+    kids = []
+    for n in names:
+        flat = []
+        for m in matched:
+            flat.extend((m.start(n), m.end(n) - m.start(n)) if m
+                        else (None, None))
+        kids.append(ArrayData(t, len(matched), [validity], [
+            make_array(flat, T.int32()).data]))
+    return _struct_of(kids, [(n, t) for n in names], matched)
+
+
+@register_host("split_pattern_regex")
+def split_pattern_regex(arr: Array, pattern: str = "",
+                        max_splits: Optional[int] = None,
+                        reverse: bool = False) -> Array:
+    from .host_kernels import _build_string_list
+    rx = re.compile(pattern)
+    k = 0 if max_splits is None else max_splits
+    vals = arr.to_pylist()
+    return _build_string_list([None if v is None else rx.split(v, maxsplit=k)
+                               for v in vals], len(vals))
+
+
+@register_host("list_slice")
+def list_slice(arr: Array, start: int = 0, stop: Optional[int] = None,
+               step: int = 1, return_fixed_size_list=None) -> Array:
+    return make_array([None if v is None else v[slice(start, stop, step)]
+                       for v in arr.to_pylist()], arr.type)
+
+
+@register_host("dictionary_decode")
+def dictionary_decode(arr: Array) -> Array:
+    if arr.type.id != TypeId.DICTIONARY:
+        return arr
+    return make_array(arr.to_pylist(), arr.type.value_type)
+
+
+@register_host("pivot_wider")
+def pivot_wider(keys: Array, values: Array, key_names=None,
+                unexpected_key_behavior: str = "ignore") -> Array:
+    """(key, value) rows as one struct row (aggregate_pivot.cc)."""
+    names = list(key_names) if key_names is not None else \
+        sorted({k for k in keys.to_pylist() if k is not None})
+    row = {n: None for n in names}
+    for k, v in zip(keys.to_pylist(), values.to_pylist()):
+        if k is None:
+            continue
+        if k not in row:
+            if unexpected_key_behavior == "raise":
+                raise ArrowInvalid(f"unexpected pivot key {k!r}")
+            continue
+        if row[k] is not None:
+            raise ArrowInvalid(f"duplicate pivot key {k!r}")
+        row[k] = v
+    return make_array([row], T.struct([(n, values.type) for n in names]))

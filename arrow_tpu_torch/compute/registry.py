@@ -70,15 +70,17 @@ class Function:
     """kind: 'elementwise', 'aggregate', 'hash_aggregate', 'vector' or
     'host' (runs on host Arrays). ``ctx_arg``: the array argument whose
     row count the call's context takes (``take`` keys off its
-    indices)."""
-    __slots__ = ("name", "kind", "impl", "ctx_arg")
+    indices). ``takes_device``: a host function with a device tier, given
+    the call's ``device``."""
+    __slots__ = ("name", "kind", "impl", "ctx_arg", "takes_device")
 
     def __init__(self, name: str, kind: str, impl: Callable,
-                 ctx_arg: int = 0):
+                 ctx_arg: int = 0, takes_device: bool = False):
         self.name = name
         self.kind = kind
         self.impl = impl
         self.ctx_arg = ctx_arg
+        self.takes_device = takes_device
 
 
 _REGISTRY: Dict[str, Function] = {}
@@ -91,10 +93,13 @@ def register(name: str, kind: str, ctx_arg: int = 0):
     return deco
 
 
-def register_host(name: str):
-    """A host-tier function: runs on host Arrays directly."""
+def register_host(name: str, takes_device: bool = False):
+    """A host-tier function: runs on host Arrays directly. With
+    ``takes_device`` it has a device tier (``device_nested.py``) and is
+    called with the call's ``device``."""
     def deco(fn):
-        _REGISTRY[name] = Function(name, "host", fn)
+        _REGISTRY[name] = Function(name, "host", fn,
+                                   takes_device=takes_device)
         return fn
     return deco
 
@@ -103,25 +108,11 @@ def register_alias(alias: str, name: str):
     _REGISTRY[alias] = _REGISTRY[name]
 
 
-# The names of the reference's registry that are not ported yet: every
-# one is the rest of the host boundary, ROADMAP.md queue 1 item 11 (the 26
-# names the reference registers for its host tier).
-_HOST_TIER = (
-    "ascii_split_whitespace", "binary_join", "day_time_interval_between",
-    "dictionary_decode", "extract_regex", "extract_regex_span",
-    "iso_calendar", "list_element", "list_flatten", "list_parent_indices",
-    "list_slice", "list_value_length", "make_struct", "map_lookup", "mode",
-    "month_day_nano_interval_between", "pivot_wider", "random",
-    "run_end_decode", "split_pattern", "split_pattern_regex", "strftime",
-    "strptime", "struct_field", "utf8_split_whitespace", "year_month_day")
-_QUEUED = frozenset(_HOST_TIER)
-
-
 def _load():
     # the modules that register functions, imported on first lookup
     from . import (aggregate, elementwise, extra_kernels,  # noqa: F401
-                   grouper, hash_agg, hashing, selection, strings,
-                   temporal, vector_misc, vector_sort)
+                   grouper, hash_agg, hashing, host_kernels, selection,
+                   strings, temporal, vector_misc, vector_sort)
 
 
 def _host_only_grouped(name: str):
@@ -155,13 +146,9 @@ def get_function(name: str) -> Function:
         _load()
     f = _REGISTRY.get(name)
     if f is None:
-        if name not in _QUEUED:
-            raise NotImplementedError(
-                f"no compute function {name!r}: the reference registers "
-                "none by that name")
         raise NotImplementedError(
-            f"compute function {name!r} is not ported yet (ROADMAP.md, "
-            "queue 1, item 11: the host boundary)")
+            f"no compute function {name!r}: the reference registers "
+            "none by that name")
     return f
 
 
@@ -204,7 +191,22 @@ def call_function(name: str, args: Sequence, options=None, device=None):
         raise ArrowInvalid(f"{name}: pass DataType arguments via options, "
                            "not positionally")
     fn = get_function(name)
+    # the reference's order (registry.py:279-291): the wide decimals, the
+    # host cast matrix, the cast to a string type
+    from .decimal_host import maybe_wide_decimal_call
+    hit = maybe_wide_decimal_call(name, args, options)
+    if hit is not None:
+        return hit
+    if name == "cast":
+        from .cast_host import try_cast_host
+        hit = try_cast_host(args, options)
+        if hit is None:
+            hit = _cast_to_string_host(args, options)
+        if hit is not None:
+            return hit
     if fn.kind == "host":
+        if fn.takes_device:
+            options["device"] = device
         return fn.impl(*[a.combine() if isinstance(a, ChunkedArray) else a
                          for a in args], **options)
     dev = default_device(device)
@@ -237,7 +239,62 @@ def call_function(name: str, args: Sequence, options=None, device=None):
     ctx_col = cols[min(fn.ctx_arg, len(cols) - 1)]
     ctx = ExecContext(ctx_col.capacity,
                       torch.tensor(n, dtype=torch.int32, device=dev))
-    return materialize(fn.impl(ctx, *prepared, **options), n)
+    out = materialize(fn.impl(ctx, *prepared, **options), n)
+    if name == "run_end_encode":
+        # the reference's RunEndEncodedArray (registry.py:359-367)
+        from .. import types as T
+        from ..array.data import ArrayData
+        ends, values = out["run_ends"], out["values"]
+        length = int(ends.data.values()[-1]) if len(ends) else 0
+        return Array(ArrayData(T.run_end_encoded(ends.type, values.type),
+                               length, [], children=[ends.data, values.data],
+                               null_count=0))
+    return out
+
+
+def _cast_to_string_host(args, options):
+    """A cast of a host Array to a string type, formatted on the host
+    (reference ``registry._cast_to_string_host``, after
+    scalar_cast_string.cc): bool as true/false, floats positional and
+    trimmed, dates ISO, timestamps ``%Y-%m-%d %H:%M:%S`` with the unit's
+    fraction digits, the rest by ``str``. None where the call is not such
+    a cast."""
+    import numpy as np
+    from ..array.array import Array, array as make_array
+    from ..table import ChunkedArray
+    from ..types import TypeId
+    t = (options or {}).get("to_type") or (options or {}).get("target_type")
+    if t is None or t.id not in (TypeId.STRING, TypeId.LARGE_STRING):
+        return None
+    a = args[0]
+    if isinstance(a, ChunkedArray):
+        a = a.combine()
+    if not isinstance(a, Array):
+        return None
+    sid = a.type.id
+    if sid in (TypeId.STRING, TypeId.LARGE_STRING):
+        return a if sid == t.id else make_array(a.to_pylist(), t)
+    digits = {"s": 0, "ms": 3, "us": 6, "ns": 9}.get(
+        getattr(a.type, "unit", "s"), 0)
+
+    def fmt(v):
+        if v is None:
+            return None
+        if isinstance(v, bool) or sid == TypeId.BOOL:
+            return "true" if v else "false"
+        if isinstance(v, float):
+            return np.format_float_positional(v, trim="-")
+        if hasattr(v, "isoformat"):
+            if not hasattr(v, "hour"):
+                return v.isoformat()
+            s = v.strftime("%Y-%m-%d %H:%M:%S")
+            if digits:
+                s += f".{v.microsecond:06d}"[:1 + digits].ljust(
+                    digits + 1, "0")
+            return s
+        return str(v)
+
+    return make_array([fmt(v) for v in a.to_pylist()], t)
 
 
 def materialize(result, n: int):

@@ -11,7 +11,7 @@ as ``jnp.floor_divide`` and ``jnp`` ``%`` do (``torch.fmod`` would not),
 so days before 1970 and negative durations decompose as the reference's.
 Results are int64 (bool for the predicates) under the input's validity,
 the values of null rows computed like any other, as the reference's are.
-``strftime`` formats on the host: ROADMAP.md, queue 1, item 11.
+``strftime`` and ``strptime`` run on the host (``host_kernels.py``).
 """
 
 from __future__ import annotations

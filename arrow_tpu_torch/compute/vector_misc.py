@@ -29,7 +29,7 @@ from .. import types as T
 from ..device.column import DeviceColumn
 from .elementwise import one_dictionary
 from .move import compact_by_mask
-from .registry import register
+from .registry import register, register_host
 from .selection import Compacted
 from .strings import slot_lookup
 from .vector_sort import _scan
@@ -232,3 +232,29 @@ def case_when(ctx, cond_struct, *cases) -> DeviceColumn:
     name = dtypes.promote(kind)
     return DeviceColumn(dtypes.store(out_v.expand(ctx.capacity), name),
                         out_valid, t if t is not None else T.float64())
+
+
+@register_host("mode", takes_device=True)
+def mode(arr, n: int = 1, skip_nulls: bool = True, min_count: int = 0,
+         device=None):
+    """The ``n`` most frequent values as a struct Array of ``mode`` and
+    ``count``, ties broken by the smaller value (aggregate_mode.cc
+    ModeOptions): the counts by ``value_counts`` on ``device``, the top
+    ``n`` on the host."""
+    from ..array.array import array as make_array
+    from . import value_counts
+    pairs, n_valid, has_null = [], 0, False
+    for item in value_counts(arr, device=device).to_pylist():
+        v, c = item["values"], item["counts"]
+        if v is None:
+            has_null = True
+            continue
+        n_valid += c
+        pairs.append((v, c))
+    if n_valid < max(min_count, 1) or (not skip_nulls and has_null):
+        pairs = []
+    else:
+        pairs.sort(key=lambda p: (-p[1], p[0]))
+        pairs = pairs[:max(int(n), 0)]
+    return make_array([{"mode": v, "count": c} for v, c in pairs],
+                      T.struct([("mode", arr.type), ("count", T.int64())]))

@@ -9,7 +9,9 @@ and binaries of both offset widths (as dictionary codes) and dictionaries.
 Decimals wider than 18 digits and fixed-size binary ride as codes over a
 value-sorted dictionary, and lists, large lists, fixed-size lists, structs
 and maps as row ids over the host Array they came from
-(``device.column.host_column_repr``)."""
+(``device.column.host_column_repr``). Day-time and month-day-nano
+intervals and run-end encoded arrays are host types only, as in the
+reference."""
 
 from __future__ import annotations
 
@@ -17,9 +19,6 @@ import enum
 from typing import List, Optional, Sequence
 
 import numpy as np
-
-HOST_BOUNDARY = "(ROADMAP.md, queue 1, item 11: the host boundary)"
-
 
 class TypeId(enum.IntEnum):
     NA = 0
@@ -44,6 +43,7 @@ class TypeId(enum.IntEnum):
     TIME32 = 19
     TIME64 = 20
     INTERVAL_MONTHS = 21
+    INTERVAL_DAY_TIME = 22
     DECIMAL128 = 23
     LIST = 25
     STRUCT = 26
@@ -55,6 +55,8 @@ class TypeId(enum.IntEnum):
     LARGE_STRING = 34
     LARGE_BINARY = 35
     LARGE_LIST = 36
+    INTERVAL_MONTH_DAY_NANO = 37
+    RUN_END_ENCODED = 38
     DECIMAL32 = 43
     DECIMAL64 = 44
 
@@ -87,7 +89,9 @@ _BIT_WIDTHS = {
     TypeId.UINT64: 64, TypeId.HALF_FLOAT: 16, TypeId.FLOAT: 32,
     TypeId.DOUBLE: 64, TypeId.DATE32: 32, TypeId.DATE64: 64,
     TypeId.TIMESTAMP: 64, TypeId.TIME32: 32, TypeId.TIME64: 64,
-    TypeId.DURATION: 64, TypeId.INTERVAL_MONTHS: 32, TypeId.DECIMAL32: 32,
+    TypeId.DURATION: 64, TypeId.INTERVAL_MONTHS: 32,
+    TypeId.INTERVAL_DAY_TIME: 64, TypeId.INTERVAL_MONTH_DAY_NANO: 128,
+    TypeId.DECIMAL32: 32,
     TypeId.DECIMAL64: 64, TypeId.DECIMAL128: 128, TypeId.DECIMAL256: 256,
 }
 
@@ -371,6 +375,30 @@ class FixedSizeListType(DataType):
         return f"fixed_size_list<{self.value_type!r}>[{self.list_size}]"
 
 
+class RunEndEncodedType(DataType):
+    """Run-end encoding: int16/32/64 run ends (one past each run's last
+    logical row) over a child of values, one a run."""
+    __slots__ = ("run_end_type",)
+
+    def __init__(self, run_end_type: DataType, value_type: DataType):
+        if run_end_type.id not in (TypeId.INT16, TypeId.INT32, TypeId.INT64):
+            raise ValueError("run ends must be int16/int32/int64")
+        super().__init__(TypeId.RUN_END_ENCODED, None, value_type)
+        self.run_end_type = run_end_type
+
+    @property
+    def fields(self):
+        return (Field("run_ends", self.run_end_type, nullable=False),
+                Field("values", self.value_type))
+
+    def _key(self):
+        return (self.id, self.run_end_type, self.value_type)
+
+    def __repr__(self):
+        return (f"run_end_encoded<{self.run_end_type!r}, "
+                f"{self.value_type!r}>")
+
+
 _NAMES = {TypeId.NA: "null", TypeId.BOOL: "bool", TypeId.INT8: "int8",
           TypeId.INT16: "int16", TypeId.INT32: "int32", TypeId.INT64: "int64",
           TypeId.UINT8: "uint8", TypeId.UINT16: "uint16",
@@ -380,7 +408,9 @@ _NAMES = {TypeId.NA: "null", TypeId.BOOL: "bool", TypeId.INT8: "int8",
           TypeId.BINARY: "binary", TypeId.LARGE_STRING: "large_string",
           TypeId.LARGE_BINARY: "large_binary",
           TypeId.DATE32: "date32", TypeId.DATE64: "date64",
-          TypeId.INTERVAL_MONTHS: "month_interval"}
+          TypeId.INTERVAL_MONTHS: "month_interval",
+          TypeId.INTERVAL_DAY_TIME: "day_time_interval",
+          TypeId.INTERVAL_MONTH_DAY_NANO: "month_day_nano_interval"}
 
 
 def null() -> DataType:
@@ -465,6 +495,21 @@ def date64() -> DataType:
 
 def month_interval() -> DataType:
     return DataType(TypeId.INTERVAL_MONTHS)
+
+
+def day_time_interval() -> DataType:
+    """(days, milliseconds) pairs of int32."""
+    return DataType(TypeId.INTERVAL_DAY_TIME)
+
+
+def month_day_nano_interval() -> DataType:
+    """(months int32, days int32, nanoseconds int64) records."""
+    return DataType(TypeId.INTERVAL_MONTH_DAY_NANO)
+
+
+def run_end_encoded(run_end_type: DataType,
+                    value_type: DataType) -> RunEndEncodedType:
+    return RunEndEncodedType(run_end_type, value_type)
 
 
 def timestamp(unit: str = "us", tz: Optional[str] = None) -> TimestampType:

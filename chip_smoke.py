@@ -183,14 +183,42 @@ Phases; any failure exits non-zero without the final line:
    ``compute.filter`` (K2), the registered ``hash32`` (K4) and
    ``Table.group_by(...).aggregate`` with a sum (K1) over 60M-row host
    Arrays, each against numpy. Each path's launches are set to 0 just
-   before and read just after.
+   before and read just after. Its host Tables stay for 3m and 3k.
+   Then (3m) the rest of the host boundary (``phase_host_tier``) over
+   phase 3l's Tables: lineitem sorted by l_orderkey once, one list an
+   order (15M, empty ones included, over 60,012,150 children), null
+   where o_orderstatus is 'P', of l_extendedprice and of l_shipmode (the
+   host Table's dictionary column; a plain string child of 60M rows would
+   spend about 40 s coding on the host, so list<string> runs over the
+   first HOST_TIER_PREFIX orders); on the card ``list_value_length``,
+   ``list_parent_indices``, ``list_flatten`` (one compaction each),
+   ``list_element`` 0 and 6, the flatten without nulls (no launch) and
+   of a slice at 1,000,000; ``run_end_encode`` of the sorted keys (one
+   compaction) and ``run_end_decode`` of it and of a slice; ``mode``
+   over 60M; ``strftime``/``strptime`` of 15M order dates, the splits and
+   ``binary_join`` over 2M part names, the regex extractions over 1.5M
+   phones, the per-row names over HOST_TIER_PREFIX rows, ``random`` over
+   60M twice (its bits against a numpy threefry); casts of c_acctbal,
+   c_custkey and order dates to strings and back through the string cast
+   tier; wide decimals (decimal128(38, 2) aggregates, decimal256
+   arithmetic, the 38-digit ceiling); a scalar UDF over the eager
+   compute, an aggregate UDF and a tabular UDF giving Q1; Q1 under
+   ``QueryOptions`` exported as OTLP/JSON to a file and read back; the
+   card's memory and runtime facts. Each against numpy or Python, each
+   path's launches set to 0 just before and read just after.
+   Then 3k (above) runs, with Q1 and Q3 from phase 3l's host Tables split
+   by rank added (the Tables shared with the ranks through shared
+   memory; each rank uploads only its range, held to its share), and
+   the host Tables' uploads released.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
    SF10, where the bloom engages for inner, left semi, right semi and
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
-4. Times after a warm-up: Q1, Q3, Q4, Q13, the suite's and the last
+4. Times after a warm-up: phase 3m's device paths at 60M rows (the
+   five nested names and the run-end encoding, best of 6 and one profile
+   of them all); Q1, Q3, Q4, Q13, the suite's and the last
    eleven plans' rows/s of their largest input and phase 3e's, 3f's, 3g's,
    3i's, 3j's and 3h's walls (best of 5, of 3 for 3j's; one run for 3h's
    two sweeps, which phase 3h ran), a profile of one run of each (device busy time and idle
@@ -5342,6 +5370,51 @@ DIST_COUNTS = {
 }
 
 
+# Q1 and Q3 from host Tables split by rank: each rank uploads its range of
+# phase 3l's host Tables, and the plans run as over ShardBatch sources
+HOST_SPLIT_PATHS = (("Q1 host split", "q1_plan", ("lineitem",)),
+                    ("Q3 host split", "q3_plan",
+                     ("customer", "orders", "lineitem")))
+for _name, _, _ in HOST_SPLIT_PATHS:
+    DIST_COUNTS[_name] = DIST_COUNTS[_name[:2]]
+    DIST_LAUNCHES[_name] = DIST_LAUNCHES[_name[:2]]
+
+
+def share_host_tables(tables):
+    """Host Tables as specs that cross to a spawned rank: every buffer a
+    CPU tensor in shared memory (copied once), the rest as it is."""
+    from arrow_tpu_torch.device.column import host_tensor
+
+    def spec(d):
+        return (d.type, d.length, d._null_count, d.offset,
+                [None if b is None else host_tensor(b.to_numpy()).clone()
+                 .share_memory_() for b in d.buffers],
+                [spec(c) for c in d.children],
+                None if d.dictionary is None else spec(d.dictionary))
+    return {name: (t.schema, [[spec(ch.data) for ch in col.chunks]
+                              for col in t.columns])
+            for name, t in tables.items()}
+
+
+def unshare_host_tables(specs):
+    """``share_host_tables``' specs as host Tables over the shared memory
+    (no copy)."""
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    from arrow_tpu_torch.table import ChunkedArray, Table
+
+    def data(sp):
+        t, n, nulls, off, bufs, kids, dic = sp
+        return ArrayData(t, n, [None if b is None else Buffer(b.numpy())
+                                for b in bufs], [data(k) for k in kids],
+                         nulls, off, None if dic is None else data(dic))
+    return {name: Table(schema, [ChunkedArray([Array(data(c)) for c in col],
+                                              f.type)
+                                 for f, col in zip(schema.fields, cols)])
+            for name, (schema, cols) in specs.items()}
+
+
 def digest(batch, offset=0):
     """Per column, an order-sensitive digest of its live rows: the int64
     sum of splitmix64(value bits ^ splitmix64(global position)), values 0
@@ -5527,6 +5600,21 @@ def _dist_paths(rank, world, pair, shared, sf, device, res):
             device)
         res[name]["received"] = D.LAST_JOIN["probe_rows"]
     del li, probe, skewed
+    if "host" in shared:
+        from arrow_tpu_torch.acero import source_cache
+        from arrow_tpu_torch.io import tpch_queries
+        host = unshare_host_tables(shared["host"])
+        for name, fn, names in HOST_SPLIT_PATHS:
+            source_cache.reset_upload_stats()
+            _rank_path(res, name, lambda fn=fn, names=names: getattr(
+                tpch_queries, fn)(*(host[t] for t in names)).to_table(
+                    mesh=mesh).to_pydict(), device, repeat=True)
+            res[name]["uploads"] = dict(source_cache.UPLOAD_STATS)
+        res["Q1 host split"]["shares"] = {
+            t: (*shard_rows(tbl.num_rows, rank, world), tbl.num_rows)
+            for t, tbl in host.items()}
+        del host
+        source_cache.release()
     if rank < DIST_PAIR:
         pair_mesh = make_mesh(pair, device=device)
         rows = shard_rows(n_li, rank, DIST_PAIR)
@@ -5746,15 +5834,60 @@ def _nccl_check(sf, device):
         dist.destroy_process_group()
 
 
-def phase_dist(tables, sf=SF, device="cuda"):
+def _host_split_expected(host, dev, exp):
+    """The single-rank runs of HOST_SPLIT_PATHS over phase 3l's host
+    Tables into ``exp``, and the bytes a row of each Table's device form
+    (its uploads kept from phase 3l)."""
+    from arrow_tpu_torch.acero import TableSourceNodeOptions
+    from arrow_tpu_torch.io import tpch_queries
+    for name, fn, names in HOST_SPLIT_PATHS:
+        exp[name] = getattr(tpch_queries, fn)(
+            *(host[t] for t in names)).to_table(device=dev).to_pydict()
+    row_bytes = {}
+    for t in ("customer", "orders", "lineitem"):
+        b = TableSourceNodeOptions(host[t]).upload(dev)
+        row_bytes[t] = sum(c.values.element_size()
+                           + (c.validity is not None) for c in b.columns)
+    return row_bytes
+
+
+def _host_split_check(results, row_bytes):
+    """Each rank uploaded only its row share of the host Tables: its rows
+    at most its share of each column, its bytes at most its share of each
+    table's rows padded to the capacity of a block."""
+    from arrow_tpu_torch.device.column import round_up
+    for rank, r in enumerate(results):
+        shares = r["Q1 host split"]["shares"]
+        rows = sum(r[name]["uploads"]["rows"] for name, _, _ in
+                   HOST_SPLIT_PATHS)
+        nbytes = sum(r[name]["uploads"]["bytes"] for name, _, _ in
+                     HOST_SPLIT_PATHS)
+        bound = sum(row_bytes[t] * round_up(b - a)
+                    for t, (a, b, _) in shares.items())
+        whole = sum(row_bytes[t] * round_up(n) for t, (_, _, n) in
+                    shares.items())
+        if not 0 < nbytes <= bound or rows <= 0:
+            raise AssertionError(f"3k rank {rank} uploaded {rows} rows, "
+                                 f"{nbytes} bytes: its share of the host "
+                                 f"Tables is at most {bound} bytes")
+        log(f"3k host split: rank {rank} uploaded {rows} column rows, "
+            f"{nbytes / 1e9:.3f} GB of its share's bound {bound / 1e9:.3f} "
+            f"GB (ranges {shares}; whole Tables {whole / 1e9:.3f} GB)")
+
+
+def phase_dist(tables, sf=SF, device="cuda", host=None):
     """Phase 3k: distribution. The single-rank runs first, each against its
     oracle; then DIST_RANKS gloo ranks sharing this card, spawned, each
     making its shards (lineitem and Q3's tables by row range on the card,
     the host generator's tables by its range of this process's, shared
     through CUDA IPC), every path with its launches zeroed just before and
-    read just after; then the one-rank NCCL exchange here. A rank that
-    fails or does not answer within DIST_TIMEOUT fails the phase. Returns
-    rank 0's launches by path."""
+    read just after; then the one-rank NCCL exchange here. With ``host``
+    (phase 3l's host Tables), Q1 and Q3 also run from host Tables split
+    by rank (HOST_SPLIT_PATHS): the Tables cross to the ranks through
+    shared memory, each rank uploads only its row range, and its uploads
+    are held to its share; their uploads here are released first. A rank
+    that fails or does not answer within DIST_TIMEOUT fails the phase.
+    Returns rank 0's launches by path."""
     import queue
     import shutil
     import tempfile
@@ -5772,6 +5905,17 @@ def phase_dist(tables, sf=SF, device="cuda"):
             _build.library(src.stem)
     shared = dist_tables(tables)
     exp = _dist_expected(tables, shared, sf, dev)
+    if host is not None:
+        t1 = time.perf_counter()
+        row_bytes = _host_split_expected(host, dev, exp)
+        from arrow_tpu_torch.acero import release_uploads
+        for tbl in host.values():
+            release_uploads(tbl)
+        shared["host"] = share_host_tables(
+            {t: host[t] for t in ("customer", "orders", "lineitem")})
+        log(f"3k: Q1 and Q3 from phase 3l's host Tables single-rank, and "
+            f"the Tables shared with the ranks, in "
+            f"{time.perf_counter() - t1:.1f} s")
     if cuda:
         torch.cuda.empty_cache()
     ctx = tmp.get_context("spawn")
@@ -5812,6 +5956,8 @@ def phase_dist(tables, sf=SF, device="cuda"):
     log(f"3k: the ranks ran every path in {time.perf_counter() - t1:.1f} s, "
         f"spawning included")
     launches = _dist_check(results, exp, cuda)
+    if host is not None:
+        _host_split_check(results, row_bytes)
     if cuda:
         _nccl_check(sf, dev)
     log(f"phase 3k: {time.perf_counter() - t0:.1f} s")
@@ -6217,7 +6363,10 @@ def phase_host(sf=SF, device="cuda"):
     host Tables to a host Table; Q1 streamed from the host lineitem;
     the host-tier aggregates; a consuming sink; the eager API over
     lineitem's host Arrays. Each path's launches are set to 0 just before
-    and read just after (on the card). Returns the launches by path."""
+    and read just after (on the card). Returns the launches by path and
+    the host Tables, whose uploads ``acero.source_cache`` keeps until the
+    caller releases them (``acero.release_uploads``) after phases 3m and
+    3k."""
     cuda = torch.device(device).type == "cuda"
     log(f"== phase 3l: the host boundary at SF{sf:g} on {device}")
     t0 = time.perf_counter()
@@ -6238,14 +6387,628 @@ def phase_host(sf=SF, device="cuda"):
     _host_aggregates(host, cols["lineitem"], device, cuda, launches)
     _consuming_sink(host, device, cuda, launches)
     _eager(host, cols["lineitem"], device, cuda, launches)
-    from arrow_tpu_torch.acero import release_uploads
-    for tbl in host.values():
-        release_uploads(tbl)
     log(f"phase 3l: {time.perf_counter() - t0:.1f} s (uploads "
         f"{nbytes / 1e9:.3f} GB in {up_wall:.3f} s; plan walls "
         + ", ".join(f"{k} {v[1]:.3f} s + download {v[2] * 1e3:.1f} ms"
                     for k, v in walls.items()) + ")")
-    return launches
+    return launches, host
+
+
+# --- phase 3m: the rest of the host boundary ---------------------------------
+
+# rows of the per-row Python names' inputs (and of the order dates cast to
+# strings, the wide decimals and the list<string> orders): 200,000, not
+# 1,000,000, to keep phase 3m near 120 s (169.2 s at 1,000,000 on an
+# NVIDIA H100 80GB HBM3 machine, most of it Python a row on the host)
+HOST_TIER_PREFIX = 200_000
+HOST_TIER_SLICE = 1_000_000     # where the sliced lists and runs start
+HOST_TIER_SEED = 7              # random's initializer
+HOST_TIER_MODES = 3             # mode's n
+SPANS_FILE = os.path.join("build", "chip_smoke_spans.jsonl")
+_NO_LAUNCH = {"compact": 0, "hash32": 0, "grouped_sum": 0, "probe": 1}
+# launches of phase 3m's paths (each +1 probe, from self_check): a
+# list_flatten with null parents and the eager run_end_encode one
+# compaction (K2) each; the tabular function's Q1 and the exported Q1
+# seven float sums each (K1, 12 slots); every other path none
+HOST_TIER_LAUNCHES = {
+    **{f"3m list_flatten {k}": {**_NO_LAUNCH, "compact": 1}
+       for k in ("list<double>", "list<l_shipmode>", "list<double> sliced",
+                 "list<string> prefix")},
+    "3m run_end_encode": {**_NO_LAUNCH, "compact": 1},
+    "3m tabular UDF Q1": {**_NO_LAUNCH, "grouped_sum": 7},
+    "3m OTLP Q1": {**_NO_LAUNCH, "grouped_sum": 7},
+}
+
+
+def np_uniform_threefry(seed, n):
+    """``jax.random.uniform(jax.random.key(seed), (n,), float64)`` in
+    numpy uint32 words: Threefry-2x32 of 20 rounds over the counter
+    (i >> 32, i & 0xFFFFFFFF) under the key (seed >> 32, seed &
+    0xFFFFFFFF), the top 52 of the 64 output bits as the mantissa of a
+    double in [1, 2), less 1."""
+    def rotl(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+    k = [np.uint32((seed >> 32) & 0xFFFFFFFF), np.uint32(seed & 0xFFFFFFFF)]
+    k.append(k[0] ^ k[1] ^ np.uint32(0x1BD11BDA))
+    i = np.arange(n, dtype=np.uint64)
+    x0 = (i >> np.uint64(32)).astype(np.uint32) + k[0]
+    x1 = (i & np.uint64(0xFFFFFFFF)).astype(np.uint32) + k[1]
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    for j in range(5):
+        for r in rot[j % 2]:
+            x0 = x0 + x1
+            x1 = rotl(x1, r) ^ x0
+        x0 = x0 + k[(j + 1) % 3]
+        x1 = x1 + k[(j + 2) % 3] + np.uint32(j + 1)
+    bits = (x0.astype(np.uint64) << np.uint64(32)) | x1.astype(np.uint64)
+    return ((bits >> np.uint64(12)) | np.uint64(0x3FF0000000000000)).view(
+        np.float64) - 1.0
+
+
+def _values_of(arr):
+    """(values, validity mask) of a host Array, numpy."""
+    return arr.data.values(), arr.is_valid_mask()
+
+
+def _string_rows(arr, width):
+    """A string Array of one fixed width as (n, width) bytes."""
+    d = arr.data
+    offs = d.offsets()
+    if not np.array_equal(np.diff(offs.astype(np.int64)),
+                          np.full(len(arr), width)):
+        raise AssertionError(f"strings are not all {width} bytes long")
+    start = int(offs[0])
+    return d.data_bytes()[start:start + width * len(arr)].reshape(-1, width)
+
+
+def host_tier_inputs(host, device):
+    """Phase 3m's inputs from phase 3l's host Tables: lineitem sorted by
+    l_orderkey once (the generator draws it at random), one list a
+    TPC-H order (empty ones included) of its l_extendedprice and of its
+    l_shipmode (the host Table's dictionary<int32, string> column), null
+    where o_orderstatus is 'P'; the same lists without nulls; a
+    list<string> of the first HOST_TIER_PREFIX orders' l_shipmode
+    strings; and the sorted keys."""
+    import arrow_tpu_torch.types as T
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    from arrow_tpu_torch.device.column import _gather_bytes
+    from arrow_tpu_torch.utils import bits
+    li, od = host["lineitem"], host["orders"]
+    t0 = time.perf_counter()
+    okey = li.column("l_orderkey").combine().data.values()
+    if torch.device(device).type == "cuda":
+        perm = torch.sort(torch.from_numpy(okey).to(device),
+                          stable=True)[1].cpu().numpy()
+    else:
+        perm = np.argsort(okey, kind="stable")
+    skey = okey[perm]
+    n, n_orders = len(okey), od.num_rows
+    offs = np.searchsorted(skey, np.arange(1, n_orders + 2)).astype(np.int32)
+    status = od.column("o_orderstatus").combine()
+    p_code = Array(status.data.dictionary).to_pylist().index("P")
+    valid = status.data.values() != p_code
+    price = li.column("l_extendedprice").combine().data.values()[perm]
+    mode = li.column("l_shipmode").combine()
+    codes = mode.data.values()[perm]
+    pv = Buffer(bits.pack_bits(valid))
+    nulls = int(n_orders - valid.sum())
+
+    def lists(child, validity=pv, count=nulls, rows=n_orders):
+        return Array(ArrayData(T.list_(child.type), rows,
+                               [validity, Buffer(offs[:rows + 1])],
+                               children=[child], null_count=count))
+    dbl = ArrayData(T.float64(), n, [None, Buffer(price)], null_count=0)
+    modes = ArrayData(mode.type, n, [None, Buffer(codes)], null_count=0,
+                      dictionary=mode.data.dictionary)
+    words = Array(mode.data.dictionary).to_pylist()
+    P = min(HOST_TIER_PREFIX, n_orders)
+    m = int(offs[P])
+    wd = Array(mode.data.dictionary).data
+    doffs = wd.offsets().astype(np.int64)
+    soffs, sbytes = _gather_bytes(wd.data_bytes(), doffs[codes[:m]],
+                                  doffs[codes[:m] + 1] - doffs[codes[:m]])
+    strs = ArrayData(T.string(), m, [None, Buffer(soffs.astype(np.int32)),
+                                     Buffer(sbytes)], null_count=0)
+    prefix_valid = valid[:P]
+    out = {
+        "offs": offs.astype(np.int64), "valid": valid, "price": price,
+        "codes": codes, "words": words, "skey": skey, "n": n,
+        "n_orders": n_orders, "P": P,
+        "list<double>": lists(dbl), "list<l_shipmode>": lists(modes),
+        "list<double> no nulls": lists(dbl, None, 0),
+        "list<string> prefix": lists(
+            strs, Buffer(bits.pack_bits(prefix_valid)),
+            int(P - prefix_valid.sum()), P),
+        "keys": Array(ArrayData(T.int64(), n, [None, Buffer(skey)],
+                                null_count=0)),
+    }
+    log(f"3m inputs: lineitem sorted by l_orderkey, {n_orders} lists over "
+        f"{n} children ({nulls} null parents, "
+        f"{int((np.diff(offs) == 0).sum())} empty) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+class _Paths:
+    """Phase 3m's paths: each with every launch count set to 0 just before
+    and read just after (on the card), its wall logged, its launches
+    checked against HOST_TIER_LAUNCHES at the end."""
+
+    def __init__(self, device):
+        self.device = device
+        self.cuda = torch.device(device).type == "cuda"
+        self.launches, self.walls = {}, {}
+
+    def run(self, name, fn):
+        from arrow_tpu_torch.platform_check import self_check
+        key = f"3m {name}"
+        if self.cuda:
+            zero_launches()
+            self_check()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(self.device)
+        self.walls[key] = time.perf_counter() - t0
+        if self.cuda:
+            self.launches[key] = read_launches()
+        log(f"  {name}: {self.walls[key]:.3f} s, launches "
+            f"{self.launches.get(key)}")
+        return out
+
+    def check_launches(self):
+        if not self.cuda:
+            return
+        bad = {k: (v, HOST_TIER_LAUNCHES.get(k, _NO_LAUNCH))
+               for k, v in self.launches.items()
+               if v != HOST_TIER_LAUNCHES.get(k, _NO_LAUNCH)}
+        if bad:
+            raise AssertionError(f"3m launches (got, expected): {bad}")
+
+
+def _nested(s, paths, dev):
+    """The five nested names on the card over the order lists, and
+    run_end_encode/run_end_decode of the sorted keys, each against
+    numpy."""
+    import arrow_tpu_torch.compute as pc
+    import arrow_tpu_torch.types as T
+    offs, valid, price = s["offs"], s["valid"], s["price"]
+    lens = np.diff(offs)
+    keep = np.repeat(valid, lens)
+    got = paths.run("list_value_length", lambda: pc.list_value_length(
+        s["list<double>"], device=dev))
+    v, ok = _values_of(got)
+    _expect_equal("list_value_length", v, lens.astype(np.int32))
+    _expect_equal("list_value_length validity", ok, valid)
+    got = paths.run("list_parent_indices", lambda: pc.list_parent_indices(
+        s["list<double>"], device=dev))
+    _expect_equal("list_parent_indices", got.to_numpy(), np.repeat(
+        np.arange(len(lens)), np.where(valid, lens, 0)))
+    for kind in ("list<double>", "list<l_shipmode>"):
+        got = paths.run(f"list_flatten {kind}", lambda: pc.list_flatten(
+            s[kind], device=dev))
+        want = (price if kind == "list<double>" else s["codes"])[keep]
+        v, ok = _values_of(got)
+        _expect_equal(f"list_flatten {kind}", v, want)
+        _expect(f"list_flatten {kind} nulls", ok.all())
+        if kind != "list<double>":
+            _expect(f"list_flatten {kind} dictionary",
+                    got.dictionary.to_pylist() == s["words"])
+    for index in (0, 6):
+        got = paths.run(f"list_element {index}", lambda: pc.list_element(
+            s["list<double>"], index, device=dev))
+        want_ok = valid & (lens > index)
+        v, ok = _values_of(got)
+        _expect_equal(f"list_element {index} validity", ok, want_ok)
+        _expect_equal(f"list_element {index}", v[want_ok],
+                      price[offs[:-1][want_ok] + index])
+    got = paths.run("list_flatten list<double> no nulls",
+                    lambda: pc.list_flatten(s["list<double> no nulls"],
+                                            device=dev))
+    _expect_equal("list_flatten without nulls", got.to_numpy(), price)
+    S = min(HOST_TIER_SLICE, len(lens) - 1)
+    sliced = s["list<double>"].slice(S, len(lens) - S)
+    got = paths.run("list_flatten list<double> sliced",
+                    lambda: pc.list_flatten(sliced, device=dev))
+    _expect_equal("list_flatten of the slice", got.to_numpy(),
+                  price[offs[S]:][np.repeat(valid[S:], lens[S:])])
+    P = s["P"]
+    got = paths.run("list_flatten list<string> prefix",
+                    lambda: pc.list_flatten(s["list<string> prefix"],
+                                            device=dev))
+    words = np.array(s["words"], dtype=object)
+    pkeep = np.repeat(valid[:P], lens[:P])
+    _expect("list_flatten of list<string>", got.to_pylist() ==
+            words[s["codes"][:offs[P]][pkeep]].tolist())
+
+    skey = s["skey"]
+    starts = np.flatnonzero(np.diff(skey)) + 1
+    uniq = skey[np.concatenate([[0], starts])]
+    counts = np.diff(np.concatenate([[0], starts, [len(skey)]]))
+    ree = paths.run("run_end_encode", lambda: pc.call_function(
+        "run_end_encode", [s["keys"]], device=dev))
+    _expect("run_end_encode type", ree.type == T.run_end_encoded(
+        T.int32(), T.int64()) and len(ree) == len(skey), repr(ree.type))
+    _expect_equal("run_end_encode run ends", ree.run_ends.to_numpy(),
+                  np.cumsum(counts).astype(np.int32))
+    _expect_equal("run_end_encode values", ree.values.to_numpy(), uniq)
+    got = paths.run("run_end_decode", lambda: pc.run_end_decode(
+        ree, device=dev))
+    _expect_equal("run_end_decode", got.to_numpy(), skey)
+    got = paths.run("run_end_decode sliced", lambda: pc.run_end_decode(
+        ree.slice(S), device=dev))
+    _expect_equal("run_end_decode of the slice", got.to_numpy(), skey[S:])
+    log(f"3m nested: {len(uniq)} runs; every result equals numpy's")
+    return ree
+
+
+def _host_names(host, s, paths, dev):
+    """mode, strftime/strptime, the splits and joins, the regex
+    extractions, the per-row names over HOST_TIER_PREFIX rows and random,
+    each against numpy or Python."""
+    import arrow_tpu_torch.compute as pc
+    import arrow_tpu_torch.types as T
+    from arrow_tpu_torch.array.array import Array, array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    li, od = host["lineitem"], host["orders"]
+    col = lambda t, name: t.column(name).combine()  # noqa: E731
+    qty = col(li, "l_quantity")
+    got = paths.run("mode", lambda: pc.mode(qty, n=HOST_TIER_MODES,
+                                            device=dev))
+    q = qty.to_numpy()
+    c = np.bincount(q.astype(np.int64))   # TPC-H quantities are 1..50
+    _expect("quantities are whole", bool((q == np.round(q)).all()))
+    top = sorted((-int(k), float(v)) for v, k in enumerate(c)
+                 if k)[:HOST_TIER_MODES]
+    _expect("mode", got.to_pylist() == [{"mode": v, "count": -k}
+                                        for k, v in top], got.to_pylist())
+
+    days = col(od, "o_orderdate").data.values().astype(np.int64)
+    ts = Array(ArrayData(T.timestamp("s"), len(days),
+                         [None, Buffer(days * 86_400)], null_count=0))
+    text = paths.run("strftime", lambda: pc.strftime(ts))
+    want = np.datetime_as_string(days.astype("M8[D]").astype("M8[s]"),
+                                 unit="s").astype("S19")
+    _expect_equal("strftime", _string_rows(text, 19),
+                  want.view(np.uint8).reshape(-1, 19))
+    back = paths.run("strptime", lambda: pc.strptime(text, unit="s"))
+    _expect_equal("strptime", back.data.values(), days * 86_400)
+
+    names = col(host["part"], "p_name")
+    py_names = names.to_pylist()
+    joined = " ".join(py_names)
+    split = paths.run("split_pattern", lambda: pc.split_pattern(
+        names, pattern=" "))
+    _expect("split_pattern", split.values.to_pylist() == joined.split(" "))
+    _expect_equal("split_pattern lengths", np.diff(
+        split.data.offsets()), np.char.count(np.array(py_names), " ") + 1)
+
+    def same_lists(name, got):
+        # p_name's words are split by single spaces: the same pieces
+        _expect_equal(f"{name} offsets", got.data.offsets(),
+                      split.data.offsets())
+        _expect_equal(f"{name} pieces", got.values.data.offsets(),
+                      split.values.data.offsets())
+        _expect_equal(f"{name} bytes", got.values.data.data_bytes(),
+                      split.values.data.data_bytes())
+    _expect("p_name's separators", "  " not in joined and
+            joined == joined.strip())
+    same_lists("utf8_split_whitespace", paths.run(
+        "utf8_split_whitespace", lambda: pc.utf8_split_whitespace(names)))
+    same_lists("split_pattern_regex", paths.run(
+        "split_pattern_regex", lambda: pc.split_pattern_regex(
+            names, pattern=" ")))
+    joined_back = paths.run("binary_join", lambda: pc.binary_join(split,
+                                                                  " "))
+    _expect_equal("binary_join", joined_back.data.data_bytes(),
+                  names.data.data_bytes()[:joined_back.data.offsets()[-1]])
+    _expect_equal("binary_join offsets", joined_back.data.offsets(),
+                  names.data.offsets() - names.data.offsets()[0])
+    del split, joined_back, py_names, joined
+
+    phone = col(host["customer"], "c_phone")
+    rows = _string_rows(phone, 15)
+    pat = r"(?P<cc>\d+)-(?P<rest>\d+)"
+    got = paths.run("extract_regex", lambda: pc.extract_regex(
+        phone, pattern=pat))
+    _expect_equal("extract_regex cc", _string_rows(
+        Array(got.data.children[0]), 2), rows[:, :2])
+    _expect_equal("extract_regex rest", _string_rows(
+        Array(got.data.children[1]), 3), rows[:, 3:6])
+    got = paths.run("extract_regex_span", lambda: pc.extract_regex_span(
+        phone, pattern=pat))
+    for i, want in enumerate(([0, 2], [3, 3])):
+        span = Array(got.data.children[i].children[0]).to_numpy()
+        _expect_equal(f"extract_regex_span {i}", span.reshape(-1, 2),
+                      np.broadcast_to(want, (len(phone), 2)))
+
+    P = min(HOST_TIER_PREFIX, li.num_rows)
+    ship = col(li, "l_shipdate").slice(0, P)
+    receipt = col(li, "l_receiptdate").slice(0, P)
+    sd, rd = ship.to_numpy().astype(np.int64), receipt.to_numpy().astype(
+        np.int64)
+    got = paths.run("day_time_interval_between",
+                    lambda: pc.day_time_interval_between(ship, receipt))
+    pairs = got.data.buffers[1].view(np.int32).reshape(-1, 2)
+    _expect_equal("day_time_interval_between", pairs,
+                  np.stack([rd - sd, np.zeros(P, np.int64)], 1))
+    got = paths.run("month_day_nano_interval_between",
+                    lambda: pc.month_day_nano_interval_between(ship,
+                                                               receipt))
+    raw = got.data.buffers[1].to_numpy().reshape(-1, 16)
+    md = np.ascontiguousarray(raw[:, :8]).view(np.int32)
+    ns = np.ascontiguousarray(raw[:, 8:]).view(np.int64)[:, 0]
+
+    def ymd(d):
+        M = d.astype("M8[D]").astype("M8[M]")
+        return (M.astype("M8[Y]").astype(np.int64) + 1970,
+                M.astype(np.int64) % 12 + 1,
+                (d.astype("M8[D]") - M).astype(np.int64) + 1)
+    ys, ms, ds = ymd(sd)
+    yr, mr, dr = ymd(rd)
+    _expect_equal("month_day_nano_interval_between", np.stack(
+        [md[:, 0], md[:, 1], ns], 1), np.stack(
+        [(yr - ys) * 12 + mr - ms, dr - ds, np.zeros(P, np.int64)], 1))
+    got = paths.run("iso_calendar", lambda: pc.iso_calendar(ship))
+    uniq, inv = np.unique(sd, return_inverse=True)
+    iso = np.array([tuple(datetime.date.fromordinal(
+        int(d) + EPOCH.toordinal()).isocalendar()) for d in uniq])[inv]
+    for i, name in enumerate(("iso_year", "iso_week", "iso_day_of_week")):
+        _expect_equal(f"iso_calendar {name}",
+                      Array(got.data.children[i]).to_numpy(), iso[:, i])
+    got = paths.run("year_month_day", lambda: pc.year_month_day(ship))
+    for i, want in enumerate((ys, ms, ds)):
+        _expect_equal(f"year_month_day {i}",
+                      Array(got.data.children[i]).to_numpy(), want)
+    keys = col(li, "l_orderkey").slice(0, P)
+    q = qty.slice(0, P)
+    st = paths.run("make_struct", lambda: pc.make_struct(
+        keys, q, field_names=["k", "q"]))
+    got = paths.run("struct_field", lambda: pc.struct_field(st, field="q"))
+    _expect_equal("struct_field", got.to_numpy(), q.to_numpy())
+    _expect_equal("struct_field index", pc.struct_field(
+        st, indices=0).to_numpy(), keys.to_numpy())
+
+    offs, valid, price = s["offs"], s["valid"], s["price"]
+    P = s["P"]
+    lp = s["list<double>"].slice(0, P)
+    got = paths.run("list_slice", lambda: pc.list_slice(lp, start=1,
+                                                        stop=3))
+    lens = np.diff(offs[:P + 1])
+    take = np.where(valid[:P], np.clip(lens - 1, 0, 2), 0)
+    idx = np.repeat(offs[:P] + 1, take) + np.arange(take.sum()) - \
+        np.repeat(np.cumsum(take) - take, take)
+    _expect_equal("list_slice lengths", np.diff(got.data.offsets()), take)
+    _expect_equal("list_slice values", got.values.to_numpy(), price[idx])
+    _expect_equal("list_slice validity", got.is_valid_mask(), valid[:P])
+    modes = col(li, "l_shipmode").slice(0, len(ship))
+    got = paths.run("dictionary_decode", lambda: pc.dictionary_decode(modes))
+    words = np.array(s["words"], dtype=object)
+    _expect("dictionary_decode", got.type == T.string() and
+            got.to_pylist() == words[modes.data.values()].tolist())
+    m = int(offs[P])
+    child = s["list<string> prefix"].values.data
+    entries = ArrayData(T.map_(T.string(), T.float64()).value_type, m,
+                        [None], children=[child, ArrayData(
+                            T.float64(), m, [None, Buffer(price[:m])],
+                            null_count=0)], null_count=0)
+    mp = Array(ArrayData(T.map_(T.string(), T.float64()), P,
+                         [s["list<string> prefix"].data.buffers[0],
+                          Buffer(offs[:P + 1].astype(np.int32))],
+                         children=[entries]))
+    got = paths.run("map_lookup", lambda: pc.map_lookup(
+        mp, query_key="MAIL", occurrence="first"))
+    hit = np.flatnonzero(s["codes"][:m] == s["words"].index("MAIL"))
+    owner = np.searchsorted(offs[:P + 1], hit, side="right") - 1
+    first_owner, first = np.unique(owner, return_index=True)
+    want_ok = np.zeros(P, bool)
+    want_ok[first_owner] = True
+    want_ok &= valid[:P]
+    want = np.zeros(P)
+    want[first_owner] = price[hit[first]]
+    v, ok = _values_of(got)
+    _expect_equal("map_lookup validity", ok, want_ok)
+    _expect_equal("map_lookup", v[ok], want[want_ok])
+
+    n = li.num_rows
+    r1 = paths.run("random", lambda: pc.random(
+        n, initializer=HOST_TIER_SEED, device=dev))
+    r2 = pc.random(n, initializer=HOST_TIER_SEED, device=dev)
+    a, b = r1.to_numpy(), r2.to_numpy()
+    _expect_equal("random twice", a.view(np.int64), b.view(np.int64))
+    _expect("random in [0, 1)", bool(((a >= 0) & (a < 1)).all()))
+    m = min(HOST_TIER_PREFIX, n)
+    _expect_equal("random's bits", a[:m].view(np.int64),
+                  np_uniform_threefry(HOST_TIER_SEED, m).view(np.int64))
+
+
+def _casts_decimals(host, paths, dev):
+    """Casts to strings and back through the string cast tier on the card,
+    then the wide decimals against Python's ``decimal``."""
+    import decimal
+    import arrow_tpu_torch.compute as pc
+    import arrow_tpu_torch.types as T
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    from arrow_tpu_torch.compute.registry import ArrowInvalid
+    cu, od = host["customer"], host["orders"]
+    bal = cu.column("c_acctbal").combine()
+    s = paths.run("cast c_acctbal to string", lambda: pc.cast(
+        bal, T.string(), device=dev))
+    back = paths.run("cast c_acctbal back", lambda: pc.cast(
+        s, T.float64(), device=dev))
+    _expect_equal("c_acctbal round trip", back.to_numpy().view(np.int64),
+                  bal.to_numpy().view(np.int64))
+    keys = cu.column("c_custkey").combine()
+    s = paths.run("cast c_custkey to string", lambda: pc.cast(
+        keys, T.string(), device=dev))
+    _expect("c_custkey strings", s.to_pylist() ==
+            keys.to_numpy().astype(str).tolist())
+    back = paths.run("cast c_custkey back", lambda: pc.cast(
+        s, T.int64(), device=dev))
+    _expect_equal("c_custkey round trip", back.to_numpy(), keys.to_numpy())
+    P = min(HOST_TIER_PREFIX, od.num_rows)
+    dates = od.column("o_orderdate").combine().slice(0, P)
+    s = paths.run("cast o_orderdate to string", lambda: pc.cast(
+        dates, T.string(), device=dev))
+    _expect_equal("o_orderdate strings", _string_rows(s, 10),
+                  np.datetime_as_string(dates.to_numpy().astype(
+                      "M8[D]")).astype("S10").view(np.uint8).reshape(-1, 10))
+    back = paths.run("cast o_orderdate back", lambda: pc.cast(
+        s, T.date32(), device=dev))
+    _expect_equal("o_orderdate round trip", back.to_numpy(),
+                  dates.to_numpy())
+
+    cents = np.round(od.column("o_totalprice").combine().to_numpy()[:P]
+                     * 100).astype(np.int64)
+
+    def wide(t):
+        w = t.byte_width
+        raw = np.repeat(np.where(cents < 0, 0xFF, 0).astype(np.uint8)[
+            :, None], w, axis=1)
+        raw[:, :8] = cents.view(np.uint8).reshape(P, 8)
+        return Array(ArrayData(t, P, [None, Buffer(raw.reshape(-1))],
+                               null_count=0))
+
+    def unscaled(arr):
+        rows = arr.data.values()
+        return np.ascontiguousarray(rows[:, :8]).view(np.int64)[:, 0]
+    d128 = wide(T.decimal128(38, 2))
+    D = decimal.Decimal
+    total = int(cents.sum())
+    for name, want in (
+            ("sum", D(total).scaleb(-2)),
+            ("mean", (D(total) / D(P)).quantize(
+                D(1), rounding=decimal.ROUND_HALF_UP).scaleb(-2)),
+            ("min", D(int(cents.min())).scaleb(-2)),
+            ("max", D(int(cents.max())).scaleb(-2))):
+        got = paths.run(f"wide decimal {name}", lambda: pc.call_function(
+            name, [d128], device=dev))
+        _expect(f"wide decimal {name}", got.as_py() == want,
+                f"{got.as_py()} against {want}")
+    try:
+        pc.add(d128, d128, device=dev)
+        raise AssertionError("decimal128(38, 2) + decimal128(38, 2) did not "
+                             "pass the 38-digit ceiling")
+    except ArrowInvalid:
+        pass
+    d256 = wide(T.decimal256(38, 2))
+    got = paths.run("wide decimal add", lambda: pc.add(d256, d256,
+                                                        device=dev))
+    _expect("wide decimal add type", got.type == T.decimal256(39, 2))
+    _expect_equal("wide decimal add", unscaled(got), cents * 2)
+    got = paths.run("wide decimal multiply", lambda: pc.multiply(
+        d256, D("1.5"), device=dev))
+    _expect("wide decimal multiply type", got.type == T.decimal256(41, 3))
+    _expect_equal("wide decimal multiply", unscaled(got), cents * 15)
+
+
+def _udfs_otel_facts(host, paths, dev):
+    """A scalar UDF over the eager compute on the card, an aggregate UDF,
+    a tabular UDF giving Q1's Table as a reader; Q1 under QueryOptions
+    exported as OTLP/JSON to a file and read back; the card's memory and
+    runtime facts."""
+    import arrow_tpu_torch.compute as pc
+    import arrow_tpu_torch.types as T
+    from arrow_tpu_torch import config, memory
+    from arrow_tpu_torch.acero import QueryOptions, TableSourceNodeOptions
+    from arrow_tpu_torch.io.tpch_queries import q1_plan
+    li = host["lineitem"]
+    price = li.column("l_extendedprice").combine()
+    disc = li.column("l_discount").combine()
+    qty = li.column("l_quantity").combine()
+    doc = {"summary": "phase 3m", "description": ""}
+    pc.register_scalar_function(
+        lambda ctx, p, d: pc.multiply(p, pc.subtract(1.0, d, device=dev),
+                                      device=dev),
+        "chip_revenue", doc, {"p": T.float64(), "d": T.float64()},
+        T.float64())
+    got = paths.run("scalar UDF", lambda: pc.call_function(
+        "chip_revenue", [price, disc]))
+    want = price.to_numpy() * (1.0 - disc.to_numpy())
+    check_close("scalar UDF revenue", torch.from_numpy(got.to_numpy()),
+                torch.from_numpy(want), RTOL_F64)
+    pc.register_aggregate_function(
+        lambda ctx, q: pc.sum(q, device=dev).as_py() / ctx.batch_length,
+        "chip_mean", doc, {"q": T.float64()}, T.float64())
+    got = paths.run("aggregate UDF", lambda: pc.call_function(
+        "chip_mean", [qty]))
+    want = float(qty.to_numpy().mean())
+    _expect("aggregate UDF", abs(got.as_py() - want) <= RTOL_F64 * want,
+            f"{got.as_py()} against {want}")
+    batch = TableSourceNodeOptions(li).upload(dev)
+    q1_want = q1_oracle(batch, li.num_rows)
+    pc.register_tabular_function(
+        lambda ctx: q1_plan(li).to_table(device=dev), "chip_q1", doc, {},
+        None)
+    got = paths.run("tabular UDF Q1", lambda: pc.call_tabular_function(
+        "chip_q1").read_all())
+    check_result("3m tabular UDF Q1", got.to_pydict(), q1_want)
+
+    os.makedirs(os.path.dirname(SPANS_FILE), exist_ok=True)
+    if os.path.exists(SPANS_FILE):
+        os.remove(SPANS_FILE)
+    plan = q1_plan(li)
+    os.environ["ARROW_TPU_OTEL_EXPORT"] = SPANS_FILE
+    try:
+        got = paths.run("OTLP Q1", lambda: plan.to_table(
+            query_options=QueryOptions(), device=dev))
+    finally:
+        del os.environ["ARROW_TPU_OTEL_EXPORT"]
+    check_result("3m OTLP Q1", got.to_pydict(), q1_want)
+    with open(SPANS_FILE) as f:
+        lines = f.read().splitlines()
+    spans = json.loads(lines[-1])["resourceSpans"][0]["scopeSpans"][0][
+        "spans"]
+    nodes = [m[0] for m in plan.last_query_context.node_metrics]
+    root = spans[0]
+    _expect("OTLP spans", len(lines) == 1 and root["name"] ==
+            plan.factory_name and [s["name"] for s in spans[1:]] == nodes
+            and all(s["parentSpanId"] == root["spanId"]
+                    for s in spans[1:]), f"{[s['name'] for s in spans]}")
+    log(f"  OTLP: one root span ({root['name']}) and {len(nodes)} node spans "
+        f"{nodes}, in the node metrics' order")
+
+    stats = memory.device_memory_stats()
+    info = config.runtime_info()
+    if paths.cuda:
+        _expect("device_memory_stats", stats["bytes_in_use"] ==
+                torch.cuda.memory_allocated() and stats["peak_bytes_in_use"]
+                == torch.cuda.max_memory_allocated(), str(stats))
+        _expect("runtime_info", info.backend == "cuda" and
+                info.num_devices == torch.cuda.device_count(), str(info))
+    log(f"  device facts: {stats}; {info}; {config.build_info()}")
+
+
+def phase_host_tier(host, device="cuda"):
+    """Phase 3m: the rest of the host boundary over phase 3l's host Tables
+    (made once there, released by the caller): the nested names' device
+    tier over 15M order lists of 60M lineitem rows and the run-end
+    encoding of the sorted keys, on ``device``; mode; the host names
+    (strftime/strptime over 15M order dates, the splits over 2M part
+    names, the regex extractions over 1.5M phones, the per-row Python
+    names over HOST_TIER_PREFIX rows, random over 60M); casts to strings
+    and back; wide decimals; UDFs; the OTLP export; the device facts.
+    Each against numpy or Python, each path's launches set to 0 just
+    before and read just after. Returns (launches by path, the nested
+    inputs for phase 4's times)."""
+    dev = torch.device(device)
+    log(f"== phase 3m: the rest of the host boundary on {device}")
+    t0 = time.perf_counter()
+    paths = _Paths(dev)
+    s = host_tier_inputs(host, dev)
+    _nested(s, paths, dev)
+    _host_names(host, s, paths, dev)
+    _casts_decimals(host, paths, dev)
+    _udfs_otel_facts(host, paths, dev)
+    paths.check_launches()
+    log(f"phase 3m: {time.perf_counter() - t0:.1f} s (paths "
+        f"{sum(paths.walls.values()):.1f} s)")
+    return paths.launches, s
 
 
 def join_declaration(jt, probe, build, **kw):
@@ -6727,8 +7490,53 @@ def time_paths(card, paths):
         profile_run(path.name, run)
 
 
+def time_host_tier(card, s):
+    """Phase 3m's device paths at 60M rows, each the best of 5 after a
+    warm-up (host clock to a host Array, the eager call's upload and
+    download included), beside its bound (its inputs read once and its
+    output written once at HBM_BYTES_PER_S); then their device time by
+    operator from one profiled run of all of them."""
+    import arrow_tpu_torch.compute as pc
+    dev = torch.device("cuda")
+    lst, dbl = s["list<l_shipmode>"], s["list<double>"]
+    n, n_lists = s["n"], s["n_orders"]
+    lens = np.diff(s["offs"])
+    kept = int(np.repeat(s["valid"], lens).sum())
+    runs = len(np.unique(s["skey"]))
+    ree = pc.call_function("run_end_encode", [s["keys"]], device=dev)
+    offs_b = 4 * (n_lists + 1)
+    calls = (
+        ("list_value_length", lambda: pc.list_value_length(dbl, device=dev),
+         offs_b + 5 * n_lists),
+        ("list_parent_indices",
+         lambda: pc.list_parent_indices(dbl, device=dev),
+         offs_b + n_lists + 8 * kept),
+        ("list_flatten list<double>",
+         lambda: pc.list_flatten(dbl, device=dev),
+         offs_b + n_lists + 8 * n + 8 * kept),
+        ("list_flatten list<l_shipmode>",
+         lambda: pc.list_flatten(lst, device=dev),
+         offs_b + n_lists + 4 * n + 4 * kept),
+        ("list_element 0", lambda: pc.list_element(dbl, 0, device=dev),
+         offs_b + n_lists + 8 * n_lists + 9 * n_lists),
+        ("run_end_encode", lambda: pc.call_function(
+            "run_end_encode", [s["keys"]], device=dev), 8 * n + 12 * runs),
+        ("run_end_decode", lambda: pc.run_end_decode(ree, device=dev),
+         12 * runs + 8 * n))
+    for name, run, nbytes in calls:
+        walls, best = best_wall(run, reps=6)
+        log(f"3m {name}: wall {[round(w * 1e3, 3) for w in walls]} ms; best "
+            f"{best * 1e3:.3f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+            f" ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s) [{card}]")
+
+    def all_calls():
+        for _, run, _ in calls:
+            run()
+    profile_run("3m nested and run-end paths", all_calls)
+
+
 def phase_times(card, launches, errs, tables, typed, params, stats,
-                strings, rest, stream):
+                strings, rest, stream, nested):
     from arrow_tpu_torch.acero import compile_chain
     from arrow_tpu_torch.compute.hashing import int64_halves
     from arrow_tpu_torch.compute.keys import equality_word
@@ -6865,6 +7673,8 @@ def phase_times(card, launches, errs, tables, typed, params, stats,
                + [(p, lambda p=p: p.run(strings, None))
                   for p in STRING_PATHS])
 
+    time_host_tier(card, nested)
+
     def by_path(name):
         return {path: n[name] for path, n in launches.items()}
 
@@ -6956,11 +7766,16 @@ def main() -> int:
         launches.update(rest_launches)
         stream_launches, stream = timed(phase_stream, tables)
         launches.update(stream_launches)
-        launches.update(timed(phase_dist, tables))
-        launches.update(timed(phase_host))
+        host_launches, host = timed(phase_host)
+        launches.update(host_launches)
+        tier_launches, nested = timed(phase_host_tier, host)
+        launches.update(tier_launches)
+        launches.update(timed(phase_dist, tables, SF, "cuda", host))
+        del host
         timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
-                            typed, params, stats, strings, rest, stream)
+                            typed, params, stats, strings, rest, stream,
+                            nested)
         log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

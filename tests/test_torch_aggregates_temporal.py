@@ -279,15 +279,17 @@ def test_cast_safe_failures_raise(src, dst, bad):
 
 
 def test_cast_of_strings_names_the_roadmap():
-    """A string column parses its dictionary (item 9.9); a cast of numbers
-    to strings still raises naming its ROADMAP item."""
+    """A string column parses its dictionary (item 9.9); a plan's cast of
+    numbers to strings raises the reference's ValueError (its plan gives
+    codes without a dictionary, which its download refuses); an eager
+    cast of a host Array formats on the host (item 11)."""
     col = DeviceColumn(torch.tensor([1, 0, 1, 1], dtype=torch.int32), None,
                        type_for_name("dictionary"), ("1", "2"))
     ctx = ExecContext(4, torch.tensor(4, dtype=torch.int32))
     out = get_function("cast").impl(ctx, col, target_type="int64")
     assert out.values.tolist() == [2, 1, 2, 2]
     nums = DeviceColumn(torch.arange(4), None, type_for_name("int64"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="missing dictionary"):
         get_function("cast").impl(ctx, nums, target_type="string")
 
 

@@ -611,25 +611,22 @@ def test_cast_of_a_literal(value, target, safe):
 # --- the registry ------------------------------------------------------------
 
 def test_only_item_11_is_left():
-    """284 of the reference's 310 names resolve; the 26 that do not are
-    the reference's host tier, each raising naming item 11 (the host-tier
-    grouped aggregates ``hash_list``, ``hash_distinct`` and
-    ``hash_pivot_wider`` resolve since the host boundary's first part:
-    the aggregate node's host path runs them)."""
+    """All 310 of the reference's names resolve in the port, the 26 of its
+    host tier among them (item 11's last names, ported with its second
+    part), and no lookup raises naming item 11. The name is kept from
+    when the 26 were the ones left."""
     import importlib
     for m in ("aggregate", "elementwise", "extra_kernels", "grouper",
-              "hash_agg", "hashing", "selection", "strings", "temporal",
-              "vector_misc", "vector_sort"):
+              "hash_agg", "hashing", "host_kernels", "selection", "strings",
+              "temporal", "vector_misc", "vector_sort"):
         importlib.import_module(f"arrow_tpu.compute.{m}")
     importlib.import_module("arrow_tpu.compute")
     names = sorted(jax_registry._REGISTRY)
-    missing = []
+    assert len(names) == 310
+    host = [n for n in names if jax_registry._REGISTRY[n].kind == "host"]
+    assert len(host) == 26
     for n in names:
-        try:
-            get_function(n)
-        except NotImplementedError as e:
-            assert "item 11" in str(e), (n, e)
-            missing.append(n)
-    assert sorted(missing) == sorted(registry._HOST_TIER)
-    assert len(missing) == 26
-    assert len(names) - len(missing) == 284
+        assert (get_function(n).kind == "host") == (n in host), n
+    with pytest.raises(NotImplementedError, match="none by that name"):
+        get_function("no_such_function")
+    assert not hasattr(registry, "_HOST_TIER")

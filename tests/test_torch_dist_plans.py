@@ -62,8 +62,12 @@ def test_plan_over_shard_sources(ranks, query):
 
 
 def test_plan_over_host_table_sources(ranks, reference):
-    """Q3 over host Tables on every rank (each uploaded whole to the
-    rank's device): the reference's result and exchange counts."""
+    """Q3 over host Tables on every rank, each rank uploading only its
+    range of each table's rows (its strings coded over the whole column,
+    so the ranks share one dictionary): the reference's result and
+    exchange counts, and each rank's uploads its ``shard_rows`` range and
+    nothing whole."""
+    from arrow_tpu_torch.io.tpch_device import shard_rows
     tables, mesh = reference
     fn, names = TPCH["q3"]
     kw = TPCH_KWARGS.get("q3", {})
@@ -74,6 +78,13 @@ def test_plan_over_host_table_sources(ranks, reference):
     out = ranks.run("tpch_host_case", "q3", SF, kw)
     assert out[0]["counts"] == want_counts
     assert_tables_match(agreed(out), want)
+    for rank, o in enumerate(out):
+        total = 0
+        for name, (n, keys, ncols) in o["uploads"].items():
+            start, stop = shard_rows(n, rank, len(out))
+            assert keys == [f"cpu[{start}:{stop}]"], (rank, name, keys)
+            total += (stop - start) * ncols
+        assert o["upload_rows"] == total > 0, (rank, o["upload_rows"])
 
 
 def test_all_22_plans():

@@ -476,4 +476,18 @@ def test_chip_smoke_phase_3l_on_cpu():
     """``chip_smoke.py``'s phase 3l at SF 0.005 on the CPU: every path
     against its oracle and the makers' batches (no launches here)."""
     import chip_smoke
-    assert chip_smoke.phase_host(sf=SF, device="cpu") == {}
+    launches, host = chip_smoke.phase_host(sf=SF, device="cpu")
+    assert launches == {} and set(host) == {
+        "lineitem", "orders", "customer", "part", "supplier", "partsupp",
+        "nation", "region"}
+
+
+def test_chip_smoke_phase_3m_on_cpu():
+    """``chip_smoke.py``'s phase 3m over phase 3l's Tables at SF 0.005 on
+    the CPU: every path against its numpy or Python oracle (no launches
+    here)."""
+    import chip_smoke
+    _, host = chip_smoke.phase_host(sf=SF, device="cpu")
+    launches, nested = chip_smoke.phase_host_tier(host, device="cpu")
+    assert launches == {}
+    assert len(nested["list<double>"]) == host["orders"].num_rows

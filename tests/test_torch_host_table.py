@@ -68,6 +68,9 @@ def port_type(rt):
     if tid == T.DICTIONARY:
         return PT.dictionary(port_type(rt.index_type),
                              port_type(rt.value_type))
+    if tid == T.RUN_END_ENCODED:
+        return PT.run_end_encoded(port_type(rt.run_end_type),
+                                  port_type(rt.value_type))
     return PT.DataType(PT.TypeId(tid))
 
 

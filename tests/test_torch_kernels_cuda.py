@@ -932,3 +932,116 @@ def test_eager_filter_takes_k2():
     got = pc.filter(array(v), array(mask))
     assert compact.launches == before + 1
     assert np.array_equal(got.to_numpy(), v[mask])
+
+
+# --- the nested device tier (compute/device_nested.py) -------------------------
+
+def _nested_inputs(seed=5, n=50_000):
+    """A list<double> with nulls in children and parents, a list<string>
+    over the same offsets, and sorted int64 keys with nulls."""
+    import numpy as np
+    import arrow_tpu_torch.types as T
+    from arrow_tpu_torch.array.array import Array, array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    from arrow_tpu_torch.utils import bits
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 7, n)
+    offs = np.zeros(n + 1, np.int32)
+    offs[1:] = np.cumsum(lens)
+    total = int(offs[-1])
+    child_valid = rng.random(total) > 0.1
+    vals = rng.normal(size=total)
+    dchild = ArrayData(T.float64(), total, [Buffer(bits.pack_bits(
+        child_valid)), Buffer(vals)])
+    words = np.array(["MAIL", "SHIP", "AIR", "RAIL", ""])
+    strs = array([None if not ok else words[i] for ok, i in zip(
+        child_valid.tolist(), rng.integers(0, 5, total).tolist())],
+        T.string())
+    parent_valid = rng.random(n) > 0.3
+    pv = Buffer(bits.pack_bits(parent_valid))
+    lists = [Array(ArrayData(T.list_(t), n, [pv, Buffer(offs)],
+                             children=[c]))
+             for t, c in ((T.float64(), dchild), (T.string(), strs.data))]
+    keys = np.sort(rng.integers(0, n // 4, 4 * n))
+    key_arr = array([None if i % 97 == 0 else int(k)
+                     for i, k in enumerate(keys.tolist())], T.int64())
+    return lists, key_arr
+
+
+@pytest.mark.cuda
+def test_list_flatten_on_card_one_compaction_matches_cpu():
+    """With null parents, list_flatten on the card launches K2 once and
+    equals the CPU run (the compaction's plain version) bit for bit; the
+    other nested names run on the card and equal the CPU run too."""
+    _need_card()
+    import arrow_tpu_torch.compute as pc
+    lists, _ = _nested_inputs()
+    for lst in lists:
+        before = compact.launches
+        got = pc.list_flatten(lst)
+        assert compact.launches == before + 1
+        want = pc.list_flatten(lst, device="cpu")
+        assert _same_bits(got, want)
+        for name, opts in (("list_value_length", {}),
+                           ("list_parent_indices", {}),
+                           ("list_element", {"index": 0}),
+                           ("list_element", {"index": 5})):
+            before = compact.launches
+            g = pc.call_function(name, [lst], opts)
+            assert compact.launches == before
+            w = pc.call_function(name, [lst], opts, device="cpu")
+            assert _same_bits(g, w), name
+
+
+def _same_bits(a, b):
+    import numpy as np
+    if a.type != b.type or len(a) != len(b):
+        return False
+    am, bm = a.is_valid_mask(), b.is_valid_mask()
+    if not np.array_equal(am, bm):
+        return False
+    if a.type.is_floating or a.type.is_integer:
+        return np.array_equal(a.data.values()[am].view(np.uint8),
+                              b.data.values()[bm].view(np.uint8))
+    return a.to_pylist() == b.to_pylist()
+
+
+@pytest.mark.cuda
+def test_run_end_encode_on_card_one_compaction_matches_cpu():
+    """The eager run_end_encode on the card launches K2 once and gives
+    the CPU run's run-end encoded Array; run_end_decode inverts it."""
+    _need_card()
+    import arrow_tpu_torch.compute as pc
+    _, keys = _nested_inputs(7)
+    before = compact.launches
+    got = pc.call_function("run_end_encode", [keys])
+    assert compact.launches == before + 1
+    want = pc.call_function("run_end_encode", [keys], device="cpu")
+    assert got.type == want.type and len(got) == len(want) == len(keys)
+    for i in range(2):
+        from arrow_tpu_torch.array.array import Array
+        assert _same_bits(Array(got.data.children[i]),
+                          Array(want.data.children[i]))
+    assert _same_bits(pc.run_end_decode(got), keys)
+    assert _same_bits(pc.run_end_decode(got.slice(1000, 5000)),
+                      keys.slice(1000, 5000))
+
+
+@pytest.mark.cuda
+def test_nested_cuda_calls_never_take_the_host_tier(monkeypatch):
+    """A device-representable child on the card: no host gather runs."""
+    _need_card()
+    import arrow_tpu_torch.compute as pc
+    from arrow_tpu_torch.compute import host_kernels
+
+    def refuse(*a, **k):
+        raise AssertionError("the host tier ran")
+    monkeypatch.setattr(host_kernels, "host_take", refuse)
+    lists, keys = _nested_inputs(9, 5_000)
+    for lst in lists:
+        for name, opts in (("list_flatten", {}), ("list_value_length", {}),
+                           ("list_parent_indices", {}),
+                           ("list_element", {"index": 1})):
+            pc.call_function(name, [lst], opts)
+    pc.run_end_decode(pc.call_function("run_end_encode", [keys]))

@@ -213,12 +213,23 @@ def tpch_case(mesh, query, sf, kwargs=None):
 
 def tpch_host_case(mesh, query, sf, kwargs=None):
     """``tpch_case`` over host Tables (``io.tpch.generate_host``): each
-    rank uploads them whole to its device and runs the plan."""
+    rank uploads only its range of each table's rows to its device and
+    runs the plan. Adds, by table, its rows, the (start, stop) ranges this
+    rank uploaded of the columns it read and how many columns; and the
+    rows all uploads took (``source_cache.UPLOAD_STATS``)."""
+    from arrow_tpu_torch.acero import source_cache
     from arrow_tpu_torch.io import tpch, tpch_queries
     t = tpch.generate_host(sf)
     fn, names = TPCH[query]
-    return _plan_runs(mesh, lambda: getattr(tpch_queries, fn)(
+    source_cache.reset_upload_stats()
+    out = _plan_runs(mesh, lambda: getattr(tpch_queries, fn)(
         *(t[n] for n in names), **(kwargs or {})))
+    out["uploads"] = {n: (t[n].num_rows, sorted({
+        k for c in t[n].columns for k in source_cache._uploads.get(c, {})}),
+        sum(c in source_cache._uploads for c in t[n].columns))
+        for n in names}
+    out["upload_rows"] = source_cache.UPLOAD_STATS["rows"]
+    return out
 
 
 def tpch_shards_case(mesh, query, sf, kwargs=None):
