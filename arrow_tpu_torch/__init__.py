@@ -36,3 +36,15 @@ def default_device(device=None) -> torch.device:
 from .array.array import Array, array  # noqa: E402,F401
 from .table import (ChunkedArray, RecordBatch, RecordBatchReader,  # noqa
                     Table, chunked_array, record_batch, table)
+from .api import type_for_alias  # noqa: E402,F401
+
+
+def __getattr__(name):
+    """The frontends and the subpackages, imported when first named
+    (reference: ``arrow_tpu/__init__.py`` ``__getattr__``)."""
+    import importlib
+    lazy = {"acero": ".acero", "compute": ".compute", "dataset": ".dataset",
+            "gandiva": ".gandiva", "sql": ".sql", "substrait": ".substrait"}
+    if name in lazy:
+        return importlib.import_module(lazy[name], __name__)
+    raise AttributeError(name)

@@ -13,7 +13,7 @@ from .options import (AggregateNodeOptions,  # noqa: F401
                       OrderBySinkNodeOptions, PivotLongerNodeOptions,
                       PivotLongerRowTemplate, ProjectNodeOptions,
                       RecordBatchReaderSourceNodeOptions,
-                      SelectKSinkNodeOptions, SinkNodeOptions,
+                      ScanNodeOptions, SelectKSinkNodeOptions, SinkNodeOptions,
                       SortedMergeNodeOptions, TableSinkNodeOptions,
                       TableSourceNodeOptions, UnionNodeOptions)
 from .source_cache import release as release_uploads  # noqa: F401

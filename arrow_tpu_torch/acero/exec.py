@@ -77,14 +77,15 @@ from ..compute.registry import ExecContext, get_function
 from ..compute.selection import (compact_columns, filter_batch,
                                  gather_columns, selection_mask, take_batch)
 from ..device.column import (BLOCK, DeviceBatch, DeviceColumn, batch_to,
-                             capacity_class, download_table, upload_table)
+                             capacity_class, download_table, round_up,
+                             upload_table)
 from ..table import RecordBatch, Table
 from ..types import Field, Schema
 from .expression import Expression
 from .options import (AggregateNodeOptions, FetchNodeOptions,
                       FilterNodeOptions, HashJoinNodeOptions,
                       OrderByNodeOptions, ProjectNodeOptions,
-                      TableSourceNodeOptions)
+                      ScanNodeOptions, TableSourceNodeOptions)
 from .prune import prune_plan
 from .query_context import QueryContext, current_query_context, query_scope
 
@@ -531,9 +532,7 @@ class _Run:
                 decl.options, download_table(inner)),
                 device=inner.row_count.device)
         if f == "scan":
-            raise NotImplementedError(
-                "'scan' sources read a dataset: the dataset frontend is "
-                "not ported yet (ROADMAP.md, queue 1, item 12)")
+            return _execute_scan(decl.options)
         raise ValueError(f"unknown node factory {f!r}")
 
     def _pre_chain(self, decl: "Declaration"):
@@ -884,28 +883,100 @@ def _execute_sink(name: str, options, batch: DeviceBatch) -> DeviceBatch:
     return batch
 
 
-def _execute_union(batches: List[DeviceBatch]) -> DeviceBatch:
+def _execute_union(batches: List[DeviceBatch], keeps=None,
+                   rows=None) -> DeviceBatch:
     """The inputs' columns, by position, concatenated at the sum of their
     capacities (a dictionary column recoded into the union of its
-    dictionaries), then the live rows moved to the front in input order
-    by one compaction (reference: ``_execute_union``)."""
+    dictionaries where they differ), then the rows to keep moved to the
+    front in input order by one compaction (reference:
+    ``_execute_union``). ``keeps`` holds a row mask an input, None for
+    its live rows. Where no input has a mask and ``rows`` gives each
+    input's live row count on the host, the live rows are concatenated
+    end to end instead, padded as an upload is, with no compaction (one
+    such input is returned as it is)."""
     schema = batches[0].schema
     if any(len(b.columns) != len(schema.fields) for b in batches):
         raise ValueError("union inputs have different numbers of columns")
+    keeps = keeps or [None] * len(batches)
+    end_to_end = rows is not None and all(k is None for k in keeps)
+    if end_to_end and len(batches) == 1:
+        return batches[0]
+    dev = batches[0].row_count.device
+    if end_to_end:
+        total = sum(rows)
+        pad = round_up(total) - total
     cols = []
     for i in range(len(schema.fields)):
-        parts = [b.columns[i] for b in batches]
-        if any(c.dictionary is not None for c in parts):
-            parts = _unify_dictionaries(parts)
+        parts = _one_dictionary([b.columns[i] for b in batches])
+        values = [c.values for c in parts]
         validity = None
         if any(c.validity is not None for c in parts):
-            validity = torch.cat([c.valid_mask() for c in parts])
-        cols.append(DeviceColumn(torch.cat([c.values for c in parts]),
-                                 validity, parts[0].type,
-                                 parts[0].dictionary))
-    cols, count = compact_columns(
-        cols, torch.cat([b.row_mask() for b in batches]))
+            validity = [c.valid_mask() for c in parts]
+        if end_to_end:
+            values = [v[:n] for v, n in zip(values, rows)] + [
+                values[0].new_zeros(pad)]
+            if validity is not None:
+                validity = [v[:n] for v, n in zip(validity, rows)] + [
+                    torch.zeros(pad, dtype=torch.bool, device=dev)]
+        cols.append(DeviceColumn(
+            torch.cat(values), None if validity is None
+            else torch.cat(validity), parts[0].type, parts[0].dictionary))
+    if end_to_end:
+        return DeviceBatch(schema, cols, torch.tensor(
+            total, dtype=torch.int32, device=dev))
+    cols, count = compact_columns(cols, torch.cat(
+        [b.row_mask() if k is None else k for b, k in zip(batches, keeps)]))
     return DeviceBatch(schema, cols, count)
+
+
+def _one_dictionary(cols: List[DeviceColumn]) -> List[DeviceColumn]:
+    """Columns of one dictionary: as they are where they have none or
+    their dictionaries are equal (the fragments of one Table's slices),
+    else recoded into their union (``_unify_dictionaries``, which refuses
+    a mix of coded and plain columns)."""
+    first = cols[0].dictionary
+    if all(c.dictionary is first or (first is not None
+                                     and c.dictionary == first)
+           for c in cols):
+        return list(cols)
+    return _unify_dictionaries(cols)
+
+
+def _execute_scan(options: ScanNodeOptions) -> DeviceBatch:
+    """A dataset's scan on ``options.device`` (the card where None): each
+    fragment that its partition guarantee keeps (``get_fragments``) has
+    its columns uploaded once a column (``source_cache``), and the filter
+    simplified by its guarantee evaluated there as a row mask; then the
+    fragments become one batch, in fragment order
+    (``_execute_union``): their kept rows by one compaction, or, where
+    no filter is left on any fragment, their rows end to end."""
+    from .expression import simplify_with_guarantee
+    dev = default_device(options.device)
+    names = list(options.names)
+    filt = options.filter
+    batches, keeps, rows = [], [], []
+    for frag in options.dataset.get_fragments(filt):
+        residual = None if filt is None else simplify_with_guarantee(
+            filt, frag.partition_expression)
+        if residual is not None and residual.kind == Expression.KIND_LITERAL:
+            if residual.value is not True:
+                continue
+            residual = None
+        need = names if residual is None else names + [
+            n for n in dict.fromkeys(residual.field_names())
+            if n not in names]
+        tbl = frag.to_table(need)
+        batch = TableSourceNodeOptions(tbl).upload(dev)
+        keep = None
+        if residual is not None:
+            ctx = ExecContext(batch.capacity, batch.row_count)
+            keep, _ = selection_mask(ctx, residual.evaluate(batch, ctx))
+        batches.append(batch.select(names))
+        keeps.append(keep)
+        rows.append(tbl.num_rows)
+    if not batches:
+        raise ValueError("no fragments matched")
+    return _execute_union(batches, keeps, rows)
 
 
 _INT64_MAX = (1 << 63) - 1
@@ -1223,9 +1294,10 @@ def _pinned_source(decl: Declaration) -> bool:
 
 
 def _host_source(decl: Declaration) -> bool:
-    """Whether ``decl`` reads a host Table (a source of one, or a reader)."""
+    """Whether ``decl`` reads a host Table (a source of one, a reader, or
+    a dataset's scan)."""
     return any((d.factory_name in _SOURCES and d.options.is_host)
-               or d.factory_name == "record_batch_reader_source"
+               or d.factory_name in ("record_batch_reader_source", "scan")
                for d in _walk(decl))
 
 
@@ -1261,7 +1333,10 @@ def _sources_on(decl: Declaration, device,
 
     def walk(d: Declaration) -> Declaration:
         if id(d) not in memo:
-            if d.factory_name in _SOURCES + ("record_batch_reader_source",):
+            if d.factory_name == "scan":
+                memo[id(d)] = Declaration("scan", d.options.on(dev))
+            elif d.factory_name in _SOURCES + (
+                    "record_batch_reader_source",):
                 o = _source_on(d.options, dev, hosts_only)
                 memo[id(d)] = d if o is None else Declaration(
                     "table_source", o)

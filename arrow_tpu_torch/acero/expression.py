@@ -12,7 +12,9 @@ as every row of such a column is null); the string functions
 value set up by dictionary slot (``compute/vector_misc.py``) and keeps a
 null row null, as the reference's plans do. A function of the values
 (arithmetic, rounding, the math functions) raises on a dictionary-coded
-column: its codes are not values."""
+column: its codes are not values. ``fold_constants`` and
+``simplify_with_guarantee`` simplify a tree on the host (a dataset's
+partition pruning)."""
 
 from __future__ import annotations
 
@@ -86,6 +88,45 @@ class Expression:
     def __and__(self, o): return self._bin("and_kleene", o)    # noqa: E704
     def __or__(self, o): return self._bin("or_kleene", o)      # noqa: E704
     def __invert__(self): return Expression.call("invert", self)  # noqa: E704
+
+    def isin(self, values) -> "Expression":
+        return Expression.call("is_in", self, value_set=list(values))
+
+    def is_valid(self) -> "Expression":
+        return Expression.call("is_valid", self)
+
+    def is_null(self, nan_is_null: bool = False) -> "Expression":
+        return Expression.call("is_null", self, nan_is_null=nan_is_null)
+
+    def is_nan(self) -> "Expression":
+        return Expression.call("is_nan", self)
+
+    def cast(self, target_type, safe: bool = True,
+             options=None) -> "Expression":
+        return Expression.call("cast", self, to_type=target_type,
+                               safe=safe)
+
+    def to_substrait(self, schema, allow_arrow_extensions: bool = False):
+        """This expression as a one-expression Substrait
+        ExtendedExpression (pyarrow Expression.to_substrait), bytes."""
+        from ..substrait import serialize_expressions
+        return serialize_expressions([self], ["expression"], schema)
+
+    @staticmethod
+    def from_substrait(message) -> "Expression":
+        """The one expression of a Substrait ExtendedExpression."""
+        from ..substrait import deserialize_expressions
+        buf = message if isinstance(message, (bytes, bytearray)) else (
+            message.to_pybytes() if hasattr(message, "to_pybytes")
+            else message.SerializeToString())
+        bound = deserialize_expressions(bytes(buf))
+        if len(bound.expressions) != 1:
+            raise ValueError("expected exactly one expression, got "
+                             f"{len(bound.expressions)}")
+        return next(iter(bound.expressions.values()))
+
+    def equals(self, other: "Expression") -> bool:
+        return repr(self) == repr(other)
 
     def __hash__(self):
         return hash(repr(self))
@@ -183,6 +224,96 @@ def _translate_string_compare(fn, args):
         new = [DeviceColumn(slot_lookup(col, ranks), col.validity, T.int64()),
                rank]
     return new if a_str else new[::-1]
+
+
+# --- simplification ------------------------------------------------------
+
+def fold_constants(expr: Expression) -> Expression:
+    """Pure-literal subtrees evaluated on the host, and the Boolean
+    short-circuits of a literal operand (reference:
+    ``acero/expression.py`` ``fold_constants``; compute/expression.h:214
+    FoldConstants)."""
+    if expr.kind != Expression.KIND_CALL:
+        return expr
+    args = [fold_constants(a) for a in expr.args]
+    if all(a.kind == Expression.KIND_LITERAL for a in args) and \
+            expr.fn in _PY_FOLDS:
+        try:
+            return Expression.literal(
+                _PY_FOLDS[expr.fn](*[a.value for a in args]))
+        except Exception:  # noqa: BLE001 - left unfolded, as the reference
+            pass
+    # Boolean short-circuits (partition pruning relies on these)
+    if expr.fn in ("and_kleene", "and") and len(args) == 2:
+        for i, a in enumerate(args):
+            if a.kind == Expression.KIND_LITERAL:
+                if a.value is False:
+                    return Expression.literal(False)
+                if a.value is True:
+                    return args[1 - i]
+    if expr.fn in ("or_kleene", "or") and len(args) == 2:
+        for i, a in enumerate(args):
+            if a.kind == Expression.KIND_LITERAL:
+                if a.value is True:
+                    return Expression.literal(True)
+                if a.value is False:
+                    return args[1 - i]
+    return Expression(Expression.KIND_CALL, fn=expr.fn, args=args,
+                      options=expr.options)
+
+
+_PY_FOLDS = {
+    "add": lambda a, b: a + b,
+    "subtract": lambda a, b: a - b,
+    "multiply": lambda a, b: a * b,
+    "equal": lambda a, b: a == b,
+    "not_equal": lambda a, b: a != b,
+    "less": lambda a, b: a < b,
+    "less_equal": lambda a, b: a <= b,
+    "greater": lambda a, b: a > b,
+    "greater_equal": lambda a, b: a >= b,
+    "and_kleene": lambda a, b: a and b,
+    "or_kleene": lambda a, b: a or b,
+    "invert": lambda a: not a,
+}
+
+
+def simplify_with_guarantee(expr: Expression,
+                            guarantee: Optional[Expression]) -> Expression:
+    """``expr`` with the fields an equality ``guarantee`` pins (``field ==
+    literal`` terms, and-ed) replaced by their literals, then folded: the
+    partition pruning of a dataset (reference: expression.h:224)."""
+    if guarantee is None:
+        return fold_constants(expr)
+    pinned: dict = {}
+    _collect_pins(guarantee, pinned)
+    return fold_constants(_substitute(expr, pinned))
+
+
+def _collect_pins(g: Expression, out: dict):
+    if g.kind != Expression.KIND_CALL:
+        return
+    if g.fn == "equal" and len(g.args) == 2:
+        a, b = g.args
+        if a.kind == Expression.KIND_FIELD and \
+                b.kind == Expression.KIND_LITERAL:
+            out[a.name] = b.value
+        elif b.kind == Expression.KIND_FIELD and \
+                a.kind == Expression.KIND_LITERAL:
+            out[b.name] = a.value
+    elif g.fn == "and_kleene":
+        for a in g.args:
+            _collect_pins(a, out)
+
+
+def _substitute(e: Expression, pins: dict) -> Expression:
+    if e.kind == Expression.KIND_FIELD and e.name in pins:
+        return Expression.literal(pins[e.name])
+    if e.kind == Expression.KIND_CALL:
+        return Expression(Expression.KIND_CALL, fn=e.fn,
+                          args=[_substitute(a, pins) for a in e.args],
+                          options=e.options)
+    return e
 
 
 def field(name) -> Expression:

@@ -1,5 +1,6 @@
 """Plan node options (counterpart of ``arrow_tpu/acero/options.py``). A table
-source holds a host ``Table`` or ``RecordBatch``, or a ``DeviceBatch``."""
+source holds a host ``Table`` or ``RecordBatch``, or a ``DeviceBatch``; a
+scan source holds a dataset (``dataset.py``)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from typing import Optional, Sequence, Tuple
 from ..device.column import DeviceBatch
 from ..table import RecordBatch, Table
 from .expression import Expression
-from .source_cache import uploaded_column
+from .source_cache import table_of, uploaded_column
 
 
 class TableSourceNodeOptions:
@@ -25,7 +26,7 @@ class TableSourceNodeOptions:
             self._batch = table
         elif isinstance(table, (Table, RecordBatch)):
             self.table = table if isinstance(table, Table) \
-                else Table.from_batches([table])
+                else table_of(table)
             self._batch = None
         else:
             raise TypeError("a table source takes a Table, a RecordBatch "
@@ -89,6 +90,46 @@ class RecordBatchReaderSourceNodeOptions:
             self._source = TableSourceNodeOptions(
                 Table.from_batches(batches, schema))
         return self._source
+
+
+class ScanNodeOptions:
+    """A dataset as a plan source (reference: dataset/scan_node.cc:123
+    "scan", ``arrow_tpu/acero/options.py`` ``ScanNodeOptions``): the
+    fragments that ``filter``'s partition pruning keeps, each uploaded a
+    column once (``source_cache``) and filtered on the card, enter the
+    plan as one device table of ``columns`` (every column where None)
+    (``exec._execute_scan``). ``device`` is where the scan runs (the card
+    where None); a plan's run sets it."""
+
+    def __init__(self, dataset, columns=None, filter=None,
+                 require_sequenced_output: bool = False, device=None):
+        self.dataset = dataset
+        self.columns = list(columns) if columns is not None else None
+        self.filter = filter
+        self.require_sequenced_output = require_sequenced_output
+        self.device = device
+
+    @property
+    def names(self):
+        return self.columns if self.columns is not None \
+            else list(self.dataset.schema.names)
+
+    @property
+    def table(self):
+        """The scan's rows as a host Table (the reference's property)."""
+        return self.dataset.to_table(columns=self.columns,
+                                     filter=self.filter, device=self.device)
+
+    def select(self, names: Sequence[str]) -> "ScanNodeOptions":
+        """The scan of ``names`` alone (its filter still reads what it
+        reads)."""
+        return ScanNodeOptions(self.dataset, names, self.filter,
+                               self.require_sequenced_output, self.device)
+
+    def on(self, device) -> "ScanNodeOptions":
+        """The same scan run on ``device``."""
+        return ScanNodeOptions(self.dataset, self.columns, self.filter,
+                               self.require_sequenced_output, device)
 
 
 class ConsumingSinkNodeOptions:

@@ -6,7 +6,8 @@ above reads of its output, then
 * narrows a hash join's ``left_output``/``right_output`` to them, so its
   gathers and compactions move only those columns;
 * narrows a table source to them (``TableSourceNodeOptions.select``: no
-  data moves; a host Table is narrowed before it is uploaded);
+  data moves; a host Table is narrowed before it is uploaded), and a
+  dataset's scan likewise (``ScanNodeOptions.select``);
 * drops the project expressions whose outputs nothing reads.
 
 The root's own output is never narrowed. ``Declaration.to_table()`` runs
@@ -33,7 +34,7 @@ def output_names(decl) -> Optional[List[str]]:
     on the data or the node is not analysed (the analysis stops there)."""
     f = decl.factory_name
     o = decl.options
-    if f == "table_source":
+    if f in ("table_source", "scan"):
         return list(o.names)
     if f in ("filter", "fetch", "order_by"):
         return output_names(decl.inputs[0])
@@ -120,7 +121,7 @@ def _rewrite(decl, required: Optional[Set[str]]):
     input: a set of names, or None for every column)."""
     f = decl.factory_name
     o = decl.options
-    if f == "table_source":
+    if f in ("table_source", "scan"):
         names = o.names
         if required is None:
             return o, []

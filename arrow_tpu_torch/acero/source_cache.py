@@ -8,6 +8,10 @@ card. Every source that holds the column, a narrowed one or a repeated
 run's, shares these, so its dictionary and its codes stay one object and a
 second run uploads nothing.
 
+A RecordBatch that a source reads is held as one Table, made once a batch
+(``table_of``), so its columns too are uploaded once however many sources
+or runs read it.
+
 The maps hold the column weakly: an entry goes with the column, when the
 user's Table is dropped. ``release(table)`` drops a Table's entries sooner,
 and ``release()`` every entry, freeing the card memory and the page-locked
@@ -25,6 +29,16 @@ from ..device.column import DeviceColumn, HostColumn, host_column_repr, \
 _prepared: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _uploads: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _pinned: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_tables: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def table_of(batch):
+    """A RecordBatch's one-batch Table, made once a batch."""
+    from ..table import Table
+    tbl = _tables.get(batch)
+    if tbl is None:
+        tbl = _tables[batch] = Table.from_batches([batch])
+    return tbl
 
 
 def prepared_column(col) -> HostColumn:
@@ -84,14 +98,19 @@ def host_column(col, pinned: bool) -> DeviceColumn:
 
 def release(table=None) -> None:
     """Drop the cached state of ``table``'s columns (a Table or a
-    RecordBatch's Table), or of every column when ``table`` is None. A
-    later run of a source over them prepares and uploads them anew, with
-    new dictionary objects."""
+    RecordBatch), or of every column when ``table`` is None. A later run
+    of a source over them prepares and uploads them anew, with new
+    dictionary objects."""
+    from ..table import RecordBatch
     maps = (_prepared, _uploads, _pinned)
     if table is None:
-        for m in maps:
+        for m in maps + (_tables,):
             m.clear()
         return
+    if isinstance(table, RecordBatch):
+        table = _tables.pop(table, None)
+        if table is None:
+            return
     for col in table.columns:
         for m in maps:
             m.pop(col, None)

@@ -7,7 +7,9 @@ runs the port's device function on ``device`` (the card unless
 ``device="cpu"`` is given) and gives a host ``Array`` or ``Scalar``
 (``registry.call_function``). Besides the explicit wrappers below, every
 registered name is a wrapper of its own (``__getattr__``): ``compute.add(a,
-b, device="cpu")``; ``and_``/``or_`` for the keywords.
+b, device="cpu")``; ``and_``/``or_`` for the keywords. Options come as
+keywords, as a dict or as a ``FunctionOptions`` object (``options.py``:
+``compute.quantile(a, options=QuantileOptions(q=[0.1, 0.9]))``).
 
 User-defined functions (reference: ``register_scalar_function`` and the
 rest, python/pyarrow/_compute.pyx): a UDF is a Python function of a
@@ -22,7 +24,10 @@ import numpy as np
 
 from .registry import (ArrowInvalid, ArrowNotImplementedError,  # noqa: F401
                        ExecContext, Scalar, call_function,
-                       function_registry, get_function, list_functions)
+                       function_registry, get_function, list_functions,
+                       register_eager)
+from .options import *  # noqa: F401,F403 - the FunctionOptions classes
+from .options import FunctionOptions, __all__ as _OPTIONS
 
 __all__ = [
     "call_function", "list_functions", "get_function", "function_registry",
@@ -33,7 +38,7 @@ __all__ = [
     "bottom_k_unstable", "UdfContext", "register_scalar_function",
     "register_aggregate_function", "register_vector_function",
     "register_tabular_function", "call_tabular_function",
-]
+] + _OPTIONS
 
 
 def _combine(a):
@@ -155,13 +160,21 @@ def value_counts(values, device=None):
                            children=[vals.data, counts.data], null_count=0))
 
 
-def dictionary_encode(values, device=None):
+@register_eager("dictionary_encode")
+def dictionary_encode(values, device=None, null_encoding_behavior="mask"):
     """A dictionary array of ``values`` in order of first appearance
     (vector_hash.cc DictionaryEncode): the unique non-null values, codes
-    by ``index_in``, nulls null."""
+    by ``index_in``, nulls null (``null_encoding_behavior="mask"``, the
+    only behavior the reference has). It is also what the eager
+    ``call_function("dictionary_encode")`` gives; plans keep the
+    grouper's codes (``grouper.dictionary_encode``)."""
     from .. import types as T
     from ..array.array import Array
     from ..array.data import ArrayData
+    if null_encoding_behavior != "mask":
+        raise ArrowNotImplementedError(
+            f"dictionary_encode: null_encoding_behavior="
+            f"{null_encoding_behavior!r} (only 'mask')")
     a = _combine(values)
     if a.type.id == T.TypeId.DICTIONARY:
         return a
@@ -281,6 +294,8 @@ def call_tabular_function(function_name, args=None, func_registry=None):
 
 def _make_wrapper(name: str):
     def wrapper(*args, device=None, options=None, **kwargs):
+        if isinstance(options, FunctionOptions):
+            options = options.to_kwargs()
         opts = dict(options or {})
         opts.update(kwargs)
         return call_function(name, list(args), opts or None, device=device)

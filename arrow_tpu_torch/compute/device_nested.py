@@ -175,6 +175,10 @@ def list_flatten(arr: Array, device=None) -> Optional[Array]:
 
 
 def list_element(arr: Array, index: int, device=None) -> Optional[Array]:
+    if index < 0:
+        from .registry import ArrowInvalid
+        raise ArrowInvalid(f"list_element: index {index} is negative "
+                           "(take: index out of bounds)")
     lay = list_layout(arr)
     if lay is None or not has_device_form(lay[1]) \
             or lay[0][-1] == lay[0][0]:

@@ -545,7 +545,12 @@ def _list_parent_indices(arr: Array, device=None) -> Array:
 @register_host("list_element", takes_device=True)
 def _list_element(arr: Array, index: int = 0, device=None) -> Array:
     """Each list's element ``index``, null where the list is null or
-    shorter; the device tier first."""
+    shorter; the device tier first. A negative ``index`` raises, as
+    Arrow's does, before either tier runs (an offset plus a negative
+    index would read the list before)."""
+    if index < 0:
+        raise ArrowInvalid(f"list_element: index {index} is negative "
+                           "(take: index out of bounds)")
     hit = DN.list_element(arr, index, device)
     if hit is not None:
         return hit

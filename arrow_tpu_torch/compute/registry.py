@@ -104,6 +104,22 @@ def register_host(name: str, takes_device: bool = False):
     return deco
 
 
+# name -> the host-tier function that the eager ``call_function`` runs in
+# place of the registered one, where that one gives a form only plans read
+# (``register_eager``)
+_EAGER: Dict[str, Callable] = {}
+
+
+def register_eager(name: str):
+    """``call_function(name, ...)`` runs the decorated host-tier function,
+    given the arrays, ``device=`` and the options as keywords; plans go on
+    calling the function registered under ``name``."""
+    def deco(fn):
+        _EAGER[name] = fn
+        return fn
+    return deco
+
+
 def register_alias(alias: str, name: str):
     _REGISTRY[alias] = _REGISTRY[name]
 
@@ -173,14 +189,31 @@ def call_function(name: str, args: Sequence, options=None, device=None):
     (``materialize``). An element-wise function first applies the
     reference's implicit casts (``dispatch.unify_inputs``) and recodes
     two or more dictionary columns into one sorted union
-    (``dispatch.unify_device_dicts``)."""
+    (``dispatch.unify_device_dicts``). ``options`` is a dict or a
+    ``FunctionOptions`` object (``compute/options.py``), which may also
+    stand among ``args``."""
     from .. import default_device
     from ..array.array import Array
     from ..device.column import DeviceColumn, round_up, upload_column
     from ..table import ChunkedArray
     from ..types import DataType, type_for_name
+    from .options import FunctionOptions
+    if isinstance(options, FunctionOptions):
+        options = options.to_kwargs()
     options = {k: _host_value(v) for k, v in (options or {}).items()}
-    args = list(args)
+    # an options object among the arguments is options, as in the
+    # reference (``registry.py:250-256``) and pyarrow
+    norm_args = []
+    for a in args:
+        if isinstance(a, FunctionOptions):
+            options.update({k: _host_value(v)
+                            for k, v in a.to_kwargs().items()})
+        else:
+            norm_args.append(a)
+    args = norm_args
+    eager = _EAGER.get(name)
+    if eager is not None:
+        return eager(*args, device=device, **options)
     if name == "cast" and len(args) >= 2 and \
             isinstance(args[1], (DataType, str)):
         t = args[1]
@@ -331,6 +364,15 @@ def _py_scalar(value, t, dictionary):
 
 
 def _agg_scalar(r) -> Scalar:
+    from ..types import TypeId
+    if r.fields is not None and r.type.id in (TypeId.LIST,
+                                              TypeId.LARGE_LIST):
+        # one value a q (``quantile``, ``tdigest`` of several q), as
+        # Arrow gives them
+        vt = r.type.value_type
+        return Scalar([_py_scalar(v, vt, r.dictionary) if bool(ok)
+                       else None for v, ok in zip(r.value, r.valid)],
+                      r.type)
     if r.fields is not None:
         ftypes = [f.type for f in getattr(r.type, "fields", ())] or \
             [None] * len(r.fields)

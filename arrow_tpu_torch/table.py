@@ -113,7 +113,9 @@ def _columns(data: Mapping[str, Any], schema: Optional[Schema]):
 
 
 class RecordBatch:
-    __slots__ = ("schema", "columns")
+    """Equal-length Arrays under a schema. A table source over it keeps
+    its one-batch Table, weakly (``acero.source_cache.table_of``)."""
+    __slots__ = ("schema", "columns", "__weakref__")
 
     def __init__(self, schema: Schema, columns: Sequence[Array]):
         if len(schema) != len(columns):
@@ -186,6 +188,11 @@ class RecordBatch:
                 and all(a.equals(b) for a, b in
                         zip(self.columns, other.columns)))
 
+    def rename_columns(self, names) -> "RecordBatch":
+        if len(names) != len(self.schema):
+            raise ValueError("name count mismatch")
+        return RecordBatch(_renamed(self.schema, names), self.columns)
+
     def _via_table(self, op, *args, **kwargs) -> "RecordBatch":
         out = getattr(Table.from_batches([self]), op)(*args, **kwargs)
         return RecordBatch(out.schema, [c.combine() for c in out.columns])
@@ -204,6 +211,12 @@ class RecordBatch:
     def __repr__(self):
         return (f"<RecordBatch rows={self.num_rows} "
                 f"cols={self.schema.names}>")
+
+
+def _renamed(schema: Schema, names) -> Schema:
+    return Schema([Field(n, f.type, f.nullable)
+                   for f, n in zip(schema.fields, names)],
+                  schema.metadata)
 
 
 def record_batch(data, schema: Optional[Schema] = None,
@@ -318,6 +331,11 @@ class Table:
     def slice(self, offset: int, length: Optional[int] = None) -> "Table":
         return Table(self.schema,
                      [c.slice(offset, length) for c in self.columns])
+
+    def rename_columns(self, names) -> "Table":
+        if len(names) != len(self.schema):
+            raise ValueError("name count mismatch")
+        return Table(_renamed(self.schema, names), self.columns)
 
     def equals(self, other: "Table") -> bool:
         return (self.schema.equals(other.schema)

@@ -206,6 +206,24 @@ Phases; any failure exits non-zero without the final line:
    ``QueryOptions`` exported as OTLP/JSON to a file and read back; the
    card's memory and runtime facts. Each against numpy or Python, each
    path's launches set to 0 just before and read just after.
+   Then (3n) the frontends (``phase_frontends``) over phase 3l's Tables
+   and their kept uploads: TPC-H Q1, Q6 and Q3 as SQL text (Q3 lineitem
+   first, joining before it filters); a Gandiva ``Projector`` of Q1's
+   disc_price and charge, a ``Filter`` of Q6's condition (its
+   ``SelectionVector`` found on the card with one compaction) and the
+   projector under that selection, over one RecordBatch of lineitem's
+   columns; Q6 and a Q3-shaped join (lineitem with orders, revenue by
+   order date, the top 10) through ``substrait.serialize_plan`` and
+   ``run_query`` over dictionary-free columns; an ``InMemoryDataset`` of
+   lineitem as 8 slices through a ``Scanner`` under Q6's filter, its
+   ``count_rows``, and ``scan`` sources under Q6's and Q1's aggregates
+   (Q1 twice: the second scan uploads nothing); the eager ``quantile``
+   of three q with ``QuantileOptions``, a cast by ``CastOptions`` and
+   ``list_element`` -1 raising over 3m's order lists. Each result
+   against its ``Declaration`` form over the same Tables or numpy, each
+   path's launches set to 0 just before and read just after and held to
+   FRONTEND_LAUNCHES; the parse, encode and decode times logged beside
+   the plans' walls.
    Then 3k (above) runs, with Q1 and Q3 from phase 3l's host Tables split
    by rank added (the Tables shared with the ranks through shared
    memory; each rank uploads only its range, held to its share), and
@@ -6532,18 +6550,22 @@ def host_tier_inputs(host, device):
 
 
 class _Paths:
-    """Phase 3m's paths: each with every launch count set to 0 just before
-    and read just after (on the card), its wall logged, its launches
-    checked against HOST_TIER_LAUNCHES at the end."""
+    """A phase's paths (3m's unless ``prefix`` names another): each with
+    every launch count set to 0 just before and read just after (on the
+    card), its wall logged, its launches checked against ``expected``
+    (HOST_TIER_LAUNCHES by default; a path not there launches nothing
+    but the probe) at the end."""
 
-    def __init__(self, device):
+    def __init__(self, device, prefix="3m", expected=None):
         self.device = device
         self.cuda = torch.device(device).type == "cuda"
         self.launches, self.walls = {}, {}
+        self.prefix = prefix
+        self.expected = HOST_TIER_LAUNCHES if expected is None else expected
 
     def run(self, name, fn):
         from arrow_tpu_torch.platform_check import self_check
-        key = f"3m {name}"
+        key = f"{self.prefix} {name}"
         if self.cuda:
             zero_launches()
             self_check()
@@ -6561,11 +6583,12 @@ class _Paths:
     def check_launches(self):
         if not self.cuda:
             return
-        bad = {k: (v, HOST_TIER_LAUNCHES.get(k, _NO_LAUNCH))
+        bad = {k: (v, self.expected.get(k, _NO_LAUNCH))
                for k, v in self.launches.items()
-               if v != HOST_TIER_LAUNCHES.get(k, _NO_LAUNCH)}
+               if v != self.expected.get(k, _NO_LAUNCH)}
         if bad:
-            raise AssertionError(f"3m launches (got, expected): {bad}")
+            raise AssertionError(f"{self.prefix} launches (got, expected): "
+                                 f"{bad}")
 
 
 def _nested(s, paths, dev):
@@ -7009,6 +7032,397 @@ def phase_host_tier(host, device="cuda"):
     log(f"phase 3m: {time.perf_counter() - t0:.1f} s (paths "
         f"{sum(paths.walls.values()):.1f} s)")
     return paths.launches, s
+
+
+# --- phase 3n: the frontends -------------------------------------------------
+
+# TPC-H Q1, Q6 and Q3 as SQL text. Q3 is written lineitem first: the SQL
+# join keeps the left side's keys and drops the right side's, so a later
+# join must name a key that a table already joined holds (``sql.py``); its
+# select list is in q3_plan's column order.
+SQL_Q1 = """
+    select l_returnflag, l_linestatus,
+           sum(l_quantity) as sum_qty,
+           sum(l_extendedprice) as sum_base_price,
+           sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+           sum(l_extendedprice * (1 - l_discount) * (1 + l_tax))
+               as sum_charge,
+           avg(l_quantity) as avg_qty,
+           avg(l_extendedprice) as avg_price,
+           avg(l_discount) as avg_disc,
+           count(*) as count_order
+    from lineitem
+    where l_shipdate <= date '1998-12-01' - interval '90' day
+    group by l_returnflag, l_linestatus
+    order by l_returnflag, l_linestatus"""
+SQL_Q6 = """
+    select sum(l_extendedprice * l_discount) as revenue
+    from lineitem
+    where l_shipdate >= date '1994-01-01'
+      and l_shipdate < date '1994-01-01' + interval '1' year
+      and l_discount between 0.05 and 0.07
+      and l_quantity < 24"""
+SQL_Q3 = """
+    select l_orderkey, o_orderdate, o_shippriority,
+           sum(l_extendedprice * (1 - l_discount)) as revenue
+    from lineitem
+    join orders on l_orderkey = o_orderkey
+    join customer on o_custkey = c_custkey
+    where c_mktsegment = 'BUILDING'
+      and o_orderdate < date '1995-03-15'
+      and l_shipdate > date '1995-03-15'
+    group by l_orderkey, o_orderdate, o_shippriority
+    order by revenue desc, o_orderdate
+    limit 10"""
+# the Gandiva batch: the columns of Q1's disc_price and charge and of Q6's
+# condition
+GANDIVA_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                   "l_shipdate")
+Q6_COLUMNS = ["l_shipdate", "l_discount", "l_quantity", "l_extendedprice"]
+Q1_COLUMNS = ["l_returnflag", "l_linestatus", "l_quantity",
+              "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+# lineitem's and orders' columns of the Substrait plans: no dictionary
+# column, which Substrait has no type for
+SUBSTRAIT_Q6 = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice",
+                "l_orderkey", "l_tax")
+SUBSTRAIT_JOIN = (("l_orderkey", "l_extendedprice", "l_discount"),
+                  ("o_orderkey", "o_orderdate"))
+FRONTEND_SLICES = 8             # the in-memory dataset's fragments
+FRONTEND_QUANTILES = [0.1, 0.5, 0.9]
+# launches of phase 3n's paths, reckoned from their plan trees before the
+# first run (each +1 probe, from self_check): SQL Q1 and the scan's Q1 are
+# Q1's seven float sums (K1, 12 slots); SQL Q3 joins before it filters,
+# lineitem probing orders and that probing customer, each with the bloom
+# (60,012,544 >= 4 x 15,000,576 and 4 x 1,500,160 capacity): a compaction
+# of the probe side and one of the join's output, and a hash of the build
+# and of the probe keys, each join; its WHERE folds into the aggregate as
+# a mask; Substrait's join is one such join; the Gandiva filter and the
+# scanner under Q6's filter compact once (the row ids; the fragments' kept
+# rows); count_rows the same; every other path, a scan without a filter
+# (its fragments' rows concatenated) among them, launches none
+_JOIN = {**_NO_LAUNCH, "compact": 2, "hash32": 2}
+FRONTEND_LAUNCHES = {
+    "3n SQL Q1": {**_NO_LAUNCH, "grouped_sum": 7},
+    "3n SQL Q3": {**_NO_LAUNCH, "compact": 4, "hash32": 4},
+    "3n gandiva filter": {**_NO_LAUNCH, "compact": 1},
+    "3n substrait join": _JOIN,
+    "3n scanner Q6": {**_NO_LAUNCH, "compact": 1},
+    "3n scanner count_rows": {**_NO_LAUNCH, "compact": 1},
+    "3n scan Q1": {**_NO_LAUNCH, "grouped_sum": 7},
+    "3n scan Q1 again": {**_NO_LAUNCH, "grouped_sum": 7},
+}
+
+
+def _host_values(tbl, name):
+    """A null-free host column's values, numpy."""
+    return tbl.column(name).combine().data.values()
+
+
+def _same_result(name, got, want):
+    """Column names, row count, validity and every non-float value alike;
+    floats within rtol 1e-9."""
+    g, w = got.to_pydict(), want.to_pydict()
+    if list(g) != list(w):
+        raise AssertionError(f"{name}: columns {list(g)} != {list(w)}")
+    for col in w:
+        a, b = g[col], w[col]
+        if len(a) != len(b) or [v is None for v in a] != \
+                [v is None for v in b]:
+            raise AssertionError(f"{name} {col}: rows or validity differ")
+        if any(isinstance(v, float) for v in b):
+            x = np.array([0.0 if v is None else v for v in a])
+            y = np.array([0.0 if v is None else v for v in b])
+            if not np.allclose(x, y, rtol=RTOL_F64, atol=0.0):
+                raise AssertionError(f"{name} {col}: {a[:5]} != {b[:5]}")
+        elif a != b:
+            raise AssertionError(f"{name} {col}: {a[:5]} != {b[:5]}")
+
+
+def _with_leaf(plan, leaf):
+    """A copy of a linear plan with its table source replaced by
+    ``leaf``."""
+    from arrow_tpu_torch.acero import Declaration
+    if not plan.inputs:
+        return leaf
+    return Declaration(plan.factory_name, plan.options,
+                       [_with_leaf(plan.inputs[0], leaf)])
+
+
+def q6_mask(li):
+    """Q6's condition over lineitem's host columns, numpy."""
+    from arrow_tpu_torch.io.tpch_queries import (DATE_1994_01_01,
+                                                 DATE_1995_01_01)
+    sd = _host_values(li, "l_shipdate")
+    disc = _host_values(li, "l_discount")
+    return ((sd >= DATE_1994_01_01) & (sd < DATE_1995_01_01)
+            & (disc >= 0.05) & (disc <= 0.07)
+            & (_host_values(li, "l_quantity") < 24.0))
+
+
+def q6_condition():
+    from arrow_tpu_torch.acero import field
+    from arrow_tpu_torch.io.tpch_queries import (DATE_1994_01_01,
+                                                 DATE_1995_01_01)
+    return ((field("l_shipdate") >= DATE_1994_01_01)
+            & (field("l_shipdate") < DATE_1995_01_01)
+            & (field("l_discount") >= 0.05)
+            & (field("l_discount") <= 0.07)
+            & (field("l_quantity") < 24.0))
+
+
+def gandiva_oracle(rb):
+    """Q1's disc_price and charge over a batch's host columns, numpy."""
+    price = rb.column("l_extendedprice").data.values()
+    disc = rb.column("l_discount").data.values()
+    tax = rb.column("l_tax").data.values()
+    disc_price = price * (1.0 - disc)
+    return disc_price, disc_price * (1.0 + tax)
+
+
+def _expect_floats(name, got, want):
+    got = np.asarray(got, dtype=np.float64)
+    if got.shape != want.shape or not np.allclose(got, want, rtol=RTOL_F64,
+                                                  atol=0.0):
+        raise AssertionError(f"{name}: differs from numpy's")
+
+
+def _frontend_sql(host, paths, dev, peaks):
+    """SQL Q1, Q6 and Q3 as text, each against its Declaration form over
+    the same Tables; the parse timed apart from the plan."""
+    from arrow_tpu_torch import sql
+    from arrow_tpu_torch.io import tpch_queries as tq
+    li, od, cu = host["lineitem"], host["orders"], host["customer"]
+    tables = {"lineitem": li, "orders": od, "customer": cu}
+    forms = {"Q1": (SQL_Q1, lambda: tq.q1_plan(li)),
+             "Q6": (SQL_Q6, lambda: tq.q6_plan(li)),
+             "Q3": (SQL_Q3, lambda: tq.q3_plan(cu, od, li))}
+    host_ms = {}
+    for name, (text, form) in forms.items():
+        t0 = time.perf_counter()
+        decl = sql.declaration(text, tables)
+        host_ms[f"SQL {name} parse"] = (time.perf_counter() - t0) * 1e3
+        base = memory_mark() if paths.cuda else 0
+        got = paths.run(f"SQL {name}", lambda: decl.to_table(device=dev))
+        if paths.cuda:
+            peaks[f"SQL {name}"] = (torch.cuda.max_memory_allocated()
+                                    - base) / 2**30
+        _same_result(f"SQL {name}", got, form().to_table(device=dev))
+        log(f"  SQL {name}: {got.num_rows} rows, parsed in "
+            f"{host_ms[f'SQL {name} parse']:.2f} ms, equals its "
+            "Declaration form")
+    # and query(), which parses and runs in one call
+    again = sql.query(SQL_Q6, tables, device=dev)
+    _same_result("SQL Q6 query()", again, tq.q6_plan(li).to_table(device=dev))
+    return host_ms
+
+
+def _frontend_gandiva(host, paths, dev):
+    """A Projector of Q1's disc_price and charge, a Filter of Q6's
+    condition and the Projector under its selection, over one
+    RecordBatch of lineitem's columns, against numpy."""
+    from arrow_tpu_torch import gandiva
+    from arrow_tpu_torch.acero import field
+    from arrow_tpu_torch.table import RecordBatch
+    from arrow_tpu_torch.types import Schema
+    li = host["lineitem"]
+    rb = RecordBatch(Schema([li.schema.field(n) for n in GANDIVA_COLUMNS]),
+                     [li.column(n).combine() for n in GANDIVA_COLUMNS])
+    disc_price = field("l_extendedprice") * (1.0 - field("l_discount"))
+    t0 = time.perf_counter()
+    proj = gandiva.make_projector(rb.schema, [
+        (disc_price, "disc_price"),
+        (disc_price * (1.0 + field("l_tax")), "charge")])
+    filt = gandiva.make_filter(rb.schema, q6_condition())
+    made_ms = (time.perf_counter() - t0) * 1e3
+    want = gandiva_oracle(rb)
+    out = paths.run("gandiva project", lambda: proj.evaluate(
+        rb, device=dev))
+    for a, w, n in zip(out, want, ("disc_price", "charge")):
+        _expect_floats(f"gandiva {n}", a.data.values(), w)
+    sel = paths.run("gandiva filter", lambda: filt.evaluate(rb, device=dev))
+    rows = np.nonzero(q6_mask(li))[0]
+    _expect_equal("gandiva SelectionVector", sel.indices.astype(np.int64),
+                  rows)
+    out = paths.run("gandiva project selected", lambda: proj.evaluate(
+        rb, selection=sel, device=dev))
+    for a, w, n in zip(out, want, ("disc_price", "charge")):
+        _expect_floats(f"gandiva {n} selected", a.data.values(), w[rows])
+    log(f"  gandiva: projector and filter made in {made_ms:.2f} ms, "
+        f"{len(sel)} rows selected of {rb.num_rows}; all equal numpy's")
+    return {"gandiva make": made_ms}
+
+
+def _frontend_substrait(host, paths, dev):
+    """Q6 and a Q3-shaped join through serialize_plan -> run_query over
+    dictionary-free columns, each against its Declaration form; the
+    encode and the decode timed apart from the plan."""
+    from arrow_tpu_torch import substrait
+    from arrow_tpu_torch.acero import (AggregateNodeOptions, Declaration,
+                                       FetchNodeOptions, HashJoinNodeOptions,
+                                       OrderByNodeOptions, ProjectNodeOptions,
+                                       TableSourceNodeOptions, field)
+    from arrow_tpu_torch.io.tpch_queries import q6_plan
+    li, od = host["lineitem"], host["orders"]
+    q6_li = li.select(list(SUBSTRAIT_Q6))
+    j_li, j_od = (li.select(list(SUBSTRAIT_JOIN[0])),
+                  od.select(list(SUBSTRAIT_JOIN[1])))
+
+    def src(t, name):
+        o = TableSourceNodeOptions(t)
+        o.substrait_name = name
+        return Declaration("table_source", o)
+
+    def join_plan():
+        return Declaration.from_sequence([
+            Declaration("hashjoin", HashJoinNodeOptions(
+                "inner", left_keys=["l_orderkey"],
+                right_keys=["o_orderkey"]),
+                [src(j_li, "lineitem"), src(j_od, "orders")]),
+            Declaration("project", ProjectNodeOptions(
+                [field("o_orderdate"),
+                 field("l_extendedprice") * (1.0 - field("l_discount"))],
+                ["o_orderdate", "volume"])),
+            Declaration("aggregate", AggregateNodeOptions(
+                [("volume", "sum", None, "revenue")], keys=["o_orderdate"])),
+            Declaration("order_by", OrderByNodeOptions(
+                [("revenue", "descending")])),
+            Declaration("fetch", FetchNodeOptions(0, 10))])
+
+    host_ms = {}
+    for name, make, provide in (
+            ("Q6", lambda: q6_plan(q6_li), lambda n, s: q6_li),
+            ("join", join_plan,
+             lambda n, s: j_li if n == ["lineitem"] else j_od)):
+        decl = make()
+        t0 = time.perf_counter()
+        blob = substrait.serialize_plan(decl)
+        t1 = time.perf_counter()
+        back, names = substrait.deserialize_plan(blob, provide)
+        t2 = time.perf_counter()
+        host_ms[f"substrait {name} encode"] = (t1 - t0) * 1e3
+        host_ms[f"substrait {name} decode"] = (t2 - t1) * 1e3
+        got = paths.run(f"substrait {name}", lambda: substrait.run_query(
+            blob, provide, device=dev))
+        _same_result(f"substrait {name}", got, make().to_table(device=dev))
+        log(f"  substrait {name}: {len(blob)} bytes, encoded in "
+            f"{host_ms[f'substrait {name} encode']:.2f} ms, decoded in "
+            f"{host_ms[f'substrait {name} decode']:.2f} ms; {got.num_rows} "
+            "rows equal to its Declaration form")
+    return host_ms
+
+
+def _frontend_dataset(host, paths, dev):
+    """An InMemoryDataset of lineitem as FRONTEND_SLICES slices: a Scanner
+    under Q6's filter and its count_rows, then scan sources under Q6's
+    and Q1's aggregates (Q1 twice: the second run uploads nothing), each
+    against its Declaration form over the Table."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       ScanNodeOptions,
+                                       TableSourceNodeOptions, source_cache)
+    from arrow_tpu_torch.io import tpch_queries as tq
+    li = host["lineitem"]
+    n = li.num_rows
+    step = -(-n // FRONTEND_SLICES)
+    data = ds.InMemoryDataset([li.slice(i, step) for i in range(0, n, step)])
+    cond = q6_condition()
+    got = paths.run("scanner Q6", lambda: ds.Scanner(
+        data, Q6_COLUMNS, cond, device=dev).to_table())
+    want = Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(
+            li.select(Q6_COLUMNS))),
+        Declaration("filter", FilterNodeOptions(cond))]).to_table(device=dev)
+    if table_digest(got) != table_digest(want):
+        raise AssertionError("scanner Q6: differs from the filter's rows")
+    count = paths.run("scanner count_rows", lambda: ds.Scanner(
+        data, Q6_COLUMNS, cond, device=dev).count_rows())
+    _expect("scanner count_rows", count == int(q6_mask(li).sum()),
+            f"({count} rows)")
+    scan6 = _with_leaf(tq.q6_plan(li), Declaration(
+        "scan", ScanNodeOptions(data, Q6_COLUMNS)))
+    _same_result("scan Q6", paths.run("scan Q6", lambda: scan6.to_table(
+        device=dev)), tq.q6_plan(li).to_table(device=dev))
+    scan1 = _with_leaf(tq.q1_plan(li), Declaration(
+        "scan", ScanNodeOptions(data, Q1_COLUMNS)))
+    want1 = tq.q1_plan(li).to_table(device=dev)
+    _same_result("scan Q1", paths.run("scan Q1", lambda: scan1.to_table(
+        device=dev)), want1)
+    rows = source_cache.UPLOAD_STATS["rows"]
+    _same_result("scan Q1 again", paths.run(
+        "scan Q1 again", lambda: scan1.to_table(device=dev)), want1)
+    _expect("scan Q1 again uploads nothing",
+            source_cache.UPLOAD_STATS["rows"] == rows)
+    log(f"  dataset: {len(data.fragments)} fragments, {count} rows under "
+        "Q6's filter; every scan equals its Declaration form; the repeated "
+        "scan uploaded nothing")
+
+
+def _frontend_options(host, nested, paths, dev):
+    """The eager calls with options objects: quantile of three q over
+    l_extendedprice (F4), a cast by CastOptions, and list_element -1
+    raising over 3m's order lists (F5)."""
+    import arrow_tpu_torch.compute as pc
+    import arrow_tpu_torch.types as T
+    from arrow_tpu_torch.compute.registry import ArrowInvalid
+    li = host["lineitem"]
+    price = li.column("l_extendedprice")
+    got = paths.run("quantile", lambda: pc.quantile(
+        price, options=pc.QuantileOptions(q=FRONTEND_QUANTILES),
+        device=dev))
+    _expect_floats("quantile", got.value, np.quantile(
+        _host_values(li, "l_extendedprice"), FRONTEND_QUANTILES))
+    got = paths.run("cast", lambda: pc.call_function(
+        "cast", [li.column("l_quantity"),
+                 pc.CastOptions(target_type=T.int32())], device=dev))
+    _expect_equal("cast", got.data.values(),
+                  _host_values(li, "l_quantity").astype(np.int32))
+    for kind in ("list<double>", "list<l_shipmode>"):
+        if nested is None:
+            break
+
+        def negative():
+            try:
+                pc.list_element(nested[kind], -1, device=dev)
+            except ArrowInvalid:
+                return True
+            return False
+        _expect(f"list_element {kind} -1 raises",
+                paths.run(f"list_element {kind} -1", negative))
+    log(f"  options: quantile of {FRONTEND_QUANTILES}, the cast and the "
+        "negative list_element as expected")
+
+
+def phase_frontends(host, nested=None, device="cuda"):
+    """Phase 3n: the frontends over phase 3l's host Tables (their uploads
+    kept by ``acero.source_cache``): SQL Q1, Q6 and Q3 as text; a Gandiva
+    projector and filter over a RecordBatch of lineitem; Q6 and a
+    Q3-shaped join through Substrait; an in-memory dataset of lineitem's
+    slices through a Scanner and a scan source; eager calls with options
+    objects, and list_element -1 over phase 3m's order lists (``nested``,
+    where given). Each result against its Declaration form or numpy, each
+    path's launches set to 0 just before and read just after (on the
+    card) and checked against FRONTEND_LAUNCHES. Returns (launches by
+    path, the host times and the paths' walls)."""
+    dev = torch.device(device)
+    log(f"== phase 3n: the frontends on {device}")
+    t0 = time.perf_counter()
+    paths = _Paths(dev, "3n", FRONTEND_LAUNCHES)
+    peaks = {}
+    host_ms = _frontend_sql(host, paths, dev, peaks)
+    host_ms.update(_frontend_gandiva(host, paths, dev))
+    host_ms.update(_frontend_substrait(host, paths, dev))
+    _frontend_dataset(host, paths, dev)
+    _frontend_options(host, nested, paths, dev)
+    paths.check_launches()
+    log("phase 3n host times (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in host_ms.items()))
+    if peaks:
+        log("phase 3n peak memory above the tables (GiB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"phase 3n: {time.perf_counter() - t0:.1f} s (paths "
+        f"{sum(paths.walls.values()):.1f} s)")
+    return paths.launches, {"host_ms": host_ms, "walls": paths.walls,
+                            "peaks": peaks}
 
 
 def join_declaration(jt, probe, build, **kw):
@@ -7770,6 +8184,8 @@ def main() -> int:
         launches.update(host_launches)
         tier_launches, nested = timed(phase_host_tier, host)
         launches.update(tier_launches)
+        front_launches, _ = timed(phase_frontends, host, nested)
+        launches.update(front_launches)
         launches.update(timed(phase_dist, tables, SF, "cuda", host))
         del host
         timed(phase_join_types, orders, customer)

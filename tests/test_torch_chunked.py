@@ -628,7 +628,10 @@ def test_repeat_runs_give_the_same_bits(table):
 
 
 @pytest.mark.parametrize("module", ["acero/chunked.py",
-                                    "acero/query_context.py", "cancel.py"])
+                                    "acero/query_context.py", "cancel.py",
+                                    "compute/options.py", "api.py", "sql.py",
+                                    "gandiva.py", "substrait.py",
+                                    "dataset.py"])
 def test_new_modules_import_neither_jax_nor_the_reference(module):
     tree = ast.parse((REPO / "arrow_tpu_torch" / module).read_text())
     for node in ast.walk(tree):

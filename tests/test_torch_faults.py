@@ -1,4 +1,4 @@
-"""Three faults of the port against the JAX package, repaired, each on the
+"""Six faults of the port against the JAX package, repaired, each on the
 input that showed it (ROADMAP.md §3):
 
 * F2: a numpy scalar literal is strongly typed, as in JAX: ``np.int64``
@@ -9,6 +9,19 @@ input that showed it (ROADMAP.md §3):
   versions and the general path (more than 1,024 segments) give the
   reference's sums within rtol 1e-9 and repeat bit for bit; dead rows stay
   out of every slot. The card's repeat checks are in ``chip_smoke.py``.
+* F4: the eager ``quantile`` and ``tdigest`` of several q give one value
+  a q (they gave the first q's alone). The reference raises IndexError
+  there, so the port departs from it and is held to Arrow's answer
+  (pyarrow's ``quantile`` where importable, the values otherwise).
+* F5: ``list_element`` with a negative index raises ArrowInvalid in both
+  tiers, as the reference's CPU tier does (the port's device tier read
+  the list before).
+* F6: the eager ``call_function("dictionary_encode", ...)`` gives Arrow's
+  dictionary Array, as both packages' ``compute.dictionary_encode`` do
+  (it gave the grouper's codes over an empty dictionary). The reference's
+  ``call_function`` gives codes with no dictionary, which cannot be
+  read, so the port is held to the reference's
+  ``compute.dictionary_encode`` and to pyarrow's.
 """
 
 import numpy as np
@@ -130,7 +143,7 @@ def test_uint64_downloads_unsigned():
         b)).to_table().to_pydict()["u"] == [1, 2**64 - 1, 5]
 
 
-# --- F1 ------------------------------------------------------------------------
+# --- F1 ----------------------------------------------------------------------
 
 def _sum_inputs(seed, n, segments, dead_share=0.3):
     rng = np.random.default_rng(seed)
@@ -202,3 +215,123 @@ def test_general_grouper_float_sums_match_jax_and_repeat(fn):
     assert len(want["k"]) > 1024
     assert_tables_match(got[0], want)
     assert got[0] == got[1]
+
+
+# --- F4-F6 -------------------------------------------------------------------
+
+_F4 = [1.0, 2.0, None, 4.0, 7.0]
+
+
+@pytest.mark.parametrize("fn", ["quantile", "tdigest"])
+def test_f4_every_q_has_its_value(fn):
+    import arrow_tpu.compute as jpc
+    import arrow_tpu_torch.compute as pc
+    from arrow_tpu_torch.array.array import array
+    a = array(_F4)
+    got = pc.call_function(fn, [a], {"q": [0.1, 0.5]}, device="cpu")
+    assert got.value == pytest.approx([1.3, 3.0], rel=1e-12)
+    assert got.type.id == TypeId.LIST
+    # the wrapper and an options object give the same
+    opts = pc.QuantileOptions(q=[0.1, 0.5]) if fn == "quantile" \
+        else pc.TDigestOptions(q=[0.1, 0.5])
+    assert getattr(pc, fn)(a, options=opts, device="cpu").value == \
+        got.value
+    # one q stays one value, as in the reference
+    one = pc.call_function(fn, [a], {"q": 0.5}, device="cpu")
+    assert one.value == jpc.call_function(fn, [at.array(_F4)],
+                                          {"q": 0.5}).value == 3.0
+    # the reference raises here: a departure, to Arrow's answer
+    with pytest.raises(IndexError):
+        jpc.call_function(fn, [at.array(_F4)], {"q": [0.1, 0.5]})
+    try:
+        import pyarrow as pa
+        import pyarrow.compute as ppc
+    except ImportError:
+        return
+    assert got.value == pytest.approx(ppc.quantile(
+        pa.array(_F4), q=[0.1, 0.5]).to_pylist(), rel=1e-12)
+
+
+def test_f4_a_plans_scalar_quantile_keeps_a_column_a_q():
+    """A plan's scalar quantile of several q is unchanged: ``x_q0``,
+    ``x_q1``, as the reference's."""
+    jt = Table.from_pydict({"x": at.array(_F4)})
+    tb = carry_across(upload_table(jt))
+
+    def plan(mod, src):
+        return mod.Declaration("aggregate", mod.AggregateNodeOptions(
+            [("x", "quantile", {"q": [0.1, 0.5]}, "x")], keys=[]),
+            [mod.Declaration("table_source", mod.TableSourceNodeOptions(src))])
+    want = plan(jacero, jt).to_table().to_pydict()
+    got = plan(tacero, tb).to_table(device="cpu").to_pydict()
+    assert list(want) == list(got) == ["x_q0", "x_q1"]
+    assert_tables_match(got, want)
+
+
+_F5 = [[1, 2, 3], None, [], [4, None, 6, 7], [8]]
+
+
+@pytest.mark.parametrize("tier", ["device", "host"])
+def test_f5_a_negative_list_index_raises_in_both_tiers(tier):
+    import arrow_tpu.compute as jpc
+    import arrow_tpu_torch.compute as pc
+    from arrow_tpu_torch.array.array import array
+    from arrow_tpu_torch.compute import device_nested
+    from arrow_tpu_torch.compute.registry import ArrowInvalid
+    # a list of lists has no device form: the host tier runs
+    a = array(_F5) if tier == "device" else array(
+        [None if v is None else [None if x is None else [x] for x in v]
+         for v in _F5])
+    if tier == "device":
+        assert device_nested.list_element(a, 1, "cpu") is not None
+        with pytest.raises(ArrowInvalid, match="index out of bounds"):
+            device_nested.list_element(a, -1, "cpu")
+    else:
+        assert device_nested.has_device_form(
+            device_nested.list_layout(a)[1]) is False
+    with pytest.raises(ArrowInvalid, match="index out of bounds"):
+        pc.list_element(a, -1, device="cpu")
+    with pytest.raises(Exception, match="index out of bounds"):
+        jpc.list_element(at.array(_F5), -1)
+    # a non-negative index still reads each list's element
+    assert pc.list_element(array(_F5), 2, device="cpu").to_pylist() == \
+        jpc.list_element(at.array(_F5), 2).to_pylist() == \
+        [3, None, None, 6, None]
+
+
+def test_f6_the_eager_dictionary_encode_reads_back():
+    import arrow_tpu.compute as jpc
+    import arrow_tpu_torch.compute as pc
+    from arrow_tpu_torch.array.array import Array, array
+    values = ["a", None, "b", "a", "c", "b"]
+    got = pc.call_function("dictionary_encode", [array(values)],
+                           device="cpu")
+    want = jpc.dictionary_encode(at.array(values))
+    assert got.to_pylist() == want.to_pylist() == values
+    assert got.data.values().tolist() == [0, 0, 1, 0, 2, 1]
+    assert got.is_valid_mask().tolist() == [True, False, True, True, True,
+                                            True]
+    assert Array(got.data.dictionary).to_pylist() == ["a", "b", "c"]
+    assert got.type.id == TypeId.DICTIONARY
+    assert pc.dictionary_encode(array(values), device="cpu").to_pylist() \
+        == values
+    # its options reach it, positionally or as options=, and are not
+    # dropped: the reference's one behavior runs, another raises
+    for opts in ({"options": pc.DictionaryEncodeOptions()},
+                 {"options": {"null_encoding_behavior": "mask"}}):
+        assert pc.call_function("dictionary_encode", [array(values)],
+                                device="cpu", **opts).to_pylist() == values
+    assert pc.call_function("dictionary_encode", [
+        array(values), pc.DictionaryEncodeOptions()],
+        device="cpu").to_pylist() == values
+    with pytest.raises(pc.ArrowNotImplementedError):
+        pc.call_function("dictionary_encode", [array(values)],
+                         pc.DictionaryEncodeOptions("encode"), device="cpu")
+    try:
+        import pyarrow as pa
+        import pyarrow.compute as ppc
+    except ImportError:
+        return
+    pw = ppc.dictionary_encode(pa.array(values))
+    assert pw.indices.to_pylist() == [0, None, 1, 0, 2, 1]
+    assert pw.dictionary.to_pylist() == ["a", "b", "c"]

@@ -140,7 +140,8 @@ def test_unported_nodes_raise(kind):
     functions that raised naming their ROADMAP item until the host
     boundary ported them (a grouped and a scalar host-tier aggregate, a
     consuming sink, pivot_longer), each against numpy over the filtered
-    rows; a ``scan`` source still raises, naming its item."""
+    rows; a ``scan`` source runs since the dataset frontend was ported,
+    and a dataset of files raises, naming its item."""
     tb, _ = q1_device_batch(0.001, device="cpu")
     source = Declaration("table_source", TableSourceNodeOptions(tb))
     filtered = Declaration("filter", FilterNodeOptions(
@@ -169,8 +170,16 @@ def test_unported_nodes_raise(kind):
             kept["l_quantity"], kept["l_discount"]) for v in pair]
     else:
         assert got == {"total": [list(dict.fromkeys(kept["l_quantity"]))]}
+    # a scan source runs over an in-memory dataset of those rows in two
+    # fragments; a dataset of files still raises, naming its item
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch.acero import ScanNodeOptions
+    tbl = filtered.to_table(device="cpu")
+    scanned = Declaration("scan", ScanNodeOptions(ds.dataset(
+        [tbl.slice(0, 3), tbl.slice(3)]))).to_table(device="cpu")
+    assert scanned.to_pydict() == kept
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Declaration("scan", None).to_table(device="cpu")
+        ds.dataset("lineitem.parquet")
 
 
 def _port_sources():
@@ -206,7 +215,9 @@ _HOST_BOUNDARY_MODULES = (
     "compute/host_kernels.py", "compute/cast_host.py",
     "compute/decimal_host.py", "compute/extra_kernels.py",
     "compute/vector_misc.py", "acero/dist_exec.py", "memory.py",
-    "config.py", "utils/otel.py")
+    "config.py", "utils/otel.py", "compute/options.py", "api.py",
+    "sql.py", "gandiva.py", "substrait.py", "dataset.py",
+    "acero/expression.py", "acero/prune.py")
 
 
 @pytest.mark.parametrize("module", _HOST_BOUNDARY_MODULES)
