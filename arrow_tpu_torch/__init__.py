@@ -16,6 +16,12 @@ The host data model is Arrow's: ``array()`` and ``Array``, ``table()``,
 columns in host memory; a ``Table`` goes into a plan through
 ``acero.TableSourceNodeOptions`` or into ``compute``'s functions, and
 results come back as host Tables and Arrays.
+
+Files: ``ipc`` (the Arrow IPC stream and file formats), ``feather`` (V1
+and V2), the streams and codecs of ``io_streams`` (``memory_map``,
+``Codec``, LZ4 by the port's own host library), ``fs`` (the local, mock
+and subtree file systems) and ``dataset``'s datasets of IPC and Feather
+files, with ``write_dataset``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,25 @@ from .array.array import Array, array  # noqa: E402,F401
 from .table import (ChunkedArray, RecordBatch, RecordBatchReader,  # noqa
                     Table, chunked_array, record_batch, table)
 from .api import type_for_alias  # noqa: E402,F401
+from .errors import (  # noqa: E402,F401
+    ArrowCancelled, ArrowCapacityError, ArrowException, ArrowIOError,
+    ArrowIndexError, ArrowInvalid, ArrowKeyError, ArrowMemoryError,
+    ArrowNotImplementedError, ArrowSerializationError, ArrowTypeError,
+)
+from .io_streams import (  # noqa: E402,F401
+    BufferedInputStream, BufferedOutputStream, BufferOutputStream,
+    BufferReader, Codec, CompressedInputStream, CompressedOutputStream,
+    FixedSizeBufferWriter, MemoryMappedFile, MockOutputStream, NativeFile,
+    OSFile, PythonFile, ResizableBuffer, TransformInputStream, compress,
+    create_memory_map, decompress, foreign_buffer, input_stream,
+    memory_map, output_stream, py_buffer, transcoding_input_stream,
+)
+from . import ipc  # noqa: E402,F401
+from .ipc import (  # noqa: E402,F401
+    Message, MessageReader, MetadataVersion, RecordBatchFileReader,
+    RecordBatchFileWriter, RecordBatchStreamReader,
+    RecordBatchStreamWriter,
+)
 
 
 def __getattr__(name):
@@ -44,7 +69,8 @@ def __getattr__(name):
     (reference: ``arrow_tpu/__init__.py`` ``__getattr__``)."""
     import importlib
     lazy = {"acero": ".acero", "compute": ".compute", "dataset": ".dataset",
-            "gandiva": ".gandiva", "sql": ".sql", "substrait": ".substrait"}
+            "feather": ".feather", "fs": ".fs", "gandiva": ".gandiva",
+            "sql": ".sql", "substrait": ".substrait"}
     if name in lazy:
         return importlib.import_module(lazy[name], __name__)
     raise AttributeError(name)

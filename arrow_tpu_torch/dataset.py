@@ -1,38 +1,50 @@
-"""Datasets in memory: partitioning, pruned scans (counterpart of
-``arrow_tpu/dataset.py``; reference: cpp/src/arrow/dataset/, Dataset and
-Fragment dataset.h:361,156, Scanner scanner.h:418, the hive and directory
-Partitioning partition.h:67 with pruning by SimplifyWithGuarantee).
+"""Datasets: partitioning, pruned scans, files and partitioned writes
+(counterpart of ``arrow_tpu/dataset.py``; reference: cpp/src/arrow/dataset/,
+Dataset and Fragment dataset.h:361,156, Scanner scanner.h:418, the hive and
+directory Partitioning partition.h:67 with pruning by
+SimplifyWithGuarantee, the partitioned writes of dataset_writer.cc).
 
-A dataset is a list of fragments, each a host Table (``InMemoryDataset``,
-``dataset(tables)``) with an optional partition guarantee. A scan prunes
-the fragments whose guarantee makes the filter false
+A dataset is a list of fragments with an optional partition guarantee
+each: host Tables (``InMemoryDataset``, ``dataset(tables)``) or files
+(``FileSystemDataset``, ``dataset(path or paths, format=)``; IPC and
+Feather V2, ``IpcFileFormat``/``FeatherFileFormat``). A scan prunes the
+fragments whose guarantee makes the filter false
 (``simplify_with_guarantee``), and runs the rest as the plan source
-``scan`` (``acero.ScanNodeOptions``): each fragment's columns are uploaded
-once a column (``acero/source_cache.py``, so a repeated scan of the same
-Tables uploads nothing), its filter, simplified by its guarantee, is
-evaluated on the card, and the kept rows of all fragments become one
-device table in one compaction (K2); a scan without a filter
-concatenates its fragments' rows. ``Dataset.to_table`` and the
-``Scanner`` run that source on ``device``, the card unless
-``device="cpu"``; a filter may read columns that ``columns`` leaves out.
+``scan`` (``acero.ScanNodeOptions``): each fragment gives a host Table of
+the columns the scan needs (a file's mapped, only those columns loaded,
+with its partition columns), whose columns are uploaded once a column
+(``acero/source_cache.py``, so a repeated scan of the same Tables uploads
+nothing); its filter, simplified by its guarantee, is evaluated on the
+card, and the kept rows of all fragments become one device table in one
+compaction (K2); a scan without a filter concatenates its fragments'
+rows. ``Dataset.to_table`` and the ``Scanner`` run that source on
+``device``, the card unless ``device="cpu"``; a filter may read columns
+that ``columns`` leaves out. ``write_dataset`` writes a Table as one file
+or one file a partition directory, the reference's bytes.
 
-Not ported yet (ROADMAP.md, queue 1, item 13): a dataset of files
-(``dataset(path)``), ``write_dataset``, the file formats and their
-fragments, and ``Dataset.join``/``join_asof`` (``Table.join``); each
-raises NotImplementedError. ``fragment_readahead`` is accepted and, as the
-fragments are in memory, has nothing to read ahead.
+Not ported yet (ROADMAP.md, queue 1, item 13): the Parquet, CSV, JSON and
+ORC formats, ``parquet_dataset``, and ``Dataset.join``/``join_asof``
+(``Table.join``); each raises NotImplementedError. ``fragment_readahead``
+is accepted and reads nothing ahead: a mapped file is read as the scan
+uploads it.
 """
-
 from __future__ import annotations
 
+import posixpath
 import re
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from .acero import Declaration, field
 from .acero.expression import Expression, simplify_with_guarantee
 from .acero.options import ScanNodeOptions
-from .table import RecordBatch, Table
-from .types import Field, Schema
+from .array.array import Array
+from .array.data import ArrayData
+from .buffer import Buffer
+from .table import ChunkedArray, RecordBatch, Table
+from .types import Field, Schema, TypeId
+from .utils import bits as bitutil
 from . import types as _T
 
 _FILES = "ROADMAP.md, queue 1, item 13: the file readers and writers"
@@ -229,8 +241,7 @@ class Dataset:
         """The rows under ``filter`` of ``columns`` (all where None) of
         every fragment, in fragment order, scanned on ``device``.
         ``fragment_readahead`` and ``use_threads`` are accepted for the
-        reference's signature; in-memory fragments have nothing to read
-        ahead."""
+        reference's signature and read nothing ahead."""
         return self._scan(columns, filter).to_table(device=device)
 
     def scanner(self, columns=None, filter=None, device=None):
@@ -398,11 +409,188 @@ class Scanner:
         return self.to_table().to_reader()
 
 
-def dataset(source, format=None, partitioning: Optional[Partitioning] = None,
-            filesystem=None, schema: Optional[Schema] = None) -> Dataset:
+# --- datasets of files ---------------------------------------------------------
+
+class FileFormat:
+    """A format of file fragments: a file's Table (only ``columns`` where
+    given), its schema, and a Table written as one file."""
+    name = "?"
+    default_extname = "?"
+
+    def read(self, fs, path: str, columns: Optional[List[str]] = None
+             ) -> Table:
+        raise NotImplementedError
+
+    def inspect(self, fs, path: str) -> Schema:
+        return self.read(fs, path).schema
+
+    def write(self, tbl: Table, fs, path: str):
+        raise NotImplementedError
+
+
+class IpcFileFormat(FileFormat):
+    """Arrow IPC files (dataset/file_ipc.h)."""
+    name = "ipc"
+    default_extname = "arrow"
+
+    def _reader(self, fs, path: str):
+        from . import ipc
+        from .io_streams import memory_map
+        local = fs.local_path(path)
+        if local is None:
+            with fs.open_input_stream(path) as f:
+                return ipc.open_file(f.read())
+        f = memory_map(local)
+        try:
+            return ipc.open_file(f)
+        finally:
+            f.close()  # the map itself stays while a Buffer over it lives
+
+    def read(self, fs, path, columns=None) -> Table:
+        """The file's Table, or its ``columns`` (all where empty). A local
+        file is mapped and only those columns are loaded, their Buffers
+        slices of the map, where the reference reads the whole file into
+        bytes and then selects: the same Table."""
+        return self._reader(fs, path).read_all(columns or None)
+
+    def inspect(self, fs, path) -> Schema:
+        """The file's schema, from its footer alone (the reference reads
+        the whole file)."""
+        return self._reader(fs, path).schema
+
+    def write(self, tbl, fs, path):
+        from . import ipc
+        with fs.open_output_stream(path) as f:
+            with ipc.new_file(f, tbl.schema) as w:
+                w.write_table(tbl)
+
+
+class FeatherFileFormat(IpcFileFormat):
+    """Feather V2, the IPC file format (ipc/feather.h)."""
+    name = "feather"
+    default_extname = "feather"
+
+
+def _later_format(name: str):
+    def __init__(self, *args, **kwargs):
+        _not_ported(f"the {name}")
+    return type(name, (FileFormat,), {
+        "__init__": __init__, "__doc__": f"Not ported yet ({_FILES})."})
+
+
+ParquetFileFormat = _later_format("ParquetFileFormat")
+CsvFileFormat = _later_format("CsvFileFormat")
+JsonFileFormat = _later_format("JsonFileFormat")
+OrcFileFormat = _later_format("OrcFileFormat")
+
+_FORMATS = {"parquet": ParquetFileFormat, "ipc": IpcFileFormat,
+            "arrow": IpcFileFormat, "feather": FeatherFileFormat,
+            "csv": CsvFileFormat, "json": JsonFileFormat,
+            "orc": OrcFileFormat}
+
+
+def _format(format) -> FileFormat:
+    return format if isinstance(format, FileFormat) else _FORMATS[format]()
+
+
+def _repeated(value, n: int) -> Array:
+    """``array([value] * n)``, without the list: the type the reference
+    infers from ``value``, every row valid."""
+    from .array.array import array
+    one = array([value])
+    t = one.type
+    d = one.data
+    if n == 0 or t.id == TypeId.NA:
+        return array([value] * n)
+    if t.id in (TypeId.STRING, TypeId.BINARY):
+        raw = d.data_bytes().tobytes()
+        if len(raw) * n >= 1 << 31:
+            return array([value] * n)
+        offs = np.arange(n + 1, dtype=np.int32) * np.int32(len(raw))
+        return Array(ArrayData(t, n, [None, Buffer(offs),
+                                      Buffer(raw * n)], null_count=0))
+    if t.id == TypeId.BOOL:
+        bits = bitutil.pack_bits(np.full(n, bool(value)))
+        return Array(ArrayData(t, n, [None, Buffer(bits)], null_count=0))
+    return Array(ArrayData(t, n, [None, Buffer(np.full(n, d.values()[0]))],
+                           null_count=0))
+
+
+class FileFragment:
+    """One file and its partition guarantee (dataset.h:156)."""
+
+    def __init__(self, fs, path: str, format: FileFormat,
+                 partition_values: Dict[str, object],
+                 partition_expression: Optional[Expression]):
+        self.fs = fs
+        self.path = path
+        self.format = format
+        self.partition_values = partition_values
+        self.partition_expression = partition_expression
+
+    def to_table(self, columns: Optional[List[str]] = None) -> Table:
+        """The file's ``columns`` (all where None) with its partition
+        columns, each value repeated over the rows, in ``columns``'
+        order."""
+        file_cols = None if columns is None else [
+            c for c in columns if c not in self.partition_values]
+        tbl = self.format.read(self.fs, self.path, file_cols)
+        part = self.partition_values if columns is None else {
+            k: v for k, v in self.partition_values.items() if k in columns}
+        if part:
+            n = tbl.num_rows
+            tbl = Table.from_arrays(
+                [c.combine() for c in tbl.columns]
+                + [_repeated(v, n) for v in part.values()],
+                list(tbl.column_names) + list(part))
+        if columns is not None:
+            tbl = tbl.select([c for c in columns if c in tbl.column_names])
+        return tbl
+
+    def schema(self) -> Schema:
+        """``to_table()``'s schema, from the file's footer and the
+        partition values (the reference reads the whole fragment)."""
+        from .array.array import array
+        file_schema = self.format.inspect(self.fs, self.path)
+        if not self.partition_values:
+            return file_schema
+        return Schema([Field(f.name, f.type) for f in file_schema]
+                      + [Field(k, array([v]).type)
+                         for k, v in self.partition_values.items()])
+
+    def __repr__(self):
+        return f"FileFragment({self.path!r})"
+
+
+Fragment = FileFragment
+
+
+class FileSystemDataset(Dataset):
+    """A dataset of file fragments (dataset.h:361)."""
+
+    @classmethod
+    def from_paths(cls, paths, schema=None, format="parquet",
+                   filesystem=None) -> "FileSystemDataset":
+        from .fs import LocalFileSystem
+        fmt = _format(format)
+        fs = filesystem or LocalFileSystem()
+        frags = [FileFragment(fs, p, fmt, {}, None) for p in paths]
+        return cls(frags, schema or frags[0].schema())
+
+    @property
+    def files(self) -> List[str]:
+        return [f.path for f in self.fragments]
+
+
+def dataset(source, format="parquet",
+            partitioning: Optional[Partitioning] = None, filesystem=None,
+            schema: Optional[Schema] = None) -> Dataset:
     """A dataset of a host Table or RecordBatch, or a list of them (an
-    ``InMemoryDataset``), or of a list of datasets (a ``UnionDataset``).
-    A path or a list of paths is a dataset of files, not ported yet."""
+    ``InMemoryDataset``); of a list of datasets (a ``UnionDataset``); or
+    of files in ``format``: a list of paths, or every file under a
+    directory, each with the partition values ``partitioning`` parses
+    from its directory (a ``FileSystemDataset``)."""
+    from .fs import FileSelector, LocalFileSystem
     if isinstance(source, (Table, RecordBatch)):
         return InMemoryDataset(source, schema)
     if isinstance(source, (list, tuple)) and source:
@@ -410,54 +598,258 @@ def dataset(source, format=None, partitioning: Optional[Partitioning] = None,
             return InMemoryDataset(source, schema)
         if all(isinstance(s, Dataset) for s in source):
             return UnionDataset(schema, source)
-    _not_ported("a dataset of files (dataset(path))")
+    fmt = _format(format)
+    fs = filesystem or LocalFileSystem()
+    if isinstance(source, (list, tuple)):
+        frags = [FileFragment(fs, p, fmt, {}, None) for p in source]
+    else:
+        frags = []
+        for info in fs.get_file_info(FileSelector(source, recursive=True)):
+            if not info.is_file:
+                continue
+            rel_dir = posixpath.dirname(posixpath.relpath(info.path, source))
+            values, guarantee = ({}, None)
+            if partitioning is not None and rel_dir:
+                values, guarantee = partitioning.parse(rel_dir)
+            frags.append(FileFragment(fs, info.path, fmt, values, guarantee))
+    if not frags:
+        raise ValueError(f"no files found in {source!r}")
+    return FileSystemDataset(frags, schema or frags[0].schema())
 
 
-def write_dataset(data, base_dir, *args, **kwargs):
-    _not_ported("write_dataset")
+# --- write_dataset -------------------------------------------------------------
+
+def _row_codes(arr: Array) -> np.ndarray:
+    """An int64 code a row: equal for equal values, -1 for a null."""
+    d = arr.data
+    tid = arr.type.id
+    if tid == TypeId.DICTIONARY:
+        codes = _canonical(d)[d.values().astype(np.int64)]
+    elif arr.type.is_numeric or arr.type.is_temporal or tid == TypeId.BOOL:
+        codes = np.unique(d.values(), return_inverse=True)[1].reshape(-1)
+    else:
+        seen: Dict[object, int] = {}
+        codes = np.array([seen.setdefault(v, len(seen))
+                          for v in arr.to_pylist()], dtype=np.int64)
+    codes = codes.astype(np.int64)
+    if arr.null_count:
+        codes[~arr.is_valid_mask()] = -1
+    return codes
 
 
-class FileFormat:
-    """A file format of fragments: not ported yet."""
+def _canonical(d: ArrayData) -> np.ndarray:
+    """Each dictionary code's first code of an equal value (a dictionary
+    may repeat a value; the reference keys by value)."""
+    seen: Dict[object, int] = {}
+    return np.array([seen.setdefault(v, i) for i, v in
+                     enumerate(Array(d.dictionary).to_pylist())],
+                    dtype=np.int64)
 
-    def __init__(self, *args, **kwargs):
-        _not_ported(f"the {type(self).__name__}")
+
+def _first_rows(codes: np.ndarray, n_codes: int) -> np.ndarray:
+    """Each code's first row in ``codes`` (``len(codes)`` where absent)."""
+    first = np.full(n_codes, len(codes), dtype=np.int64)
+    np.minimum.at(first, codes, np.arange(len(codes)))
+    return first
 
 
-class ParquetFileFormat(FileFormat):
+def _partition_groups(arrays: List[Array]):
+    """(the key tuple, its rows ascending) of each distinct key of the
+    partition columns, in the reference's order: by ``str`` of the key,
+    ties in order of first appearance."""
+    n = len(arrays[0])
+    combined = np.zeros(n, dtype=np.int64)
+    for a in arrays:
+        codes = _row_codes(a) + 1
+        combined = combined * (int(codes.max(initial=0)) + 1) + codes
+    if int(combined.max(initial=0)) < 1 << 24:
+        counts = np.bincount(combined)
+        remap = np.cumsum(counts > 0) - 1
+        gid, ngroups = remap[combined], int(remap[-1]) + 1
+    else:
+        _, gid = np.unique(combined, return_inverse=True)
+        gid = gid.reshape(-1)
+        ngroups = int(gid.max()) + 1
+    first = _first_rows(gid, ngroups)
+    # a stable sort of narrow ids is numpy's radix sort
+    order = np.argsort(gid.astype(np.uint16) if ngroups < 1 << 16 else gid,
+                       kind="stable")
+    ends = np.cumsum(np.bincount(gid, minlength=ngroups))
+    starts = ends - np.bincount(gid, minlength=ngroups)
+    keys = [tuple(a.slice(int(r), 1).to_pylist()[0] for a in arrays)
+            for r in first]
+    for g in sorted(range(ngroups), key=lambda g: (str(keys[g]), first[g])):
+        yield keys[g], order[starts[g]:ends[g]]
+
+
+def _gather_bytes(d: ArrayData, rows: np.ndarray, valid) -> tuple:
+    """(offsets, bytes) of a variable-size binary column's ``rows``, a null
+    row empty."""
+    offs = d.offsets().astype(np.int64)
+    starts = offs[rows]
+    lens = offs[rows + 1] - starts
+    if valid is not None:
+        lens[~valid] = 0
+    new = np.zeros(len(rows) + 1, dtype=np.int64)
+    np.cumsum(lens, out=new[1:])
+    at = np.repeat(starts - new[:-1], lens) + np.arange(new[-1])
+    return new, d.data_bytes()[at]
+
+
+def _rebuilt(arr: Array, rows: np.ndarray) -> Array:
+    """``array([arr.to_pylist()[i] for i in rows], arr.type)`` in numpy:
+    the reference's Array, byte for byte (zeros under nulls, no validity
+    where every row is valid, a dictionary of the values present in order
+    of first appearance)."""
+    from .array.array import array
+    t = arr.type
+    tid = t.id
+    d = arr.data
+    n = len(rows)
+    valid = arr.is_valid_mask()[rows] if arr.null_count else None
+    validity = None if valid is None or valid.all() else \
+        Buffer(bitutil.pack_bits(valid))
+    if tid == TypeId.BOOL:
+        bits = d.values()[rows] if valid is None else \
+            d.values()[rows] & valid
+        return Array(ArrayData(t, n, [validity,
+                                      Buffer(bitutil.pack_bits(bits))]))
+    if tid in (TypeId.STRING, TypeId.BINARY, TypeId.LARGE_STRING,
+               TypeId.LARGE_BINARY):
+        offs, data = _gather_bytes(d, rows, valid)
+        wide = tid in (TypeId.LARGE_STRING, TypeId.LARGE_BINARY)
+        return Array(ArrayData(t, n, [validity, Buffer(
+            offs if wide else offs.astype(np.int32)), Buffer(data)]))
+    if tid == TypeId.DICTIONARY:
+        codes = _canonical(d)[d.values()[rows].astype(np.int64)]
+        live = codes if valid is None else codes[valid]
+        first = _first_rows(live, d.dictionary.length)
+        present = np.flatnonzero(first < len(live))
+        kept = present[np.argsort(first[present], kind="stable")]
+        remap = np.zeros(max(d.dictionary.length, 1), dtype=np.int64)
+        remap[kept] = np.arange(len(kept))
+        idx = remap[codes]
+        if valid is not None:
+            idx[~valid] = 0
+        return Array(ArrayData(t, n, [validity, Buffer(
+            idx.astype(t.index_type.to_numpy_dtype()))],
+            dictionary=_rebuilt(Array(d.dictionary), kept).data))
+    if t.is_numeric or t.is_temporal or tid == TypeId.INTERVAL_MONTHS:
+        vals = d.values()[rows]
+        if valid is not None:
+            vals[~valid] = 0
+        return Array(ArrayData(t, n, [validity, Buffer(vals)]))
+    values = arr.to_pylist()
+    return array([values[i] for i in rows], t)
+
+
+def write_dataset(data, base_dir: str, format="parquet",
+                  partitioning=None, partitioning_flavor: Optional[str] = None,
+                  filesystem=None, basename_template: str = "part-{i}.{ext}",
+                  existing_data_behavior: str = "overwrite_or_ignore"):
+    """Write ``data`` (a Table or a RecordBatch) under ``base_dir`` in
+    ``format``: one file, or with ``partitioning`` (a Partitioning, or
+    column names with ``partitioning_flavor`` "hive" or None for
+    directories) one file a directory of each distinct key, its other
+    columns' rows in order (dataset_writer.cc). The reference groups the
+    rows in Python a row; the port groups them in numpy and writes the
+    same directories, file names and bytes."""
+    from .fs import LocalFileSystem
+    fmt = _format(format)
+    fs = filesystem or LocalFileSystem()
+    if isinstance(data, RecordBatch):
+        data = Table.from_batches([data])
+    if isinstance(partitioning, (list, tuple)):
+        part_schema = Schema([data.schema.field(n) for n in partitioning])
+        partitioning = (HivePartitioning(part_schema)
+                        if partitioning_flavor == "hive"
+                        else DirectoryPartitioning(part_schema))
+    fs.create_dir(base_dir)
+    name = basename_template.format(i=0, ext=fmt.default_extname)
+    if partitioning is None:
+        fmt.write(data, fs, posixpath.join(base_dir, name))
+        return
+    part_names = [f.name for f in partitioning.schema.fields]
+    rest = Schema([f for f in data.schema.fields if f.name not in part_names])
+    if data.num_rows == 0:
+        return
+    rest_cols = [data.column(f.name).combine() for f in rest]
+    for key, rows in _partition_groups([data.column(n).combine()
+                                        for n in part_names]):
+        sub = Table(rest, [ChunkedArray([_rebuilt(c, rows)], f.type)
+                           for c, f in zip(rest_cols, rest)])
+        d = posixpath.join(base_dir,
+                           partitioning.format(dict(zip(part_names, key))))
+        fs.create_dir(d)
+        fmt.write(sub, fs, posixpath.join(d, name))
+
+
+# --- the write options, the written files, the factories ----------------------
+
+class FileWriteOptions:
+    """A format's write options (dataset/file_base.h FileWriteOptions)."""
+
+    def __init__(self, **kwargs):
+        self.options = kwargs
+
+
+class IpcFileWriteOptions(FileWriteOptions):
     pass
 
 
-class IpcFileFormat(FileFormat):
+class WrittenFile:
+    """What a write hands its file_visitor."""
+
+    def __init__(self, path, metadata=None, size=0):
+        self.path = path
+        self.metadata = metadata
+        self.size = size
+
+
+class FileSystemFactoryOptions:
+    def __init__(self, partition_base_dir="", partitioning=None,
+                 exclude_invalid_files=True, selector_ignore_prefixes=None):
+        self.partition_base_dir = partition_base_dir
+        self.partitioning = partitioning
+        self.exclude_invalid_files = exclude_invalid_files
+        self.selector_ignore_prefixes = list(selector_ignore_prefixes
+                                             or (".", "_"))
+
+
+class DatasetFactory:
+    """Deferred dataset construction (dataset/discovery.h)."""
+
+    def __init__(self, source, format="parquet", partitioning=None,
+                 filesystem=None):
+        self._source = source
+        self._format = format
+        self._partitioning = partitioning
+        self._filesystem = filesystem
+
+    def inspect(self) -> Schema:
+        return self.finish().schema
+
+    def finish(self, schema: Optional[Schema] = None) -> Dataset:
+        return dataset(self._source, format=self._format,
+                       partitioning=self._partitioning,
+                       filesystem=self._filesystem)
+
+
+class FileSystemDatasetFactory(DatasetFactory):
     pass
 
 
-class FeatherFileFormat(FileFormat):
-    pass
+class UnionDatasetFactory(DatasetFactory):
+    def __init__(self, factories):
+        self._factories = list(factories)
+
+    def finish(self, schema: Optional[Schema] = None) -> Dataset:
+        return UnionDataset(None, [f.finish() for f in self._factories])
 
 
-class CsvFileFormat(FileFormat):
-    pass
-
-
-class JsonFileFormat(FileFormat):
-    pass
-
-
-class OrcFileFormat(FileFormat):
-    pass
-
-
-class FileSystemDataset(Dataset):
-    """A dataset of files: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        _not_ported("FileSystemDataset")
-
-    @classmethod
-    def from_paths(cls, *args, **kwargs):
-        _not_ported("FileSystemDataset")
-
+def parquet_dataset(metadata_path, schema=None, filesystem=None,
+                    format=None, partitioning=None, partition_base_dir=None):
+    _not_ported("parquet_dataset")
 
 def get_partition_keys(partition_expression) -> dict:
     """The key == value pairs of a partition guarantee

@@ -9,6 +9,12 @@ and an unchanged one is built once. The first call of any kernel builds
 every source that lacks its library, one ``nvcc`` process per source, all
 started together. A failed build raises :class:`BuildError` with the
 compiler's output.
+
+A host source, ``csrc/<name>.cpp`` (the LZ4 codec of the IPC and Feather
+files), compiles with the host C++ compiler into
+``build/arrow_tpu_torch/lib<name>-<hash>.so`` the same way
+(``host_library``), at its first use and apart from the CUDA sources;
+without a compiler it raises :class:`BuildError`.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "arrow_tpu_torch"
 # -Xptxas -v reports each kernel's registers and shared memory in BUILD_LOG
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the host C++ compiler's flags (``host_library``)
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 # compiler output of the builds made by this process, by source name
 BUILD_LOG: Dict[str, str] = {}
@@ -111,4 +120,44 @@ def library(name: str) -> ctypes.CDLL:
         build_all()
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(CSRC /
                                                          f"{name}.cu")))
+    return lib
+
+
+def host_compiler() -> str:
+    """Path of the host C++ compiler: ``$CXX``, else ``g++`` or ``c++`` on
+    PATH."""
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    raise BuildError("no host C++ compiler (g++ or c++) on PATH")
+
+
+def host_library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cpp``, built
+    with the host C++ compiler on first use."""
+    key = f"host:{name}"
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    out = host_library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cpp")], capture_output=True, text=True)
+        BUILD_LOG[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise BuildError(f"{name}.cpp:\n{BUILD_LOG[name]}")
+        os.replace(tmp, out)
+    lib = _LIBS[key] = ctypes.CDLL(str(out))
     return lib

@@ -625,16 +625,29 @@ def type_for_name(name: str) -> DataType:
     raise NotImplementedError(f"no port type named {name!r}")
 
 
-class Field:
-    __slots__ = ("name", "type", "nullable")
+def _norm_metadata(md) -> Optional[dict]:
+    """Key-value metadata as bytes to bytes (the reference's form)."""
+    if md is None:
+        return None
+    return {(k.encode() if isinstance(k, str) else bytes(k)):
+            (v.encode() if isinstance(v, str) else bytes(v))
+            for k, v in md.items()}
 
-    def __init__(self, name: str, type: DataType, nullable: bool = True):
+
+class Field:
+    __slots__ = ("name", "type", "nullable", "metadata")
+
+    def __init__(self, name: str, type: DataType, nullable: bool = True,
+                 metadata=None):
         self.name = name
         self.type = type
         self.nullable = bool(nullable)
+        self.metadata = _norm_metadata(metadata)
 
     def _key(self):
-        return (self.name, self.type, self.nullable)
+        return (self.name, self.type, self.nullable,
+                tuple(sorted(self.metadata.items())) if self.metadata
+                else ())
 
     def __eq__(self, other):
         return isinstance(other, Field) and self._key() == other._key()
@@ -654,7 +667,7 @@ class Schema:
 
     def __init__(self, fields: Sequence[Field], metadata=None):
         self.fields = list(fields)
-        self.metadata = metadata
+        self.metadata = _norm_metadata(metadata)
 
     @property
     def names(self) -> List[str]:

@@ -224,6 +224,20 @@ Phases; any failure exits non-zero without the final line:
    path's launches set to 0 just before and read just after and held to
    FRONTEND_LAUNCHES; the parse, encode and decode times logged beside
    the plans' walls.
+   Then (3o) files (``phase_files``) over phase 3l's Tables, in a
+   temporary directory whose free space is checked first: lineitem as
+   FILE_SLICES IPC files (3n's slices), Q1 by a ``scan`` source and Q6 by
+   a ``Scanner`` over ``dataset(dir, format="ipc")``, each twice, bit for
+   bit the same scans of the in-memory slices with the same launches;
+   one file read whole through a memory map, every buffer inside the map;
+   Q1's seven columns of all of lineitem as one Feather V2 file with LZ4
+   and Q1 over it; orders' V1-storable columns through Feather V1; orders
+   written partitioned by status (``write_dataset``, hive) and one
+   status's orders by priority over the pruned dataset against the
+   Table's plan; orders as an IPC stream in batches of FILE_STREAM_ROWS.
+   Each path's launches set to 0 just before and read just after and held
+   to FILE_LAUNCHES; the bytes written and mapped, the write and LZ4 rates
+   and the peaks logged.
    Then 3k (above) runs, with Q1 and Q3 from phase 3l's host Tables split
    by rank added (the Tables shared with the ranks through shared
    memory; each rank uploads only its range, held to its share), and
@@ -263,6 +277,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import sys
 import time
 import traceback
@@ -7425,6 +7440,404 @@ def phase_frontends(host, nested=None, device="cuda"):
                             "peaks": peaks}
 
 
+# --- phase 3o: files -----------------------------------------------------------
+
+FILE_SLICES = FRONTEND_SLICES   # lineitem's IPC files: phase 3n's slices
+FILE_STREAM_ROWS = 1 << 20      # the orders stream's batch rows
+HIVE_STATUS = "F"               # the order status the hive scan keeps
+V1_ORDERS = ("o_orderkey", "o_custkey", "o_totalprice", "o_shippriority",
+             "o_orderstatus", "o_orderpriority")
+# launches of phase 3o's paths, reckoned from their plan trees before the
+# first run (each +1 probe, from self_check): Q1 over the IPC files, over
+# the Feather file and over the in-memory slices is 3n's scan Q1, seven
+# float sums (K1, 12 slots) over the fragments' rows end to end; the
+# Scanner under Q6's filter compacts the fragments' kept rows once (K2);
+# the hive scan prunes to one directory, whose guarantee leaves no filter,
+# and the Table's plan folds its filter into the aggregate as a mask:
+# each is one float sum by the order priority (K1, 5 slots; the integer
+# sum, count, min and max take no kernel); every other
+# path (the writes, the round trips, the stream) launches none
+_SCAN_Q1 = {**_NO_LAUNCH, "grouped_sum": 7}
+_SCANNER_Q6 = {**_NO_LAUNCH, "compact": 1}
+_HIVE = {**_NO_LAUNCH, "grouped_sum": 1}
+FILE_LAUNCHES = {
+    "3o scan Q1 in memory": _SCAN_Q1, "3o scan Q1 ipc": _SCAN_Q1,
+    "3o scan Q1 ipc again": _SCAN_Q1, "3o scan Q1 feather": _SCAN_Q1,
+    "3o scanner Q6 in memory": _SCANNER_Q6, "3o scanner Q6 ipc": _SCANNER_Q6,
+    "3o scanner Q6 ipc again": _SCANNER_Q6,
+    "3o hive orders": _HIVE, "3o hive orders (table)": _HIVE,
+}
+
+
+def _free_bytes(path):
+    st = os.statvfs(path)
+    return st.f_bavail * st.f_frsize
+
+
+def _table_bytes(tbl):
+    """The bytes of a host Table's buffers (dictionaries included)."""
+    def data(d):
+        return (sum(b.size for b in d.buffers if b is not None)
+                + sum(data(c) for c in d.children)
+                + (0 if d.dictionary is None else data(d.dictionary)))
+    return sum(data(c.data) for col in tbl.columns for c in col.chunks)
+
+
+def _np_bits(values):
+    """A fixed-width numpy array as unsigned integers of its width (NaN
+    payloads compare by their bits)."""
+    return values.view(f"u{values.dtype.itemsize}") \
+        if values.dtype.kind == "f" else values
+
+
+def _same_data(name, got, want):
+    """Two ArrayDatas alike buffer by buffer, as numpy compares them:
+    type, length, nulls, validity, values (offsets rebased and the bytes
+    they span, for strings), and the dictionary."""
+    from arrow_tpu_torch.types import TypeId
+    _expect(f"{name} type and length", got.type == want.type
+            and got.length == want.length
+            and got.null_count == want.null_count)
+    gv, wv = got.validity_mask(), want.validity_mask()
+    _expect(f"{name} validity", (gv is None) == (wv is None) and (
+        gv is None or np.array_equal(gv, wv)))
+    tid = got.type.id
+    if tid in (TypeId.STRING, TypeId.BINARY, TypeId.LARGE_STRING,
+               TypeId.LARGE_BINARY):
+        go, wo = got.offsets(), want.offsets()
+        _expect_equal(f"{name} offsets", go - go[0], wo - wo[0])
+        _expect_equal(f"{name} bytes", got.data_bytes()[go[0]:go[-1]],
+                      want.data_bytes()[wo[0]:wo[-1]])
+    else:
+        _expect_equal(name, _np_bits(got.values()), _np_bits(want.values()))
+    if tid == TypeId.DICTIONARY:
+        _same_data(f"{name} dictionary", got.dictionary, want.dictionary)
+
+
+def _same_table(name, got, want):
+    """``got``'s chunks against the same rows of ``want``, buffer by
+    buffer (a dictionary column's codes under its one dictionary)."""
+    _expect(f"{name} schema", got.schema.names == want.schema.names
+            and got.num_rows == want.num_rows)
+    for n in want.schema.names:
+        whole, at = want.column(n).combine(), 0
+        for chunk in got.column(n).chunks:
+            _same_data(f"{name} {n} rows {at}", chunk.data,
+                       whole.slice(at, len(chunk)).data)
+            at += len(chunk)
+
+
+def _decoded(col):
+    """A dictionary column of strings as a plain string Array (its codes'
+    bytes gathered in numpy)."""
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    import arrow_tpu_torch.types as T
+    d = col.combine().data
+    dd = d.dictionary
+    doffs = dd.offsets().astype(np.int64)
+    codes = d.values().astype(np.int64)
+    starts, lens = doffs[codes], doffs[codes + 1] - doffs[codes]
+    offs = np.zeros(len(codes) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    at = np.repeat(starts - offs[:-1], lens) + np.arange(offs[-1])
+    return Array(ArrayData(T.string(), len(codes), [
+        None, Buffer(offs.astype(np.int32)),
+        Buffer(dd.data_bytes()[at])], null_count=0))
+
+
+def _mapped_root(values):
+    """The object that owns a numpy array's memory: the end of its chain
+    of bases, through a memoryview to the object it exports."""
+    while isinstance(values, (np.ndarray, memoryview)):
+        values = values.base if isinstance(values, np.ndarray) else \
+            values.obj
+    return values
+
+
+def _files_lineitem(li, tmp, paths, dev, peaks, facts):
+    """Lineitem as FILE_SLICES IPC files; Q1 by a scan source and Q6 by a
+    Scanner over ``dataset(dir, format="ipc")``, each twice, against the
+    same over 3n's in-memory slices (exact, with the same launches); one
+    file read whole through a memory map, without a copy."""
+    import mmap
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch import ipc
+    from arrow_tpu_torch.acero import Declaration, ScanNodeOptions
+    from arrow_tpu_torch.io import tpch_queries as tq
+    from arrow_tpu_torch.io_streams import memory_map
+    n = li.num_rows
+    step = -(-n // FILE_SLICES)
+    slices = [li.slice(i, step) for i in range(0, n, step)]
+    root = os.path.join(tmp, "lineitem")
+    os.makedirs(root)
+
+    def write():
+        for i, part in enumerate(slices):
+            with open(os.path.join(root, f"part-{i}.arrow"), "wb") as f:
+                with ipc.new_file(f, part.schema) as w:
+                    w.write_table(part)
+    paths.run("write lineitem ipc", write)
+    files = sorted(os.listdir(root))
+    nbytes = sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    wall = paths.walls["3o write lineitem ipc"]
+    facts["lineitem ipc GB"] = nbytes / 1e9
+    facts["lineitem ipc write GB/s"] = nbytes / 1e9 / wall
+    log(f"  lineitem as {len(files)} IPC files: {nbytes / 1e9:.3f} GB in "
+        f"{wall:.3f} s ({nbytes / 1e9 / wall:.2f} GB/s)")
+    data = ds.dataset(root, format="ipc")
+    memory = ds.InMemoryDataset(slices)
+    q1_read = sum(_table_bytes(frag.to_table(Q1_COLUMNS))
+                  for frag in data.fragments)
+    facts["Q1 bytes mapped GB"] = q1_read / 1e9
+    log(f"  Q1 maps {q1_read / 1e9:.3f} GB of the files' {nbytes / 1e9:.3f}"
+        f" GB ({len(Q1_COLUMNS)} of {len(li.schema)} columns, "
+        f"{q1_read / n:.1f} of {nbytes / n:.1f} B a row)")
+    cond = q6_condition()
+    results = {}
+    for source, dset, runs in (("in memory", memory, ("",)),
+                               ("ipc", data, ("", " again"))):
+        for again in runs:
+            scan1 = _with_leaf(tq.q1_plan(li), Declaration(
+                "scan", ScanNodeOptions(dset, Q1_COLUMNS)))
+            key = f"scan Q1 {source}{again}"
+            base = memory_mark() if paths.cuda else 0
+            results[key] = paths.run(key, lambda: scan1.to_table(device=dev))
+            if paths.cuda:
+                peaks[key] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            key = f"scanner Q6 {source}{again}"
+            base = memory_mark() if paths.cuda else 0
+            results[key] = paths.run(key, lambda: ds.Scanner(
+                dset, Q6_COLUMNS, cond, device=dev).to_table())
+            if paths.cuda:
+                peaks[key] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    for q in ("scan Q1", "scanner Q6"):
+        want = table_digest(results[f"{q} in memory"])
+        for again in ("", " again"):
+            _expect(f"{q} ipc{again}",
+                    table_digest(results[f"{q} ipc{again}"]) == want)
+    log(f"  {data.schema.names[:3]}...: the file scans equal the in-memory "
+        "slices' bit for bit")
+    # one file through a memory map: its slice buffer for buffer, no copy
+    f = memory_map(os.path.join(root, files[1]))
+    try:
+        back = paths.run("read_all mapped", lambda: ipc.open_file(
+            f).read_all())
+        _same_table("mapped read_all", back, slices[1])
+        lo = f.mapped().ctypes.data
+        hi = lo + f.size()
+        for col in back.columns:
+            for buf in col.chunks[0].data.buffers:
+                if buf is not None:
+                    at = buf.to_numpy().ctypes.data
+                    _expect("mapped read_all copies no body byte",
+                            lo <= at < hi)
+        root_obj = _mapped_root(back.column("l_extendedprice").chunks[0]
+                                .data.buffers[1].to_numpy())
+        _expect("a mapped column's base is the map",
+                isinstance(root_obj, mmap.mmap))
+    finally:
+        f.close()
+    log(f"  {files[1]} read whole through a memory map: equal to its slice, "
+        "every buffer inside the map")
+    for name in files:
+        os.remove(os.path.join(root, name))
+    return table_digest(results["scan Q1 in memory"])
+
+
+def _files_feather(li, od, tmp, paths, dev, want_q1, facts):
+    """Q1's columns of all of lineitem as one Feather V2 file with LZ4, Q1
+    over ``dataset(path, format="feather")`` against the in-memory
+    slices' (``want_q1``, its digest: the same rows end to end, so the
+    same bits); orders' V1 columns through Feather V1."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch import feather
+    from arrow_tpu_torch.acero import Declaration, ScanNodeOptions
+    from arrow_tpu_torch.io import tpch_queries as tq
+    from arrow_tpu_torch.table import Table
+    from arrow_tpu_torch.types import TypeId
+    path = os.path.join(tmp, "q1.feather")
+    q1 = li.select(Q1_COLUMNS)
+    raw = _table_bytes(q1)
+    paths.run("write feather lz4", lambda: feather.write_feather(
+        q1, path, compression="lz4"))
+    size = os.path.getsize(path)
+    back = paths.run("read feather lz4", lambda: feather.read_table(path))
+    _same_table("feather lz4", back, q1)
+    w, r = (paths.walls[f"3o {k} feather lz4"] for k in ("write", "read"))
+    facts.update({"feather raw GB": raw / 1e9, "feather lz4 GB": size / 1e9,
+                  "lz4 compress GB/s": raw / 1e9 / w,
+                  "lz4 decompress GB/s": raw / 1e9 / r})
+    log(f"  Feather V2 LZ4 of Q1's columns: {raw / 1e9:.3f} GB to "
+        f"{size / 1e9:.3f} GB, compressed and written at "
+        f"{raw / 1e9 / w:.2f} GB/s, read and decompressed at "
+        f"{raw / 1e9 / r:.2f} GB/s (host)")
+    del back
+    data = ds.dataset([path], format="feather")
+    scan1 = _with_leaf(tq.q1_plan(li), Declaration(
+        "scan", ScanNodeOptions(data, Q1_COLUMNS)))
+    got = paths.run("scan Q1 feather", lambda: scan1.to_table(device=dev))
+    _expect("scan Q1 feather", table_digest(got) == want_q1)
+    os.remove(path)
+    # Feather V1: orders' integer and float columns, and two dictionary
+    # columns as plain strings (V1 stores no dictionary and no date)
+    cols = [_decoded(od.column(c)) if od.column(c).type.id ==
+            TypeId.DICTIONARY else od.column(c).combine() for c in V1_ORDERS]
+    v1 = Table.from_arrays(cols, list(V1_ORDERS))
+    path = os.path.join(tmp, "orders.feather")
+    paths.run("write feather v1", lambda: feather.write_feather(
+        v1, path, version=1))
+    back = paths.run("read feather v1", lambda: feather.read_table(path))
+    _same_table("feather v1", back, v1)
+    facts["orders v1 GB"] = os.path.getsize(path) / 1e9
+    log(f"  Feather V1 of orders' {len(V1_ORDERS)} columns: "
+        f"{facts['orders v1 GB']:.3f} GB, read back equal")
+    del back
+    os.remove(path)
+
+
+HIVE_COLUMNS = ["o_orderpriority", "o_totalprice", "o_custkey"]
+
+
+def hive_orders_plan(source, ac=None):
+    """The orders of ``source`` by priority: their count, total price,
+    lowest and highest price and sum of customer keys, the priorities in
+    order."""
+    if ac is None:
+        import arrow_tpu_torch.acero as ac
+    return ac.Declaration.from_sequence([
+        source,
+        ac.Declaration("aggregate", ac.AggregateNodeOptions(
+            [("o_totalprice", "hash_count", None, "orders"),
+             ("o_totalprice", "hash_sum", None, "total"),
+             ("o_totalprice", "hash_min", None, "lowest"),
+             ("o_totalprice", "hash_max", None, "highest"),
+             ("o_custkey", "hash_sum", None, "customers")],
+            keys=["o_orderpriority"])),
+        ac.Declaration("order_by", ac.OrderByNodeOptions(
+            [("o_orderpriority", "ascending")]))])
+
+
+def _files_hive(od, tmp, paths, dev, facts):
+    """write_dataset of orders partitioned by o_orderstatus (hive); the
+    orders of HIVE_STATUS by priority over a scan of the dataset under
+    that filter (pruned to one directory) against the same aggregate over
+    the host Table under a filter node: counts, integer sums, the lowest
+    and highest prices exact, the float sum within rtol 1e-9 (its
+    additions follow other row positions)."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       ScanNodeOptions,
+                                       TableSourceNodeOptions, field)
+    from arrow_tpu_torch.types import Field, Schema
+    root = os.path.join(tmp, "orders_hive")
+    paths.run("write_dataset hive", lambda: ds.write_dataset(
+        od, root, format="ipc", partitioning=["o_orderstatus"],
+        partitioning_flavor="hive"))
+    dirs = sorted(os.listdir(root))
+    facts["hive GB"] = sum(os.path.getsize(os.path.join(root, d, f))
+                           for d in dirs
+                           for f in os.listdir(os.path.join(root, d))) / 1e9
+    data = ds.dataset(root, format="ipc", partitioning=ds.HivePartitioning(
+        Schema([Field("o_orderstatus", T.string())])))
+    cond = field("o_orderstatus") == HIVE_STATUS
+    kept = list(data.get_fragments(cond))
+    _expect("hive pruning", len(kept) == 1 and len(data.fragments)
+            == len(dirs), f"({len(kept)} of {len(data.fragments)})")
+    got = paths.run("hive orders", lambda: hive_orders_plan(Declaration(
+        "scan", ScanNodeOptions(data, HIVE_COLUMNS, cond))).to_table(
+            device=dev))
+    want = paths.run("hive orders (table)", lambda: hive_orders_plan(
+        Declaration.from_sequence([
+            Declaration("table_source", TableSourceNodeOptions(
+                od.select(["o_orderstatus"] + HIVE_COLUMNS))),
+            Declaration("filter", FilterNodeOptions(cond))])).to_table(
+                device=dev))
+    _same_result("hive orders", got, want)
+    g, w = got.to_pydict(), want.to_pydict()
+    _expect("hive orders exact", all(g[k] == w[k] for k in (
+        "o_orderpriority", "orders", "lowest", "highest", "customers")))
+    log(f"  hive: {dirs}, {facts['hive GB']:.3f} GB; the filter prunes "
+        f"{len(data.fragments) - len(kept)} of {len(data.fragments)} "
+        f"fragments; {got.num_rows} priorities equal to the Table's plan")
+    shutil.rmtree(root)
+
+
+def _files_stream(od, tmp, paths):
+    """orders as an IPC stream in batches of FILE_STREAM_ROWS rows, its
+    dictionaries written once, read back through a memory map."""
+    from arrow_tpu_torch import ipc
+    from arrow_tpu_torch.io_streams import memory_map
+    path = os.path.join(tmp, "orders.arrows")
+
+    def write():
+        with open(path, "wb") as f:
+            with ipc.new_stream(f, od.schema) as w:
+                w.write_table(od, FILE_STREAM_ROWS)
+    paths.run("write stream", write)
+    f = memory_map(path)
+    try:
+        back = paths.run("read stream", lambda: ipc.open_stream(
+            f).read_all())
+        _expect("stream batches", back.columns[0].num_chunks ==
+                -(-od.num_rows // FILE_STREAM_ROWS))
+        _same_table("stream", back, od)
+    finally:
+        f.close()
+    log(f"  orders stream: {os.path.getsize(path) / 1e9:.3f} GB in "
+        f"{back.columns[0].num_chunks} batches, read back equal")
+    os.remove(path)
+
+
+def phase_files(host, device="cuda"):
+    """Phase 3o: files, over phase 3l's host Tables. Lineitem as
+    FILE_SLICES IPC files, scanned by Q1 and Q6 (twice each) against the
+    same scans of the in-memory slices; one file read whole through a
+    memory map without a copy; Q1's columns as a Feather V2 file with LZ4
+    and Q1 over it; orders through Feather V1; orders written partitioned
+    by status (hive) and one status's orders by priority over the pruned
+    dataset against the Table's plan; orders as an IPC stream in batches.
+    Each path's launches are set to 0 just before and read just after (on
+    the card) and held to FILE_LAUNCHES. The files go to a temporary
+    directory, removed at the end; the phase refuses to start where its
+    free space is short. Returns (launches by path, facts)."""
+    import tempfile
+    dev = torch.device(device)
+    log(f"== phase 3o: files on {device}")
+    t0 = time.perf_counter()
+    li, od = host["lineitem"], host["orders"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        # the most the phase holds at once: lineitem's files
+        need = _table_bytes(li) + (1 << 26)
+        free = _free_bytes(tmp)
+        log(f"  {tmp}: {free / 1e9:.3f} GB free, the phase writes at most "
+            f"{need / 1e9:.3f} GB at once")
+        if free < need:
+            raise RuntimeError(f"{tmp} lacks {(need - free) / 1e9:.3f} GB "
+                               "for phase 3o's files")
+        paths = _Paths(dev, "3o", FILE_LAUNCHES)
+        peaks, facts = {}, {}
+        want_q1 = _files_lineitem(li, tmp, paths, dev, peaks, facts)
+        _files_feather(li, od, tmp, paths, dev, want_q1, facts)
+        _files_hive(od, tmp, paths, dev, facts)
+        _files_stream(od, tmp, paths)
+        paths.check_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("phase 3o facts: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in facts.items()))
+    if peaks:
+        log("phase 3o peak memory above the tables (GiB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"phase 3o: {time.perf_counter() - t0:.1f} s (paths "
+        f"{sum(paths.walls.values()):.1f} s)")
+    return paths.launches, {"walls": paths.walls, "peaks": peaks,
+                            "facts": facts}
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -8186,6 +8599,8 @@ def main() -> int:
         launches.update(tier_launches)
         front_launches, _ = timed(phase_frontends, host, nested)
         launches.update(front_launches)
+        file_launches, _ = timed(phase_files, host)
+        launches.update(file_launches)
         launches.update(timed(phase_dist, tables, SF, "cuda", host))
         del host
         timed(phase_join_types, orders, customer)

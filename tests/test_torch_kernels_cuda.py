@@ -1045,3 +1045,95 @@ def test_nested_cuda_calls_never_take_the_host_tier(monkeypatch):
                            ("list_element", {"index": 1})):
             pc.call_function(name, [lst], opts)
     pc.run_end_decode(pc.call_function("run_end_encode", [keys]))
+
+
+# --- files: IPC scans, mapped uploads, the LZ4 library ---------------------------
+
+def _lineitem_files(tmp_path, sf, slices=8):
+    """lineitem's host Table at ``sf`` as ``slices`` IPC files under
+    ``tmp_path``; (the Table, the file dataset, the in-memory dataset of
+    the same slices)."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch import ipc
+    from arrow_tpu_torch.io import tpch
+    li = tpch.lineitem_host_table(sf)
+    step = -(-li.num_rows // slices)
+    parts = [li.slice(i, step) for i in range(0, li.num_rows, step)]
+    for i, part in enumerate(parts):
+        with open(tmp_path / f"part-{i}.arrow", "wb") as f:
+            with ipc.new_file(f, part.schema) as w:
+                w.write_table(part)
+    return li, ds.dataset(str(tmp_path), format="ipc"), \
+        ds.InMemoryDataset(parts)
+
+
+@pytest.mark.cuda
+def test_ipc_file_scan_launches_as_its_in_memory_twin(tmp_path):
+    """A scan of lineitem's IPC files at SF 0.1: Q1 by a scan source (7
+    grouped sums, no compaction) and a Scanner under Q6's filter (one
+    compaction), each with the launches and the bits of the same scan of
+    the in-memory slices."""
+    import chip_smoke as cs
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch.acero import Declaration, ScanNodeOptions
+    from arrow_tpu_torch.io.tpch_queries import q1_plan
+    _need_card()
+    li, files, memory = _lineitem_files(tmp_path, 0.1)
+    got = {}
+    for name, data in (("files", files), ("memory", memory)):
+        plan = cs._with_leaf(q1_plan(li), Declaration(
+            "scan", ScanNodeOptions(data, cs.Q1_COLUMNS)))
+        before = (grouped_sum.launches, compact.launches)
+        q1 = plan.to_table()
+        torch.cuda.synchronize()
+        assert (grouped_sum.launches - before[0],
+                compact.launches - before[1]) == (7, 0)
+        before = compact.launches
+        q6 = ds.Scanner(data, cs.Q6_COLUMNS, cs.q6_condition()).to_table()
+        torch.cuda.synchronize()
+        assert compact.launches == before + 1
+        got[name] = (cs.table_digest(q1), cs.table_digest(q6))
+    assert got["files"] == got["memory"]
+
+
+@pytest.mark.cuda
+def test_a_mapped_column_uploads_to_the_card_unasked(tmp_path):
+    """A column read through a memory map (its Buffers slices of the
+    map) goes into a plan run with no device named: it uploads to the
+    card, bit for bit."""
+    from arrow_tpu_torch import ipc
+    from arrow_tpu_torch.acero import TableSourceNodeOptions
+    from arrow_tpu_torch.io_streams import memory_map
+    from arrow_tpu_torch.io import tpch
+    _need_card()
+    li = tpch.lineitem_host_table(0.01)
+    path = tmp_path / "li.arrow"
+    with open(path, "wb") as f:
+        with ipc.new_file(f, li.schema) as w:
+            w.write_table(li)
+    m = memory_map(str(path))
+    back = ipc.open_file(m).read_all(["l_extendedprice", "l_returnflag"])
+    m.close()
+    up = TableSourceNodeOptions(back).upload()
+    price = up.column("l_extendedprice")
+    assert price.values.is_cuda
+    want = li.column("l_extendedprice").combine().data.values()
+    assert torch.equal(price.values[:li.num_rows].cpu(),
+                       torch.from_numpy(want.copy()))
+    assert up.column("l_returnflag").dictionary == tuple(
+        li.column("l_returnflag").combine().dictionary.to_pylist())
+
+
+@pytest.mark.cuda
+def test_the_lz4_library_round_trips_2_26_bytes():
+    """The host LZ4 library, built from the checkout: a frame of 2**26
+    bytes (16 blocks, coded on several threads) decodes to its input."""
+    import numpy as np
+    from arrow_tpu_torch.utils import lz4frame
+    _need_card()
+    rng = np.random.default_rng(26)
+    data = rng.integers(0, 16, 1 << 26, dtype=np.uint8)
+    frame = lz4frame.compress_array(data)
+    assert frame.size < data.size
+    assert np.array_equal(lz4frame.decompress_array(frame, data.size), data)
+    assert np.array_equal(lz4frame.decompress_array(frame), data)

@@ -217,13 +217,17 @@ _HOST_BOUNDARY_MODULES = (
     "compute/vector_misc.py", "acero/dist_exec.py", "memory.py",
     "config.py", "utils/otel.py", "compute/options.py", "api.py",
     "sql.py", "gandiva.py", "substrait.py", "dataset.py",
-    "acero/expression.py", "acero/prune.py")
+    "acero/expression.py", "acero/prune.py", "errors.py", "io_streams.py",
+    "fs.py", "feather.py", "io/feather_v1.py", "utils/lz4frame.py",
+    "ipc/__init__.py", "ipc/fb.py", "ipc/schema_fb.py", "ipc/message.py",
+    "ipc/reader_writer.py", "ipc/compat.py", "kernels/_build.py")
 
 
 @pytest.mark.parametrize("module", _HOST_BOUNDARY_MODULES)
 def test_the_host_boundary_modules_are_guarded(module):
     """The host boundary's modules are among the guarded sources above,
-    and import no pandas either (the card's machine has none)."""
+    and import no pandas, flatbuffers or fsspec either (the card's machine
+    has none of them)."""
     path = REPO / "arrow_tpu_torch" / module
     assert path in _port_sources()
     tree = ast.parse(path.read_text())
@@ -235,8 +239,9 @@ def test_the_host_boundary_modules_are_guarded(module):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "arrow_tpu",
-                                              "pyarrow", "pandas"), name
+            assert name.split(".")[0] not in (
+                "jax", "jaxlib", "arrow_tpu", "pyarrow", "pandas",
+                "flatbuffers", "fsspec"), name
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
@@ -246,7 +251,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "                               'arrow_tpu_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'arrow_tpu', 'pyarrow')]\n"
+        "       ('jax', 'jaxlib', 'arrow_tpu', 'pyarrow', 'flatbuffers',\n"
+        "        'fsspec')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
