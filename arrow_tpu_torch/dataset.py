@@ -6,8 +6,10 @@ SimplifyWithGuarantee, the partitioned writes of dataset_writer.cc).
 
 A dataset is a list of fragments with an optional partition guarantee
 each: host Tables (``InMemoryDataset``, ``dataset(tables)``) or files
-(``FileSystemDataset``, ``dataset(path or paths, format=)``; IPC and
-Feather V2, ``IpcFileFormat``/``FeatherFileFormat``). A scan prunes the
+(``FileSystemDataset``, ``dataset(path or paths, format=)``; Parquet, the
+default, IPC and Feather V2: ``ParquetFileFormat``, ``IpcFileFormat``,
+``FeatherFileFormat``; ``parquet_dataset`` for a directory with a
+``_metadata`` file). A scan prunes the
 fragments whose guarantee makes the filter false
 (``simplify_with_guarantee``), and runs the rest as the plan source
 ``scan`` (``acero.ScanNodeOptions``): each fragment gives a host Table of
@@ -22,11 +24,18 @@ rows. ``Dataset.to_table`` and the ``Scanner`` run that source on
 that ``columns`` leaves out. ``write_dataset`` writes a Table as one file
 or one file a partition directory, the reference's bytes.
 
-Not ported yet (ROADMAP.md, queue 1, item 13): the Parquet, CSV, JSON and
-ORC formats, ``parquet_dataset``, and ``Dataset.join``/``join_asof``
-(``Table.join``); each raises NotImplementedError. ``fragment_readahead``
-is accepted and reads nothing ahead: a mapped file is read as the scan
-uploads it.
+Two departures, with the same Tables where the reference gives one: a
+Parquet or IPC file is read for the columns a scan needs only (the
+reference reads the whole file and then selects), and a directory's
+discovery skips the files and directories whose names start with ``_`` or
+``.`` (``FileSystemFactoryOptions``' default ignore prefixes), so a
+``_metadata`` file is not a fragment (the reference lists it, and a scan
+of a hive directory with one then fails on its column order).
+
+Not ported yet (ROADMAP.md, queue 1, item 13): the CSV, JSON and ORC
+formats, and ``Dataset.join``/``join_asof`` (``Table.join``); each raises
+NotImplementedError. ``fragment_readahead`` is accepted and reads nothing
+ahead: a file is read as the scan uploads it.
 """
 from __future__ import annotations
 
@@ -427,6 +436,47 @@ class FileFormat:
     def write(self, tbl: Table, fs, path: str):
         raise NotImplementedError
 
+    def written_metadata(self, fs, path: str):
+        """What a write's ``file_visitor`` gets as the file's metadata."""
+        return None
+
+
+class ParquetFileFormat(FileFormat):
+    """Parquet files (dataset/file_parquet.h)."""
+    name = "parquet"
+    default_extname = "parquet"
+
+    def _open(self, fs, path: str):
+        from .io import parquet as pq
+        local = fs.local_path(path)
+        if local is None:
+            with fs.open_input_stream(path) as f:
+                return pq.ParquetFile(f.read())
+        return pq.ParquetFile(open(local, "rb"))
+
+    def read(self, fs, path, columns=None) -> Table:
+        """The file's Table, or its ``columns`` (all where empty): only
+        those column chunks are read from a local file, where the
+        reference reads the whole file into bytes and then decodes the
+        columns: the same Table."""
+        with self._open(fs, path) as pf:
+            return pf.read(columns or None)
+
+    def inspect(self, fs, path) -> Schema:
+        """The file's schema, from its footer alone."""
+        with self._open(fs, path) as pf:
+            return pf.schema_arrow
+
+    def write(self, tbl, fs, path):
+        from .io import parquet as pq
+        with fs.open_output_stream(path) as f:
+            pq.write_table(tbl, f)
+
+    def written_metadata(self, fs, path):
+        from .io.parquet.metadata import FileMetaData
+        with self._open(fs, path) as pf:
+            return FileMetaData(pf)
+
 
 class IpcFileFormat(FileFormat):
     """Arrow IPC files (dataset/file_ipc.h)."""
@@ -478,7 +528,6 @@ def _later_format(name: str):
         "__init__": __init__, "__doc__": f"Not ported yet ({_FILES})."})
 
 
-ParquetFileFormat = _later_format("ParquetFileFormat")
 CsvFileFormat = _later_format("CsvFileFormat")
 JsonFileFormat = _later_format("JsonFileFormat")
 OrcFileFormat = _later_format("OrcFileFormat")
@@ -563,6 +612,7 @@ class FileFragment:
 
 
 Fragment = FileFragment
+ParquetFileFragment = FileFragment
 
 
 class FileSystemDataset(Dataset):
@@ -582,14 +632,25 @@ class FileSystemDataset(Dataset):
         return [f.path for f in self.fragments]
 
 
+_IGNORED_PREFIXES = (".", "_")
+
+
+def _ignored(rel_path: str) -> bool:
+    """Whether a path under a dataset's directory names a hidden or
+    metadata file or directory (``_metadata``, ``.crc``, ...)."""
+    return any(part.startswith(_IGNORED_PREFIXES)
+               for part in rel_path.split("/"))
+
+
 def dataset(source, format="parquet",
             partitioning: Optional[Partitioning] = None, filesystem=None,
             schema: Optional[Schema] = None) -> Dataset:
     """A dataset of a host Table or RecordBatch, or a list of them (an
     ``InMemoryDataset``); of a list of datasets (a ``UnionDataset``); or
     of files in ``format``: a list of paths, or every file under a
-    directory, each with the partition values ``partitioning`` parses
-    from its directory (a ``FileSystemDataset``)."""
+    directory but those whose path there has a part starting with ``_``
+    or ``.``, each with the partition values ``partitioning`` parses from
+    its directory (a ``FileSystemDataset``)."""
     from .fs import FileSelector, LocalFileSystem
     if isinstance(source, (Table, RecordBatch)):
         return InMemoryDataset(source, schema)
@@ -605,9 +666,10 @@ def dataset(source, format="parquet",
     else:
         frags = []
         for info in fs.get_file_info(FileSelector(source, recursive=True)):
-            if not info.is_file:
+            rel = posixpath.relpath(info.path, source)
+            if not info.is_file or _ignored(rel):
                 continue
-            rel_dir = posixpath.dirname(posixpath.relpath(info.path, source))
+            rel_dir = posixpath.dirname(rel)
             values, guarantee = ({}, None)
             if partitioning is not None and rel_dir:
                 values, guarantee = partitioning.parse(rel_dir)
@@ -746,17 +808,28 @@ def _rebuilt(arr: Array, rows: np.ndarray) -> Array:
 def write_dataset(data, base_dir: str, format="parquet",
                   partitioning=None, partitioning_flavor: Optional[str] = None,
                   filesystem=None, basename_template: str = "part-{i}.{ext}",
-                  existing_data_behavior: str = "overwrite_or_ignore"):
+                  existing_data_behavior: str = "overwrite_or_ignore",
+                  file_visitor=None):
     """Write ``data`` (a Table or a RecordBatch) under ``base_dir`` in
     ``format``: one file, or with ``partitioning`` (a Partitioning, or
     column names with ``partitioning_flavor`` "hive" or None for
     directories) one file a directory of each distinct key, its other
     columns' rows in order (dataset_writer.cc). The reference groups the
     rows in Python a row; the port groups them in numpy and writes the
-    same directories, file names and bytes."""
+    same directories, file names and bytes. ``file_visitor`` (pyarrow's;
+    the reference has none) is called with a ``WrittenFile`` for each file
+    written, in order: its path, its metadata (a Parquet file's
+    FileMetaData) and its size."""
     from .fs import LocalFileSystem
     fmt = _format(format)
     fs = filesystem or LocalFileSystem()
+
+    def write_one(tbl, path):
+        fmt.write(tbl, fs, path)
+        if file_visitor is not None:
+            info = fs.get_file_info(path)
+            file_visitor(WrittenFile(path, fmt.written_metadata(fs, path),
+                                     info.size))
     if isinstance(data, RecordBatch):
         data = Table.from_batches([data])
     if isinstance(partitioning, (list, tuple)):
@@ -767,7 +840,7 @@ def write_dataset(data, base_dir: str, format="parquet",
     fs.create_dir(base_dir)
     name = basename_template.format(i=0, ext=fmt.default_extname)
     if partitioning is None:
-        fmt.write(data, fs, posixpath.join(base_dir, name))
+        write_one(data, posixpath.join(base_dir, name))
         return
     part_names = [f.name for f in partitioning.schema.fields]
     rest = Schema([f for f in data.schema.fields if f.name not in part_names])
@@ -781,7 +854,7 @@ def write_dataset(data, base_dir: str, format="parquet",
         d = posixpath.join(base_dir,
                            partitioning.format(dict(zip(part_names, key))))
         fs.create_dir(d)
-        fmt.write(sub, fs, posixpath.join(d, name))
+        write_one(sub, posixpath.join(d, name))
 
 
 # --- the write options, the written files, the factories ----------------------
@@ -795,6 +868,71 @@ class FileWriteOptions:
 
 class IpcFileWriteOptions(FileWriteOptions):
     pass
+
+
+class ParquetFileWriteOptions(FileWriteOptions):
+    pass
+
+
+class FragmentScanOptions:
+    """A format's scan options (dataset/dataset.h FragmentScanOptions)."""
+
+    type_name = ""
+
+
+class ParquetFragmentScanOptions(FragmentScanOptions):
+    """Parquet's scan options (the reference's fields and defaults,
+    accepted and kept)."""
+    type_name = "parquet"
+
+    def __init__(self, use_buffered_stream=False, buffer_size=8192,
+                 pre_buffer=True, cache_options=None,
+                 thrift_string_size_limit=None,
+                 thrift_container_size_limit=None, decryption_config=None,
+                 decryption_properties=None,
+                 page_checksum_verification=False):
+        self.use_buffered_stream = use_buffered_stream
+        self.buffer_size = buffer_size
+        self.pre_buffer = pre_buffer
+        self.cache_options = cache_options
+        self.decryption_config = decryption_config
+        self.decryption_properties = decryption_properties
+        self.page_checksum_verification = page_checksum_verification
+
+
+class ParquetReadOptions:
+    def __init__(self, dictionary_columns=None,
+                 coerce_int96_timestamp_unit=None):
+        self.dictionary_columns = set(dictionary_columns or ())
+        self.coerce_int96_timestamp_unit = coerce_int96_timestamp_unit
+
+
+class ParquetEncryptionConfig:
+    """A dataset's encryption: a crypto factory, a KMS connection and an
+    encryption configuration (dataset/parquet_encryption_config.h)."""
+
+    def __init__(self, crypto_factory, kms_connection_config,
+                 encryption_config):
+        self.crypto_factory = crypto_factory
+        self.kms_connection_config = kms_connection_config
+        self.encryption_config = encryption_config
+
+
+class ParquetDecryptionConfig:
+    def __init__(self, crypto_factory, kms_connection_config,
+                 decryption_config):
+        self.crypto_factory = crypto_factory
+        self.kms_connection_config = kms_connection_config
+        self.decryption_config = decryption_config
+
+
+class RowGroupInfo:
+    """A row group of a Parquet fragment."""
+
+    def __init__(self, id, metadata=None, schema=None):
+        self.id = id
+        self.metadata = metadata
+        self.schema = schema
 
 
 class WrittenFile:
@@ -839,6 +977,18 @@ class FileSystemDatasetFactory(DatasetFactory):
     pass
 
 
+class ParquetDatasetFactory(DatasetFactory):
+    pass
+
+
+class ParquetFactoryOptions:
+    def __init__(self, partition_base_dir="", partitioning=None,
+                 validate_column_chunk_paths=False):
+        self.partition_base_dir = partition_base_dir
+        self.partitioning = partitioning
+        self.validate_column_chunk_paths = validate_column_chunk_paths
+
+
 class UnionDatasetFactory(DatasetFactory):
     def __init__(self, factories):
         self._factories = list(factories)
@@ -849,7 +999,14 @@ class UnionDatasetFactory(DatasetFactory):
 
 def parquet_dataset(metadata_path, schema=None, filesystem=None,
                     format=None, partitioning=None, partition_base_dir=None):
-    _not_ported("parquet_dataset")
+    """The Parquet dataset of the directory that holds ``metadata_path``
+    (its ``_metadata`` file), as the reference's: the directory's files,
+    not the row groups the ``_metadata`` file lists (the reference's
+    ``write_metadata`` lists none)."""
+    base = posixpath.dirname(str(metadata_path))
+    return dataset(base, format="parquet", partitioning=partitioning,
+                   filesystem=filesystem, schema=schema)
+
 
 def get_partition_keys(partition_expression) -> dict:
     """The key == value pairs of a partition guarantee

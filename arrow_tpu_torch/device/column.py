@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import decimal
 import warnings
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -411,18 +412,38 @@ def _width_blocks(lens: np.ndarray):
             yield 1 << b, rows[s:s + per]
 
 
+# the codes that a producer of a string or binary Array already knows (the
+# Parquet reader's, from a column's dictionary pages), by the Array's data:
+# ``_encode_binary`` takes them in place of coding the bytes again
+_KNOWN_CODES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def know_codes(data: ArrayData, codes: np.ndarray, first: np.ndarray) -> None:
+    """Record ``data``'s codes as ``_encode_binary`` gives them: int32 a row
+    in order of first appearance of its value (a null coded as the empty
+    value), and each code's first row. Kept as long as ``data`` lives."""
+    _KNOWN_CODES[data] = (codes, first)
+
+
+def value_codes(raw: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """(codes int32 a value in order of first appearance, each code's first
+    value) of the values at ``starts`` of ``lens`` bytes in ``raw``: equal
+    codes, equal bytes."""
+    if len(lens) and int(lens.max()) <= 7:
+        return _first_appearance(_short_keys(raw, starts, lens))
+    return _codes_by_hash(raw, starts, lens)
+
+
 def _encode_binary(arr: Array):
     """Codes and the dictionary tuple (str for a string type, bytes for a
     binary type) of a variable-size binary Array, in order of first
     appearance; a null row is coded as the empty value.
 
-    Each value's words (``_word_rows``) are hashed a block at a time
-    (``_width_blocks``), and the rows are coded by their hash. Every row
-    is then compared with its code's first row; the rows of a hash that
-    two values share are coded again by one ``np.unique`` over their
-    words, so the codes are exact."""
+    Codes recorded by ``know_codes`` are taken as they are; otherwise
+    values of 7 bytes or less are coded by their exact 64-bit keys
+    (``_short_keys``), longer ones by a checked hash of their bytes
+    (``_codes_by_hash``)."""
     d = arr.data
-    n = d.length
     mask = d.validity_mask()
     offs = d.offsets().astype(np.int64)
     raw = d.data_bytes()
@@ -430,6 +451,49 @@ def _encode_binary(arr: Array):
     lens = offs[1:] - starts
     if mask is not None:
         lens = np.where(mask, lens, 0)
+    known = _KNOWN_CODES.get(d)
+    codes, first = known if known is not None else \
+        value_codes(raw, starts, lens)
+    uoffs, ubytes = _gather_bytes(raw, starts[first], lens[first])
+    ub = ubytes.tobytes()
+    bounds = uoffs.tolist()
+    if arr.type.id in (TypeId.STRING, TypeId.LARGE_STRING):
+        text = ub.decode("utf-8")
+        if len(text) != len(ub):
+            values = tuple(ub[bounds[i]:bounds[i + 1]].decode("utf-8")
+                           for i in range(len(first)))
+        else:
+            values = tuple(text[bounds[i]:bounds[i + 1]]
+                           for i in range(len(first)))
+    else:
+        values = tuple(ub[bounds[i]:bounds[i + 1]]
+                       for i in range(len(first)))
+    return codes, mask, values
+
+
+def _short_keys(raw: np.ndarray, starts: np.ndarray,
+                lens: np.ndarray) -> np.ndarray:
+    """A uint64 key a value of at most 7 bytes: its bytes zero-padded,
+    its length in the top byte; equal keys, equal values. A few distinct
+    short values (a flag column's) then take ``_first_appearance``'s
+    sort-free path."""
+    keys = lens.astype(np.uint64) << np.uint64(56)
+    last = len(raw) - 1
+    for j in range(int(lens.max())):
+        byte = raw[np.minimum(starts + j, last)].astype(np.uint64)
+        keys |= np.where(lens > j, byte, 0) << np.uint64(8 * j)
+    return keys
+
+
+def _codes_by_hash(raw: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """(codes in order of first appearance, each code's first row) of the
+    values at ``starts`` of ``lens`` bytes: each value's words
+    (``_word_rows``) are hashed a block at a time (``_width_blocks``) and
+    the rows coded by their hash. Every row is then compared with its
+    code's first row; the rows of a hash that two values share are coded
+    again by one ``np.unique`` over their words, so the codes are
+    exact."""
+    n = len(starts)
     h = np.empty(n, dtype=np.uint64)
     for width, blk in _width_blocks(lens):
         h[blk] = _row_hash(_word_rows(raw, starts[blk], lens[blk], width))
@@ -450,21 +514,7 @@ def _encode_binary(arr: Array):
         exact[rows] = sub.reshape(-1) + 1
         codes, first = _first_appearance(
             codes.astype(np.int64) * (int(exact.max()) + 1) + exact)
-    uoffs, ubytes = _gather_bytes(raw, starts[first], lens[first])
-    ub = ubytes.tobytes()
-    bounds = uoffs.tolist()
-    if arr.type.id in (TypeId.STRING, TypeId.LARGE_STRING):
-        text = ub.decode("utf-8")
-        if len(text) != len(ub):
-            values = tuple(ub[bounds[i]:bounds[i + 1]].decode("utf-8")
-                           for i in range(len(first)))
-        else:
-            values = tuple(text[bounds[i]:bounds[i + 1]]
-                           for i in range(len(first)))
-    else:
-        values = tuple(ub[bounds[i]:bounds[i + 1]]
-                       for i in range(len(first)))
-    return codes, mask, values
+    return codes, first
 
 
 def _decimal_of(row: bytes, scale: int) -> decimal.Decimal:

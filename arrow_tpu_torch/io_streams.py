@@ -13,9 +13,10 @@ map stays open while any Buffer over it lives: ``close()`` closes the file
 and leaves the map to the last of them.
 
 The codecs: zstd (where ``zstandard`` is importable, as in the reference),
-gzip, bz2, and LZ4 frames by the port's own library
-(``utils/lz4frame.py``). snappy and brotli, Parquet's, come with it
-(ROADMAP.md, queue 1, item 13).
+gzip, bz2, LZ4 frames and raw snappy by the port's own host libraries
+(``utils/lz4frame.py``, ``utils/snappy.py``), and brotli through the
+system libbrotli (``utils/brotli_ctypes.py``; where it does not load,
+``Codec("brotli")`` raises ArrowInvalid, as the reference's does).
 """
 
 from __future__ import annotations
@@ -29,8 +30,6 @@ import numpy as np
 
 from .buffer import Buffer, as_buffer
 from .errors import ArrowInvalid
-
-_LATER = "ROADMAP.md, queue 1, item 13: the file readers and writers"
 
 
 class BufferReader(_io.BytesIO):
@@ -249,22 +248,31 @@ class Codec:
             raise ArrowInvalid(
                 f"unsupported codec {compression!r} "
                 "(zstd/gzip/snappy/lz4/bz2/brotli available)")
-        if self.name in ("snappy", "brotli"):
-            raise NotImplementedError(
-                f"the {self.name} codec is not ported yet ({_LATER}: "
-                "Parquet's codecs)")
+        if self.name == "brotli":
+            from .utils import brotli_ctypes
+            if not brotli_ctypes.available():
+                raise ArrowInvalid("brotli: libbrotli not available")
 
     @staticmethod
     def is_available(compression: str) -> bool:
+        """Whether the codec works here: it is known, and what it needs
+        (``zstandard``, libbrotli, a host compiler for LZ4 and snappy)
+        is present."""
         try:
-            Codec(compression)
-        except (ArrowInvalid, NotImplementedError):
+            codec = Codec(compression)
+        except ArrowInvalid:
             return False
-        if compression.lower() == "zstd":
-            try:
+        try:
+            if codec.name == "zstd":
                 import zstandard  # noqa: F401
-            except ImportError:
-                return False
+            elif codec.name == "snappy":
+                from .utils import snappy
+                snappy.library()
+            elif codec.name.startswith("lz4"):
+                from .utils import lz4frame
+                lz4frame.library()
+        except (ImportError, NotImplementedError):
+            return False
         return True
 
     def compress(self, data) -> bytes:
@@ -280,6 +288,13 @@ class Codec:
             import gzip
             return gzip.compress(data,
                                  compresslevel=self.compression_level or 9)
+        if self.name == "snappy":
+            from .utils import snappy
+            return snappy.compress(data)
+        if self.name == "brotli":
+            from .utils import brotli_ctypes
+            return brotli_ctypes.compress(
+                data, quality=self.compression_level or 8)
         import bz2
         return bz2.compress(data, self.compression_level or 9)
 
@@ -295,6 +310,12 @@ class Codec:
         if self.name == "gzip":
             import gzip
             return gzip.decompress(data)
+        if self.name == "snappy":
+            from .utils import snappy
+            return snappy.decompress(data, decompressed_size)
+        if self.name == "brotli":
+            from .utils import brotli_ctypes
+            return brotli_ctypes.decompress(data, decompressed_size)
         import bz2
         return bz2.decompress(data)
 

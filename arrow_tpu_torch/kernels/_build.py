@@ -11,10 +11,11 @@ started together. A failed build raises :class:`BuildError` with the
 compiler's output.
 
 A host source, ``csrc/<name>.cpp`` (the LZ4 codec of the IPC and Feather
-files), compiles with the host C++ compiler into
-``build/arrow_tpu_torch/lib<name>-<hash>.so`` the same way
-(``host_library``), at its first use and apart from the CUDA sources;
-without a compiler it raises :class:`BuildError`.
+files, the snappy codec, Parquet's host loops), compiles with the host C++
+compiler into ``build/arrow_tpu_torch/lib<name>-<hash>.so`` the same way
+(``host_library``), at its first use and apart from the CUDA sources; its
+hash also covers the sources of ``csrc`` it includes. Without a compiler
+it raises :class:`BuildError`.
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -40,6 +43,7 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 # compiler output of the builds made by this process, by source name
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_HOST_LOCK = threading.Lock()  # one thread builds a host library
 
 
 class BuildError(RuntimeError):
@@ -133,31 +137,50 @@ def host_compiler() -> str:
     raise BuildError("no host C++ compiler (g++ or c++) on PATH")
 
 
+def _included(src: Path):
+    """``src`` and the sources of ``csrc`` it includes (``#include
+    "..."``), each once, depth first."""
+    seen, todo = [], [src]
+    while todo:
+        p = todo.pop()
+        if p in seen or not p.exists():
+            continue
+        seen.append(p)
+        todo.extend(CSRC / inc for inc in re.findall(
+            r'#include\s+"([^"]+)"', p.read_text()))
+    return seen
+
+
 def host_library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cpp"
     h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
-    h.update(src.read_bytes())
+    for p in _included(CSRC / f"{name}.cpp"):
+        h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def host_library(name: str) -> ctypes.CDLL:
     """The loaded library of the host source ``csrc/<name>.cpp``, built
-    with the host C++ compiler on first use."""
+    with the host C++ compiler on first use (by one thread of the
+    process; the others wait for it)."""
     key = f"host:{name}"
     lib = _LIBS.get(key)
     if lib is not None:
         return lib
-    out = host_library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
-             str(CSRC / f"{name}.cpp")], capture_output=True, text=True)
-        BUILD_LOG[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise BuildError(f"{name}.cpp:\n{BUILD_LOG[name]}")
-        os.replace(tmp, out)
-    lib = _LIBS[key] = ctypes.CDLL(str(out))
+    with _HOST_LOCK:
+        lib = _LIBS.get(key)
+        if lib is not None:
+            return lib
+        out = host_library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cpp")], capture_output=True, text=True)
+            BUILD_LOG[name] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise BuildError(f"{name}.cpp:\n{BUILD_LOG[name]}")
+            os.replace(tmp, out)
+        lib = _LIBS[key] = ctypes.CDLL(str(out))
     return lib

@@ -238,6 +238,24 @@ Phases; any failure exits non-zero without the final line:
    Each path's launches set to 0 just before and read just after and held
    to FILE_LAUNCHES; the bytes written and mapped, the write and LZ4 rates
    and the peaks logged.
+   Then (3p) Parquet (``phase_parquet``) over phase 3l's Tables, in a
+   temporary directory whose free space is checked first: lineitem's Q1
+   columns as FILE_SLICES snappy Parquet files (dictionary on, the
+   writer's defaults otherwise), read back equal to the slices (the flags
+   as plain strings) and the flags uploaded alone; Q1 by a ``scan``
+   source over ``dataset(dir)`` (the default format) twice and Q6 by a
+   ``Scanner``, each against numpy and against the same scan of the
+   in-memory slices (the flags by value, every other column bit for
+   bit); ``read_table`` of one file with Q6's columns under Q6's
+   condition as DNF filters, its filter plan on the card, against numpy;
+   orders hive-partitioned by status through ``write_to_dataset`` with a
+   ``metadata_collector`` and a ``_metadata`` from ``write_metadata``,
+   and one status's orders by priority over ``parquet_dataset`` against
+   the Table's plan; orders as one uniform AES-GCM encrypted file, read
+   back equal. Each path's launches set to 0 just before and read just
+   after and held to PARQUET_LAUNCHES; the bytes written, the write and
+   read rates, snappy's rates on the host, the flags' upload time and
+   the peaks logged.
    Then 3k (above) runs, with Q1 and Q3 from phase 3l's host Tables split
    by rank added (the Tables shared with the ranks through shared
    memory; each rank uploads only its range, held to its share), and
@@ -252,8 +270,9 @@ Phases; any failure exits non-zero without the final line:
    five nested names and the run-end encoding, best of 6 and one profile
    of them all); Q1, Q3, Q4, Q13, the suite's and the last
    eleven plans' rows/s of their largest input and phase 3e's, 3f's, 3g's,
-   3i's, 3j's and 3h's walls (best of 5, of 3 for 3j's; one run for 3h's
-   two sweeps, which phase 3h ran), a profile of one run of each (device busy time and idle
+   3i's, 3j's and 3h's walls (best of 5 after a warm-up, of 3 for 3j's,
+   fewer where the timed runs pass WALL_BUDGET_S; the one profiled run for
+   3h's two sweeps), a profile of one run of each (device busy time and idle
    share), each kernel's time beside its bound, its plain version's and
    one library call's where there is one (the compaction at five
    shapes: Q3's filter, its mask over 2-byte columns and over one bool
@@ -298,6 +317,7 @@ HASH_OPS_PER_COMBINE = 6    # 2 shifts, 3 adds, 1 xor
 SF = 10.0
 Q1_SLOTS = 12               # (3+1) return flags x (2+1) line statuses
 RTOL_F64 = 1e-9             # f64 sums added in another order
+WALL_BUDGET_S = 4.0         # phase 4's timed runs of one path, at least 2
 RTOL_F32 = 1e-5             # an f32 result against an f64 reference
 NODE_SPAN = "arrow_tpu::"   # the executor's profiler span of a plan node
 Q1_LAUNCHES = {"compact": 0, "hash32": 0, "grouped_sum": 7, "probe": 1}
@@ -7838,6 +7858,386 @@ def phase_files(host, device="cuda"):
                             "facts": facts}
 
 
+# --- phase 3p: Parquet ---------------------------------------------------------
+
+# orders' columns in Parquet: all but the clerk and the comment, whose
+# strings would add writing and reading time and exercise nothing more
+PARQUET_ORDERS = ["o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice",
+                  "o_orderdate", "o_orderpriority", "o_shippriority"]
+PARQUET_KEY = bytes(range(16))  # the encrypted orders file's footer key
+PARQUET_READ_FILE = 1           # the lineitem file read_table filters
+PARQUET_CODER_ROWS = 1 << 20    # flags the two fallback coders are timed on
+# launches of phase 3p's paths, reckoned from their plan trees before the
+# first run (each +1 probe, from self_check): Q1 over the Parquet files is
+# 3o's scan Q1 (seven float sums, K1, 12 slots: the flags come back as
+# plain strings and are coded on upload to the same three and two
+# values); the Scanner under Q6's filter compacts the kept rows once
+# (K2); read_table's DNF filters become one filter plan over the file's
+# Table, one compaction (K2); the orders of one status by priority over
+# parquet_dataset, and over the Table, are 3o's hive paths (one float
+# sum, K1, 5 slots); every other path (the writes, the reads, the
+# encrypted round trip) launches none
+PARQUET_LAUNCHES = {
+    "3p scan Q1 in memory": _SCAN_Q1, "3p scan Q1 parquet": _SCAN_Q1,
+    "3p scan Q1 parquet again": _SCAN_Q1,
+    "3p scanner Q6 in memory": _SCANNER_Q6,
+    "3p scanner Q6 parquet": _SCANNER_Q6,
+    "3p read_table Q6 filters": _SCANNER_Q6,
+    "3p parquet_dataset orders": _HIVE,
+    "3p parquet_dataset orders (table)": _HIVE,
+}
+
+
+def q6_filters():
+    """Q6's condition as DNF filters (one AND group)."""
+    from arrow_tpu_torch.io.tpch_queries import (DATE_1994_01_01,
+                                                 DATE_1995_01_01)
+    return [("l_shipdate", ">=", DATE_1994_01_01),
+            ("l_shipdate", "<", DATE_1995_01_01),
+            ("l_discount", ">=", 0.05), ("l_discount", "<=", 0.07),
+            ("l_quantity", "<", 24.0)]
+
+
+def q1_host_oracle(li):
+    """Q1 with numpy bincounts over a host lineitem Table whose flags are
+    dictionary columns, in the plan's output order."""
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.io.tpch_queries import DATE_1998_09_02
+
+    def flag(name):
+        d = li.column(name).combine().data
+        return d.values().astype(np.int64), Array(d.dictionary).to_pylist()
+    rf, rf_dict = flag("l_returnflag")
+    ls, ls_dict = flag("l_linestatus")
+    keep = _host_values(li, "l_shipdate") <= DATE_1998_09_02
+    key = (rf * len(ls_dict) + ls)[keep]
+    size = len(rf_dict) * len(ls_dict)
+    qty = _host_values(li, "l_quantity")[keep]
+    price = _host_values(li, "l_extendedprice")[keep]
+    disc = _host_values(li, "l_discount")[keep]
+    tax = _host_values(li, "l_tax")[keep]
+    disc_price = price * (1.0 - disc)
+    charge = disc_price * (1.0 + tax)
+    count = np.bincount(key, minlength=size)
+
+    def s(w):
+        return np.bincount(key, weights=w, minlength=size)
+
+    groups = sorted((rf_dict[k // len(ls_dict)], ls_dict[k % len(ls_dict)],
+                     k) for k in np.nonzero(count)[0])
+    ks = np.array([k for _, _, k in groups])
+    c = count[ks]
+    return {
+        "l_returnflag": [g[0] for g in groups],
+        "l_linestatus": [g[1] for g in groups],
+        "sum_qty": s(qty)[ks], "sum_base_price": s(price)[ks],
+        "sum_disc_price": s(disc_price)[ks], "sum_charge": s(charge)[ks],
+        "avg_qty": s(qty)[ks] / c, "avg_price": s(price)[ks] / c,
+        "avg_disc": s(disc)[ks] / c, "count_order": c.tolist(),
+    }
+
+
+def _same_scan(name, got, want):
+    """A result over Parquet against the same over the in-memory slices:
+    the same columns and rows, a column whose source was a dictionary by
+    value (Parquet gives it back as plain strings), every other column
+    bit for bit."""
+    from arrow_tpu_torch.types import TypeId
+    _expect(f"{name} columns", got.column_names == want.column_names
+            and got.num_rows == want.num_rows)
+    for n, g, w in zip(want.column_names, table_digest(got),
+                       table_digest(want)):
+        if want.column(n).type.id == TypeId.DICTIONARY:
+            _expect(f"{name} {n}", got.column(n).to_pylist()
+                    == want.column(n).to_pylist())
+        else:
+            _expect(f"{name} {n} bits", g == w)
+
+
+def _selected_rows(name, got, tbl, mask, columns):
+    """``got`` is ``tbl``'s ``columns`` at ``mask``, bit for bit, with no
+    null."""
+    _expect(f"{name} rows", got.column_names == list(columns)
+            and got.num_rows == int(mask.sum()))
+    for c in columns:
+        col = got.column(c).combine()
+        _expect(f"{name} {c} nulls", col.null_count == 0)
+        _expect_equal(f"{name} {c}", _np_bits(col.data.values()),
+                      _np_bits(_host_values(tbl, c)[mask]))
+
+
+def _parquet_lineitem(li, tmp, paths, dev, peaks, facts):
+    """Lineitem's Q1 columns as FILE_SLICES snappy Parquet files; Q1 by a
+    scan source over ``dataset(dir)`` twice and Q6 by a Scanner, each
+    against numpy and against the same over the in-memory slices;
+    read_table of one file under Q6's filters; the reads, the flags'
+    uploads and snappy alone timed."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch.acero import Declaration, ScanNodeOptions
+    from arrow_tpu_torch.device import column
+    from arrow_tpu_torch.device.column import upload_table
+    from arrow_tpu_torch.io import parquet as pq
+    from arrow_tpu_torch.io import tpch_queries as tq
+    from arrow_tpu_torch.utils import snappy
+    n = li.num_rows
+    step = -(-n // FILE_SLICES)
+    slices = [li.slice(i, step) for i in range(0, n, step)]
+    q1_slices = [s.select(Q1_COLUMNS) for s in slices]
+    root = os.path.join(tmp, "lineitem")
+    os.makedirs(root)
+
+    def write():
+        for i, part in enumerate(q1_slices):
+            pq.write_table(part, os.path.join(root, f"part-{i}.parquet"),
+                           compression="snappy")
+    paths.run("write lineitem parquet", write)
+    files = sorted(os.listdir(root))
+    nbytes = sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    raw = _table_bytes(li.select(Q1_COLUMNS))  # the slices share buffers
+    wall = paths.walls["3p write lineitem parquet"]
+    facts.update({"lineitem parquet GB": nbytes / 1e9,
+                  "lineitem Q1 columns GB": raw / 1e9,
+                  "parquet write GB/s": raw / 1e9 / wall})
+    log(f"  lineitem's Q1 columns ({raw / 1e9:.3f} GB) as {len(files)} "
+        f"snappy Parquet files: {nbytes / 1e9:.3f} GB in {wall:.3f} s "
+        f"({raw / 1e9 / wall:.2f} GB/s of columns)")
+    data = ds.dataset(root)
+    _expect("parquet is the default format",
+            isinstance(data.fragments[0].format, ds.ParquetFileFormat))
+    # the files read alone, then their flags uploaded alone
+    read = paths.run("read lineitem parquet", lambda: [
+        frag.to_table(Q1_COLUMNS) for frag in data.fragments])
+    wall = paths.walls["3p read lineitem parquet"]
+    facts["parquet read GB/s"] = raw / 1e9 / wall
+    for part, back in zip(q1_slices, read):
+        _expect("parquet read", back.column_names == Q1_COLUMNS
+                and back.num_rows == part.num_rows)
+        for c in Q1_COLUMNS:
+            if c in HOST_FLAGS:
+                _same_data(f"read {c}", back.column(c).combine().data,
+                           _decoded(part.column(c)).data)
+            else:
+                _same_data(f"read {c}", back.column(c).combine().data,
+                           part.column(c).combine().data)
+    _expect("the reader hands the flags' codes over", all(
+        chunk.data in column._KNOWN_CODES for t in read for c in HOST_FLAGS
+        for chunk in t.column(c).chunks))
+    flags = paths.run("upload flags", lambda: [upload_table(
+        t.select(HOST_FLAGS), device=dev) for t in read])
+    facts["flags upload s"] = paths.walls["3p upload flags"]
+    log(f"  read back at {raw / 1e9 / wall:.2f} GB/s, equal to the slices "
+        "(the flags as plain strings); the flags' upload takes "
+        f"{2 * n} strings in {facts['flags upload s']:.3f} s, their codes "
+        "handed over by the reader from the dictionary pages")
+    # the upload's coders where no codes are handed over: of short values
+    # and the checked hash of longer ones, over PARQUET_CODER_ROWS of one
+    # file's l_returnflag: the same codes
+    d = read[0].column("l_returnflag").combine().data
+    offs = d.offsets().astype(np.int64)[:PARQUET_CODER_ROWS + 1]
+    starts, lens, fbytes = offs[:-1], np.diff(offs), d.data_bytes()
+    t0 = time.perf_counter()
+    short = column._first_appearance(column._short_keys(fbytes, starts,
+                                                        lens))
+    t1 = time.perf_counter()
+    hashed = column._codes_by_hash(fbytes, starts, lens)
+    t2 = time.perf_counter()
+    _expect("the flag coders", all(np.array_equal(a, b)
+                                   for a, b in zip(short, hashed)))
+    facts.update({"flag coder short keys s": t1 - t0,
+                  "flag coder hash s": t2 - t1})
+    log(f"  {len(lens)} of one file's l_returnflag strings coded by short "
+        f"keys in {t1 - t0:.3f} s, by the checked hash in {t2 - t1:.3f} s "
+        "(a scan takes the reader's codes instead)")
+    del flags, read
+    # snappy alone over one file's l_extendedprice, on the host
+    col = slices[0].column("l_extendedprice").combine().data.values() \
+        .view(np.uint8)
+    t0 = time.perf_counter()
+    packed = snappy.compress(col)
+    t1 = time.perf_counter()
+    back = snappy.decompress(packed)
+    t2 = time.perf_counter()
+    _expect("snappy round trip", back == col.tobytes())
+    facts.update({"snappy compress GB/s": col.size / 1e9 / (t1 - t0),
+                  "snappy decompress GB/s": col.size / 1e9 / (t2 - t1)})
+    log(f"  snappy over a file's l_extendedprice ({col.size / 1e9:.3f} GB to "
+        f"{len(packed) / 1e9:.3f} GB): compress "
+        f"{facts['snappy compress GB/s']:.3f} GB/s, decompress "
+        f"{facts['snappy decompress GB/s']:.3f} GB/s (host, one thread)")
+    del packed, back
+    memory = ds.InMemoryDataset(slices)
+    cond = q6_condition()
+    results = {}
+    for source, dset, runs in (("in memory", memory, ("",)),
+                               ("parquet", data, ("", " again"))):
+        for again in runs:
+            scan1 = _with_leaf(tq.q1_plan(li), Declaration(
+                "scan", ScanNodeOptions(dset, Q1_COLUMNS)))
+            key = f"scan Q1 {source}{again}"
+            base = memory_mark() if paths.cuda else 0
+            results[key] = paths.run(key, lambda: scan1.to_table(device=dev))
+            if paths.cuda:
+                peaks[key] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            if again:
+                continue
+            key = f"scanner Q6 {source}"
+            base = memory_mark() if paths.cuda else 0
+            results[key] = paths.run(key, lambda: ds.Scanner(
+                dset, Q6_COLUMNS, cond, device=dev).to_table())
+            if paths.cuda:
+                peaks[key] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check_result("scan Q1 parquet", results["scan Q1 parquet"].to_pydict(),
+                 q1_host_oracle(li))
+    for again in ("", " again"):
+        _same_scan(f"scan Q1 parquet{again}",
+                   results[f"scan Q1 parquet{again}"],
+                   results["scan Q1 in memory"])
+    mask = q6_mask(li)
+    _selected_rows("scanner Q6 parquet", results["scanner Q6 parquet"], li,
+                   mask, Q6_COLUMNS)
+    _same_scan("scanner Q6 parquet", results["scanner Q6 parquet"],
+               results["scanner Q6 in memory"])
+    # one file under Q6's DNF filters: a filter plan on the card
+    part = slices[PARQUET_READ_FILE]
+    got = paths.run("read_table Q6 filters", lambda: pq.read_table(
+        os.path.join(root, files[PARQUET_READ_FILE]), columns=Q6_COLUMNS,
+        filters=q6_filters(), device=dev))
+    # a Parquet read keeps the file's column order
+    _selected_rows("read_table Q6 filters", got, part, q6_mask(part),
+                   [c for c in Q1_COLUMNS if c in Q6_COLUMNS])
+    log(f"  Q1 over the Parquet files (twice) and Q6's Scanner equal numpy "
+        "and the in-memory slices' scans; read_table under Q6's filters "
+        f"kept {got.num_rows} of {part.num_rows} rows, equal to numpy")
+    shutil.rmtree(root)
+
+
+def _parquet_orders(od, tmp, paths, dev, facts):
+    """orders' PARQUET_ORDERS by write_to_dataset, hive-partitioned by
+    o_orderstatus, with a metadata_collector and a ``_metadata`` file by
+    write_metadata; the orders of HIVE_STATUS by priority over
+    parquet_dataset against the Table's plan (3o's check); orders as one
+    uniformly AES-GCM encrypted file, read back equal."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       ScanNodeOptions,
+                                       TableSourceNodeOptions, field)
+    from arrow_tpu_torch.io import parquet as pq
+    from arrow_tpu_torch.io.parquet import encryption as pe
+    from arrow_tpu_torch.table import Table
+    from arrow_tpu_torch.types import Field, Schema, TypeId
+    sel = od.select(PARQUET_ORDERS)
+    root = os.path.join(tmp, "orders_parquet")
+    collector = []
+    paths.run("write_to_dataset orders", lambda: pq.write_to_dataset(
+        sel, root, partition_cols=["o_orderstatus"],
+        metadata_collector=collector))
+    rest = Schema([f for f in sel.schema if f.name != "o_orderstatus"])
+    pq.write_metadata(rest, os.path.join(root, "_metadata"),
+                      metadata_collector=collector)
+    dirs = sorted(d for d in os.listdir(root) if not d.startswith("_"))
+    _expect("metadata_collector", [m.file_path for m in collector] ==
+            [f"{d}/part-0.parquet" for d in dirs]
+            and sum(m.num_rows for m in collector) == od.num_rows)
+    facts["orders parquet GB"] = sum(
+        os.path.getsize(os.path.join(root, d, "part-0.parquet"))
+        for d in dirs) / 1e9
+    data = ds.parquet_dataset(
+        os.path.join(root, "_metadata"), partitioning=ds.HivePartitioning(
+            Schema([Field("o_orderstatus", T.string())])))
+    cond = field("o_orderstatus") == HIVE_STATUS
+    kept = list(data.get_fragments(cond))
+    _expect("parquet_dataset fragments", len(data.fragments) == len(dirs)
+            and len(kept) == 1, f"({len(kept)} of {len(data.fragments)})")
+    got = paths.run("parquet_dataset orders", lambda: hive_orders_plan(
+        Declaration("scan", ScanNodeOptions(data, HIVE_COLUMNS, cond)))
+        .to_table(device=dev))
+    want = paths.run("parquet_dataset orders (table)", lambda: (
+        hive_orders_plan(Declaration.from_sequence([
+            Declaration("table_source", TableSourceNodeOptions(
+                od.select(["o_orderstatus"] + HIVE_COLUMNS))),
+            Declaration("filter", FilterNodeOptions(cond))]))
+        .to_table(device=dev)))
+    _same_result("parquet_dataset orders", got, want)
+    g, w = got.to_pydict(), want.to_pydict()
+    _expect("parquet_dataset orders exact", all(g[k] == w[k] for k in (
+        "o_orderpriority", "orders", "lowest", "highest", "customers")))
+    log(f"  orders hive-partitioned in Parquet: {dirs}, "
+        f"{facts['orders parquet GB']:.3f} GB, {len(collector)} files "
+        "collected; parquet_dataset over _metadata prunes to one "
+        f"directory; {got.num_rows} priorities equal to the Table's plan")
+    shutil.rmtree(root)
+    # one encrypted file: every module AES-GCM under the footer key
+    path = os.path.join(tmp, "orders_encrypted.parquet")
+    paths.run("write orders encrypted", lambda: pq.write_table(
+        sel, path, encryption_properties=pe.FileEncryptionProperties(
+            PARQUET_KEY)))
+    with open(path, "rb") as f:
+        head = f.read(4)
+    _expect("encrypted footer", head == pe.MAGIC_ENCRYPTED)
+    back = paths.run("read orders encrypted", lambda: pq.read_table(
+        path, decryption_properties=pe.FileDecryptionProperties(
+            footer_key=PARQUET_KEY)))
+    want = Table.from_arrays(
+        [_decoded(sel.column(c)) if sel.column(c).type.id ==
+         TypeId.DICTIONARY else sel.column(c).combine()
+         for c in PARQUET_ORDERS], PARQUET_ORDERS)
+    _same_table("orders encrypted", back, want)
+    size = os.path.getsize(path)
+    facts["orders encrypted GB"] = size / 1e9
+    log(f"  orders as one AES-GCM file: {size / 1e9:.3f} GB, written in "
+        f"{paths.walls['3p write orders encrypted']:.3f} s, read back "
+        f"equal in {paths.walls['3p read orders encrypted']:.3f} s")
+    os.remove(path)
+
+
+def phase_parquet(host, device="cuda"):
+    """Phase 3p: Parquet, over phase 3l's host Tables. Lineitem's Q1
+    columns as FILE_SLICES snappy Parquet files, read back and their
+    flags uploaded alone, scanned by Q1 (twice) and Q6 against numpy and
+    against the same scans of the in-memory slices; one file through
+    read_table under Q6's filters on ``device``; orders hive-partitioned
+    by write_to_dataset with a metadata_collector and a ``_metadata``
+    file, one status's orders by priority over parquet_dataset against
+    the Table's plan; orders as one AES-GCM encrypted file. Each path's
+    launches are set to 0 just before and read just after (on the card)
+    and held to PARQUET_LAUNCHES. The files go to a temporary directory,
+    removed at the end; the phase refuses to start where its free space
+    is short. Returns (launches by path, facts)."""
+    import tempfile
+    dev = torch.device(device)
+    log(f"== phase 3p: Parquet on {device}")
+    t0 = time.perf_counter()
+    li, od = host["lineitem"], host["orders"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    try:
+        # the most the phase holds at once: lineitem's Q1 columns, as
+        # files no larger than their columns
+        need = _table_bytes(li.select(Q1_COLUMNS)) + (1 << 26)
+        free = _free_bytes(tmp)
+        log(f"  {tmp}: {free / 1e9:.3f} GB free, the phase writes at most "
+            f"{need / 1e9:.3f} GB at once")
+        if free < need:
+            raise RuntimeError(f"{tmp} lacks {(need - free) / 1e9:.3f} GB "
+                               "for phase 3p's files")
+        paths = _Paths(dev, "3p", PARQUET_LAUNCHES)
+        peaks, facts = {}, {}
+        _parquet_lineitem(li, tmp, paths, dev, peaks, facts)
+        _parquet_orders(od, tmp, paths, dev, facts)
+        paths.check_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("phase 3p facts: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in facts.items()))
+    if peaks:
+        log("phase 3p peak memory above the tables (GiB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"phase 3p: {time.perf_counter() - t0:.1f} s (paths "
+        f"{sum(paths.walls.values()):.1f} s)")
+    return paths.launches, {"walls": paths.walls, "peaks": peaks,
+                            "facts": facts}
+
+
 def join_declaration(jt, probe, build, **kw):
     from arrow_tpu_torch.acero import (Declaration, HashJoinNodeOptions,
                                        TableSourceNodeOptions)
@@ -8121,7 +8521,9 @@ def _run_queries(phase, queries, tables, cols, params=None):
 def best_wall(run, reps=6):
     """Host-clock seconds of ``run`` (which ends in a download) after a
     synchronize, every run; the first is the warm-up, but where ``reps``
-    is 1 (a path the phase before ran already)."""
+    is 1. The timed runs stop before ``reps`` once two or more of them have
+    taken WALL_BUDGET_S: a path of seconds a run is timed fewer times,
+    which keeps the script inside its limit as phases are added."""
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -8129,11 +8531,14 @@ def best_wall(run, reps=6):
         run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        if len(walls) >= 3 and sum(walls[1:]) > WALL_BUDGET_S:
+            break
     return walls, min(walls[1:] or walls)
 
 
 def profile_run(name, run):
-    """Device time of one run by kernel, from torch.profiler."""
+    """Device time of one run by kernel, from torch.profiler; returns the
+    run's host-clock seconds (profiler on)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t_start = time.perf_counter()
@@ -8157,7 +8562,7 @@ def profile_run(name, run):
     if not rows:
         log(f"{name} profile: the profiler saw no device time (not "
             "measured)")
-        return
+        return wall_us / 1e6
     log(f"{name} profile: device busy {device_us:.1f} us of {wall_us:.1f} "
         f"us wall (idle share {1 - device_us / wall_us:.3f}; profiler on)")
     h2d_us = sum(r[1] for r in rows if r[0].startswith("Memcpy HtoD"))
@@ -8182,6 +8587,7 @@ def profile_run(name, run):
     log(f"{name} device time by launching operator:")
     for key, us, count in sorted(ops, key=lambda r: -r[1])[:14]:
         log(f"  {us:12.1f} us  x{count:<4d} {key[:60]}")
+    return wall_us / 1e6
 
 
 def bound(nbytes, ops, ops_per_s):
@@ -8308,8 +8714,14 @@ def compact_times(card, q3_lineitem, lineitem):
 
 def time_paths(card, paths):
     """Each (path, run)'s walls (``path.reps``, best after a warm-up) and
-    one profiled run."""
+    one profiled run; a path of one rep (a sweep the phase before ran with
+    its checks) is run once, under the profiler, which gives its wall."""
     for path, run in paths:
+        if getattr(path, "reps", 6) == 1:
+            wall = profile_run(path.name, run)
+            log(f"{path.name} SF{SF:g}: wall [{wall * 1e3:.3f}] ms (the "
+                f"profiled run) [{card}]")
+            continue
         walls, best = best_wall(run, getattr(path, "reps", 6))
         log(f"{path.name} SF{SF:g}: wall "
             f"{[round(w * 1e3, 3) for w in walls]} ms; best "
@@ -8601,6 +9013,8 @@ def main() -> int:
         launches.update(front_launches)
         file_launches, _ = timed(phase_files, host)
         launches.update(file_launches)
+        parquet_launches, _ = timed(phase_parquet, host)
+        launches.update(parquet_launches)
         launches.update(timed(phase_dist, tables, SF, "cuda", host))
         del host
         timed(phase_join_types, orders, customer)

@@ -386,10 +386,11 @@ def test_a_scan_under_a_join_is_pruned(slices, sample):
 
 
 def test_files_are_not_ported_yet(tmp_path, slices, sample):
-    """A dataset of IPC files and ``write_dataset`` now run, the
-    reference's files and rows (``tests/test_torch_file_dataset.py`` holds
-    them to the reference in full); Parquet, the format both default to,
-    and ``Dataset.join`` still raise, naming ROADMAP's item."""
+    """A dataset of IPC files and ``write_dataset`` run, the reference's
+    files and rows (``tests/test_torch_file_dataset.py`` holds them to the
+    reference in full); so does Parquet, the format both default to, here
+    by default: the files' bytes and the dataset's rows. ``Dataset.join``
+    still raises, naming ROADMAP's item."""
     _, data, port = slices
     ds.write_dataset(port, str(tmp_path / "p"), format="ipc",
                      partitioning=["year"], partitioning_flavor="hive")
@@ -407,14 +408,16 @@ def test_files_are_not_ported_yet(tmp_path, slices, sample):
     _equal(ds.FileSystemDataset.from_paths(paths, format="ipc").to_table(
         device="cpu"), jds.FileSystemDataset.from_paths(
             paths, format="ipc").to_table())
-    for call in (lambda: ds.dataset(str(tmp_path)),
-                 lambda: ds.dataset([str(tmp_path / "a.parquet")]),
-                 lambda: ds.write_dataset(port, str(tmp_path)),
-                 lambda: ds.ParquetFileFormat(),
-                 lambda: ds.FileSystemDataset.from_paths([]),
-                 lambda: data.join(data, "year")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    ds.write_dataset(port, str(tmp_path / "pq"))
+    jds.write_dataset(sample, str(tmp_path / "rq"))
+    assert (tmp_path / "pq" / "part-0.parquet").read_bytes() == \
+        (tmp_path / "rq" / "part-0.parquet").read_bytes()
+    _equal(ds.dataset(str(tmp_path / "pq")).to_table(device="cpu"),
+           jds.dataset(str(tmp_path / "rq")).to_table())
+    _equal(ds.dataset([str(tmp_path / "rq" / "part-0.parquet")]).to_table(
+        device="cpu"), sample)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        data.join(data, "year")
 
 
 def test_the_card_is_the_default(slices):

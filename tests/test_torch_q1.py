@@ -141,7 +141,7 @@ def test_unported_nodes_raise(kind):
     boundary ported them (a grouped and a scalar host-tier aggregate, a
     consuming sink, pivot_longer), each against numpy over the filtered
     rows; a ``scan`` source runs since the dataset frontend was ported,
-    and a dataset of files raises, naming its item."""
+    and a dataset of a missing Parquet file raises as the reference's."""
     tb, _ = q1_device_batch(0.001, device="cpu")
     source = Declaration("table_source", TableSourceNodeOptions(tb))
     filtered = Declaration("filter", FilterNodeOptions(
@@ -171,15 +171,18 @@ def test_unported_nodes_raise(kind):
     else:
         assert got == {"total": [list(dict.fromkeys(kept["l_quantity"]))]}
     # a scan source runs over an in-memory dataset of those rows in two
-    # fragments; a dataset of files still raises, naming its item
+    # fragments; a dataset of a missing Parquet file (the default format,
+    # now ported) raises as the reference's does
     from arrow_tpu_torch import dataset as ds
     from arrow_tpu_torch.acero import ScanNodeOptions
     tbl = filtered.to_table(device="cpu")
     scanned = Declaration("scan", ScanNodeOptions(ds.dataset(
         [tbl.slice(0, 3), tbl.slice(3)]))).to_table(device="cpu")
     assert scanned.to_pydict() == kept
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.dataset("lineitem.parquet")
+    from arrow_tpu import dataset as jds
+    for mod in (ds, jds):
+        with pytest.raises(FileNotFoundError):
+            mod.dataset("lineitem.parquet")
 
 
 def _port_sources():
@@ -220,14 +223,21 @@ _HOST_BOUNDARY_MODULES = (
     "acero/expression.py", "acero/prune.py", "errors.py", "io_streams.py",
     "fs.py", "feather.py", "io/feather_v1.py", "utils/lz4frame.py",
     "ipc/__init__.py", "ipc/fb.py", "ipc/schema_fb.py", "ipc/message.py",
-    "ipc/reader_writer.py", "ipc/compat.py", "kernels/_build.py")
+    "ipc/reader_writer.py", "ipc/compat.py", "kernels/_build.py",
+    "io/caching.py", "io/parquet/__init__.py", "io/parquet/thrift.py",
+    "io/parquet/rle.py", "io/parquet/host.py", "io/parquet/delta.py",
+    "io/parquet/bloom.py", "io/parquet/nested.py", "io/parquet/reader.py",
+    "io/parquet/writer.py", "io/parquet/metadata.py",
+    "io/parquet/encryption.py", "utils/snappy.py", "utils/brotli_ctypes.py",
+    "utils/aes_ctypes.py")
 
 
 @pytest.mark.parametrize("module", _HOST_BOUNDARY_MODULES)
 def test_the_host_boundary_modules_are_guarded(module):
     """The host boundary's modules are among the guarded sources above,
-    and import no pandas, flatbuffers or fsspec either (the card's machine
-    has none of them)."""
+    and import no pandas, flatbuffers, fsspec or cryptography either (the
+    card's machine lacks the first three; the port's AES is libcrypto's,
+    by ctypes)."""
     path = REPO / "arrow_tpu_torch" / module
     assert path in _port_sources()
     tree = ast.parse(path.read_text())
@@ -241,7 +251,7 @@ def test_the_host_boundary_modules_are_guarded(module):
         for name in names:
             assert name.split(".")[0] not in (
                 "jax", "jaxlib", "arrow_tpu", "pyarrow", "pandas",
-                "flatbuffers", "fsspec"), name
+                "flatbuffers", "fsspec", "cryptography"), name
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
@@ -252,7 +262,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "    __import__(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'arrow_tpu', 'pyarrow', 'flatbuffers',\n"
-        "        'fsspec')]\n"
+        "        'fsspec', 'cryptography')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
