@@ -20,8 +20,9 @@ results come back as host Tables and Arrays.
 Files: ``ipc`` (the Arrow IPC stream and file formats), ``feather`` (V1
 and V2), the streams and codecs of ``io_streams`` (``memory_map``,
 ``Codec``, LZ4 by the port's own host library), ``fs`` (the local, mock
-and subtree file systems) and ``dataset``'s datasets of IPC and Feather
-files, with ``write_dataset``.
+and subtree file systems), ``io.parquet``, ``io.csv``, ``io.json`` and
+``orc``, and ``dataset``'s datasets of these files, with
+``write_dataset``.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def __getattr__(name):
     import importlib
     lazy = {"acero": ".acero", "compute": ".compute", "dataset": ".dataset",
             "feather": ".feather", "fs": ".fs", "gandiva": ".gandiva",
-            "sql": ".sql", "substrait": ".substrait"}
+            "orc": ".io.orc", "sql": ".sql", "substrait": ".substrait"}
     if name in lazy:
         return importlib.import_module(lazy[name], __name__)
     raise AttributeError(name)

@@ -1,6 +1,7 @@
 """Top-level helpers (counterpart of ``arrow_tpu/api.py``): the type alias
 resolver the frontends need. The rest of the reference's ``api.py`` is not
-ported (ROADMAP.md, queue 1, item 13)."""
+ported (ROADMAP.md, queue 1, item 13.2); the file readers keep their own
+``concat_tables`` and ``nulls`` (``io/host_arrays.py``)."""
 
 from __future__ import annotations
 

@@ -7,8 +7,10 @@ SimplifyWithGuarantee, the partitioned writes of dataset_writer.cc).
 A dataset is a list of fragments with an optional partition guarantee
 each: host Tables (``InMemoryDataset``, ``dataset(tables)``) or files
 (``FileSystemDataset``, ``dataset(path or paths, format=)``; Parquet, the
-default, IPC and Feather V2: ``ParquetFileFormat``, ``IpcFileFormat``,
-``FeatherFileFormat``; ``parquet_dataset`` for a directory with a
+default, IPC, Feather V2, CSV, newline-delimited JSON and ORC:
+``ParquetFileFormat``, ``IpcFileFormat``, ``FeatherFileFormat``,
+``CsvFileFormat``, ``JsonFileFormat`` (read only, as the reference's),
+``OrcFileFormat``; ``parquet_dataset`` for a directory with a
 ``_metadata`` file). A scan prunes the
 fragments whose guarantee makes the filter false
 (``simplify_with_guarantee``), and runs the rest as the plan source
@@ -32,10 +34,10 @@ discovery skips the files and directories whose names start with ``_`` or
 ``_metadata`` file is not a fragment (the reference lists it, and a scan
 of a hive directory with one then fails on its column order).
 
-Not ported yet (ROADMAP.md, queue 1, item 13): the CSV, JSON and ORC
-formats, and ``Dataset.join``/``join_asof`` (``Table.join``); each raises
-NotImplementedError. ``fragment_readahead`` is accepted and reads nothing
-ahead: a file is read as the scan uploads it.
+Not ported yet (ROADMAP.md, queue 1, item 13.2): ``Dataset.join`` and
+``join_asof`` (``Table.join``); each raises NotImplementedError.
+``fragment_readahead`` is accepted and reads nothing ahead: a file is read
+as the scan uploads it.
 """
 from __future__ import annotations
 
@@ -56,11 +58,11 @@ from .types import Field, Schema, TypeId
 from .utils import bits as bitutil
 from . import types as _T
 
-_FILES = "ROADMAP.md, queue 1, item 13: the file readers and writers"
+_LATER = "ROADMAP.md, queue 1, item 13.2: the rest of the host surface"
 
 
 def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet ({_FILES})")
+    raise NotImplementedError(f"{what} is not ported yet ({_LATER})")
 
 
 # --- partitioning ------------------------------------------------------------
@@ -521,16 +523,52 @@ class FeatherFileFormat(IpcFileFormat):
     default_extname = "feather"
 
 
-def _later_format(name: str):
-    def __init__(self, *args, **kwargs):
-        _not_ported(f"the {name}")
-    return type(name, (FileFormat,), {
-        "__init__": __init__, "__doc__": f"Not ported yet ({_FILES})."})
+class CsvFileFormat(FileFormat):
+    """CSV files (dataset/file_csv.h): a fragment is ``read_csv`` of the
+    file's bytes, a write ``write_csv``'s bytes."""
+    name = "csv"
+    default_extname = "csv"
+
+    def read(self, fs, path, columns=None) -> Table:
+        from .io import csv
+        with fs.open_input_stream(path) as f:
+            t = csv.read_csv(f.read())
+        return t.select(columns) if columns else t
+
+    def write(self, tbl, fs, path):
+        from .io import csv
+        with fs.open_output_stream(path) as f:
+            csv.write_csv(tbl, f)
 
 
-CsvFileFormat = _later_format("CsvFileFormat")
-JsonFileFormat = _later_format("JsonFileFormat")
-OrcFileFormat = _later_format("OrcFileFormat")
+class OrcFileFormat(FileFormat):
+    """ORC files (dataset/file_orc.h), both ways by ``io/orc.py``."""
+    name = "orc"
+    default_extname = "orc"
+
+    def read(self, fs, path, columns=None) -> Table:
+        from .io import orc
+        with fs.open_input_stream(path) as f:
+            return orc.read_table(f.read(), columns)
+
+    def write(self, tbl, fs, path):
+        from .io import orc
+        with fs.open_output_stream(path) as f:
+            orc.write_table(tbl, f)
+
+
+class JsonFileFormat(FileFormat):
+    """Newline-delimited JSON files (dataset/file_json.h): read only; a
+    write raises NotImplementedError, as the reference's does."""
+    name = "json"
+    default_extname = "json"
+
+    def read(self, fs, path, columns=None) -> Table:
+        from .io import json
+        with fs.open_input_stream(path) as f:
+            t = json.read_json(f.read())
+        return t.select(columns) if columns else t
+
 
 _FORMATS = {"parquet": ParquetFileFormat, "ipc": IpcFileFormat,
             "arrow": IpcFileFormat, "feather": FeatherFileFormat,
@@ -746,7 +784,8 @@ def _partition_groups(arrays: List[Array]):
 
 def _gather_bytes(d: ArrayData, rows: np.ndarray, valid) -> tuple:
     """(offsets, bytes) of a variable-size binary column's ``rows``, a null
-    row empty."""
+    row empty (the Parquet host library's gather: a partitioned write of
+    strings needs the host C++ compiler)."""
     offs = d.offsets().astype(np.int64)
     starts = offs[rows]
     lens = offs[rows + 1] - starts
@@ -754,8 +793,12 @@ def _gather_bytes(d: ArrayData, rows: np.ndarray, valid) -> tuple:
         lens[~valid] = 0
     new = np.zeros(len(rows) + 1, dtype=np.int64)
     np.cumsum(lens, out=new[1:])
-    at = np.repeat(starts - new[:-1], lens) + np.arange(new[-1])
-    return new, d.data_bytes()[at]
+    # the values of the rows, a null row's left out, by the host
+    # library's gather (a copy a value, not an index a byte)
+    from .io.parquet.host import gather_var_bytes
+    _, data = gather_var_bytes(d.data_bytes(), offs,
+                               rows if valid is None else rows[valid])
+    return new, data
 
 
 def _rebuilt(arr: Array, rows: np.ndarray) -> Array:
@@ -878,6 +921,26 @@ class FragmentScanOptions:
     """A format's scan options (dataset/dataset.h FragmentScanOptions)."""
 
     type_name = ""
+
+
+class CsvFragmentScanOptions(FragmentScanOptions):
+    """CSV's scan options: the reader's options, kept."""
+    type_name = "csv"
+
+    def __init__(self, convert_options=None, read_options=None,
+                 parse_options=None):
+        self.convert_options = convert_options
+        self.read_options = read_options
+        self.parse_options = parse_options
+
+
+class JsonFragmentScanOptions(FragmentScanOptions):
+    """JSON's scan options: the reader's options, kept."""
+    type_name = "json"
+
+    def __init__(self, parse_options=None, read_options=None):
+        self.parse_options = parse_options
+        self.read_options = read_options
 
 
 class ParquetFragmentScanOptions(FragmentScanOptions):

@@ -694,6 +694,10 @@ class Schema:
     def __iter__(self):
         return iter(self.fields)
 
+    def append(self, f: Field) -> "Schema":
+        """This schema with ``f`` after its fields."""
+        return Schema(self.fields + [f], self.metadata)
+
     def equals(self, other: "Schema") -> bool:
         """Names, types and nullability alike (the metadata is not
         compared, as in the reference's default)."""

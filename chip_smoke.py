@@ -146,8 +146,10 @@ Phases; any failure exits non-zero without the final line:
    node the tracking predicts under a limit one byte below its total);
    the copies' overlap with kernels from a profiled run of Q1 and Q3;
    the kernels against their plain versions at a chunk's shapes.
-   Then (3k) distribution (``phase_dist``): the single-rank run of each
-   path on this process against its numpy oracle, then four ranks under
+   Then (3k) distribution (``phase_dist``; it runs after 3q and 3b): the
+   single-rank run of each path on this process against its numpy oracle
+   (an oracle an earlier phase made of the same tables taken from it),
+   then four ranks under
    gloo spawned on this one card (NCCL refuses two ranks of one
    communicator on one GPU; a rank a GPU is its production use), each
    making lineitem's and Q3's tables by row range on the card and reading
@@ -169,7 +171,8 @@ Phases; any failure exits non-zero without the final line:
    filtered lineitem here, bit for bit.
    Then (3l) the host boundary (``phase_host``): the eight TPC-H tables
    made once on the host by ``io/tpch.py`` as host Tables and as their
-   makers' batches; each Table's source uploaded (timed, GB/s) and held
+   makers' batches (those of the set-up's tables and 3j's lineitem taken
+   from their generation there); each Table's source uploaded (timed, GB/s) and held
    bit for bit to its maker's batch; Q1, Q3, Q9, Q13 and Q18 from host
    Tables through ``to_table()`` to a host Table, against their numpy
    oracles and, digest for digest, the same plan over the batches, with
@@ -256,16 +259,35 @@ Phases; any failure exits non-zero without the final line:
    after and held to PARQUET_LAUNCHES; the bytes written, the write and
    read rates, snappy's rates on the host, the flags' upload time and
    the peaks logged.
-   Then 3k (above) runs, with Q1 and Q3 from phase 3l's host Tables split
-   by rank added (the Tables shared with the ranks through shared
-   memory; each rank uploads only its range, held to its share), and
-   the host Tables' uploads released.
+   Then (3q) CSV, JSON and ORC (``phase_csv_json_orc``) over phase 3l's
+   Tables, in a temporary directory whose free space is checked first:
+   lineitem's Q1 columns as FILE_SLICES CSV files by ``write_csv`` (the
+   defaults), Q1 by a ``scan`` source over ``dataset(dir, format="csv")``
+   against 3p's numpy oracle and 3p's scan of the in-memory slices (the
+   flags by value, every other column bit for bit), one file through
+   ``open_csv`` in blocks against that fragment's Table; orders (its
+   dictionary columns as plain strings) by ``write_dataset(format="orc")``
+   hive-partitioned by status, one status's orders by priority over the
+   ORC dataset against the Table's plan, a ``Scanner`` under a price
+   filter against numpy, one partition written again with zlib and read
+   back equal; customer as newline-delimited JSON (``write_ndjson``: the
+   reference writes none), its customers by segment over
+   ``dataset(path, format="json")`` against numpy and the Table's plan,
+   ``read_json`` of the file against the dataset's fragment. Each path's
+   launches set to 0 just before and read just after and held to
+   CSV_JSON_ORC_LAUNCHES; the bytes written, the write and read rates
+   and the peaks logged.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
    SF10, where the bloom engages for inner, left semi, right semi and
    right outer joins, and 1,000,000 probe rows against 200,000 build
    rows with duplicate keys on both sides and 5% null keys.
+   Then 3k (above) runs, its single-rank runs of the eight joins 3b's,
+   with Q1 and Q3 from phase 3l's host Tables split by rank added (the
+   Tables shared with the ranks through shared memory; each rank uploads
+   only its range, held to its share), and the host Tables' uploads
+   released.
 4. Times after a warm-up: phase 3m's device paths at 60M rows (the
    five nested names and the run-end encoding, best of 6 and one profile
    of them all); Q1, Q3, Q4, Q13, the suite's and the last
@@ -317,7 +339,7 @@ HASH_OPS_PER_COMBINE = 6    # 2 shifts, 3 adds, 1 xor
 SF = 10.0
 Q1_SLOTS = 12               # (3+1) return flags x (2+1) line statuses
 RTOL_F64 = 1e-9             # f64 sums added in another order
-WALL_BUDGET_S = 4.0         # phase 4's timed runs of one path, at least 2
+WALL_BUDGET_S = 2.0         # phase 4's timed runs of one path, at least 2
 RTOL_F32 = 1e-5             # an f32 result against an f64 reference
 NODE_SPAN = "arrow_tpu::"   # the executor's profiler span of a plan node
 Q1_LAUNCHES = {"compact": 0, "hash32": 0, "grouped_sum": 7, "probe": 1}
@@ -345,8 +367,58 @@ JOIN_LAUNCHES_NULLS = {"inner": (1, 2), "left outer": (0, 0),
 NULL_KEY_ROWS = (1_000_000, 200_000)  # probe and build rows, 5% null keys
 
 
+# oracle results by the tables they read: the Q1 oracle over Q1's
+# lineitem (phases 3e and 3k), the Q9 and Q21 oracles over the suite's
+# tables (3c and 3k, 3d and 3e) are made once
+_ORACLES = {}
+
+
+def _memo_oracle(fn, copied=True):
+    """``fn`` computed once for the same DeviceBatch objects (by identity:
+    each batch's row count and column tensors, held weakly) and the same
+    plain arguments; a dict argument counts by its DeviceBatch values,
+    any other dict (downloaded columns, derived from the batches) is not
+    part of the key. A kept result is handed out as a copy where
+    ``copied`` (the callers read without writing where not)."""
+    import copy
+    import weakref
+
+    def tensors(b):
+        return [b.row_count] + [c.values for c in b.columns]
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        from arrow_tpu_torch.device.column import DeviceBatch
+        batches, plain = [], []
+        for a in args:
+            if isinstance(a, DeviceBatch):
+                batches.append(a)
+            elif isinstance(a, dict):
+                batches += [v for _, v in sorted(a.items())
+                            if isinstance(v, DeviceBatch)]
+            else:
+                plain.append(a)
+        key = (fn.__name__, tuple(map(id, batches)), tuple(plain),
+               tuple(sorted(kwargs.items())))
+        hit = _ORACLES.get(key)
+        now = [t for b in batches for t in tensors(b)]
+        if hit is not None and len(hit[0]) == len(now) and all(
+                r() is t for r, t in zip(hit[0], now)):
+            return copy.deepcopy(hit[1]) if copied else hit[1]
+        out = fn(*args, **kwargs)
+        _ORACLES[key] = ([weakref.ref(t) for t in now],
+                         copy.deepcopy(out) if copied else out)
+        return out
+    return wrapper
+
+
+_START = time.perf_counter()
+
+
 def log(*parts):
-    print(*parts, flush=True)
+    """A line of the run's log, led by the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - _START:7.1f}]", *parts, flush=True)
 
 
 def timed(phase, *args):
@@ -790,6 +862,7 @@ def phase_compact(n, q3_lineitem, orders):
     return 0.0
 
 
+@_memo_oracle
 def q1_oracle(batch, n):
     """Q1 with numpy bincounts over the downloaded source columns, in the
     plan's output order."""
@@ -1055,8 +1128,10 @@ def _oracle_columns(t, spec):
     return cols
 
 
+@functools.partial(_memo_oracle, copied=False)
 def _suite_columns(t):
-    """The downloaded source columns the suite's oracles read, by table."""
+    """The downloaded source columns the suite's oracles read, by table
+    (read only: phases 3c and 3k share them)."""
     return _oracle_columns(t, {
         "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
                      "l_extendedprice", "l_discount", "l_returnflag",
@@ -1155,6 +1230,7 @@ def q5_oracle(t, c, region_name="ASIA"):
             "revenue": revenue[groups]}, int(sel.sum())
 
 
+@_memo_oracle
 def q9_oracle(t, c):
     """Profit per nation and order year (days // 365, as date32) of the
     lineitems of BRASS parts, each joined to every partsupp row of its
@@ -1609,6 +1685,7 @@ def q20_oracle(t, c, name_prefix="forest", nation_name="CANADA",
         len(keys)
 
 
+@_memo_oracle
 def q21_oracle(t, c, nation_name="SAUDI ARABIA", limit=100):
     """Per supplier of the nation, its late lines of finished orders that
     had more than one supplier, of which only it was late. Distinct
@@ -1796,9 +1873,10 @@ def check_q1_segmented(t, c, result):
     kept = cols["l_shipdate"] <= DATE_1998_09_02
     key = cols["l_returnflag"][kept].astype(np.int64) * len(ls) \
         + cols["l_linestatus"][kept]
-    groups, first = np.unique(key, return_index=True)
-    first_of = {(rf[k // len(ls)], ls[k % len(ls)]): f
-                for k, f in zip(groups, first)}
+    first = _first_seen(key, len(rf) * len(ls))
+    groups = np.flatnonzero(first < len(key))
+    first_of = {(rf[k // len(ls)], ls[k % len(ls)]): first[k]
+                for k in groups}
     rows = sorted(range(len(want["l_returnflag"])), key=lambda i: (
         want["l_returnflag"][i],
         first_of[(want["l_returnflag"][i], want["l_linestatus"][i])]))
@@ -4940,17 +5018,21 @@ STREAM_TOP_ORDERS = 20
 
 def stream_inputs(tables):
     """SF10's lineitem from the port's host generator, held in pinned host
-    memory, and a copy on the card for the whole-table runs, beside
-    orders and customer on the card; the host columns for the oracles."""
+    memory, and a copy on the card for the whole-table runs (kept with
+    its host Table for phase 3l), beside orders and customer on the card;
+    the host columns for the oracles."""
     from arrow_tpu_torch.device.column import batch_to, pin_batch
     from arrow_tpu_torch.io import tpch
     t0 = time.perf_counter()
-    host = tpch.lineitem_table(SF, device="cpu")
+    # lineitem_table(SF, device="cpu"), and the host Table of the same
+    # generation, which phase 3l takes with the card copy
+    table, host = tpch.host_and_device("lineitem", SF, device="cpu")
     t1 = time.perf_counter()
     host = pin_batch(host)
     t2 = time.perf_counter()
     card = batch_to(host, "cuda")
     torch.cuda.synchronize()
+    _GENERATED["lineitem", SF] = (table, card)
     n = int(host.row_count)
     nbytes = sum(c.values.numel() * c.values.element_size()
                  for c in host.columns)
@@ -5679,10 +5761,29 @@ def _dist_paths(rank, world, pair, shared, sf, device, res):
             device, repeat=True)
 
 
-def _dist_expected(tables, shared, sf, device):
+def _stable_argsort_by(major, minor):
+    """np.argsort(major << 32 | minor, kind="stable") for int32 ``major``
+    and ``minor`` in [0, 2**32): by three stable passes of numpy's radix
+    sort over 16-bit digits (minor's low, its high, then major less its
+    least) where major spans under 2**16 values, the same permutation."""
+    major = major.astype(np.int64)
+    minor = minor.astype(np.int64)
+    lo = major.min(initial=0)
+    if len(major) == 0 or major.max() - lo >= 1 << 16 or minor.min() < 0 \
+            or minor.max() >= 1 << 32:
+        return np.argsort(major << 32 | minor, kind="stable")
+    perm = np.argsort((minor & 0xFFFF).astype(np.uint16), kind="stable")
+    for digit in ((minor >> 16).astype(np.uint16), (major - lo).astype(
+            np.uint16)):
+        perm = perm[np.argsort(digit[perm], kind="stable")]
+    return perm
+
+
+def _dist_expected(tables, shared, sf, device, joins=None):
     """The single-rank whole-table run of every phase 3k path on this
     process, each held against its numpy oracle: small results as
-    ``download`` dicts, the rest as (rows, digests)."""
+    ``download`` dicts, the rest as (rows, digests); the joins' from
+    ``joins`` where given (phase 3b's runs of them)."""
     import arrow_tpu_torch.acero as ac
     from arrow_tpu_torch.acero.exec import execute_declaration
     from arrow_tpu_torch.device.column import batch_from_numpy, download
@@ -5709,21 +5810,35 @@ def _dist_expected(tables, shared, sf, device):
         return int(batch.row_count), digest(batch)
 
     orders, customer = shared["orders"], shared["customer"]
-    cu = _host_columns(customer, ["c_custkey", "c_mktsegment"])
-    building = cu["c_mktsegment"] == customer.column(
-        "c_mktsegment").dictionary.index("BUILDING")
     od = _host_columns(orders, ["o_orderkey", "o_custkey"])
-    ps = JoinSide(od["o_custkey"], np.ones(len(od["o_custkey"]), bool),
-                  "o_orderkey", od["o_orderkey"])
-    bs = JoinSide(cu["c_custkey"][building], np.ones(building.sum(), bool),
-                  "c_custkey", cu["c_custkey"][building])
-    runs = match_runs(ps, bs)
-    for jt in JOIN_TYPES:
-        batch = execute_declaration(_orders_customer(ac, orders, customer,
-                                                     jt))
-        check_join(jt, batch, ps, bs, runs)
-        exp[f"join {jt}"] = whole(batch)
-    del batch
+    if joins is not None:
+        # a join's columns: the outputs named, but a right semi or anti
+        # join's, which are the build side's (here 3k's narrower customer)
+        for jt in JOIN_TYPES:
+            names = (customer.schema.names if jt.startswith("right ")
+                     and jt.endswith(("semi", "anti")) else
+                     ["o_orderkey"] if jt.startswith("left ")
+                     and jt.endswith(("semi", "anti")) else
+                     ["o_orderkey", "c_custkey"])
+            rows, by_name = joins[jt]
+            exp[f"join {jt}"] = (rows, [d for nm in names
+                                        for d in by_name[nm]])
+    else:
+        cu = _host_columns(customer, ["c_custkey", "c_mktsegment"])
+        building = cu["c_mktsegment"] == customer.column(
+            "c_mktsegment").dictionary.index("BUILDING")
+        ps = JoinSide(od["o_custkey"], np.ones(len(od["o_custkey"]), bool),
+                      "o_orderkey", od["o_orderkey"])
+        bs = JoinSide(cu["c_custkey"][building],
+                      np.ones(building.sum(), bool), "c_custkey",
+                      cu["c_custkey"][building])
+        runs = match_runs(ps, bs)
+        for jt in JOIN_TYPES:
+            batch = execute_declaration(_orders_customer(ac, orders,
+                                                         customer, jt))
+            check_join(jt, batch, ps, bs, runs)
+            exp[f"join {jt}"] = whole(batch)
+        del batch
 
     def on_card(cols, rows):
         return batch_from_numpy(cols, rows, device=device)
@@ -5732,8 +5847,7 @@ def _dist_expected(tables, shared, sf, device):
     exp["order_by"] = whole(batch)
     del batch
     host = _host_columns(li, DIST_SORT_COLUMNS + ["l_suppkey"])
-    perm = np.argsort(host["l_shipdate"].astype(np.int64) << 32
-                      | host["l_orderkey"], kind="stable")
+    perm = _stable_argsort_by(host["l_shipdate"], host["l_orderkey"])
     sort_types = {"l_orderkey": "int64", "l_linenumber": "int64",
                   "l_shipdate": "date32", "l_extendedprice": "float64"}
     want = digest(on_card([(c, sort_types[c], host[c][perm], None, None)
@@ -5928,7 +6042,7 @@ def _host_split_check(results, row_bytes):
             f"GB (ranges {shares}; whole Tables {whole / 1e9:.3f} GB)")
 
 
-def phase_dist(tables, sf=SF, device="cuda", host=None):
+def phase_dist(tables, sf=SF, device="cuda", host=None, joins=None):
     """Phase 3k: distribution. The single-rank runs first, each against its
     oracle; then DIST_RANKS gloo ranks sharing this card, spawned, each
     making its shards (lineitem and Q3's tables by row range on the card,
@@ -5940,7 +6054,9 @@ def phase_dist(tables, sf=SF, device="cuda", host=None):
     shared memory, each rank uploads only its row range, and its uploads
     are held to its share; their uploads here are released first. A rank
     that fails or does not answer within DIST_TIMEOUT fails the phase.
-    Returns rank 0's launches by path."""
+    ``joins`` (phase 3b's single-rank runs of the same eight joins, each
+    held to the join oracle there) stand for the joins' single-rank runs
+    where given. Returns rank 0's launches by path."""
     import queue
     import shutil
     import tempfile
@@ -5957,7 +6073,7 @@ def phase_dist(tables, sf=SF, device="cuda", host=None):
         for src in _build.sources():
             _build.library(src.stem)
     shared = dist_tables(tables)
-    exp = _dist_expected(tables, shared, sf, dev)
+    exp = _dist_expected(tables, shared, sf, dev, joins)
     if host is not None:
         t1 = time.perf_counter()
         row_bytes = _host_split_expected(host, dev, exp)
@@ -6055,11 +6171,17 @@ def table_digest(tbl):
 
 def host_inputs(sf, device):
     """``sf``'s eight TPC-H tables generated once on the host: each as a
-    host Table and as its maker's DeviceBatch on ``device``."""
+    host Table and as its maker's DeviceBatch on ``device`` (those that
+    host_tables() and phase 3j generated, taken from them)."""
     from arrow_tpu_torch.io import tpch
     t0 = time.perf_counter()
     host, made = {}, {}
     for name in tpch.TABLES:
+        kept = _GENERATED.pop((name, sf), None)
+        if kept is not None and kept[1].column(0).values.device.type == \
+                torch.device(device).type:
+            host[name], made[name] = kept
+            continue
         host[name], made[name] = tpch.host_and_device(name, sf,
                                                       device=device)
     _sync(device)
@@ -6193,17 +6315,32 @@ def _host_plans(host, made, cols, device, cuda, launches):
     return walls
 
 
+def _first_seen(key, size):
+    """Each of the ``size`` small non-negative keys' first row in ``key``
+    (``len(key)`` where absent): np.unique's ``return_index`` without its
+    sort of every row (the keys are found in a prefix, a key missing
+    there by one scan)."""
+    n = len(key)
+    first = np.full(size, n, dtype=np.int64)
+    head = key[:1 << 20]
+    u, idx = np.unique(head, return_index=True)
+    first[u] = idx
+    present = np.bincount(key, minlength=size) > 0
+    for v in np.flatnonzero(present & (first == n)):
+        first[v] = int(np.argmax(key == v))
+    return first
+
+
 def _flag_groups(c):
     """Lineitem's (returnflag, linestatus) group a row, groups in order of
     first appearance, and the two flags' values a group."""
-    rf, ls = c["l_returnflag"], c["l_linestatus"]
-    key = rf.astype(np.int64) * 8 + ls
-    uniq, first, inverse = np.unique(key, return_index=True,
-                                     return_inverse=True)
-    order = np.argsort(first, kind="stable")
-    rank = np.empty(len(order), np.int64)
-    rank[order] = np.arange(len(order))
-    return rank[inverse.reshape(-1)], uniq[order]
+    key = c["l_returnflag"].astype(np.int64) * 8 + c["l_linestatus"]
+    first = _first_seen(key, 8 * 8)
+    keys = np.flatnonzero(first < len(key))
+    keys = keys[np.argsort(first[keys], kind="stable")]
+    rank = np.zeros(8 * 8, dtype=np.int64)
+    rank[keys] = np.arange(len(keys))
+    return rank[key], keys
 
 
 def _list_parts(tbl, name):
@@ -6212,7 +6349,7 @@ def _list_parts(tbl, name):
         arr.values.data.values()
 
 
-def _host_aggregates(host, c, device, cuda, launches):
+def _host_aggregates(host, c, groups, device, cuda, launches):
     """hash_list and hash_distinct by lineitem's flags, hash_pivot_wider of
     l_quantity's sums over l_shipmode by l_returnflag, and a hash_list
     mixed with a device sum, each against numpy."""
@@ -6221,9 +6358,10 @@ def _host_aggregates(host, c, device, cuda, launches):
     from arrow_tpu_torch.io.tpch import SHIPMODES
     from arrow_tpu_torch.platform_check import self_check
     li = host["lineitem"]
-    gid, keys = _flag_groups(c)
+    gid, keys = groups
     ngroups = len(keys)
-    order = np.argsort(gid, kind="stable")
+    # a stable sort of narrow ids is numpy's radix sort
+    order = np.argsort(gid.astype(np.uint8), kind="stable")
     counts = np.bincount(gid, minlength=ngroups)
 
     def src():
@@ -6257,7 +6395,8 @@ def _host_aggregates(host, c, device, cuda, launches):
         [("l_linenumber", "hash_distinct", None, "dst")], keys=HOST_FLAGS),
         [src()]))
     ln = c["l_linenumber"]
-    _, first = np.unique(gid * 8 + ln, return_index=True)
+    first = _first_seen(gid * 8 + ln, ngroups * 8)
+    first = first[first < len(ln)]
     first = first[np.lexsort((first, gid[first]))]
     offs, vals = _list_parts(out, "dst")
     if not (np.array_equal(vals, ln[first]) and np.array_equal(
@@ -6276,8 +6415,9 @@ def _host_aggregates(host, c, device, cuda, launches):
     sums = np.bincount(rf.astype(np.int64) * len(SHIPMODES) + sm,
                        weights=c["l_quantity"],
                        minlength=3 * len(SHIPMODES))
-    _, rf_first = np.unique(rf, return_index=True)
-    rf_order = np.unique(rf)[np.argsort(rf_first)]
+    rf_first = _first_seen(rf, 8)
+    rf_order = np.flatnonzero(rf_first < len(rf))
+    rf_order = rf_order[np.argsort(rf_first[rf_order])]
     got = out.to_pydict()
     flags = c["dict:l_returnflag"]
     if got["l_returnflag"] != [flags[k] for k in rf_order]:
@@ -6334,7 +6474,7 @@ def _consuming_sink(host, device, cuda, launches):
         f"to to_table(); launches {launches.get('3l consuming_sink')}")
 
 
-def _eager(host, c, device, cuda, launches):
+def _eager(host, c, groups, device, cuda, launches):
     """compute.filter and the registered hash32 over 60M-row host Arrays,
     and Table.group_by(...).aggregate with a sum, each against numpy."""
     import arrow_tpu_torch.compute as pc
@@ -6369,7 +6509,7 @@ def _eager(host, c, device, cuda, launches):
         raise AssertionError("compute.hash32 differs from numpy's")
     got = timed_call("Table.group_by", lambda: li.group_by(
         HOST_FLAGS).aggregate([("l_extendedprice", "sum")], device=device))
-    gid, _ = _flag_groups(c)
+    gid, _ = groups
     check_close("Table.group_by sum", torch.tensor(
         got.column("l_extendedprice_sum").to_numpy()), torch.tensor(
             np.bincount(gid, weights=c["l_extendedprice"])), RTOL_F64)
@@ -6437,9 +6577,10 @@ def phase_host(sf=SF, device="cuda"):
     log(f"oracle columns downloaded in {time.perf_counter() - t1:.1f} s")
     walls = _host_plans(host, made, cols, device, cuda, launches)
     _host_stream(host, device, cuda, launches)
-    _host_aggregates(host, cols["lineitem"], device, cuda, launches)
+    groups = _flag_groups(cols["lineitem"])
+    _host_aggregates(host, cols["lineitem"], groups, device, cuda, launches)
     _consuming_sink(host, device, cuda, launches)
-    _eager(host, cols["lineitem"], device, cuda, launches)
+    _eager(host, cols["lineitem"], groups, device, cuda, launches)
     log(f"phase 3l: {time.perf_counter() - t0:.1f} s (uploads "
         f"{nbytes / 1e9:.3f} GB in {up_wall:.3f} s; plan walls "
         + ", ".join(f"{k} {v[1]:.3f} s + download {v[2] * 1e3:.1f} ms"
@@ -8086,8 +8227,9 @@ def _parquet_lineitem(li, tmp, paths, dev, peaks, facts):
                 dset, Q6_COLUMNS, cond, device=dev).to_table())
             if paths.cuda:
                 peaks[key] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    q1_oracle = q1_host_oracle(li)
     check_result("scan Q1 parquet", results["scan Q1 parquet"].to_pydict(),
-                 q1_host_oracle(li))
+                 q1_oracle)
     for again in ("", " again"):
         _same_scan(f"scan Q1 parquet{again}",
                    results[f"scan Q1 parquet{again}"],
@@ -8109,6 +8251,7 @@ def _parquet_lineitem(li, tmp, paths, dev, peaks, facts):
         "and the in-memory slices' scans; read_table under Q6's filters "
         f"kept {got.num_rows} of {part.num_rows} rows, equal to numpy")
     shutil.rmtree(root)
+    return results["scan Q1 in memory"], q1_oracle
 
 
 def _parquet_orders(od, tmp, paths, dev, facts):
@@ -8222,7 +8365,7 @@ def phase_parquet(host, device="cuda"):
                                "for phase 3p's files")
         paths = _Paths(dev, "3p", PARQUET_LAUNCHES)
         peaks, facts = {}, {}
-        _parquet_lineitem(li, tmp, paths, dev, peaks, facts)
+        q1 = _parquet_lineitem(li, tmp, paths, dev, peaks, facts)
         _parquet_orders(od, tmp, paths, dev, facts)
         paths.check_launches()
     finally:
@@ -8233,6 +8376,355 @@ def phase_parquet(host, device="cuda"):
         log("phase 3p peak memory above the tables (GiB): " + ", ".join(
             f"{k} {v:.2f}" for k, v in peaks.items()))
     log(f"phase 3p: {time.perf_counter() - t0:.1f} s (paths "
+        f"{sum(paths.walls.values()):.1f} s)")
+    return paths.launches, {"walls": paths.walls, "peaks": peaks,
+                            "facts": facts, "scan Q1": q1}
+
+
+# --- phase 3q: CSV, JSON and ORC ----------------------------------------------
+
+CSV_OPEN_BLOCK = 1 << 27        # open_csv's block size over one file
+ORC_ZLIB_STATUS = "P"           # the partition written again with zlib
+ORC_PRICE = 400_000.0           # the Scanner keeps orders above this price
+ORC_SCAN_COLUMNS = ["o_orderkey", "o_totalprice", "o_orderdate"]
+JSON_FILE = "customer.json"
+# launches of phase 3q's paths, reckoned from their plan trees before the
+# first run (each +1 probe, from self_check): Q1 over the CSV files is 3p's
+# scan Q1 (seven float sums, K1, 12 slots: the flags arrive as plain
+# strings and are coded on upload to the same three and two values); the
+# ORC Scanner under its price filter compacts the kept rows of the three
+# partitions once (K2); the orders of one status by priority over the ORC
+# dataset, and over the Table, are 3o's hive paths (one float sum, K1, 5
+# slots); the customers by segment over the JSON dataset and over the host
+# Table are one float sum each (K1, 5 slots; the count takes no kernel);
+# every other path (the writes, the reads, open_csv, the zlib round trip)
+# launches none
+_SEGMENTS = {**_NO_LAUNCH, "grouped_sum": 1}
+CSV_JSON_ORC_LAUNCHES = {
+    "3q scan Q1 csv": _SCAN_Q1, "3q scanner orc price": _SCANNER_Q6,
+    "3q orc dataset orders": _HIVE, "3q orc dataset orders (table)": _HIVE,
+    "3q json segments": _SEGMENTS, "3q json segments (table)": _SEGMENTS,
+}
+
+
+def _codes_and_values(tbl, name):
+    """A dictionary column's codes (numpy) and its values."""
+    from arrow_tpu_torch.array.array import Array
+    d = tbl.column(name).combine().data
+    return d.values().astype(np.int64), Array(d.dictionary).to_pylist()
+
+
+def _files_size(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs_ in os.walk(root) for f in fs_)
+
+
+def _csv_lineitem(li, tmp, paths, dev, peaks, facts, q1_in_memory,
+                  q1_oracle):
+    """Lineitem's Q1 columns as FILE_SLICES CSV files by write_csv; Q1 by
+    a scan source over ``dataset(dir, format="csv")`` against numpy and
+    3p's scan of the in-memory slices; open_csv over one file against that
+    fragment's Table."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch.acero import Declaration, ScanNodeOptions
+    from arrow_tpu_torch.io import csv
+    from arrow_tpu_torch.io import tpch_queries as tq
+    from arrow_tpu_torch.table import Table
+    n = li.num_rows
+    step = -(-n // FILE_SLICES)
+    q1 = li.select(Q1_COLUMNS)
+    root = os.path.join(tmp, "lineitem_csv")
+    os.makedirs(root)
+
+    def write():
+        for i, s in enumerate(range(0, n, step)):
+            csv.write_csv(q1.slice(s, step),
+                          os.path.join(root, f"part-{i}.csv"))
+    paths.run("write lineitem csv", write)
+    nbytes = _files_size(root)
+    wall = paths.walls["3q write lineitem csv"]
+    facts.update({"lineitem csv GB": nbytes / 1e9,
+                  "csv write GB/s": nbytes / 1e9 / wall})
+    log(f"  lineitem's Q1 columns as {FILE_SLICES} CSV files: "
+        f"{nbytes / 1e9:.3f} GB in {wall:.3f} s ({nbytes / 1e9 / wall:.3f} "
+        "GB/s of text)")
+    data = paths.run("dataset csv", lambda: ds.dataset(root, format="csv"))
+    _expect("csv dataset", len(data.fragments) == FILE_SLICES
+            and data.schema.names == Q1_COLUMNS)
+    if q1_in_memory is None:
+        q1_in_memory = tq.q1_plan(li).to_table(device=dev)
+        q1_oracle = q1_host_oracle(li)
+    scan1 = _with_leaf(tq.q1_plan(li), Declaration(
+        "scan", ScanNodeOptions(data, Q1_COLUMNS)))
+    base = memory_mark() if paths.cuda else 0
+    got = paths.run("scan Q1 csv", lambda: scan1.to_table(device=dev))
+    if paths.cuda:
+        peaks["scan Q1 csv"] = (torch.cuda.max_memory_allocated()
+                                - base) / 2**30
+    wall = paths.walls["3q scan Q1 csv"]
+    facts["csv scan GB/s"] = nbytes / 1e9 / wall
+    check_result("scan Q1 csv", got.to_pydict(), q1_oracle)
+    _same_scan("scan Q1 csv", got, q1_in_memory)
+    # one file streamed in blocks against that fragment's Table
+    frag = data.fragments[0]
+    blocks = paths.run("open_csv", lambda: list(csv.open_csv(
+        frag.path, read_options=csv.ReadOptions(
+            block_size=CSV_OPEN_BLOCK))))
+    whole = paths.run("read_csv one file", lambda: frag.to_table())
+    facts["csv read GB/s"] = os.path.getsize(frag.path) / 1e9 / \
+        paths.walls["3q read_csv one file"]
+    _same_table("open_csv", Table.from_batches(blocks), whole)
+    log(f"  Q1 over the CSV files equals numpy and 3p's in-memory scan "
+        f"({nbytes / 1e9 / wall:.3f} GB/s of text to a host Table); "
+        f"open_csv gave {len(blocks)} blocks equal to read_csv of "
+        f"{os.path.basename(frag.path)}")
+    shutil.rmtree(root)
+
+
+def _orc_orders(od, tmp, paths, dev, facts):
+    """orders, every column, by write_dataset(format="orc") hive-partitioned
+    by o_orderstatus (its dictionary columns but the partition column, which
+    no file holds, as plain strings: the ORC writer takes no dictionary
+    type); the orders of HIVE_STATUS by
+    priority over the ORC dataset against the Table's plan (3o's check); a
+    Scanner under a price filter against numpy; one partition written
+    again with zlib and read back equal."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       ScanNodeOptions,
+                                       TableSourceNodeOptions, field)
+    from arrow_tpu_torch.io import orc
+    from arrow_tpu_torch.io.host_arrays import decoded
+    from arrow_tpu_torch.table import Table
+    from arrow_tpu_torch.types import Field, Schema, TypeId
+    plain = Table.from_arrays(
+        [decoded(c.combine()) if c.type.id == TypeId.DICTIONARY
+         and n != "o_orderstatus" else c.combine()
+         for n, c in zip(od.column_names, od.columns)], od.column_names)
+    root = os.path.join(tmp, "orders_orc")
+    paths.run("write_dataset orc", lambda: ds.write_dataset(
+        plain, root, format="orc", partitioning=["o_orderstatus"],
+        partitioning_flavor="hive"))
+    dirs = sorted(os.listdir(root))
+    facts["orders orc GB"] = _files_size(root) / 1e9
+    facts["orc write GB/s"] = _table_bytes(plain) / 1e9 / \
+        paths.walls["3q write_dataset orc"]
+    data = ds.dataset(root, format="orc", partitioning=ds.HivePartitioning(
+        Schema([Field("o_orderstatus", T.string())])))
+    cond = field("o_orderstatus") == HIVE_STATUS
+    _expect("orc dataset", len(data.fragments) == len(dirs)
+            and len(list(data.get_fragments(cond))) == 1)
+    got = paths.run("orc dataset orders", lambda: hive_orders_plan(
+        Declaration("scan", ScanNodeOptions(data, HIVE_COLUMNS, cond)))
+        .to_table(device=dev))
+    want = paths.run("orc dataset orders (table)", lambda: hive_orders_plan(
+        Declaration.from_sequence([
+            Declaration("table_source", TableSourceNodeOptions(
+                od.select(["o_orderstatus"] + HIVE_COLUMNS))),
+            Declaration("filter", FilterNodeOptions(cond))])).to_table(
+                device=dev))
+    _same_result("orc dataset orders", got, want)
+    g, w = got.to_pydict(), want.to_pydict()
+    _expect("orc dataset orders exact", all(g[k] == w[k] for k in (
+        "o_orderpriority", "orders", "lowest", "highest", "customers")))
+    # every partition under a price filter: the kept rows, partition by
+    # partition in directory order, each in its rows' order
+    scanned = paths.run("scanner orc price", lambda: ds.Scanner(
+        data, ORC_SCAN_COLUMNS, field("o_totalprice") > ORC_PRICE,
+        device=dev).to_table())
+    codes, values = _codes_and_values(od, "o_orderstatus")
+    price = _host_values(od, "o_totalprice")
+    rows = np.concatenate([np.flatnonzero(
+        np.isin(codes, [i for i, v in enumerate(values) if v == d[-1]])
+        & (price > ORC_PRICE)) for d in dirs])
+    _expect("scanner orc price rows", scanned.num_rows == len(rows))
+    for c in ORC_SCAN_COLUMNS:
+        _expect_equal(f"scanner orc price {c}",
+                      _np_bits(scanned.column(c).combine().data.values()),
+                      _np_bits(_host_values(od, c)[rows]))
+    # one partition again, zlib-compressed
+    part = os.path.join(root, f"o_orderstatus={ORC_ZLIB_STATUS}",
+                        "part-0.orc")
+    tbl = orc.read_table(part)
+    zpath = os.path.join(tmp, "orders_zlib.orc")
+    paths.run("write orc zlib", lambda: orc.write_table(tbl, zpath,
+                                                        compression="zlib"))
+    back = paths.run("read orc zlib", lambda: orc.read_table(zpath))
+    _same_table("orc zlib", back, tbl)
+    facts["orders orc zlib GB"] = os.path.getsize(zpath) / 1e9
+    log(f"  orders as hive-partitioned ORC: {dirs}, "
+        f"{facts['orders orc GB']:.3f} GB; {got.num_rows} priorities equal "
+        f"to the Table's plan; the Scanner kept {len(rows)} orders above "
+        f"{ORC_PRICE:g}, equal to numpy; {ORC_ZLIB_STATUS}'s {tbl.num_rows} "
+        f"rows zlib-compressed ({os.path.getsize(part) / 1e9:.3f} -> "
+        f"{facts['orders orc zlib GB']:.3f} GB) read back equal")
+    os.remove(zpath)
+    shutil.rmtree(root)
+
+
+def write_ndjson(tbl, path):
+    """A host Table of int64, float64, string and dictionary-of-string
+    columns as newline-delimited JSON, a record a row: the values' cells
+    (floats as Python's repr writes them, so they read back bit for bit)
+    and the constant text between them gathered row by row by the host
+    library, no Python a row. The strings must need no JSON escape."""
+    from arrow_tpu_torch.io import csv_host
+    from arrow_tpu_torch.io.parquet.host import gather_var_bytes
+    from arrow_tpu_torch.types import TypeId
+    n, names = tbl.num_rows, tbl.column_names
+    cells, quoted = [], []
+    for name in names:
+        col = tbl.column(name)
+        arr = _decoded(col) if col.type.id == TypeId.DICTIONARY else \
+            col.combine()
+        if arr.type.id in (TypeId.INT64, TypeId.DOUBLE):
+            fmt = csv_host.csv_format_i64 if arr.type.id == TypeId.INT64 \
+                else csv_host.csv_format_f64
+            cells.append(fmt(arr.data.values(), None, raw=True))
+            quoted.append(False)
+            continue
+        d = arr.data
+        offs = d.offsets().astype(np.int64)
+        pool = d.data_bytes()[offs[0]:offs[-1]]
+        if (pool < 0x20).any() or (pool == ord('"')).any() \
+                or (pool == ord("\\")).any():
+            raise ValueError(f"{name} needs JSON escapes")
+        cells.append((offs - offs[0], pool))
+        quoted.append(True)
+    # the text before, between and after the values
+    consts = []
+    for k, name in enumerate(names):
+        before = ('"' if k and quoted[k - 1] else "") + \
+            (", " if k else "{") + f'"{name}": ' + ('"' if quoted[k] else "")
+        consts.append(before.encode())
+    consts.append((('"' if quoted[-1] else "") + "}\n").encode())
+    m = len(consts)
+    const_offs = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum([len(c) for c in consts], out=const_offs[1:])
+    offsets, pools = [const_offs], [np.frombuffer(b"".join(consts), np.uint8)]
+    end = int(const_offs[-1])
+    for offs, pool in cells:
+        offsets.append(offs[1:] + end)
+        pools.append(pool)
+        end += int(offs[-1])
+    ids = np.empty((n, 2 * len(names) + 1), dtype=np.int64)
+    ids[:, 0::2] = np.arange(m)
+    ids[:, 1::2] = m + np.arange(len(names)) * n + np.arange(n)[:, None]
+    _, body = gather_var_bytes(np.concatenate(pools),
+                               np.concatenate(offsets), ids.reshape(-1))
+    with open(path, "wb") as f:
+        f.write(memoryview(body))
+
+
+def segments_plan(source, ac=None):
+    """The customers of ``source`` by market segment: their count and the
+    sum of their account balances, the segments in order."""
+    if ac is None:
+        import arrow_tpu_torch.acero as ac
+    return ac.Declaration.from_sequence([
+        source,
+        ac.Declaration("aggregate", ac.AggregateNodeOptions(
+            [("c_acctbal", "hash_count", None, "customers"),
+             ("c_acctbal", "hash_sum", None, "balance")],
+            keys=["c_mktsegment"])),
+        ac.Declaration("order_by", ac.OrderByNodeOptions(
+            [("c_mktsegment", "ascending")]))])
+
+
+def _json_customer(cu, tmp, paths, dev, facts):
+    """customer as newline-delimited JSON (the reference writes none);
+    the customers by segment over ``dataset(path, format="json")`` against
+    numpy and the same plan over the host Table; read_json of the file
+    against the dataset's fragment Table."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch.acero import (Declaration, ScanNodeOptions,
+                                       TableSourceNodeOptions)
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.io import json
+    from arrow_tpu_torch.types import TypeId
+    path = os.path.join(tmp, JSON_FILE)
+    paths.run("write customer json", lambda: write_ndjson(cu, path))
+    size = os.path.getsize(path)
+    facts.update({"customer json GB": size / 1e9, "json write GB/s":
+                  size / 1e9 / paths.walls["3q write customer json"]})
+    data = ds.dataset([path], format="json")
+    got = paths.run("json segments", lambda: segments_plan(Declaration(
+        "scan", ScanNodeOptions(data, ["c_mktsegment", "c_acctbal"])))
+        .to_table(device=dev))
+    want = paths.run("json segments (table)", lambda: segments_plan(
+        Declaration("table_source", TableSourceNodeOptions(
+            cu.select(["c_mktsegment", "c_acctbal"])))).to_table(device=dev))
+    _same_result("json segments", got, want)
+    codes, values = _codes_and_values(cu, "c_mktsegment")
+    names = sorted(set(values))
+    key = np.array([names.index(v) for v in values], dtype=np.int64)[codes]
+    bal = _host_values(cu, "c_acctbal")
+    g = got.to_pydict()
+    _expect("json segments keys", g["c_mktsegment"] == names
+            and g["customers"] == np.bincount(key).tolist())
+    _expect_close("json segments balance", np.array(g["balance"]),
+                  np.bincount(key, weights=bal))
+    frag = paths.run("json fragment", lambda: data.fragments[0].to_table())
+    back = paths.run("read_json", lambda: json.read_json(path))
+    facts["json read GB/s"] = size / 1e9 / paths.walls["3q read_json"]
+    _same_table("read_json", back, frag)
+    _expect("read_json types", back.schema.names == cu.column_names and [
+        f.type for f in back.schema] == [
+            T.string() if f.type.id == TypeId.DICTIONARY else f.type
+            for f in cu.schema])
+    log(f"  customer as ndjson: {size / 1e9:.3f} GB; {got.num_rows} segments "
+        "equal to numpy and the Table's plan; read_json equals the "
+        "dataset's fragment")
+    os.remove(path)
+
+
+def phase_csv_json_orc(host, device="cuda", q1_in_memory=None,
+                       q1_oracle=None):
+    """Phase 3q: CSV, JSON and ORC, over phase 3l's host Tables. Lineitem's
+    Q1 columns as FILE_SLICES CSV files, scanned by Q1 against
+    ``q1_oracle`` (numpy's) and ``q1_in_memory`` (3p's scan of the
+    in-memory slices; where None, numpy's oracle and Q1 over the host
+    Table, made here), one file through open_csv; orders hive-partitioned as ORC, one
+    status by priority against the Table's plan, a price Scanner against
+    numpy, one partition zlib-compressed; customer as ndjson, grouped by
+    segment against numpy and the Table's plan, read_json against the
+    dataset's fragment. Each path's launches are set to 0 just before and
+    read just after (on the card) and held to CSV_JSON_ORC_LAUNCHES. The
+    files go to a temporary directory, removed at the end; the phase
+    refuses to start where its free space is short. Returns (launches by
+    path, facts)."""
+    import tempfile
+    dev = torch.device(device)
+    log(f"== phase 3q: CSV, JSON and ORC on {device}")
+    t0 = time.perf_counter()
+    li, od, cu = host["lineitem"], host["orders"], host["customer"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_text_")
+    try:
+        # the most the phase holds at once: lineitem's Q1 columns as text,
+        # about 1.3 times their bytes
+        need = 2 * _table_bytes(li.select(Q1_COLUMNS)) + (1 << 26)
+        free = _free_bytes(tmp)
+        log(f"  {tmp}: {free / 1e9:.3f} GB free, the phase writes at most "
+            f"{need / 1e9:.3f} GB at once")
+        if free < need:
+            raise RuntimeError(f"{tmp} lacks {(need - free) / 1e9:.3f} GB "
+                               "for phase 3q's files")
+        paths = _Paths(dev, "3q", CSV_JSON_ORC_LAUNCHES)
+        peaks, facts = {}, {}
+        _csv_lineitem(li, tmp, paths, dev, peaks, facts, q1_in_memory,
+                      q1_oracle)
+        _orc_orders(od, tmp, paths, dev, facts)
+        _json_customer(cu, tmp, paths, dev, facts)
+        paths.check_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("phase 3q facts: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in facts.items()))
+    if peaks:
+        log("phase 3q peak memory above the tables (GiB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"phase 3q: {time.perf_counter() - t0:.1f} s (paths "
         f"{sum(paths.walls.values()):.1f} s)")
     return paths.launches, {"walls": paths.walls, "peaks": peaks,
                             "facts": facts}
@@ -8266,15 +8758,22 @@ def null_key_tables(n_probe, n_build, device, seed=7):
     return sides
 
 
+# the host Tables and their batches that host_tables() and phase 3j
+# generated, by (name, scale factor): phase 3l takes them instead of
+# generating them again
+_GENERATED = {}
+
+
 def host_tables():
     """Every TPC-H table but lineitem from the port's host generator at
-    SF10, uploaded, by name."""
+    SF10, uploaded, by name (its host Table kept for phase 3l)."""
     from arrow_tpu_torch.io import tpch
     t0 = time.perf_counter()
-    tables = {name: getattr(tpch, f"{name}_table")(SF) for name in (
-        "orders", "customer", "part", "supplier", "partsupp")}
-    tables["nation"] = tpch.nation_table()
-    tables["region"] = tpch.region_table()
+    tables = {}
+    for name in ("orders", "customer", "part", "supplier", "partsupp",
+                 "nation", "region"):
+        _GENERATED[name, SF] = tpch.host_and_device(name, SF)
+        tables[name] = _GENERATED[name, SF][1]
     sizes = ", ".join(f"{k} ({int(b.row_count)} rows)"
                       for k, b in tables.items())
     log(f"{sizes} generated on the host and uploaded in "
@@ -8285,8 +8784,9 @@ def host_tables():
 def phase_join_types(orders, customer):
     """Every join type, each run with every launch count set to 0 just
     before, against ``join_oracle`` and its expected launches: orders
-    probing customer filtered to one segment, then the null-key
-    tables."""
+    probing customer filtered to one segment, then the null-key tables.
+    Returns the first's runs by join type as (rows, its columns' digests
+    by name), which phase 3k's single-rank runs of the same joins are."""
     from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
                                        TableSourceNodeOptions, field)
     from arrow_tpu_torch.acero.exec import execute_declaration
@@ -8318,6 +8818,7 @@ def phase_join_types(orders, customer):
              dict(left_keys=["pk"], right_keys=["bk"],
                   left_output=["pid"], right_output=["bid"]),
              (probe_side, build_side), JOIN_LAUNCHES_NULLS)]
+    digests = {}
     for name, probe, build, kw, (ps, bs), want in runs:
         match = match_runs(ps, bs)
         for jt in JOIN_TYPES:
@@ -8331,7 +8832,12 @@ def phase_join_types(orders, customer):
                 "compact": compact_n, "hash32": hash_n, "grouped_sum": 0,
                 "probe": 0})
             log(f"  {name} {jt}: {rows} rows match the oracle")
+            if probe is orders:
+                d = digest(batch)
+                digests[jt] = (int(batch.row_count), dict(zip(
+                    batch.schema.names, zip(d[0::2], d[1::2]))))
             del batch
+    return digests
 
 
 def check_result(name, result, want):
@@ -9013,11 +9519,17 @@ def main() -> int:
         launches.update(front_launches)
         file_launches, _ = timed(phase_files, host)
         launches.update(file_launches)
-        parquet_launches, _ = timed(phase_parquet, host)
+        parquet_launches, parquet = timed(phase_parquet, host)
         launches.update(parquet_launches)
-        launches.update(timed(phase_dist, tables, SF, "cuda", host))
+        text_launches, _ = timed(phase_csv_json_orc, host, "cuda",
+                                 *parquet["scan Q1"])
+        launches.update(text_launches)
+        del parquet
+        # phase 3b before 3k: its runs of the eight joins are 3k's
+        # single-rank runs of them
+        joins = timed(phase_join_types, orders, customer)
+        launches.update(timed(phase_dist, tables, SF, "cuda", host, joins))
         del host
-        timed(phase_join_types, orders, customer)
         kernel_line = timed(phase_times, card, launches, errs, tables,
                             typed, params, stats, strings, rest, stream,
                             nested)

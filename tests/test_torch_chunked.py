@@ -642,7 +642,9 @@ def test_repeat_runs_give_the_same_bits(table):
                                     "io/parquet/writer.py",
                                     "io/parquet/encryption.py",
                                     "utils/snappy.py",
-                                    "utils/aes_ctypes.py"])
+                                    "utils/aes_ctypes.py", "io/csv.py",
+                                    "io/csv_host.py", "io/json.py",
+                                    "io/orc.py", "io/host_arrays.py"])
 def test_new_modules_import_neither_jax_nor_the_reference(module):
     tree = ast.parse((REPO / "arrow_tpu_torch" / module).read_text())
     for node in ast.walk(tree):

@@ -1,5 +1,6 @@
 """Datasets of files in the port (``arrow_tpu_torch/dataset.py``'s file
-part: ``IpcFileFormat``, ``FeatherFileFormat``, ``FileFragment``,
+part: ``IpcFileFormat``, ``FeatherFileFormat``, the Parquet, CSV, JSON
+and ORC formats, ``FileFragment``,
 ``FileSystemDataset``, ``dataset(path)``, ``write_dataset``) against the
 JAX package's, with pyarrow as an oracle only.
 
@@ -11,9 +12,9 @@ JAX package's, with pyarrow as an oracle only.
 * scans of file fragments (TPC-H lineitem as eight IPC files) equal to the
   in-memory scan and to the reference's plan over the same rows; the
   eight files' equal dictionaries keep their codes, with no recode;
-* Parquet, the default format, against the reference (dataset, write,
-  from_paths, parquet_dataset); CSV, JSON and ORC still raise, naming
-  ROADMAP item 13;
+* Parquet, the default format, CSV, JSON and ORC against the reference
+  (dataset, write, from_paths, the format classes, parquet_dataset;
+  JSON's write raises in both);
 * ``chip_smoke.py``'s phase 3o on the CPU at SF 0.005.
 
 Exact throughout, but Q1's float sums (rtol 1e-9 against the reference,
@@ -331,51 +332,79 @@ def test_the_card_is_the_default_for_files(lineitem_files):
 
 # --- the other formats -----------------------------------------------------------
 
+def _write_ndjson_dirs(root, rt):
+    """``rt`` as newline-delimited JSON files, one a year directory (hive),
+    a record a row (the reference writes no JSON)."""
+    import json
+    rows = rt.to_pylist()
+    for year in sorted({r["year"] for r in rows}):
+        d = os.path.join(root, f"year={year}")
+        os.makedirs(d)
+        with open(os.path.join(d, "part-0.json"), "w") as f:
+            for r in rows:
+                if r["year"] == year:
+                    f.write(json.dumps({k: v for k, v in r.items()
+                                        if k != "year"}) + "\n")
+
+
 @pytest.mark.parametrize("fmt", ["parquet", "csv", "json", "orc"])
 def test_the_other_formats_raise(tmp_path, sample, fmt):
-    """CSV, JSON and ORC raise naming item 13; Parquet, ported, is held to
-    the reference: ``write_dataset``'s files and bytes (the default
-    format), the dataset of them, ``from_paths``, the format's class and
-    ``parquet_dataset`` (the reference lists a ``_metadata`` file as a
-    fragment, the port skips it: the reference's rows either way)."""
+    """The formats of files, ported, held to the reference: Parquet (the
+    default), CSV and ORC by ``write_dataset``'s files and bytes, hive
+    partitioned and not, the dataset of them, ``from_paths`` and the
+    format's class; JSON, which the reference cannot write
+    (``FileFormat.write`` raises NotImplementedError in both), by a
+    dataset of hand-written ndjson files. ``parquet_dataset`` over a
+    directory of no file raises as the reference's does (the reference
+    lists a ``_metadata`` file as a fragment, the port skips it: the
+    reference's rows either way)."""
     rt, pt = sample
-    if fmt == "parquet":
+    hive = ds.HivePartitioning(), rds.HivePartitioning()
+    fmt_kw = {} if fmt == "parquet" else {"format": fmt}
+    if fmt == "json":
+        for mod, t in ((ds, pt), (rds, rt)):
+            with pytest.raises(NotImplementedError):
+                mod.write_dataset(t, str(tmp_path / "w"), format="json")
+        _write_ndjson_dirs(str(tmp_path / "p"), rt)
+        (tmp_path / "r").symlink_to(tmp_path / "p")
+    else:
         ds.write_dataset(pt, str(tmp_path / "p"), partitioning=["year"],
-                         partitioning_flavor="hive")
+                         partitioning_flavor="hive", **fmt_kw)
         rds.write_dataset(rt, str(tmp_path / "r"), partitioning=["year"],
-                          partitioning_flavor="hive")
+                          partitioning_flavor="hive", **fmt_kw)
         _same_files(tmp_path / "p", tmp_path / "r")
-        for f in _files(tmp_path / "r"):
-            assert (tmp_path / "p" / f).read_bytes() == \
-                (tmp_path / "r" / f).read_bytes()
-        hive = ds.HivePartitioning(), rds.HivePartitioning()
-        got = ds.dataset(str(tmp_path / "p"), partitioning=hive[0])
-        want = rds.dataset(str(tmp_path / "r"), partitioning=hive[1])
-        _equal(got.to_table(device="cpu"), want.to_table())
-        paths = [str(tmp_path / "p" / f) for f in _files(tmp_path / "p")]
-        _equal(ds.FileSystemDataset.from_paths(paths).to_table(device="cpu"),
-               rds.FileSystemDataset.from_paths(paths).to_table())
-        assert isinstance(ds.ParquetFileFormat(), ds.FileFormat)
+        ds.write_dataset(pt, str(tmp_path / "p1"), **fmt_kw)
+        rds.write_dataset(rt, str(tmp_path / "r1"), **fmt_kw)
+        _same_files(tmp_path / "p1", tmp_path / "r1")
+    got = ds.dataset(str(tmp_path / "p"), partitioning=hive[0], **fmt_kw)
+    want = rds.dataset(str(tmp_path / "r"), partitioning=hive[1], **fmt_kw)
+    _equal(got.to_table(device="cpu"), want.to_table())
+    assert got.schema.names == want.schema.names
+    paths = [str(tmp_path / "p" / f) for f in _files(tmp_path / "p")]
+    _equal(ds.FileSystemDataset.from_paths(paths, **fmt_kw).to_table(
+        device="cpu"), rds.FileSystemDataset.from_paths(
+            paths, **fmt_kw).to_table())
+    cls = {"parquet": ds.ParquetFileFormat, "csv": ds.CsvFileFormat,
+           "json": ds.JsonFileFormat, "orc": ds.OrcFileFormat}[fmt]
+    assert isinstance(cls(), ds.FileFormat) and cls().name == fmt
+    assert isinstance(got.fragments[0].format, cls)
+    if fmt == "csv":
+        opts = ds.CsvFragmentScanOptions(convert_options="c")
+        assert (opts.type_name, opts.convert_options) == ("csv", "c")
+    if fmt == "json":
+        opts = ds.JsonFragmentScanOptions(read_options="r")
+        assert (opts.type_name, opts.read_options) == ("json", "r")
+    if fmt == "parquet":
         (tmp_path / "p" / "_metadata").write_bytes(b"not a fragment")
         _equal(ds.parquet_dataset(str(tmp_path / "p" / "_metadata"),
                                   partitioning=hive[0]).to_table(
                                       device="cpu"), want.to_table())
-        return
-    for call in (lambda: ds.dataset(str(tmp_path), format=fmt),
-                 lambda: ds.write_dataset(pt, str(tmp_path / "w"),
-                                          format=fmt),
-                 lambda: ds.FileSystemDataset.from_paths(["a"], format=fmt)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
-    cls = {"parquet": ds.ParquetFileFormat, "csv": ds.CsvFileFormat,
-           "json": ds.JsonFileFormat, "orc": ds.OrcFileFormat}[fmt]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cls()
-    # parquet_dataset is ported: over a directory of no file it raises
-    # as the reference's does
+    # parquet_dataset over a directory of no file raises as the
+    # reference's does
+    (tmp_path / "none").mkdir()
     for mod in (ds, rds):
         with pytest.raises(ValueError, match="no files"):
-            mod.parquet_dataset(str(tmp_path / "_metadata"))
+            mod.parquet_dataset(str(tmp_path / "none" / "_metadata"))
 
 
 # --- phase 3o on the CPU ---------------------------------------------------------

@@ -229,7 +229,8 @@ _HOST_BOUNDARY_MODULES = (
     "io/parquet/bloom.py", "io/parquet/nested.py", "io/parquet/reader.py",
     "io/parquet/writer.py", "io/parquet/metadata.py",
     "io/parquet/encryption.py", "utils/snappy.py", "utils/brotli_ctypes.py",
-    "utils/aes_ctypes.py")
+    "utils/aes_ctypes.py", "io/csv.py", "io/csv_host.py", "io/json.py",
+    "io/orc.py", "io/host_arrays.py")
 
 
 @pytest.mark.parametrize("module", _HOST_BOUNDARY_MODULES)
@@ -237,10 +238,19 @@ def test_the_host_boundary_modules_are_guarded(module):
     """The host boundary's modules are among the guarded sources above,
     and import no pandas, flatbuffers, fsspec or cryptography either (the
     card's machine lacks the first three; the port's AES is libcrypto's,
-    by ctypes)."""
+    by ctypes), nor zstandard when they are imported (the card's machine
+    lacks it; ORC's zstd imports it where a file needs it)."""
     path = REPO / "arrow_tpu_torch" / module
     assert path in _port_sources()
     tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            top = [node.module or ""]
+        else:
+            continue
+        assert "zstandard" not in [n.split(".")[0] for n in top]
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
