@@ -1,12 +1,122 @@
-"""Top-level helpers (counterpart of ``arrow_tpu/api.py``): the type alias
-resolver the frontends need. The rest of the reference's ``api.py`` is not
-ported (ROADMAP.md, queue 1, item 13.2); the file readers keep their own
-``concat_tables`` and ``nulls`` (``io/host_arrays.py``)."""
+"""Top-level helpers (counterpart of ``arrow_tpu/api.py``; pyarrow's
+module-level functions): ``scalar``, ``nulls``, ``repeat``,
+``infer_type``, ``concat_arrays``, ``concat_batches``, ``concat_tables``
+(with ``promote_options``), ``unify_schemas``, ``type_for_alias`` and
+``show_versions``. All of them are host work. ``serialize_pandas`` and
+``deserialize_pandas`` wait for the pandas methods (ROADMAP.md item 13.2,
+part 2)."""
 
 from __future__ import annotations
 
+from typing import List, Optional, Sequence
+
 from . import types as _T
-from .types import DataType
+from .array.array import Array, array as _make_array
+from .compute.registry import Scalar
+from .errors import ArrowInvalid
+from .table import ChunkedArray, RecordBatch, Table
+from .types import DataType, Field, Schema, TypeId
+
+
+def scalar(value, type: Optional[DataType] = None) -> Scalar:
+    """A typed Scalar of a Python value (pyarrow.scalar); the value goes
+    through an Array of ``type`` so that it is checked and converted."""
+    if type is None:
+        type = infer_type([value])
+    if value is not None:
+        value = _make_array([value], type).to_pylist()[0]
+    return Scalar(value, type)
+
+
+def nulls(size: int, type: Optional[DataType] = None) -> Array:
+    """An Array of ``size`` nulls (pyarrow.nulls), of the null type
+    unless ``type`` is given."""
+    return _make_array([None] * size, type or _T.null())
+
+
+def repeat(value, size: int) -> Array:
+    """An Array of one value ``size`` times (pyarrow.repeat)."""
+    if isinstance(value, Scalar):
+        return _make_array([value.value] * size, value.type)
+    return _make_array([value] * size, infer_type([value]))
+
+
+def infer_type(values: Sequence) -> DataType:
+    """The type ``array()`` gives a Python sequence (pyarrow.infer_type)."""
+    return _make_array(list(values)).type
+
+
+def concat_arrays(arrays: Sequence[Array]) -> Array:
+    """Arrays of one type end to end (pyarrow.concat_arrays; reference:
+    array/concatenate.cc)."""
+    arrays = list(arrays)
+    if not arrays:
+        raise ArrowInvalid("concat_arrays needs at least one array")
+    if len(arrays) == 1:
+        return arrays[0]
+    from .compute.host_concat import concat_arrays as _concat
+    return _concat(arrays, arrays[0].type)
+
+
+def concat_batches(batches: Sequence[RecordBatch]) -> RecordBatch:
+    """RecordBatches of one schema end to end."""
+    batches = list(batches)
+    if not batches:
+        raise ArrowInvalid("concat_batches needs at least one batch")
+    return RecordBatch(batches[0].schema, [
+        concat_arrays([b.column(i) for b in batches])
+        for i in range(batches[0].num_columns)])
+
+
+def concat_tables(tables: Sequence[Table],
+                  promote_options: str = "none") -> Table:
+    """Tables end to end, their chunks kept (pyarrow.concat_tables). With
+    ``promote_options="none"`` their column names must agree; with
+    ``"default"`` or ``"permissive"`` the schemas are unified
+    (``unify_schemas``) and a Table's missing columns are nulls."""
+    tables = list(tables)
+    if not tables:
+        raise ArrowInvalid("concat_tables needs at least one table")
+    if promote_options == "none":
+        names = tables[0].schema.names
+        if any(t.schema.names != names for t in tables[1:]):
+            raise ArrowInvalid("concat_tables: schemas differ (pass "
+                               "promote_options='default' to unify)")
+    else:
+        schema = unify_schemas([t.schema for t in tables])
+        tables = [Table(schema, [ChunkedArray([
+            t.column(f.name).combine() if f.name in t.column_names
+            else nulls(t.num_rows, f.type)], f.type) for f in schema])
+            for t in tables]
+    batches = [b for t in tables for b in t.to_batches()]
+    return Table.from_batches(batches, tables[0].schema)
+
+
+def unify_schemas(schemas: Sequence[Schema],
+                  promote_options: str = "default") -> Schema:
+    """Fields merged by name in order of first appearance
+    (pyarrow.unify_schemas; reference: type.cc UnifySchemas): a null-typed
+    field takes the other's type, a nullable one makes the field
+    nullable, and any other type conflict raises ArrowInvalid."""
+    fields: List[Field] = []
+    index = {}
+    for s in schemas:
+        for f in s:
+            if f.name not in index:
+                index[f.name] = len(fields)
+                fields.append(f)
+                continue
+            cur = fields[index[f.name]]
+            if cur.type != f.type:
+                if cur.type.id == TypeId.NA:
+                    fields[index[f.name]] = f
+                elif f.type.id != TypeId.NA:
+                    raise ArrowInvalid(
+                        f"unify_schemas: field {f.name!r} has "
+                        f"conflicting types {cur.type!r} vs {f.type!r}")
+            elif f.nullable and not cur.nullable:
+                fields[index[f.name]] = Field(cur.name, cur.type, True)
+    return Schema(fields)
 
 
 def type_for_alias(name: str) -> DataType:
@@ -50,3 +160,31 @@ def type_for_alias(name: str) -> DataType:
     if t is None:
         raise ValueError(f"no type alias {name!r}")
     return t
+
+
+def serialize_pandas(df, preserve_index: bool = True) -> bytes:
+    raise NotImplementedError("serialize_pandas waits for the pandas methods "
+                              "(ROADMAP.md item 13.2, part 2)")
+
+
+def deserialize_pandas(buf):
+    raise NotImplementedError("deserialize_pandas waits for the pandas "
+                              "methods (ROADMAP.md item 13.2, part 2)")
+
+
+def show_versions() -> None:
+    """Prints the build and runtime facts (pyarrow.show_versions)."""
+    from .config import build_info, runtime_info
+    bi = build_info()
+    ri = runtime_info()
+    print("arrow_tpu_torch build info:")
+    for k in ("version", "compiler_id", "build_type"):
+        if hasattr(bi, k):
+            print(f"  {k}: {getattr(bi, k)}")
+    print("runtime info:")
+    for k in dir(ri):
+        if not k.startswith("_"):
+            print(f"  {k}: {getattr(ri, k)}")
+
+
+show_info = show_versions

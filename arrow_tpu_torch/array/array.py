@@ -184,6 +184,81 @@ class Array:
     def sum(self, device=None, **kwargs):
         return self._call("sum", device=device, **kwargs)
 
+    def index(self, value, start=None, end=None, device=None) -> int:
+        """The first row in ``[start, end)`` that equals ``value``, or -1
+        (compute ``index``)."""
+        a, base = self, 0
+        if start is not None or end is not None:
+            base = start or 0
+            a = a.slice(base, (len(a) if end is None else end) - base)
+        r = a._call("index", device=device, value=value)
+        v = r.as_py() if hasattr(r, "as_py") else r
+        return v + base if v >= 0 else -1
+
+    # host work
+    def to_string(self, **kwargs) -> str:
+        return repr(self)
+
+    def view(self, target_type: DataType) -> "Array":
+        """The same buffers read as another type of the same width
+        (array.h View)."""
+        if not isinstance(target_type, DataType):
+            raise TypeError("view() expects a DataType")
+        d = self.data
+        return Array(ArrayData(target_type, d.length, list(d.buffers),
+                               children=list(d.children),
+                               null_count=d._null_count, offset=d.offset,
+                               dictionary=d.dictionary))
+
+    def diff(self, other: "Array") -> str:
+        """The rows where two Arrays differ, one ``@ i: -a +b`` line each;
+        empty where they are equal (array/diff.h)."""
+        if self.equals(other):
+            return ""
+        a, b = self.to_pylist(), other.to_pylist()
+        lines = []
+        for i in range(max(len(a), len(b))):
+            va = a[i] if i < len(a) else "<absent>"
+            vb = b[i] if i < len(b) else "<absent>"
+            if va != vb:
+                lines.append(f"@ {i}: -{va!r} +{vb!r}")
+        return "\n".join(lines)
+
+    @staticmethod
+    def from_buffers(type: DataType, length: int, buffers,
+                     null_count: int = -1, offset: int = 0,
+                     children=None) -> "Array":
+        from ..buffer import Buffer
+        bufs = [b if b is None or isinstance(b, Buffer) else Buffer(b)
+                for b in buffers]
+        return Array(ArrayData(type, length, bufs,
+                               children=[c.data for c in children or []],
+                               null_count=null_count, offset=offset))
+
+    def get_total_buffer_size(self) -> int:
+        return self.nbytes
+
+    @property
+    def is_cpu(self) -> bool:
+        return True
+
+    @property
+    def device_type(self):
+        from ..device import DeviceAllocationType
+        return DeviceAllocationType.CPU
+
+    def copy_to(self, destination) -> "Array":
+        return self
+
+    def validate(self, *, full: bool = False) -> None:
+        from .validate import validate
+        validate(self.data, full)
+
+    @property
+    def statistics(self):
+        """None: no reader of the port attaches statistics to an Array."""
+        return None
+
 
 def pylist_equal(a, b) -> bool:
     """Element equality with NaN equal to NaN, into containers."""

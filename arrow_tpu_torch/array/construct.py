@@ -251,7 +251,16 @@ def array_data_from_sequence(values: Sequence[Any],
         return ArrayData(type, n, [_make_validity(mask), Buffer(indices)],
                          dictionary=array_data_from_sequence(
                              uniques, type.value_type))
+    if tid in _NO_HOST_LAYOUT:
+        raise NotImplementedError(
+            f"{type!r} has no host layout in the port yet (ROADMAP.md "
+            "item 13.2, part 3)")
     raise NotImplementedError(f"construction for {type!r}")
+
+
+_NO_HOST_LAYOUT = (TypeId.STRING_VIEW, TypeId.BINARY_VIEW, TypeId.LIST_VIEW,
+                   TypeId.LARGE_LIST_VIEW, TypeId.SPARSE_UNION,
+                   TypeId.DENSE_UNION)
 
 
 def _from_numpy(arr: np.ndarray, type: Optional[DataType]) -> ArrayData:

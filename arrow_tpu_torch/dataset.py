@@ -34,9 +34,8 @@ discovery skips the files and directories whose names start with ``_`` or
 ``_metadata`` file is not a fragment (the reference lists it, and a scan
 of a hive directory with one then fails on its column order).
 
-Not ported yet (ROADMAP.md, queue 1, item 13.2): ``Dataset.join`` and
-``join_asof`` (``Table.join``); each raises NotImplementedError.
-``fragment_readahead`` is accepted and reads nothing ahead: a file is read
+``Dataset.join`` and ``join_asof`` are ``Table.join`` and ``join_asof``
+of the datasets' Tables. ``fragment_readahead`` is accepted and reads nothing ahead: a file is read
 as the scan uploads it.
 """
 from __future__ import annotations
@@ -57,13 +56,6 @@ from .table import ChunkedArray, RecordBatch, Table
 from .types import Field, Schema, TypeId
 from .utils import bits as bitutil
 from . import types as _T
-
-_LATER = "ROADMAP.md, queue 1, item 13.2: the rest of the host surface"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet ({_LATER})")
-
 
 # --- partitioning ------------------------------------------------------------
 
@@ -292,12 +284,23 @@ class Dataset:
 
     def join(self, right_dataset, keys, right_keys=None,
              join_type="left outer", left_suffix=None, right_suffix=None,
-             coalesce_keys=True, use_threads=True) -> Table:
-        _not_ported("Dataset.join (Table.join)")
+             coalesce_keys=True, use_threads=True, device=None) -> Table:
+        """``Table.join`` of this dataset's Table and the right one's (or
+        a right Table)."""
+        right = right_dataset.to_table(device=device) if isinstance(
+            right_dataset, Dataset) else right_dataset
+        return self.to_table(device=device).join(
+            right, keys, right_keys, join_type, left_suffix or "",
+            right_suffix or "", coalesce_keys, device=device)
 
     def join_asof(self, right_dataset, on, by, tolerance, right_on=None,
-                  right_by=None) -> Table:
-        _not_ported("Dataset.join_asof (Table.join_asof)")
+                  right_by=None, device=None) -> Table:
+        """``Table.join_asof`` of this dataset's Table and the right
+        one's (or a right Table)."""
+        right = right_dataset.to_table(device=device) if isinstance(
+            right_dataset, Dataset) else right_dataset
+        return self.to_table(device=device).join_asof(
+            right, on, by, tolerance, right_on, right_by, device=device)
 
     def replace_schema(self, schema: Schema) -> "Dataset":
         return Dataset(self.fragments, schema)

@@ -1,13 +1,15 @@
 """File systems (counterpart of ``arrow_tpu/fs.py``; reference:
 cpp/src/arrow/filesystem/filesystem.h): ``FileInfo`` and ``FileSelector``,
 the ``FileSystem`` interface, ``LocalFileSystem``, ``SubTreeFileSystem``,
-the in-memory ``MockFileSystem`` (filesystem/mockfs.h) and ``copy_files``.
-
-Not ported yet (ROADMAP.md, queue 1, item 13): the fsspec adapters
-(``FsspecFileSystem``, ``PyFileSystem``, ``FSSpecHandler`` and the
-``Fsspec*FileSystem`` classes) and the cloud file systems with their S3
-helpers; the card's machine has no ``fsspec``. Each raises
-NotImplementedError naming that item.
+the in-memory ``MockFileSystem`` (filesystem/mockfs.h) and ``copy_files``;
+``FsspecFileSystem`` and ``PyFileSystem`` over a ``FileSystemHandler``
+(``FSSpecHandler``), which need the ``fsspec`` package when they are made;
+and the cloud file systems, REST clients on the standard library alone:
+``S3FileSystem`` (SigV4), ``GcsFileSystem`` (a bearer token),
+``AzureFileSystem`` (SharedKey) and ``HadoopFileSystem`` (WebHDFS), in
+``fs_s3.py``, ``fs_gcs.py``, ``fs_azure.py`` and ``fs_hdfs.py``. A cloud
+file system keeps no local path: the readers read its files whole
+through ``open_input_stream``/``open_input_file``.
 """
 
 from __future__ import annotations
@@ -17,9 +19,6 @@ import os
 import posixpath
 import shutil
 from typing import Dict, List, Optional
-
-_LATER = "ROADMAP.md, queue 1, item 13: the fsspec and cloud file systems"
-
 
 class FileType:
     NotFound = "NotFound"
@@ -288,55 +287,243 @@ def copy_files(source, destination, source_filesystem=None,
             w.write(r.read())
 
 
-# --- not ported yet: the fsspec adapters and the cloud file systems ----------
+class FsspecFileSystem(FileSystem):
+    """Any fsspec file system through this interface (pyarrow's
+    PyFileSystem over FSSpecHandler): fsspec's memory, local, http and
+    other protocols, and s3, gcs, abfs and hdfs where their drivers are
+    installed."""
 
-def _not_ported(name: str):
-    raise NotImplementedError(f"{name} is not ported yet ({_LATER})")
+    def __init__(self, fs):
+        self.fs = fs
+
+    @classmethod
+    def from_uri(cls, protocol: str, **storage_options):
+        import fsspec
+        return cls(fsspec.filesystem(protocol, **storage_options))
+
+    def _info(self, raw) -> FileInfo:
+        t = FileType.Directory if raw.get("type") == "directory" \
+            else FileType.File
+        return FileInfo(raw["name"], t, raw.get("size") or -1)
+
+    def get_file_info(self, path_or_selector):
+        if isinstance(path_or_selector, FileSelector):
+            sel = path_or_selector
+            try:
+                raws = self.fs.ls(sel.base_dir, detail=True)
+            except FileNotFoundError:
+                if sel.allow_not_found:
+                    return []
+                raise
+            out = [self._info(r) for r in raws]
+            if sel.recursive:
+                for r in list(raws):
+                    if r.get("type") == "directory":
+                        out.extend(self.get_file_info(
+                            FileSelector(r["name"], True, True)))
+            return out
+        path = path_or_selector
+        if not self.fs.exists(path):
+            return FileInfo(path, FileType.NotFound)
+        return self._info(self.fs.info(path))
+
+    def open_input_stream(self, path: str):
+        return self.fs.open(path, "rb")
+
+    open_input_file = open_input_stream
+
+    def open_output_stream(self, path: str):
+        return self.fs.open(path, "wb")
+
+    def create_dir(self, path: str, recursive: bool = True):
+        self.fs.makedirs(path, exist_ok=True)
+
+    def delete_dir(self, path: str):
+        self.fs.rm(path, recursive=True)
+
+    def delete_file(self, path: str):
+        self.fs.rm_file(path) if hasattr(self.fs, "rm_file") \
+            else self.fs.rm(path)
+
+    def move(self, src: str, dest: str):
+        self.fs.mv(src, dest)
+
+    def equals(self, other) -> bool:
+        return isinstance(other, FsspecFileSystem) and \
+            self.fs == other.fs
 
 
-def _later_class(name: str, base=FileSystem):
-    def __init__(self, *args, **kwargs):
-        _not_ported(name)
+def _fsspec_backed(protocol: str, doc_name: str):
+    class _Cloud(FsspecFileSystem):
+        __doc__ = (f"{doc_name} via fsspec (reference: "
+                   f"filesystem/{protocol}fs.h). Requires the fsspec "
+                   f"{protocol} driver package at construction time.")
 
-    def from_uri(cls, *args, **kwargs):
-        _not_ported(name)
-    return type(name, (base,), {
-        "__init__": __init__, "from_uri": classmethod(from_uri),
-        "__doc__": f"Not ported yet ({_LATER})."})
-
-
-def _later_function(name: str):
-    def call(*args, **kwargs):
-        _not_ported(name)
-    call.__name__ = call.__qualname__ = name
-    call.__doc__ = f"Not ported yet ({_LATER})."
-    return call
+        def __init__(self, **storage_options):
+            import fsspec
+            super().__init__(fsspec.filesystem(protocol,
+                                               **storage_options))
+    _Cloud.__name__ = doc_name
+    return _Cloud
 
 
-FsspecFileSystem = _later_class("FsspecFileSystem")
-FsspecS3FileSystem = _later_class("FsspecS3FileSystem")
-FsspecGcsFileSystem = _later_class("FsspecGcsFileSystem")
-FsspecAzureFileSystem = _later_class("FsspecAzureFileSystem")
-FsspecHadoopFileSystem = _later_class("FsspecHadoopFileSystem")
-S3FileSystem = _later_class("S3FileSystem")
-GcsFileSystem = _later_class("GcsFileSystem")
-AzureFileSystem = _later_class("AzureFileSystem")
-HadoopFileSystem = _later_class("HadoopFileSystem")
-PyFileSystem = _later_class("PyFileSystem")
-FileSystemHandler = _later_class("FileSystemHandler", object)
-FSSpecHandler = _later_class("FSSpecHandler", object)
-S3RetryStrategy = _later_class("S3RetryStrategy", object)
-AwsStandardS3RetryStrategy = _later_class("AwsStandardS3RetryStrategy",
-                                          object)
-AwsDefaultS3RetryStrategy = _later_class("AwsDefaultS3RetryStrategy",
-                                         object)
-initialize_s3 = _later_function("initialize_s3")
-ensure_s3_initialized = _later_function("ensure_s3_initialized")
-finalize_s3 = _later_function("finalize_s3")
-ensure_s3_finalized = _later_function("ensure_s3_finalized")
-resolve_s3_region = _later_function("resolve_s3_region")
+FsspecS3FileSystem = _fsspec_backed("s3", "FsspecS3FileSystem")
+FsspecGcsFileSystem = _fsspec_backed("gcs", "FsspecGcsFileSystem")
+FsspecAzureFileSystem = _fsspec_backed("abfs", "FsspecAzureFileSystem")
+FsspecHadoopFileSystem = _fsspec_backed("hdfs", "FsspecHadoopFileSystem")
+
+# the REST clients are the cloud file systems (reference:
+# filesystem/s3fs.h, gcsfs.h, azurefs.h, hdfs.h), resolved when first
+# named, since their modules import this one
+_NATIVE_FS = {"S3FileSystem": "fs_s3", "GcsFileSystem": "fs_gcs",
+              "AzureFileSystem": "fs_azure",
+              "HadoopFileSystem": "fs_hdfs"}
+
+
+def __getattr__(name):
+    mod = _NATIVE_FS.get(name)
+    if mod is None:
+        raise AttributeError(name)
+    import importlib
+    return getattr(importlib.import_module(f".{mod}", __package__),
+                   name)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_NATIVE_FS))
+
+
+class FileSystemHandler:
+    """Abstract handler backing PyFileSystem (python/pyarrow/fs.py).
+    Subclasses implement the filesystem primitives."""
+
+    def get_type_name(self):
+        raise NotImplementedError
+
+    def get_file_info(self, paths):
+        raise NotImplementedError
+
+    def open_input_stream(self, path):
+        raise NotImplementedError
+
+    def open_output_stream(self, path, metadata=None):
+        raise NotImplementedError
+
+
+class PyFileSystem(FileSystem):
+    """FileSystem over a python FileSystemHandler (pyarrow
+    PyFileSystem)."""
+
+    def __init__(self, handler):
+        self.handler = handler
+
+    @property
+    def type_name(self):
+        return self.handler.get_type_name()
+
+    def get_file_info(self, paths):
+        single = isinstance(paths, str)
+        infos = self.handler.get_file_info(
+            [paths] if single else list(paths))
+        return infos[0] if single else infos
+
+    def open_input_stream(self, path):
+        return self.handler.open_input_stream(path)
+
+    def open_input_file(self, path):
+        return self.handler.open_input_stream(path)
+
+    def open_output_stream(self, path, metadata=None):
+        return self.handler.open_output_stream(path, metadata)
+
+    def create_dir(self, path, recursive=True):
+        return self.handler.create_dir(path, recursive)
+
+    def delete_file(self, path):
+        return self.handler.delete_file(path)
+
+    def __getattr__(self, name):
+        return getattr(self.handler, name)
+
+
+class FSSpecHandler(FileSystemHandler):
+    """Handler adapting an fsspec filesystem (pyarrow FSSpecHandler)."""
+
+    def __init__(self, fs):
+        self.fs = fs
+
+    def get_type_name(self):
+        return f"fsspec+{getattr(self.fs, 'protocol', '?')}"
+
+    def get_file_info(self, paths):
+        out = []
+        for p in paths:
+            try:
+                info = self.fs.info(p)
+                ftype = FileType.Directory if info.get("type") == \
+                    "directory" else FileType.File
+                out.append(FileInfo(p, ftype,
+                                    size=info.get("size") or 0))
+            except FileNotFoundError:
+                out.append(FileInfo(p, FileType.NotFound))
+        return out
+
+    def open_input_stream(self, path):
+        return self.fs.open(path, "rb")
+
+    def open_output_stream(self, path, metadata=None):
+        return self.fs.open(path, "wb")
+
+    def create_dir(self, path, recursive=True):
+        self.fs.makedirs(path, exist_ok=True)
+
+    def delete_file(self, path):
+        self.fs.rm(path)
 
 
 class S3LogLevel:
-    """The S3 client's log levels (pyarrow.fs.S3LogLevel)."""
-    Off, Fatal, Error, Warn, Info, Debug, Trace = range(7)
+    Off = 0
+    Fatal = 1
+    Error = 2
+    Warn = 3
+    Info = 4
+    Debug = 5
+    Trace = 6
+
+
+class S3RetryStrategy:
+    def __init__(self, max_attempts: int = 3):
+        self.max_attempts = max_attempts
+
+
+class AwsStandardS3RetryStrategy(S3RetryStrategy):
+    pass
+
+
+class AwsDefaultS3RetryStrategy(S3RetryStrategy):
+    pass
+
+
+_S3_INITIALIZED = [False]
+
+
+def initialize_s3(log_level=None, num_event_loop_threads: int = 1):
+    """Nothing to start: the S3 client is plain HTTP."""
+    _S3_INITIALIZED[0] = True
+
+
+def ensure_s3_initialized():
+    _S3_INITIALIZED[0] = True
+
+
+def finalize_s3():
+    _S3_INITIALIZED[0] = False
+
+
+def ensure_s3_finalized():
+    _S3_INITIALIZED[0] = False
+
+
+def resolve_s3_region(bucket: str) -> str:
+    raise OSError("S3 region resolution needs network access to AWS, "
+                  "which the port does not make")

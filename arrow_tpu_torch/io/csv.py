@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 
 from .. import types as T
+from ..api import concat_tables
 from ..array.array import Array, array as make_array
 from ..array.construct import _make_validity
 from ..array.data import ArrayData
@@ -45,7 +46,7 @@ from ..table import RecordBatch, Table
 from ..types import DataType
 from ..utils import bits as bitutil
 from . import csv_host as nat
-from .host_arrays import concat_tables, decoded, dictionary_encode, widened
+from .host_arrays import decoded, dictionary_encode, widened
 
 DEFAULT_NULL_VALUES = ["", "#N/A", "#N/A N/A", "#NA", "-1.#IND",
                        "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN",

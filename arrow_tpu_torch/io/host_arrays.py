@@ -6,22 +6,13 @@ or writer names no device), with the reference's results.
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import numpy as np
 
 from .. import types as T
+from ..api import nulls
 from ..array.array import Array, array as make_array
 from ..array.data import ArrayData
 from ..buffer import Buffer
-from ..table import Table
-
-
-def nulls(n: int, t) -> Array:
-    """An Array of ``n`` nulls of type ``t`` (pyarrow.nulls)."""
-    if t.id == T.TypeId.NA:
-        return Array(ArrayData(t, n, [], null_count=n))
-    return make_array([None] * n, t)
 
 
 def _string_parts(arr: Array):
@@ -113,12 +104,3 @@ def widened(arr: Array, t) -> Array:
         return Array(ArrayData(t, len(arr), [_validity(valid),
                                              Buffer(vals)]))
     return arr.cast(t, device="cpu")
-
-
-def concat_tables(tables: Sequence[Table]) -> Table:
-    """Tables of one schema end to end, a chunk each (pyarrow's
-    ``concat_tables``)."""
-    batches = []
-    for t in tables:
-        batches.extend(t.to_batches())
-    return Table.from_batches(batches, tables[0].schema)

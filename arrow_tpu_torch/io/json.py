@@ -22,6 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .. import types as T
+from ..api import concat_tables, nulls
 from ..array.array import Array, array as make_array
 from ..array.construct import _make_validity, infer_type
 from ..array.data import ArrayData
@@ -30,7 +31,7 @@ from ..table import Table
 from ..types import Schema
 from ..utils import bits as bitutil
 from . import csv_host as nat
-from .host_arrays import concat_tables, nulls, widened
+from .host_arrays import widened
 
 
 class _OptionsBase:

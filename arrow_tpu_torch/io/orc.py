@@ -31,6 +31,7 @@ from typing import List, Optional
 import numpy as np
 
 from .. import types as T
+from ..api import concat_tables
 from ..array.array import Array, array as make_array
 from ..array.data import ArrayData
 from ..buffer import Buffer
@@ -39,7 +40,6 @@ from ..substrait import PB, _tag as _pb_tag, _varint as _pb_varint, \
 from ..table import RecordBatch, Table
 from ..types import Field, Schema
 from ..utils import bits as bitutil
-from .host_arrays import concat_tables
 from .parquet.host import gather_var_bytes
 
 

@@ -10,7 +10,7 @@ where the reference raises: ``write_to_dataset`` takes pyarrow's
 ``metadata_collector`` (a list that receives each written file's
 FileMetaData, its ``file_path`` relative to the root), and
 ``read_pandas`` raises NotImplementedError until the port's Table has
-``to_pandas`` (ROADMAP.md, queue 1, item 13.2).
+``to_pandas`` (ROADMAP.md item 13.2, part 2).
 """
 
 from __future__ import annotations
@@ -232,8 +232,8 @@ def read_pandas(source, columns=None, **kw):
     """pyarrow.parquet.read_pandas: the port's Table has no pandas
     conversion yet."""
     raise NotImplementedError(
-        "read_pandas needs Table.to_pandas, not ported yet (ROADMAP.md, "
-        "queue 1, item 13.2: the rest of the host surface)")
+        "read_pandas needs Table.to_pandas, not ported yet (ROADMAP.md "
+        "item 13.2, part 2: interop)")
 
 
 def filters_to_expression(filters):

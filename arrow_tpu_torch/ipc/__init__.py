@@ -1,8 +1,7 @@
 """Arrow IPC, the stream and file formats (counterpart of
 ``arrow_tpu/ipc/``). ``read_tensor``/``write_tensor`` and
-``serialize_pandas``/``deserialize_pandas`` are not ported yet (ROADMAP.md,
-queue 1, item 13.2: the rest of the host surface) and raise
-NotImplementedError."""
+``serialize_pandas``/``deserialize_pandas`` are not ported yet (ROADMAP.md
+item 13.2, part 2: interop) and raise NotImplementedError."""
 
 from .reader_writer import (  # noqa: F401
     RecordBatchFileReader, RecordBatchFileWriter, RecordBatchStreamReader,
@@ -16,7 +15,7 @@ from .compat import (  # noqa: F401
 )
 from ..table import RecordBatchReader  # noqa: F401,E402
 
-_LATER = "ROADMAP.md, queue 1, item 13.2: the rest of the host surface"
+_LATER = "ROADMAP.md item 13.2, part 2: interop"
 
 
 def _not_ported(name):

@@ -2,8 +2,8 @@
 (counterpart of ``arrow_tpu/memory.py``; reference:
 cpp/src/arrow/memory_pool.h:109 ``MemoryPool`` with its
 bytes_allocated/max_memory/num_allocations statistics, and pyarrow's
-``total_allocated_bytes``). The reference's proxy, logging and capped
-pools are not ported: nothing in the port allocates through them.
+``total_allocated_bytes``), with the reference's proxy, logging and
+capped pools over a parent pool (memory_pool.h:184-218).
 
 Device memory belongs to PyTorch's caching allocator, read through
 ``device_memory_stats`` under the reference's key names. Host memory that
@@ -22,8 +22,10 @@ from __future__ import annotations
 
 import collections
 import os
+import sys
 import threading
 import weakref
+from typing import Optional
 
 
 class MemoryPool:
@@ -86,12 +88,81 @@ class MemoryPool:
                 f"allocs={k}>")
 
 
+class _ChildPool(MemoryPool):
+    """A pool that counts its allocations in its parent too."""
+
+    def __init__(self, kind: str, parent: MemoryPool):
+        super().__init__(f"{kind}[{parent.backend_name}]")
+        self.parent = parent
+
+    def allocate(self, size: int):
+        buf = super().allocate(size)
+        self.parent._record_alloc(size)
+        weakref.finalize(buf, self.parent._freed.append, size)
+        return buf
+
+
+class ProxyMemoryPool(_ChildPool):
+    """Forwards to a parent pool, keeping its own statistics
+    (memory_pool.h:218)."""
+
+    def __init__(self, parent: MemoryPool):
+        super().__init__("proxy", parent)
+
+
+class LoggingMemoryPool(_ChildPool):
+    """Prints every allocation and free (memory_pool.h:184)."""
+
+    def __init__(self, parent: Optional[MemoryPool] = None, sink=None):
+        super().__init__("logging", parent or default_memory_pool())
+        self._sink = sink or sys.stderr
+
+    def allocate(self, size: int):
+        print(f"Allocate: size = {size}", file=self._sink)
+        buf = super().allocate(size)
+        weakref.finalize(buf, print, f"Free: size = {size}",
+                         file=self._sink)
+        return buf
+
+
+class CappedMemoryPool(_ChildPool):
+    """Raises MemoryError where the live bytes would pass ``cap``."""
+
+    def __init__(self, cap: int, parent: Optional[MemoryPool] = None):
+        super().__init__("capped", parent or default_memory_pool())
+        self.cap = int(cap)
+
+    def allocate(self, size: int):
+        live = self.bytes_allocated()
+        if live + size > self.cap:
+            raise MemoryError(f"allocation of {size} bytes exceeds pool "
+                              f"cap {self.cap} (live: {live})")
+        return super().allocate(size)
+
+
 _default_pool = MemoryPool(os.environ.get("ARROW_DEFAULT_MEMORY_POOL",
                                           "system"))
 
 
 def default_memory_pool() -> MemoryPool:
     return _default_pool
+
+
+def system_memory_pool() -> MemoryPool:
+    return _default_pool
+
+
+def supported_memory_backends():
+    return ["system"]
+
+
+def log_memory_allocations(enable: bool = True) -> None:
+    """Swaps the default pool for a logging one over it, or back."""
+    global _default_pool
+    if enable and not isinstance(_default_pool, LoggingMemoryPool):
+        _default_pool = LoggingMemoryPool(_default_pool)
+    elif not enable and isinstance(_default_pool, LoggingMemoryPool):
+        _default_pool = _default_pool.parent
 
 
 def total_allocated_bytes() -> int:

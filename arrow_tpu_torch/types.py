@@ -11,7 +11,10 @@ value-sorted dictionary, and lists, large lists, fixed-size lists, structs
 and maps as row ids over the host Array they came from
 (``device.column.host_column_repr``). Day-time and month-day-nano
 intervals and run-end encoded arrays are host types only, as in the
-reference."""
+reference. The view types (``string_view``, ``binary_view``, ``list_view``,
+``large_list_view``) and the unions are type objects with the reference's
+fields and equality; the port has no host layout for them yet, and
+building an Array of one raises (ROADMAP.md item 13.2, part 3)."""
 
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ class TypeId(enum.IntEnum):
     LIST = 25
     STRUCT = 26
     DECIMAL256 = 24
+    SPARSE_UNION = 27
+    DENSE_UNION = 28
     DICTIONARY = 29
     MAP = 30
     FIXED_SIZE_LIST = 32
@@ -57,6 +62,10 @@ class TypeId(enum.IntEnum):
     LARGE_LIST = 36
     INTERVAL_MONTH_DAY_NANO = 37
     RUN_END_ENCODED = 38
+    STRING_VIEW = 39
+    BINARY_VIEW = 40
+    LIST_VIEW = 41
+    LARGE_LIST_VIEW = 42
     DECIMAL32 = 43
     DECIMAL64 = 44
 
@@ -327,8 +336,9 @@ class ListType(DataType):
         return (self.id, self.value_field.name, self.value_field.type)
 
     def __repr__(self):
-        base = {TypeId.LIST: "list", TypeId.LARGE_LIST: "large_list"}[
-            self.id]
+        base = {TypeId.LIST: "list", TypeId.LARGE_LIST: "large_list",
+                TypeId.LIST_VIEW: "list_view",
+                TypeId.LARGE_LIST_VIEW: "large_list_view"}[self.id]
         return f"{base}<{self.value_field.type!r}>"
 
 
@@ -399,6 +409,50 @@ class RunEndEncodedType(DataType):
                 f"{self.value_type!r}>")
 
 
+class DictionaryType(DataType):
+    """Codes into a dictionary of values; ``ordered`` says the values'
+    order is meaningful. An unordered one keys as the plain type."""
+    __slots__ = ("ordered",)
+
+    def __init__(self, index_type: DataType, value_type: DataType,
+                 ordered: bool = False):
+        if not index_type.is_integer:
+            raise ValueError("dictionary indices must be integer")
+        super().__init__(TypeId.DICTIONARY, index_type, value_type)
+        self.ordered = bool(ordered)
+
+    def _key(self):
+        return super()._key() + ((True,) if self.ordered else ())
+
+
+class UnionType(DataType):
+    """A sparse or dense union of child fields, one type code each."""
+    __slots__ = ("fields_", "type_codes")
+
+    def __init__(self, fields: Sequence["Field"], type_codes: Sequence[int],
+                 mode: str):
+        super().__init__(TypeId.SPARSE_UNION if mode == "sparse"
+                         else TypeId.DENSE_UNION)
+        self.fields_ = tuple(fields)
+        self.type_codes = tuple(int(c) for c in type_codes)
+
+    @property
+    def mode(self) -> str:
+        return "sparse" if self.id == TypeId.SPARSE_UNION else "dense"
+
+    @property
+    def fields(self):
+        return self.fields_
+
+    def _key(self):
+        return (self.id, tuple((f.name, f.type, f.nullable)
+                               for f in self.fields_), self.type_codes)
+
+    def __repr__(self):
+        return f"{self.mode}_union<" + ", ".join(
+            f"{f.name}: {f.type!r}" for f in self.fields_) + ">"
+
+
 _NAMES = {TypeId.NA: "null", TypeId.BOOL: "bool", TypeId.INT8: "int8",
           TypeId.INT16: "int16", TypeId.INT32: "int32", TypeId.INT64: "int64",
           TypeId.UINT8: "uint8", TypeId.UINT16: "uint16",
@@ -410,7 +464,8 @@ _NAMES = {TypeId.NA: "null", TypeId.BOOL: "bool", TypeId.INT8: "int8",
           TypeId.DATE32: "date32", TypeId.DATE64: "date64",
           TypeId.INTERVAL_MONTHS: "month_interval",
           TypeId.INTERVAL_DAY_TIME: "day_time_interval",
-          TypeId.INTERVAL_MONTH_DAY_NANO: "month_day_nano_interval"}
+          TypeId.INTERVAL_MONTH_DAY_NANO: "month_day_nano_interval",
+          TypeId.STRING_VIEW: "string_view", TypeId.BINARY_VIEW: "binary_view"}
 
 
 def null() -> DataType:
@@ -544,14 +599,23 @@ def decimal256(precision: int, scale: int = 0) -> DecimalType:
     return DecimalType(precision, scale, TypeId.DECIMAL256)
 
 
-def dictionary(index_type: DataType, value_type: DataType) -> DataType:
-    return DataType(TypeId.DICTIONARY, index_type, value_type)
+def dictionary(index_type: DataType, value_type: DataType,
+               ordered: bool = False) -> DictionaryType:
+    return DictionaryType(index_type, value_type, ordered)
+
+
+def _fields(fields) -> List["Field"]:
+    """``Field``s from Fields, (name, type) pairs or a name -> type
+    mapping."""
+    if isinstance(fields, dict):
+        return [Field(k, v) for k, v in fields.items()]
+    return [f if isinstance(f, Field) else Field(f[0], f[1])
+            for f in fields]
 
 
 def struct(fields) -> StructType:
-    """From ``Field``s or (name, type) pairs."""
-    return StructType([f if isinstance(f, Field) else Field(f[0], f[1])
-                       for f in fields])
+    """From ``Field``s, (name, type) pairs or a name -> type mapping."""
+    return StructType(_fields(fields))
 
 
 def list_(value_type) -> ListType:
@@ -568,6 +632,38 @@ def fixed_size_list(value_type, list_size: int) -> FixedSizeListType:
 
 def map_(key_type: DataType, item_type: DataType) -> MapType:
     return MapType(key_type, item_type)
+
+
+def string_view() -> DataType:
+    return DataType(TypeId.STRING_VIEW)
+
+
+def binary_view() -> DataType:
+    return DataType(TypeId.BINARY_VIEW)
+
+
+def list_view(value_type) -> ListType:
+    return ListType(value_type, TypeId.LIST_VIEW)
+
+
+def large_list_view(value_type) -> ListType:
+    return ListType(value_type, TypeId.LARGE_LIST_VIEW)
+
+
+def sparse_union(fields: Sequence["Field"],
+                 type_codes: Optional[Sequence[int]] = None) -> UnionType:
+    return UnionType(fields, range(len(fields)) if type_codes is None
+                     else type_codes, "sparse")
+
+
+def dense_union(fields: Sequence["Field"],
+                type_codes: Optional[Sequence[int]] = None) -> UnionType:
+    return UnionType(fields, range(len(fields)) if type_codes is None
+                     else type_codes, "dense")
+
+
+utf8 = string
+large_utf8 = large_string
 
 
 def from_numpy_dtype(dtype) -> DataType:
@@ -658,6 +754,29 @@ class Field:
     def equals(self, other: "Field") -> bool:
         return self == other
 
+    def with_name(self, name: str) -> "Field":
+        return Field(name, self.type, self.nullable, self.metadata)
+
+    def with_type(self, type: DataType) -> "Field":
+        return Field(self.name, type, self.nullable, self.metadata)
+
+    def with_nullable(self, nullable: bool) -> "Field":
+        return Field(self.name, self.type, nullable, self.metadata)
+
+    def with_metadata(self, metadata) -> "Field":
+        return Field(self.name, self.type, self.nullable, metadata)
+
+    def remove_metadata(self) -> "Field":
+        return Field(self.name, self.type, self.nullable)
+
+    def flatten(self) -> List["Field"]:
+        """A struct field's children, named ``parent.child``; else this
+        field."""
+        if self.type.id == TypeId.STRUCT:
+            return [Field(f"{self.name}.{c.name}", c.type, True, c.metadata)
+                    for c in self.type.fields]
+        return [self]
+
     def __repr__(self):
         return f"Field({self.name}: {self.type!r})"
 
@@ -698,6 +817,35 @@ class Schema:
         """This schema with ``f`` after its fields."""
         return Schema(self.fields + [f], self.metadata)
 
+    def insert(self, i: int, f: Field) -> "Schema":
+        fields = list(self.fields)
+        fields.insert(i, f)
+        return Schema(fields, self.metadata)
+
+    def remove(self, i: int) -> "Schema":
+        return Schema(self.fields[:i] + self.fields[i + 1:], self.metadata)
+
+    def set(self, i: int, f: Field) -> "Schema":
+        return Schema(self.fields[:i] + [f] + self.fields[i + 1:],
+                      self.metadata)
+
+    def with_metadata(self, metadata) -> "Schema":
+        return Schema(self.fields, metadata)
+
+    def remove_metadata(self) -> "Schema":
+        return Schema(self.fields)
+
+    def field_by_name(self, name: str) -> Optional[Field]:
+        i = self.get_field_index(name)
+        return self.fields[i] if i >= 0 else None
+
+    def get_all_field_indices(self, name: str) -> List[int]:
+        return [i for i, f in enumerate(self.fields) if f.name == name]
+
+    def empty_table(self):
+        from .table import Table
+        return Table.from_batches([], self)
+
     def equals(self, other: "Schema") -> bool:
         """Names, types and nullability alike (the metadata is not
         compared, as in the reference's default)."""
@@ -710,3 +858,16 @@ class Schema:
 
     def __repr__(self):
         return f"Schema({self.fields!r})"
+
+
+def field(name: str, type: DataType, nullable: bool = True,
+          metadata=None) -> Field:
+    return Field(name, type, nullable, metadata)
+
+
+def schema(fields, metadata=None) -> Schema:
+    """From a Schema, ``Field``s, (name, type) pairs or a name -> type
+    mapping."""
+    if isinstance(fields, Schema):
+        return fields
+    return Schema(_fields(fields), metadata)

@@ -100,10 +100,11 @@ Phases; any failure exits non-zero without the final line:
    duration[ms] made on the card), each result held on the card against
    numpy's datetime64 units and Python's ``datetime`` over the distinct
    inputs; temporal_plan, a calendar filter and projection of lineitem;
-   strings_pool, every str -> str name on ``p_name`` (2M values, the byte
-   pool) and on ``p_type`` (the host tier) and every predicate and length
-   on ``p_name``, ``p_type`` and ``c_comment`` against Python's ``str``
-   and ``re``, and p_brand, p_container and a separator joined;
+   strings_pool, over part and customer at STRINGS_POOL_SF, every str ->
+   str name on ``p_name`` (500,000 values, the byte pool) and on
+   ``p_type`` (the host tier) and every predicate and length on
+   ``p_name``, ``p_type`` and ``c_comment`` against Python's ``str`` and
+   ``re``, and p_brand, p_container and a separator joined;
    strings_plan, lineitem joined to part, a regex filter, revenue by two
    keys made of string functions (7 and 201 slots: K1 and K3), against
    numpy and run twice for the same bits; the pool and host tiers of two
@@ -198,9 +199,10 @@ Phases; any failure exits non-zero without the final line:
    ``list_element`` 0 and 6, the flatten without nulls (no launch) and
    of a slice at 1,000,000; ``run_end_encode`` of the sorted keys (one
    compaction) and ``run_end_decode`` of it and of a slice; ``mode``
-   over 60M; ``strftime``/``strptime`` of 15M order dates, the splits and
-   ``binary_join`` over 2M part names, the regex extractions over 1.5M
-   phones, the per-row names over HOST_TIER_PREFIX rows, ``random`` over
+   over 60M; ``strftime``/``strptime`` of the first HOST_TIER_DATES order
+   dates, the splits and ``binary_join`` over the first HOST_TIER_TEXT part
+   names, the regex extractions over the first HOST_TIER_TEXT phones, the
+   per-row names over HOST_TIER_PREFIX rows, ``random`` over
    60M twice (its bits against a numpy threefry); casts of c_acctbal,
    c_custkey and order dates to strings and back through the string cast
    tier; wide decimals (decimal128(38, 2) aggregates, decimal256
@@ -277,6 +279,34 @@ Phases; any failure exits non-zero without the final line:
    launches set to 0 just before and read just after and held to
    CSV_JSON_ORC_LAUNCHES; the bytes written, the write and read rates
    and the peaks logged.
+   Then (3r) the host surface and the cloud file systems
+   (``phase_host_surface``) over phase 3l's Tables: ``Table.join`` of
+   orders with the customers of one segment (a host Table made on the
+   host) for all eight join types against ``join_oracle``, the coalesced
+   keys taken into account (a row of the right side alone keeps no key),
+   and once with the keys kept; a left outer join of every column of
+   orders and customer; lineitem's four columns joined to orders' three
+   (60,012,150 probe rows against 15M, the bloom); phase 3e's as-of join
+   through ``Table.join_asof`` against ``asof_oracle``; ``Dataset.join``
+   and ``join_asof`` over in-memory datasets, equal to the Tables'
+   results. The ChunkedArray methods (``filter``, ``take``,
+   ``drop_null``, ``fill_null``, ``is_null``, ``sort``, ``unique``,
+   ``value_counts``, ``dictionary_encode``, ``cast``, ``index``) over
+   lineitem's 60M-row columns cut into FILE_SLICES chunks, against numpy.
+   The host-only methods on customer: column edits, ``from_pylist`` and
+   struct round trips over its first SURFACE_PY_ROWS rows, ``validate``
+   (a broken copy refused), ``to_string`` and ``concat_tables``. Orders,
+   its dictionaries as plain strings as 3q writes them, hive-partitioned
+   by status as Parquet into the S3 emulator through ``S3FileSystem``,
+   one status's orders by priority over the S3 dataset against the
+   Table's plan; customer partitioned by segment as IPC through the GCS,
+   Azure and WebHDFS emulators (``tests/cloud_emulators.py``, loopback
+   HTTP), each fragment read back to a host Table bit for bit its local
+   twin's; a file round trip
+   through each client. Each path's launches set to 0 just before and
+   read just after and held to HOST_SURFACE_LAUNCHES; each path's wall,
+   its download's wall and its peak, and the emulators' bytes and rates
+   logged.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -339,7 +369,7 @@ HASH_OPS_PER_COMBINE = 6    # 2 shifts, 3 adds, 1 xor
 SF = 10.0
 Q1_SLOTS = 12               # (3+1) return flags x (2+1) line statuses
 RTOL_F64 = 1e-9             # f64 sums added in another order
-WALL_BUDGET_S = 2.0         # phase 4's timed runs of one path, at least 2
+WALL_BUDGET_S = 1.0         # phase 4's timed runs of one path, at least 2
 RTOL_F32 = 1e-5             # an f32 result against an f64 reference
 NODE_SPAN = "arrow_tpu::"   # the executor's profiler span of a plan node
 Q1_LAUNCHES = {"compact": 0, "hash32": 0, "grouped_sum": 7, "probe": 1}
@@ -1002,23 +1032,39 @@ def join_oracle(jt, runs: MatchRuns):
     return p_idx, b_idx
 
 
+_ASOF = {}   # the last as-of oracle, by a digest of its inputs
+
+
 def asof_oracle(lkey, lon, rkey, ron, tolerance):
     """Per left row, the right row an as-of join picks, -1 for none: the
     same key, the latest ``on`` at most the left row's and at least the
     left row's plus ``tolerance`` (at most 0), and of equal (key, on) the
     last in the right input. Keys are non-negative integers. One stable
-    sort of the right rows by (key, on) and one search."""
+    sort of the right rows by (key, on), one sort of the left rows, and
+    one search of the sorted left rows (in order, the search stays in
+    cache). Made once for the same inputs (phases 3e and 3r ask for the
+    same orders)."""
+    import hashlib
     if tolerance > 0:
         raise ValueError("the as-of oracle looks back only")
+    key = (tolerance,) + tuple(hashlib.blake2b(np.ascontiguousarray(
+        a).view(np.uint8)).hexdigest() for a in (lkey, lon, rkey, ron))
+    if key in _ASOF:
+        return _ASOF[key].copy()
     base = min(lon.min(), ron.min())
     span = int(max(lon.max(), ron.max()) - base) + 1
     rpack = rkey.astype(np.int64) * span + (ron - base)
     order = np.argsort(rpack, kind="stable")
     lpack = lkey.astype(np.int64) * span + (lon - base)
-    pos = np.searchsorted(rpack[order], lpack, side="right") - 1
+    lorder = np.argsort(lpack)
+    pos = np.empty(len(lpack), dtype=np.int64)
+    pos[lorder] = np.searchsorted(rpack[order], lpack[lorder],
+                                  side="right") - 1
     cand = order[np.maximum(pos, 0)]
     ok = (pos >= 0) & (rkey[cand] == lkey) & (ron[cand] >= lon + tolerance)
-    return np.where(ok, cand, -1)
+    _ASOF.clear()
+    _ASOF[key] = np.where(ok, cand, -1)
+    return _ASOF[key].copy()
 
 
 def _ranks_within(counts):
@@ -3783,7 +3829,7 @@ STR_ORACLES = {
 }
 _NS = np.strings
 # numpy's vectorised forms of some of the oracles over a str array, for
-# the 2M values of p_name: Python's str and numpy's strings agree on them
+# the values of p_name: Python's str and numpy's strings agree on them
 # (not on the pads: numpy 2.0's ljust cuts a longer value to the width),
 # and numpy runs them without the interpreter's loop
 NP_ORACLES = {
@@ -4103,7 +4149,7 @@ STRING_PATHS = (
                  lambda i, check: temporal_plan(i["lineitem"]).to_table().to_pydict(),
                  _launches(1, 0, 0), check_temporal_plan),
     FunctionPath("strings_pool",
-                 lambda i, check: strings_pool_run(i["strings"], check),
+                 lambda i, check: strings_pool_run(i["strings_pool"], check),
                  _launches(0, 0, 0), reps=1),
     FunctionPath("strings_plan",
                  lambda i, check: strings_plan_run(i["lineitem"],
@@ -4117,12 +4163,22 @@ def _timed_verify(verify, cols, result):
     return verify(cols, result), time.perf_counter() - t0
 
 
-def strings_inputs_all(tables, typed):
-    """Phase 3h's inputs: Q1's lineitem, the temporal columns and the
-    string tables."""
+# the scale of the strings_pool sweep's part and customer (500,000 p_name
+# and 375,000 c_comment values): SF10's 2M and 1.5M took ~75 s in phase 3h
+# and ~29 s again in phase 4, most of it the oracles' Python a value
+STRINGS_POOL_SF = 2.5
+
+
+def strings_inputs_all(tables, typed, pool_tables=None):
+    """Phase 3h's inputs: Q1's lineitem, the temporal columns, the string
+    tables, and the strings_pool sweep's (``pool_tables``' part and
+    customer where given, else ``tables``')."""
+    strings = strings_inputs(tables)
     return {"lineitem": tables["lineitem"],
             "temporal": temporal_inputs(tables["lineitem"], typed),
-            "strings": strings_inputs(tables)}
+            "strings": strings,
+            "strings_pool": strings if pool_tables is None
+            else strings_inputs(pool_tables)}
 
 
 def phase_strings_kernels(h):
@@ -4215,7 +4271,10 @@ def phase_strings(tables, typed):
     from arrow_tpu_torch.platform_check import self_check
     log(f"== phase 3h: temporal and string functions at SF{SF:g}")
     t0 = time.perf_counter()
-    h = strings_inputs_all(tables, typed)
+    from arrow_tpu_torch.io import tpch
+    h = strings_inputs_all(tables, typed, {
+        "part": tpch.part_table(STRINGS_POOL_SF),
+        "customer": tpch.customer_table(STRINGS_POOL_SF)})
     cols = {"temporal_plan": _host_columns(tables["lineitem"], [
         "l_shipdate", "l_commitdate", "l_receiptdate", "l_orderkey",
         "l_extendedprice"]),
@@ -6591,10 +6650,19 @@ def phase_host(sf=SF, device="cuda"):
 # --- phase 3m: the rest of the host boundary ---------------------------------
 
 # rows of the per-row Python names' inputs (and of the order dates cast to
-# strings, the wide decimals and the list<string> orders): 200,000, not
-# 1,000,000, to keep phase 3m near 120 s (169.2 s at 1,000,000 on an
-# NVIDIA H100 80GB HBM3 machine, most of it Python a row on the host)
-HOST_TIER_PREFIX = 200_000
+# strings, the wide decimals and the list<string> orders): 100,000, not
+# 1,000,000 (169.2 s of phase 3m at 1,000,000 on an NVIDIA H100 80GB HBM3
+# machine, most of it Python a row on the host; 200,000 until phase 3r
+# needed room)
+HOST_TIER_PREFIX = 100_000
+# rows of the host names over columns (strftime and strptime over the
+# first HOST_TIER_DATES order dates; the splits and joins over the first
+# HOST_TIER_TEXT part names; the regex extractions over the first
+# HOST_TIER_TEXT phones): cut from 15M, 2M and 1.5M rows to make room for
+# phase 3r (the three sections took ~24 s, ~24 s and ~11 s on an NVIDIA
+# H100 80GB HBM3 machine, most of it Python and numpy on the host)
+HOST_TIER_DATES = 2_000_000
+HOST_TIER_TEXT = 300_000
 HOST_TIER_SLICE = 1_000_000     # where the sliced lists and runs start
 HOST_TIER_SEED = 7              # random's initializer
 HOST_TIER_MODES = 3             # mode's n
@@ -6865,7 +6933,8 @@ def _host_names(host, s, paths, dev):
     _expect("mode", got.to_pylist() == [{"mode": v, "count": -k}
                                         for k, v in top], got.to_pylist())
 
-    days = col(od, "o_orderdate").data.values().astype(np.int64)
+    days = col(od, "o_orderdate").data.values()[:HOST_TIER_DATES].astype(
+        np.int64)
     ts = Array(ArrayData(T.timestamp("s"), len(days),
                          [None, Buffer(days * 86_400)], null_count=0))
     text = paths.run("strftime", lambda: pc.strftime(ts))
@@ -6876,7 +6945,7 @@ def _host_names(host, s, paths, dev):
     back = paths.run("strptime", lambda: pc.strptime(text, unit="s"))
     _expect_equal("strptime", back.data.values(), days * 86_400)
 
-    names = col(host["part"], "p_name")
+    names = col(host["part"], "p_name").slice(0, HOST_TIER_TEXT)
     py_names = names.to_pylist()
     joined = " ".join(py_names)
     split = paths.run("split_pattern", lambda: pc.split_pattern(
@@ -6908,7 +6977,7 @@ def _host_names(host, s, paths, dev):
                   names.data.offsets() - names.data.offsets()[0])
     del split, joined_back, py_names, joined
 
-    phone = col(host["customer"], "c_phone")
+    phone = col(host["customer"], "c_phone").slice(0, HOST_TIER_TEXT)
     rows = _string_rows(phone, 15)
     pat = r"(?P<cc>\d+)-(?P<rest>\d+)"
     got = paths.run("extract_regex", lambda: pc.extract_regex(
@@ -7188,8 +7257,9 @@ def phase_host_tier(host, device="cuda"):
     (made once there, released by the caller): the nested names' device
     tier over 15M order lists of 60M lineitem rows and the run-end
     encoding of the sorted keys, on ``device``; mode; the host names
-    (strftime/strptime over 15M order dates, the splits over 2M part
-    names, the regex extractions over 1.5M phones, the per-row Python
+    (strftime/strptime over HOST_TIER_DATES order dates, the splits over
+    HOST_TIER_TEXT part names, the regex extractions over HOST_TIER_TEXT
+    phones, the per-row Python
     names over HOST_TIER_PREFIX rows, random over 60M); casts to strings
     and back; wide decimals; UDFs; the OTLP export; the device facts.
     Each against numpy or Python, each path's launches set to 0 just
@@ -8481,6 +8551,28 @@ def _csv_lineitem(li, tmp, paths, dev, peaks, facts, q1_in_memory,
     shutil.rmtree(root)
 
 
+_PLAIN = {}  # the last plain_orders, by the orders Table's identity
+
+
+def plain_orders(od):
+    """orders with its dictionary columns as plain strings, but the
+    partition column o_orderstatus, which no file holds (the ORC writer
+    takes no dictionary type): made once for the same Table, for phases
+    3q and 3r."""
+    from arrow_tpu_torch.io.host_arrays import decoded
+    from arrow_tpu_torch.table import Table
+    from arrow_tpu_torch.types import TypeId
+    hit = _PLAIN.get(id(od))
+    if hit is None or hit[0] is not od:
+        _PLAIN.clear()
+        _PLAIN[id(od)] = hit = (od, Table.from_arrays(
+            [decoded(c.combine()) if c.type.id == TypeId.DICTIONARY
+             and n != "o_orderstatus" else c.combine()
+             for n, c in zip(od.column_names, od.columns)],
+            od.column_names))
+    return hit[1]
+
+
 def _orc_orders(od, tmp, paths, dev, facts):
     """orders, every column, by write_dataset(format="orc") hive-partitioned
     by o_orderstatus (its dictionary columns but the partition column, which
@@ -8495,13 +8587,8 @@ def _orc_orders(od, tmp, paths, dev, facts):
                                        ScanNodeOptions,
                                        TableSourceNodeOptions, field)
     from arrow_tpu_torch.io import orc
-    from arrow_tpu_torch.io.host_arrays import decoded
-    from arrow_tpu_torch.table import Table
-    from arrow_tpu_torch.types import Field, Schema, TypeId
-    plain = Table.from_arrays(
-        [decoded(c.combine()) if c.type.id == TypeId.DICTIONARY
-         and n != "o_orderstatus" else c.combine()
-         for n, c in zip(od.column_names, od.columns)], od.column_names)
+    from arrow_tpu_torch.types import Field, Schema
+    plain = plain_orders(od)
     root = os.path.join(tmp, "orders_orc")
     paths.run("write_dataset orc", lambda: ds.write_dataset(
         plain, root, format="orc", partitioning=["o_orderstatus"],
@@ -8725,6 +8812,589 @@ def phase_csv_json_orc(host, device="cuda", q1_in_memory=None,
         log("phase 3q peak memory above the tables (GiB): " + ", ".join(
             f"{k} {v:.2f}" for k, v in peaks.items()))
     log(f"phase 3q: {time.perf_counter() - t0:.1f} s (paths "
+        f"{sum(paths.walls.values()):.1f} s)")
+    return paths.launches, {"walls": paths.walls, "peaks": peaks,
+                            "facts": facts}
+
+
+# --- phase 3r: the host surface and the cloud file systems ---------------------
+
+SURFACE_SEGMENT = "BUILDING"    # the customers the eight joins build on
+SURFACE_TAKE = 1 << 20          # the rows the eager take gathers
+SURFACE_NULL_QUANTITY = 5.0     # l_discount made null below this quantity
+SURFACE_PY_ROWS = 100_000       # customer rows through Python rows
+SURFACE_BATTERY = 1 << 20       # the bytes of each client's file round trip
+FULL_WIDTH_LINEITEM = ["l_orderkey", "l_partkey", "l_extendedprice",
+                       "l_discount"]
+FULL_WIDTH_ORDERS = ["o_orderkey", "o_orderdate", "o_custkey"]
+
+
+def _joins(compact, hash32):
+    return {**_NO_LAUNCH, "compact": compact, "hash32": hash32}
+
+
+# launches of phase 3r's paths, reckoned from their plan trees before the
+# first run (each +1 probe, from self_check): the eight joins of orders to
+# the customers of one segment are 3b's (JOIN_LAUNCHES_SF10) less the
+# filter's compaction, the segment's customers being a host Table made on
+# the host; the left outer join of every column takes no kernel (no bloom,
+# the identity of a unique build); the full-width join is an inner join
+# (every lineitem row has its order) that takes the bloom (probe capacity
+# >= 4x build: 2 hashes and 1 compaction) and the unique-build compaction;
+# the datasets' join is the segment's inner join over the datasets' Tables
+# (a scan without a filter compacts nothing); the eager filter and
+# drop_null compact once; the orders of one status by priority over the S3
+# dataset and over the Table are 3o's hive paths (one float sum, K1); every
+# other path (the as-of joins, the other column methods, the host-only
+# methods, the writes and reads) launches none
+HOST_SURFACE_LAUNCHES = {
+    **{f"3r join {jt}": _joins(c - 1, h)
+       for jt, (c, h) in JOIN_LAUNCHES_SF10.items()},
+    "3r join full width": _joins(2, 2), "3r dataset join": _joins(2, 2),
+    "3r chunked filter": _joins(1, 0), "3r chunked drop_null": _joins(1, 0),
+    "3r s3 orders": _HIVE, "3r s3 orders (table)": _HIVE,
+}
+
+
+class _Downloads:
+    """The wall of every download of a plan's result to a host Table
+    (``acero.exec.download_table``) while it is entered, summed."""
+
+    def __enter__(self):
+        from arrow_tpu_torch.acero import exec as ex
+        self.ex, self.inner, self.wall = ex, ex.download_table, 0.0
+
+        def timed_download(batch):
+            t0 = time.perf_counter()
+            out = self.inner(batch)
+            self.wall += time.perf_counter() - t0
+            return out
+        ex.download_table = timed_download
+        return self
+
+    def __exit__(self, *exc):
+        self.ex.download_table = self.inner
+
+
+def _plan_path(paths, name, fn, peaks, facts):
+    """``fn`` as a path of ``paths``, its download wall and its peak above
+    the tables recorded."""
+    cuda = paths.cuda
+    base = memory_mark() if cuda else 0
+    with _Downloads() as dl:
+        out = paths.run(name, fn)
+    facts[f"{name} download s"] = dl.wall
+    if cuda:
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return out
+
+
+def _column(tbl, name, rows=None):
+    """A host Table's column as numpy values and validity (all True where
+    it has no bitmap), at ``rows`` where given."""
+    d = tbl.column(name).combine().data
+    vals, valid = d.values(), d.validity_mask()
+    valid = np.ones(len(vals), dtype=bool) if valid is None else valid
+    return (vals, valid) if rows is None else (vals[rows], valid[rows])
+
+
+def _check_table_join(jt, out, src, runs, coalesced):
+    """A Table.join of orders (o_orderkey, o_custkey) with the segment's
+    customers (c_custkey, c_id) against ``join_oracle``: each column the
+    join emits (the right key not where it is coalesced away), null on a
+    row of the other side alone. ``src``: the inputs' columns by name."""
+    p_idx, b_idx = join_oracle(jt, runs)
+    _expect(f"3r join {jt} rows", out.num_rows == len(p_idx),
+            f"({out.num_rows} against {len(p_idx)})")
+    sides = [("o_orderkey", p_idx), ("o_custkey", p_idx),
+             ("c_custkey", b_idx), ("c_id", b_idx)]
+    if coalesced:
+        del sides[2]
+    if jt in ("left semi", "left anti"):
+        sides = sides[:2]
+    elif jt in ("right semi", "right anti"):
+        sides = sides[2:]
+    _expect(f"3r join {jt} columns", sorted(out.column_names) == sorted(
+        s[0] for s in sides), f"({out.column_names})")
+    for name, idx in sides:
+        vals, valid = _column(out, name)
+        hit = idx >= 0
+        _expect(f"3r join {jt} {name} validity", np.array_equal(valid, hit))
+        _expect_equal(f"3r join {jt} {name}", vals[hit] if not hit.all()
+                      else vals, src[name][idx[hit]] if not hit.all()
+                      else src[name][idx])
+    return out.num_rows
+
+
+def _same_strings_by_code(name, col, codes, values):
+    """A string column, row by row, against ``values[codes]``: a
+    dictionary column by its codes mapped to ``values``' codes; a plain
+    one by its lengths, then for each value its rows' bytes, one position
+    at a time (no index array as long as the bytes)."""
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.types import TypeId
+    arr = col.combine().data
+    if arr.type.id == TypeId.DICTIONARY:
+        own = np.array([values.index(v) for v in
+                        Array(arr.dictionary).to_pylist()], dtype=np.int64)
+        _expect_equal(name, own[arr.values().astype(np.int64)], codes)
+        return
+    offs = arr.offsets().astype(np.int64)
+    raw = arr.data_bytes()
+    enc = [v.encode() for v in values]
+    lens = np.array([len(v) for v in enc], dtype=np.int64)
+    _expect_equal(f"{name} lengths", np.diff(offs), lens[codes])
+    for c, v in enumerate(enc):
+        starts = offs[:-1][codes == c]
+        for k, byte in enumerate(v):
+            _expect(f"{name} bytes", bool((raw[starts + k] == byte).all()))
+
+
+def _surface_joins(od, cu, li, paths, dev, peaks, facts):
+    """The eight join types of orders with one segment's customers (a host
+    Table made on the host), a left outer join of every column of both,
+    the full-width join of lineitem with orders, and as-of joins and the
+    datasets' joins, each against numpy."""
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.array.array import Array, array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    from arrow_tpu_torch.table import Table
+    codes, values = _codes_and_values(cu, "c_mktsegment")
+    rows = np.flatnonzero(codes == values.index(SURFACE_SEGMENT))
+    ck = _host_values(cu, "c_custkey")
+    seg = Table.from_arrays([array(ck[rows]), array(ck[rows])],
+                            ["c_custkey", "c_id"])
+    left = od.select(["o_orderkey", "o_custkey"])
+    ok, ock = _host_values(od, "o_orderkey"), _host_values(od, "o_custkey")
+    runs = match_runs(JoinSide(ock, np.ones(len(ock), bool), "o_orderkey",
+                               ok),
+                      JoinSide(ck[rows], np.ones(len(rows), bool), "c_id",
+                               ck[rows]))
+    src = {"o_orderkey": ok, "o_custkey": ock, "c_custkey": ck[rows],
+           "c_id": ck[rows]}
+    results = {}
+    for jt in JOIN_TYPES:
+        coalesced = jt not in ("right semi", "right anti")
+        out = _plan_path(paths, f"join {jt}", lambda: left.join(
+            seg, "o_custkey", "c_custkey", join_type=jt, device=dev),
+            peaks, facts)
+        n = _check_table_join(jt, out, src, runs, coalesced)
+        results[jt] = out
+        log(f"    {jt}: {n} rows match the oracle")
+    # the same inner join, its keys kept
+    kept = left.join(seg, "o_custkey", "c_custkey", join_type="inner",
+                     coalesce_keys=False, device=dev)
+    _check_table_join("inner", kept, src, runs, False)
+    log("    inner with its keys kept matches the oracle")
+    inner = results["inner"]
+    del results, kept
+    # every column of both
+    wide = _plan_path(paths, "join left outer all columns", lambda: od.join(
+        cu, "o_custkey", "c_custkey", device=dev), peaks, facts)
+    _expect("3r wide join columns", wide.column_names == od.column_names + [
+        n for n in cu.column_names if n != "c_custkey"])
+    _expect("3r wide join rows", wide.num_rows == od.num_rows)
+    _expect_equal("3r wide join o_orderkey", _column(wide, "o_orderkey")[0],
+                  ok)
+    at_cust = ock - 1
+    for n in ("c_nationkey", "c_acctbal"):
+        _expect_equal(f"3r wide join {n}", _np_bits(_column(wide, n)[0]),
+                      _np_bits(_host_values(cu, n)[at_cust]))
+    _same_strings_by_code("3r wide join c_mktsegment",
+                          wide.column("c_mktsegment"), codes[at_cust],
+                          values)
+    log("    every column: the customers' columns match theirs")
+    del wide
+    # lineitem's four columns against orders' three
+    lsel, osel = li.select(FULL_WIDTH_LINEITEM), od.select(FULL_WIDTH_ORDERS)
+    full = _plan_path(paths, "join full width", lambda: lsel.join(
+        osel, "l_orderkey", "o_orderkey", join_type="inner", device=dev),
+        peaks, facts)
+    lok = _host_values(li, "l_orderkey")
+    _expect("3r full width rows", full.num_rows == li.num_rows)
+    for n in FULL_WIDTH_LINEITEM:
+        _expect_equal(f"3r full width {n}", _np_bits(_column(full, n)[0]),
+                      _np_bits(_host_values(li, n)))
+    for n in FULL_WIDTH_ORDERS[1:]:
+        _expect_equal(f"3r full width {n}", _np_bits(_column(full, n)[0]),
+                      _np_bits(_host_values(od, n)[lok - 1]))
+    log("    the full width: every row matches lineitem's and its order's")
+    del full
+    # phase 3e's as-of join through Table.join_asof
+    sc, sv = _codes_and_values(od, "o_orderstatus")
+    fin = np.flatnonzero(sc == sv.index("F"))
+    odate, price = _host_values(od, "o_orderdate"), \
+        _host_values(od, "o_totalprice")
+    finished = Table.from_arrays(
+        [array(ock[fin]), Array(ArrayData(T.date32(), len(fin), [
+            None, Buffer(odate[fin])])), array(price[fin])],
+        ["o_custkey", "o_orderdate", "prev_totalprice"])
+    lasof = od.select(["o_orderkey", "o_custkey", "o_orderdate"])
+    asof = _plan_path(paths, "join_asof", lambda: lasof.join_asof(
+        finished, "o_orderdate", "o_custkey", ASOF_TOLERANCE, device=dev),
+        peaks, facts)
+    match = asof_oracle(ock, odate, ock[fin], odate[fin], ASOF_TOLERANCE)
+    log("    the as-of oracle made")
+    pv, pvalid = _column(asof, "prev_totalprice")
+    hit = match >= 0
+    _expect_equal("3r join_asof o_orderkey", _column(asof, "o_orderkey")[0],
+                  ok)
+    _expect("3r join_asof matches", np.array_equal(pvalid, hit))
+    _expect_equal("3r join_asof prev_totalprice", _np_bits(pv[hit]),
+                  _np_bits(price[fin][match[hit]]))
+    log("    the as-of join matches its oracle")
+    # the datasets of the same Tables
+    dl, dr = ds.InMemoryDataset(left), ds.InMemoryDataset(seg)
+    dj = _plan_path(paths, "dataset join", lambda: dl.join(
+        dr, "o_custkey", "c_custkey", join_type="inner", device=dev),
+        peaks, facts)
+    _expect("3r dataset join", table_digest(dj) == table_digest(inner))
+    da = _plan_path(paths, "dataset join_asof", lambda: ds.InMemoryDataset(
+        lasof).join_asof(ds.InMemoryDataset(finished), "o_orderdate",
+                         "o_custkey", ASOF_TOLERANCE, device=dev),
+        peaks, facts)
+    _expect("3r dataset join_asof", table_digest(da) == table_digest(asof))
+    log(f"  joins: the eight types over {len(rows)} {SURFACE_SEGMENT} "
+        f"customers, every column, the full width, as-of "
+        f"({int(hit.sum())} matched) and the datasets' joins match their "
+        "oracles")
+
+
+def _first_seen_order(key):
+    """Small non-negative keys in order of first appearance, and each
+    key's count."""
+    counts = np.bincount(key)
+    first = _first_seen(key, len(counts))
+    return np.argsort(first, kind="stable")[:int((counts > 0).sum())], \
+        counts
+
+
+def _sliced(arr, n=FILE_SLICES):
+    """An Array as a ChunkedArray of ``n`` slices (no copy)."""
+    from arrow_tpu_torch.table import ChunkedArray
+    step = -(-len(arr) // n)
+    return ChunkedArray([arr.slice(o, min(step, len(arr) - o))
+                         for o in range(0, len(arr), step)], arr.type)
+
+
+def _surface_columns(li, paths, dev, facts):
+    """The ChunkedArray methods on lineitem's 60M-row columns cut into
+    FILE_SLICES chunks, each against numpy."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.array.array import Array, array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    n = li.num_rows
+    q = _host_values(li, "l_quantity")
+    qi = q.astype(np.int64)
+    ep = _host_values(li, "l_extendedprice")
+    lok = _host_values(li, "l_orderkey")
+    ln = _host_values(li, "l_linenumber").astype(np.int64)
+    disc = _host_values(li, "l_discount")
+    cq, cep, cok, cln = (_sliced(li.column(c).combine()) for c in (
+        "l_quantity", "l_extendedprice", "l_orderkey", "l_linenumber"))
+    valid = q >= SURFACE_NULL_QUANTITY
+    cdisc = _sliced(Array(ArrayData(T.float64(), n, [
+        Buffer(np.packbits(valid, bitorder="little")), Buffer(disc)])))
+    mask = q > HOST_EAGER_QUANTITY
+    log("    the columns cut into chunks")
+    got = paths.run("chunked filter", lambda: cep.filter(array(mask),
+                                                         device=dev))
+    _expect_equal("3r filter", _np_bits(got.combine().data.values()),
+                  _np_bits(ep[mask]))
+    idx = np.random.default_rng(HOST_TIER_SEED).integers(0, n, SURFACE_TAKE)
+    got = paths.run("chunked take", lambda: cok.take(array(idx), device=dev))
+    _expect_equal("3r take", got.combine().data.values(), lok[idx])
+    got = paths.run("chunked drop_null", lambda: cdisc.drop_null(device=dev))
+    _expect_equal("3r drop_null", _np_bits(got.combine().data.values()),
+                  _np_bits(disc[valid]))
+    got = paths.run("chunked fill_null", lambda: cdisc.fill_null(
+        -1.0, device=dev))
+    _expect_equal("3r fill_null", _np_bits(got.combine().data.values()),
+                  _np_bits(np.where(valid, disc, -1.0)))
+    got = paths.run("chunked is_null", lambda: cdisc.is_null(device=dev))
+    _expect_equal("3r is_null", got.combine().data.values(), ~valid)
+    order, counts = _first_seen_order(qi)
+    got = paths.run("chunked sort", lambda: cq.sort(device=dev))
+    _expect_equal("3r sort", got.combine().data.values(), np.repeat(
+        np.arange(len(counts), dtype=np.float64), counts))
+    got = paths.run("chunked unique", lambda: cq.unique(device=dev))
+    _expect_equal("3r unique", got.data.values(), order.astype(np.float64))
+    got = paths.run("chunked value_counts", lambda: cq.value_counts(
+        device=dev))
+    _expect_equal("3r value_counts values",
+                  got.data.children[0].values(), order.astype(np.float64))
+    _expect_equal("3r value_counts counts", got.data.children[1].values(),
+                  counts[order])
+    lorder, lcounts = _first_seen_order(ln)
+    rank = np.zeros(len(lcounts), dtype=np.int64)
+    rank[lorder] = np.arange(len(lorder))
+    got = paths.run("chunked dictionary_encode",
+                    lambda: cln.dictionary_encode(device=dev)).combine()
+    _expect_equal("3r dictionary_encode codes",
+                  got.data.values().astype(np.int64), rank[ln])
+    _expect_equal("3r dictionary_encode values",
+                  got.data.dictionary.values().astype(np.int64), lorder)
+    got = paths.run("chunked cast", lambda: cq.cast(T.int64(), device=dev))
+    _expect_equal("3r cast", got.combine().data.values(), qi)
+    v = int(lok[n // 2])
+    got = paths.run("chunked index", lambda: (
+        cok.index(v, device=dev), cok.index(v, n // 2 + 1, device=dev)))
+    hits = np.flatnonzero(lok == v)
+    later = hits[hits > n // 2]
+    _expect("3r index", got == (int(hits[0]), int(later[0]) if len(later)
+                                else -1), f"({got})")
+    facts["chunked columns GB"] = sum(c.nbytes for c in (cq, cep, cok, cln,
+                                                          cdisc)) / 1e9
+    log(f"  ChunkedArray methods over {n} rows in {FILE_SLICES} chunks "
+        "match numpy")
+
+
+def _surface_host(cu, paths, facts):
+    """The host-only methods on customer: column edits, from_pylist and
+    struct round trips over its first SURFACE_PY_ROWS rows, validate (a
+    broken copy refused), to_string and concat_tables."""
+    from arrow_tpu_torch import api, pretty
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.array.validate import ValidationError
+    from arrow_tpu_torch.buffer import Buffer
+    from arrow_tpu_torch.table import Table
+    from arrow_tpu_torch.types import field, int64
+    key = cu.column("c_custkey")
+
+    def edits():
+        return (cu.add_column(1, "c_key2", key)
+                .set_column(0, field("c_key", int64(), False), key)
+                .remove_column(2).drop_columns(["c_comment"])
+                .append_column("c_segment", cu.column("c_mktsegment")))
+    t = paths.run("column edits", edits)
+    want = ["c_key", "c_key2"] + [n for n in cu.column_names[2:]
+                                  if n != "c_comment"] + ["c_segment"]
+    _expect("3r column edits", t.column_names == want and t.column("c_key")
+            is key and t.column("c_segment") is cu.column("c_mktsegment"),
+            f"({t.column_names})")
+    head = cu.slice(0, SURFACE_PY_ROWS)
+    want = head.to_pydict()
+    back = paths.run("from_pylist", lambda: Table.from_pylist(
+        head.to_pylist()))
+    _expect("3r from_pylist", back.to_pydict() == want)
+    back = paths.run("struct round trip", lambda: Table.from_struct_array(
+        head.to_struct_array()))
+    _expect("3r struct round trip", back.to_pydict() == want
+            and back.schema.names == head.schema.names)
+    paths.run("validate full", lambda: cu.validate(full=True))
+    seg = cu.column("c_mktsegment").combine().data
+    bad = seg.values().copy()
+    bad[len(bad) // 2] = seg.dictionary.length
+    broken = Array(ArrayData(seg.type, seg.length, [None, Buffer(bad)],
+                             dictionary=seg.dictionary))
+    try:
+        broken.validate(full=True)
+        raise AssertionError("3r validate: an index out of range passed")
+    except ValidationError as exc:
+        _expect("3r validate refuses", "out of range" in str(exc))
+    text = paths.run("to_string", lambda: (
+        cu.to_string(), pretty.table_to_string(cu.slice(0, 1000), 5)))
+    _expect("3r to_string", text[0] == f"<Table rows={cu.num_rows} "
+            f"cols={cu.column_names}>" and len(text[1].splitlines()) == 8)
+    two = paths.run("concat_tables", lambda: api.concat_tables([cu, cu]))
+    _expect("3r concat_tables", two.num_rows == 2 * cu.num_rows and all(
+        c.num_chunks == 2 * o.num_chunks for c, o in zip(two.columns,
+                                                         cu.columns)))
+    wide = api.concat_tables([cu.select(["c_custkey"]), cu.select(
+        ["c_custkey", "c_acctbal"]).slice(0, 10)], promote_options="default")
+    _expect("3r concat_tables promoted", wide.column("c_acctbal").null_count
+            == cu.num_rows and wide.num_rows == cu.num_rows + 10)
+    log(f"  host methods on customer ({cu.num_rows} rows, Python rows over "
+        f"{SURFACE_PY_ROWS}) checked")
+
+
+def _battery(fs, base, kind):
+    """One file through a client: written, listed, read, moved,
+    deleted."""
+    from arrow_tpu_torch.fs import FileSelector
+    body = np.random.default_rng(1).integers(0, 256, SURFACE_BATTERY,
+                                             dtype=np.uint8).tobytes()
+    fs.create_dir(base)
+    with fs.open_output_stream(f"{base}/dir/a.bin") as f:
+        f.write(body)
+    info = fs.get_file_info(f"{base}/dir/a.bin")
+    with fs.open_input_file(f"{base}/dir/a.bin") as f:
+        back = f.read()
+    listed = fs.get_file_info(FileSelector(base, recursive=True))
+    fs.move(f"{base}/dir/a.bin", f"{base}/dir/b.bin")
+    gone = fs.get_file_info(f"{base}/dir/a.bin").type
+    fs.delete_file(f"{base}/dir/b.bin")
+    _expect(f"3r {kind} file round trip", info.size == len(body)
+            and back == body and gone == "NotFound"
+            and any(i.path.endswith("dir/a.bin") for i in listed)
+            and fs.get_file_info(f"{base}/dir/b.bin").type == "NotFound")
+
+
+def _stored_bytes(em):
+    state = em.state
+    if hasattr(state, "files"):
+        return sum(len(v) for v in state.files.values())
+    tops = state.containers if hasattr(state, "containers") \
+        else state.buckets
+    return sum(len(v) for objs in tops.values() for v in objs.values())
+
+
+def _surface_cloud(od, cu, tmp, paths, dev, facts):
+    """orders (every column, its dictionaries as plain strings as 3q writes
+    them) hive-partitioned by status as Parquet into the S3 emulator, one
+    status's orders by priority over the S3 dataset against the Table's
+    plan; customer partitioned by segment as IPC through the GCS, Azure
+    and WebHDFS emulators, each fragment read back (host Tables) bit for
+    bit the same fragment of the dataset on the local disk; one file round
+    trip through each client."""
+    import base64
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from cloud_emulators import AzureEmulator, GcsEmulator, WebHdfsEmulator
+    from s3_emulator import S3Emulator
+    from arrow_tpu_torch import dataset as ds
+    from arrow_tpu_torch import fs as afs
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       ScanNodeOptions,
+                                       TableSourceNodeOptions, field)
+    from arrow_tpu_torch.types import Field, Schema
+    plain = plain_orders(od)
+    hive = ds.HivePartitioning(Schema([Field("o_orderstatus", T.string())]))
+    log("    orders' dictionaries decoded to plain strings")
+    with S3Emulator() as em:
+        s3 = afs.S3FileSystem(access_key="chip", secret_key="smoke",
+                              endpoint_override=em.endpoint,
+                              allow_bucket_creation=True)
+        s3.create_dir("lake")
+        paths.run("s3 write_dataset", lambda: ds.write_dataset(
+            plain, "lake/orders", partitioning=["o_orderstatus"],
+            partitioning_flavor="hive", filesystem=s3))
+        facts["s3 GB"] = _stored_bytes(em) / 1e9
+        facts["s3 write GB/s"] = facts["s3 GB"] / \
+            paths.walls["3r s3 write_dataset"]
+        data = ds.dataset("lake/orders", partitioning=hive, filesystem=s3)
+        cond = field("o_orderstatus") == HIVE_STATUS
+        _expect("3r s3 pruning", len(list(data.get_fragments(cond))) == 1)
+        got = paths.run("s3 orders", lambda: hive_orders_plan(Declaration(
+            "scan", ScanNodeOptions(data, HIVE_COLUMNS, cond))).to_table(
+                device=dev))
+        want = paths.run("s3 orders (table)", lambda: hive_orders_plan(
+            Declaration.from_sequence([
+                Declaration("table_source", TableSourceNodeOptions(
+                    od.select(["o_orderstatus"] + HIVE_COLUMNS))),
+                Declaration("filter", FilterNodeOptions(cond))])).to_table(
+                    device=dev))
+        _same_result("3r s3 orders", got, want)
+        g, w = got.to_pydict(), want.to_pydict()
+        _expect("3r s3 orders exact", all(g[k] == w[k] for k in (
+            "o_orderpriority", "orders", "lowest", "highest", "customers")))
+        paths.run("s3 file round trip", lambda: _battery(s3, "bkt", "s3"))
+    log(f"  S3: orders as hive Parquet, {facts['s3 GB']:.3f} GB at "
+        f"{facts['s3 write GB/s']:.3f} GB/s; {got.num_rows} priorities "
+        "equal to the Table's plan")
+    local = os.path.join(tmp, "customer_ipc")
+    ds.write_dataset(cu, local, format="ipc", partitioning=["c_mktsegment"],
+                     partitioning_flavor="hive")
+    seg_hive = ds.HivePartitioning(Schema([Field("c_mktsegment",
+                                                 T.string())]))
+    twin = [f.to_table() for f in ds.dataset(
+        local, format="ipc", partitioning=seg_hive).fragments]
+    _expect("3r customer twin", np.array_equal(np.sort(np.concatenate(
+        [_host_values(t, "c_custkey") for t in twin])),
+        np.sort(_host_values(cu, "c_custkey"))))
+    twin = [table_digest(t) for t in twin]
+    log("    customer's local twin written and read")
+    account_key = base64.b64encode(np.random.default_rng(0).integers(
+        0, 256, 32, dtype=np.uint8).tobytes()).decode()
+    clients = (
+        ("gcs", GcsEmulator, lambda em: afs.GcsFileSystem(
+            access_token="chip", endpoint_override=em.endpoint,
+            project_id="smoke", scheme="http"), "bkt"),
+        ("azure", AzureEmulator, lambda em: afs.AzureFileSystem(
+            "chip", account_key=account_key,
+            blob_storage_authority=em.endpoint, scheme="http"), "ctr"),
+        ("hdfs", WebHdfsEmulator, lambda em: afs.HadoopFileSystem(
+            *em.host_port, user="chip"), "/data"))
+    for kind, emulator, make, base in clients:
+        with emulator() as em:
+            fs = make(em)
+            fs.create_dir(base)
+            root = f"{base}/customer"
+            paths.run(f"{kind} write_dataset", lambda: ds.write_dataset(
+                cu, root, format="ipc", partitioning=["c_mktsegment"],
+                partitioning_flavor="hive", filesystem=fs))
+            facts[f"{kind} GB"] = _stored_bytes(em) / 1e9
+            back = paths.run(f"{kind} dataset", lambda: [
+                f.to_table() for f in ds.dataset(
+                    root, format="ipc", partitioning=seg_hive,
+                    filesystem=fs).fragments])
+            _expect(f"3r {kind} dataset", [table_digest(t) for t in back]
+                    == twin)
+            facts[f"{kind} write GB/s"] = facts[f"{kind} GB"] / \
+                paths.walls[f"3r {kind} write_dataset"]
+            facts[f"{kind} read GB/s"] = facts[f"{kind} GB"] / \
+                paths.walls[f"3r {kind} dataset"]
+            paths.run(f"{kind} file round trip", lambda: _battery(
+                fs, f"{base}/files", kind))
+        log(f"  {kind}: customer as hive IPC, {facts[f'{kind} GB']:.3f} GB "
+            "read back equal to its local twin; a file round trip")
+    shutil.rmtree(local)
+
+
+def phase_host_surface(host, device="cuda"):
+    """Phase 3r: the host containers' methods, the top-level API and the
+    cloud file systems over phase 3l's host Tables. Table.join of orders
+    with one segment's customers for all eight join types against
+    ``join_oracle`` (the coalesced keys taken into account), a left outer
+    join of every column, lineitem's four columns joined to orders' three
+    (60M probe rows, the bloom), phase 3e's as-of join through
+    ``Table.join_asof`` against ``asof_oracle``, and the datasets' joins
+    equal to the Tables'; the ChunkedArray methods over lineitem's 60M-row
+    columns in FILE_SLICES chunks against numpy; the host-only methods on
+    customer; orders through the S3 client and customer through the GCS,
+    Azure and WebHDFS clients, each to its emulator over loopback. Each
+    path's launches are set to 0 just before and read just after (on the
+    card) and held to HOST_SURFACE_LAUNCHES; the plan and download walls,
+    the peaks and the emulators' bytes and rates logged. Returns (launches
+    by path, facts)."""
+    import tempfile
+    dev = torch.device(device)
+    log(f"== phase 3r: the host surface and the cloud file systems on "
+        f"{device}")
+    t0 = time.perf_counter()
+    li, od, cu = host["lineitem"], host["orders"], host["customer"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_surface_")
+    try:
+        need = 2 * _table_bytes(cu) + (1 << 26)
+        free = _free_bytes(tmp)
+        log(f"  {tmp}: {free / 1e9:.3f} GB free, the phase writes at most "
+            f"{need / 1e9:.3f} GB")
+        if free < need:
+            raise RuntimeError(f"{tmp} lacks {(need - free) / 1e9:.3f} GB "
+                               "for phase 3r's files")
+        paths = _Paths(dev, "3r", HOST_SURFACE_LAUNCHES)
+        peaks, facts = {}, {}
+        _surface_joins(od, cu, li, paths, dev, peaks, facts)
+        _surface_columns(li, paths, dev, facts)
+        _surface_host(cu, paths, facts)
+        _surface_cloud(od, cu, tmp, paths, dev, facts)
+        paths.check_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _PLAIN.clear()
+    log("phase 3r walls (s): " + ", ".join(
+        f"{k[3:]} {v:.3f}" for k, v in paths.walls.items()))
+    log("phase 3r facts: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in facts.items()))
+    if peaks:
+        log("phase 3r peak memory above the tables (GiB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"phase 3r: {time.perf_counter() - t0:.1f} s (paths "
         f"{sum(paths.walls.values()):.1f} s)")
     return paths.launches, {"walls": paths.walls, "peaks": peaks,
                             "facts": facts}
@@ -9525,6 +10195,8 @@ def main() -> int:
                                  *parquet["scan Q1"])
         launches.update(text_launches)
         del parquet
+        surface_launches, _ = timed(phase_host_surface, host)
+        launches.update(surface_launches)
         # phase 3b before 3k: its runs of the eight joins are 3k's
         # single-rank runs of them
         joins = timed(phase_join_types, orders, customer)

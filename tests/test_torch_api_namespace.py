@@ -1,0 +1,453 @@
+"""The port's top level (``arrow_tpu_torch/__init__.py``, ``api.py``,
+``types.py``'s factories, ``memory.py``'s pools) against the JAX
+package's.
+
+* ``api.py``'s functions: ``scalar``, ``nulls``, ``repeat``,
+  ``infer_type``, ``concat_arrays``, ``concat_batches``, ``concat_tables``
+  (with ``promote_options``), ``unify_schemas``, ``type_for_alias``,
+  ``show_versions``; the pandas pair raises, naming item 13.2, part 2.
+* The type factories the port added (``field``, ``schema``, ``utf8``,
+  the views, the unions, ``DictionaryType``) as type objects equal to the
+  reference's; an Array of a type the port has no host layout for raises,
+  naming item 13.2, part 3.
+* The memory pools, the thread counts and the other top-level names.
+* The README's first example (``README.md:10-30``, the lines that need no
+  pyarrow) on the port with ``device="cpu"``, equal to the reference's.
+* The reference's top-level names that the port still lacks, pinned by
+  the later part of ROADMAP item 13.2 that each waits for.
+"""
+
+import contextlib
+import io
+import types
+
+import numpy as np
+import pytest
+
+import arrow_tpu as at
+import arrow_tpu_torch as att
+from arrow_tpu_torch.array.array import pylist_equal
+
+from test_torch_host_table import port_schema, port_type
+from test_torch_table_methods import builtin_class, same
+from worker_settings import collect_after_test, gc_off_in_module  # noqa: F401
+
+
+# --- api.py ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("value,tname", [
+    (5, None), (2.5, None), ("x", None), (None, None), (True, None),
+    (3, "int8"), (7, "float32"), ("déjà", "large_string"), (None, "int64"),
+])
+def test_scalar(value, tname):
+    want = at.scalar(value, None if tname is None else getattr(at, tname)())
+    got = att.scalar(value, None if tname is None else getattr(att, tname)())
+    assert pylist_equal(got.as_py(), want.as_py())
+    assert got.type == port_type(want.type)
+    assert got.is_valid == want.is_valid
+
+
+def test_scalar_refuses_a_wrong_value():
+    with pytest.raises(Exception) as want:
+        at.scalar("x", at.int64())
+    with pytest.raises(builtin_class(want.value)):
+        att.scalar("x", att.int64())
+
+
+@pytest.mark.parametrize("size,tname", [(0, None), (3, None), (4, "int32"),
+                                        (2, "string"), (5, "float64")])
+def test_nulls(size, tname):
+    same(att.nulls(size, None if tname is None else getattr(att, tname)()),
+         at.nulls(size, None if tname is None else getattr(at, tname)()))
+
+
+@pytest.mark.parametrize("value", [1, 2.5, "ab", None, [1, 2]])
+def test_repeat(value):
+    same(att.repeat(value, 4), at.repeat(value, 4))
+    same(att.repeat(att.scalar(value), 3), at.repeat(at.scalar(value), 3))
+
+
+@pytest.mark.parametrize("values", [[1, 2], [1.0, None], ["a"], [None],
+                                    [True, False], [[1], None], [b"x"],
+                                    [{"a": 1}]])
+def test_infer_type(values):
+    assert att.infer_type(values) == port_type(at.infer_type(values))
+
+
+def _arrays(P):
+    rng = np.random.default_rng(2)
+    a = P.array(rng.integers(0, 9, 12).tolist(), P.int64())
+    d = P.array(["x", "y", None, "x"], P.dictionary(P.int32(), P.string()))
+    d2 = P.array(["z", "x"], P.dictionary(P.int32(), P.string()))
+    return a, d, d2
+
+
+@pytest.mark.parametrize("case", ["ints", "sliced", "one", "dictionaries",
+                                  "empty", "types_differ"])
+def test_concat_arrays(case):
+    def call(P):
+        a, d, d2 = _arrays(P)
+        return {"ints": lambda: P.concat_arrays([a, a]),
+                "sliced": lambda: P.concat_arrays([a.slice(3, 4),
+                                                   a.slice(9)]),
+                "one": lambda: P.concat_arrays([a]),
+                "dictionaries": lambda: P.concat_arrays([d, d2]),
+                "empty": lambda: P.concat_arrays([]),
+                "types_differ": lambda: P.concat_arrays(
+                    [a, P.array([1], P.int32())])}[case]()
+    try:
+        want = call(at)
+    except Exception as exc:  # noqa: BLE001 - the class is compared
+        with pytest.raises(Exception) as got:
+            call(att)
+        assert type(got.value).__name__ == type(exc).__name__
+        return
+    same(call(att), want)
+
+
+def _tables(P):
+    t1 = P.table({"a": P.array([1, 2], P.int64()),
+                  "s": P.array(["x", None], P.string())})
+    t2 = P.table({"a": P.array([3], P.int64()),
+                  "s": P.array(["y"], P.string())})
+    t3 = P.table({"a": P.array([4, 5], P.int64()),
+                  "n": P.array([0.5, None], P.float64())})
+    t4 = P.table({"s": P.nulls(2), "a": P.array([6, 7], P.int64())})
+    t5 = P.table({"a": P.array(["no"], P.string())})
+    return t1, t2, t3, t4, t5
+
+
+@pytest.mark.parametrize("picks,promote", [
+    ((0, 1), "none"), ((0, 1, 0), "none"), ((0, 2), "none"),
+    ((0, 2), "default"), ((0, 2, 3), "permissive"), ((0, 3), "default"),
+    ((0, 4), "default"), ((), "none")])
+def test_concat_tables(picks, promote):
+    def call(P):
+        ts = _tables(P)
+        return P.concat_tables([ts[i] for i in picks],
+                               promote_options=promote)
+    try:
+        want = call(at)
+    except Exception as exc:  # noqa: BLE001 - the class is compared
+        with pytest.raises(Exception) as got:
+            call(att)
+        assert type(got.value).__name__ == type(exc).__name__
+        return
+    got = call(att)
+    same(got, want)
+    assert [c.num_chunks for c in got.columns] == \
+        [c.num_chunks for c in want.columns]
+
+
+def test_concat_batches():
+    bs = {P: [t.to_batches()[0] for t in _tables(P)[:2]] for P in (at, att)}
+    same(att.concat_batches(bs[att]), at.concat_batches(bs[at]))
+    for P in (at, att):
+        with pytest.raises(Exception, match="at least one"):
+            P.concat_batches([])
+
+
+@pytest.mark.parametrize("case", ["disjoint", "null_promotes",
+                                  "nullable_widens", "conflict", "same"])
+def test_unify_schemas(case):
+    def call(P):
+        a = P.schema([P.field("a", P.int64(), False),
+                      P.field("b", P.null())])
+        b = {"disjoint": P.schema([("c", P.string())]),
+             "null_promotes": P.schema([("b", P.float32())]),
+             "nullable_widens": P.schema([P.field("a", P.int64())]),
+             "conflict": P.schema([("a", P.string())]),
+             "same": a}[case]
+        return P.unify_schemas([a, b])
+    try:
+        want = call(at)
+    except Exception as exc:  # noqa: BLE001 - the class is compared
+        with pytest.raises(Exception) as got:
+            call(att)
+        assert type(got.value).__name__ == type(exc).__name__
+        return
+    got = call(att)
+    assert got == port_schema(want)
+    assert [f.nullable for f in got] == [f.nullable for f in want]
+
+
+@pytest.mark.parametrize("alias", ["i4", "double", "utf8", "large_str",
+                                   "timestamp[ms]", "date32[day]", "null"])
+def test_type_for_alias(alias):
+    assert att.type_for_alias(alias) == port_type(at.type_for_alias(alias))
+
+
+def test_show_versions():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        att.show_versions()
+    lines = out.getvalue().splitlines()
+    assert lines[0] == "arrow_tpu_torch build info:"
+    assert "  version: 0.1.0" in lines and "runtime info:" in lines
+    assert att.show_info is att.show_versions
+
+
+@pytest.mark.parametrize("name", ["serialize_pandas", "deserialize_pandas"])
+def test_the_pandas_pair_waits_for_part_2(name):
+    with pytest.raises(NotImplementedError, match="item 13.2, part 2"):
+        getattr(att, name)(None)
+
+
+# --- types ------------------------------------------------------------------------
+
+def _type_cases(P):
+    f = P.field("x", P.int32(), False, {"k": "v"})
+    return {
+        "field": f, "field_with_name": f.with_name("y"),
+        "field_with_type": f.with_type(P.string()),
+        "field_with_nullable": f.with_nullable(True),
+        "field_without_metadata": f.remove_metadata(),
+        "schema_pairs": P.schema([("a", P.int8()), ("b", P.utf8())]),
+        "schema_dict": P.schema({"a": P.large_utf8()}, {"m": "1"}),
+        "schema_of_schema": P.schema(P.schema([f])),
+        "utf8": P.utf8(), "large_utf8": P.large_utf8(),
+        "dictionary_ordered": P.dictionary(P.int16(), P.string(), True),
+        "struct_dict": P.struct({"p": P.int8(), "q": P.bool_()}),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_type_cases(at)))
+def test_type_factories(case):
+    want, got = _type_cases(at)[case], _type_cases(att)[case]
+    if isinstance(want, at.Schema):
+        assert got.metadata == want.metadata
+        got, want = got.fields, want.fields
+    else:
+        got, want = [got], [want]
+    for g, w in zip(got, want, strict=True):
+        if isinstance(w, at.Field):
+            assert (g.name, g.nullable, g.metadata) == \
+                (w.name, w.nullable, w.metadata)
+            g, w = g.type, w.type
+        if w.id == at.TypeId.DICTIONARY:
+            assert (g.index_type, g.value_type) == \
+                (port_type(w.index_type), port_type(w.value_type))
+        else:
+            assert g == port_type(w)
+        assert getattr(g, "ordered", False) == getattr(w, "ordered", False)
+
+
+def _views_and_unions(P):
+    fs = [P.field("a", P.int8()), P.field("b", P.string())]
+    return {"string_view": P.string_view(), "binary_view": P.binary_view(),
+            "list_view": P.list_view(P.int64()),
+            "large_list_view": P.large_list_view(P.field("v", P.int8())),
+            "sparse_union": P.sparse_union(fs),
+            "dense_union": P.dense_union(fs, [5, 7])}
+
+
+@pytest.mark.parametrize("case", sorted(_views_and_unions(at)))
+def test_view_and_union_types(case):
+    want, got = _views_and_unions(at)[case], _views_and_unions(att)[case]
+    assert int(got.id) == int(want.id) and repr(got) == repr(want)
+    assert got == _views_and_unions(att)[case]
+    assert [(f.name, f.nullable) for f in got.fields] == \
+        [(f.name, f.nullable) for f in want.fields]
+    if "union" in case:
+        assert (got.mode, got.type_codes) == (want.mode, want.type_codes)
+        assert isinstance(got, att.UnionType)
+    with pytest.raises(NotImplementedError, match="item 13.2, part 3"):
+        att.array([None], got)
+
+
+def test_schema_edits():
+    want = at.schema([("a", at.int8()), ("b", at.int16()), ("a", at.int32())])
+    got = att.schema([("a", att.int8()), ("b", att.int16()),
+                      ("a", att.int32())])
+    assert got.get_all_field_indices("a") == want.get_all_field_indices("a")
+    assert got.field_by_name("b").type == att.int16()
+    assert got.field_by_name("zz") is None is want.field_by_name("zz")
+    assert got.insert(1, att.field("z", att.bool_())) == port_schema(
+        want.insert(1, at.field("z", at.bool_())))
+    assert got.remove(0) == port_schema(want.remove(0))
+    assert got.set(1, att.field("q", att.utf8())) == port_schema(
+        want.set(1, at.field("q", at.utf8())))
+    assert got.with_metadata({"x": "y"}).metadata == \
+        want.with_metadata({"x": "y"}).metadata
+    assert got.with_metadata({"x": "y"}).remove_metadata().metadata is None
+    empty = got.empty_table()
+    assert (empty.num_rows, empty.column_names) == (0, ["a", "b", "a"])
+    assert att.field("s", att.struct([("p", att.int8())])).flatten()[0] == \
+        att.field("s.p", att.int8())
+
+
+# --- memory, threads and the other names -----------------------------------------
+
+def test_memory_pools():
+    for P in (at, att):
+        assert P.supported_memory_backends() == ["system"]
+        assert P.system_memory_pool() is P.default_memory_pool()
+        assert P.total_allocated_bytes() >= 0
+        for make in (P.ProxyMemoryPool, P.proxy_memory_pool,
+                     P.logging_memory_pool):
+            pool = make(P.default_memory_pool())
+            assert isinstance(pool, P.MemoryPool)
+        for name in ("jemalloc_memory_pool", "mimalloc_memory_pool"):
+            with pytest.raises(NotImplementedError):
+                getattr(P, name)()
+    parent = att.MemoryPool()
+    proxy = att.ProxyMemoryPool(parent)
+    buf = proxy.allocate(100)
+    assert proxy.bytes_allocated() == parent.bytes_allocated() == 100
+    assert proxy.backend_name == "proxy[system]"
+    del buf
+    import gc
+    gc.collect()
+    assert proxy.bytes_allocated() == parent.bytes_allocated() == 0
+    capped = att.CappedMemoryPool(64, parent)
+    keep = capped.allocate(60)
+    with pytest.raises(MemoryError):
+        capped.allocate(8)
+    del keep
+    sink = io.StringIO()
+    logging = att.LoggingMemoryPool(parent, sink)
+    b = logging.allocate(7)
+    del b
+    gc.collect()
+    assert sink.getvalue() == "Allocate: size = 7\nFree: size = 7\n"
+    was = att.default_memory_pool()
+    att.log_memory_allocations(True)
+    assert isinstance(att.default_memory_pool(), att.LoggingMemoryPool)
+    att.log_memory_allocations(False)
+    assert att.default_memory_pool() is was
+    att.set_memory_pool(proxy)
+    try:
+        assert att.default_memory_pool() is proxy
+    finally:
+        att.set_memory_pool(was)
+
+
+def test_thread_counts_and_versions():
+    for P in (at, att):
+        assert P.cpu_count() >= 1 and P.io_thread_count() >= 1
+        with pytest.raises(ValueError):
+            P.set_cpu_count(0)
+        with pytest.raises(ValueError):
+            P.set_io_thread_count(0)
+    before = att.io_thread_count()
+    att.set_io_thread_count(3)
+    assert att.io_thread_count() == 3
+    att.set_io_thread_count(before)
+    assert att.cpp_version() == at.cpp_version() == "0.1.0"
+    assert att.cpp_version_info() == at.cpp_version_info()
+    assert att.cpp_build_info().version == att.build_info().version
+    assert att.VersionInfo is tuple and att.CppBuildInfo is att.BuildInfo
+    assert att.runtime_info().backend == "cpu"
+    assert att.__version__ == at.__version__
+
+
+def test_other_top_level_names():
+    assert att.NA is att.NULL and att.NA.as_py() is None
+    assert att.NA.type == att.null()
+    assert att.lib is att and att.util.__name__ == "arrow_tpu_torch.utils"
+    assert att.DeviceAllocationType.CPU == at.DeviceAllocationType.CPU == 1
+    opts = att.CacheOptions.from_network_metrics(5, 100)
+    want = at.CacheOptions.from_network_metrics(5, 100)
+    assert vars(opts) == vars(want)
+    assert att.Buffer(b"ab").to_pybytes() == b"ab"
+    assert att.allocate_buffer(3).size == 3
+    assert att.as_buffer(b"xyz").size == 3
+    data = att.array([1, None]).data
+    assert isinstance(data, att.ArrayData)
+    assert att.builder_for(att.int8()).type == att.int8()
+    tg = att.table({"k": [1, 1, 2]}).group_by("k")
+    assert isinstance(tg, att.TableGroupBy)
+    for name in ("pretty", "compare", "io", "memory", "config", "device",
+                 "parallel"):
+        assert isinstance(getattr(att, name), types.ModuleType), name
+
+
+# --- the README's first example -------------------------------------------------------
+
+def _readme(P, dev):
+    import importlib
+    pc = importlib.import_module(P.__name__ + ".compute")
+    acero = importlib.import_module(P.__name__ + ".acero")
+    ipc = importlib.import_module(P.__name__ + ".ipc")
+    field, Declaration = acero.field, acero.Declaration
+    t = P.table({"k": ["a", "b", "a"], "v": [1.0, 2.0, None]})
+    other = P.table({"k": ["a", "c"], "w": [10, 20]})
+    return [
+        pc.sum(t.column("v"), **dev),
+        t.filter(field("v") > 1.0, **dev),
+        t.group_by("k").aggregate([("v", "sum")], **dev),
+        t.join(other, keys="k", **dev),
+        t.sort_by([("v", "descending")], **dev),
+        Declaration.from_sequence([
+            Declaration("table_source", acero.TableSourceNodeOptions(t)),
+            Declaration("filter", acero.FilterNodeOptions(field("v") > 0)),
+            Declaration("aggregate", acero.AggregateNodeOptions(
+                [("v", "mean", None, "avg")], keys=["k"])),
+        ]).to_table(**dev),
+        ipc.serialize_table(t),
+    ]
+
+
+def test_readme_first_example():
+    want = _readme(at, {})
+    got = _readme(att, {"device": "cpu"})
+    assert got[0].as_py() == want[0].as_py() == 3.0
+    for g, w in zip(got[1:-1], want[1:-1]):
+        same(g, w)
+    assert bytes(got[-1]) == bytes(want[-1])
+
+
+# --- what is left --------------------------------------------------------------------
+
+# The reference's top-level names that the port lacks, by the later part of
+# ROADMAP.md item 13.2 that each waits for; part 3 also takes every name of
+# the reference's compat_names.py (pyarrow's per-type classes, Int8Array,
+# StringScalar, Decimal128Type, ...) that the port lacks.
+LATER = {
+    "part 2: interop": {
+        "Tensor", "SparseCOOTensor", "SparseCSCMatrix", "SparseCSFTensor",
+        "SparseCSRMatrix", "tensor", "c_data", "interchange"},
+    "part 3: extension, compat_names, device": {
+        "Bool8Type", "ExtensionArray", "ExtensionType",
+        "FixedShapeTensorArray", "FixedShapeTensorType", "JsonType",
+        "OpaqueType", "UuidType", "VariableShapeTensorType", "bool8",
+        "compat_names", "extension", "fixed_shape_tensor", "json_",
+        "opaque", "register_extension_type", "unregister_extension_type",
+        "uuid", "variable_shape_tensor", "Device", "MemoryManager",
+        "default_cpu_memory_manager"},
+    "part 4: flight": {"flight"},
+}
+# the reference's lazily imported modules, its __getattr__'s names
+REFERENCE_LAZY = ("acero", "dataset", "fs", "flight", "parallel", "tensor",
+                  "c_data", "gandiva", "device", "pretty", "substrait",
+                  "config", "orc", "compare", "interchange")
+
+
+def test_only_the_later_parts_of_item_13_2_are_left():
+    from arrow_tpu import compat_names
+    names = {n for n in dir(at) if not n.startswith("_")
+             and not isinstance(getattr(at, n), types.ModuleType)}
+    names |= set(REFERENCE_LAZY) | {"compute", "ipc", "util", "lib",
+                                    "memory", "config", "io"}
+    missing = {n for n in names if not hasattr(att, n)}
+    pinned = set().union(*LATER.values())
+    assert missing <= pinned | set(compat_names.__all__)
+    assert pinned & names <= missing
+
+
+@pytest.mark.parametrize("cls,methods", [
+    ("Table", {"to_pandas", "from_pandas", "to_tensor",
+               "__arrow_c_stream__", "__dataframe__"}),
+    ("RecordBatch", {"to_pandas", "from_pandas", "serialize",
+                     "__arrow_c_stream__", "__dataframe__"}),
+    ("ChunkedArray", {"to_pandas"}),
+    ("RecordBatchReader", {"read_pandas", "__arrow_c_stream__"}),
+    ("Array", {"to_pandas", "from_pandas", "__arrow_c_array__",
+               "__dlpack__", "__dlpack_device__"}),
+])
+def test_only_the_interop_methods_are_left(cls, methods):
+    """The containers' methods that the port lacks are part 2's."""
+    ref = {n for n in dir(getattr(at, cls))
+           if not n.startswith("_") or n in methods}
+    port = set(dir(getattr(att, cls)))
+    assert ref - port == methods

@@ -390,8 +390,9 @@ def test_files_are_not_ported_yet(tmp_path, slices, sample):
     files and rows (``tests/test_torch_file_dataset.py`` holds them to the
     reference in full); so does Parquet, the format both default to, here
     by default: the files' bytes and the dataset's rows. ``Dataset.join``
-    still raises, naming ROADMAP's item."""
-    _, data, port = slices
+    gives the reference's Table (``tests/test_torch_table_methods.py``
+    holds the joins in full)."""
+    ref, data, port = slices
     ds.write_dataset(port, str(tmp_path / "p"), format="ipc",
                      partitioning=["year"], partitioning_flavor="hive")
     jds.write_dataset(sample, str(tmp_path / "r"), format="ipc",
@@ -416,8 +417,8 @@ def test_files_are_not_ported_yet(tmp_path, slices, sample):
            jds.dataset(str(tmp_path / "rq")).to_table())
     _equal(ds.dataset([str(tmp_path / "rq" / "part-0.parquet")]).to_table(
         device="cpu"), sample)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        data.join(data, "year")
+    _equal(data.join(data, "year", right_suffix="_r", device="cpu"),
+           ref.join(ref, "year", right_suffix="_r"))
 
 
 def test_the_card_is_the_default(slices):

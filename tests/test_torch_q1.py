@@ -230,7 +230,9 @@ _HOST_BOUNDARY_MODULES = (
     "io/parquet/writer.py", "io/parquet/metadata.py",
     "io/parquet/encryption.py", "utils/snappy.py", "utils/brotli_ctypes.py",
     "utils/aes_ctypes.py", "io/csv.py", "io/csv_host.py", "io/json.py",
-    "io/orc.py", "io/host_arrays.py")
+    "io/orc.py", "io/host_arrays.py", "array/validate.py",
+    "array/builder.py", "pretty.py", "compare.py", "fs_s3.py", "fs_gcs.py",
+    "fs_azure.py", "fs_hdfs.py")
 
 
 @pytest.mark.parametrize("module", _HOST_BOUNDARY_MODULES)
@@ -239,7 +241,8 @@ def test_the_host_boundary_modules_are_guarded(module):
     and import no pandas, flatbuffers, fsspec or cryptography either (the
     card's machine lacks the first three; the port's AES is libcrypto's,
     by ctypes), nor zstandard when they are imported (the card's machine
-    lacks it; ORC's zstd imports it where a file needs it)."""
+    lacks it; ORC's zstd imports it where a file needs it). fs.py imports
+    fsspec only inside the fsspec adapters, when one is made."""
     path = REPO / "arrow_tpu_torch" / module
     assert path in _port_sources()
     tree = ast.parse(path.read_text())
@@ -259,6 +262,9 @@ def test_the_host_boundary_modules_are_guarded(module):
         else:
             continue
         for name in names:
+            if name == "fsspec" and module == "fs.py" and \
+                    node not in tree.body:
+                continue
             assert name.split(".")[0] not in (
                 "jax", "jaxlib", "arrow_tpu", "pyarrow", "pandas",
                 "flatbuffers", "fsspec", "cryptography"), name
