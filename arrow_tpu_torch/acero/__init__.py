@@ -2,12 +2,14 @@
 ``release_uploads(table)`` frees the card and page-locked memory that
 table sources keep for a host Table's columns (``source_cache``)."""
 
-from .exec import Declaration, compile_chain  # noqa: F401
+from .exec import (Declaration, compile_chain,  # noqa: F401
+                   execute_declaration)
 from .expression import Expression, field, scalar  # noqa: F401
 from .query_context import (ArrowMemoryError, QueryContext,  # noqa: F401
                             QueryOptions)
 from .options import (AggregateNodeOptions,  # noqa: F401
                       AsofJoinNodeOptions, ConsumingSinkNodeOptions,
+                      ExecNodeOptions,
                       FetchNodeOptions, FilterNodeOptions,
                       HashJoinNodeOptions, OrderByNodeOptions,
                       OrderBySinkNodeOptions, PivotLongerNodeOptions,

@@ -12,7 +12,8 @@ A Declaration tree runs node by node, eagerly, with no jit:
 * a hash join runs each side's trailing filter/project chain, recodes
   dictionary-coded key pairs into one union dictionary, prefilters the
   probe side with a bloom filter of the build keys when the probe side is
-  at least four times larger and the join type drops unmatched probe rows
+  at least four times larger (``GlobalOptions.bloom_mode`` ``auto``; or
+  always, or never) and the join type drops unmatched probe rows
   (inner, left semi, right semi, right outer), and plans the join. Right
   semi and anti joins filter the build batch, left semi and anti joins
   compact the probe batch, with no readback. The other types read back
@@ -63,7 +64,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import default_device, dtypes
+from .. import config, default_device, dtypes
 from .. import types as T
 from ..cancel import default_stop_token
 from ..compute import bloom
@@ -560,9 +561,11 @@ def _execute_hashjoin(options: HashJoinNodeOptions, left: DeviceBatch,
     jt = options.join_type
     # bloom pushdown where an unmatched probe row gives no output: the
     # filter has no false negatives; capacities are static, so this is
-    # decided on the host
-    bloom_on = (not options.disable_bloom_filter and jt in _BLOOM_TYPES
-                and left.capacity >= 4 * right.capacity)
+    # decided on the host (GlobalOptions.bloom_mode)
+    mode = config.global_options().bloom_mode or "auto"
+    bloom_on = (mode != "never" and not options.disable_bloom_filter
+                and jt in _BLOOM_TYPES
+                and (mode == "always" or left.capacity >= 4 * right.capacity))
     left = _apply(left_pre, left)
     right = _apply(right_pre, right)
     if options.filter_expression is not None:

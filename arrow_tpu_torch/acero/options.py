@@ -12,7 +12,11 @@ from .expression import Expression
 from .source_cache import table_of, uploaded_column
 
 
-class TableSourceNodeOptions:
+class ExecNodeOptions:
+    """The base of every plan node's options (acero/options.h:64)."""
+
+
+class TableSourceNodeOptions(ExecNodeOptions):
     """A plan source: a host ``Table`` or ``RecordBatch`` (``table``), or a
     DeviceBatch already made (``batch``). A host source's columns are
     prepared and uploaded once a device, and kept a column by
@@ -73,7 +77,7 @@ class TableSourceNodeOptions:
         return TableSourceNodeOptions(self.table.select(names))
 
 
-class RecordBatchReaderSourceNodeOptions:
+class RecordBatchReaderSourceNodeOptions(ExecNodeOptions):
     """A source that drains a ``RecordBatchReader`` (source_node.cc:582),
     once, into a host table source."""
 
@@ -92,7 +96,7 @@ class RecordBatchReaderSourceNodeOptions:
         return self._source
 
 
-class ScanNodeOptions:
+class ScanNodeOptions(ExecNodeOptions):
     """A dataset as a plan source (reference: dataset/scan_node.cc:123
     "scan", ``arrow_tpu/acero/options.py`` ``ScanNodeOptions``): the
     fragments that ``filter``'s partition pruning keeps, each uploaded a
@@ -132,7 +136,7 @@ class ScanNodeOptions:
                                self.require_sequenced_output, device)
 
 
-class ConsumingSinkNodeOptions:
+class ConsumingSinkNodeOptions(ExecNodeOptions):
     """Push each output batch into ``consumer`` (sink_node.cc
     "consuming_sink"): it is called with each RecordBatch, and its
     ``finish`` is called, where it has one, when the plan is done."""
@@ -153,7 +157,7 @@ class PivotLongerRowTemplate:
         self.measurement_values = list(measurement_values)
 
 
-class PivotLongerNodeOptions:
+class PivotLongerNodeOptions(ExecNodeOptions):
     """Wide to long (acero/options.h PivotLongerNodeOptions): every input
     column not read as a measurement, then the feature and measurement
     columns; each input row gives one row a template."""
@@ -167,12 +171,12 @@ class PivotLongerNodeOptions:
         self.measurement_field_names = list(measurement_field_names)
 
 
-class FilterNodeOptions:
+class FilterNodeOptions(ExecNodeOptions):
     def __init__(self, filter_expression: Expression):
         self.filter_expression = filter_expression
 
 
-class ProjectNodeOptions:
+class ProjectNodeOptions(ExecNodeOptions):
     def __init__(self, expressions: Sequence[Expression],
                  names: Optional[Sequence[str]] = None):
         self.expressions = [e if isinstance(e, Expression)
@@ -180,7 +184,7 @@ class ProjectNodeOptions:
         self.names = list(names) if names is not None else None
 
 
-class AggregateNodeOptions:
+class AggregateNodeOptions(ExecNodeOptions):
     """aggregates: (target, function, options, output_name) each, or
     (target, function, output_name). ``segment_keys`` (the reference's
     RowSegmenter) go in front of the grouping keys, and the output comes
@@ -208,14 +212,14 @@ def _sort_keys(keys) -> list:
             for k in keys]
 
 
-class OrderByNodeOptions:
+class OrderByNodeOptions(ExecNodeOptions):
     def __init__(self, sort_keys: Sequence[Tuple[str, str]],
                  null_placement: str = "at_end"):
         self.sort_keys = _sort_keys(sort_keys)
         self.null_placement = null_placement
 
 
-class FetchNodeOptions:
+class FetchNodeOptions(ExecNodeOptions):
     def __init__(self, offset: int = 0, count: int = -1):
         self.offset = int(offset)
         self.count = int(count)
@@ -225,7 +229,7 @@ JOIN_TYPES = ("inner", "left outer", "right outer", "full outer",
               "left semi", "right semi", "left anti", "right anti")
 
 
-class HashJoinNodeOptions:
+class HashJoinNodeOptions(ExecNodeOptions):
     """An equi-join; the left input probes, the right input builds.
     ``filter`` is a residual predicate on each matched pair. An empty
     output list emits no columns of that side; None emits all."""
@@ -254,11 +258,11 @@ class HashJoinNodeOptions:
         self.filter_expression = filter
 
 
-class UnionNodeOptions:
+class UnionNodeOptions(ExecNodeOptions):
     pass
 
 
-class AsofJoinNodeOptions:
+class AsofJoinNodeOptions(ExecNodeOptions):
     """For each left row, the most recent right row with the same by-keys
     whose ``on`` value lies in ``[left on + tolerance, left on]`` for a
     tolerance of at most 0, or at most ``left on`` (and within ``left on +
@@ -274,7 +278,7 @@ class AsofJoinNodeOptions:
         self.tolerance = int(tolerance)
 
 
-class SortedMergeNodeOptions:
+class SortedMergeNodeOptions(ExecNodeOptions):
     """A merge of inputs each sorted by ``sort_keys``."""
 
     def __init__(self, sort_keys, null_placement: str = "at_end"):
@@ -282,7 +286,7 @@ class SortedMergeNodeOptions:
         self.null_placement = null_placement
 
 
-class SinkNodeOptions:
+class SinkNodeOptions(ExecNodeOptions):
     """A terminal that passes its input through: results come out of
     ``Declaration.to_table()``."""
 

@@ -1,8 +1,8 @@
 """Top-level helpers (counterpart of ``arrow_tpu/api.py``; pyarrow's
 module-level functions): ``scalar``, ``nulls``, ``repeat``,
 ``infer_type``, ``concat_arrays``, ``concat_batches``, ``concat_tables``
-(with ``promote_options``), ``unify_schemas``, ``type_for_alias`` and
-``show_versions``. All of them are host work. ``serialize_pandas`` and
+(with ``promote_options``), ``unify_schemas``, ``type_for_alias``,
+``show_versions`` and ``array_data_from_sequence``. All of them are host work. ``serialize_pandas`` and
 ``deserialize_pandas`` wait for the pandas methods (ROADMAP.md item 13.2,
 part 2)."""
 
@@ -12,6 +12,7 @@ from typing import List, Optional, Sequence
 
 from . import types as _T
 from .array.array import Array, array as _make_array
+from .array.construct import array_data_from_sequence  # noqa: F401
 from .compute.registry import Scalar
 from .errors import ArrowInvalid
 from .table import ChunkedArray, RecordBatch, Table

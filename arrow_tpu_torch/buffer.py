@@ -47,6 +47,28 @@ class Buffer:
     def __repr__(self) -> str:
         return f"Buffer({self.size} bytes)"
 
+    @property
+    def address(self) -> int:
+        """The address of the first byte in host memory."""
+        return self._data.ctypes.data
+
+    def hex(self) -> bytes:
+        return self.to_pybytes().hex().encode()
+
+    @property
+    def is_cpu(self) -> bool:
+        """A Buffer always lies in host memory (the card's columns are
+        torch tensors, not Buffers)."""
+        return True
+
+    @property
+    def is_mutable(self) -> bool:
+        return self._data.flags.writeable
+
+    @property
+    def parent(self):
+        return None
+
 
 def as_buffer(obj) -> Buffer:
     return obj if isinstance(obj, Buffer) else Buffer(obj)

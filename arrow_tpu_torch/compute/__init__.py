@@ -23,15 +23,21 @@ import os
 import numpy as np
 
 from .registry import (ArrowInvalid, ArrowNotImplementedError,  # noqa: F401
-                       ExecContext, Scalar, call_function,
-                       function_registry, get_function, list_functions,
-                       register_eager)
+                       ExecContext, Scalar, call_function, get_function,
+                       list_functions, register_eager)
 from .options import *  # noqa: F401,F403 - the FunctionOptions classes
 from .options import FunctionOptions, __all__ as _OPTIONS
+from .registry import Function
+# pyarrow.compute builds expressions too: t.filter(pc.field("a") > 1)
+from ..acero.expression import Expression, field, scalar  # noqa: F401
 
 __all__ = [
     "call_function", "list_functions", "get_function", "function_registry",
-    "Scalar", "ArrowInvalid", "ArrowNotImplementedError",
+    "Scalar", "ArrowInvalid", "ArrowNotImplementedError", "Expression",
+    "field", "scalar", "utf8_zfill", "Kernel", "ScalarKernel",
+    "VectorKernel", "ScalarAggregateKernel", "HashAggregateKernel",
+    "Function", "ScalarFunction", "VectorFunction", "ScalarAggregateFunction",
+    "HashAggregateFunction", "FunctionRegistry",
     "filter", "take", "drop_null", "sort_indices", "array_sort_indices",
     "select_k_unstable", "rank", "unique", "value_counts",
     "dictionary_encode", "partition_nth_indices", "top_k_unstable",
@@ -209,6 +215,69 @@ def bottom_k_unstable(values, k, sort_keys=None, device=None):
         else [(n, "ascending") for n in sort_keys]
     return call_function("select_k_unstable", [_combine(values)],
                          {"k": k, "sort_keys": keys}, device=device)
+
+
+def utf8_zfill(strings, width=None, padding="0", *, options=None,
+               memory_pool=None, device=None):
+    """Alias of ``utf8_zero_fill`` (pyarrow.compute.utf8_zfill)."""
+    opts = {"width": width, "padding": padding} if options is None else \
+        (options.to_kwargs() if hasattr(options, "to_kwargs")
+         else dict(options))
+    return call_function("utf8_zero_fill", [_combine(strings)], opts,
+                         device=device)
+
+
+class Kernel:
+    """A kernel descriptor (compute/kernel.h). The port's kernels are
+    Python callables over DeviceColumns; the class exists for the API."""
+
+
+class ScalarKernel(Kernel):
+    pass
+
+
+class VectorKernel(Kernel):
+    pass
+
+
+class ScalarAggregateKernel(Kernel):
+    pass
+
+
+class HashAggregateKernel(Kernel):
+    pass
+
+
+class ScalarFunction(Function):
+    __slots__ = ()
+
+
+class VectorFunction(Function):
+    __slots__ = ()
+
+
+class ScalarAggregateFunction(Function):
+    __slots__ = ()
+
+
+class HashAggregateFunction(Function):
+    __slots__ = ()
+
+
+class FunctionRegistry:
+    """The registered functions by name (compute/registry.h:46)."""
+
+    def list_functions(self):
+        return list_functions()
+
+    def get_function(self, name):
+        return get_function(name)
+
+
+def function_registry() -> FunctionRegistry:
+    """The function registry (pyarrow.compute.function_registry); the
+    name -> Function dict itself is ``registry.function_registry()``."""
+    return FunctionRegistry()
 
 
 class UdfContext:

@@ -46,6 +46,21 @@ class Scalar:
 
     __hash__ = None
 
+    def cast(self, target_type, safe=True, options=None, device=None):
+        """This value as ``target_type`` (scalar.h CastTo): a one-row
+        Array's cast on ``device`` (the card unless ``device="cpu"``)."""
+        from ..array.array import array as make_array
+        out = make_array([self.value], self.type).cast(target_type,
+                                                       device=device)
+        return Scalar(out.to_pylist()[0], target_type)
+
+    def equals(self, other) -> bool:
+        return (isinstance(other, Scalar) and self.type == other.type
+                and self.value == other.value)
+
+    def validate(self, *, full: bool = False):
+        return None
+
 
 class ExecContext:
     """Per-call execution state handed to kernels. ``row_mask_`` may be set

@@ -9,8 +9,8 @@ import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
-__all__ = ["BuildInfo", "RuntimeInfo", "build_info", "runtime_info",
-           "env_options"]
+__all__ = ["BuildInfo", "RuntimeInfo", "GlobalOptions", "build_info",
+           "runtime_info", "env_options", "initialize", "global_options"]
 
 # the ARROW_TPU_* variables the port reads, and what each sets
 _ENV_KNOBS = {
@@ -41,6 +41,54 @@ class RuntimeInfo:
     backend: str
     num_devices: int
     x64_enabled: bool
+
+
+@dataclass
+class GlobalOptions:
+    """Process-wide defaults (config.h GlobalOptions), set with
+    ``initialize``. The port honours ``bloom_mode``: its hash joins read it
+    (``auto``, the default: the bloom where the probe side has at least 4x
+    the build side's rows; ``always``; ``never``). It refuses the other
+    three: its dataset scan reads the fragments in order as it uploads
+    them, so it has no IO pool for ``io_threads`` or ``fragment_readahead``
+    to size, and ``movement_mode`` chooses among the reference's TPU data
+    movement paths, where the port has one."""
+    io_threads: Optional[int] = None
+    fragment_readahead: Optional[int] = None
+    bloom_mode: Optional[str] = None       # auto|always|never
+    movement_mode: Optional[str] = None    # auto|sort|direct|scatter
+
+
+_GLOBAL = GlobalOptions()
+
+_BLOOM_MODES = ("auto", "always", "never")
+_REFUSED = {
+    "io_threads": "the port's dataset scan has no IO thread pool",
+    "fragment_readahead": "the port's dataset scan reads no fragment ahead",
+    "movement_mode": "the port has one data movement path (the reference's "
+                     "movement modes exist to work around the TPU)",
+}
+
+
+def initialize(options: Optional[GlobalOptions] = None) -> None:
+    """arrow::Initialize: make ``options`` the process's defaults (None
+    changes nothing). Raises NotImplementedError for an option the port
+    does not honour and ValueError for an unknown ``bloom_mode``, and then
+    changes nothing."""
+    global _GLOBAL
+    if options is None:
+        return
+    for name, why in _REFUSED.items():
+        if getattr(options, name) is not None:
+            raise NotImplementedError(f"GlobalOptions.{name}: {why}")
+    if options.bloom_mode not in (None,) + _BLOOM_MODES:
+        raise ValueError(f"bloom_mode must be one of {_BLOOM_MODES}, not "
+                         f"{options.bloom_mode!r}")
+    _GLOBAL = options
+
+
+def global_options() -> GlobalOptions:
+    return _GLOBAL
 
 
 def build_info() -> BuildInfo:

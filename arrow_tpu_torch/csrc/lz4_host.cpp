@@ -16,6 +16,7 @@
 // (host_library) and loaded with ctypes; plain C interface.
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -129,6 +130,35 @@ int64_t decode_in_order(const uint8_t* in, const std::vector<Block>& blocks,
   return op;
 }
 
+// Runs fn(b) for every b in [0, n) on up to `threads` threads, the calling
+// one among them, the blocks handed out by a shared counter. A thread that
+// cannot start leaves its share to the others, and an exception in fn
+// stops the work: no exception leaves this call, and so none crosses the
+// C interface. Returns false where fn threw.
+template <typename Fn>
+bool for_blocks(int64_t n, int64_t threads, Fn fn) {
+  std::atomic<int64_t> next{0};
+  std::atomic<bool> failed{false};
+  auto work = [&]() {
+    try {
+      for (int64_t b; !failed && (b = next++) < n;) fn(b);
+    } catch (...) {
+      failed = true;
+    }
+  };
+  std::vector<std::thread> pool;
+  try {
+    int64_t nt = std::max<int64_t>(1, std::min<int64_t>(threads, n));
+    pool.reserve(static_cast<size_t>(nt - 1));
+    for (int64_t t = 1; t < nt; t++) pool.emplace_back(work);
+  } catch (...) {
+    // no more threads: the ones started and this one share the blocks
+  }
+  work();
+  for (auto& th : pool) th.join();
+  return !failed;
+}
+
 }  // namespace
 
 extern "C" {
@@ -197,9 +227,10 @@ int64_t lz4_block_compress(const uint8_t* in, int64_t n, uint8_t* out) {
 // The reference's frame of n bytes: magic, FLG 0x60, BD 0x70, header
 // checksum `hc`, 4 MiB blocks (each compressed, or raw with the high bit
 // where compression does not shrink it), the end mark. `out` holds at
-// least 11 + n + 4 * blocks bytes. Returns the frame's size.
+// least 11 + n + 4 * blocks bytes. Returns the frame's size, or -3 where
+// memory ran out.
 int64_t lz4_frame_compress(const uint8_t* in, int64_t n, uint8_t* out,
-                           uint8_t hc, int32_t threads) {
+                           uint8_t hc, int32_t threads) try {
   write32(out, kMagic);
   out[4] = 0x60;
   out[5] = 0x70;
@@ -208,18 +239,13 @@ int64_t lz4_frame_compress(const uint8_t* in, int64_t n, uint8_t* out,
   int64_t nblocks = (n + kBlockMax - 1) / kBlockMax;
   std::vector<std::vector<uint8_t>> comp(nblocks);
   std::vector<int64_t> sizes(nblocks);
-  auto work = [&](int64_t first, int64_t step) {
-    for (int64_t b = first; b < nblocks; b += step) {
-      int64_t len = std::min(kBlockMax, n - b * kBlockMax);
-      comp[b].resize(len + len / 8 + 64);
-      sizes[b] = lz4_block_compress(in + b * kBlockMax, len, comp[b].data());
-    }
-  };
-  int64_t nt = std::max<int64_t>(1, std::min<int64_t>(threads, nblocks));
-  std::vector<std::thread> pool;
-  for (int64_t t = 1; t < nt; t++) pool.emplace_back(work, t, nt);
-  work(0, nt);
-  for (auto& th : pool) th.join();
+  if (!for_blocks(nblocks, threads, [&](int64_t b) {
+        int64_t len = std::min(kBlockMax, n - b * kBlockMax);
+        comp[b].resize(len + len / 8 + 64);
+        sizes[b] = lz4_block_compress(in + b * kBlockMax, len,
+                                      comp[b].data());
+      }))
+    return -3;
   for (int64_t b = 0; b < nblocks; b++) {
     int64_t len = std::min(kBlockMax, n - b * kBlockMax);
     if (sizes[b] < len) {
@@ -235,11 +261,14 @@ int64_t lz4_frame_compress(const uint8_t* in, int64_t n, uint8_t* out,
   }
   write32(out + op, 0);
   return op + 4;
+} catch (...) {
+  return -3;
 }
 
 // The most bytes a frame can decode to (raw blocks at their size, others
-// at the frame's block maximum), or -1 where it is not an LZ4 frame.
-int64_t lz4_frame_bound(const uint8_t* in, int64_t n) {
+// at the frame's block maximum), -1 where it is not an LZ4 frame, -3 where
+// memory ran out.
+int64_t lz4_frame_bound(const uint8_t* in, int64_t n) try {
   int64_t block_max;
   bool independent;
   std::vector<Block> blocks;
@@ -247,14 +276,17 @@ int64_t lz4_frame_bound(const uint8_t* in, int64_t n) {
   int64_t total = 0;
   for (const Block& b : blocks) total += b.raw ? b.size : block_max;
   return total;
+} catch (...) {
+  return -3;
 }
 
 // Decodes a frame into `out`: the bytes written, -1 where it is malformed,
-// -2 where out_cap is too small. Independent blocks decode on up to
-// `threads` threads, each at its place were every block but the last
-// full; where one is not, the frame decodes again in order.
+// -2 where out_cap is too small, -3 where memory ran out. Independent
+// blocks decode on up to `threads` threads, each at its place were every
+// block but the last full; where one is not, the frame decodes again in
+// order.
 int64_t lz4_frame_decompress(const uint8_t* in, int64_t n, uint8_t* out,
-                             int64_t out_cap, int32_t threads) {
+                             int64_t out_cap, int32_t threads) try {
   int64_t block_max;
   bool independent;
   std::vector<Block> blocks;
@@ -265,34 +297,30 @@ int64_t lz4_frame_decompress(const uint8_t* in, int64_t n, uint8_t* out,
     return decode_in_order(in, blocks, independent, out, out_cap);
   }
   std::vector<int64_t> got(nb);
-  auto work = [&](int64_t first, int64_t step) {
-    for (int64_t b = first; b < nb; b += step) {
-      int64_t at = b * block_max;
-      int64_t cap = std::min(block_max, out_cap - at);
-      const Block& blk = blocks[b];
-      if (blk.raw) {
-        if (blk.size > cap) {
-          got[b] = -2;
-        } else {
-          std::memcpy(out + at, in + blk.pos, blk.size);
-          got[b] = blk.size;
-        }
+  bool ok = for_blocks(nb, threads, [&](int64_t b) {
+    int64_t at = b * block_max;
+    int64_t cap = std::min(block_max, out_cap - at);
+    const Block& blk = blocks[b];
+    if (blk.raw) {
+      if (blk.size > cap) {
+        got[b] = -2;
       } else {
-        got[b] = block_decode(in + blk.pos, blk.size, out + at, cap, 0);
+        std::memcpy(out + at, in + blk.pos, blk.size);
+        got[b] = blk.size;
       }
+    } else {
+      got[b] = block_decode(in + blk.pos, blk.size, out + at, cap, 0);
     }
-  };
-  int64_t nt = std::min<int64_t>(threads, nb);
-  std::vector<std::thread> pool;
-  for (int64_t t = 1; t < nt; t++) pool.emplace_back(work, t, nt);
-  work(0, nt);
-  for (auto& th : pool) th.join();
+  });
+  if (!ok) return -3;
   for (int64_t b = 0; b < nb; b++) {
     if (got[b] < 0 || (b < nb - 1 && got[b] != block_max)) {
       return decode_in_order(in, blocks, independent, out, out_cap);
     }
   }
   return (nb - 1) * block_max + got[nb - 1];
+} catch (...) {
+  return -3;
 }
 
 }  // extern "C"

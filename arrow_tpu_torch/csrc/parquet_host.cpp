@@ -80,6 +80,7 @@ int64_t rle_decode(const uint8_t* data, int64_t len, int64_t pos,
     if (header & 1) {  // bit-packed groups of 8 values
       int64_t groups = static_cast<int64_t>(header >> 1);
       int64_t n = groups * 8;
+      if (bit_width > 0 && groups > (len - pos) / bit_width) return -1;
       int64_t nbytes = groups * bit_width;
       if (pos + nbytes > len) return -1;
       int64_t take = n < num_values - filled ? n : num_values - filled;
@@ -387,15 +388,25 @@ static void tc_skip_struct(TC& r) {
   }
 }
 
+// Moves the cursor n bytes on; a move past the end stops it (ok false).
+static void tc_advance(TC& r, uint64_t n) {
+  if (n > static_cast<uint64_t>(r.len - r.pos)) {
+    r.pos = r.len;
+    r.ok = false;
+    return;
+  }
+  r.pos += static_cast<int64_t>(n);
+}
+
 static void tc_skip(TC& r, int type) {
   switch (type) {
     case 1: case 2: return;  // bool
-    case 3: r.pos += 1; return;  // byte
+    case 3: tc_advance(r, 1); return;  // byte
     case 4: case 5: case 6: tc_varint(r); return;  // i16, i32, i64
-    case 7: r.pos += 8; return;  // double
+    case 7: tc_advance(r, 8); return;  // double
     case 8: {  // binary
       uint64_t n = tc_varint(r);
-      r.pos += static_cast<int64_t>(n);
+      if (r.ok) tc_advance(r, n);
       return;
     }
     case 9: case 10: {  // list, set
@@ -404,16 +415,21 @@ static void tc_skip(TC& r, int type) {
         return;
       }
       uint8_t h = r.d[r.pos++];
-      int64_t n = h >> 4;
+      uint64_t n = h >> 4;
       int et = h & 0x0F;
-      if (n == 15) n = static_cast<int64_t>(tc_varint(r));
-      for (int64_t i = 0; i < n && r.ok; i++) tc_skip(r, et);
+      if (n == 15) n = tc_varint(r);
+      // every element takes a byte or more: a longer list is truncated
+      if (n > static_cast<uint64_t>(r.len - r.pos)) {
+        r.ok = false;
+        return;
+      }
+      for (uint64_t i = 0; i < n && r.ok; i++) tc_skip(r, et);
       return;
     }
     case 11: {  // map
       uint64_t n = tc_varint(r);
-      if (n == 0) return;
-      if (r.pos >= r.len) {
+      if (n == 0 || !r.ok) return;
+      if (r.pos >= r.len || n > static_cast<uint64_t>(r.len - r.pos)) {
         r.ok = false;
         return;
       }
@@ -502,7 +518,7 @@ extern "C" {
 // 6 nulls, 7 definition levels' bytes, 8 repetition levels' bytes,
 // 9 whether a v2 page's values are compressed. Returns the page count, or
 // -1 for a malformed or truncated chunk or one of more than max_pages
-// pages.
+// pages, or of a page whose sizes are negative or whose levels overrun it.
 int64_t pq_scan_pages(const uint8_t* blob, int64_t len, int64_t expect_values,
                       int64_t max_pages, int64_t* tab) {
   pq::TC r{blob, len, 0, true};
@@ -511,7 +527,11 @@ int64_t pq_scan_pages(const uint8_t* blob, int64_t len, int64_t expect_values,
     pq::Page p;
     if (r.pos >= r.len) return -1;
     if (!pq::parse_page_header(r, p) || !r.ok) return -1;
-    if (p.comp < 0 || r.pos + p.comp > len) return -1;
+    if (p.comp < 0 || p.comp > len - r.pos) return -1;
+    // sizes a page header may not hold: the decoder trusts the rest
+    if (p.uncomp < 0 || p.nvals < 0 || p.nnulls < 0 || p.dl_len < 0 ||
+        p.rl_len < 0 || p.dl_len + p.rl_len > p.comp)
+      return -1;
     int64_t* row = tab + npages * 10;
     row[0] = p.ptype;
     row[1] = r.pos;
@@ -535,7 +555,19 @@ int64_t pq_scan_pages(const uint8_t* blob, int64_t len, int64_t expect_values,
 // page_kind: 0 a dictionary or other page, 1 PLAIN, 2 dictionary indices;
 // totals[5]: values, present values, PLAIN bytes, indices, dictionary
 // bytes. Returns 0, or -2 malformed, -3 an encoding it does not decode,
-// -4 a buffer too small.
+// -4 a buffer too small (or no memory for a page). Every row of `tab` is
+// checked again here, so that no size reaches a resize or a memcpy
+// unchecked, and no C++ exception leaves the call.
+static int64_t decode_flat(const uint8_t* blob, int64_t len,
+                           const int64_t* tab, int64_t n_pages, int32_t codec,
+                           int32_t max_def, int32_t def_bw,
+                           int32_t byte_width, uint8_t* out_validity,
+                           int64_t validity_cap, uint8_t* out_plain,
+                           int64_t plain_cap, int64_t* out_idx,
+                           int64_t idx_cap, uint8_t* out_dict,
+                           int64_t dict_cap, int64_t* page_kind,
+                           int64_t* page_npresent, int64_t* totals);
+
 int64_t pq_decode_flat(const uint8_t* blob, int64_t len, const int64_t* tab,
                        int64_t n_pages, int32_t codec, int32_t max_def,
                        int32_t def_bw, int32_t byte_width,
@@ -545,6 +577,27 @@ int64_t pq_decode_flat(const uint8_t* blob, int64_t len, const int64_t* tab,
                        uint8_t* out_dict, int64_t dict_cap,
                        int64_t* page_kind, int64_t* page_npresent,
                        int64_t* totals) {
+  try {
+    return decode_flat(blob, len, tab, n_pages, codec, max_def, def_bw,
+                       byte_width, out_validity, validity_cap, out_plain,
+                       plain_cap, out_idx, idx_cap, out_dict, dict_cap,
+                       page_kind, page_npresent, totals);
+  } catch (const std::exception&) {
+    return -4;
+  }
+}
+
+}  // extern "C"
+
+static int64_t decode_flat(const uint8_t* blob, int64_t len,
+                           const int64_t* tab, int64_t n_pages, int32_t codec,
+                           int32_t max_def, int32_t def_bw,
+                           int32_t byte_width, uint8_t* out_validity,
+                           int64_t validity_cap, uint8_t* out_plain,
+                           int64_t plain_cap, int64_t* out_idx,
+                           int64_t idx_cap, uint8_t* out_dict,
+                           int64_t dict_cap, int64_t* page_kind,
+                           int64_t* page_npresent, int64_t* totals) {
   std::vector<uint8_t> scratch;
   std::vector<int64_t> lvl;
   int64_t vpos = 0, ppos = 0, ipos = 0, dbytes = 0, npresent_all = 0;
@@ -555,7 +608,9 @@ int64_t pq_decode_flat(const uint8_t* blob, int64_t len, const int64_t* tab,
             v2c = row[9];
     page_kind[pi] = 0;
     page_npresent[pi] = 0;
-    if (off + comp > len) return -2;
+    if (off < 0 || comp < 0 || uncomp < 0 || nvals < 0 || dl_len < 0 ||
+        rl_len < 0 || comp > len - off || dl_len + rl_len > comp)
+      return -2;
     if (ptype == 2) {  // a dictionary page
       if (enc != 0 && enc != 2) return -3;
       if (uncomp > dict_cap) return -4;
@@ -583,6 +638,7 @@ int64_t pq_decode_flat(const uint8_t* blob, int64_t len, const int64_t* tab,
       int64_t vlen = comp - dl_len - rl_len;
       if (vlen < 0) return -2;
       if (codec != 0 && v2c) {
+        if (uncomp < dl_len + rl_len) return -2;
         scratch.resize(static_cast<size_t>(uncomp - dl_len - rl_len + 8));
         int64_t n = snappy_decompress(vsrc, vlen, scratch.data(),
                                       static_cast<int64_t>(scratch.size()));
@@ -663,5 +719,3 @@ int64_t pq_decode_flat(const uint8_t* blob, int64_t len, const int64_t* tab,
   totals[4] = dbytes;
   return 0;
 }
-
-}  // extern "C"

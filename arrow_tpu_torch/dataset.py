@@ -48,10 +48,12 @@ import numpy as np
 
 from .acero import Declaration, field
 from .acero.expression import Expression, simplify_with_guarantee
-from .acero.options import ScanNodeOptions
+from .acero.options import (FilterNodeOptions,  # noqa: F401
+                            ScanNodeOptions, TableSourceNodeOptions)
 from .array.array import Array
 from .array.data import ArrayData
 from .buffer import Buffer
+from .fs import FileSelector, FileSystem, LocalFileSystem  # noqa: F401
 from .table import ChunkedArray, RecordBatch, Table
 from .types import Field, Schema, TypeId
 from .utils import bits as bitutil
@@ -662,7 +664,6 @@ class FileSystemDataset(Dataset):
     @classmethod
     def from_paths(cls, paths, schema=None, format="parquet",
                    filesystem=None) -> "FileSystemDataset":
-        from .fs import LocalFileSystem
         fmt = _format(format)
         fs = filesystem or LocalFileSystem()
         frags = [FileFragment(fs, p, fmt, {}, None) for p in paths]
@@ -692,7 +693,6 @@ def dataset(source, format="parquet",
     directory but those whose path there has a part starting with ``_``
     or ``.``, each with the partition values ``partitioning`` parses from
     its directory (a ``FileSystemDataset``)."""
-    from .fs import FileSelector, LocalFileSystem
     if isinstance(source, (Table, RecordBatch)):
         return InMemoryDataset(source, schema)
     if isinstance(source, (list, tuple)) and source:
@@ -866,7 +866,6 @@ def write_dataset(data, base_dir: str, format="parquet",
     the reference has none) is called with a ``WrittenFile`` for each file
     written, in order: its path, its metadata (a Parquet file's
     FileMetaData) and its size."""
-    from .fs import LocalFileSystem
     fmt = _format(format)
     fs = filesystem or LocalFileSystem()
 

@@ -206,7 +206,8 @@ def pq_decode_flat(blob, tab: np.ndarray, codec: int, max_def: int,
     """A flat fixed-width column chunk decoded in one call: (validity
     uint8, PLAIN bytes, dictionary indices int64, each page's kind, each
     page's present values, the dictionary page's bytes), or None where an
-    encoding or codec is one the call does not decode."""
+    encoding or codec is one the call does not decode. A malformed chunk
+    raises OSError."""
     lib = library()
     src = _bytes_of(blob)
     tab = np.ascontiguousarray(tab, dtype=np.int64)
@@ -228,6 +229,9 @@ def pq_decode_flat(blob, tab: np.ndarray, codec: int, max_def: int,
         byte_width, _ptr(validity), validity.size, _ptr(plain), plain.size,
         _ptr(idx), idx.size, _ptr(dict_buf), dict_buf.size, _ptr(page_kind),
         _ptr(page_np), _ptr(totals))
+    if rc == -2:
+        raise OSError("malformed Parquet column chunk: a page's sizes or "
+                      "levels overrun it")
     if rc != 0:
         return None
     nv, _, pbytes, icount, dbytes = (int(totals[i]) for i in range(5))

@@ -11,7 +11,9 @@ the standard 3-level form
         optional <leaf> element } }
 
 with two definition levels (the list is not null, the slot exists) and one
-repetition level; an optional struct or leaf adds one definition level.
+repetition level; an optional struct or leaf adds one definition level. A
+non-nullable field's root is REQUIRED and adds none (the writer's schema
+makes only the root required; its children stay optional).
 ``shred`` turns Python rows into (definition, repetition, value) streams a
 leaf, and ``assemble`` turns them back into rows; the reader builds the
 column's Array from those rows, as the reference does.
@@ -57,32 +59,37 @@ def is_nested(t: DataType) -> bool:
     return t.id in _LIST_IDS or t.id == TypeId.STRUCT
 
 
-def leaf_specs(name: str, t: DataType) -> List[LeafSpec]:
-    """Depth-first leaves of a nested (or flat) field."""
+def leaf_specs(name: str, t: DataType,
+               nullable: bool = True) -> List[LeafSpec]:
+    """Depth-first leaves of a nested (or flat) field; the root adds no
+    definition level where it is not ``nullable``."""
     out: List[LeafSpec] = []
 
-    def walk(t: DataType, path, d, r, nodes):
+    def walk(t: DataType, path, d, r, nodes, o=1):
         if t.id in _LIST_IDS:
-            walk(t.value_type, path + ["list", "element"], d + 2, r + 1,
-                 nodes + [("list", d + 1, r + 1)])
+            walk(t.value_type, path + ["list", "element"], d + o + 1, r + 1,
+                 nodes + [("list", d + o, r + 1)])
         elif t.id == TypeId.STRUCT:
+            inner = nodes + [("opt", d + 1)] if o else nodes
             for f in t.fields:
-                walk(f.type, path + [f.name], d + 1, r,
-                     nodes + [("opt", d + 1)])
+                walk(f.type, path + [f.name], d + o, r, inner)
         else:
-            out.append(LeafSpec(path, t, d + 1, r,
-                                nodes + [("opt", d + 1)]))
+            out.append(LeafSpec(path, t, d + o, r,
+                                nodes + [("opt", d + o)]))
 
-    walk(t, [name], 0, 0, [])
+    walk(t, [name], 0, 0, [], int(nullable))
     return out
 
 
 # --- shredding -------------------------------------------------------------
 
 
-def shred(name: str, t: DataType, rows: Sequence[Any]):
-    """rows -> [(leaf_spec, defs int64[], reps int64[], values list)]."""
-    specs = leaf_specs(name, t)
+def shred(name: str, t: DataType, rows: Sequence[Any],
+          nullable: bool = True):
+    """rows -> [(leaf_spec, defs int64[], reps int64[], values list)]; a
+    field that is not ``nullable`` has a REQUIRED root and holds no null
+    row."""
+    specs = leaf_specs(name, t, nullable)
     streams = [([], [], []) for _ in specs]
 
     def emit_nulls(si_lo, si_hi, d, r):
@@ -100,19 +107,23 @@ def shred(name: str, t: DataType, rows: Sequence[Any]):
             return si
         return si + 1
 
-    def walk(v, t: DataType, d, r, si, rdepth) -> int:
+    def walk(v, t: DataType, d, r, si, rdepth, o=1) -> int:
         """Returns next leaf index after t's subtree. `r` is the rep value
         for this subtree's FIRST entry; `rdepth` counts repeated
-        ancestors."""
+        ancestors; `o` is the definition level this node adds (0 for a
+        REQUIRED root)."""
+        if v is None and not o:
+            raise ValueError(f"column {name!r} is declared non-nullable "
+                             "but holds nulls")
         if t.id in _LIST_IDS:
             si_end = leaf_range(t, si)
             if v is None:
                 emit_nulls(si, si_end, d, r)
             elif len(v) == 0:
-                emit_nulls(si, si_end, d + 1, r)
+                emit_nulls(si, si_end, d + o, r)
             else:
                 for i, item in enumerate(v):
-                    walk(item, t.value_type, d + 2,
+                    walk(item, t.value_type, d + o + 1,
                          r if i == 0 else rdepth + 1, si, rdepth + 1)
             return si_end
         if t.id == TypeId.STRUCT:
@@ -123,7 +134,7 @@ def shred(name: str, t: DataType, rows: Sequence[Any]):
             for f in t.fields:
                 fv = (v.get(f.name) if isinstance(v, dict) else
                       getattr(v, f.name))
-                si = walk(fv, f.type, d + 1, r, si, rdepth)
+                si = walk(fv, f.type, d + o, r, si, rdepth)
             return si
         # leaf
         defs, reps, vals = streams[si]
@@ -131,13 +142,13 @@ def shred(name: str, t: DataType, rows: Sequence[Any]):
             defs.append(d)
             reps.append(r)
         else:
-            defs.append(d + 1)
+            defs.append(d + o)
             reps.append(r)
             vals.append(v)
         return si + 1
 
     for row in rows:
-        walk(row, t, 0, 0, 0, 0)
+        walk(row, t, 0, 0, 0, 0, int(nullable))
 
     return [(spec, np.asarray(s[0], np.int64), np.asarray(s[1], np.int64),
              s[2]) for spec, s in zip(specs, streams)]
@@ -197,9 +208,10 @@ def _assemble_leaf(spec: LeafSpec, defs, reps, values) -> List[Any]:
     return rows
 
 
-def _merge(t: DataType, skels: List[Any], d: int):
+def _merge(t: DataType, skels: List[Any], d: int, o: int = 1):
     """Merge per-leaf skeletons of a subtree into final python values.
-    skels has one entry per leaf of t (parallel structure)."""
+    skels has one entry per leaf of t (parallel structure); `o` is the
+    definition level the subtree's root adds (0 where it is REQUIRED)."""
     if t.id in _LIST_IDS:
         s0 = skels[0]
         if isinstance(s0, _Null):
@@ -209,11 +221,11 @@ def _merge(t: DataType, skels: List[Any], d: int):
         items = []
         for k in range(len(s0)):
             items.append(_merge(t.value_type, [s[k] for s in skels],
-                                d + 2))
+                                d + o + 1))
         return items
     if t.id == TypeId.STRUCT:
-        d_struct = d + 1
-        if all(isinstance(s, _Null) for s in skels) and \
+        d_struct = d + o
+        if o and all(isinstance(s, _Null) for s in skels) and \
                 all(s.d < d_struct for s in skels):
             return None
         out = {}
@@ -235,10 +247,12 @@ def _leaf_count(t: DataType) -> int:
     return 1
 
 
-def assemble(t: DataType, leaf_results) -> List[Any]:
+def assemble(t: DataType, leaf_results, nullable: bool = True) -> List[Any]:
     """leaf_results: [(spec, defs, reps, values)] in leaf_specs order ->
-    python rows for the nested field."""
+    python rows for the nested field (REQUIRED at its root where it is not
+    ``nullable``)."""
     skel_rows = [_assemble_leaf(spec, defs, reps, vals)
                  for spec, defs, reps, vals in leaf_results]
     n = len(skel_rows[0]) if skel_rows else 0
-    return [_merge(t, [sr[i] for sr in skel_rows], 0) for i in range(n)]
+    o = int(nullable)
+    return [_merge(t, [sr[i] for sr in skel_rows], 0, o) for i in range(n)]

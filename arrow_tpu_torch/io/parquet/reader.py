@@ -738,7 +738,7 @@ class ParquetFile:
                 spec = LeafSpec([], cs.arrow_type, cs.max_def, cs.max_rep,
                                 cs.nodes)
                 leaf_results.append((spec, defs, reps, flat.to_pylist()))
-            rows = assemble(fd.arrow_type, leaf_results)
+            rows = assemble(fd.arrow_type, leaf_results, fd.nullable)
             arrays.append(make_array(rows, fd.arrow_type))
             fields.append(Field(fd.name, fd.arrow_type, fd.nullable))
         return RecordBatch(Schema(fields), arrays)
@@ -905,14 +905,21 @@ class ParquetFile:
                 ptype = ph.get(1)
                 uncomp = ph.get(2, 0)
             else:
+                if pos >= len(blob):
+                    raise OSError(f"Parquet column {cs.name!r}: the chunk "
+                                  "ends before its values")
                 header = CompactReader(blob, pos)
                 ph = header.read_struct()
                 pos = header.pos
                 ptype = ph.get(1)
                 uncomp = ph.get(2, 0)
                 comp = ph.get(3, 0)
+                if comp < 0 or comp > len(blob) - pos:
+                    raise OSError(f"Parquet column {cs.name!r}: a page's "
+                                  f"compressed size {comp} is out of range")
                 payload = blob[pos:pos + comp]
                 pos += comp
+            _check_page(cs, ph, len(payload))
             if ptype == PAGE_DICT:
                 dph = ph.get(7, {})
                 payload = _decompress(codec, payload, uncomp)
@@ -930,6 +937,10 @@ class ParquetFile:
                     rep_parts.append(reps)
                 if cs.max_def > 0:
                     (lvl_len,) = struct.unpack_from("<i", payload, p)
+                    if lvl_len < 0 or p + 4 + lvl_len > len(payload):
+                        raise OSError(f"Parquet column {cs.name!r}: "
+                                      f"levels of {lvl_len} bytes overrun "
+                                      "their page")
                     defs = decode_rle(payload, p + 4, nvals, def_bw)
                     p += 4 + lvl_len
                 else:
@@ -970,6 +981,24 @@ class ParquetFile:
         reps = np.concatenate(rep_parts) if rep_parts else \
             np.zeros(len(defs), dtype=np.int64)
         return defs, reps, values_parts, bin_parts, dictionary
+
+
+def _check_page(cs, ph: Dict, payload_len: int) -> None:
+    """OSError (pyarrow's class for a malformed file) where a page
+    header's sizes cannot be those of a page: negative sizes, value or
+    null counts, or levels longer than the page."""
+    sub = ph.get(5) or ph.get(7) or ph.get(8) or {}
+    v2 = ph.get(8) or {}
+    sizes = {"uncompressed size": ph.get(2, 0), "values": sub.get(1, 0),
+             "nulls": v2.get(2, 0), "definition levels": v2.get(5, 0),
+             "repetition levels": v2.get(6, 0)}
+    for what, v in sizes.items():
+        if not isinstance(v, int) or v < 0:
+            raise OSError(f"Parquet column {cs.name!r}: a page header "
+                          f"gives {what} {v}")
+    if v2.get(5, 0) + v2.get(6, 0) > payload_len:
+        raise OSError(f"Parquet column {cs.name!r}: a page's levels "
+                      "overrun the page")
 
 
 def _decode_values(cs, enc, payload, p, n_present, dictionary,
@@ -1045,7 +1074,8 @@ def _decode_plain(cs: ColumnSchema, data: bytes, n: int):
 def _assemble(cs: ColumnSchema, defs: np.ndarray, values_parts,
               bin_parts, dictionary) -> Array:
     n = len(defs)
-    present = defs.astype(np.bool_)
+    # a REQUIRED column's levels are all 0 (it has none): every row present
+    present = defs.astype(np.bool_) if cs.max_def else np.ones(n, np.bool_)
     null_count = int(n - present.sum())
     validity = None if null_count == 0 else \
         Buffer(bitutil.pack_bits(present))

@@ -389,13 +389,15 @@ class ParquetWriter:
         for f, col in zip(self.schema.fields, rb.columns):
             if is_nested(f.type):
                 rows = col.to_pylist()
-                for spec, defs, reps, vals in shred(f.name, f.type, rows):
+                for spec, defs, reps, vals in shred(f.name, f.type, rows,
+                                                    f.nullable):
                     chunks.append(self._write_leaf_chunk(
                         spec, defs, reps, vals, rg_ord, len(chunks)))
             else:
                 c = self._write_column(f.type, col, name=f.name,
                                        rg_ord=rg_ord,
-                                       col_ord=len(chunks))
+                                       col_ord=len(chunks),
+                                       nullable=f.nullable)
                 c["path"] = [f.name]
                 chunks.append(c)
         self.row_groups.append({
@@ -452,10 +454,15 @@ class ParquetWriter:
 
     def _write_column(self, t: DataType, col: Array,
                       name: Optional[str] = None,
-                      rg_ord: int = 0, col_ord: int = 0) -> Dict:
+                      rg_ord: int = 0, col_ord: int = 0,
+                      nullable: bool = True) -> Dict:
+        """One flat column chunk. A non-nullable column is a REQUIRED leaf
+        (``_footer``'s schema): its pages carry no definition levels."""
         n = len(col)
         present = col.is_valid_mask()
-        nullable = True
+        if not nullable and not present.all():
+            raise ValueError(f"column {name!r} is declared non-nullable "
+                             "but holds nulls")
         physical, type_length = _physical_for(t)
         crypto, uses_footer_key, key_md = self._crypto_for(name or "")
 
@@ -518,8 +525,10 @@ class ParquetWriter:
         def page_payload(s: int, e: int) -> bytes:
             """def-levels + encoded body for rows [s, e)."""
             pres = present[s:e]
-            defs = encode_rle(pres.astype(np.int64), 1)
-            def_block = struct.pack("<i", len(defs)) + defs
+            def_block = b""
+            if nullable:
+                defs = encode_rle(pres.astype(np.int64), 1)
+                def_block = struct.pack("<i", len(defs)) + defs
             if use_dict:
                 bw = bit_width_for(max(len(dict_arr) - 1, 1))
                 idx = codes[s:e][pres]

@@ -8,7 +8,7 @@ source, the shared headers and the flags, so a changed source builds anew
 and an unchanged one is built once. The first call of any kernel builds
 every source that lacks its library, one ``nvcc`` process per source, all
 started together. A failed build raises :class:`BuildError` with the
-compiler's output.
+first failed compiler's exit status and every failed compiler's output.
 
 A host source, ``csrc/<name>.cpp`` (the LZ4 codec of the IPC and Feather
 files, the snappy codec, Parquet's host loops), compiles with the host C++
@@ -16,11 +16,20 @@ compiler into ``build/arrow_tpu_torch/lib<name>-<hash>.so`` the same way
 (``host_library``), at its first use and apart from the CUDA sources; its
 hash also covers the sources of ``csrc`` it includes. Without a compiler
 it raises :class:`BuildError`.
+
+One process of a machine builds a library at a time: the build and its
+``os.replace`` into place run under an exclusive ``flock`` of the
+library's lock file in ``build/arrow_tpu_torch/``, and a process that
+waited on it loads the library that the first one built (the test
+suite's workers start together on an empty ``build/``). A failed build's
+:class:`BuildError` carries the compiler's exit status and its output.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -47,7 +56,27 @@ _HOST_LOCK = threading.Lock()  # one thread builds a host library
 
 
 class BuildError(RuntimeError):
-    pass
+    """A library that could not be built: ``returncode`` is the
+    compiler's exit status (None where no compiler ran) and ``output`` its
+    output."""
+
+    def __init__(self, message: str, returncode=None, output: str = ""):
+        super().__init__(message)
+        self.returncode = returncode
+        self.output = output
+
+
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """An exclusive lock of ``BUILD_DIR/<name>.lock`` across the processes
+    of this machine, held while the block runs."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def nvcc() -> str:
@@ -85,10 +114,18 @@ def build_all() -> float:
     Returns the seconds spent."""
     t0 = time.perf_counter()
     todo = [(src, library_path(src)) for src in sources()]
+    if all(out.exists() for _, out in todo):
+        return 0.0
+    with _build_lock("cuda"):
+        _build_missing(todo)
+    return time.perf_counter() - t0
+
+
+def _build_missing(todo) -> None:
+    """Compile the sources of ``todo`` whose library is missing."""
     todo = [(src, out) for src, out in todo if not out.exists()]
     if not todo:
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return
     compiler = nvcc()
     procs = []
     try:
@@ -98,12 +135,13 @@ def build_all() -> float:
                 [compiler, *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        failed = []
+        failed, status = [], None
         for src, out, tmp, proc in procs:
             log, _ = proc.communicate()
             BUILD_LOG[src.stem] = log
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{log}")
+                status = proc.returncode if status is None else status
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)
@@ -113,8 +151,8 @@ def build_all() -> float:
                 proc.kill()
                 proc.wait()
     if failed:
-        raise BuildError("nvcc failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
+        raise BuildError("nvcc failed:\n" + "\n".join(failed), status,
+                         "\n".join(failed))
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -160,8 +198,8 @@ def host_library_path(name: str) -> Path:
 
 def host_library(name: str) -> ctypes.CDLL:
     """The loaded library of the host source ``csrc/<name>.cpp``, built
-    with the host C++ compiler on first use (by one thread of the
-    process; the others wait for it)."""
+    with the host C++ compiler on first use (by one thread of one process
+    of the machine; the others wait for it and load its library)."""
     key = f"host:{name}"
     lib = _LIBS.get(key)
     if lib is not None:
@@ -172,15 +210,25 @@ def host_library(name: str) -> ctypes.CDLL:
             return lib
         out = host_library_path(name)
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
-                 str(CSRC / f"{name}.cpp")], capture_output=True, text=True)
-            BUILD_LOG[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise BuildError(f"{name}.cpp:\n{BUILD_LOG[name]}")
-            os.replace(tmp, out)
+            with _build_lock(out.name):
+                if not out.exists():
+                    _compile_host(name, out)
         lib = _LIBS[key] = ctypes.CDLL(str(out))
     return lib
+
+
+def _compile_host(name: str, out: Path) -> None:
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run(
+            [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cpp")], capture_output=True, text=True)
+    except OSError as exc:
+        raise BuildError(f"{name}.cpp: the compiler did not start: "
+                         f"{exc}") from exc
+    BUILD_LOG[name] = log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise BuildError(f"{name}.cpp: the compiler exited with status "
+                         f"{proc.returncode}:\n{log}", proc.returncode, log)
+    os.replace(tmp, out)

@@ -327,8 +327,8 @@ def _unpack(buf: torch.Tensor, like: Sequence[DeviceColumn],
         out.append(DeviceColumn(v, None, c.type, c.dictionary))
     if vcols:
         nb = -(-len(vcols) // 8)
-        shifts = torch.arange(8, device=dev)
-        bits = ((buf[:, off:off + nb].long().unsqueeze(2) >> shifts) & 1) \
+        shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+        bits = ((buf[:, off:off + nb].unsqueeze(2) >> shifts) & 1) \
             .bool().reshape(n, nb * 8)
         for i, j in enumerate(vcols):
             m = torch.zeros(capacity, dtype=torch.bool, device=dev)
@@ -974,3 +974,111 @@ def fetch_part(mesh: Mesh, part: ShardBatch, offset: int,
                        torch.tensor(hi - lo, dtype=torch.int32, device=dev))
     return as_part(mesh, local)
 
+
+
+# --- the Table-level entry points --------------------------------------------
+#
+# The reference's user-facing forms of the joins and the sort take host
+# Tables and give one. Every rank calls them with the same Tables; each
+# uploads only its ``shard_rows`` range (``shard_table``), the batch forms
+# above run over the ranks' parts, and every rank gets the whole result as
+# a host Table (the ranks' parts all-gathered, then downloaded), as
+# ``to_table(mesh=...)`` gives a plan's. ``axis``, ``out_cap_per_device``
+# and the reference's static shapes serve its ``shard_map`` and change no
+# result here: they are accepted and ignored. The reference truncates a 1:N
+# join at its static output capacity (``ndev`` times the probe capacity,
+# the probe capacity for a broadcast join); the port sizes each rank's
+# output from its match count, so no row is lost.
+
+def shard_table(mesh: Mesh, table, axis: str = "d") -> ShardBatch:
+    """This rank's ``shard_rows`` range of the host ``table`` on the mesh's
+    device (reference ``shard_table``): a string column is coded once over
+    the whole column, as a distributed plan's host source is
+    (``source_cache``), and every dictionary is then made the same on
+    every rank (``settle_dictionaries``). ``axis`` is accepted and
+    ignored."""
+    from ..acero.options import TableSourceNodeOptions
+    n = table.num_rows
+    rows = shard_rows(n, mesh.rank, mesh.size)
+    b = TableSourceNodeOptions(table).upload(mesh.device, rows)
+    return ShardBatch(b.schema, settle_dictionaries(mesh, b.columns),
+                      b.row_count, rows[0], n)
+
+
+def _whole_table(mesh: Mesh, part: ShardBatch):
+    """Every rank's rows of ``part``, in rank order, as one host Table on
+    every rank."""
+    from ..device.column import download_table
+    return download_table(gather_host(mesh, part))
+
+
+def distributed_join_tables(mesh: Mesh, left, right,
+                            left_keys: Sequence[str],
+                            right_keys: Sequence[str],
+                            join_type: str = "inner",
+                            out_cap_per_device: Optional[int] = None,
+                            axis: str = "d",
+                            left_pre_fns: Sequence = ()):
+    """Distributed equi-join of two host Tables, any of the eight join
+    types (reference ``distributed_join_tables``): both uploaded by rank
+    range, ``distributed_join_batches`` over them (``left_pre_fns`` run on
+    each rank's probe rows first), the whole joined Table on every rank.
+    Columns as the reference's (probe columns only for left semi and anti,
+    build columns only for right semi and anti, ``_l``/``_r`` on a name
+    both sides have); rows in the single-rank join's order, where the
+    reference leaves them in its devices' order. ``out_cap_per_device`` and
+    ``axis`` are ignored (see above)."""
+    if join_type not in JOIN_TYPES:
+        raise NotImplementedError(
+            f"distributed join type {join_type!r} (use single-device plan)")
+    out = distributed_join_batches(
+        mesh, shard_table(mesh, left), shard_table(mesh, right), left_keys,
+        right_keys, join_type, left_pre_fns)
+    return _whole_table(mesh, out)
+
+
+def distributed_sort_table(mesh: Mesh, table, sort_keys,
+                           null_placement: str = "at_end",
+                           axis: str = "d"):
+    """Distributed sort of a host Table (reference
+    ``distributed_sort_table``): ``distributed_sort_batch`` over the ranks'
+    ranges, the globally sorted Table on every rank; ties keep the input
+    order. ``axis`` is ignored."""
+    return _whole_table(mesh, distributed_sort_batch(
+        mesh, shard_table(mesh, table), sort_keys, null_placement))
+
+
+def broadcast_join_tables(mesh: Mesh, left, right,
+                          left_keys: Sequence[str],
+                          right_keys: Sequence[str],
+                          join_type: str = "inner", axis: str = "d"):
+    """Join for a small build side (reference ``broadcast_join_tables``):
+    ``right`` uploaded whole on every rank, ``left`` by rank range, no
+    exchange of rows; inner and left outer joins (NotImplementedError for
+    the rest). The whole joined Table on every rank, in the single-rank
+    order. ``axis`` is ignored."""
+    from ..acero.options import TableSourceNodeOptions
+    if join_type not in ("inner", "left outer"):
+        raise NotImplementedError(join_type)
+    build = TableSourceNodeOptions(right).upload(mesh.device)
+    return _whole_table(mesh, broadcast_join_batches(
+        mesh, shard_table(mesh, left), build, left_keys, right_keys,
+        join_type))
+
+
+def salted_join_tables(mesh: Mesh, left, right, left_keys: Sequence[str],
+                       right_keys: Sequence[str], join_type: str = "inner",
+                       hot_threshold: Optional[int] = None,
+                       n_salts: Optional[int] = None,
+                       out_cap_per_device: Optional[int] = None,
+                       axis: str = "d"):
+    """Skew-resistant join of two host Tables (reference
+    ``salted_join_tables``): ``salted_join_batches`` over the ranks'
+    ranges, with its defaults (``hot_threshold`` 4x a rank's share of the
+    probe rows, at least 64; ``n_salts`` the rank count). The whole joined
+    Table on every rank, without the salt columns (the reference's keeps
+    the suffixed ``__salt___l``/``__salt___r`` of a join that outputs both
+    sides). ``out_cap_per_device`` and ``axis`` are ignored."""
+    return _whole_table(mesh, salted_join_batches(
+        mesh, shard_table(mesh, left), shard_table(mesh, right), left_keys,
+        right_keys, join_type, hot_threshold, n_salts))

@@ -105,6 +105,23 @@ _BIT_WIDTHS = {
 }
 
 
+# Arrow's names of the type ids (DataType.name)
+_ID_NAMES = {
+    TypeId.NA: "null", TypeId.BOOL: "bool",
+    TypeId.INT8: "int8", TypeId.INT16: "int16", TypeId.INT32: "int32",
+    TypeId.INT64: "int64", TypeId.UINT8: "uint8", TypeId.UINT16: "uint16",
+    TypeId.UINT32: "uint32", TypeId.UINT64: "uint64",
+    TypeId.HALF_FLOAT: "halffloat", TypeId.FLOAT: "float",
+    TypeId.DOUBLE: "double", TypeId.STRING: "string",
+    TypeId.BINARY: "binary", TypeId.LARGE_STRING: "large_string",
+    TypeId.LARGE_BINARY: "large_binary", TypeId.DATE32: "date32[day]",
+    TypeId.DATE64: "date64[ms]", TypeId.INTERVAL_MONTHS: "month_interval",
+    TypeId.INTERVAL_DAY_TIME: "day_time_interval",
+    TypeId.INTERVAL_MONTH_DAY_NANO: "month_day_nano_interval",
+    TypeId.STRING_VIEW: "string_view", TypeId.BINARY_VIEW: "binary_view",
+}
+
+
 class DataType:
     __slots__ = ("id", "index_type", "value_type")
 
@@ -182,6 +199,56 @@ class DataType:
     @property
     def fields(self):
         return ()
+
+    @property
+    def num_fields(self) -> int:
+        return len(self.fields)
+
+    def field(self, i: int) -> "Field":
+        """The ``i``-th child field (pyarrow DataType.field)."""
+        return self.fields[i]
+
+    @property
+    def num_buffers(self) -> int:
+        """The buffers of the type's layout in the columnar format."""
+        tid = self.id
+        if tid == TypeId.NA:
+            return 0
+        if tid in (TypeId.STRUCT, TypeId.SPARSE_UNION,
+                   TypeId.RUN_END_ENCODED, TypeId.FIXED_SIZE_LIST):
+            return 1
+        if tid in (TypeId.STRING, TypeId.BINARY, TypeId.LARGE_STRING,
+                   TypeId.LARGE_BINARY, TypeId.LIST_VIEW,
+                   TypeId.LARGE_LIST_VIEW):
+            return 3
+        return 2
+
+    @property
+    def has_variadic_buffers(self) -> bool:
+        return self.id in (TypeId.STRING_VIEW, TypeId.BINARY_VIEW)
+
+    @property
+    def name(self) -> str:
+        """Arrow's name of the type id (``double``, ``halffloat``: the
+        reference's, where the port's ``repr`` writes ``float64``)."""
+        return _ID_NAMES.get(self.id, self.id.name.lower())
+
+    @property
+    def is_primitive(self) -> bool:
+        """A fixed-width value buffer and no child arrays."""
+        return self.id in _BIT_WIDTHS or self.id == TypeId.FIXED_SIZE_BINARY
+
+    @property
+    def is_binary_like(self) -> bool:
+        return self.id in (TypeId.STRING, TypeId.BINARY)
+
+    @property
+    def is_binary_view_like(self) -> bool:
+        return self.id in (TypeId.STRING_VIEW, TypeId.BINARY_VIEW)
+
+    @property
+    def is_large_binary_like(self) -> bool:
+        return self.id in (TypeId.LARGE_STRING, TypeId.LARGE_BINARY)
 
     def __repr__(self):
         if self.id == TypeId.DICTIONARY:
@@ -856,8 +923,26 @@ class Schema:
 
     __hash__ = None
 
+    add_metadata = with_metadata  # pyarrow's older name
+
+    def to_string(self, truncate_metadata: bool = True,
+                  show_field_metadata: bool = True,
+                  show_schema_metadata: bool = True) -> str:
+        return repr(self)
+
+    def serialize(self, memory_pool=None):
+        """The schema as an IPC stream of no batches (ipc/writer.h
+        SerializeSchema), in a Buffer."""
+        import io
+        from . import ipc
+        from .buffer import Buffer
+        sink = io.BytesIO()
+        ipc.new_stream(sink, self).close()
+        return Buffer(sink.getvalue())
+
     def __repr__(self):
-        return f"Schema({self.fields!r})"
+        inner = "\n".join(f"{f.name}: {f.type!r}" for f in self.fields)
+        return f"Schema:\n{inner}"
 
 
 def field(name: str, type: DataType, nullable: bool = True,
@@ -871,3 +956,89 @@ def schema(fields, metadata=None) -> Schema:
     if isinstance(fields, Schema):
         return fields
     return Schema(_fields(fields), metadata)
+
+
+# --- type predicates (pyarrow.types.is_*) ------------------------------------
+
+def _id_pred(*ids):
+    idset = frozenset(ids)
+
+    def pred(t) -> bool:
+        return getattr(t, "id", None) in idset
+    return pred
+
+
+is_null = _id_pred(TypeId.NA)
+is_boolean = _id_pred(TypeId.BOOL)
+is_int8 = _id_pred(TypeId.INT8)
+is_int16 = _id_pred(TypeId.INT16)
+is_int32 = _id_pred(TypeId.INT32)
+is_int64 = _id_pred(TypeId.INT64)
+is_uint8 = _id_pred(TypeId.UINT8)
+is_uint16 = _id_pred(TypeId.UINT16)
+is_uint32 = _id_pred(TypeId.UINT32)
+is_uint64 = _id_pred(TypeId.UINT64)
+is_float16 = _id_pred(TypeId.HALF_FLOAT)
+is_float32 = _id_pred(TypeId.FLOAT)
+is_float64 = _id_pred(TypeId.DOUBLE)
+is_signed_integer = _id_pred(*_SIGNED)
+is_unsigned_integer = _id_pred(*_UNSIGNED)
+is_integer = _id_pred(*_SIGNED, *_UNSIGNED)
+is_floating = _id_pred(*_FLOATS)
+is_decimal32 = _id_pred(TypeId.DECIMAL32)
+is_decimal64 = _id_pred(TypeId.DECIMAL64)
+is_decimal128 = _id_pred(TypeId.DECIMAL128)
+is_decimal256 = _id_pred(TypeId.DECIMAL256)
+is_decimal = _id_pred(*_DECIMALS)
+is_list = _id_pred(TypeId.LIST)
+is_large_list = _id_pred(TypeId.LARGE_LIST)
+is_fixed_size_list = _id_pred(TypeId.FIXED_SIZE_LIST)
+is_list_view = _id_pred(TypeId.LIST_VIEW)
+is_large_list_view = _id_pred(TypeId.LARGE_LIST_VIEW)
+is_struct = _id_pred(TypeId.STRUCT)
+is_union = _id_pred(TypeId.SPARSE_UNION, TypeId.DENSE_UNION)
+is_map = _id_pred(TypeId.MAP)
+is_nested = _id_pred(TypeId.LIST, TypeId.LARGE_LIST, TypeId.FIXED_SIZE_LIST,
+                     TypeId.LIST_VIEW, TypeId.LARGE_LIST_VIEW, TypeId.STRUCT,
+                     TypeId.SPARSE_UNION, TypeId.DENSE_UNION, TypeId.MAP)
+is_run_end_encoded = _id_pred(TypeId.RUN_END_ENCODED)
+is_timestamp = _id_pred(TypeId.TIMESTAMP)
+is_duration = _id_pred(TypeId.DURATION)
+is_time32 = _id_pred(TypeId.TIME32)
+is_time64 = _id_pred(TypeId.TIME64)
+is_time = _id_pred(TypeId.TIME32, TypeId.TIME64)
+is_date32 = _id_pred(TypeId.DATE32)
+is_date64 = _id_pred(TypeId.DATE64)
+is_date = _id_pred(TypeId.DATE32, TypeId.DATE64)
+is_interval = _id_pred(TypeId.INTERVAL_MONTHS, TypeId.INTERVAL_DAY_TIME,
+                       TypeId.INTERVAL_MONTH_DAY_NANO)
+# intervals count as temporal here, as in pyarrow (DataType.is_temporal
+# leaves them out, as the reference's does)
+is_temporal = _id_pred(*_TEMPORAL, TypeId.INTERVAL_MONTHS,
+                       TypeId.INTERVAL_DAY_TIME,
+                       TypeId.INTERVAL_MONTH_DAY_NANO)
+is_string = is_unicode = _id_pred(TypeId.STRING)
+is_large_string = is_large_unicode = _id_pred(TypeId.LARGE_STRING)
+is_string_view = _id_pred(TypeId.STRING_VIEW)
+is_binary = _id_pred(TypeId.BINARY)
+is_large_binary = _id_pred(TypeId.LARGE_BINARY)
+is_binary_view = _id_pred(TypeId.BINARY_VIEW)
+is_fixed_size_binary = _id_pred(TypeId.FIXED_SIZE_BINARY)
+is_dictionary = _id_pred(TypeId.DICTIONARY)
+is_primitive = _id_pred(TypeId.BOOL, *_SIGNED, *_UNSIGNED, *_FLOATS,
+                        *_TEMPORAL, TypeId.INTERVAL_MONTHS,
+                        TypeId.INTERVAL_DAY_TIME,
+                        TypeId.INTERVAL_MONTH_DAY_NANO,
+                        TypeId.FIXED_SIZE_BINARY)
+
+
+def is_boolean_value(v) -> bool:
+    return isinstance(v, (bool, np.bool_))
+
+
+def is_integer_value(v) -> bool:
+    return isinstance(v, (int, np.integer)) and not isinstance(v, bool)
+
+
+def is_float_value(v) -> bool:
+    return isinstance(v, (float, np.floating))

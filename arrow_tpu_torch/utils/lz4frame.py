@@ -113,6 +113,8 @@ def compress_array(data) -> np.ndarray:
     out = np.empty(11 + n + 4 * (-(-n // _BLOCK_MAX)), dtype=np.uint8)
     size = lib.lz4_frame_compress(src.ctypes.data, n, out.ctypes.data,
                                   _HEADER_CHECKSUM, _threads(n))
+    if size < 0:
+        raise MemoryError("lz4: out of memory compressing a frame")
     return out[:size]
 
 
@@ -133,7 +135,10 @@ def decompress_array(data, expected_size: Optional[int] = None
             != _MAGIC:
         raise ValueError("not an lz4 frame")
     caps = [] if expected_size is None else [int(expected_size)]
-    caps.append(lib.lz4_frame_bound(src.ctypes.data, src.size))
+    bound = lib.lz4_frame_bound(src.ctypes.data, src.size)
+    if bound == -3:
+        raise MemoryError("lz4: out of memory reading a frame")
+    caps.append(bound)
     for cap in caps:
         out = np.empty(max(cap, 0), dtype=np.uint8)
         n = lib.lz4_frame_decompress(src.ctypes.data, src.size,
@@ -142,6 +147,8 @@ def decompress_array(data, expected_size: Optional[int] = None
             return out[:n]
         if n == -1:
             break
+        if n == -3:
+            raise MemoryError("lz4: out of memory decoding a frame")
     raise ValueError("malformed lz4 block")
 
 

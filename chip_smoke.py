@@ -369,7 +369,7 @@ HASH_OPS_PER_COMBINE = 6    # 2 shifts, 3 adds, 1 xor
 SF = 10.0
 Q1_SLOTS = 12               # (3+1) return flags x (2+1) line statuses
 RTOL_F64 = 1e-9             # f64 sums added in another order
-WALL_BUDGET_S = 1.0         # phase 4's timed runs of one path, at least 2
+WALL_BUDGET_S = 1.0         # phase 4's timed runs of one path, at least 1
 RTOL_F32 = 1e-5             # an f32 result against an f64 reference
 NODE_SPAN = "arrow_tpu::"   # the executor's profiler span of a plan node
 Q1_LAUNCHES = {"compact": 0, "hash32": 0, "grouped_sum": 7, "probe": 1}
@@ -2096,28 +2096,35 @@ def phase_plan_nodes(tables, cols):
     from arrow_tpu_torch.compute.move import segment_sum
     from arrow_tpu_torch.platform_check import self_check
     log(f"== phase 3e: the plan nodes at SF{SF:g}")
-    launches, failures = {}, []
-    for path in NODE_PATHS:
-        plan = path.build(tables)
-        base = memory_mark()
-        zero_launches()
-        self_check()
-        t1 = time.perf_counter()
-        result = node_path_run(path, plan)()
-        torch.cuda.synchronize()
-        log(f"{path.name} first run {time.perf_counter() - t1:.3f} s")
-        launches[path.name] = read_launches()
-        log_peak(path.name, base)
-        try:
-            check_launches(path.name, launches[path.name], path.launches)
-            t2 = time.perf_counter()
-            msg = path.check(tables, cols, result)
-            log(f"{path.name} matches its oracle: {msg} (oracle "
-                f"{time.perf_counter() - t2:.1f} s)")
-        except AssertionError as exc:
-            log(f"  {path.name} FAILED: {exc}")
-            failures.append(path.name)
-        del plan, result
+    launches, failures, checks = {}, [], []
+    # each path's check (its numpy oracle) on ORACLE_THREADS threads while
+    # the next paths run
+    with concurrent.futures.ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        for path in NODE_PATHS:
+            plan = path.build(tables)
+            base = memory_mark()
+            zero_launches()
+            self_check()
+            t1 = time.perf_counter()
+            result = node_path_run(path, plan)()
+            torch.cuda.synchronize()
+            log(f"{path.name} first run {time.perf_counter() - t1:.3f} s")
+            launches[path.name] = read_launches()
+            log_peak(path.name, base)
+            checks.append((path, pool.submit(_timed_call, path.check,
+                                             tables, cols, result)))
+            del plan, result
+        for path, done in checks:
+            try:
+                check_launches(path.name, launches[path.name],
+                               path.launches)
+                msg, took = done.result()
+                log(f"{path.name} matches its oracle: {msg} (oracle "
+                    f"{took:.1f} s on its thread)")
+            except AssertionError as exc:
+                log(f"  {path.name} FAILED: {exc}")
+                failures.append(path.name)
+        del checks
     # F1: the same input gives the same bits, run after run
     v, g, live, nseg = general_sum_inputs(tables["lineitem"])
     a, b = (segment_sum(v, g, nseg, live) for _ in range(2))
@@ -5573,6 +5580,262 @@ for _name, _, _ in HOST_SPLIT_PATHS:
     DIST_COUNTS[_name] = DIST_COUNTS[_name[:2]]
     DIST_LAUNCHES[_name] = DIST_LAUNCHES[_name[:2]]
 
+# The Table-level entry points (parallel.shard_table,
+# distributed_join_tables, distributed_sort_table, broadcast_join_tables,
+# salted_join_tables) over phase 3l's host orders and customer, projected to
+# their fixed-width columns and one dictionary column each. Every rank gets
+# the whole result as a host Table, held by its digest (host_digest) to a
+# numpy oracle made once (table_oracles). The salted join's orders have 2
+# of every 3 rows on o_custkey DIST_HOT_KEY.
+TABLE_ORDERS = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate",
+                "o_orderpriority"]
+TABLE_CUSTOMER = ["c_custkey", "c_nationkey", "c_acctbal", "c_mktsegment"]
+TABLE_SORT_KEYS = [("o_orderdate", "ascending"), ("o_orderkey", "ascending")]
+TABLE_JOIN_TYPES = ("inner", "full outer")
+TABLE_PATHS = (["shard_table"] + [f"join_tables {jt}" for jt in
+                                  TABLE_JOIN_TYPES]
+               + ["sort_table", "broadcast_tables", "salted_tables"])
+# Launches a rank, each path +1 probe (self_check), reckoned from
+# parallel/distributed.py and acero/exec.py's join (and counted on four
+# CPU ranks by wrapping the kernels' plain versions): shard_table none (an
+# upload and one all-gather of the dictionaries' digests); the exchanges
+# none (a stable sort by partition id); the local inner join of what a rank
+# received, orders at 10x customer's rows, the bloom (2 hash32: the build's
+# words, the probe's) and 2 compact (the probe rows the bloom passes, the
+# matched rows); a full outer join no bloom and 1 compact (the unmatched
+# build rows it appends); the sort none (splitters, a range exchange, a
+# stable sort); the broadcast join's local join of a rank's orders with all
+# of customer, 2.5x its rows: no bloom, 1 compact; the salted join the partitioned inner join's 2 + 2 and the
+# compaction of the hot keys among the counted ones, 1
+_TABLE_JOIN = {"compact": 2, "hash32": 2, "grouped_sum": 0, "probe": 1}
+_TABLE_NONE = {"compact": 0, "hash32": 0, "grouped_sum": 0, "probe": 1}
+_TABLE_ONE = {**_TABLE_NONE, "compact": 1}
+TABLE_LAUNCHES = {
+    "shard_table": _TABLE_NONE, "join_tables inner": _TABLE_JOIN,
+    "join_tables full outer": _TABLE_ONE, "sort_table": _TABLE_NONE,
+    "broadcast_tables": _TABLE_ONE,
+    "salted_tables": {**_TABLE_JOIN, "compact": 3}}
+for _name in TABLE_PATHS:
+    DIST_COUNTS[_name] = _NONE  # no plan runs: EXCHANGE_COUNTS stay 0
+    DIST_LAUNCHES[_name] = TABLE_LAUNCHES[_name]
+
+
+def _mix_np(x):
+    """splitmix64's finalizer over uint64 numpy (``io/tpch_device._mix``);
+    the products wrap."""
+    x = x.astype(np.uint64)
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    return x
+
+
+def _value_hash(v):
+    import hashlib
+    return int.from_bytes(hashlib.blake2b(repr(v).encode(),
+                                          digest_size=8).digest(), "little")
+
+
+def _words(a):
+    """(uint64 word a row, validity) of a host Array: a fixed-width value's
+    bits, a dictionary column's value by its hash (two dictionaries of one
+    column then compare by value)."""
+    from arrow_tpu_torch.types import TypeId
+    valid = a.is_valid_mask()
+    v = a.data.values()
+    if a.type.id == TypeId.DICTIONARY:
+        vh = np.array([_value_hash(x) for x in a.dictionary.to_pylist()]
+                      or [0], dtype=np.uint64)
+        return vh[np.where(valid, v.astype(np.int64), 0)], valid
+    if v.itemsize != 8:
+        v = v.astype(np.int64)
+    return v.view(np.uint64), valid
+
+
+_POSITION_WEIGHTS = [np.zeros(0, np.uint64)]
+
+
+def _position_weights(stop):
+    """splitmix64 of each global position below ``stop`` (uint64), made
+    once and grown as needed."""
+    w = _POSITION_WEIGHTS[0]
+    if len(w) < stop:
+        w = _POSITION_WEIGHTS[0] = _mix_np(np.arange(stop, dtype=np.uint64))
+    return w[:stop]
+
+
+def digest_words(cols, n, offset=0):
+    """Per (words, validity) column of ``n`` rows at global position
+    ``offset``: the uint64 sum of word x splitmix64(position) over the
+    valid rows (0 under a null), then the same of the validity. A part's
+    digests add (mod 2**64) to the whole's; a row moved, dropped or
+    changed changes them."""
+    key = _position_weights(offset + n)[offset:]
+    whole = int(key.sum(dtype=np.uint64))
+    out = []
+    for words, valid in cols:
+        if valid.all():
+            out += [int((words * key).sum(dtype=np.uint64)), whole]
+        else:
+            out += [int((np.where(valid, words, np.uint64(0)) * key)
+                        .sum(dtype=np.uint64)),
+                    int(key[valid].sum(dtype=np.uint64))]
+    return out
+
+
+def host_digest(table, offset=0):
+    """A host Table's (names and types, rows, digests by column)."""
+    return ([(f.name, repr(f.type)) for f in table.schema.fields],
+            table.num_rows,
+            digest_words([_words(c.combine()) for c in table.columns],
+                         table.num_rows, offset))
+
+
+def _timed_call(fn, *args):
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def table_sides(host):
+    """orders and customer as the Table paths take them, and the salted
+    join's orders."""
+    from arrow_tpu_torch.array.array import array
+    orders = host["orders"].select(TABLE_ORDERS)
+    ck = orders.column("o_custkey").combine().data.values()
+    pos = np.arange(len(ck))
+    hot = np.where(pos % DIST_HOT_EVERY < DIST_HOT_EVERY - 1, DIST_HOT_KEY,
+                   ck)
+    i = orders.schema.get_field_index("o_custkey")
+    skewed = orders.set_column(i, orders.schema.field(i), array(hot))
+    return orders, host["customer"].select(TABLE_CUSTOMER), skewed
+
+
+def table_oracles(host):
+    """Every Table path's expected (names and types, rows, digests) from
+    numpy: o_orderkey is 1..n in order and c_custkey 1..m, every o_custkey
+    a customer's, so a join with customer is a lookup in orders' order
+    (each order matches one customer), a full outer join appends the
+    customers without orders in their order, and the sort is numpy's
+    stable argsort."""
+    orders, customer, skewed = table_sides(host)
+    ow = [_words(orders.column(c).combine()) for c in TABLE_ORDERS]
+    cw = [_words(customer.column(c).combine()) for c in TABLE_CUSTOMER]
+    n, m = orders.num_rows, customer.num_rows
+    ok = orders.column("o_custkey").combine().data.values()
+    if not np.array_equal(customer.column("c_custkey").combine().data
+                          .values(), np.arange(1, m + 1)) \
+            or ok.min() < 1 or ok.max() > m:
+        raise AssertionError("3k tables: customer keys are not 1..m")
+    schema = [(f.name, repr(f.type)) for f in
+              list(orders.schema.fields) + list(customer.schema.fields)]
+
+    def joined(words, look, extra=None):
+        cols = list(words) + [(w[look], v[look]) for w, v in cw]
+        if extra is not None:
+            u = len(extra)
+            cols = [(np.concatenate([w, np.zeros(u, np.uint64)]),
+                     np.concatenate([v, np.zeros(u, bool)]))
+                    for w, v in cols[:len(words)]] + [
+                (np.concatenate([w, cw[i][0][extra]]),
+                 np.concatenate([v, cw[i][1][extra]]))
+                for i, (w, v) in enumerate(cols[len(words):])]
+        rows = len(look) + (0 if extra is None else len(extra))
+        return schema, rows, digest_words(cols, rows)
+
+    look = ok - 1
+    has = np.zeros(m, bool)
+    has[look] = True
+    exp = {"shard_table": (schema[:len(TABLE_ORDERS)], n,
+                           digest_words(ow, n))}
+    exp["join_tables inner"] = exp["broadcast_tables"] = joined(ow, look)
+    exp["join_tables full outer"] = joined(ow, look,
+                                           np.nonzero(~has)[0])
+    perm = _stable_argsort_by(
+        orders.column("o_orderdate").combine().data.values(),
+        orders.column("o_orderkey").combine().data.values())
+    exp["sort_table"] = (schema[:len(TABLE_ORDERS)], n, digest_words(
+        [(w[perm], v[perm]) for w, v in ow], n))
+    sw = [_words(skewed.column(c).combine()) for c in TABLE_ORDERS]
+    exp["salted_tables"] = joined(
+        sw, skewed.column("o_custkey").combine().data.values() - 1)
+    return exp
+
+
+def _table_paths(mesh, host, res, device):
+    """The Table-level entry points on one rank, each recorded with
+    ``_rank_path``: its result's host_digest (shard_table: this rank's
+    part downloaded, at its offset, and its range)."""
+    from arrow_tpu_torch import parallel as P
+    from arrow_tpu_torch.device.column import download_table
+    from arrow_tpu_torch.parallel import distributed as D
+    orders, customer, skewed = table_sides(host)
+    keys = (["o_custkey"], ["c_custkey"])
+
+    def shard():
+        part = P.shard_table(mesh, orders)
+        return ((part.offset, int(part.row_count), part.total),
+                host_digest(download_table(part), part.offset))
+    _rank_path(res, "shard_table", shard, device, release=True)
+    for jt in TABLE_JOIN_TYPES:
+        _rank_path(res, f"join_tables {jt}", lambda jt=jt: host_digest(
+            P.distributed_join_tables(mesh, orders, customer, *keys, jt)),
+            device, release=True)
+    _rank_path(res, "sort_table", lambda: host_digest(
+        P.distributed_sort_table(mesh, orders, TABLE_SORT_KEYS)), device,
+        release=True)
+    _rank_path(res, "broadcast_tables", lambda: host_digest(
+        P.broadcast_join_tables(mesh, orders, customer, *keys)), device,
+        release=True)
+    _rank_path(res, "salted_tables", lambda: host_digest(
+        P.salted_join_tables(mesh, skewed, customer, *keys,
+                             hot_threshold=orders.num_rows // 10,
+                             n_salts=DIST_SALTS)), device, release=True)
+    res["salted_tables"]["received"] = D.LAST_JOIN["probe_rows"]
+
+
+def _table_check(results, exp):
+    """Every rank's Table results against the oracles: the same Table on
+    every rank, its names, types, rows and digests exact; shard_table's
+    parts contiguous and adding to the whole; the salted join's largest
+    rank under half the probe rows."""
+    for name in TABLE_PATHS:
+        recs = [r[name]["out"] for r in results]
+        names, rows, want = exp[name]
+        if name == "shard_table":
+            ranges = [rec[0] for rec in recs]
+            starts = [sum(r[1] for r in ranges[:i])
+                      for i in range(len(ranges))]
+            got = [_wrap(sum(col)) for col in zip(*(rec[1][2]
+                                                    for rec in recs))]
+            if [r[0] for r in ranges] != starts or \
+                    {r[2] for r in ranges} != {rows} or \
+                    sum(r[1] for r in ranges) != rows or \
+                    got != [_wrap(w) for w in want] or \
+                    any(rec[1][0] != names for rec in recs):
+                raise AssertionError(f"3k {name}: parts {ranges} do not "
+                                     "make the whole Table")
+            log(f"  {name}: rank parts {[r[1] for r in ranges]} of {rows} "
+                f"rows, bit for bit the host Table's")
+            continue
+        for rank, rec in enumerate(recs):
+            if rec != (names, rows, want):
+                raise AssertionError(
+                    f"3k {name}: rank {rank} holds {rec[1]} rows "
+                    f"({'same' if rec[0] == names else 'other'} columns, "
+                    f"digests {'agree' if rec[2] == want else 'differ'}); "
+                    f"the oracle {rows} rows")
+        log(f"  {name}: every rank holds the whole {rows}-row Table, bit "
+            f"for bit the numpy oracle's (keys, counts, validity and order "
+            f"exact)")
+    got = [r["salted_tables"]["received"] for r in results]
+    n = exp["shard_table"][1]
+    log(f"3k salted_tables: probe rows received by rank {got} (of {n})")
+    if max(got) >= n / 2:
+        raise AssertionError("3k salted_tables: salting did not spread the "
+                             "hot key")
+
 
 def share_host_tables(tables):
     """Host Tables as specs that cross to a spawned rank: every buffer a
@@ -5680,17 +5943,22 @@ def _broadcast_sides(lineitem, supplier):
             supplier.select(["s_suppkey", "s_nationkey"]))
 
 
-def _rank_path(res, name, run, device, repeat=False):
+def _rank_path(res, name, run, device, repeat=False, release=False):
     """One path on a rank: launches zeroed just before and read just after
     (with the probe of ``self_check``), EXCHANGE_COUNTS, the exchanges'
     bytes and time, the wall and this rank's peak memory; ``repeat`` runs
-    it a second time for the float bits. Keeps what ``run`` returns."""
+    it a second time for the float bits. ``release``: the rank first hands
+    back what its caching allocator kept (the Table paths, each of which
+    holds its whole result on every rank, so the path allocates anew).
+    Keeps what ``run`` returns."""
     from arrow_tpu_torch.acero import dist_exec
     from arrow_tpu_torch.parallel import distributed as D
     from arrow_tpu_torch.platform_check import self_check
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.synchronize()
+        if release:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated() if cuda else 0
     D.reset_stats()
@@ -5807,8 +6075,14 @@ def _dist_paths(rank, world, pair, shared, sf, device, res):
         res["Q1 host split"]["shares"] = {
             t: (*shard_rows(tbl.num_rows, rank, world), tbl.num_rows)
             for t, tbl in host.items()}
+        source_cache.release()
+        _table_paths(mesh, host, res, device)
         del host
         source_cache.release()
+        if device.type == "cuda":
+            # the Table paths' caches go back before Q9-style's two ranks
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
     if rank < DIST_PAIR:
         pair_mesh = make_mesh(pair, device=device)
         rows = shard_rows(n_li, rank, DIST_PAIR)
@@ -5822,12 +6096,18 @@ def _dist_paths(rank, world, pair, shared, sf, device, res):
 
 def _stable_argsort_by(major, minor):
     """np.argsort(major << 32 | minor, kind="stable") for int32 ``major``
-    and ``minor`` in [0, 2**32): by three stable passes of numpy's radix
-    sort over 16-bit digits (minor's low, its high, then major less its
-    least) where major spans under 2**16 values, the same permutation."""
+    and ``minor`` in [0, 2**32), where major spans under 2**16 values, by
+    stable passes of numpy's radix sort over 16-bit digits: one (major less
+    its least) where minor is already nondecreasing, else three (minor's
+    low, its high, then major); the same permutation."""
     major = major.astype(np.int64)
-    minor = minor.astype(np.int64)
     lo = major.min(initial=0)
+    if len(minor) and major.max() - lo < 1 << 16 and \
+            bool((minor[1:] >= minor[:-1]).all()):
+        # rows already in minor's order (lineitem by l_orderkey): within
+        # one major value a stable sort keeps them so; one radix pass
+        return np.argsort((major - lo).astype(np.uint16), kind="stable")
+    minor = minor.astype(np.int64)
     if len(major) == 0 or major.max() - lo >= 1 << 16 or minor.min() < 0 \
             or minor.max() >= 1 << 32:
         return np.argsort(major << 32 | minor, kind="stable")
@@ -5915,6 +6195,8 @@ def _dist_expected(tables, shared, sf, device, joins=None):
         raise AssertionError("order_by: the single-rank run differs from "
                              "numpy's stable argsort")
     del perm
+    log(f"3k: order_by single-rank and its oracle at "
+        f"{time.perf_counter() - t0:.1f} s")
     probe, build = _broadcast_sides(li, shared["supplier"])
     batch = execute_declaration(join_declaration(
         "inner", probe, build, left_keys=["l_suppkey"],
@@ -5933,6 +6215,8 @@ def _dist_expected(tables, shared, sf, device, joins=None):
     if want != exp["broadcast"][1]:
         raise AssertionError("broadcast: the single-rank join differs from "
                              "its numpy lookup")
+    log(f"3k: broadcast single-rank and its oracle at "
+        f"{time.perf_counter() - t0:.1f} s")
     skewed = _skewed(li, 0)
     batch = execute_declaration(join_declaration(
         "inner", skewed, orders.select(["o_orderkey", "o_custkey"]),
@@ -6116,10 +6400,6 @@ def phase_dist(tables, sf=SF, device="cuda", host=None, joins=None):
     ``joins`` (phase 3b's single-rank runs of the same eight joins, each
     held to the join oracle there) stand for the joins' single-rank runs
     where given. Returns rank 0's launches by path."""
-    import queue
-    import shutil
-    import tempfile
-    import torch.multiprocessing as tmp
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     log(f"== phase 3k: distribution at SF{sf:g}: {DIST_RANKS} ranks under "
@@ -6132,6 +6412,27 @@ def phase_dist(tables, sf=SF, device="cuda", host=None, joins=None):
         for src in _build.sources():
             _build.library(src.stem)
     shared = dist_tables(tables)
+    # the Table paths' numpy oracles on a thread beside the single-rank runs
+    # (host cores the parent leaves idle there; beside the ranks they would
+    # take the ranks' cores)
+    oracles = concurrent.futures.ThreadPoolExecutor(1)
+    tables_done = None if host is None else oracles.submit(
+        _timed_call, table_oracles, host)
+    try:
+        return _dist_phase(tables, sf, device, host, joins, shared,
+                           tables_done, t0)
+    finally:
+        oracles.shutdown()
+
+
+def _dist_phase(tables, sf, device, host, joins, shared, tables_done, t0):
+    """``phase_dist`` once its oracles' thread runs."""
+    import queue
+    import shutil
+    import tempfile
+    import torch.multiprocessing as tmp
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
     exp = _dist_expected(tables, shared, sf, dev, joins)
     if host is not None:
         t1 = time.perf_counter()
@@ -6186,6 +6487,10 @@ def phase_dist(tables, sf=SF, device="cuda", host=None, joins=None):
     launches = _dist_check(results, exp, cuda)
     if host is not None:
         _host_split_check(results, row_bytes)
+        exp_tables, took = tables_done.result()
+        log(f"3k: the Table paths' numpy oracles took {took:.1f} s on their "
+            f"thread")
+        _table_check(results, exp_tables)
     if cuda:
         _nccl_check(sf, dev)
     log(f"phase 3k: {time.perf_counter() - t0:.1f} s")
@@ -8404,7 +8709,123 @@ def _parquet_orders(od, tmp, paths, dev, facts):
     os.remove(path)
 
 
-def phase_parquet(host, device="cuda"):
+# F8 and F9 (ROADMAP.md §3) on the card's machine: orders' fixed-width
+# columns declared non-nullable; the nested form over the first
+# PARQUET_NESTED_ROWS orders (its levels are shredded a row at a time)
+PARQUET_REQUIRED = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"]
+PARQUET_NESTED_ROWS = 100_000
+
+
+def _parquet_required(od, tmp, paths, facts):
+    """F8: orders' PARQUET_REQUIRED declared non-nullable, written with
+    snappy and read back equal, flat at SF10 and as a non-nullable struct
+    and list over the first PARQUET_NESTED_ROWS orders; every field stays
+    non-nullable."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.array.array import array
+    from arrow_tpu_torch.io import parquet as pq
+    from arrow_tpu_torch.table import ChunkedArray, Table
+    from arrow_tpu_torch.types import Field, Schema
+    sel = od.select(PARQUET_REQUIRED)
+    flat = Table(Schema([Field(f.name, f.type, False) for f in sel.schema]),
+                 list(sel.columns))
+    path = os.path.join(tmp, "orders_required.parquet")
+    paths.run("write orders non-nullable", lambda: pq.write_table(
+        flat, path, compression="snappy"))
+    back = paths.run("read orders non-nullable",
+                     lambda: pq.read_table(path))
+    _expect("non-nullable fields", [f.nullable for f in back.schema] ==
+            [False] * len(PARQUET_REQUIRED))
+    for c in PARQUET_REQUIRED:
+        _expect_equal(f"non-nullable {c}",
+                      back.column(c).combine().data.values(),
+                      sel.column(c).combine().data.values())
+    facts["orders non-nullable GB"] = os.path.getsize(path) / 1e9
+    os.remove(path)
+    n = PARQUET_NESTED_ROWS
+    keys = sel.column("o_orderkey").combine().data.values()[:n].tolist()
+    price = sel.column("o_totalprice").combine().data.values()[:n].tolist()
+    st = T.struct([("k", T.int64()), ("p", T.float64())])
+    lt = T.list_(T.int64())
+    rows = {"s": [{"k": k, "p": p} for k, p in zip(keys, price)],
+            "l": [[k] * (k % 3) for k in keys]}
+    nested = Table(Schema([Field("s", st, False), Field("l", lt, False)]),
+                   [ChunkedArray([array(rows["s"], st)], st),
+                    ChunkedArray([array(rows["l"], lt)], lt)])
+    path = os.path.join(tmp, "orders_nested_required.parquet")
+    paths.run("write nested non-nullable", lambda: pq.write_table(
+        nested, path, compression="snappy"))
+    back = paths.run("read nested non-nullable", lambda: pq.read_table(path))
+    _expect("nested non-nullable", [f.nullable for f in back.schema] ==
+            [False, False] and all(back.column(c).to_pylist() == rows[c]
+                                   for c in rows))
+    log(f"  F8: {len(PARQUET_REQUIRED)} non-nullable orders columns, "
+        f"{facts['orders non-nullable GB']:.3f} GB of snappy Parquet, and a "
+        f"non-nullable struct and list of {len(keys)} orders read back "
+        f"equal")
+
+
+def _bad_page_start():
+    """F9's subprocess, started where nothing is measured: it reads a
+    Parquet file of [1, 2] whose first page gives an uncompressed size of
+    -64 (zigzag 0x7f in the header's third field) and must end normally
+    with the OSError it caught printed (the host library aborted the process
+    before the repair). Returns (the process, when it started, its
+    directory); ``_bad_page_finish`` awaits it."""
+    import subprocess
+    import tempfile
+    from arrow_tpu_torch.array.array import array
+    from arrow_tpu_torch.io import parquet as pq
+    from arrow_tpu_torch.table import Table
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bad_page_")
+    path = os.path.join(tmp, "bad_page.parquet")
+    pq.write_table(Table.from_arrays([array([1, 2])], ["x"]), path,
+                   compression="snappy")
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    _expect("page header", data[4:7] == b"\x15\x00\x15" and data[7] < 0x80)
+    data[7] = 0x7F
+    with open(path, "wb") as f:
+        f.write(data)
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("from arrow_tpu_torch.io import parquet as pq\n"
+            "try:\n"
+            f"    pq.read_table({path!r})\n"
+            "except OSError as exc:\n"
+            "    print('OSError:', exc)\n"
+            "else:\n"
+            "    raise SystemExit('read a malformed page')\n")
+    return (subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env=dict(os.environ,
+                                                 PYTHONPATH=root)),
+            time.perf_counter(), tmp)
+
+
+def _bad_page_finish(bad_page):
+    """Awaits ``_bad_page_start``'s process and removes its directory.
+    Returns (its exit status, its output, its errors, its seconds)."""
+    proc, t0, tmp = bad_page
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def _bad_page_check(bad_page):
+    """F9 in phase 3p: ``bad_page`` is ``_bad_page_finish``'s record."""
+    code, out, err, took = bad_page
+    _expect("malformed page header", code == 0 and out.startswith("OSError"),
+            f"(exit {code}: {out} {err[-400:]})")
+    log(f"  F9: a page header with uncompressed size -64 read in a "
+        f"subprocess: exit 0 with {out.strip()!r} in {took:.2f} s")
+
+
+def phase_parquet(host, device="cuda", bad_page=None):
     """Phase 3p: Parquet, over phase 3l's host Tables. Lineitem's Q1
     columns as FILE_SLICES snappy Parquet files, read back and their
     flags uploaded alone, scanned by Q1 (twice) and Q6 against numpy and
@@ -8416,7 +8837,9 @@ def phase_parquet(host, device="cuda"):
     launches are set to 0 just before and read just after (on the card)
     and held to PARQUET_LAUNCHES. The files go to a temporary directory,
     removed at the end; the phase refuses to start where its free space
-    is short. Returns (launches by path, facts)."""
+    is short. F9: ``bad_page``, ``_bad_page_finish``'s record of a
+    subprocess run during the set-up, or None to run one here after the
+    timed paths. Returns (launches by path, facts)."""
     import tempfile
     dev = torch.device(device)
     log(f"== phase 3p: Parquet on {device}")
@@ -8437,7 +8860,9 @@ def phase_parquet(host, device="cuda"):
         peaks, facts = {}, {}
         q1 = _parquet_lineitem(li, tmp, paths, dev, peaks, facts)
         _parquet_orders(od, tmp, paths, dev, facts)
+        _parquet_required(od, tmp, paths, facts)
         paths.check_launches()
+        _bad_page_check(bad_page or _bad_page_finish(_bad_page_start()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("phase 3p facts: " + ", ".join(f"{k} {v:.3f}"
@@ -9656,50 +10081,67 @@ def phase_full(tables):
     return _run_queries("3d", FULL, tables, cols, params), params, cols
 
 
+# the numpy oracles of a phase's plans run on this many threads beside the
+# plans (numpy lets go of the GIL in its array work); the checks are the same
+ORACLE_THREADS = 4
+
+
 def _run_queries(phase, queries, tables, cols, params=None):
     """Each query with every launch count set to 0 just before its run
     and read just after, then against its oracle and its launches; every
-    query runs before a failure is raised."""
-    from arrow_tpu_torch.platform_check import self_check
+    query runs before a failure is raised. The oracles start at once on
+    ORACLE_THREADS threads and each is awaited after its query's run."""
     launches, failures = {}, []
-    for q in queries:
-        kw = (params or {}).get(q.name, {})
-        plan = suite_plan(q, tables, kw)
-        base = memory_mark()
-        zero_launches()
-        self_check()
-        t1 = time.perf_counter()
-        result = plan.to_table().to_pydict()
-        log(f"{q.name} first run {time.perf_counter() - t1:.3f} s")
-        launches[q.name] = read_launches()
-        log_peak(q.name, base)
-        t1 = time.perf_counter()
-        want, n_rows = q.oracle(tables, cols, **kw)
-        log(f"{q.name} oracle: {time.perf_counter() - t1:.1f} s")
-        try:
-            check_launches(q.name, launches[q.name], q.launches)
-            check_result(q.name, result, want)
-        except AssertionError as exc:
-            log(f"  {q.name} FAILED: {exc}")
-            failures.append(q.name)
-            continue
-        log(f"{q.name} result matches the numpy oracle ({n_rows} rows kept "
-            f"by the oracle, {len(next(iter(result.values())))} result rows): "
-            f"keys, counts and order exact, floats within rtol {RTOL_F64}")
-        for i in range(min(len(next(iter(result.values()))), 6)):
-            log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
-        del plan, result
+    with concurrent.futures.ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        oracles = {q.name: pool.submit(_timed_call, functools.partial(
+            q.oracle, **(params or {}).get(q.name, {})), tables, cols)
+            for q in queries}
+        for q in queries:
+            _run_query(q, tables, params, launches, failures,
+                       oracles[q.name])
     if failures:
         raise AssertionError(f"phase {phase} failed for {failures}")
     return launches
 
 
+def _run_query(q, tables, params, launches, failures, oracle):
+    """One query of ``_run_queries``: its run, launches and peak, then its
+    result against ``oracle``'s (a future); a failure is appended to
+    ``failures``."""
+    from arrow_tpu_torch.platform_check import self_check
+    plan = suite_plan(q, tables, (params or {}).get(q.name, {}))
+    base = memory_mark()
+    zero_launches()
+    self_check()
+    t1 = time.perf_counter()
+    result = plan.to_table().to_pydict()
+    log(f"{q.name} first run {time.perf_counter() - t1:.3f} s")
+    launches[q.name] = read_launches()
+    log_peak(q.name, base)
+    t1 = time.perf_counter()
+    (want, n_rows), took = oracle.result()
+    log(f"{q.name} oracle: {took:.1f} s on its thread, awaited "
+        f"{time.perf_counter() - t1:.1f} s")
+    try:
+        check_launches(q.name, launches[q.name], q.launches)
+        check_result(q.name, result, want)
+    except AssertionError as exc:
+        log(f"  {q.name} FAILED: {exc}")
+        failures.append(q.name)
+        return
+    log(f"{q.name} result matches the numpy oracle ({n_rows} rows kept "
+        f"by the oracle, {len(next(iter(result.values())))} result rows): "
+        f"keys, counts and order exact, floats within rtol {RTOL_F64}")
+    for i in range(min(len(next(iter(result.values()))), 6)):
+        log("  " + " ".join(f"{k}={result[k][i]}" for k in result))
+
+
 def best_wall(run, reps=6):
     """Host-clock seconds of ``run`` (which ends in a download) after a
     synchronize, every run; the first is the warm-up, but where ``reps``
-    is 1. The timed runs stop before ``reps`` once two or more of them have
-    taken WALL_BUDGET_S: a path of seconds a run is timed fewer times,
-    which keeps the script inside its limit as phases are added."""
+    is 1. The timed runs stop before ``reps`` once they have taken
+    WALL_BUDGET_S: a path of seconds a run is timed once, which keeps the
+    script inside its limit as phases are added."""
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -9707,7 +10149,7 @@ def best_wall(run, reps=6):
         run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        if len(walls) >= 3 and sum(walls[1:]) > WALL_BUDGET_S:
+        if len(walls) >= 2 and sum(walls[1:]) > WALL_BUDGET_S:
             break
     return walls, min(walls[1:] or walls)
 
@@ -10159,7 +10601,13 @@ def main() -> int:
             return 0
         from arrow_tpu_torch.device.column import round_up
         from arrow_tpu_torch.io.tpch_device import q1_device_batch
-        tables = timed(host_tables)
+        # F9's subprocess (phase 3p checks it) beside the set-up's table
+        # generation, which is not measured, and awaited at its end
+        bad_page = _bad_page_start()
+        try:
+            tables = timed(host_tables)
+        finally:
+            bad_page = _bad_page_finish(bad_page)
         orders, customer = tables["orders"], tables["customer"]
         errs = timed(phase_kernels, round_up(int(6_001_215 * SF)), orders)
         launches = timed(phase_main_paths, orders, customer)
@@ -10189,7 +10637,8 @@ def main() -> int:
         launches.update(front_launches)
         file_launches, _ = timed(phase_files, host)
         launches.update(file_launches)
-        parquet_launches, parquet = timed(phase_parquet, host)
+        parquet_launches, parquet = timed(phase_parquet, host, "cuda",
+                                          bad_page)
         launches.update(parquet_launches)
         text_launches, _ = timed(phase_csv_json_orc, host, "cuda",
                                  *parquet["scan Q1"])

@@ -451,3 +451,360 @@ def test_only_the_interop_methods_are_left(cls, methods):
            if not n.startswith("_") or n in methods}
     port = set(dir(getattr(att, cls)))
     assert ref - port == methods
+
+
+# --- ROADMAP item 13.3: the submodules' and classes' names -------------------------
+
+# The names of these modules and classes, reference against port. A module's
+# public names are its ``__all__``, or else the names it defines, and the
+# re-exports that pyarrow's counterpart has too (``REEXPORTS``); the names a
+# module imports for its own use do not count. Left out by the port's
+# contract: ``put_sharded`` (it places arrays on a TPU mesh). Waiting for
+# item 13.2 (the pandas methods, part 2; Buffer's device facts, part 3):
+# these and nothing else may be missing.
+SUBMODULES = ("compute", "types", "config", "acero", "dataset", "api",
+              "parallel", "parallel.distributed", "utils.tdigest", "buffer")
+REEXPORTS = {"compute": {"Expression", "field", "scalar"},
+             "dataset": {"FileSelector", "FileSystem", "LocalFileSystem",
+                         "FilterNodeOptions", "TableSourceNodeOptions"},
+             "api": {"array_data_from_sequence"}}
+LEFT_OUT = {"parallel.distributed": {"put_sharded"}}
+CLASSES = {
+    "Schema": ("types", {"from_pandas", "pandas_metadata"}),
+    "DataType": ("types", {"to_pandas_dtype"}),
+    "Field": ("types", set()),
+    "Buffer": ("buffer", {"device", "device_type", "memory_manager"}),
+    "Scalar": ("compute.registry", set()),
+}
+
+
+def _module(pkg, name):
+    import importlib
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+@pytest.mark.parametrize("name", SUBMODULES)
+def test_every_public_name_of_the_submodule_resolves(name):
+    """Every public name of the reference's module is the port's too, but
+    the contract's."""
+    ref, port = _module("arrow_tpu", name), _module("arrow_tpu_torch", name)
+
+    def defined_here(n):
+        where = getattr(getattr(ref, n), "__module__", None) or ref.__name__
+        return where == ref.__name__ or where.startswith(ref.__name__ + ".")
+
+    public = set(ref.__all__) if hasattr(ref, "__all__") else {
+        n for n in dir(ref) if not n.startswith("_")
+        and not isinstance(getattr(ref, n), types.ModuleType)
+        and defined_here(n)}
+    public |= REEXPORTS.get(name, set())
+    missing = {n for n in public if not hasattr(port, n)}
+    assert missing == LEFT_OUT.get(name, set())
+
+
+@pytest.mark.parametrize("cls", sorted(CLASSES))
+def test_every_public_attribute_of_the_class_resolves(cls):
+    mod, waiting = CLASSES[cls]
+    ref = getattr(_module("arrow_tpu", mod), cls)
+    port = getattr(_module("arrow_tpu_torch", mod), cls)
+    missing = {n for n in dir(ref) if not n.startswith("_")
+               and not hasattr(port, n)}
+    assert missing == waiting
+
+
+def _all_types(P):
+    fs = [P.field("a", P.int8()), P.field("b", P.string())]
+    return [
+        P.null(), P.bool_(), P.int8(), P.int16(), P.int32(), P.int64(),
+        P.uint8(), P.uint16(), P.uint32(), P.uint64(), P.float16(),
+        P.float32(), P.float64(), P.date32(), P.date64(),
+        P.timestamp("ms"), P.timestamp("ns", "UTC"), P.time32("s"),
+        P.time64("us"), P.duration("ms"), P.month_interval(),
+        P.day_time_interval(), P.month_day_nano_interval(),
+        P.decimal32(7, 2), P.decimal64(12, 3), P.decimal128(20, 4),
+        P.decimal256(40, 5), P.string(), P.binary(), P.large_string(),
+        P.large_binary(), P.fixed_size_binary(4), P.string_view(),
+        P.binary_view(), P.list_(P.int8()), P.large_list(P.string()),
+        P.fixed_size_list(P.int8(), 3), P.list_view(P.int16()),
+        P.large_list_view(P.int16()), P.struct(fs),
+        P.map_(P.string(), P.int32()), P.dictionary(P.int32(), P.string()),
+        P.run_end_encoded(P.int32(), P.float64()), P.sparse_union(fs),
+        P.dense_union(fs)]
+
+
+PREDICATES = sorted(n for n in dir(at.types) if n.startswith("is_")
+                    and not n.endswith("_value"))
+VALUE_PREDICATES = sorted(n for n in dir(at.types) if n.startswith("is_")
+                          and n.endswith("_value"))
+
+
+@pytest.mark.parametrize("name", PREDICATES)
+def test_type_predicate(name):
+    """Each of pyarrow.types' predicates over every type the port has,
+    the reference's answer; and False for what is not a type."""
+    pred, want = getattr(att.types, name), getattr(at.types, name)
+    for p, r in zip(_all_types(att), _all_types(at), strict=True):
+        assert pred(p) is want(r), (name, r)
+    assert pred(None) is want(None) is False
+
+
+@pytest.mark.parametrize("name", VALUE_PREDICATES)
+def test_value_predicate(name):
+    values = [True, np.bool_(False), 1, np.int8(3), np.uint64(9), 1.5,
+              np.float32(2.0), "x", None, b"y"]
+    assert [getattr(att.types, name)(v) for v in values] == \
+        [getattr(at.types, name)(v) for v in values]
+
+
+@pytest.mark.parametrize("attr", [
+    "num_fields", "num_buffers", "has_variadic_buffers", "name",
+    "is_primitive", "is_binary_like", "is_binary_view_like",
+    "is_large_binary_like"])
+def test_data_type_attribute(attr):
+    for p, r in zip(_all_types(att), _all_types(at), strict=True):
+        assert getattr(p, attr) == getattr(r, attr), (attr, r)
+
+
+def test_data_type_field():
+    for p, r in zip(_all_types(att), _all_types(at), strict=True):
+        for i in range(r.num_fields):
+            assert p.field(i).name == r.field(i).name
+            assert p.field(i).type == port_type(r.field(i).type)
+
+
+def _schemas(P):
+    return [P.schema([("a", P.int64()), ("b", P.string()),
+                      P.field("c", P.bool_(), False)]),
+            P.schema([("x", P.int8())], {"k": "v"}), P.schema([])]
+
+
+def test_schema_text_and_metadata():
+    for p, r in zip(_schemas(att), _schemas(at)):
+        assert repr(p) == repr(r) == p.to_string() == r.to_string()
+        assert p.add_metadata({"m": "1"}).metadata == \
+            r.add_metadata({"m": "1"}).metadata
+    assert repr(att.schema([("a", att.int64())])) == "Schema:\na: int64"
+
+
+def test_schema_serialize():
+    for p, r in zip(_schemas(att), _schemas(at)):
+        got = p.serialize()
+        assert isinstance(got, att.Buffer)
+        assert got.to_pybytes() == r.serialize().to_pybytes()
+
+
+def test_buffer_attributes():
+    for data in (b"abc\x00\xff", bytearray(b"xyz"),
+                 np.arange(5, dtype=np.int32)):
+        p, r = att.py_buffer(data), at.py_buffer(data)
+        assert p.hex() == r.hex()
+        assert (p.is_cpu, p.is_mutable, p.parent) == \
+            (r.is_cpu, r.is_mutable, r.parent)
+        assert p.address == p.to_numpy().ctypes.data
+        assert p.slice(1, 2).address == p.address + 1
+
+
+@pytest.mark.parametrize("value,src,dst", [
+    (5, "int64", "float64"), (None, "int32", "int8"), ("7", "string", "int64"),
+    (2.5, "float64", "int32"), (True, "bool_", "int16")])
+def test_scalar_cast_equals_validate(value, src, dst):
+    from arrow_tpu.compute.registry import Scalar as RS
+    from arrow_tpu_torch.compute.registry import Scalar as PS
+    r = RS(value, getattr(at, src)())
+    p = PS(value, getattr(att, src)())
+    try:
+        want = r.cast(getattr(at, dst)())
+    except Exception as exc:  # noqa: BLE001 - the port raises alike
+        with pytest.raises(builtin_class(exc)):
+            p.cast(getattr(att, dst)(), device="cpu")
+    else:
+        got = p.cast(getattr(att, dst)(), device="cpu")
+        assert (got.value, got.type) == (want.value, port_type(want.type))
+    assert p.equals(PS(value, getattr(att, src)())) is \
+        r.equals(RS(value, getattr(at, src)())) is True
+    assert p.equals(PS(value, att.uint8())) is \
+        r.equals(RS(value, at.uint8())) is False
+    assert p.validate() is r.validate() is None
+    assert p.validate(full=True) is None
+
+
+def test_tdigest_quantiles_after_a_merge():
+    from arrow_tpu.utils.tdigest import TDigest as RD
+    from arrow_tpu_torch.utils.tdigest import TDigest as PD
+    rng = np.random.default_rng(11)
+    parts = [rng.lognormal(0, 1.5, 5_000), rng.normal(3, 1, 7_000),
+             np.concatenate([rng.uniform(size=300), [np.nan]])]
+    q = [0.0, 0.01, 0.25, 0.5, 0.9, 0.999, 1.0]
+    for delta in (20, 100):
+        r = [RD.from_array(p, delta) for p in parts]
+        p = [PD.from_array(x, delta) for x in parts]
+        rm, pm = r[0].merge(r[1:]), p[0].merge(p[1:])
+        np.testing.assert_array_equal(pm.quantile(q), rm.quantile(q))
+        np.testing.assert_array_equal(pm.means, rm.means)
+        np.testing.assert_array_equal(pm.weights, rm.weights)
+        assert (pm.min, pm.max, len(pm), pm.total_weight, repr(pm)) == \
+            (rm.min, rm.max, len(rm), rm.total_weight, repr(rm))
+        assert pm.median() == rm.median() and pm.mean() == rm.mean()
+        assert pm.merge(PD(delta)).quantile(0.3) == \
+            rm.merge(RD(delta)).quantile(0.3)
+    assert np.isnan(PD().quantile(0.5)) and np.isnan(RD().quantile(0.5))
+
+
+@pytest.mark.parametrize("width,padding", [(5, "0"), (2, "0"), (6, "*")])
+def test_utf8_zfill(width, padding):
+    import arrow_tpu.compute as jpc
+    import arrow_tpu_torch.compute as pc
+    vals = ["1", "-23", "+4", "", None, "déjà", "12345678"]
+    want = jpc.utf8_zfill(at.array(vals), width, padding).to_pylist()
+    got = pc.utf8_zfill(att.array(vals), width, padding, device="cpu")
+    assert got.to_pylist() == want
+
+
+def test_function_registry_is_the_references():
+    """F10: ``compute.function_registry()`` is a FunctionRegistry, as the
+    reference's; ``compute.registry.function_registry()`` stays the dict
+    of name -> Function, as the reference's module's is."""
+    import arrow_tpu.compute as jpc
+    import arrow_tpu_torch.compute as pc
+    from arrow_tpu.compute import registry as jreg
+    from arrow_tpu_torch.compute import registry as preg
+    got, want = pc.function_registry(), jpc.function_registry()
+    assert type(got).__name__ == type(want).__name__ == "FunctionRegistry"
+    assert isinstance(got, pc.FunctionRegistry)
+    assert got.list_functions() == want.list_functions()
+    for name in want.list_functions():
+        assert got.get_function(name).kind == want.get_function(name).kind
+        assert got.get_function(name) is preg.get_function(name)
+    assert isinstance(preg.function_registry(), dict)
+    assert isinstance(jreg.function_registry(), dict)
+    assert sorted(preg.function_registry()) == got.list_functions()
+
+
+def test_kernel_and_function_classes():
+    import arrow_tpu.compute as jpc
+    import arrow_tpu_torch.compute as pc
+    for base in ("Kernel", "Function"):
+        kids = [n for n in dir(jpc) if n.endswith(base) and n != base]
+        assert kids and [n for n in dir(pc) if n.endswith(base)
+                         and n != base] == kids
+        for n in kids:
+            assert issubclass(getattr(pc, n), getattr(pc, base))
+
+
+def test_compute_expressions_filter_a_table():
+    """The pyarrow idiom ``t.filter(pc.field("a") > 1)`` and
+    ``pc.scalar``."""
+    import arrow_tpu.compute as jpc
+    import arrow_tpu_torch.compute as pc
+    data = {"a": [3, 1, None, 2, 5], "b": ["x", "y", "z", "w", None]}
+    rt, pt = at.table(data), att.table(data)
+    want = rt.filter(jpc.field("a") > jpc.scalar(1))
+    got = pt.filter(pc.field("a") > pc.scalar(1), device="cpu")
+    same(got, want)
+    assert isinstance(pc.field("a"), pc.Expression)
+    assert pc.Expression is att.acero.Expression
+
+
+def test_config_global_options(monkeypatch):
+    """The reference's fields and defaults; ``initialize`` keeps a
+    ``bloom_mode`` and refuses, changing nothing, the options the port
+    cannot honour. Unlike the reference's, it writes no environment
+    variable."""
+    from arrow_tpu import config as jcfg
+    from arrow_tpu_torch import config as pcfg
+    import dataclasses
+    import os
+    assert [(f.name, f.default) for f in
+            dataclasses.fields(pcfg.GlobalOptions)] == \
+        [(f.name, f.default) for f in dataclasses.fields(jcfg.GlobalOptions)]
+    assert pcfg.global_options() == pcfg.GlobalOptions()
+    monkeypatch.setattr(pcfg, "_GLOBAL", pcfg.global_options())
+    env = dict(os.environ)
+    pcfg.initialize(None)
+    assert pcfg.global_options() == pcfg.GlobalOptions()
+    opts = pcfg.GlobalOptions(bloom_mode="never")
+    pcfg.initialize(opts)
+    assert pcfg.global_options() is opts
+    for field, refused in (
+            ("io_threads", {"io_threads": 3}),
+            ("fragment_readahead", {"fragment_readahead": 2}),
+            ("movement_mode", {"movement_mode": "sort"}),
+            ("movement_mode", {"bloom_mode": "always",
+                               "movement_mode": "direct"})):
+        with pytest.raises(NotImplementedError, match=field):
+            pcfg.initialize(pcfg.GlobalOptions(**refused))
+        assert pcfg.global_options() is opts
+    with pytest.raises(ValueError, match="bloom_mode"):
+        pcfg.initialize(pcfg.GlobalOptions(bloom_mode="sometimes"))
+    assert pcfg.global_options() is opts
+    assert dict(os.environ) == env
+
+
+@pytest.mark.parametrize("mode,probe_rows", [
+    ("auto", 5000), ("auto", 12), ("always", 12), ("never", 5000)])
+def test_bloom_mode_reaches_the_joins(monkeypatch, mode, probe_rows):
+    """``GlobalOptions.bloom_mode`` decides the port's bloom as
+    ``ARROW_TPU_BLOOM`` does the reference's (auto: the probe side's
+    capacity is at least 4x the build side's, 1,024 rows), and the join
+    equals the reference's under each mode."""
+    from arrow_tpu_torch import config as pcfg
+    from arrow_tpu_torch.compute import bloom
+    rng = np.random.default_rng(11)
+    left = {"k": rng.integers(0, 20, probe_rows).tolist(),
+            "x": rng.integers(0, 99, probe_rows).tolist()}
+    right = {"k": list(range(0, 20, 2)), "y": list(range(10))}
+    monkeypatch.setattr(pcfg, "_GLOBAL", pcfg.global_options())
+    monkeypatch.setenv("ARROW_TPU_BLOOM", mode)
+    pcfg.initialize(pcfg.GlobalOptions(bloom_mode=mode))
+    built = []
+    real = bloom.build_bloom
+    monkeypatch.setattr(bloom, "build_bloom",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    keys = [("k", "ascending"), ("x", "ascending")]
+    got = att.table(left).join(att.table(right), "k", join_type="inner",
+                               device="cpu")
+    want = at.table(left).join(at.table(right), "k", join_type="inner")
+    same(got.sort_by(keys, device="cpu"), want.sort_by(keys))
+    assert len(built) == (mode == "always" or
+                          (mode == "auto" and probe_rows >= 4096))
+
+
+def test_acero_and_dataset_exports():
+    import arrow_tpu.acero as jac
+    import arrow_tpu.dataset as jds
+    from arrow_tpu.device.column import download_table as jdownload
+    import arrow_tpu_torch.acero as ac
+    import arrow_tpu_torch.dataset as ds
+    from arrow_tpu_torch.device.column import download, upload_table
+    for n in dir(jac):
+        if n.endswith("NodeOptions") and n != "ExecNodeOptions":
+            assert issubclass(getattr(ac, n), ac.ExecNodeOptions) is \
+                issubclass(getattr(jac, n), jac.ExecNodeOptions), n
+    data = {"a": [3, 1, None, 2], "s": ["p", "q", "p", None]}
+
+    def plan(A, src):
+        return A.Declaration.from_sequence([
+            A.Declaration("table_source", A.TableSourceNodeOptions(src)),
+            A.Declaration("filter", A.FilterNodeOptions(A.field("a") > 1))])
+    want = jdownload(jac.execute_declaration(plan(
+        jac, at.table(data)))).to_pydict()
+    got = download(ac.execute_declaration(plan(ac, upload_table(
+        att.table(data), device="cpu"))))
+    assert got == want
+    for n in ("FileSelector", "FileSystem", "LocalFileSystem"):
+        assert getattr(ds, n) is getattr(att.fs, n)
+        assert getattr(jds, n) is getattr(at.fs, n)
+    for n in ("FilterNodeOptions", "TableSourceNodeOptions"):
+        assert getattr(ds, n) is getattr(ac, n)
+
+
+@pytest.mark.parametrize("values,tname", [
+    ([1, None, 3], None), (["a", None, "ccc"], None), ([[1, 2], None, []], None),
+    ([1.5, None], "float32"), ([None, None], "null")])
+def test_array_data_from_sequence(values, tname):
+    from arrow_tpu.array.construct import array_data_from_sequence as ref
+    from test_torch_host_table import assert_same_data
+    got = att.api.array_data_from_sequence(
+        values, None if tname is None else getattr(att, tname)())
+    want = ref(values, None if tname is None else getattr(at, tname)())
+    assert_same_data(got, want)

@@ -395,6 +395,206 @@ def test_salted_join(ranks):
     assert hot_share >= 0.5 > salted_share
 
 
+# --- the Table-level entry points ---------------------------------------------
+
+def blob(table):
+    """A reference Table as IPC stream bytes, which the ranks read with the
+    port's ``ipc``."""
+    from arrow_tpu import ipc
+    return ipc.serialize_table(table)
+
+
+def table_run(ranks, fn, tables, *args, size=WORLD, **kwargs):
+    """``parallel.<fn>`` over host Tables on every rank: rank 0's result
+    and schema, after checking that every rank holds the same and
+    repeated its bits."""
+    out = ranks.run("table_case", fn, [blob(t) for t in tables], args,
+                    kwargs, size=size)
+    for r in out:
+        assert r["schema"] == out[0]["schema"]
+    return agreed(out), out[0]["schema"], out
+
+
+@pytest.mark.parametrize("size", [WORLD, RAGGED])
+def test_shard_table(ranks, size):
+    """Each rank uploads its range of a host Table, the reference's shard
+    of it; the string column's dictionary is the same on every rank."""
+    t = plan_table(1001, seed=2)
+    out = ranks.run("table_case", "shard_table", [blob(t)], size=size)
+    counts = np.asarray(jpar.shard_table(mesh(size), t).row_count).tolist()
+    assert [o["range"][1] for o in out] == counts
+    assert [o["range"][0] for o in out] == [sum(counts[:r])
+                                            for r in range(size)]
+    assert {o["range"][2] for o in out} == {t.num_rows}
+    whole = t.to_pydict()
+    for o in out:
+        start, n, _ = o["range"]
+        assert o["result"] == {k: v[start:start + n]
+                               for k, v in whole.items()}
+
+
+@pytest.mark.parametrize("size", [WORLD, RAGGED])
+@pytest.mark.parametrize("jt", tpar.JOIN_TYPES)
+def test_distributed_join_tables(ranks, jt, size):
+    """All eight join types of two host Tables with duplicate keys on both
+    sides and a string column: the reference's columns, names and types;
+    its rows as sorted rows (it leaves them in its devices' order), and
+    the reference's single-device join's rows in order."""
+    left, right = join_type_tables(seed=13)
+    got, schema, _ = table_run(ranks, "distributed_join_tables",
+                               [left, right], ["k"], ["k"], jt, size=size)
+    ref = jpar.distributed_join_tables(mesh(size), left, right, ["k"],
+                                       ["k"], jt)
+    assert [n for n, _ in schema] == ref.schema.names
+    assert [t for _, t in schema] == [repr(_port_type(f.type))
+                                      for f in ref.schema.fields]
+    want = ref.to_pydict()
+    assert _sorted_rows(got) == _sorted_rows(want)
+    assert_tables_match(got, _local_join(left, right, ["k"], ["k"], jt))
+
+
+def _port_type(t):
+    from test_torch_host_table import port_type
+    return port_type(t)
+
+
+@pytest.mark.parametrize("jt", ["inner", "left outer", "full outer",
+                                "right anti"])
+def test_distributed_join_tables_null_keys(ranks, jt):
+    left, right = null_key_tables()
+    got, _, _ = table_run(ranks, "distributed_join_tables", [left, right],
+                          ["k"], ["k"], jt)
+    want = jpar.distributed_join_tables(mesh(), left, right, ["k"], ["k"],
+                                        jt).to_pydict()
+    assert list(got) == list(want)
+    assert _sorted_rows(got) == _sorted_rows(want)
+
+
+def test_distributed_join_tables_one_to_many(ranks):
+    """A 1:N join (each probe row matches 20 build rows) against a numpy
+    oracle. The port sizes each rank's output from its match count; the
+    reference truncates at ``ndev`` x its probe capacity (ROADMAP.md §3,
+    reference defects the port does not copy), so its result is short."""
+    rng = np.random.default_rng(17)
+    n, keys, reps = 3000, 30, 20
+    lk = rng.integers(0, keys, n)
+    left = at.table({"k": at.array(lk.astype(np.int64)),
+                     "v": at.array(np.arange(n, dtype=np.int64))})
+    rk = np.repeat(np.arange(keys, dtype=np.int64), reps)
+    right = at.table({"k": at.array(rk),
+                      "w": at.array(np.arange(keys * reps) * 0.5)})
+    got, _, _ = table_run(ranks, "distributed_join_tables", [left, right],
+                          ["k"], ["k"], "inner")
+    # the single-rank order: probe rows in order, each one's matches in
+    # build order
+    probe = np.repeat(np.arange(n), reps)
+    build = (lk[:, None] * reps + np.arange(reps)).reshape(-1)
+    want = {"k_l": lk[probe].tolist(), "v": probe.tolist(),
+            "k_r": rk[build].tolist(), "w": (build * 0.5).tolist()}
+    assert got == want
+    ref = jpar.distributed_join_tables(mesh(), left, right, ["k"], ["k"],
+                                       "inner")
+    assert ref.num_rows < n * reps
+
+
+@pytest.mark.parametrize("size", [WORLD, RAGGED])
+@pytest.mark.parametrize("placement", ["at_end", "at_start"])
+def test_distributed_sort_table(ranks, placement, size):
+    """Two keys with nulls and ties: the reference's order exactly."""
+    t = plan_table(2500, seed=6)
+    keys = [("f", "descending"), ("g", "ascending")]
+    want = jpar.distributed_sort_table(mesh(size), t, keys,
+                                       null_placement=placement)
+    got, schema, _ = table_run(ranks, "distributed_sort_table", [t], keys,
+                               placement, size=size)
+    assert [n for n, _ in schema] == want.schema.names
+    assert_tables_match(got, want.to_pydict())
+
+
+def test_distributed_sort_table_by_a_string(ranks):
+    """A string key sorts by value, as the reference's order_by does."""
+    t = plan_table(2500, seed=8)
+    keys = [("k", "descending"), ("i", "ascending")]
+    want = jacero.Declaration.from_sequence([
+        jacero.Declaration("table_source", jacero.TableSourceNodeOptions(t)),
+        jacero.Declaration("order_by", jacero.OrderByNodeOptions(keys)),
+    ]).to_table().to_pydict()
+    got, _, _ = table_run(ranks, "distributed_sort_table", [t], keys)
+    assert_tables_match(got, want)
+
+
+@pytest.mark.parametrize("size", [WORLD, RAGGED])
+@pytest.mark.parametrize("jt", ["inner", "left outer"])
+def test_broadcast_join_tables(ranks, jt, size):
+    """A skewed probe side against a small build side with a missing key:
+    the reference's rows in its order, names and types."""
+    rng = np.random.default_rng(4)
+    keys = [7 if v < 90 else int(v) for v in rng.integers(0, 104, 1500)]
+    left = at.table({"key": keys, "lv": list(range(1500)),
+                     "tag": [f"t{i % 7}" for i in range(1500)]})
+    right = at.table({"key": list(range(100)),
+                      "rv": [i * 10 for i in range(100)]})
+    want = jpar.broadcast_join_tables(mesh(size), left, right, ["key"],
+                                      ["key"], jt)
+    got, schema, _ = table_run(ranks, "broadcast_join_tables",
+                               [left, right], ["key"], ["key"], jt,
+                               size=size)
+    assert [n for n, _ in schema] == want.schema.names
+    assert_tables_match(got, want.to_pydict())
+
+
+@pytest.mark.parametrize("jt", ["right outer", "full outer", "left semi"])
+def test_broadcast_join_tables_refuses_other_types(jt):
+    left, right = null_key_tables()
+    with pytest.raises(NotImplementedError):
+        jpar.broadcast_join_tables(mesh(), left, right, ["k"], ["k"], jt)
+    with pytest.raises(NotImplementedError):
+        tpar.broadcast_join_tables(None, left, right, ["k"], ["k"], jt)
+
+
+@pytest.mark.parametrize("size", [WORLD, RAGGED])
+def test_salted_join_tables(ranks, size):
+    """Half the probe rows on one key: the salted join's rows are the
+    reference's as a set (less its suffixed salt columns, which the port
+    drops) and the port's plain distributed join's in order; salting takes
+    the hot key's rows off one rank. The reference's defaults of
+    hot_threshold and n_salts apply."""
+    rng = np.random.default_rng(5)
+    n = 2000
+    keys = np.where(rng.random(n) < 0.5, 7, rng.integers(0, 100, n))
+    left = at.table({"k": at.array(keys.astype(np.int64)),
+                     "v": at.array(np.arange(n, dtype=np.int64))})
+    right = at.table({"k": at.array(np.arange(100, dtype=np.int64)),
+                      "w": at.array(np.arange(100, dtype=np.float64)),
+                      "s": at.array([f"s{i % 3}" for i in range(100)])})
+    plain, _, plain_out = table_run(ranks, "distributed_join_tables",
+                                    [left, right], ["k"], ["k"], size=size)
+    got, schema, salted_out = table_run(
+        ranks, "salted_join_tables", [left, right], ["k"], ["k"],
+        size=size, hot_threshold=200)
+    assert got == plain
+    ref = jpar.salted_join_tables(mesh(size), left, right, ["k"], ["k"],
+                                  hot_threshold=200).to_pydict()
+    names = [nm for nm, _ in schema]
+    assert [nm for nm in ref if not nm.startswith("__salt__")] == names
+    assert _sorted_rows(got, names) == _sorted_rows(ref, names)
+    hot_share = max(p["received"] for p in plain_out) / n
+    salted_share = max(p["received"] for p in salted_out) / n
+    assert hot_share >= 0.5 > salted_share
+
+
+def test_salted_join_tables_defaults(ranks):
+    """Without hot_threshold, the reference's default (4x a rank's share,
+    at least 64) finds no hot key in a mild skew: the plain join."""
+    left, right = keyed_tables(6, 1200, 40, 40, "unique")
+    got, _, _ = table_run(ranks, "salted_join_tables", [left, right],
+                          ["key"], ["key"])
+    want = jpar.salted_join_tables(mesh(), left, right, ["key"],
+                                   ["key"]).to_pydict()
+    assert list(got) == list(want)
+    assert _sorted_rows(got) == _sorted_rows(want)
+
+
 # --- plans: the reference's test_distributed_plan.py -------------------------
 
 def _run_plan(ranks, plan_name, tables, size=WORLD, single_device=False,
@@ -546,18 +746,22 @@ def test_join_type_on_ragged_shards(ranks, jt):
 def test_chip_smoke_phase_3k_on_cpu():
     """Phase 3k of ``chip_smoke.py`` at SF 0.005 on the CPU: its four
     ranks, every path against its single-rank run and oracle, the
-    ``EXCHANGE_COUNTS`` it reckons and the skewed join's spread (launch
-    counts and the NCCL exchange need the card)."""
+    ``EXCHANGE_COUNTS`` it reckons and the skewed joins' spread; with
+    phase 3l's host Tables, Q1 and Q3 split by rank and the Table-level
+    entry points against their numpy oracles (launch counts and the NCCL
+    exchange need the card)."""
     import chip_smoke
     from arrow_tpu_torch.io import tpch
     from arrow_tpu_torch.io.tpch_device import q1_device_batch
     t = tpch.generate(0.005, device="cpu")
     t["lineitem"], _ = q1_device_batch(0.005, device="cpu")
-    launches = chip_smoke.phase_dist(t, sf=0.005, device="cpu")
+    host = chip_smoke.phase_host(sf=0.005, device="cpu")[1]
+    launches = chip_smoke.phase_dist(t, sf=0.005, device="cpu", host=host)
     assert set(launches) == {f"3k {name}" for name in [
         "Q1", "distributed_q1", "Q3", "order_by", "broadcast",
-        "partitioned", "salted", "Q9-style"]
-        + [f"join {jt}" for jt in chip_smoke.JOIN_TYPES]}
+        "partitioned", "salted", "Q9-style", "Q1 host split",
+        "Q3 host split"] + [f"join {jt}" for jt in chip_smoke.JOIN_TYPES]
+        + list(chip_smoke.TABLE_PATHS)}
 
 
 # --- the mesh ----------------------------------------------------------------

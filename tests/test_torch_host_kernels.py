@@ -481,7 +481,9 @@ def test_every_host_name_is_covered():
     names = {n for n, f in __import__(
         "arrow_tpu.compute.registry", fromlist=["x"])._REGISTRY.items()
         if f.kind == "host"}
-    ours = {n for n, f in pc.function_registry().items() if f.kind == "host"}
+    ours = {n for n, f in __import__(
+        "arrow_tpu_torch.compute.registry",
+        fromlist=["x"]).function_registry().items() if f.kind == "host"}
     assert names <= ours
     assert len(names) == 26
     covered = {"list_value_length", "list_flatten", "list_parent_indices",

@@ -232,7 +232,8 @@ _HOST_BOUNDARY_MODULES = (
     "utils/aes_ctypes.py", "io/csv.py", "io/csv_host.py", "io/json.py",
     "io/orc.py", "io/host_arrays.py", "array/validate.py",
     "array/builder.py", "pretty.py", "compare.py", "fs_s3.py", "fs_gcs.py",
-    "fs_azure.py", "fs_hdfs.py")
+    "fs_azure.py", "fs_hdfs.py", "utils/tdigest.py",
+    "parallel/distributed.py")
 
 
 @pytest.mark.parametrize("module", _HOST_BOUNDARY_MODULES)

@@ -285,6 +285,33 @@ def call_case(mesh, fn, specs, args=(), kwargs=None):
             "received": D.LAST_JOIN.get("probe_rows")}
 
 
+def table_case(mesh, fn, blobs, args=(), kwargs=None):
+    """``parallel.<fn>(mesh, *tables, *args, **kwargs)`` over host Tables
+    (the reference's Tables as IPC stream bytes), run twice: {"result"
+    (the Table's columns), "schema" (its names and type names), "repeat",
+    "received" (this rank's probe rows of the last join exchange)}; for
+    ``shard_table``, this rank's part downloaded and its (offset, rows,
+    total)."""
+    from arrow_tpu_torch import ipc, parallel
+    from arrow_tpu_torch.device.column import download
+    from arrow_tpu_torch.parallel import distributed as D
+    tables = [ipc.deserialize_table(b) for b in blobs]
+    if fn == "shard_table":
+        part = parallel.shard_table(mesh, *tables, *args)
+        return {"result": download(part),
+                "range": (part.offset, int(part.row_count), part.total)}
+    out = {}
+
+    def once():
+        t = getattr(parallel, fn)(mesh, *tables, *args, **(kwargs or {}))
+        out["schema"] = [(f.name, repr(f.type)) for f in t.schema.fields]
+        return t.to_pydict()
+
+    result, repeat = _twice(once)
+    return {"result": result, "schema": out["schema"], "repeat": repeat,
+            "received": D.LAST_JOIN.get("probe_rows")}
+
+
 def pre_fns_case(mesh, left, right):
     """``distributed_join_batches`` with a filter (``lx > 0``) lowered to
     ``left_pre_fns``, as ``call_case``."""
