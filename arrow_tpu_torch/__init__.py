@@ -33,10 +33,14 @@ Storage and WebHDFS), ``io.parquet``, ``io.csv``, ``io.json`` and
 ``orc``, and ``dataset``'s datasets of these files, with
 ``write_dataset``.
 
-Not yet ported (ROADMAP.md item 13.2): the interop of part 2 (the C data
-interface, dlpack, the interchange protocol, pandas, tensors), part 3's
-extension types, pyarrow's per-type class names and ``Device``, and part
-4's Flight.
+Interop: the C data interface (``c_data``; ``Array.__arrow_c_array__``,
+``__arrow_c_stream__`` of the containers, ``RecordBatchReader.from_stream``
+of any producer's capsule), dlpack (``Array.__dlpack__``), the dataframe
+interchange protocol (``interchange``, ``__dataframe__``), tensors
+(``tensor``, ``Table.to_tensor``, ``ipc.write_tensor``), the extension
+types (``extension``), pyarrow's per-type class names (``compat_names``),
+``Device`` and the pandas methods (which need pandas; the card's machine
+has none). Not yet ported (ROADMAP.md item 13.2, part 4): Flight.
 """
 
 from __future__ import annotations
@@ -107,10 +111,24 @@ from .compute.registry import Scalar  # noqa: E402,F401
 from .config import (  # noqa: E402,F401
     BuildInfo, RuntimeInfo, build_info, runtime_info,
 )
-from .device import DeviceAllocationType  # noqa: E402,F401
+from .device import (  # noqa: E402,F401
+    Device, DeviceAllocationType, MemoryManager, default_cpu_memory_manager,
+)
+from .extension import (  # noqa: E402,F401
+    Bool8Type, ExtensionArray, ExtensionType, FixedShapeTensorArray,
+    FixedShapeTensorType, JsonType, OpaqueType, UuidType,
+    VariableShapeTensorType, bool8, fixed_shape_tensor, json_, opaque,
+    register_extension_type, unregister_extension_type, uuid,
+    variable_shape_tensor,
+)
 from .io.caching import CacheOptions  # noqa: E402,F401
 from . import compute, config, ipc, memory  # noqa: E402,F401
+from .tensor import (  # noqa: E402,F401
+    SparseCOOTensor, SparseCSCMatrix, SparseCSFTensor, SparseCSRMatrix,
+    Tensor,
+)
 from . import utils as util  # noqa: E402,F401
+from .compat_names import *  # noqa: E402,F401,F403
 from .ipc import (  # noqa: E402,F401
     Message, MessageReader, MetadataVersion, RecordBatchFileReader,
     RecordBatchFileWriter, RecordBatchStreamReader,
@@ -192,11 +210,14 @@ def __getattr__(name):
     """The frontends and the subpackages, imported when first named
     (reference: ``arrow_tpu/__init__.py`` ``__getattr__``)."""
     import importlib
-    lazy = {"acero": ".acero", "compare": ".compare", "dataset": ".dataset",
-            "device": ".device", "feather": ".feather", "fs": ".fs",
-            "gandiva": ".gandiva", "io": ".io", "orc": ".io.orc",
-            "parallel": ".parallel", "pretty": ".pretty", "sql": ".sql",
-            "substrait": ".substrait"}
+    lazy = {"acero": ".acero", "c_data": ".c_data",
+            "compare": ".compare", "compat_names": ".compat_names",
+            "dataset": ".dataset", "device": ".device",
+            "extension": ".extension", "feather": ".feather", "fs": ".fs",
+            "gandiva": ".gandiva", "interchange": ".interchange",
+            "io": ".io", "orc": ".io.orc", "parallel": ".parallel",
+            "pretty": ".pretty", "sql": ".sql", "substrait": ".substrait",
+            "tensor": ".tensor"}
     if name in lazy:
         return importlib.import_module(lazy[name], __name__)
     raise AttributeError(name)

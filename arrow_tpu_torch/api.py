@@ -2,9 +2,9 @@
 module-level functions): ``scalar``, ``nulls``, ``repeat``,
 ``infer_type``, ``concat_arrays``, ``concat_batches``, ``concat_tables``
 (with ``promote_options``), ``unify_schemas``, ``type_for_alias``,
-``show_versions`` and ``array_data_from_sequence``. All of them are host work. ``serialize_pandas`` and
-``deserialize_pandas`` wait for the pandas methods (ROADMAP.md item 13.2,
-part 2)."""
+``show_versions``, ``array_data_from_sequence`` and the pandas pair
+``serialize_pandas``/``deserialize_pandas`` (which need pandas). All of
+them are host work."""
 
 from __future__ import annotations
 
@@ -164,13 +164,18 @@ def type_for_alias(name: str) -> DataType:
 
 
 def serialize_pandas(df, preserve_index: bool = True) -> bytes:
-    raise NotImplementedError("serialize_pandas waits for the pandas methods "
-                              "(ROADMAP.md item 13.2, part 2)")
+    """A pandas DataFrame as IPC stream bytes (pyarrow.serialize_pandas;
+    needs pandas)."""
+    from . import ipc
+    from .table import Table
+    return ipc.serialize_table(Table.from_pandas(df))
 
 
 def deserialize_pandas(buf):
-    raise NotImplementedError("deserialize_pandas waits for the pandas "
-                              "methods (ROADMAP.md item 13.2, part 2)")
+    """IPC stream bytes as a pandas DataFrame (needs pandas)."""
+    import io
+    from . import ipc
+    return ipc.open_stream(io.BytesIO(bytes(buf))).read_all().to_pandas()
 
 
 def show_versions() -> None:

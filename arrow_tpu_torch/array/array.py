@@ -14,7 +14,7 @@ from typing import Any, List, Optional
 import numpy as np
 
 from ..types import DataType, TypeId
-from .construct import array_data_from_sequence
+from .construct import VIEW_INLINE, array_data_from_sequence
 from .data import ArrayData
 
 
@@ -126,6 +126,60 @@ class Array:
 
     def buffers(self):
         return list(self.data.buffers)
+
+    # interop: the C data interface, dlpack and pandas
+    def __arrow_c_array__(self, requested_schema=None):
+        """(schema capsule, array capsule) of the Arrow PyCapsule
+        interface; the capsules point at this Array's buffers."""
+        from ..c_data import array_capsules
+        return array_capsules(self)
+
+    def __dlpack__(self, stream=None):
+        """A primitive Array without nulls, through numpy without a copy
+        (reference: c/dlpack.cc)."""
+        return self.to_numpy(zero_copy_only=True).__dlpack__()
+
+    def __dlpack_device__(self):
+        return self.to_numpy(zero_copy_only=True).__dlpack_device__()
+
+    def to_pandas(self):
+        """A pandas Series, as the reference converts (needs pandas)."""
+        import pandas as pd
+        t = self.type
+        if t.id in (TypeId.TIMESTAMP, TypeId.DURATION):
+            kind = "datetime64" if t.id == TypeId.TIMESTAMP else \
+                "timedelta64"
+            vals = np.asarray(self.data.values(),
+                              np.int64).astype(f"{kind}[{t.unit}]")
+            if self.null_count:
+                vals = vals.copy()
+                vals[~self.is_valid_mask()] = "NaT"
+            s = pd.Series(vals)
+            if t.id == TypeId.TIMESTAMP and t.tz:
+                s = s.dt.tz_localize("UTC").dt.tz_convert(t.tz)
+            return s
+        if t.id == TypeId.DICTIONARY:
+            codes = np.asarray(self.indices.data.values(), np.int64)
+            if self.null_count:
+                codes = codes.copy()
+                codes[~self.is_valid_mask()] = -1
+            return pd.Series(pd.Categorical.from_codes(
+                codes, categories=pd.Index(self.dictionary.to_pylist())))
+        if t.is_numeric and self.null_count == 0:
+            return pd.Series(self.data.values())
+        if t.is_floating:
+            return pd.Series(self.to_numpy())
+        return pd.Series(self.to_pylist(), dtype=object)
+
+    @staticmethod
+    def from_pandas(obj, type: Optional[DataType] = None) -> "Array":
+        """An Array of a pandas Series (NaN and None null) or of a
+        sequence (needs pandas)."""
+        import pandas as pd
+        vals = [None if v is None or (isinstance(v, float) and v != v)
+                else v for v in obj.tolist()] \
+            if isinstance(obj, pd.Series) else list(obj)
+        return array(vals, type)
 
     @property
     def nbytes(self) -> int:
@@ -327,13 +381,71 @@ def _with_nulls(out: list, mask) -> list:
     return [v if m else None for v, m in zip(out, mask.tolist())]
 
 
+def _views_to_pylist(d: ArrayData, mask) -> List[Any]:
+    """A string or binary view's values: inline ones from the views, the
+    others from their data buffers."""
+    n = d.length
+    if n == 0 or d.buffers[1] is None:
+        return []
+    views = d.buffers[1].to_numpy().reshape(-1, 16)[d.offset:d.offset + n]
+    words = np.ascontiguousarray(views).view("<i4")  # (n, 4)
+    lens = words[:, 0].tolist()
+    buf_ids = words[:, 2].tolist()
+    offs = words[:, 3].tolist()
+    inline = np.ascontiguousarray(views[:, 4:]).tobytes()
+    data = [b"" if b is None else b.to_pybytes() for b in d.buffers[2:]]
+    w = VIEW_INLINE
+    out = [inline[w * i:w * i + ln] if ln <= w else
+           data[buf_ids[i]][offs[i]:offs[i] + ln]
+           for i, ln in enumerate(lens)]
+    if d.type.id == TypeId.BINARY_VIEW:
+        return _with_nulls(out, mask)
+    if mask is None:
+        return [b.decode() for b in out]
+    return [b.decode() if m else None for b, m in zip(out, mask.tolist())]
+
+
+def _union_to_pylist(d: ArrayData) -> List[Any]:
+    """A union's rows, each its child's value: a dense union's at its
+    offset, a sparse union's at the row."""
+    t = d.type
+    n = d.length
+    code_to_child = {c: j for j, c in enumerate(t.type_codes)}
+    kids = [_to_pylist(c) for c in d.children]
+    which = [code_to_child[c] for c in d.type_ids().tolist()]
+    if t.id == TypeId.DENSE_UNION:
+        offs = d.buffers[1].view(np.int32)[d.offset:d.offset + n].tolist()
+    else:
+        offs = range(d.offset, d.offset + n)
+    return [kids[j][o] for j, o in zip(which, offs)]
+
+
 def _to_pylist(d: ArrayData) -> List[Any]:
     t = d.type
     tid = t.id
     n = d.length
+    if tid == TypeId.EXTENSION:
+        storage = d.copy()
+        storage.type = t.storage_type
+        return _to_pylist(storage)
     if tid == TypeId.NA:
         return [None] * n
+    if tid in (TypeId.SPARSE_UNION, TypeId.DENSE_UNION):
+        return _union_to_pylist(d)
     mask = d.validity_mask()
+
+    if tid in (TypeId.STRING_VIEW, TypeId.BINARY_VIEW):
+        return _views_to_pylist(d, mask)
+
+    if tid in (TypeId.LIST_VIEW, TypeId.LARGE_LIST_VIEW):
+        if n == 0 or d.buffers[1] is None:
+            return []
+        dt = np.int64 if tid == TypeId.LARGE_LIST_VIEW else np.int32
+        offs = d.buffers[1].view(dt)[d.offset:d.offset + n].tolist()
+        sizes = d.buffers[2].view(dt)[d.offset:d.offset + n].tolist()
+        child = _to_pylist(d.children[0])
+        return _with_nulls([child[o:o + z] for o, z in zip(offs, sizes)],
+                           mask)
 
     if tid == TypeId.BOOL or t.is_numeric or tid == TypeId.INTERVAL_MONTHS:
         return _with_nulls(np.asarray(d.values()).tolist(), mask)

@@ -251,16 +251,71 @@ def array_data_from_sequence(values: Sequence[Any],
         return ArrayData(type, n, [_make_validity(mask), Buffer(indices)],
                          dictionary=array_data_from_sequence(
                              uniques, type.value_type))
-    if tid in _NO_HOST_LAYOUT:
-        raise NotImplementedError(
-            f"{type!r} has no host layout in the port yet (ROADMAP.md "
-            "item 13.2, part 3)")
+    if tid in (TypeId.STRING_VIEW, TypeId.BINARY_VIEW):
+        return _binary_view(values, n, mask, type)
+    if tid in (TypeId.LIST_VIEW, TypeId.LARGE_LIST_VIEW):
+        off_dt = np.int64 if tid == TypeId.LARGE_LIST_VIEW else np.int32
+        sizes = np.fromiter((0 if v is None else len(v) for v in values),
+                            np.int64, n)
+        offsets = np.zeros(n, dtype=np.int64)
+        np.cumsum(sizes[:-1], out=offsets[1:])
+        offsets[~mask] = 0
+        flat = list(chain.from_iterable(v for v in values if v is not None))
+        child = array_data_from_sequence(flat, type.value_type)
+        return ArrayData(type, n, [_make_validity(mask),
+                                   Buffer(offsets.astype(off_dt)),
+                                   Buffer(sizes.astype(off_dt))], [child])
+    # a union is built from its buffers (Array.from_buffers), as in the
+    # reference
     raise NotImplementedError(f"construction for {type!r}")
 
 
-_NO_HOST_LAYOUT = (TypeId.STRING_VIEW, TypeId.BINARY_VIEW, TypeId.LIST_VIEW,
-                   TypeId.LARGE_LIST_VIEW, TypeId.SPARSE_UNION,
-                   TypeId.DENSE_UNION)
+VIEW_INLINE = 12  # a view's bytes held in the view itself, at most
+
+
+def _binary_view(values, n, mask, type) -> ArrayData:
+    """A sequence's values in the view layout (``binary_view_data``)."""
+    chunks = [b"" if v is None else
+              (v.encode() if isinstance(v, str) else bytes(v))
+              for v in values]
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, chunks), np.int64, n), out=offsets[1:])
+    return binary_view_data(offsets, np.frombuffer(b"".join(chunks),
+                                                   np.uint8), mask, type)
+
+
+def binary_view_data(offsets, data, mask, type) -> ArrayData:
+    """Values given by their ``offsets`` (n + 1 of them) into ``data``
+    (uint8) in the view layout (format/Columnar.rst "Variable-size Binary
+    View"): 16 bytes a row, the length (int32) then either the value
+    inline (12 bytes at most) or its 4-byte prefix, the data buffer's
+    index (0: the one buffer of the values longer than 12 bytes) and the
+    value's offset there. A null row's view is zeros (``mask``: True =
+    valid, or None)."""
+    offs = np.asarray(offsets, dtype=np.int64)
+    n = len(offs) - 1
+    lens = offs[1:] - offs[:-1]
+    if mask is not None:
+        lens = np.where(mask, lens, 0)
+    views = np.zeros((n, 16), dtype=np.uint8)
+    views[:, 0:4] = lens.astype("<i4").view(np.uint8).reshape(n, 4)
+    # the first 12 bytes of every value (a long one's prefix is its first
+    # 4, the rest overwritten below)
+    head = np.minimum(lens, VIEW_INLINE)
+    rows = np.repeat(np.arange(n), head)
+    within = np.arange(int(head.sum())) - np.repeat(np.cumsum(head) - head,
+                                                    head)
+    views[rows, 4 + within] = data[np.repeat(offs[:-1], head) + within]
+    long = lens > VIEW_INLINE
+    long_lens = lens[long]
+    starts = np.zeros(len(long_lens), dtype=np.int64)
+    np.cumsum(long_lens[:-1], out=starts[1:])
+    views[long, 8:16] = 0
+    views[long, 12:16] = starts.astype("<i4").view(np.uint8).reshape(-1, 4)
+    at = np.repeat(offs[:-1][long] - starts, long_lens) + \
+        np.arange(int(long_lens.sum()))
+    return ArrayData(type, n, [None if mask is None else _make_validity(mask),
+                               Buffer(views), Buffer(data[at])])
 
 
 def _from_numpy(arr: np.ndarray, type: Optional[DataType]) -> ArrayData:

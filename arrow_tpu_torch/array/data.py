@@ -14,6 +14,11 @@ the reference's do:
   LARGE_LIST              [validity_bitmap, offsets_i64] + child
   FIXED_SIZE_LIST         [validity_bitmap] + child
   STRUCT                  [validity_bitmap] + children
+  SPARSE_UNION            [type_ids_i8] + children
+  DENSE_UNION             [type_ids_i8, offsets_i32] + children
+  STRING_VIEW/BINARY_VIEW [validity_bitmap, views_16B, data...]
+  LIST_VIEW               [validity_bitmap, offsets_i32, sizes_i32] + child
+  LARGE_LIST_VIEW         [validity_bitmap, offsets_i64, sizes_i64] + child
   DICTIONARY              [validity_bitmap, indices_data] (+ .dictionary)
   INTERVAL_DAY_TIME       [validity_bitmap, (days i32, ms i32) pairs]
   INTERVAL_MONTH_DAY_NANO [validity_bitmap, (months i32, days i32, ns i64)]
@@ -37,6 +42,10 @@ UNKNOWN_NULL_COUNT = -1
 
 _FIXED_BYTES = (TypeId.FIXED_SIZE_BINARY, TypeId.DECIMAL128,
                 TypeId.DECIMAL256, TypeId.DECIMAL32, TypeId.DECIMAL64)
+# the layouts without a validity bitmap: a union's nulls are its
+# children's, a run-end encoded array's its values'
+_NO_VALIDITY = (TypeId.SPARSE_UNION, TypeId.DENSE_UNION,
+                TypeId.RUN_END_ENCODED)
 
 
 class ArrayData:
@@ -63,7 +72,7 @@ class ArrayData:
             if self.type.id == TypeId.NA:
                 self._null_count = self.length
             elif self.buffers and self.buffers[0] is not None \
-                    and self.type.id != TypeId.RUN_END_ENCODED:
+                    and self.type.id not in _NO_VALIDITY:
                 valid = bitutil.count_set_bits(
                     self.buffers[0].to_numpy(), self.length, self.offset)
                 self._null_count = self.length - valid
@@ -76,7 +85,7 @@ class ArrayData:
         if self.type.id == TypeId.NA:
             return np.zeros(self.length, dtype=np.bool_)
         if not self.buffers or self.buffers[0] is None \
-                or self.type.id == TypeId.RUN_END_ENCODED:
+                or self.type.id in _NO_VALIDITY:
             return None
         return bitutil.unpack_bits(self.buffers[0].to_numpy(),
                                    self.length, self.offset)
@@ -126,6 +135,11 @@ class ArrayData:
         if self.buffers[2] is None:
             return np.zeros(0, dtype=np.uint8)
         return self.buffers[2].to_numpy()
+
+    def type_ids(self) -> np.ndarray:
+        """A union's type codes a row, offset applied."""
+        return self.buffers[0].view(np.int8)[self.offset:
+                                             self.offset + self.length]
 
     def slice(self, offset: int, length: Optional[int] = None) -> "ArrayData":
         offset = min(offset, self.length)

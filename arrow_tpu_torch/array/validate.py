@@ -2,7 +2,12 @@
 reference: cpp/src/arrow/array/validate.h:32-53): ``validate`` checks an
 ArrayData's structure (buffer counts, bitmap and offsets sizes, null
 counts), ``validate_full`` its data too (offsets monotonic and in bounds,
-dictionary indices in range, UTF-8, run ends increasing). Host only."""
+dictionary indices in range, UTF-8, run ends increasing). Host only.
+
+One departure, a reference defect the port does not copy: a string or
+binary view counts its variadic data buffers (two buffers and any number
+of them) and a list view its sizes (three buffers); the reference expects
+two of each and refuses its own arrays of these types."""
 
 from __future__ import annotations
 
@@ -30,6 +35,13 @@ def validate(data: ArrayData, full: bool = False):
     if data.offset < 0:
         _fail("negative offset")
 
+    if tid in (TypeId.STRING_VIEW, TypeId.BINARY_VIEW):
+        if len(data.buffers) < 2:
+            _fail(f"{t!r}: expected at least 2 buffers, got "
+                  f"{len(data.buffers)}")
+        if data.buffers[1] is not None and \
+                data.buffers[1].size < 16 * (data.offset + n):
+            _fail("views buffer too small")
     expected_buffers = _expected_buffer_count(tid, t)
     if expected_buffers is not None and len(data.buffers) not in \
             (expected_buffers, 0 if tid == TypeId.NA else expected_buffers):
@@ -108,6 +120,10 @@ def _expected_buffer_count(tid, t):
         return 0
     if tid in (TypeId.STRING, TypeId.BINARY, TypeId.LARGE_STRING,
                TypeId.LARGE_BINARY):
+        return 3
+    if tid in (TypeId.STRING_VIEW, TypeId.BINARY_VIEW):
+        return None  # two and the variadic data buffers
+    if tid in (TypeId.LIST_VIEW, TypeId.LARGE_LIST_VIEW):
         return 3
     if tid in (TypeId.LIST, TypeId.MAP, TypeId.LARGE_LIST,
                TypeId.DENSE_UNION):

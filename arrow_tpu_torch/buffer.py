@@ -69,6 +69,22 @@ class Buffer:
     def parent(self):
         return None
 
+    @property
+    def device(self):
+        """The CPU: a Buffer lies in host memory."""
+        from .device import Device
+        return Device()
+
+    @property
+    def device_type(self):
+        from .device import DeviceAllocationType
+        return DeviceAllocationType.CPU
+
+    @property
+    def memory_manager(self):
+        from .device import default_cpu_memory_manager
+        return default_cpu_memory_manager()
+
 
 def as_buffer(obj) -> Buffer:
     return obj if isinstance(obj, Buffer) else Buffer(obj)

@@ -6,8 +6,10 @@ binary paths of scalar_cast_string.cc and the cast.cc dispatcher).
 The device ``cast`` (``elementwise.py``) keeps the numeric, bool and
 temporal paths; a cast between layouts of variable length or with
 children runs here on host Arrays, value by value, as the reference's
-does. The reference's extension-type casts are left out: the port has no
-extension types.
+does. An extension type casts through its storage type, as the
+reference's does (extension_type.h:39: the two share a layout). A string
+or binary column casts to its view layout in numpy, which the reference
+cannot (its ``cast`` has no view target).
 
 Entry: ``try_cast_host(args, options) -> Array | None`` (None: not a case
 of the host matrix, the call goes on to the device cast).
@@ -19,6 +21,7 @@ import decimal as _dec
 from typing import Any, Optional
 
 from ..array.array import Array, array as make_array
+from ..array.construct import binary_view_data
 from ..table import ChunkedArray
 from ..types import DataType, TypeId
 from .registry import ArrowInvalid
@@ -37,7 +40,20 @@ _INT_RANGE = {
 }
 
 
+def _is_ext(t: DataType) -> bool:
+    return t.id == TypeId.EXTENSION
+
+
+def _retype(data, t: DataType):
+    from ..array.data import ArrayData
+    return ArrayData(t, data.length, data.buffers, data.children,
+                     null_count=data._null_count, offset=data.offset,
+                     dictionary=data.dictionary)
+
+
 def _needs_host(src: DataType, dst: DataType) -> bool:
+    if _is_ext(src) or _is_ext(dst):
+        return True
     if dst.id in (TypeId.DICTIONARY, TypeId.NA) or src.id == TypeId.NA:
         return True
     for ids in (_LISTS, _DECIMALS, (TypeId.STRUCT,), (TypeId.MAP,)):
@@ -45,11 +61,21 @@ def _needs_host(src: DataType, dst: DataType) -> bool:
             return True
     if dst.id in _BINARIES or dst.id == TypeId.FIXED_SIZE_BINARY:
         return True
+    if _to_view(src.value_type if src.id == TypeId.DICTIONARY else src,
+                dst):
+        return True
     if src.id in _BINARIES or src.id == TypeId.FIXED_SIZE_BINARY:
         return True
     return src.id == TypeId.DICTIONARY and (
         dst.id == TypeId.DICTIONARY or src.value_type.id not in _STRINGS
         or dst.id in _STRINGS)
+
+
+def _to_view(src: DataType, dst: DataType) -> bool:
+    """A string column to string_view, a binary one to binary_view (the
+    reference has no cast to a view type)."""
+    return (src.id in _STRINGS and dst.id == TypeId.STRING_VIEW) or \
+        (src.id in _BINARIES and dst.id == TypeId.BINARY_VIEW)
 
 
 def try_cast_host(args, options) -> Optional[Array]:
@@ -68,6 +94,13 @@ def _cast_array(a: Array, t: DataType, safe: bool) -> Array:
     src = a.type
     if src == t:
         return a
+    # an extension source or target: cast the storage, retype it
+    if _is_ext(src) and not _is_ext(t):
+        return _cast_array(Array(_retype(a.data, src.storage_type)), t, safe)
+    if _is_ext(t):
+        storage = a if src == t.storage_type else \
+            _cast_array(a, t.storage_type, safe)
+        return Array(_retype(storage.data, t))
     if t.id == TypeId.NA:
         if safe and a.null_count != len(a):
             raise ArrowInvalid("cannot cast non-null values to null type")
@@ -86,6 +119,10 @@ def _cast_array(a: Array, t: DataType, safe: bool) -> Array:
     if src.id == TypeId.DICTIONARY:
         return _cast_array(make_array(a.to_pylist(), src.value_type), t,
                            safe)
+    if _to_view(src, t):
+        d = a.data
+        return Array(binary_view_data(d.offsets(), d.data_bytes(),
+                                      d.validity_mask(), t))
 
     if src.id in _LISTS and t.id in _LISTS:
         conv = _value_caster(src.value_type, t.value_type, safe)

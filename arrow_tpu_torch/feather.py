@@ -82,6 +82,9 @@ class FeatherDataset:
             [c for t in tables for c in t.columns[i].chunks], f.type)
             for i, f in enumerate(first.schema)])
 
+    def read_pandas(self, columns=None):
+        return self.read_table(columns).to_pandas()
+
 
 def check_chunked_overflow(name, col):
     """Feather V1 cannot store a binary column over 2 GB (feather.py)."""

@@ -5,12 +5,11 @@ pyarrow.parquet.FileMetaData family).
 
 The views read the thrift structs the reader parsed; field ids follow
 parquet.thrift. ``filters_to_expression``, ``write_to_dataset`` and
-``ParquetDataset`` join Parquet to ``dataset.py``. Two departures, each
-where the reference raises: ``write_to_dataset`` takes pyarrow's
-``metadata_collector`` (a list that receives each written file's
-FileMetaData, its ``file_path`` relative to the root), and
-``read_pandas`` raises NotImplementedError until the port's Table has
-``to_pandas`` (ROADMAP.md item 13.2, part 2).
+``ParquetDataset`` join Parquet to ``dataset.py``; ``read_pandas`` reads a
+Table and converts it (needs pandas). One departure, where the reference
+raises: ``write_to_dataset`` takes pyarrow's ``metadata_collector`` (a
+list that receives each written file's FileMetaData, its ``file_path``
+relative to the root).
 """
 
 from __future__ import annotations
@@ -229,11 +228,10 @@ def read_schema(source):
 
 
 def read_pandas(source, columns=None, **kw):
-    """pyarrow.parquet.read_pandas: the port's Table has no pandas
-    conversion yet."""
-    raise NotImplementedError(
-        "read_pandas needs Table.to_pandas, not ported yet (ROADMAP.md "
-        "item 13.2, part 2: interop)")
+    """pyarrow.parquet.read_pandas: ``read_table`` as a pandas DataFrame
+    (needs pandas)."""
+    from .reader import read_table
+    return read_table(source, columns=columns, **kw).to_pandas()
 
 
 def filters_to_expression(filters):
@@ -320,5 +318,5 @@ class ParquetDataset:
         return self._dataset.to_table(columns=columns, filter=expr,
                                       device=device)
 
-    def read_pandas(self, columns=None):
-        return read_pandas(None, columns)
+    def read_pandas(self, columns=None, device=None):
+        return self.read(columns, device=device).to_pandas()

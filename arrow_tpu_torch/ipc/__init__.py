@@ -1,7 +1,6 @@
 """Arrow IPC, the stream and file formats (counterpart of
-``arrow_tpu/ipc/``). ``read_tensor``/``write_tensor`` and
-``serialize_pandas``/``deserialize_pandas`` are not ported yet (ROADMAP.md
-item 13.2, part 2: interop) and raise NotImplementedError."""
+``arrow_tpu/ipc/``), with the tensor messages (``tensor.py``) and the
+pandas pair (which needs pandas)."""
 
 from .reader_writer import (  # noqa: F401
     RecordBatchFileReader, RecordBatchFileWriter, RecordBatchStreamReader,
@@ -14,23 +13,11 @@ from .compat import (  # noqa: F401
     read_message, read_record_batch, read_schema,
 )
 from ..table import RecordBatchReader  # noqa: F401,E402
-
-_LATER = "ROADMAP.md item 13.2, part 2: interop"
-
-
-def _not_ported(name):
-    def call(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet ({_LATER})")
-    call.__name__ = call.__qualname__ = name
-    call.__doc__ = f"Not ported yet ({_LATER})."
-    return call
-
-
-read_tensor = _not_ported("read_tensor")
-write_tensor = _not_ported("write_tensor")
-get_tensor_size = _not_ported("get_tensor_size")
-serialize_pandas = _not_ported("serialize_pandas")
-deserialize_pandas = _not_ported("deserialize_pandas")
+from ..tensor import (  # noqa: F401,E402
+    get_tensor_size, read_sparse_tensor, read_tensor, write_sparse_tensor,
+    write_tensor,
+)
+from ..api import deserialize_pandas, serialize_pandas  # noqa: F401,E402
 
 
 class Alignment:

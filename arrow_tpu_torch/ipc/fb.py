@@ -162,6 +162,14 @@ class Reader:
     def vector_i64(self, slot) -> List[int]:
         return self.vector_structs(slot, np.dtype("<i8")).tolist()
 
+    def vector_i32(self, slot) -> List[int]:
+        return self.vector_structs(slot, np.dtype("<i4")).tolist()
+
+    def struct_i64_pair(self, slot) -> Tuple[int, int]:
+        """An inline struct of two int64s (a Buffer: offset, length)."""
+        at = self.pos + self._off(slot)
+        return struct.unpack_from("<qq", self.buf, at)
+
 
 class Builder:
     """The ``flatbuffers`` Python runtime's Builder, as far as the IPC

@@ -42,6 +42,9 @@ _INTERVAL_PAIRS = (TypeId.INTERVAL_DAY_TIME, TypeId.INTERVAL_MONTH_DAY_NANO)
 _VAR_BINARY = (TypeId.STRING, TypeId.BINARY, TypeId.LARGE_STRING,
                TypeId.LARGE_BINARY)
 _LISTS = (TypeId.LIST, TypeId.MAP, TypeId.LARGE_LIST)
+_UNIONS = (TypeId.SPARSE_UNION, TypeId.DENSE_UNION)
+_BINARY_VIEWS = (TypeId.STRING_VIEW, TypeId.BINARY_VIEW)
+_LIST_VIEWS = (TypeId.LIST_VIEW, TypeId.LARGE_LIST_VIEW)
 _PAIR = np.dtype([("a", "<i8"), ("b", "<i8")])
 
 
@@ -66,6 +69,9 @@ class BufferedBody:
         self.layout: List[Tuple[int, int]] = []  # (offset, length)
         self.pos = 0
         self.codec = codec
+        # a view column's count of data buffers (the RecordBatch's
+        # variadicBufferCounts)
+        self.variadic_counts: List[int] = []
         if codec == "zstd" and _zstd is None:
             raise ValueError("zstandard not available")
 
@@ -104,16 +110,44 @@ def serialize_array(d: ArrayData, nodes: List[Tuple[int, int]],
     """Append the field nodes and body buffers of ``d`` in pre-order
     (RecordBatchSerializer::VisitArray, ipc/writer.cc:146)."""
     t = d.type
+    if t.id == TypeId.EXTENSION:
+        storage = d.copy()
+        storage.type = t.storage_type
+        serialize_array(storage, nodes, body)
+        return
     tid = t.id
     nodes.append((d.length, d.null_count))
     if tid == TypeId.NA:
+        return
+    if tid in _UNIONS:
+        body.add(d.type_ids())
+        if tid == TypeId.DENSE_UNION:
+            body.add(d.buffers[1].view(np.int32)[d.offset:
+                                                 d.offset + d.length])
+            for c in d.children:
+                serialize_array(c, nodes, body)
+        else:
+            for c in d.children:
+                serialize_array(c.slice(d.offset, d.length), nodes, body)
         return
     if tid == TypeId.RUN_END_ENCODED:
         for c in d.children:
             serialize_array(c, nodes, body)
         return
     body.add(_validity_bytes(d))
-    if tid == TypeId.BOOL:
+    if tid in _BINARY_VIEWS:
+        views = d.buffers[1].to_numpy().reshape(-1, 16)
+        body.add(views[d.offset:d.offset + d.length])
+        data_bufs = d.buffers[2:]
+        body.variadic_counts.append(len(data_bufs))
+        for db in data_bufs:
+            body.add(None if db is None else db.to_numpy())
+    elif tid in _LIST_VIEWS:
+        dt = np.int64 if tid == TypeId.LARGE_LIST_VIEW else np.int32
+        body.add(d.buffers[1].view(dt)[d.offset:d.offset + d.length])
+        body.add(d.buffers[2].view(dt)[d.offset:d.offset + d.length])
+        serialize_array(d.children[0], nodes, body)
+    elif tid == TypeId.BOOL:
         body.add(bitutil.pack_bits(d.values()))
     elif tid in _INTERVAL_PAIRS:
         w = t.bit_width // 8
@@ -154,9 +188,10 @@ def _struct_vector(b: Builder, pairs: Sequence[Tuple[int, int]]) -> int:
 def _write_record_batch_fb(b: Builder, length: int,
                            nodes: Sequence[Tuple[int, int]],
                            layout: Sequence[Tuple[int, int]],
-                           codec: Optional[str]) -> int:
-    """A RecordBatch table (its variadic buffer counts, the view types',
-    left out: the port has no view type)."""
+                           codec: Optional[str],
+                           variadic_counts: Sequence[int] = ()) -> int:
+    """A RecordBatch table; ``variadic_counts``: the view columns' data
+    buffers, one count a column."""
     nodes_vec = _struct_vector(b, nodes)
     buffers_vec = _struct_vector(b, layout)
     comp_off = 0
@@ -164,7 +199,14 @@ def _write_record_batch_fb(b: Builder, length: int,
         method = fb.COMPRESSION_ZSTD if codec == "zstd" else \
             fb.COMPRESSION_LZ4_FRAME
         comp_off = _table(b, 2, [(1, "i8", 0, 0), (0, "i8", method, 0)])
+    var_vec = 0
+    if variadic_counts:
+        b.start_vector(8, len(variadic_counts), 8)
+        for c in reversed(variadic_counts):
+            b.prepend_int64(c)
+        var_vec = b.end_vector()
     return _table(b, 5, [
+        (4, "off", var_vec, 0),
         (3, "off", comp_off, 0),
         (2, "off", buffers_vec, 0),
         (1, "off", nodes_vec, 0),
@@ -211,7 +253,8 @@ def serialize_record_batch_parts(columns: Sequence[ArrayData], num_rows: int,
     for col in columns:
         serialize_array(col, nodes, body)
     b = Builder(1024)
-    rb_off = _write_record_batch_fb(b, num_rows, nodes, body.layout, codec)
+    rb_off = _write_record_batch_fb(b, num_rows, nodes, body.layout, codec,
+                                    body.variadic_counts)
     meta = _finish_message(b, fb.MSG_RECORD_BATCH, rb_off, body.pos)
     return encapsulate(meta), body.parts
 
@@ -225,7 +268,7 @@ def serialize_dictionary_batch(dict_id: int, dictionary: ArrayData,
     body_bytes = body.body()
     b = Builder(1024)
     rb_off = _write_record_batch_fb(b, dictionary.length, nodes, body.layout,
-                                    codec)
+                                    codec, body.variadic_counts)
     db_off = _table(b, 3, [
         (2, "bool", is_delta, False),
         (1, "off", rb_off, 0),
@@ -255,12 +298,13 @@ def parse_message_meta(meta) -> Tuple[int, Reader, int]:
 
 
 class RecordBatchMeta:
-    __slots__ = ("length", "nodes", "buffers", "codec")
+    __slots__ = ("length", "nodes", "buffers", "codec", "variadic_counts")
 
     def __init__(self, r: Reader):
         self.length = r.i64(0)
         self.nodes = r.vector_structs(1, _PAIR).tolist()
         self.buffers = r.vector_structs(2, _PAIR).tolist()
+        self.variadic_counts = r.vector_i64(4)
         comp = r.table(3)
         self.codec = None
         if comp is not None:
@@ -283,6 +327,13 @@ class ArrayLoader:
         self.body = _body_bytes(body)
         self.node_i = 0
         self.buf_i = 0
+        self.variadic_i = 0
+
+    def _next_variadic(self) -> int:
+        counts = self.meta.variadic_counts
+        n = counts[self.variadic_i] if self.variadic_i < len(counts) else 0
+        self.variadic_i += 1
+        return n
 
     def _next_node(self) -> Tuple[int, int]:
         n = self.meta.nodes[self.node_i]
@@ -312,16 +363,29 @@ class ArrayLoader:
     def skip(self, t: DataType) -> None:
         """Pass over a column of type ``t``: its nodes and buffers, unread
         and undecompressed (``load``'s walk without the loads)."""
+        if t.id == TypeId.EXTENSION:
+            self.skip(t.storage_type)
+            return
         tid = t.id
         self.node_i += 1
         if tid == TypeId.NA:
+            return
+        if tid in _UNIONS:
+            self.buf_i += 1 + (tid == TypeId.DENSE_UNION)
+            for f in t.fields:
+                self.skip(f.type)
             return
         if tid == TypeId.RUN_END_ENCODED:
             for f in t.fields:
                 self.skip(f.type)
             return
         self.buf_i += 1  # validity
-        if tid in _VAR_BINARY:
+        if tid in _BINARY_VIEWS:
+            self.buf_i += 1 + self._next_variadic()
+        elif tid in _LIST_VIEWS:
+            self.buf_i += 2
+            self.skip(t.value_type)
+        elif tid in _VAR_BINARY:
             self.buf_i += 2
         elif tid in _LISTS:
             self.buf_i += 1
@@ -336,13 +400,35 @@ class ArrayLoader:
 
     def load(self, t: DataType) -> ArrayData:
         tid = t.id
+        if tid == TypeId.EXTENSION:
+            out = self.load(t.storage_type)
+            out.type = t
+            return out
         length, null_count = self._next_node()
         if tid == TypeId.NA:
             return ArrayData(t, length, [], null_count=length)
+        if tid in _UNIONS:
+            bufs = [self._next_buffer()]
+            if tid == TypeId.DENSE_UNION:
+                bufs.append(self._next_buffer())
+            children = [self.load(f.type) for f in t.fields]
+            return ArrayData(t, length, bufs, children, null_count=0)
         if tid == TypeId.RUN_END_ENCODED:
             children = [self.load(f.type) for f in t.fields]
             return ArrayData(t, length, [], children, null_count=null_count)
         validity = self._next_buffer()
+        if tid in _BINARY_VIEWS:
+            views = self._next_buffer()
+            data = [self._next_buffer() or Buffer(b"")
+                    for _ in range(self._next_variadic())]
+            return ArrayData(t, length, [validity, views] + data,
+                             null_count=null_count)
+        if tid in _LIST_VIEWS:
+            offsets = self._next_buffer()
+            sizes = self._next_buffer()
+            child = self.load(t.value_type)
+            return ArrayData(t, length, [validity, offsets, sizes], [child],
+                             null_count=null_count)
         if tid in _VAR_BINARY:
             offsets = self._next_buffer()
             data = self._next_buffer()

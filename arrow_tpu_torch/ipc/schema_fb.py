@@ -1,12 +1,11 @@
 """DataType, Field and Schema to and from the IPC flatbuffers (counterpart of
 ``arrow_tpu/ipc/schema_fb.py``; reference: format/Schema.fbs).
 
-Every type of the port's ``types.py`` round-trips. The port has no
-extension types (ROADMAP.md, kept on purpose): a field with
-``ARROW:extension:*`` metadata reads as its storage type with those keys
-dropped, as the reference reads an extension name it has not registered.
-A union, view or list-view field raises NotImplementedError: the port has
-no such type.
+Every type of the port's ``types.py`` round-trips. An extension type is
+written as its storage type with the ``ARROW:extension:name`` and
+``ARROW:extension:metadata`` field keys; a reader rebuilds a registered
+name (``extension.reconstruct``) and reads any other as its storage type,
+the keys dropped either way, as the reference does.
 """
 
 from __future__ import annotations
@@ -53,6 +52,10 @@ _EMPTY = {TypeId.NA: fb.TYPE_NULL, TypeId.BOOL: fb.TYPE_BOOL,
           TypeId.LIST: fb.TYPE_LIST, TypeId.LARGE_LIST: fb.TYPE_LARGELIST,
           TypeId.STRUCT: fb.TYPE_STRUCT,
           TypeId.RUN_END_ENCODED: fb.TYPE_RUNENDENCODED}
+_VIEWS = {TypeId.STRING_VIEW: fb.TYPE_UTF8VIEW,
+          TypeId.BINARY_VIEW: fb.TYPE_BINARYVIEW,
+          TypeId.LIST_VIEW: fb.TYPE_LISTVIEW,
+          TypeId.LARGE_LIST_VIEW: fb.TYPE_LARGELISTVIEW}
 _INTERVALS = {TypeId.INTERVAL_MONTHS: 0, TypeId.INTERVAL_DAY_TIME: 1,
               TypeId.INTERVAL_MONTH_DAY_NANO: 2}
 
@@ -100,11 +103,27 @@ def _write_type(b: Builder, t: DataType) -> Tuple[int, int]:
     if tid == TypeId.MAP:
         # the port's maps are unsorted (keys_sorted false)
         return fb.TYPE_MAP, _table(b, 1, [(0, "bool", False, False)])
+    if tid in (TypeId.SPARSE_UNION, TypeId.DENSE_UNION):
+        b.start_vector(4, len(t.type_codes), 4)
+        for c in reversed(t.type_codes):
+            b.prepend_int32(c)
+        codes = b.end_vector()
+        return fb.TYPE_UNION, _table(b, 2, [
+            (1, "off", codes, 0),
+            (0, "i16", int(tid == TypeId.DENSE_UNION), 0)])
+    if tid in _VIEWS:
+        return _VIEWS[tid], _table(b, 0, [])
     raise NotImplementedError(f"IPC write for {t!r}")
 
 
 def write_field(b: Builder, f: Field, mapper: DictionaryFieldMapper) -> int:
     t = f.type
+    if t.id == TypeId.EXTENSION:
+        md = dict(f.metadata or {})
+        md[_EXTENSION + b"name"] = t.extension_name.encode()
+        md[_EXTENSION + b"metadata"] = t.extension_metadata()
+        f = Field(f.name, t.storage_type, f.nullable, md)
+        t = f.type
     dict_off = 0
     if t.id == TypeId.DICTIONARY:
         did = mapper.next_id(t)
@@ -152,10 +171,6 @@ _SIMPLE = {fb.TYPE_NULL: T.null, fb.TYPE_BOOL: T.bool_,
            fb.TYPE_UTF8: T.string, fb.TYPE_BINARY: T.binary,
            fb.TYPE_LARGEUTF8: T.large_string,
            fb.TYPE_LARGEBINARY: T.large_binary}
-_UNPORTED = {fb.TYPE_UNION: "union", fb.TYPE_UTF8VIEW: "string_view",
-             fb.TYPE_BINARYVIEW: "binary_view",
-             fb.TYPE_LISTVIEW: "list_view",
-             fb.TYPE_LARGELISTVIEW: "large_list_view"}
 
 
 def _read_type(disc: int, r: Optional[Reader],
@@ -198,10 +213,18 @@ def _read_type(disc: int, r: Optional[Reader],
         return T.StructType(children)
     if disc == fb.TYPE_RUNENDENCODED:
         return T.RunEndEncodedType(children[0].type, children[1].type)
-    if disc in _UNPORTED:
-        raise NotImplementedError(
-            f"IPC read of a {_UNPORTED[disc]} field: the port has no such "
-            "type")
+    if disc == fb.TYPE_UNION:
+        codes = r.vector_i32(1) or list(range(len(children)))
+        return T.UnionType(children, codes,
+                           "sparse" if r.i16(0) == 0 else "dense")
+    if disc == fb.TYPE_UTF8VIEW:
+        return T.string_view()
+    if disc == fb.TYPE_BINARYVIEW:
+        return T.binary_view()
+    if disc == fb.TYPE_LISTVIEW:
+        return T.ListType(children[0], TypeId.LIST_VIEW)
+    if disc == fb.TYPE_LARGELISTVIEW:
+        return T.ListType(children[0], TypeId.LARGE_LIST_VIEW)
     raise NotImplementedError(f"IPC read for type discriminant {disc}")
 
 
@@ -223,6 +246,9 @@ def read_field(r: Reader, mapper: DictionaryFieldMapper) -> Field:
         mapper.ordered_ids.append(did)
     md = read_kv(r, 6)
     if md and _EXTENSION + b"name" in md:
+        from ..extension import reconstruct
+        t = reconstruct(t, md[_EXTENSION + b"name"].decode(),
+                        md.get(_EXTENSION + b"metadata", b""))
         md = {k: v for k, v in md.items()
               if not k.startswith(_EXTENSION)} or None
     return Field(name.decode() if name else "", t, nullable, md)

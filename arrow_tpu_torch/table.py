@@ -6,8 +6,11 @@ RecordBatchReader, ChunkResolver and Datum. The methods that compute
 ``value_counts``, ``cast``, ``fill_null``, ``index``, ``group_by``,
 ``join`` and ``join_asof``) run through the port's plans and eager API,
 on the card unless ``device="cpu"`` is given; the column edits, struct
-round trips, ``to_string`` and ``validate`` are host work. The pandas
-and C data methods wait for ROADMAP.md item 13.2, part 2."""
+round trips, ``to_string`` and ``validate`` are host work, as are the
+interop methods: the C stream (``__arrow_c_stream__``, and
+``RecordBatchReader.from_stream`` of any producer's capsule), the
+dataframe interchange protocol, ``to_tensor``, ``serialize`` and the
+pandas methods (which need pandas)."""
 
 from __future__ import annotations
 
@@ -194,6 +197,9 @@ class ChunkedArray:
     def validate(self, *, full: bool = False) -> None:
         for c in self.chunks:
             c.validate(full=full)
+
+    def to_pandas(self):
+        return self.combine().to_pandas()
 
 
 def chunked_array(chunks, type: Optional[DataType] = None) -> ChunkedArray:
@@ -389,6 +395,40 @@ class RecordBatch:
     def validate(self, *, full: bool = False) -> None:
         for c in self.columns:
             c.validate(full=full)
+
+    def __arrow_c_stream__(self, requested_schema=None):
+        from .c_data import batch_to_struct_data, stream_capsule
+        return stream_capsule([batch_to_struct_data(self)],
+                              Field("", T.struct(list(self.schema.fields))))
+
+    def __dataframe__(self, nan_as_null: bool = False,
+                      allow_copy: bool = True):
+        """The dataframe interchange protocol (``interchange.py``)."""
+        from .interchange import _ATDataFrame
+        return _ATDataFrame(self, nan_as_null, allow_copy)
+
+    def serialize(self, options=None):
+        """The batch as an IPC stream, in a Buffer (ipc/writer.h
+        SerializeRecordBatch)."""
+        import io
+        from . import ipc
+        from .buffer import Buffer
+        sink = io.BytesIO()
+        with ipc.new_stream(sink, self.schema) as w:
+            w.write_batch(self)
+        return Buffer(sink.getvalue())
+
+    def to_pandas(self):
+        return Table.from_batches([self]).to_pandas()
+
+    @classmethod
+    def from_pandas(cls, df, schema: Optional[Schema] = None, device=None):
+        """A batch of a pandas DataFrame (needs pandas), cast to
+        ``schema`` where given (on the card unless ``device="cpu"``)."""
+        t = Table.from_pandas(df)
+        if schema is not None:
+            t = t.cast(schema, device=device)
+        return RecordBatch(t.schema, [c.combine() for c in t.columns])
 
     def __repr__(self):
         return (f"<RecordBatch rows={self.num_rows} "
@@ -704,6 +744,63 @@ class Table:
         for c in self.columns:
             c.validate(full=full)
 
+    def __arrow_c_stream__(self, requested_schema=None):
+        """An ``arrow_array_stream`` capsule of the Table's batches; the
+        batches point at the Table's buffers."""
+        from .c_data import batch_to_struct_data, stream_capsule
+        return stream_capsule(
+            [batch_to_struct_data(rb) for rb in self.to_batches()],
+            Field("", T.struct(list(self.schema.fields))))
+
+    def __dataframe__(self, nan_as_null: bool = False,
+                      allow_copy: bool = True):
+        """The dataframe interchange protocol (``interchange.py``)."""
+        from .interchange import _ATDataFrame
+        return _ATDataFrame(self, nan_as_null, allow_copy)
+
+    def to_tensor(self, null_to_nan: bool = False, row_major: bool = True):
+        """A 2-D Tensor of a numeric Table, a column a column of the
+        matrix (pyarrow Table.to_tensor); a null raises unless
+        ``null_to_nan``."""
+        from .tensor import Tensor
+        cols = []
+        for c in self.columns:
+            a = c.combine()
+            if a.null_count:
+                if not null_to_nan:
+                    raise ValueError(
+                        "table has nulls; pass null_to_nan=True")
+                v = a.data.values().astype(np.float64)
+                v[~a.is_valid_mask()] = np.nan
+            else:
+                v = a.data.values()
+            cols.append(np.asarray(v))
+        m = np.column_stack(cols) if cols else np.empty((0, 0))
+        if not row_major:
+            m = np.asfortranarray(m)
+        return Tensor.from_numpy(m)
+
+    def to_pandas(self):
+        """A pandas DataFrame, a column a Series (needs pandas)."""
+        import pandas as pd
+        return pd.DataFrame({f.name: self.column(f.name).combine().to_pandas()
+                             for f in self.schema.fields})
+
+    @classmethod
+    def from_pandas(cls, df, schema: Optional[Schema] = None) -> "Table":
+        """A Table of a pandas DataFrame (needs pandas): object columns
+        with NaN and None as nulls, the others from their numpy arrays."""
+        cols = {}
+        for name in df.columns:
+            s = df[name]
+            if s.dtype == object:
+                cols[name] = [None if v is None or (isinstance(v, float)
+                                                    and v != v) else v
+                              for v in s.tolist()]
+            else:
+                cols[name] = array(s.to_numpy())
+        return cls.from_pydict(cols, schema)
+
 
 class TableGroupBy:
     """``Table.group_by(keys).aggregate([(target, fn[, options]), ...])``:
@@ -805,20 +902,23 @@ class RecordBatchReader:
 
     @classmethod
     def from_stream(cls, data, schema: Optional[Schema] = None):
-        """A reader over a reader, a Table, a RecordBatch or an iterable of
-        RecordBatches (of ``schema``, else of the first batch's). Another
-        object that exports ``__arrow_c_stream__`` waits for the C data
-        interface (ROADMAP.md item 13.2, part 2)."""
+        """A reader over a reader, a Table, a RecordBatch, an
+        ``arrow_array_stream`` capsule or another object that exports
+        ``__arrow_c_stream__`` (imported through the C data interface,
+        its batches copied), or an iterable of RecordBatches (of
+        ``schema``, else of the first batch's)."""
         if isinstance(data, cls):
             return data
         if isinstance(data, Table):
             return cls(data.schema, data.to_batches())
         if isinstance(data, RecordBatch):
             return cls(data.schema, [data])
+        if type(data).__name__ == "PyCapsule":
+            from .c_data import import_stream_capsule
+            return import_stream_capsule(data)
         if hasattr(data, "__arrow_c_stream__"):
-            raise NotImplementedError(
-                "a foreign __arrow_c_stream__ waits for the C data "
-                "interface (ROADMAP.md item 13.2, part 2)")
+            from .c_data import import_stream_capsule
+            return import_stream_capsule(data.__arrow_c_stream__())
         batches = iter(data)
         if schema is None:
             first = next(batches)
@@ -845,3 +945,13 @@ class RecordBatchReader:
 
     def read_all(self) -> Table:
         return Table.from_batches(list(self._it), self.schema)
+
+    def read_pandas(self):
+        return self.read_all().to_pandas()
+
+    def __arrow_c_stream__(self, requested_schema=None):
+        """The reader's remaining batches as an ``arrow_array_stream``
+        capsule (read now)."""
+        from .c_data import batch_to_struct_data, stream_capsule
+        return stream_capsule([batch_to_struct_data(b) for b in self._it],
+                              Field("", T.struct(list(self.schema.fields))))

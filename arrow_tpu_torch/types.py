@@ -12,9 +12,9 @@ and maps as row ids over the host Array they came from
 (``device.column.host_column_repr``). Day-time and month-day-nano
 intervals and run-end encoded arrays are host types only, as in the
 reference. The view types (``string_view``, ``binary_view``, ``list_view``,
-``large_list_view``) and the unions are type objects with the reference's
-fields and equality; the port has no host layout for them yet, and
-building an Array of one raises (ROADMAP.md item 13.2, part 3)."""
+``large_list_view``) and the unions are host types only, with the
+reference's layouts (``array/data.py``); an extension type
+(``extension.py``) is a host type over its storage type."""
 
 from __future__ import annotations
 
@@ -55,6 +55,7 @@ class TypeId(enum.IntEnum):
     DENSE_UNION = 28
     DICTIONARY = 29
     MAP = 30
+    EXTENSION = 31
     FIXED_SIZE_LIST = 32
     DURATION = 33
     LARGE_STRING = 34
@@ -195,6 +196,18 @@ class DataType:
 
     def equals(self, other: "DataType") -> bool:
         return self == other
+
+    def to_pandas_dtype(self):
+        """The numpy scalar type pandas holds the type in (pyarrow
+        to_pandas_dtype): datetime64/timedelta64 of the unit for
+        timestamps and durations, object where there is no numpy type."""
+        if self.id == TypeId.TIMESTAMP:
+            return np.dtype(f"datetime64[{self.unit}]").type
+        if self.id == TypeId.DURATION:
+            return np.dtype(f"timedelta64[{self.unit}]").type
+        if self.id in _NUMPY_DTYPES:
+            return np.dtype(_NUMPY_DTYPES[self.id]).type
+        return np.object_
 
     @property
     def fields(self):
@@ -929,6 +942,19 @@ class Schema:
                   show_field_metadata: bool = True,
                   show_schema_metadata: bool = True) -> str:
         return repr(self)
+
+    @property
+    def pandas_metadata(self):
+        """The ``pandas`` metadata key read as JSON, or None."""
+        import json
+        raw = (self.metadata or {}).get(b"pandas")
+        return json.loads(raw) if raw else None
+
+    @classmethod
+    def from_pandas(cls, df, preserve_index: bool = True) -> "Schema":
+        """The schema ``Table.from_pandas(df)`` gives (needs pandas)."""
+        from .table import Table
+        return Table.from_pandas(df).schema
 
     def serialize(self, memory_pool=None):
         """The schema as an IPC stream of no batches (ipc/writer.h

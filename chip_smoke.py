@@ -244,10 +244,11 @@ Phases; any failure exits non-zero without the final line:
    to FILE_LAUNCHES; the bytes written and mapped, the write and LZ4 rates
    and the peaks logged.
    Then (3p) Parquet (``phase_parquet``) over phase 3l's Tables, in a
-   temporary directory whose free space is checked first: lineitem's Q1
-   columns as FILE_SLICES snappy Parquet files (dictionary on, the
-   writer's defaults otherwise), read back equal to the slices (the flags
-   as plain strings) and the flags uploaded alone; Q1 by a ``scan``
+   temporary directory whose free space is checked first: the first
+   1/ROOM_DEPTH of lineitem's rows, its Q1 columns, as FILE_SLICES snappy
+   Parquet files (dictionary on, the writer's defaults otherwise), read
+   back equal to the slices (the flags as plain strings) and the flags
+   uploaded alone; Q1 by a ``scan``
    source over ``dataset(dir)`` (the default format) twice and Q6 by a
    ``Scanner``, each against numpy and against the same scan of the
    in-memory slices (the flags by value, every other column bit for
@@ -263,12 +264,14 @@ Phases; any failure exits non-zero without the final line:
    the peaks logged.
    Then (3q) CSV, JSON and ORC (``phase_csv_json_orc``) over phase 3l's
    Tables, in a temporary directory whose free space is checked first:
-   lineitem's Q1 columns as FILE_SLICES CSV files by ``write_csv`` (the
-   defaults), Q1 by a ``scan`` source over ``dataset(dir, format="csv")``
-   against 3p's numpy oracle and 3p's scan of the in-memory slices (the
-   flags by value, every other column bit for bit), one file through
-   ``open_csv`` in blocks against that fragment's Table; orders (its
-   dictionary columns as plain strings) by ``write_dataset(format="orc")``
+   the first 1/ROOM_DEPTH of lineitem's rows, its Q1 columns, as
+   FILE_SLICES CSV files by ``write_csv`` (the defaults), Q1 by a ``scan``
+   source over ``dataset(dir, format="csv")`` against numpy's oracle and Q1
+   over the same rows in memory (the flags by value, every other column bit
+   for bit), one file through
+   ``open_csv`` in blocks against that fragment's Table; the first
+   1/ROOM_DEPTH of orders' rows (its dictionary columns as plain strings)
+   by ``write_dataset(format="orc")``
    hive-partitioned by status, one status's orders by priority over the
    ORC dataset against the Table's plan, a ``Scanner`` under a price
    filter against numpy, one partition written again with zlib and read
@@ -285,8 +288,9 @@ Phases; any failure exits non-zero without the final line:
    host) for all eight join types against ``join_oracle``, the coalesced
    keys taken into account (a row of the right side alone keeps no key),
    and once with the keys kept; a left outer join of every column of
-   orders and customer; lineitem's four columns joined to orders' three
-   (60,012,150 probe rows against 15M, the bloom); phase 3e's as-of join
+   orders (its first 1/ROOM_DEPTH of rows) and customer; lineitem's four
+   columns joined to orders' three (60,012,150 probe rows against 15M, the
+   bloom); phase 3e's as-of join
    through ``Table.join_asof`` against ``asof_oracle``; ``Dataset.join``
    and ``join_asof`` over in-memory datasets, equal to the Tables'
    results. The ChunkedArray methods (``filter``, ``take``,
@@ -295,8 +299,9 @@ Phases; any failure exits non-zero without the final line:
    lineitem's 60M-row columns cut into FILE_SLICES chunks, against numpy.
    The host-only methods on customer: column edits, ``from_pylist`` and
    struct round trips over its first SURFACE_PY_ROWS rows, ``validate``
-   (a broken copy refused), ``to_string`` and ``concat_tables``. Orders,
-   its dictionaries as plain strings as 3q writes them, hive-partitioned
+   (a broken copy refused), ``to_string`` and ``concat_tables``. Orders'
+   first 1/ROOM_DEPTH of rows, its dictionaries as plain strings as 3q
+   writes them, hive-partitioned
    by status as Parquet into the S3 emulator through ``S3FileSystem``,
    one status's orders by priority over the S3 dataset against the
    Table's plan; customer partitioned by segment as IPC through the GCS,
@@ -307,6 +312,25 @@ Phases; any failure exits non-zero without the final line:
    read just after and held to HOST_SURFACE_LAUNCHES; each path's wall,
    its download's wall and its peak, and the emulators' bytes and rates
    logged.
+   Then (3s) interop and extension types (``phase_interop``) over phase
+   3l's Tables: lineitem's eight Q1/Q3 columns through the C stream
+   (``Table.__arrow_c_stream__`` -> ``RecordBatchReader.from_stream``)
+   digest for digest, the export state empty after, and Q1 over the
+   imported Table bit for bit 3l's; l_extendedprice and a nullable string
+   slice through ``__arrow_c_array__`` -> ``c_data.import_array``; orders
+   and customer (Q3's columns) through the interchange protocol, and Q3
+   over them and the imported lineitem bit for bit 3l's; numpy and torch
+   over dlpack at the Arrays' addresses; lineitem's four floats as a
+   Tensor written to a file and read from its map, and partsupp's
+   (partkey, suppkey) -> availqty as CSR, COO and CSF tensors, each
+   through its IPC message; orders with a uuid and a
+   fixed_shape_tensor(float64, [2]) column through an IPC file, read back
+   registered and not, and Q3 over it bit for bit 3l's; customer's
+   comments as string_view and a dense union of (c_custkey |
+   c_mktsegment) through the C array and an IPC stream; pandas (a round
+   trip where it is installed, else ImportError) and Device. Each path's
+   launches set to 0 just before and read just after and held to
+   INTEROP_LAUNCHES; walls, rates and peaks logged.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -345,6 +369,7 @@ import argparse
 import concurrent.futures
 import datetime
 import functools
+import io
 import json
 import os
 import re
@@ -6513,24 +6538,53 @@ HOST_EAGER_QUANTITY = 25.0      # compute.filter's mask: about half the rows
 
 def table_digest(tbl):
     """Per column, a digest of its combined Array's bits: type, length,
-    null count, every buffer, its children and its dictionary."""
+    null count, every buffer, its children and its dictionary. The columns
+    are hashed on threads (hashlib lets the GIL go), each buffer where it
+    lies."""
     import hashlib
 
     def data(h, d):
         h.update(repr((d.type, d.length, d.offset, d.null_count)).encode())
         for b in d.buffers:
-            h.update(b"-" if b is None else b.to_pybytes())
+            h.update(b"-" if b is None else b.to_numpy())
         for c in d.children:
             data(h, c)
         if d.dictionary is not None:
             data(h, d.dictionary)
 
-    out = []
-    for f, col in zip(tbl.schema.fields, tbl.columns):
+    def column(item):
+        f, col = item
         h = hashlib.sha256(f.name.encode())
         data(h, col.combine().data)
-        out.append(h.hexdigest()[:16])
-    return out
+        return h.hexdigest()[:16]
+
+    items = list(zip(tbl.schema.fields, tbl.columns))
+    with concurrent.futures.ThreadPoolExecutor(
+            max(1, min(8, len(items)))) as pool:
+        return list(pool.map(column, items))
+
+
+class HostTables(dict):
+    """Phase 3l's host Tables by name, with what later phases take from 3l
+    beside them: ``digests``, its plans' results digest by name (3s holds
+    its runs of Q1 and Q3 to them), and ``first(name)``, the first
+    1/ROOM_DEPTH of a Table's rows, one slice a Table until
+    ``drop_first()`` (3p and 3q share lineitem's and its uploads, 3q and
+    3r orders' and its plain_orders)."""
+
+    def __init__(self):
+        super().__init__()
+        self.digests = {}
+        self._first = {}
+
+    def first(self, name):
+        if name not in self._first:
+            tbl = self[name]
+            self._first[name] = tbl.slice(0, tbl.num_rows // ROOM_DEPTH)
+        return self._first[name]
+
+    def drop_first(self):
+        self._first.clear()
 
 
 def host_inputs(sf, device):
@@ -6539,7 +6593,7 @@ def host_inputs(sf, device):
     host_tables() and phase 3j generated, taken from them)."""
     from arrow_tpu_torch.io import tpch
     t0 = time.perf_counter()
-    host, made = {}, {}
+    host, made = HostTables(), {}
     for name in tpch.TABLES:
         kept = _GENERATED.pop((name, sf), None)
         if kept is not None and kept[1].column(0).values.device.type == \
@@ -6657,7 +6711,8 @@ def _host_plans(host, made, cols, device, cuda, launches):
                 raise AssertionError(f"3l {name}: launches differ or none")
         check_result(f"3l {name}", result.to_pydict(),
                      _host_plan_oracle(name, made, cols, over_made))
-        if table_digest(result) != table_digest(want_tbl):
+        host.digests[name] = table_digest(result)
+        if host.digests[name] != table_digest(want_tbl):
             raise AssertionError(f"3l {name}: digests differ from the "
                                  "DeviceBatch source's run")
         # the plan and the download apart (the sources' uploads are kept)
@@ -6953,6 +7008,15 @@ def phase_host(sf=SF, device="cuda"):
 
 
 # --- phase 3m: the rest of the host boundary ---------------------------------
+
+# the depth of 3p's Parquet lineitem, 3q's CSV lineitem and ORC orders, 3r's
+# S3 orders and every-column join, and 3m's list_slice and customer casts:
+# the first 1/ROOM_DEPTH of the rows (all of them until phase 3s needed
+# room; the seven took ~41, ~40, ~19, ~16, ~11, ~6 and ~6 s on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, most of it the host's page coding, parse,
+# coding, byte gathers and Python a row)
+ROOM_DEPTH = 4  # HostTables.first
+
 
 # rows of the per-row Python names' inputs (and of the order dates cast to
 # strings, the wide decimals and the list<string> orders): 100,000, not
@@ -7347,16 +7411,18 @@ def _host_names(host, s, paths, dev):
 
     offs, valid, price = s["offs"], s["valid"], s["price"]
     P = s["P"]
-    lp = s["list<double>"].slice(0, P)
+    # list_slice over the first 1/ROOM_DEPTH of the P lists (Python a row)
+    L = P // ROOM_DEPTH
+    lp = s["list<double>"].slice(0, L)
     got = paths.run("list_slice", lambda: pc.list_slice(lp, start=1,
                                                         stop=3))
-    lens = np.diff(offs[:P + 1])
-    take = np.where(valid[:P], np.clip(lens - 1, 0, 2), 0)
-    idx = np.repeat(offs[:P] + 1, take) + np.arange(take.sum()) - \
+    lens = np.diff(offs[:L + 1])
+    take = np.where(valid[:L], np.clip(lens - 1, 0, 2), 0)
+    idx = np.repeat(offs[:L] + 1, take) + np.arange(take.sum()) - \
         np.repeat(np.cumsum(take) - take, take)
     _expect_equal("list_slice lengths", np.diff(got.data.offsets()), take)
     _expect_equal("list_slice values", got.values.to_numpy(), price[idx])
-    _expect_equal("list_slice validity", got.is_valid_mask(), valid[:P])
+    _expect_equal("list_slice validity", got.is_valid_mask(), valid[:L])
     modes = col(li, "l_shipmode").slice(0, len(ship))
     got = paths.run("dictionary_decode", lambda: pc.dictionary_decode(modes))
     words = np.array(s["words"], dtype=object)
@@ -7409,14 +7475,15 @@ def _casts_decimals(host, paths, dev):
     from arrow_tpu_torch.buffer import Buffer
     from arrow_tpu_torch.compute.registry import ArrowInvalid
     cu, od = host["customer"], host["orders"]
-    bal = cu.column("c_acctbal").combine()
+    # the casts of customer's columns over its first 1/ROOM_DEPTH of rows
+    bal = host.first("customer").column("c_acctbal").combine()
     s = paths.run("cast c_acctbal to string", lambda: pc.cast(
         bal, T.string(), device=dev))
     back = paths.run("cast c_acctbal back", lambda: pc.cast(
         s, T.float64(), device=dev))
     _expect_equal("c_acctbal round trip", back.to_numpy().view(np.int64),
                   bal.to_numpy().view(np.int64))
-    keys = cu.column("c_custkey").combine()
+    keys = host.first("customer").column("c_custkey").combine()
     s = paths.run("cast c_custkey to string", lambda: pc.cast(
         keys, T.string(), device=dev))
     _expect("c_custkey strings", s.to_pylist() ==
@@ -8483,7 +8550,8 @@ def _selected_rows(name, got, tbl, mask, columns):
 
 
 def _parquet_lineitem(li, tmp, paths, dev, peaks, facts):
-    """Lineitem's Q1 columns as FILE_SLICES snappy Parquet files; Q1 by a
+    """The first 1/ROOM_DEPTH of lineitem's rows, its Q1 columns, as
+    FILE_SLICES snappy Parquet files; Q1 by a
     scan source over ``dataset(dir)`` twice and Q6 by a Scanner, each
     against numpy and against the same over the in-memory slices;
     read_table of one file under Q6's filters; the reads, the flags'
@@ -8626,7 +8694,6 @@ def _parquet_lineitem(li, tmp, paths, dev, peaks, facts):
         "and the in-memory slices' scans; read_table under Q6's filters "
         f"kept {got.num_rows} of {part.num_rows} rows, equal to numpy")
     shutil.rmtree(root)
-    return results["scan Q1 in memory"], q1_oracle
 
 
 def _parquet_orders(od, tmp, paths, dev, facts):
@@ -8858,7 +8925,8 @@ def phase_parquet(host, device="cuda", bad_page=None):
                                "for phase 3p's files")
         paths = _Paths(dev, "3p", PARQUET_LAUNCHES)
         peaks, facts = {}, {}
-        q1 = _parquet_lineitem(li, tmp, paths, dev, peaks, facts)
+        _parquet_lineitem(host.first("lineitem"), tmp, paths, dev, peaks,
+                          facts)
         _parquet_orders(od, tmp, paths, dev, facts)
         _parquet_required(od, tmp, paths, facts)
         paths.check_launches()
@@ -8873,7 +8941,7 @@ def phase_parquet(host, device="cuda", bad_page=None):
     log(f"phase 3p: {time.perf_counter() - t0:.1f} s (paths "
         f"{sum(paths.walls.values()):.1f} s)")
     return paths.launches, {"walls": paths.walls, "peaks": peaks,
-                            "facts": facts, "scan Q1": q1}
+                            "facts": facts}
 
 
 # --- phase 3q: CSV, JSON and ORC ----------------------------------------------
@@ -8914,12 +8982,11 @@ def _files_size(root):
                for d, _, fs_ in os.walk(root) for f in fs_)
 
 
-def _csv_lineitem(li, tmp, paths, dev, peaks, facts, q1_in_memory,
-                  q1_oracle):
-    """Lineitem's Q1 columns as FILE_SLICES CSV files by write_csv; Q1 by
-    a scan source over ``dataset(dir, format="csv")`` against numpy and
-    3p's scan of the in-memory slices; open_csv over one file against that
-    fragment's Table."""
+def _csv_lineitem(li, tmp, paths, dev, peaks, facts):
+    """The first 1/ROOM_DEPTH of lineitem's rows, its Q1 columns, as
+    FILE_SLICES CSV files by write_csv; Q1 by a scan source over
+    ``dataset(dir, format="csv")`` against numpy and Q1 over the same rows
+    in memory; open_csv over one file against that fragment's Table."""
     from arrow_tpu_torch import dataset as ds
     from arrow_tpu_torch.acero import Declaration, ScanNodeOptions
     from arrow_tpu_torch.io import csv
@@ -8946,9 +9013,8 @@ def _csv_lineitem(li, tmp, paths, dev, peaks, facts, q1_in_memory,
     data = paths.run("dataset csv", lambda: ds.dataset(root, format="csv"))
     _expect("csv dataset", len(data.fragments) == FILE_SLICES
             and data.schema.names == Q1_COLUMNS)
-    if q1_in_memory is None:
-        q1_in_memory = tq.q1_plan(li).to_table(device=dev)
-        q1_oracle = q1_host_oracle(li)
+    q1_in_memory = tq.q1_plan(li).to_table(device=dev)
+    q1_oracle = q1_host_oracle(li)
     scan1 = _with_leaf(tq.q1_plan(li), Declaration(
         "scan", ScanNodeOptions(data, Q1_COLUMNS)))
     base = memory_mark() if paths.cuda else 0
@@ -8999,7 +9065,8 @@ def plain_orders(od):
 
 
 def _orc_orders(od, tmp, paths, dev, facts):
-    """orders, every column, by write_dataset(format="orc") hive-partitioned
+    """The first 1/ROOM_DEPTH of orders' rows, every column, by
+    write_dataset(format="orc") hive-partitioned
     by o_orderstatus (its dictionary columns but the partition column, which
     no file holds, as plain strings: the ORC writer takes no dictionary
     type); the orders of HIVE_STATUS by
@@ -9191,13 +9258,12 @@ def _json_customer(cu, tmp, paths, dev, facts):
     os.remove(path)
 
 
-def phase_csv_json_orc(host, device="cuda", q1_in_memory=None,
-                       q1_oracle=None):
-    """Phase 3q: CSV, JSON and ORC, over phase 3l's host Tables. Lineitem's
-    Q1 columns as FILE_SLICES CSV files, scanned by Q1 against
-    ``q1_oracle`` (numpy's) and ``q1_in_memory`` (3p's scan of the
-    in-memory slices; where None, numpy's oracle and Q1 over the host
-    Table, made here), one file through open_csv; orders hive-partitioned as ORC, one
+def phase_csv_json_orc(host, device="cuda"):
+    """Phase 3q: CSV, JSON and ORC, over phase 3l's host Tables. The first
+    1/ROOM_DEPTH of lineitem's rows, its Q1 columns, as FILE_SLICES CSV
+    files, scanned by Q1 against numpy's oracle and Q1 over the same rows in
+    memory, one file through open_csv; the first 1/ROOM_DEPTH of orders'
+    rows hive-partitioned as ORC, one
     status by priority against the Table's plan, a price Scanner against
     numpy, one partition zlib-compressed; customer as ndjson, grouped by
     segment against numpy and the Table's plan, read_json against the
@@ -9210,7 +9276,8 @@ def phase_csv_json_orc(host, device="cuda", q1_in_memory=None,
     dev = torch.device(device)
     log(f"== phase 3q: CSV, JSON and ORC on {device}")
     t0 = time.perf_counter()
-    li, od, cu = host["lineitem"], host["orders"], host["customer"]
+    li, od, cu = host.first("lineitem"), host.first("orders"), \
+        host["customer"]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_text_")
     try:
         # the most the phase holds at once: lineitem's Q1 columns as text,
@@ -9224,8 +9291,7 @@ def phase_csv_json_orc(host, device="cuda", q1_in_memory=None,
                                "for phase 3q's files")
         paths = _Paths(dev, "3q", CSV_JSON_ORC_LAUNCHES)
         peaks, facts = {}, {}
-        _csv_lineitem(li, tmp, paths, dev, peaks, facts, q1_in_memory,
-                      q1_oracle)
+        _csv_lineitem(li, tmp, paths, dev, peaks, facts)
         _orc_orders(od, tmp, paths, dev, facts)
         _json_customer(cu, tmp, paths, dev, facts)
         paths.check_launches()
@@ -9375,7 +9441,7 @@ def _same_strings_by_code(name, col, codes, values):
             _expect(f"{name} bytes", bool((raw[starts + k] == byte).all()))
 
 
-def _surface_joins(od, cu, li, paths, dev, peaks, facts):
+def _surface_joins(od, odp, cu, li, paths, dev, peaks, facts):
     """The eight join types of orders with one segment's customers (a host
     Table made on the host), a left outer join of every column of both,
     the full-width join of lineitem with orders, and as-of joins and the
@@ -9415,15 +9481,16 @@ def _surface_joins(od, cu, li, paths, dev, peaks, facts):
     log("    inner with its keys kept matches the oracle")
     inner = results["inner"]
     del results, kept
-    # every column of both
-    wide = _plan_path(paths, "join left outer all columns", lambda: od.join(
+    # every column of both, over the first 1/ROOM_DEPTH of orders' rows
+    m = odp.num_rows
+    wide = _plan_path(paths, "join left outer all columns", lambda: odp.join(
         cu, "o_custkey", "c_custkey", device=dev), peaks, facts)
     _expect("3r wide join columns", wide.column_names == od.column_names + [
         n for n in cu.column_names if n != "c_custkey"])
-    _expect("3r wide join rows", wide.num_rows == od.num_rows)
+    _expect("3r wide join rows", wide.num_rows == m)
     _expect_equal("3r wide join o_orderkey", _column(wide, "o_orderkey")[0],
-                  ok)
-    at_cust = ock - 1
+                  ok[:m])
+    at_cust = ock[:m] - 1
     for n in ("c_nationkey", "c_acctbal"):
         _expect_equal(f"3r wide join {n}", _np_bits(_column(wide, n)[0]),
                       _np_bits(_host_values(cu, n)[at_cust]))
@@ -9669,8 +9736,9 @@ def _stored_bytes(em):
 
 
 def _surface_cloud(od, cu, tmp, paths, dev, facts):
-    """orders (every column, its dictionaries as plain strings as 3q writes
-    them) hive-partitioned by status as Parquet into the S3 emulator, one
+    """The first 1/ROOM_DEPTH of orders' rows (every column, its
+    dictionaries as plain strings as 3q writes them) hive-partitioned by
+    status as Parquet into the S3 emulator, one
     status's orders by priority over the S3 dataset against the Table's
     plan; customer partitioned by segment as IPC through the GCS, Azure
     and WebHDFS emulators, each fragment read back (host Tables) bit for
@@ -9776,13 +9844,15 @@ def phase_host_surface(host, device="cuda"):
     cloud file systems over phase 3l's host Tables. Table.join of orders
     with one segment's customers for all eight join types against
     ``join_oracle`` (the coalesced keys taken into account), a left outer
-    join of every column, lineitem's four columns joined to orders' three
+    join of every column (the first 1/ROOM_DEPTH of orders' rows),
+    lineitem's four columns joined to orders' three
     (60M probe rows, the bloom), phase 3e's as-of join through
     ``Table.join_asof`` against ``asof_oracle``, and the datasets' joins
     equal to the Tables'; the ChunkedArray methods over lineitem's 60M-row
     columns in FILE_SLICES chunks against numpy; the host-only methods on
-    customer; orders through the S3 client and customer through the GCS,
-    Azure and WebHDFS clients, each to its emulator over loopback. Each
+    customer; the first 1/ROOM_DEPTH of orders' rows through the S3 client
+    and customer through the GCS, Azure and WebHDFS clients, each to its
+    emulator over loopback. Each
     path's launches are set to 0 just before and read just after (on the
     card) and held to HOST_SURFACE_LAUNCHES; the plan and download walls,
     the peaks and the emulators' bytes and rates logged. Returns (launches
@@ -9804,14 +9874,16 @@ def phase_host_surface(host, device="cuda"):
                                "for phase 3r's files")
         paths = _Paths(dev, "3r", HOST_SURFACE_LAUNCHES)
         peaks, facts = {}, {}
-        _surface_joins(od, cu, li, paths, dev, peaks, facts)
+        _surface_joins(od, host.first("orders"), cu, li, paths, dev, peaks,
+                       facts)
         _surface_columns(li, paths, dev, facts)
         _surface_host(cu, paths, facts)
-        _surface_cloud(od, cu, tmp, paths, dev, facts)
+        _surface_cloud(host.first("orders"), cu, tmp, paths, dev, facts)
         paths.check_launches()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         _PLAIN.clear()
+        host.drop_first()
     log("phase 3r walls (s): " + ", ".join(
         f"{k[3:]} {v:.3f}" for k, v in paths.walls.items()))
     log("phase 3r facts: " + ", ".join(f"{k} {v:.3f}"
@@ -9820,6 +9892,479 @@ def phase_host_surface(host, device="cuda"):
         log("phase 3r peak memory above the tables (GiB): " + ", ".join(
             f"{k} {v:.2f}" for k, v in peaks.items()))
     log(f"phase 3r: {time.perf_counter() - t0:.1f} s (paths "
+        f"{sum(paths.walls.values()):.1f} s)")
+    return paths.launches, {"walls": paths.walls, "peaks": peaks,
+                            "facts": facts}
+
+
+# --- phase 3s: interop and extension types -----------------------------------
+
+# the columns Q1 and Q3 read of lineitem, orders and customer
+INTEROP_LINEITEM = ["l_orderkey", "l_quantity", "l_extendedprice",
+                    "l_discount", "l_tax", "l_returnflag", "l_linestatus",
+                    "l_shipdate"]
+INTEROP_ORDERS = ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"]
+INTEROP_CUSTOMER = ["c_custkey", "c_mktsegment"]
+INTEROP_TENSOR = ["l_quantity", "l_extendedprice", "l_discount", "l_tax"]
+INTEROP_NULL_EVERY = 7        # the nullable columns' nulls: every 7th row
+_Q1_LAUNCHES = {**_NO_LAUNCH, "grouped_sum": 7}
+# launches of phase 3s's paths, reckoned from the code before the first run
+# (each +1 probe, from self_check): Q1 over the Table imported through the
+# C stream is 3l's Q1 (seven float sums, K1); Q3 over the interchange's
+# orders and customer and the imported lineitem, and Q3 over the orders
+# with extension columns read back from an IPC file, are 3l's Q3 (seven
+# compactions, K2, and four hash words, K4: the same row counts, so the
+# same bloom and compaction choices); every other path (the C data
+# interface, dlpack, tensors, the IPC files and streams, the views and
+# unions, pandas, Device) is host work and launches none
+INTEROP_LAUNCHES = {
+    "3s Q1 from the C stream": _Q1_LAUNCHES,
+    "3s Q3 from the interchange": _joins(7, 4),
+    "3s Q3 over the extension Table": _joins(7, 4),
+}
+
+
+def _nullable(arr, every=INTEROP_NULL_EVERY):
+    """``arr`` (no nulls) with every ``every``-th row null, its buffers
+    shared."""
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    from arrow_tpu_torch.utils import bits
+    d = arr.data
+    valid = np.ones(d.length, dtype=bool)
+    valid[::every] = False
+    return Array(ArrayData(d.type, d.length, [Buffer(bits.pack_bits(valid))]
+                           + d.buffers[1:], d.children, offset=d.offset,
+                           dictionary=d.dictionary))
+
+
+def dense_union_of(ints, strings):
+    """A dense union of an int64 and a string column, alternating by row
+    (codes 0 and 1: even rows the ints' even rows, odd rows the strings'
+    odd rows), built from its buffers."""
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    n = len(ints)
+    type_ids = (np.arange(n) % 2).astype(np.int8)
+    offsets = (np.arange(n) // 2).astype(np.int32)
+    d = strings.data
+    offs = d.offsets().astype(np.int64)
+    starts, ends = offs[1:-1:2], offs[2::2]
+    lens = ends - starts
+    new_offs = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=new_offs[1:])
+    at = np.repeat(starts - new_offs[:-1], lens) + np.arange(new_offs[-1])
+    kids = [Array(ArrayData(ints.type, (n + 1) // 2, [
+                None, Buffer(ints.data.values()[0::2].copy())],
+                null_count=0)),
+            Array(ArrayData(strings.type, len(lens), [
+                None, Buffer(new_offs.astype(np.int32)),
+                Buffer(d.data_bytes()[at])], null_count=0))]
+    ut = T.dense_union([T.field("c_custkey", kids[0].type),
+                        T.field("c_mktsegment", kids[1].type)], [0, 1])
+    return Array.from_buffers(ut, n, [type_ids, offsets], children=kids)
+
+
+def uuid_rows(keys):
+    """16 bytes a key, made from it by numpy: the key (little-endian
+    int64) and a mix of it, as the uuid column's storage."""
+    k = keys.astype(np.int64)
+    out = np.empty((len(k), 2), dtype=np.uint64)
+    out[:, 0] = k.view(np.uint64)
+    out[:, 1] = _mix_np(k.view(np.uint64))
+    return out.view(np.uint8).reshape(-1, 16)
+
+
+def _interop_stream(li, digests, paths, dev, facts, peaks):
+    """Lineitem's eight Q1/Q3 columns through the C stream and back, its
+    digest the source's and the export state empty after; then Q1 over
+    the imported Table."""
+    from arrow_tpu_torch import RecordBatchReader, c_data
+    from arrow_tpu_torch.io.tpch_queries import q1_plan
+    li8 = li.select(INTEROP_LINEITEM)
+    want = table_digest(li8)
+
+    def run():
+        return RecordBatchReader.from_stream(
+            li8.__arrow_c_stream__()).read_all()
+    got = paths.run("C stream lineitem", run)
+    nbytes = _table_bytes(li8)
+    facts["C stream GB/s"] = nbytes / paths.walls["3s C stream lineitem"] \
+        / 1e9
+    _expect("3s C stream digest", table_digest(got) == want)
+    _expect("3s C stream export state", not any(
+        c_data.export_state().values()), str(c_data.export_state()))
+    result = _plan_path(paths, "Q1 from the C stream",
+                        lambda: q1_plan(got).to_table(device=dev),
+                        peaks, facts)
+    _expect("3s Q1 from the C stream", table_digest(result) ==
+            digests["Q1"])
+    return got
+
+
+def _interop_arrays(li, cu, paths):
+    """``__arrow_c_array__`` -> ``import_array`` of l_extendedprice, and
+    of a slice of a nullable string column (c_phone with every 7th row
+    null): offsets, validity and values carried."""
+    from arrow_tpu_torch import c_data
+    price = li.column("l_extendedprice").combine()
+    phone = _nullable(cu.column("c_phone").combine())
+    part = phone.slice(1000, len(phone) // 3)
+
+    def run():
+        out = []
+        for a in (price, part):
+            schema, array = a.__arrow_c_array__()
+            out.append(c_data.import_array(array, schema))
+        return out
+    got_price, got_part = paths.run("C array", run)
+    _same_data("3s C array l_extendedprice", got_price.data, price.data)
+    _expect("3s C array c_phone slice",
+            got_part.offset == part.offset and got_part.null_count ==
+            part.null_count and got_part.to_pylist() == part.to_pylist())
+    _expect("3s C array export state", not any(
+        c_data.export_state().values()), str(c_data.export_state()))
+
+
+def _interop_interchange(od, cu, li8, digests, paths, dev, facts, peaks):
+    """Orders and customer, projected to Q3's columns, through the
+    interchange protocol; then Q3 over them and the C stream's
+    lineitem."""
+    from arrow_tpu_torch import interchange
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.io.tpch_queries import q3_plan
+    od4, cu2 = od.select(INTEROP_ORDERS), cu.select(INTEROP_CUSTOMER)
+
+    def run():
+        return [interchange.from_dataframe(t.__dataframe__())
+                for t in (od4, cu2)]
+    got_od, got_cu = paths.run("interchange orders and customer", run)
+    for name, got, src in (("orders", got_od, od4),
+                           ("customer", got_cu, cu2)):
+        for f in src.schema:
+            g = got.column(f.name).combine()
+            w = src.column(f.name).combine()
+            if f.type.id == T.TypeId.DICTIONARY:  # the values, any order
+                _same_data(f"3s interchange {name}.{f.name}",
+                           _decoded(got.column(f.name)).data,
+                           _decoded(src.column(f.name)).data)
+            else:
+                _same_data(f"3s interchange {name}.{f.name}", g.data,
+                           w.data)
+    result = _plan_path(paths, "Q3 from the interchange",
+                        lambda: q3_plan(got_cu, got_od,
+                                        li8).to_table(device=dev),
+                        peaks, facts)
+    _expect("3s Q3 from the interchange", table_digest(result) ==
+            digests["Q3"])
+
+
+def _interop_dlpack(li, paths):
+    """numpy and torch take l_quantity and l_extendedprice through dlpack
+    at the Array's own address; a column with nulls refuses."""
+    cols = [li.column(n).combine() for n in ("l_quantity",
+                                             "l_extendedprice")]
+
+    def run():
+        return [(np.from_dlpack(a), torch.from_dlpack(a),
+                 a.__dlpack_device__()) for a in cols]
+    for a, (n, t, where) in zip(cols, paths.run("dlpack", run)):
+        addr = a.data.buffers[1].address + a.offset * 8
+        _expect("3s dlpack address", n.ctypes.data == addr ==
+                t.data_ptr() and len(n) == len(a) == t.numel(),
+                f"({n.ctypes.data}, {t.data_ptr()}, {addr})")
+        _expect("3s dlpack device", tuple(where) == (1, 0), str(where))
+    try:
+        np.from_dlpack(_nullable(cols[0]))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("3s dlpack of a column with nulls did not "
+                             "raise")
+
+
+def _interop_tensors(li, ps, tmp, paths, facts):
+    """Lineitem's four float columns as a Tensor written to a file and
+    read back from its map; partsupp's (partkey, suppkey) -> availqty as
+    CSR, COO and CSF tensors, written and read back."""
+    from arrow_tpu_torch import ipc, memory_map
+    from arrow_tpu_torch.tensor import (SparseCOOTensor, SparseCSFTensor,
+                                        SparseCSRMatrix)
+    li4 = li.select(INTEROP_TENSOR)
+    path = os.path.join(tmp, "lineitem.tensor")
+
+    def dense():
+        ten = li4.to_tensor()
+        with open(path, "wb") as f:
+            written = ipc.write_tensor(ten, f)
+        back = ipc.read_tensor(memory_map(path))
+        return ten, written, back
+    ten, written, back = paths.run("tensor lineitem", dense)
+    facts["tensor GB"] = ten.data.nbytes / 1e9
+    _expect("3s tensor size", written == os.path.getsize(path) ==
+            ipc.get_tensor_size(ten))
+    _expect("3s tensor read back", back.shape == ten.shape and
+            np.array_equal(back.data, ten.data))
+    for j, name in enumerate(INTEROP_TENSOR):
+        _expect_equal(f"3s tensor column {name}", ten.data[:, j],
+                      li4.column(name).combine().data.values())
+    del ten, back
+    os.remove(path)
+
+    key = ps.column("ps_partkey").combine().data.values()
+    supp = ps.column("ps_suppkey").combine().data.values()
+    qty = ps.column("ps_availqty").combine().data.values()
+    shape = (int(key.max()) + 1, int(supp.max()) + 1)
+
+    def sparse():
+        # the coordinates sorted, a pair drawn twice (the generator draws
+        # each part's suppliers at random) summed into one non-zero
+        flat = key * shape[1] + supp
+        order = np.argsort(flat)
+        flat = flat[order]
+        first = np.flatnonzero(np.concatenate([[True],
+                                               flat[1:] != flat[:-1]]))
+        coords = np.stack([flat[first] // shape[1], flat[first] % shape[1]],
+                          axis=1)
+        data = np.add.reduceat(qty[order], first)
+        indptr = np.zeros(shape[0] + 1, dtype=np.int64)
+        np.cumsum(np.bincount(coords[:, 0], minlength=shape[0]),
+                  out=indptr[1:])
+        made = [SparseCSRMatrix(data, indptr, coords[:, 1], shape),
+                SparseCOOTensor(data, coords, shape),
+                SparseCSFTensor.from_coords(data, coords, shape)]
+        out = []
+        for st in made:
+            buf = io.BytesIO()
+            ipc.write_sparse_tensor(st, buf)
+            out.append((st, ipc.read_sparse_tensor(buf.getvalue()),
+                        buf.tell()))
+        return coords, out
+    coords, out = paths.run("sparse partsupp", sparse)
+    facts["sparse non-zeros"] = len(coords)
+    for st, got, nbytes in out:
+        name = type(st).__name__
+        _expect(f"3s {name} read back", type(got) is type(st) and
+                tuple(got.shape) == shape and
+                np.array_equal(got.data, st.data))
+        parts = {"SparseCSRMatrix": ("indptr", "indices"),
+                 "SparseCOOTensor": ("coords",)}.get(name, ())
+        for attr in parts:
+            _expect_equal(f"3s {name}.{attr}", getattr(got, attr),
+                          getattr(st, attr))
+        if name == "SparseCSFTensor":
+            _expect_equal("3s SparseCSFTensor coords", got.coords(), coords)
+        facts[f"{name} MB"] = nbytes / 1e6
+
+
+def _interop_extension(od, cu, li8, digests, tmp, paths, dev, facts,
+                       peaks):
+    """Orders (Q3's columns) with a uuid column from o_orderkey and a
+    fixed_shape_tensor(float64, [2]) of (o_totalprice, o_shippriority),
+    written as an IPC file and read back registered (the types rebuilt)
+    and unregistered (their storage); then Q3 over the read-back Table."""
+    from arrow_tpu_torch import extension as X
+    from arrow_tpu_torch import ipc, memory_map
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.array.array import Array
+    from arrow_tpu_torch.array.data import ArrayData
+    from arrow_tpu_torch.buffer import Buffer
+    from arrow_tpu_torch.io.tpch_queries import q3_plan
+    from arrow_tpu_torch.table import Table
+    n = od.num_rows
+    keys = od.column("o_orderkey").combine().data.values()
+    pair = np.stack([od.column("o_totalprice").combine().data.values(),
+                     od.column("o_shippriority").combine().data.values()
+                     .astype(np.float64)], axis=1).reshape(-1)
+    fst = X.fixed_shape_tensor(T.float64(), [2])
+    uuid = Array(ArrayData(X.uuid(), n, [None, Buffer(uuid_rows(keys))],
+                           null_count=0))
+    tensor = Array(ArrayData(fst, n, [None], [ArrayData(
+        T.float64(), 2 * n, [None, Buffer(pair)], null_count=0)],
+        null_count=0))
+    ext = od.select(INTEROP_ORDERS).append_column(
+        T.field("o_uuid", X.uuid()), uuid).append_column(
+        T.field("o_tensor", fst), tensor)
+    path = os.path.join(tmp, "orders_ext.arrow")
+
+    def run():
+        with open(path, "wb") as f, ipc.new_file(f, ext.schema) as w:
+            w.write_table(ext)
+        registered = ipc.open_file(memory_map(path)).read_all()
+        for name in (X.UuidType.EXTENSION_NAME,
+                     X.FixedShapeTensorType.EXTENSION_NAME):
+            X.unregister_extension_type(name)
+        try:
+            storage = ipc.open_file(memory_map(path)).read_all()
+        finally:
+            X.register_extension_type(X.UuidType)
+            X.register_extension_type(X.FixedShapeTensorType)
+        return registered, storage
+    registered, storage = paths.run("extension IPC file", run)
+    facts["extension file GB"] = os.path.getsize(path) / 1e9
+    _expect("3s extension types rebuilt", registered.schema.field(
+        "o_uuid").type == X.uuid() and registered.schema.field(
+        "o_tensor").type == fst)
+    _expect("3s extension digest", table_digest(registered) ==
+            table_digest(ext))
+    as_storage = Table(T.schema([T.field(f.name, getattr(
+        f.type, "storage_type", f.type)) for f in ext.schema]), [
+        c if f.type.id != T.TypeId.EXTENSION else
+        type(c)([Array(ArrayData(f.type.storage_type, a.data.length,
+                                 a.data.buffers, a.data.children,
+                                 offset=a.data.offset))
+                 for a in c.chunks]) for f, c in zip(ext.schema,
+                                                    ext.columns)])
+    _expect("3s extension storage", [f.type for f in storage.schema] ==
+            [f.type for f in as_storage.schema] and
+            table_digest(storage) == table_digest(as_storage))
+    result = _plan_path(paths, "Q3 over the extension Table",
+                        lambda: q3_plan(cu, registered,
+                                        li8).to_table(device=dev),
+                        peaks, facts)
+    _expect("3s Q3 over the extension Table", table_digest(result) ==
+            digests["Q3"])
+    del registered, storage
+    os.remove(path)
+
+
+def _interop_views_unions(cu, paths):
+    """Customer's c_comment cast to string_view and a dense union of
+    (c_custkey | c_mktsegment), each through the C array round trip and
+    an IPC stream, its rows the source's."""
+    from arrow_tpu_torch import c_data, ipc
+    from arrow_tpu_torch import types as T
+    from arrow_tpu_torch.table import Table
+    comment = _decoded(cu.column("c_comment"))
+    ints = cu.column("c_custkey").combine()
+    segment = _decoded(cu.column("c_mktsegment"))
+    want_comment = comment.to_pylist()
+    ki, ks = ints.to_pylist(), segment.to_pylist()
+    want_union = [ki[i] if i % 2 == 0 else ks[i] for i in range(len(ki))]
+
+    def run():
+        sv = comment.cast(T.string_view())
+        du = dense_union_of(ints, segment)
+        out = {"made": (sv, du)}
+        out["C array"] = [c_data.import_array(*reversed(a.__arrow_c_array__()))
+                          for a in (sv, du)]
+        t = Table.from_arrays([sv, du], ["c_comment", "c_union"])
+        back = ipc.deserialize_table(ipc.serialize_table(t))
+        out["IPC stream"] = [back.column(0).combine(),
+                             back.column(1).combine()]
+        return out
+    out = paths.run("views and unions", run)
+    sv, du = out["made"]
+    _expect("3s string_view", sv.type == T.string_view() and
+            sv.to_pylist() == want_comment)
+    _expect("3s dense union", du.type.mode == "dense" and
+            du.to_pylist() == want_union)
+    made = table_digest(Table.from_arrays([sv, du], ["v", "u"]))
+    for how in ("C array", "IPC stream"):
+        _expect(f"3s views and unions ({how})", table_digest(
+            Table.from_arrays(out[how], ["v", "u"])) == made)
+    sv.validate(full=True)
+    du.validate(full=True)
+    _expect("3s views export state", not any(
+        c_data.export_state().values()), str(c_data.export_state()))
+
+
+def _interop_pandas_device(cu, paths, facts):
+    """``Table.to_pandas`` raises ImportError where pandas is absent, else
+    customer makes a round trip: each column digest for digest, but a
+    dictionary, which comes back as plain strings, by its values; the
+    card's Device and a host Buffer's."""
+    from arrow_tpu_torch import Buffer, Device, DeviceAllocationType, Table
+    from arrow_tpu_torch import types as T
+
+    def run():
+        try:
+            import pandas  # noqa: F401
+        except ImportError:
+            try:
+                cu.to_pandas()
+            except ImportError:
+                return "absent"
+            raise AssertionError("3s to_pandas without pandas did not raise")
+        back = Table.from_pandas(cu.to_pandas())
+        _expect("3s pandas names", back.column_names == cu.column_names)
+        for f in cu.schema:
+            if f.type.id == T.TypeId.DICTIONARY:
+                _same_data(f"3s pandas {f.name}",
+                           back.column(f.name).combine().data,
+                           _decoded(cu.column(f.name)).data)
+            else:
+                _expect(f"3s pandas {f.name}", table_digest(
+                    back.select([f.name])) == table_digest(
+                        cu.select([f.name])))
+        return "round trip"
+    facts["pandas"] = paths.run("pandas", run)
+    card = Device("cuda:0" if paths.cuda else "cpu")
+    _expect("3s Device", (card.type_name, card.device_id, card.device_type)
+            == (("cuda", 0, DeviceAllocationType.CUDA) if paths.cuda else
+                ("cpu", 0, DeviceAllocationType.CPU)), repr(card))
+    buf = Buffer(b"abc")
+    _expect("3s Buffer.device", buf.device.is_cpu and buf.device_type ==
+            DeviceAllocationType.CPU and buf.memory_manager.is_cpu)
+
+
+def phase_interop(host, device="cuda"):
+    """Phase 3s: interop and extension types over phase 3l's host Tables
+    (its Q1 and Q3 digests in ``host.digests``). Lineitem's eight Q1/Q3
+    columns through the C stream, then Q1 over the imported Table;
+    l_extendedprice and a nullable string slice through the C array;
+    orders and customer through the interchange protocol, then Q3 over
+    them and the imported lineitem; dlpack to numpy and torch; a Tensor
+    of lineitem's four floats and partsupp's sparse tensors through their
+    IPC messages; orders with uuid and fixed_shape_tensor columns through
+    an IPC file, registered and not, and Q3 over it; customer's comments
+    as string_view and a dense union through the C array and IPC; pandas
+    and Device. Each path's launches are set to 0 just before and read
+    just after (on the card) and held to INTEROP_LAUNCHES; every result
+    is held exactly. Returns (launches by path, facts)."""
+    import tempfile
+    dev = torch.device(device)
+    log(f"== phase 3s: interop and extension types on {device}")
+    t0 = time.perf_counter()
+    li, od, cu, ps = (host[n] for n in ("lineitem", "orders", "customer",
+                                        "partsupp"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_interop_")
+    paths = _Paths(dev, "3s", INTEROP_LAUNCHES)
+    peaks, facts = {}, {}
+    try:
+        need = 8 * li.num_rows * len(INTEROP_TENSOR) + 2 * _table_bytes(
+            od.select(INTEROP_ORDERS)) + (1 << 26)
+        free = _free_bytes(tmp)
+        log(f"  {tmp}: {free / 1e9:.3f} GB free, the phase writes at most "
+            f"{need / 1e9:.3f} GB")
+        if free < need:
+            raise RuntimeError(f"{tmp} lacks {(need - free) / 1e9:.3f} GB "
+                               "for phase 3s's files")
+        li8 = _interop_stream(li, host.digests, paths, dev, facts, peaks)
+        _interop_arrays(li, cu, paths)
+        _interop_interchange(od, cu, li8, host.digests, paths, dev, facts,
+                             peaks)
+        _interop_dlpack(li, paths)
+        _interop_tensors(li, ps, tmp, paths, facts)
+        _interop_extension(od, cu, li8, host.digests, tmp, paths, dev,
+                           facts, peaks)
+        _interop_views_unions(cu, paths)
+        _interop_pandas_device(cu, paths, facts)
+        paths.check_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("phase 3s walls (s): " + ", ".join(
+        f"{k[3:]} {v:.3f}" for k, v in paths.walls.items()))
+    log("phase 3s facts: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in facts.items()))
+    if peaks:
+        log("phase 3s peak memory above the tables (GiB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"phase 3s: {time.perf_counter() - t0:.1f} s (paths "
         f"{sum(paths.walls.values()):.1f} s)")
     return paths.launches, {"walls": paths.walls, "peaks": peaks,
                             "facts": facts}
@@ -10637,15 +11182,14 @@ def main() -> int:
         launches.update(front_launches)
         file_launches, _ = timed(phase_files, host)
         launches.update(file_launches)
-        parquet_launches, parquet = timed(phase_parquet, host, "cuda",
-                                          bad_page)
+        parquet_launches, _ = timed(phase_parquet, host, "cuda", bad_page)
         launches.update(parquet_launches)
-        text_launches, _ = timed(phase_csv_json_orc, host, "cuda",
-                                 *parquet["scan Q1"])
+        text_launches, _ = timed(phase_csv_json_orc, host, "cuda")
         launches.update(text_launches)
-        del parquet
         surface_launches, _ = timed(phase_host_surface, host)
         launches.update(surface_launches)
+        interop_launches, _ = timed(phase_interop, host)
+        launches.update(interop_launches)
         # phase 3b before 3k: its runs of the eight joins are 3k's
         # single-rank runs of them
         joins = timed(phase_join_types, orders, customer)

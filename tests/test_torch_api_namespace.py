@@ -5,16 +5,18 @@ package's.
 * ``api.py``'s functions: ``scalar``, ``nulls``, ``repeat``,
   ``infer_type``, ``concat_arrays``, ``concat_batches``, ``concat_tables``
   (with ``promote_options``), ``unify_schemas``, ``type_for_alias``,
-  ``show_versions``; the pandas pair raises, naming item 13.2, part 2.
+  ``show_versions``; the pandas pair's bytes and frames equal to the
+  reference's.
 * The type factories the port added (``field``, ``schema``, ``utf8``,
   the views, the unions, ``DictionaryType``) as type objects equal to the
-  reference's; an Array of a type the port has no host layout for raises,
-  naming item 13.2, part 3.
+  reference's; an Array of a view built as the reference builds it, one
+  of a union refused as the reference refuses it.
 * The memory pools, the thread counts and the other top-level names.
 * The README's first example (``README.md:10-30``, the lines that need no
   pyarrow) on the port with ``device="cpu"``, equal to the reference's.
 * The reference's top-level names that the port still lacks, pinned by
-  the later part of ROADMAP item 13.2 that each waits for.
+  the later part of ROADMAP item 13.2 that each waits for (part 4's
+  ``flight`` alone).
 """
 
 import contextlib
@@ -189,8 +191,16 @@ def test_show_versions():
 
 @pytest.mark.parametrize("name", ["serialize_pandas", "deserialize_pandas"])
 def test_the_pandas_pair_waits_for_part_2(name):
-    with pytest.raises(NotImplementedError, match="item 13.2, part 2"):
-        getattr(att, name)(None)
+    """Part 2 ported the pair: the reference's bytes and frames."""
+    pd = pytest.importorskip("pandas")
+    df = pd.DataFrame({"i": [1, 2, 3], "f": [0.5, None, 2.0],
+                       "s": ["x", "y", "zz"]})
+    if name == "serialize_pandas":
+        assert att.serialize_pandas(df) == at.serialize_pandas(df)
+    else:
+        blob = at.serialize_pandas(df)
+        pd.testing.assert_frame_equal(att.deserialize_pandas(blob),
+                                      at.deserialize_pandas(blob))
 
 
 # --- types ------------------------------------------------------------------------
@@ -251,8 +261,15 @@ def test_view_and_union_types(case):
     if "union" in case:
         assert (got.mode, got.type_codes) == (want.mode, want.type_codes)
         assert isinstance(got, att.UnionType)
-    with pytest.raises(NotImplementedError, match="item 13.2, part 3"):
-        att.array([None], got)
+    # part 3 gave the views a host layout; a union is built from buffers,
+    # and from a sequence refused, as in the reference
+    try:
+        ref = at.array([None], want)
+    except NotImplementedError:
+        with pytest.raises(NotImplementedError, match="construction for"):
+            att.array([None], got)
+    else:
+        assert att.array([None], got).to_pylist() == ref.to_pylist()
 
 
 def test_schema_edits():
@@ -400,21 +417,9 @@ def test_readme_first_example():
 # --- what is left --------------------------------------------------------------------
 
 # The reference's top-level names that the port lacks, by the later part of
-# ROADMAP.md item 13.2 that each waits for; part 3 also takes every name of
-# the reference's compat_names.py (pyarrow's per-type classes, Int8Array,
-# StringScalar, Decimal128Type, ...) that the port lacks.
+# ROADMAP.md item 13.2 that each waits for; parts 2 and 3 (the interop,
+# the extension types, compat_names.py's names and Device) are ported.
 LATER = {
-    "part 2: interop": {
-        "Tensor", "SparseCOOTensor", "SparseCSCMatrix", "SparseCSFTensor",
-        "SparseCSRMatrix", "tensor", "c_data", "interchange"},
-    "part 3: extension, compat_names, device": {
-        "Bool8Type", "ExtensionArray", "ExtensionType",
-        "FixedShapeTensorArray", "FixedShapeTensorType", "JsonType",
-        "OpaqueType", "UuidType", "VariableShapeTensorType", "bool8",
-        "compat_names", "extension", "fixed_shape_tensor", "json_",
-        "opaque", "register_extension_type", "unregister_extension_type",
-        "uuid", "variable_shape_tensor", "Device", "MemoryManager",
-        "default_cpu_memory_manager"},
     "part 4: flight": {"flight"},
 }
 # the reference's lazily imported modules, its __getattr__'s names
@@ -429,10 +434,10 @@ def test_only_the_later_parts_of_item_13_2_are_left():
              and not isinstance(getattr(at, n), types.ModuleType)}
     names |= set(REFERENCE_LAZY) | {"compute", "ipc", "util", "lib",
                                     "memory", "config", "io"}
+    names |= set(compat_names.__all__)
     missing = {n for n in names if not hasattr(att, n)}
     pinned = set().union(*LATER.values())
-    assert missing <= pinned | set(compat_names.__all__)
-    assert pinned & names <= missing
+    assert missing == pinned & names == {"flight"}
 
 
 @pytest.mark.parametrize("cls,methods", [
@@ -446,11 +451,12 @@ def test_only_the_later_parts_of_item_13_2_are_left():
                "__dlpack__", "__dlpack_device__"}),
 ])
 def test_only_the_interop_methods_are_left(cls, methods):
-    """The containers' methods that the port lacks are part 2's."""
+    """Part 2 ported the containers' interop methods: none is left."""
     ref = {n for n in dir(getattr(at, cls))
            if not n.startswith("_") or n in methods}
     port = set(dir(getattr(att, cls)))
-    assert ref - port == methods
+    assert methods <= port
+    assert ref - port == set()
 
 
 # --- ROADMAP item 13.3: the submodules' and classes' names -------------------------
@@ -459,9 +465,8 @@ def test_only_the_interop_methods_are_left(cls, methods):
 # public names are its ``__all__``, or else the names it defines, and the
 # re-exports that pyarrow's counterpart has too (``REEXPORTS``); the names a
 # module imports for its own use do not count. Left out by the port's
-# contract: ``put_sharded`` (it places arrays on a TPU mesh). Waiting for
-# item 13.2 (the pandas methods, part 2; Buffer's device facts, part 3):
-# these and nothing else may be missing.
+# contract: ``put_sharded`` (it places arrays on a TPU mesh); nothing else
+# may be missing.
 SUBMODULES = ("compute", "types", "config", "acero", "dataset", "api",
               "parallel", "parallel.distributed", "utils.tdigest", "buffer")
 REEXPORTS = {"compute": {"Expression", "field", "scalar"},
@@ -470,10 +475,10 @@ REEXPORTS = {"compute": {"Expression", "field", "scalar"},
              "api": {"array_data_from_sequence"}}
 LEFT_OUT = {"parallel.distributed": {"put_sharded"}}
 CLASSES = {
-    "Schema": ("types", {"from_pandas", "pandas_metadata"}),
-    "DataType": ("types", {"to_pandas_dtype"}),
+    "Schema": ("types", set()),
+    "DataType": ("types", set()),
     "Field": ("types", set()),
-    "Buffer": ("buffer", {"device", "device_type", "memory_manager"}),
+    "Buffer": ("buffer", set()),
     "Scalar": ("compute.registry", set()),
 }
 

@@ -202,10 +202,22 @@ def test_compat_classes():
     assert ipc.IpcReadOptions().use_threads
     assert ipc.MetadataVersion.V5 == 5
     assert ipc.ReadStats().num_messages == ipc.WriteStats().num_messages == 0
-    for name in ("read_tensor", "write_tensor", "serialize_pandas",
-                 "deserialize_pandas"):
-        with pytest.raises(NotImplementedError, match="item 13.2"):
-            getattr(ipc, name)(None)
+    # the tensor messages and the pandas pair (ported by item 13.2, part
+    # 2): the reference's bytes
+    from arrow_tpu import tensor as rtensor
+    from arrow_tpu_torch import tensor as ptensor
+    m = np.arange(12, dtype=np.float64).reshape(3, 4)
+    want, got = io.BytesIO(), io.BytesIO()
+    rip.write_tensor(rtensor.Tensor(m), want)
+    assert ipc.write_tensor(ptensor.Tensor(m), got) == len(want.getvalue())
+    assert got.getvalue() == want.getvalue()
+    assert ipc.get_tensor_size(ptensor.Tensor(m)) == len(want.getvalue())
+    assert np.array_equal(ipc.read_tensor(want.getvalue()).to_numpy(), m)
+    pd = pytest.importorskip("pandas")
+    df = pd.DataFrame({"a": [1, 2], "f": [0.5, None]})
+    assert ipc.serialize_pandas(df) == rip.serialize_pandas(df)
+    pd.testing.assert_frame_equal(
+        ipc.deserialize_pandas(ipc.serialize_pandas(df)), df)
 
 
 def test_random_differential():
@@ -251,30 +263,48 @@ def test_a_file_reader_loads_only_the_columns_asked_for():
 
 
 def test_an_extension_field_reads_as_its_storage():
-    """The port has no extension types: a field of one reads as its
+    """A registered extension name is rebuilt (``extension.py``), as the
+    reference rebuilds it; once unregistered the field reads as its
     storage type, the extension keys dropped, as the reference reads a
     name it has not registered."""
+    from arrow_tpu_torch import extension as ext_mod
     storage = pa.array([b"0123456789abcdef", None], pa.binary(16))
     ext = pa.ExtensionArray.from_storage(pa.uuid(), storage)
     sink = pa.BufferOutputStream()
     tbl = pa.table({"u": ext})
     with paipc.new_stream(sink, tbl.schema) as w:
         w.write_table(tbl)
-    got = ipc.deserialize_table(sink.getvalue().to_pybytes())
+    blob = sink.getvalue().to_pybytes()
+    got = ipc.deserialize_table(blob)
+    want = rip.deserialize_table(blob)
+    f = got.schema.field("u")
+    assert isinstance(f.type, ext_mod.UuidType) and not f.metadata
+    assert repr(f.type) == repr(want.schema.field("u").type)
+    assert got.column("u").to_pylist() == want.column("u").to_pylist()
+    ext_mod.unregister_extension_type("arrow.uuid")
+    try:
+        got = ipc.deserialize_table(blob)
+    finally:
+        ext_mod.register_extension_type(ext_mod.UuidType)
     f = got.schema.field("u")
     assert f.type == T.fixed_size_binary(16) and not f.metadata
     assert got.column("u").to_pylist() == storage.to_pylist()
 
 
 def test_a_union_field_raises():
+    """Item 13.2, part 3 gave the unions a layout: a union field written
+    by pyarrow reads as the reference reads it."""
     tbl = pa.table({"u": pa.UnionArray.from_sparse(
         pa.array([0, 1], pa.int8()), [pa.array([1, 2]),
                                       pa.array(["a", "b"])])})
     sink = pa.BufferOutputStream()
     with paipc.new_stream(sink, tbl.schema) as w:
         w.write_table(tbl)
-    with pytest.raises(NotImplementedError, match="union"):
-        ipc.deserialize_table(sink.getvalue().to_pybytes())
+    blob = sink.getvalue().to_pybytes()
+    got, want = ipc.deserialize_table(blob), rip.deserialize_table(blob)
+    assert repr(got.schema.field("u").type) == \
+        repr(want.schema.field("u").type)
+    assert got.to_pydict() == want.to_pydict() == {"u": [1, "b"]}
 
 
 def test_the_flatbuffer_builder_is_the_runtimes():

@@ -145,8 +145,9 @@ def test_write_to_dataset_and_its_metadata(tmp_path, rich):
     assert rpds.files is None
     assert pds.files == [str(tmp_path / "p" / f)
                          for f in _files(tmp_path / "p") if "=" in f]
-    with pytest.raises(NotImplementedError, match="13.2"):
-        pds.read_pandas()
+    pd = pytest.importorskip("pandas")
+    pd.testing.assert_frame_equal(pds.read_pandas(device="cpu"),
+                                  rpds.read_pandas())
 
 
 def test_the_file_visitor(tmp_path, rich):
