@@ -213,11 +213,11 @@ def __getattr__(name):
     lazy = {"acero": ".acero", "c_data": ".c_data",
             "compare": ".compare", "compat_names": ".compat_names",
             "dataset": ".dataset", "device": ".device",
-            "extension": ".extension", "feather": ".feather", "fs": ".fs",
-            "gandiva": ".gandiva", "interchange": ".interchange",
-            "io": ".io", "orc": ".io.orc", "parallel": ".parallel",
-            "pretty": ".pretty", "sql": ".sql", "substrait": ".substrait",
-            "tensor": ".tensor"}
+            "extension": ".extension", "feather": ".feather",
+            "flight": ".flight", "fs": ".fs", "gandiva": ".gandiva",
+            "interchange": ".interchange", "io": ".io", "orc": ".io.orc",
+            "parallel": ".parallel", "pretty": ".pretty", "sql": ".sql",
+            "substrait": ".substrait", "tensor": ".tensor"}
     if name in lazy:
         return importlib.import_module(lazy[name], __name__)
     raise AttributeError(name)

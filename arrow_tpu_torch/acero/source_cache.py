@@ -16,10 +16,16 @@ The maps hold the column weakly: an entry goes with the column, when the
 user's Table is dropped. ``release(table)`` drops a Table's entries sooner,
 and ``release()`` every entry, freeing the card memory and the page-locked
 memory they hold (an SF10 lineitem holds about 5.5 GB of each).
+
+Plans may run on several threads at once (a Flight server's handlers):
+a column's entries are made under the column's own lock, so a column is
+prepared, uploaded and counted in ``UPLOAD_STATS`` once however many
+threads ask for it, while threads that read other columns go on.
 """
 
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Dict
 
@@ -30,23 +36,38 @@ _prepared: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _uploads: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _pinned: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _tables: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# a column's lock, held while an entry of the column is looked up and made
+_column_locks: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# held while a column's lock, a batch's Table or UPLOAD_STATS is made or
+# changed, and while release() clears the maps
+_LOCK = threading.Lock()
+
+
+def _column_lock(col) -> "threading.RLock":
+    with _LOCK:
+        lock = _column_locks.get(col)
+        if lock is None:
+            lock = _column_locks[col] = threading.RLock()
+        return lock
 
 
 def table_of(batch):
     """A RecordBatch's one-batch Table, made once a batch."""
     from ..table import Table
-    tbl = _tables.get(batch)
-    if tbl is None:
-        tbl = _tables[batch] = Table.from_batches([batch])
-    return tbl
+    with _LOCK:
+        tbl = _tables.get(batch)
+        if tbl is None:
+            tbl = _tables[batch] = Table.from_batches([batch])
+        return tbl
 
 
 def prepared_column(col) -> HostColumn:
     """``col``'s device representation on the host, made once."""
-    hc = _prepared.get(col)
-    if hc is None:
-        hc = _prepared[col] = host_column_repr(col.combine())
-    return hc
+    with _column_lock(col):
+        hc = _prepared.get(col)
+        if hc is None:
+            hc = _prepared[col] = host_column_repr(col.combine())
+        return hc
 
 
 # the rows and padded bytes of the uploads made (``reset_upload_stats``)
@@ -64,36 +85,39 @@ def uploaded_column(col, dev, rows=None) -> DeviceColumn:
     count, made once a device and range. The values come from the column's
     one prepared form, so every range of it shares its dictionary and its
     codes."""
-    per_device: Dict[str, DeviceColumn] = _uploads.setdefault(col, {})
     start, stop = (0, len(col)) if rows is None else rows
     key = str(dev) if rows is None else f"{dev}[{start}:{stop}]"
-    if key not in per_device:
-        n = stop - start
-        out = per_device[key] = prepared_column(col).slice_upload(
-            start, n, round_up(n), dev)
-        UPLOAD_STATS["rows"] += n
-        UPLOAD_STATS["bytes"] += out.values.numel() * \
-            out.values.element_size() + (0 if out.validity is None
-                                         else out.validity.numel())
-    return per_device[key]
+    with _column_lock(col):
+        per_device: Dict[str, DeviceColumn] = _uploads.setdefault(col, {})
+        if key not in per_device:
+            n = stop - start
+            out = per_device[key] = prepared_column(col).slice_upload(
+                start, n, round_up(n), dev)
+            with _LOCK:
+                UPLOAD_STATS["rows"] += n
+                UPLOAD_STATS["bytes"] += out.values.numel() * \
+                    out.values.element_size() + (0 if out.validity is None
+                                                 else out.validity.numel())
+        return per_device[key]
 
 
 def host_column(col, pinned: bool) -> DeviceColumn:
     """``col``'s prepared values as an unpadded CPU DeviceColumn: over
     their numpy memory, or, ``pinned``, copied once into page-locked
     memory for copies to the card."""
-    if pinned and col in _pinned:
-        return _pinned[col]
-    hc = prepared_column(col)
-    out = DeviceColumn(host_tensor(hc.values),
-                       None if hc.mask is None else host_tensor(hc.mask),
-                       hc.type, hc.dictionary)
-    if pinned:
-        out = _pinned[col] = DeviceColumn(
-            out.values.pin_memory(),
-            None if out.validity is None else out.validity.pin_memory(),
-            out.type, out.dictionary)
-    return out
+    with _column_lock(col):
+        if pinned and col in _pinned:
+            return _pinned[col]
+        hc = prepared_column(col)
+        out = DeviceColumn(host_tensor(hc.values),
+                           None if hc.mask is None else host_tensor(hc.mask),
+                           hc.type, hc.dictionary)
+        if pinned:
+            out = _pinned[col] = DeviceColumn(
+                out.values.pin_memory(),
+                None if out.validity is None else out.validity.pin_memory(),
+                out.type, out.dictionary)
+        return out
 
 
 def release(table=None) -> None:
@@ -103,14 +127,15 @@ def release(table=None) -> None:
     dictionary objects."""
     from ..table import RecordBatch
     maps = (_prepared, _uploads, _pinned)
-    if table is None:
-        for m in maps + (_tables,):
-            m.clear()
-        return
-    if isinstance(table, RecordBatch):
-        table = _tables.pop(table, None)
+    with _LOCK:
         if table is None:
+            for m in maps + (_tables,):
+                m.clear()
             return
-    for col in table.columns:
-        for m in maps:
-            m.pop(col, None)
+        if isinstance(table, RecordBatch):
+            table = _tables.pop(table, None)
+            if table is None:
+                return
+        for col in table.columns:
+            for m in maps:
+                m.pop(col, None)

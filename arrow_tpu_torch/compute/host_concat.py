@@ -1,8 +1,13 @@
 """Host concatenation of arrays (counterpart of
 ``arrow_tpu/compute/host_concat.py``; reference:
 cpp/src/arrow/array/concatenate.cc): buffer by buffer for fixed-width and
-variable-size binary types, through Python values for nested and
-dictionary types, as the reference does."""
+variable-size binary types, through Python values for nested types and
+for dictionary chunks of different dictionaries, as the reference does.
+Chunks of one dictionary (the slices of one array, the batches of an IPC
+or Flight stream) concatenate their indices and keep that dictionary, as
+Arrow's Concatenate does: a departure from the reference, whose path
+through Python values rebuilds the dictionary from the values the rows
+use, in order of first use (ROADMAP section 3)."""
 
 from __future__ import annotations
 
@@ -73,6 +78,13 @@ def concat_arrays(arrays: Sequence[Array], type: DataType = None) -> Array:
             np.zeros(0, type.to_numpy_dtype())
         return Array(ArrayData(type, total, [validity, Buffer(vals)],
                                null_count=nc))
+    if tid == TypeId.DICTIONARY and datas and all(
+            d.dictionary is datas[0].dictionary and d.type == type
+            for d in datas):
+        validity, nc = _concat_validity(datas)
+        return Array(ArrayData(type, total, [validity, Buffer(np.concatenate(
+            [d.values() for d in datas]))], null_count=nc,
+            dictionary=datas[0].dictionary))
     vals: List = []
     for a in arrays:
         vals.extend(a.to_pylist())

@@ -259,6 +259,13 @@ def serialize_record_batch_parts(columns: Sequence[ArrayData], num_rows: int,
     return encapsulate(meta), body.parts
 
 
+def serialize_record_batch(columns: Sequence[ArrayData], num_rows: int,
+                           codec: Optional[str] = None) -> Tuple[bytes, bytes]:
+    """(the framed metadata, the body's bytes)."""
+    meta, parts = serialize_record_batch_parts(columns, num_rows, codec)
+    return meta, b"".join(parts)
+
+
 def serialize_dictionary_batch(dict_id: int, dictionary: ArrayData,
                                codec: Optional[str] = None,
                                is_delta: bool = False) -> Tuple[bytes, bytes]:

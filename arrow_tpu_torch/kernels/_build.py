@@ -11,11 +11,12 @@ started together. A failed build raises :class:`BuildError` with the
 first failed compiler's exit status and every failed compiler's output.
 
 A host source, ``csrc/<name>.cpp`` (the LZ4 codec of the IPC and Feather
-files, the snappy codec, Parquet's host loops), compiles with the host C++
-compiler into ``build/arrow_tpu_torch/lib<name>-<hash>.so`` the same way
-(``host_library``), at its first use and apart from the CUDA sources; its
-hash also covers the sources of ``csrc`` it includes. Without a compiler
-it raises :class:`BuildError`.
+files, the snappy codec, Parquet's host loops, the ODBC driver), compiles
+with the host C++ compiler into ``build/arrow_tpu_torch/lib<name>-<hash>.so``
+the same way (``host_library``, or ``host_library_file`` for a library
+another program loads), at its first use and apart from the CUDA sources;
+its hash also covers the sources of ``csrc`` it includes. Without a
+compiler it raises :class:`BuildError`.
 
 One process of a machine builds a library at a time: the build and its
 ``os.replace`` into place run under an exclusive ``flock`` of the
@@ -208,13 +209,21 @@ def host_library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(key)
         if lib is not None:
             return lib
-        out = host_library_path(name)
-        if not out.exists():
-            with _build_lock(out.name):
-                if not out.exists():
-                    _compile_host(name, out)
-        lib = _LIBS[key] = ctypes.CDLL(str(out))
+        lib = _LIBS[key] = ctypes.CDLL(str(host_library_file(name)))
     return lib
+
+
+def host_library_file(name: str) -> Path:
+    """The library of the host source ``csrc/<name>.cpp``, built with the
+    host C++ compiler where it is missing (under the machine's build lock
+    of it), unloaded: for a library another program loads, as a driver
+    manager loads the ODBC driver."""
+    out = host_library_path(name)
+    if not out.exists():
+        with _build_lock(out.name):
+            if not out.exists():
+                _compile_host(name, out)
+    return out
 
 
 def _compile_host(name: str, out: Path) -> None:

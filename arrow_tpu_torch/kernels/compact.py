@@ -28,6 +28,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from . import count_launch
 from ._build import library
 
 MAX_COLUMNS = 64
@@ -106,7 +107,7 @@ def compact(keep: torch.Tensor, arrays: Sequence[torch.Tensor]
                       scratch.data_ptr(), count.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"compact launch failed: CUDA error {err}")
-    compact.launches += 1
+    count_launch(compact)
     return outs, count
 
 

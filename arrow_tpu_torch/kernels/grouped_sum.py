@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from . import count_launch
 from ._build import library
 
 MAX_SEGMENTS = 1024
@@ -107,7 +108,7 @@ def grouped_sum(values: torch.Tensor, gids: torch.Tensor,
         partials.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"grouped_sum launch failed: CUDA error {err}")
-    grouped_sum.launches += 1
+    count_launch(grouped_sum)
     return out.to(values.dtype)
 
 

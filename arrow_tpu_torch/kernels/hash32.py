@@ -27,6 +27,7 @@ from typing import Sequence
 import torch
 
 from ..compute.hashing import as_bits, as_u32, combine, hash_u32_word
+from . import count_launch
 from ._build import library
 
 MAX_WORDS = 16
@@ -75,7 +76,7 @@ def hash32(words: Sequence[torch.Tensor]) -> torch.Tensor:
     err = _function()(planes, strides, k, n, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hash32 launch failed: CUDA error {err}")
-    hash32.launches += 1
+    count_launch(hash32)
     return out
 
 

@@ -11,6 +11,7 @@ import functools
 
 import torch
 
+from . import count_launch
 from ._build import library
 
 
@@ -39,7 +40,7 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     err = _function()(x.data_ptr(), y.data_ptr(), x.numel(), stream)
     if err != 0:
         raise RuntimeError(f"probe launch failed: CUDA error {err}")
-    probe.launches += 1
+    count_launch(probe)
     return y
 
 

@@ -100,8 +100,8 @@ Phases; any failure exits non-zero without the final line:
    duration[ms] made on the card), each result held on the card against
    numpy's datetime64 units and Python's ``datetime`` over the distinct
    inputs; temporal_plan, a calendar filter and projection of lineitem;
-   strings_pool, over part and customer at STRINGS_POOL_SF, every str ->
-   str name on ``p_name`` (500,000 values, the byte pool) and on
+   strings_pool, over part and customer at STRINGS_POOL_SF / ROOM_DEPTH,
+   every str -> str name on ``p_name`` (125,000 values, the byte pool) and on
    ``p_type`` (the host tier) and every predicate and length on
    ``p_name``, ``p_type`` and ``c_comment`` against Python's ``str`` and
    ``re``, and p_brand, p_container and a separator joined;
@@ -257,8 +257,8 @@ Phases; any failure exits non-zero without the final line:
    orders hive-partitioned by status through ``write_to_dataset`` with a
    ``metadata_collector`` and a ``_metadata`` from ``write_metadata``,
    and one status's orders by priority over ``parquet_dataset`` against
-   the Table's plan; orders as one uniform AES-GCM encrypted file, read
-   back equal. Each path's launches set to 0 just before and read just
+   the Table's plan; orders' first 1/ROOM_DEPTH of rows as one uniform
+   AES-GCM encrypted file, read back equal. Each path's launches set to 0 just before and read just
    after and held to PARQUET_LAUNCHES; the bytes written, the write and
    read rates, snappy's rates on the host, the flags' upload time and
    the peaks logged.
@@ -328,9 +328,27 @@ Phases; any failure exits non-zero without the final line:
    registered and not, and Q3 over it bit for bit 3l's; customer's
    comments as string_view and a dense union of (c_custkey |
    c_mktsegment) through the C array and an IPC stream; pandas (a round
-   trip where it is installed, else ImportError) and Device. Each path's
+   trip of customer's first 1/ROOM_DEPTH of rows where it is installed,
+   else ImportError) and Device. Each path's
    launches set to 0 just before and read just after and held to
    INTEROP_LAUNCHES; walls, rates and peaks logged.
+   Then (3t) Arrow Flight, Flight SQL, DB-API and ODBC (``phase_flight``)
+   over phase 3l's Tables, each on 127.0.0.1 and shut down before the
+   phase ends: a Flight SQL server of lineitem, orders and customer on
+   the card, SQL Q1 and Q3 through ``FlightSqlClient.execute`` equal to
+   phase 3n's answers (each statement runs twice: GetFlightInfo, then
+   DoGet) with FlightInfo's row counts, a prepared Q6 with its three
+   parameters bound by DoPut, the six metadata commands; DoGet of
+   lineitem's eight Q1/Q3 columns chunk for chunk the source's and Q1 over
+   the received Table bit for bit 3l's; DoPut of orders (every column)
+   digest for digest; DoExchange of orders' four fixed-width columns
+   through the server's eager filter on the card against numpy; DB-API
+   Q1 and ``executemany`` of the parameterised Q6; the port's ODBC driver
+   (built with the host compiler) called by ctypes through a gateway, Q1's
+   cells its text; basic auth (a call without the token refused) and the
+   tracing middleware on a DoGet of customer; four clients running Q1 and
+   Q3 at once. Each path's launches set to 0 just before and read just
+   after and held to FLIGHT_LAUNCHES; walls, rates and peaks logged.
    Then (3b) all eight join types, each run against a numpy oracle of
    the join (row count, row order, values and validity exact) with its
    launches exact: orders probing customer filtered to one segment at
@@ -4195,9 +4213,10 @@ def _timed_verify(verify, cols, result):
     return verify(cols, result), time.perf_counter() - t0
 
 
-# the scale of the strings_pool sweep's part and customer (500,000 p_name
-# and 375,000 c_comment values): SF10's 2M and 1.5M took ~75 s in phase 3h
-# and ~29 s again in phase 4, most of it the oracles' Python a value
+# the scale of the strings_pool sweep's part and customer, before ROOM_DEPTH
+# (at 2.5, 500,000 p_name and 375,000 c_comment values: ~28 s in phase 3h
+# and ~13 s again in phase 4; SF10's 2M and 1.5M took ~75 s and ~29 s), most
+# of it the oracles' Python a value
 STRINGS_POOL_SF = 2.5
 
 
@@ -4305,8 +4324,8 @@ def phase_strings(tables, typed):
     t0 = time.perf_counter()
     from arrow_tpu_torch.io import tpch
     h = strings_inputs_all(tables, typed, {
-        "part": tpch.part_table(STRINGS_POOL_SF),
-        "customer": tpch.customer_table(STRINGS_POOL_SF)})
+        "part": tpch.part_table(STRINGS_POOL_SF / ROOM_DEPTH),
+        "customer": tpch.customer_table(STRINGS_POOL_SF / ROOM_DEPTH)})
     cols = {"temporal_plan": _host_columns(tables["lineitem"], [
         "l_shipdate", "l_commitdate", "l_receiptdate", "l_orderkey",
         "l_extendedprice"]),
@@ -6567,7 +6586,8 @@ def table_digest(tbl):
 class HostTables(dict):
     """Phase 3l's host Tables by name, with what later phases take from 3l
     beside them: ``digests``, its plans' results digest by name (3s holds
-    its runs of Q1 and Q3 to them), and ``first(name)``, the first
+    its runs of Q1 and Q3 to them), ``answers``, phase 3n's SQL results
+    by name (3t holds its Flight SQL runs to them), and ``first(name)``, the first
     1/ROOM_DEPTH of a Table's rows, one slice a Table until
     ``drop_first()`` (3p and 3q share lineitem's and its uploads, 3q and
     3r orders' and its plain_orders)."""
@@ -6575,6 +6595,7 @@ class HostTables(dict):
     def __init__(self):
         super().__init__()
         self.digests = {}
+        self.answers = {}
         self._first = {}
 
     def first(self, name):
@@ -7014,7 +7035,10 @@ def phase_host(sf=SF, device="cuda"):
 # the first 1/ROOM_DEPTH of the rows (all of them until phase 3s needed
 # room; the seven took ~41, ~40, ~19, ~16, ~11, ~6 and ~6 s on an NVIDIA
 # H100 80GB HBM3 at 700.00 W, most of it the host's page coding, parse,
-# coding, byte gathers and Python a row)
+# coding, byte gathers and Python a row); since phase 3t, 3p's encrypted
+# orders file and 3s's pandas round trip of customer too (~9 and ~8 s), and
+# the strings_pool sweep at 1/ROOM_DEPTH of its scale (~41 s;
+# STRINGS_POOL_SF)
 ROOM_DEPTH = 4  # HostTables.first
 
 
@@ -7825,6 +7849,7 @@ def _frontend_sql(host, paths, dev, peaks):
             peaks[f"SQL {name}"] = (torch.cuda.max_memory_allocated()
                                     - base) / 2**30
         _same_result(f"SQL {name}", got, form().to_table(device=dev))
+        host.answers[f"SQL {name}"] = got
         log(f"  SQL {name}: {got.num_rows} rows, parsed in "
             f"{host_ms[f'SQL {name} parse']:.2f} ms, equals its "
             "Declaration form")
@@ -8696,12 +8721,13 @@ def _parquet_lineitem(li, tmp, paths, dev, peaks, facts):
     shutil.rmtree(root)
 
 
-def _parquet_orders(od, tmp, paths, dev, facts):
+def _parquet_orders(od, first, tmp, paths, dev, facts):
     """orders' PARQUET_ORDERS by write_to_dataset, hive-partitioned by
     o_orderstatus, with a metadata_collector and a ``_metadata`` file by
     write_metadata; the orders of HIVE_STATUS by priority over
-    parquet_dataset against the Table's plan (3o's check); orders as one
-    uniformly AES-GCM encrypted file, read back equal."""
+    parquet_dataset against the Table's plan (3o's check); orders' first
+    rows (``first``) as one uniformly AES-GCM encrypted file, read back
+    equal."""
     from arrow_tpu_torch import dataset as ds
     from arrow_tpu_torch import types as T
     from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
@@ -8753,6 +8779,7 @@ def _parquet_orders(od, tmp, paths, dev, facts):
         f"directory; {got.num_rows} priorities equal to the Table's plan")
     shutil.rmtree(root)
     # one encrypted file: every module AES-GCM under the footer key
+    sel = first.select(PARQUET_ORDERS)
     path = os.path.join(tmp, "orders_encrypted.parquet")
     paths.run("write orders encrypted", lambda: pq.write_table(
         sel, path, encryption_properties=pe.FileEncryptionProperties(
@@ -8927,7 +8954,7 @@ def phase_parquet(host, device="cuda", bad_page=None):
         peaks, facts = {}, {}
         _parquet_lineitem(host.first("lineitem"), tmp, paths, dev, peaks,
                           facts)
-        _parquet_orders(od, tmp, paths, dev, facts)
+        _parquet_orders(od, host.first("orders"), tmp, paths, dev, facts)
         _parquet_required(od, tmp, paths, facts)
         paths.check_launches()
         _bad_page_check(bad_page or _bad_page_finish(_bad_page_start()))
@@ -10274,8 +10301,8 @@ def _interop_views_unions(cu, paths):
 
 def _interop_pandas_device(cu, paths, facts):
     """``Table.to_pandas`` raises ImportError where pandas is absent, else
-    customer makes a round trip: each column digest for digest, but a
-    dictionary, which comes back as plain strings, by its values; the
+    customer's rows make a round trip: each column buffer by buffer (a
+    dictionary, which comes back as plain strings, by its values); the
     card's Device and a host Buffer's."""
     from arrow_tpu_torch import Buffer, Device, DeviceAllocationType, Table
     from arrow_tpu_torch import types as T
@@ -10292,14 +10319,11 @@ def _interop_pandas_device(cu, paths, facts):
         back = Table.from_pandas(cu.to_pandas())
         _expect("3s pandas names", back.column_names == cu.column_names)
         for f in cu.schema:
-            if f.type.id == T.TypeId.DICTIONARY:
-                _same_data(f"3s pandas {f.name}",
-                           back.column(f.name).combine().data,
-                           _decoded(cu.column(f.name)).data)
-            else:
-                _expect(f"3s pandas {f.name}", table_digest(
-                    back.select([f.name])) == table_digest(
-                        cu.select([f.name])))
+            want = cu.column(f.name)
+            _same_data(f"3s pandas {f.name}",
+                       back.column(f.name).combine().data,
+                       (_decoded(want) if f.type.id == T.TypeId.DICTIONARY
+                        else want.combine()).data)
         return "round trip"
     facts["pandas"] = paths.run("pandas", run)
     card = Device("cuda:0" if paths.cuda else "cpu")
@@ -10352,7 +10376,7 @@ def phase_interop(host, device="cuda"):
         _interop_extension(od, cu, li8, host.digests, tmp, paths, dev,
                            facts, peaks)
         _interop_views_unions(cu, paths)
-        _interop_pandas_device(cu, paths, facts)
+        _interop_pandas_device(host.first("customer"), paths, facts)
         paths.check_launches()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -10365,6 +10389,486 @@ def phase_interop(host, device="cuda"):
         log("phase 3s peak memory above the tables (GiB): " + ", ".join(
             f"{k} {v:.2f}" for k, v in peaks.items()))
     log(f"phase 3s: {time.perf_counter() - t0:.1f} s (paths "
+        f"{sum(paths.walls.values()):.1f} s)")
+    return paths.launches, {"walls": paths.walls, "peaks": peaks,
+                            "facts": facts}
+
+
+# --- phase 3t: Arrow Flight, Flight SQL, DB-API and ODBC ----------------------
+
+FLIGHT_TIMEOUT_S = 600        # every Flight client call's deadline in 3t
+FLIGHT_CLIENTS = 4            # the concurrent Flight SQL clients
+FLIGHT_USER = ("flight", "smoke")   # the basic-auth user and password
+EXCHANGE_COLUMNS = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"]
+EXCHANGE_PRICE = 400_000.0    # the exchange's filter keeps orders above it
+Q6_PARAMETERS = (0.05, 0.07, 24)   # Q6's discount bounds and quantity
+Q6_OTHER_PARAMETERS = (0.02, 0.04, 25)
+# SQL_Q6 with its discount bounds and quantity as placeholders: bound to
+# Q6_PARAMETERS, it is SQL_Q6's text again
+SQL_Q6_PARAMS = SQL_Q6.replace("between 0.05 and 0.07",
+                               "between ? and ?").replace(
+                                   "l_quantity < 24", "l_quantity < ?")
+_Q3_LAUNCHES = {**_NO_LAUNCH, "compact": 4, "hash32": 4}
+
+
+def _runs(n, launches):
+    """``n`` runs of a plan of ``launches`` (one probe)."""
+    return {k: v if k == "probe" else n * v for k, v in launches.items()}
+
+
+# launches of phase 3t's paths, reckoned from the code before the first run
+# (each +1 probe, from self_check): a Flight SQL statement runs its plan
+# twice, once in GetFlightInfo (its schema and row count) and again in
+# DoGet, so SQL Q1 is 3n's seven float sums (K1) twice and SQL Q3 3n's
+# four compactions (K2) and four hash words (K4) twice; GetFlightInfo
+# alone runs it once; the DB-API cursor and the ODBC gateway execute
+# through the same client, two runs each; Q6 and the metadata commands
+# launch none; Q1 over the DoGet Table is 3l's Q1; the exchange's eager
+# filter compacts every column in one K2; the four concurrent clients run
+# Q1 and Q3 twice each; DoGet, DoPut and the authenticated DoGet are host
+# work
+FLIGHT_LAUNCHES = {
+    "3t Flight SQL Q1": _runs(2, _Q1_LAUNCHES),
+    "3t Flight SQL Q1 info": _Q1_LAUNCHES,
+    "3t Flight SQL Q3": _runs(2, _Q3_LAUNCHES),
+    "3t Flight SQL Q3 info": _Q3_LAUNCHES,
+    "3t Q1 over the DoGet Table": _Q1_LAUNCHES,
+    "3t DoExchange filter": {**_NO_LAUNCH, "compact": 1},
+    "3t DB-API Q1": _runs(2, _Q1_LAUNCHES),
+    "3t ODBC Q1": _runs(2, _Q1_LAUNCHES),
+    "3t concurrent Q1 and Q3": {
+        k: FLIGHT_CLIENTS * 2 * (_Q1_LAUNCHES[k] + _Q3_LAUNCHES[k])
+        if k != "probe" else 1 for k in _NO_LAUNCH},
+}
+
+
+def tables_server(location, tables, device):
+    """A Flight server of host Tables: ``do_get`` gives the Table its
+    ticket names, ``do_put`` keeps the Table it receives in ``received``
+    by the descriptor's path, and ``do_exchange`` runs the port's eager
+    filter on ``device`` over the orders it receives (o_totalprice above
+    EXCHANGE_PRICE) and streams the rows back."""
+    from arrow_tpu_torch import compute as pc
+    from arrow_tpu_torch import flight
+
+    class Server(flight.FlightServerBase):
+        received = {}
+
+        def do_get(self, ticket):
+            return tables[ticket.ticket.decode()]
+
+        def do_put(self, descriptor, table):
+            self.received[descriptor.path[0].decode()] = table
+
+        def do_exchange(self, descriptor, table):
+            keep = pc.greater(table.column("o_totalprice"), EXCHANGE_PRICE,
+                              device=device)
+            return pc.filter(table, keep, device=device)
+    return Server(location)
+
+
+def call_options():
+    """3t's Flight client calls' options: their deadline."""
+    from arrow_tpu_torch.flight import FlightCallOptions
+    return FlightCallOptions(timeout=FLIGHT_TIMEOUT_S)
+
+
+def within(fn, *args):
+    """``fn(*args)`` on a thread joined within FLIGHT_TIMEOUT_S: the
+    deadline of 3t's calls that take no call options (DB-API's, and ODBC's
+    through its gateway)."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            out["error"] = e
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(FLIGHT_TIMEOUT_S)
+    if t.is_alive():
+        raise TimeoutError(f"{fn.__name__} passed its deadline of "
+                           f"{FLIGHT_TIMEOUT_S} s")
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def statement_descriptor(text):
+    """The FlightDescriptor of a Flight SQL statement, as
+    FlightSqlClient.execute sends it to GetFlightInfo."""
+    from google.protobuf import any_pb2
+    from arrow_tpu_torch.flight import FlightDescriptor
+    from arrow_tpu_torch.flight.proto import FlightSql_pb2
+    cmd = any_pb2.Any()
+    cmd.Pack(FlightSql_pb2.CommandStatementQuery(query=text))
+    return FlightDescriptor.for_command(cmd.SerializeToString())
+
+
+def _traced_server(location, tables, seen):
+    """A Flight server behind basic auth and the tracing middleware: its
+    ``do_get`` (the context-first signature) serves ``tables`` and notes
+    the trace context its middleware saw in ``seen``."""
+    from arrow_tpu_torch import flight
+
+    class Server(flight.FlightServerBase):
+        def do_get(self, context, ticket):
+            seen.append(context.get_middleware("trace").trace_context)
+            return tables[ticket.ticket.decode()]
+    return Server(location, auth_handler=flight.BasicServerAuthHandler(
+        dict([FLIGHT_USER])), middleware={
+            "trace": flight.TracingServerMiddlewareFactory()})
+
+
+def _rows(tbl):
+    """A host Table as a list of row tuples."""
+    cols = tbl.to_pydict()
+    return list(zip(*cols.values()))
+
+
+def _same_answer(name, got, want):
+    """Column names and every value alike, floats bit for bit: the same
+    plan over the same Tables gives the same bits on every run."""
+    g, w = got.to_pydict(), want.to_pydict()
+    _expect(name, g == w, f"({list(g)}: {str(g)[:200]} against "
+            f"{str(w)[:200]})")
+
+
+def q6_revenue(li, lo, hi, quantity):
+    """SQL_Q6_PARAMS's revenue at (lo, hi, quantity) over lineitem's host
+    columns, numpy."""
+    from arrow_tpu_torch.io.tpch_queries import (DATE_1994_01_01,
+                                                 DATE_1995_01_01)
+    sd = _host_values(li, "l_shipdate")
+    disc = _host_values(li, "l_discount")
+    keep = ((sd >= DATE_1994_01_01) & (sd < DATE_1995_01_01)
+            & (disc >= lo) & (disc <= hi)
+            & (_host_values(li, "l_quantity") < quantity))
+    return float(np.sum(_host_values(li, "l_extendedprice")[keep]
+                        * disc[keep]))
+
+
+def _flight_sql(loc, host, paths, peaks, facts):
+    """Q1 and Q3 through FlightSqlClient.execute, each equal to 3n's answer
+    and its FlightInfo's total_records to its rows; a prepared Q6 with its
+    three parameters bound by DoPut, equal to 3n's Q6; the six metadata
+    commands."""
+    from arrow_tpu_torch.flight import FlightClient
+    from arrow_tpu_torch.flight.sql import FlightSqlClient
+    answers = host.answers
+    opts = call_options()
+    cli = FlightSqlClient(loc)
+    info_client = FlightClient(loc)
+    try:
+        for name, text in (("Q1", SQL_Q1), ("Q3", SQL_Q3)):
+            got = _plan_path(paths, f"Flight SQL {name}",
+                             lambda: cli.execute(text, opts).read_all(),
+                             peaks, facts)
+            _same_answer(f"3t Flight SQL {name}", got, answers[f"SQL {name}"])
+            info = paths.run(f"Flight SQL {name} info",
+                             lambda: info_client.get_flight_info(
+                                 statement_descriptor(text), opts))
+            _expect(f"3t Flight SQL {name} total_records",
+                    info.total_records == got.num_rows and
+                    info.schema.names == got.schema.names,
+                    f"({info.total_records} against {got.num_rows})")
+
+        def prepared():
+            stmt = cli.prepare(SQL_Q6_PARAMS, opts)
+            try:
+                from arrow_tpu_torch import types as T
+                from arrow_tpu_torch.array.array import array
+                from arrow_tpu_torch.table import Table
+                lo, hi, qty = Q6_PARAMETERS
+                stmt.set_parameters(Table.from_arrays(
+                    [array([lo], T.float64()), array([hi], T.float64()),
+                     array([qty], T.int64())], ["lo", "hi", "quantity"]),
+                    opts)
+                return stmt.execute(opts).read_all()
+            finally:
+                stmt.close(opts)
+        got = paths.run("prepared Q6", prepared)
+        _same_answer("3t prepared Q6", got, answers["SQL Q6"])
+
+        def metadata():
+            return {m: getattr(cli, m)(options=opts).read_all() for m in (
+                "get_tables", "get_catalogs", "get_db_schemas",
+                "get_table_types", "get_primary_keys", "get_sql_info")}
+        meta = paths.run("metadata commands", metadata)
+        _expect("3t get_tables", meta["get_tables"].column(
+            "table_name").to_pylist() == ["customer", "lineitem", "orders"])
+        _expect("3t get_table_types", meta["get_table_types"].to_pydict()
+                == {"table_type": ["TABLE"]})
+        _expect("3t get_primary_keys", meta["get_primary_keys"].num_rows
+                == 0 and meta["get_primary_keys"].num_columns == 6)
+        info = meta["get_sql_info"].to_pydict()
+        _expect("3t get_sql_info", info["value"][0] == "arrow_tpu_torch"
+                and len(info["info_name"]) == 8, str(info))
+        _expect("3t get_catalogs and get_db_schemas",
+                meta["get_catalogs"].num_rows == 1
+                and meta["get_db_schemas"].num_rows == 1)
+    finally:
+        cli.close()
+        info_client.close()
+
+
+def _flight_data(host, paths, dev, peaks, facts):
+    """DoGet of lineitem's eight Q1/Q3 columns, held to the source chunk
+    for chunk, and Q1 over the received Table bit for bit 3l's; DoPut of
+    orders, every column, the server's Table the source's digest; the
+    exchange of orders' four fixed-width columns through the server's
+    eager filter on the card, against numpy."""
+    from arrow_tpu_torch import flight
+    from arrow_tpu_torch.io.tpch_queries import q1_plan
+    li, od = host["lineitem"], host["orders"]
+    li8 = li.select(INTEROP_LINEITEM)
+    od4 = od.select(EXCHANGE_COLUMNS)
+    opts = call_options()
+    with tables_server("grpc://127.0.0.1:0", {"lineitem": li8},
+                       dev) as srv:
+        cli = flight.FlightClient(f"grpc://127.0.0.1:{srv.port}")
+        try:
+            got = paths.run("DoGet lineitem", lambda: cli.do_get(
+                flight.Ticket(b"lineitem"), opts).read_all())
+            nbytes = _table_bytes(li8)
+            facts["DoGet GB"] = nbytes / 1e9
+            facts["DoGet GB/s"] = nbytes / paths.walls["3t DoGet lineitem"] \
+                / 1e9
+            facts["DoGet batches"] = len(got.column(0).chunks)
+            _same_table("3t DoGet lineitem", got, li8)
+            result = _plan_path(paths, "Q1 over the DoGet Table",
+                                lambda: q1_plan(got).to_table(device=dev),
+                                peaks, facts)
+            _expect("3t Q1 over the DoGet Table", table_digest(result) ==
+                    host.digests["Q1"])
+            del got
+            paths.run("DoPut orders", lambda: cli.do_put(
+                flight.FlightDescriptor.for_path("orders"), od, opts))
+            nbytes = _table_bytes(od)
+            facts["DoPut GB"] = nbytes / 1e9
+            facts["DoPut GB/s"] = nbytes / paths.walls["3t DoPut orders"] \
+                / 1e9
+            _expect("3t DoPut orders", table_digest(srv.received.pop(
+                "orders")) == table_digest(od))
+            out = paths.run("DoExchange filter", lambda: cli.do_exchange(
+                flight.FlightDescriptor.for_path("orders"), od4, opts))
+            keep = _host_values(od, "o_totalprice") > EXCHANGE_PRICE
+            _expect("3t DoExchange rows", out.num_rows == int(keep.sum()),
+                    f"({out.num_rows} against {int(keep.sum())})")
+            for n in EXCHANGE_COLUMNS:
+                _expect_equal(f"3t DoExchange {n}", _np_bits(
+                    out.column(n).combine().data.values()),
+                    _np_bits(_host_values(od, n)[keep]))
+            facts["DoExchange rows kept"] = out.num_rows
+        finally:
+            cli.close()
+
+
+def _flight_dbapi(loc, host, paths):
+    """DB-API over Flight SQL: Q1's rows as 3n's; executemany of Q6 with
+    its placeholders, the first parameters against numpy, the last Q6's
+    own and its rows 3n's. Returns Q1's rows."""
+    from arrow_tpu_torch.flight import dbapi
+    li = host["lineitem"]
+    with dbapi.connect(loc) as con:
+        cur = con.cursor()
+        rows = paths.run("DB-API Q1", lambda: cur.execute(SQL_Q1).fetchall())
+        _expect("3t DB-API Q1", rows == _rows(host.answers["SQL Q1"]))
+        _expect("3t DB-API description", [d[0] for d in cur.description]
+                == host.answers["SQL Q1"].schema.names)
+        first = cur.execute(SQL_Q6_PARAMS, Q6_OTHER_PARAMETERS).fetchall()
+        _expect_close("3t DB-API Q6 other parameters",
+                      np.array([first[0][0]]),
+                      np.array([q6_revenue(li, *Q6_OTHER_PARAMETERS)]))
+        paths.run("DB-API Q6 executemany", lambda: cur.executemany(
+            SQL_Q6_PARAMS, [Q6_OTHER_PARAMETERS, Q6_PARAMETERS]))
+        _expect("3t DB-API Q6", cur.fetchall() ==
+                _rows(host.answers["SQL Q6"]))
+    return rows
+
+
+def odbc_query(driver, port, text):
+    """``text``'s rows through the ODBC driver's own exports (the calls a
+    driver manager forwards to), every cell as the text the driver gives
+    for SQL_C_CHAR (None for SQL NULL)."""
+    import ctypes
+    lib = ctypes.CDLL(driver)
+    for fn in ("SQLAllocHandle", "SQLDriverConnect", "SQLExecDirect",
+               "SQLNumResultCols", "SQLFetch", "SQLGetData",
+               "SQLGetDiagRec", "SQLFreeHandle", "SQLDisconnect"):
+        getattr(lib, fn).restype = ctypes.c_short
+
+    def check(rc, what, kind=None, handle=None):
+        if rc in (0, 1):
+            return
+        text = ctypes.create_string_buffer(1024)
+        if kind is not None:
+            state, nat, ln = (ctypes.create_string_buffer(8), ctypes.c_int(),
+                              ctypes.c_short())
+            lib.SQLGetDiagRec(kind, handle, 1, state, ctypes.byref(nat),
+                              text, 1024, ctypes.byref(ln))
+        raise AssertionError(f"ODBC {what}: rc {rc} {text.value!r}")
+    env, dbc, stmt = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_void_p()
+    check(lib.SQLAllocHandle(1, None, ctypes.byref(env)), "env")
+    check(lib.SQLAllocHandle(2, env, ctypes.byref(dbc)), "dbc")
+    conn = f"Gateway_Host=127.0.0.1;Gateway_Port={port}".encode()
+    out, out_len = ctypes.create_string_buffer(1024), ctypes.c_short()
+    check(lib.SQLDriverConnect(dbc, None, conn, len(conn), out, 1024,
+                               ctypes.byref(out_len), 0), "connect", 2, dbc)
+    try:
+        check(lib.SQLAllocHandle(3, dbc, ctypes.byref(stmt)), "stmt")
+        sql = text.encode()
+        check(lib.SQLExecDirect(stmt, sql, len(sql)), "execute", 3, stmt)
+        ncols = ctypes.c_short()
+        check(lib.SQLNumResultCols(stmt, ctypes.byref(ncols)), "columns")
+        rows, buf, ind = [], ctypes.create_string_buffer(256), \
+            ctypes.c_ssize_t()
+        while True:
+            rc = lib.SQLFetch(stmt)
+            if rc == 100:  # SQL_NO_DATA
+                break
+            check(rc, "fetch", 3, stmt)
+            row = []
+            for i in range(1, ncols.value + 1):
+                check(lib.SQLGetData(stmt, i, 1, buf, 256,
+                                     ctypes.byref(ind)), "get data")
+                row.append(None if ind.value == -1 else buf.value.decode())
+            rows.append(tuple(row))
+        lib.SQLFreeHandle(3, stmt)
+        return rows
+    finally:
+        lib.SQLDisconnect(dbc)
+        lib.SQLFreeHandle(2, dbc)
+        lib.SQLFreeHandle(1, env)
+
+
+def _flight_odbc(loc, want_rows, paths, facts):
+    """The port's ODBC driver built, a gateway forwarding to the Flight SQL
+    server, and Q1 through the driver: the rows 3n's, each float as its
+    text (repr), exactly."""
+    import ctypes.util
+    from arrow_tpu_torch.flight.odbc import driver_path
+    from arrow_tpu_torch.flight.odbc_gateway import OdbcGateway
+    t0 = time.perf_counter()
+    driver = driver_path()
+    facts["ODBC driver build s"] = time.perf_counter() - t0
+    facts["libodbc"] = ctypes.util.find_library("odbc") or "absent"
+    with OdbcGateway(loc) as gw:
+        got = paths.run("ODBC Q1", lambda: odbc_query(driver, gw.port,
+                                                      SQL_Q1))
+    want = [tuple(None if v is None else str(v) for v in row)
+            for row in want_rows]
+    _expect("3t ODBC Q1", got == want, f"({got[:1]} against {want[:1]})")
+
+
+def _flight_auth(host, paths):
+    """Basic auth and the tracing middleware on a DoGet of customer: a call
+    without the token refused, then the authenticated call's Table the
+    source's digest and the caller's trace context seen by the handler."""
+    from arrow_tpu_torch import flight
+    cu = host["customer"]
+    seen, opts = [], call_options()
+    with _traced_server("grpc://127.0.0.1:0", {"customer": cu},
+                        seen) as srv:
+        cli = flight.FlightClient(
+            f"grpc://127.0.0.1:{srv.port}",
+            middleware=[flight.ClientTracingMiddlewareFactory()])
+        try:
+            try:
+                cli.do_get(flight.Ticket(b"customer"), opts)
+                refused = False
+            except flight.FlightUnauthenticatedError:
+                refused = True
+            _expect("3t a call without the token refused", refused)
+
+            def run():
+                cli.authenticate_basic_token(*FLIGHT_USER, opts)
+                return cli.do_get(flight.Ticket(b"customer"),
+                                  opts).read_all()
+            got = paths.run("auth DoGet customer", run)
+        finally:
+            cli.close()
+    _expect("3t auth DoGet customer", table_digest(got) == table_digest(cu))
+    _expect("3t the handler saw the trace context", len(seen) == 1 and
+            seen[0].get("traceparent", "").startswith("00-"), str(seen))
+
+
+def _flight_concurrent(loc, host, paths, peaks, facts):
+    """FLIGHT_CLIENTS clients on threads, each running Q1 then Q3 through
+    FlightSqlClient.execute at once against one server; every answer 3n's
+    and the launches the sum of theirs."""
+    import threading
+    from arrow_tpu_torch.flight.sql import FlightSqlClient
+    start = threading.Barrier(FLIGHT_CLIENTS)
+    opts = call_options()
+
+    def client(i):
+        cli = FlightSqlClient(loc)
+        try:
+            start.wait(FLIGHT_TIMEOUT_S)
+            return [cli.execute(t, opts).read_all()
+                    for t in (SQL_Q1, SQL_Q3)]
+        finally:
+            cli.close()
+
+    def run():
+        with concurrent.futures.ThreadPoolExecutor(FLIGHT_CLIENTS) as pool:
+            return list(pool.map(client, range(FLIGHT_CLIENTS)))
+    for i, (q1, q3) in enumerate(_plan_path(paths, "concurrent Q1 and Q3",
+                                            run, peaks, facts)):
+        _same_answer(f"3t concurrent client {i} Q1", q1,
+                     host.answers["SQL Q1"])
+        _same_answer(f"3t concurrent client {i} Q3", q3,
+                     host.answers["SQL Q3"])
+
+
+def phase_flight(host, device="cuda"):
+    """Phase 3t: Arrow Flight, Flight SQL, DB-API and ODBC over phase 3l's
+    host Tables, with phase 3n's SQL answers (``host.answers``). A Flight
+    SQL server of lineitem, orders and customer on ``device``: SQL Q1 and
+    Q3 through FlightSqlClient.execute, each 3n's answer with its
+    FlightInfo's row count; a prepared Q6 with its parameters bound by
+    DoPut; the metadata commands. A Flight server of host Tables: DoGet of
+    lineitem's eight Q1/Q3 columns chunk for chunk the source's and Q1
+    over it bit for bit 3l's; DoPut of orders (every column), the server's
+    Table the source's digest; DoExchange through the server's eager
+    filter on ``device``. DB-API and the port's ODBC driver (built with
+    the host compiler, called by ctypes through a gateway) against the
+    Flight SQL server; basic auth and the tracing middleware on a DoGet of
+    customer; FLIGHT_CLIENTS clients at once. Every client call has a
+    deadline of FLIGHT_TIMEOUT_S (its call options', or ``within``'s for
+    DB-API and ODBC), and every server and gateway is shut down before
+    the phase ends. Each path's launches are set to 0 just
+    before and read just after (on the card) and held to FLIGHT_LAUNCHES.
+    Returns (launches by path, facts)."""
+    from arrow_tpu_torch.flight.sql import FlightSqlServer
+    dev = torch.device(device)
+    log(f"== phase 3t: Arrow Flight, Flight SQL, DB-API and ODBC on "
+        f"{device}")
+    t0 = time.perf_counter()
+    paths = _Paths(dev, "3t", FLIGHT_LAUNCHES)
+    peaks, facts = {}, {}
+    tables = {n: host[n] for n in ("lineitem", "orders", "customer")}
+    with FlightSqlServer("grpc://127.0.0.1:0", tables, device=dev) as srv:
+        loc = f"grpc://127.0.0.1:{srv.port}"
+        _flight_sql(loc, host, paths, peaks, facts)
+        q1_rows = within(_flight_dbapi, loc, host, paths)
+        within(_flight_odbc, loc, q1_rows, paths, facts)
+        _flight_concurrent(loc, host, paths, peaks, facts)
+    _flight_data(host, paths, dev, peaks, facts)
+    _flight_auth(host, paths)
+    paths.check_launches()
+    log("phase 3t walls (s): " + ", ".join(
+        f"{k[3:]} {v:.3f}" for k, v in paths.walls.items()))
+    log("phase 3t facts: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in facts.items()))
+    if peaks:
+        log("phase 3t peak memory above the tables (GiB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"phase 3t: {time.perf_counter() - t0:.1f} s (paths "
         f"{sum(paths.walls.values()):.1f} s)")
     return paths.launches, {"walls": paths.walls, "peaks": peaks,
                             "facts": facts}
@@ -11190,6 +11694,8 @@ def main() -> int:
         launches.update(surface_launches)
         interop_launches, _ = timed(phase_interop, host)
         launches.update(interop_launches)
+        flight_launches, _ = timed(phase_flight, host)
+        launches.update(flight_launches)
         # phase 3b before 3k: its runs of the eight joins are 3k's
         # single-rank runs of them
         joins = timed(phase_join_types, orders, customer)

@@ -84,9 +84,20 @@ def _arrays(P):
     return a, d, d2
 
 
+# the reference's dictionary of the chunks of one dictionary: the values
+# the rows use, in order of first use
+REFERENCE_DICTIONARY = {"one_dictionary_slices": ["y", "x"],
+                        "one_dictionary_twice": ["x", "y"],
+                        "one_dictionary_chunked": ["x", "y"]}
+
+
 @pytest.mark.parametrize("case", ["ints", "sliced", "one", "dictionaries",
-                                  "empty", "types_differ"])
+                                  "empty", "types_differ"]
+                         + sorted(REFERENCE_DICTIONARY))
 def test_concat_arrays(case):
+    """The port's concatenation is the reference's, value for value. Chunks
+    of one dictionary keep that dictionary in the port (a departure, as
+    Arrow's Concatenate), where the reference rebuilds it."""
     def call(P):
         a, d, d2 = _arrays(P)
         return {"ints": lambda: P.concat_arrays([a, a]),
@@ -96,7 +107,12 @@ def test_concat_arrays(case):
                 "dictionaries": lambda: P.concat_arrays([d, d2]),
                 "empty": lambda: P.concat_arrays([]),
                 "types_differ": lambda: P.concat_arrays(
-                    [a, P.array([1], P.int32())])}[case]()
+                    [a, P.array([1], P.int32())]),
+                "one_dictionary_slices": lambda: P.concat_arrays(
+                    [d.slice(1, 2), d.slice(3)]),
+                "one_dictionary_twice": lambda: P.concat_arrays([d, d]),
+                "one_dictionary_chunked": lambda: P.chunked_array(
+                    [d.slice(2), d, d.slice(1, 1)]).combine()}[case]()
     try:
         want = call(at)
     except Exception as exc:  # noqa: BLE001 - the class is compared
@@ -104,7 +120,12 @@ def test_concat_arrays(case):
             call(att)
         assert type(got.value).__name__ == type(exc).__name__
         return
-    same(call(att), want)
+    got = call(att)
+    same(got, want)
+    if case in REFERENCE_DICTIONARY:
+        assert att.Array(got.data.dictionary).to_pylist() == ["x", "y"]
+        assert at.Array(want.data.dictionary).to_pylist() == \
+            REFERENCE_DICTIONARY[case]
 
 
 def _tables(P):
@@ -417,11 +438,9 @@ def test_readme_first_example():
 # --- what is left --------------------------------------------------------------------
 
 # The reference's top-level names that the port lacks, by the later part of
-# ROADMAP.md item 13.2 that each waits for; parts 2 and 3 (the interop,
-# the extension types, compat_names.py's names and Device) are ported.
-LATER = {
-    "part 4: flight": {"flight"},
-}
+# ROADMAP.md item 13.2 that each waits for: none, since part 4 (flight)
+# ported the last.
+LATER = {}
 # the reference's lazily imported modules, its __getattr__'s names
 REFERENCE_LAZY = ("acero", "dataset", "fs", "flight", "parallel", "tensor",
                   "c_data", "gandiva", "device", "pretty", "substrait",
@@ -437,7 +456,7 @@ def test_only_the_later_parts_of_item_13_2_are_left():
     names |= set(compat_names.__all__)
     missing = {n for n in names if not hasattr(att, n)}
     pinned = set().union(*LATER.values())
-    assert missing == pinned & names == {"flight"}
+    assert missing == pinned & names == set()
 
 
 @pytest.mark.parametrize("cls,methods", [

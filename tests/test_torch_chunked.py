@@ -654,13 +654,19 @@ def test_repeat_runs_give_the_same_bits(table):
                                     "compat_names.py", "c_data.py",
                                     "interchange.py", "tensor.py",
                                     "array/array.py", "table.py",
-                                    "types.py"])
+                                    "types.py", "flight/__init__.py",
+                                    "flight/sql.py", "flight/dbapi.py",
+                                    "flight/odbc_gateway.py",
+                                    "flight/odbc/__init__.py"])
 def test_new_modules_import_neither_jax_nor_the_reference(module):
     """fs.py imports fsspec only inside the fsspec adapters, when one is
     made (ImportError where fsspec is absent, as in the reference); a
     pandas method imports pandas when it is called, never at module
-    level."""
+    level. The Flight modules import the generated protocol modules from
+    the port's package, never at level 0, and leave ``sys.path`` alone."""
+    from test_torch_q1 import assert_no_top_level_protocol_imports
     tree = ast.parse((REPO / "arrow_tpu_torch" / module).read_text())
+    assert_no_top_level_protocol_imports(tree)
     for node in tree.body:
         if isinstance(node, ast.Import):
             top = [a.name for a in node.names]

@@ -208,6 +208,23 @@ def test_no_jax_or_reference_import(path):
                 f"{path.name} imports {name}"
 
 
+def assert_no_top_level_protocol_imports(tree):
+    """No level-0 import of ``Flight_pb2``/``FlightSql_pb2`` and no
+    ``sys.path`` in ``tree``."""
+    generated = ("Flight_pb2", "FlightSql_pb2")
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            names = []
+        assert not {n.split(".")[0] for n in names} & set(generated), names
+        assert not (isinstance(node, ast.Attribute) and node.attr == "path"
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id == "sys"), "sys.path"
+
+
 _HOST_BOUNDARY_MODULES = (
     "buffer.py", "utils/bits.py", "array/data.py", "array/construct.py",
     "array/array.py", "table.py", "compute/host_concat.py",
@@ -234,7 +251,9 @@ _HOST_BOUNDARY_MODULES = (
     "array/builder.py", "pretty.py", "compare.py", "fs_s3.py", "fs_gcs.py",
     "fs_azure.py", "fs_hdfs.py", "utils/tdigest.py",
     "parallel/distributed.py", "device/__init__.py", "extension.py",
-    "compat_names.py", "c_data.py", "interchange.py", "tensor.py")
+    "compat_names.py", "c_data.py", "interchange.py", "tensor.py",
+    "flight/__init__.py", "flight/sql.py", "flight/dbapi.py",
+    "flight/odbc_gateway.py", "flight/odbc/__init__.py")
 
 
 @pytest.mark.parametrize("module", _HOST_BOUNDARY_MODULES)
@@ -245,10 +264,14 @@ def test_the_host_boundary_modules_are_guarded(module):
     pandas, fsspec or zstandard when they are imported (the port runs
     without them): the pandas methods import pandas when they are called,
     fs.py alone imports fsspec, inside the fsspec adapters, when one is
-    made, and ORC's zstd zstandard where a file needs it."""
+    made, and ORC's zstd zstandard where a file needs it. None imports
+    the generated Flight modules at level 0 (the reference's way, through
+    an entry it puts on ``sys.path``) or touches ``sys.path``: the port
+    imports its own copies from its package."""
     path = REPO / "arrow_tpu_torch" / module
     assert path in _port_sources()
     tree = ast.parse(path.read_text())
+    assert_no_top_level_protocol_imports(tree)
     for node in tree.body:
         if isinstance(node, ast.Import):
             top = [a.name for a in node.names]
